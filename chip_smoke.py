@@ -8,21 +8,33 @@ Phases (any failure exits nonzero before the result lines):
   1. torch/CUDA versions and the card's name and power limit (nvidia-smi).
   2. Build every CUDA kernel of the port with nvcc for sm_90a (one nvcc
      per source, started together), printing the build seconds.
-  3. The flagship input: blinnphong_scene(1920, 1080, rings=160,
-     sectors=320) (T = 102,402 triangles) through the port's vertex stage,
-     near clip, setup, binning and table build. Each kernel runs beside
-     its plain PyTorch version on the same tensors: K2 (raster_resolve)
-     must give bit-equal tid/depth and lanes within rtol 1e-5 / atol 1e-6.
-     Prints binned pairs, kernel ms (median of >= 20 CUDA-event timings
-     after warm-up), plain ms and the kernel's roofline bound.
-  4. The main path: Renderer.render_frame at 1920x1080 on cuda, 2 warm-up
-     frames then timed frames with every launch counter set to 0 just
-     before and read just after (one K2 launch per frame required). The
-     frame must be finite with covered pixels; the clip and bin overflow
-     counters are printed.
-  5. Correctness on a small input by the repo's own means: the port's
-     160x120 Blinn-Phong frame on the card against
-     tests/goldens/blinnphong_160x120.png with tests/test_golden.py's bar.
+  3. Each kernel beside its plain PyTorch version on the real inputs of the
+     two flagship frames:
+       - blinnphong_scene(1920, 1080, rings=160, sectors=320), T = 102,402:
+         K2 (raster_resolve) on its vertex stage, near clip, setup, binning
+         and table build;
+       - full_scene(1920, 1080, tri_budget=100_000, ibl=False), T = 97,346:
+         K1 (raster_depth) on the 1024x1024 sun shadow pass, and K2 on the
+         forward pass.
+     K1's depth must be bit-equal; K2 must give bit-equal tid/depth and
+     lanes within rtol 1e-5 / atol 1e-6. Prints binned pairs, densest bin,
+     kernel ms (median of >= 20 CUDA-event timings after warm-up), plain ms
+     and the kernel's roofline bound.
+  4. The main paths through Renderer.render_frame at 1920x1080 on cuda,
+     every launch counter set to 0 just before each and read just after:
+       - the Blinn-Phong frame: one K2 launch per frame, no K1;
+       - the PBR frame, loop A, static scene: one K2 launch per frame and
+         one K1 launch in all (the shadow map is kept while its inputs do
+         not change);
+       - the PBR frame, loop B, moving sun (a new direction and light
+         matrix each frame): one K1 and one K2 launch per frame.
+     The frames must be finite with covered pixels; the clip and bin
+     overflow counters are printed.
+  5. Correctness on small inputs by the repo's own means, on the card: the
+     160x120 Blinn-Phong and gltf-pbr frames against tests/goldens/*.png
+     with tests/test_golden.py's bar, and full_scene(160, 120,
+     tri_budget=2000, ibl=False) on cuda against the same frame of the port
+     on the cpu (PCF, sky and ACES included).
 Then a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the JAX package.
 """
@@ -30,6 +42,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -41,8 +54,16 @@ H100_HBM_BYTES_S = 3.35e12
 # 1 multiply, 1 fma = 2, 1 compare), 2 multiplies + 2 subtracts for the
 # barycentrics, 1 multiply + 2 fmas for the depth, 2 compares, 1 select
 OPS_PER_PAIR = 3 * 6 + 4 + 5 + 2 + 1
-FLAGSHIP = dict(width=1920, height=1080, rings=160, sectors=320)
-TIMED_FRAMES = 7
+# K1's walk: the same edges, barycentrics and depth, then 1 compare for the
+# one-sided z bound and 1 min
+DEPTH_OPS_PER_PAIR = 3 * 6 + 4 + 5 + 1 + 1
+BIN_PIXELS = 16 * 128
+W, H = 1920, 1080
+BLINNPHONG = dict(rings=160, sectors=320)
+FULL = dict(tri_budget=100_000, ibl=False)
+SMALL_FULL = dict(tri_budget=2000, ibl=False)
+BP_FRAMES = 5
+PBR_FRAMES = 7
 KERNEL_TIMINGS = 25
 
 
@@ -74,6 +95,14 @@ def _event_times_ms(fn, n: int, warmup: int = 3) -> list[float]:
     return out
 
 
+def _bound(ops: float, nbytes: float):
+    """The least time (ms) the card could take: the larger of the f32 ops at
+    peak rate and the bytes at the memory rate, and which one it is."""
+    ops_ms = ops / H100_F32_FLOPS * 1e3
+    bytes_ms = nbytes / H100_HBM_BYTES_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
 def phase_versions() -> None:
     import torch
 
@@ -98,11 +127,10 @@ def phase_build() -> None:
     _log(f"kernel build: {time.perf_counter() - t0:.2f}s")
 
 
-def phase_kernels() -> dict:
-    """K2 beside its plain version on the flagship frame's real inputs."""
+def _check_resolve(label, scene, layout, pipeline, timed: bool) -> dict:
+    """K2 beside its plain version on one frame's real inputs."""
     import torch
 
-    from renderer_rs_tpu_torch.app.scenes import blinnphong_scene
     from renderer_rs_tpu_torch.ops.raster_cuda import (
         prepare_resolve,
         raster_resolve,
@@ -110,18 +138,16 @@ def phase_kernels() -> dict:
     )
     from renderer_rs_tpu_torch.renderer.passes import frame_geometry
 
-    w, h = FLAGSHIP["width"], FLAGSHIP["height"]
-    scene, layout, kw, _ = blinnphong_scene(
-        w, h, rings=FLAGSHIP["rings"], sectors=FLAGSHIP["sectors"], device="cuda"
-    )
-    geo = frame_geometry(scene, layout, kw["pipeline"], w, h)
-    k2 = prepare_resolve(geo.setup, h, w, geo.attr, scene.tris, geo.clip_src,
+    geo = frame_geometry(scene, layout, pipeline, W, H)
+    k2 = prepare_resolve(geo.setup, H, W, geo.attr, scene.tris, geo.clip_src,
                          geo.clip_planes, geo.mat_flat, small_limit=layout.num_triangles)
-    args = (k2.table, k2.sorted_tris, k2.seg, k2.nbx, h, w, k2.n_vary, k2.n_flat,
-            kw["pipeline"].depth_compare_op)
+    args = (k2.table, k2.sorted_tris, k2.seg, k2.nbx, H, W, k2.n_vary, k2.n_flat,
+            pipeline.depth_compare_op)
     n_pairs = int(k2.n_pairs)
-    _log(f"flagship: T={layout.num_triangles} raster slots={geo.setup.num_triangles} "
-         f"bins={k2.seg.numel() - 1} binned pairs={n_pairs} table={tuple(k2.table.shape)}")
+    densest = int((k2.seg[1:] - k2.seg[:-1]).max())
+    _log(f"{label}: T={layout.num_triangles} raster slots={geo.setup.num_triangles} "
+         f"bins={k2.seg.numel() - 1} binned pairs={n_pairs} densest bin={densest} "
+         f"table={tuple(k2.table.shape)}")
 
     depth, tid, lanes = raster_resolve(*args)
     torch.cuda.synchronize()
@@ -133,26 +159,24 @@ def phase_kernels() -> dict:
     lanes_ok = bool((lane_err <= 1e-6 + 1e-5 * lanes_p.abs()).all())
     max_abs_err = float(lane_err.max())
     covered = int((tid >= 0).sum())
-    _log(f"raster_resolve vs plain: tid equal {tid_equal}, depth bit-equal {depth_equal}, "
-         f"lanes max |err| {max_abs_err:.3e} (rtol 1e-5 atol 1e-6 ok {lanes_ok}), "
-         f"covered {covered}")
+    _log(f"{label}: raster_resolve vs plain: tid equal {tid_equal}, depth bit-equal "
+         f"{depth_equal}, lanes max |err| {max_abs_err:.3e} (rtol 1e-5 atol 1e-6 ok "
+         f"{lanes_ok}), covered {covered}")
     if not (tid_equal and depth_equal and lanes_ok and covered > 0):
-        raise SystemExit("phase kernels: raster_resolve disagrees with its plain version")
+        raise SystemExit(f"phase kernels: raster_resolve disagrees with its plain version ({label})")
 
     ms = _median(_event_times_ms(lambda: raster_resolve(*args), KERNEL_TIMINGS))
-    plain_ms = _median(_event_times_ms(lambda: raster_resolve_plain(*args), 3, warmup=1))
+    plain_ms = _median(_event_times_ms(lambda: raster_resolve_plain(*args), 3, warmup=1)) if timed else None
     # least time for the same work: the walk's f32 ops vs the bytes moved
     # (table, sorted ids and segments read once, outputs written once)
-    ops = n_pairs * 16 * 128 * OPS_PER_PAIR
+    ops = n_pairs * BIN_PIXELS * OPS_PER_PAIR
     n_lanes = k2.n_vary + k2.n_flat
     nbytes = (k2.table.numel() * 4 + n_pairs * 4 + k2.seg.numel() * 4
-              + h * w * (4 + 4 + 4 * n_lanes))
-    ops_ms = ops / H100_F32_FLOPS * 1e3
-    bytes_ms = nbytes / H100_HBM_BYTES_S * 1e3
-    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-    bound_ms = max(ops_ms, bytes_ms)
-    _log(f"raster_resolve: {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, "
-         f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
+              + H * W * (4 + 4 + 4 * n_lanes))
+    bound_ms, bound_by = _bound(ops, nbytes)
+    _log(f"{label}: raster_resolve {ms:.4f} ms (median of {KERNEL_TIMINGS})"
+         + (f", plain {plain_ms:.2f} ms" if timed else "")
+         + f", bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
     return {
         "name": "raster_resolve",
         "route": "cuda",
@@ -167,77 +191,225 @@ def phase_kernels() -> dict:
     }
 
 
-def _launch_counters() -> dict:
-    from renderer_rs_tpu_torch.ops.raster_cuda import raster_resolve
-
-    return {"raster_resolve": raster_resolve}
-
-
-def phase_main_path() -> dict:
-    """Renderer.render_frame at full size; counters zeroed just before."""
+def _check_depth(scene, layout, size: int) -> dict:
+    """K1 beside its plain version on the sun shadow pass's real inputs."""
     import torch
 
-    from renderer_rs_tpu_torch.app.scenes import blinnphong_scene
-    from renderer_rs_tpu_torch.core.config import RendererConfig
-    from renderer_rs_tpu_torch.renderer.renderer import Renderer
-
-    w, h = FLAGSHIP["width"], FLAGSHIP["height"]
-    t0 = time.perf_counter()
-    scene, layout, kw, _ = blinnphong_scene(
-        w, h, rings=FLAGSHIP["rings"], sectors=FLAGSHIP["sectors"], device="cuda"
+    from renderer_rs_tpu_torch.ops.raster_cuda import (
+        prepare_depth,
+        raster_depth,
+        raster_depth_plain,
     )
-    renderer = Renderer(RendererConfig(width=w, height=h), device="cuda", **kw)
-    renderer.set_scene(scene, layout)
-    setup_s = time.perf_counter() - t0
-    for _ in range(2):  # warm-up
-        renderer.render_frame()
+    from renderer_rs_tpu_torch.renderer.passes import (
+        _SHADOW_PIPELINE,
+        _shadow_setup,
+        shadow_vertex_stage,
+    )
+
+    clip = shadow_vertex_stage(scene, layout)
+    setup = _shadow_setup(clip, scene.tris, size)
+    k1 = prepare_depth([setup], size, size)
+    args = (k1.table, k1.sorted_tris, k1.seg, k1.nbx, size, size,
+            _SHADOW_PIPELINE.depth_compare_op)
+    n_pairs = int(k1.n_pairs)
+    densest = int((k1.seg[:, 1:] - k1.seg[:, :-1]).max())
+    big, huge = (int(v) for v in k1.bin_overflow[0].tolist())
+    _log(f"shadow pass {size}x{size}: T={layout.num_triangles} valid={int(setup.valid.sum())} "
+         f"bins={k1.seg.shape[1] - 1} binned pairs={n_pairs} densest bin={densest} "
+         f"bin_overflow big {big} huge {huge} table={tuple(k1.table.shape)}")
+
+    depth = raster_depth(*args)
+    torch.cuda.synchronize()
+    depth_p = raster_depth_plain(*args)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(depth.view(torch.int32), depth_p.view(torch.int32)))
+    max_abs_err = float((depth - depth_p).abs().max())
+    covered = int((depth < 1.0).sum())
+    _log(f"raster_depth vs plain: depth bit-equal {equal}, max |err| {max_abs_err:.3e}, "
+         f"covered texels {covered}, depth range [{float(depth.min()):.4f}, {float(depth.max()):.4f}]")
+    if not (equal and covered > 0 and bool(torch.isfinite(depth).all())):
+        raise SystemExit("phase kernels: raster_depth disagrees with its plain version")
+
+    ms = _median(_event_times_ms(lambda: raster_depth(*args), KERNEL_TIMINGS))
+    plain_ms = _median(_event_times_ms(lambda: raster_depth_plain(*args), 3, warmup=1))
+    ops = n_pairs * BIN_PIXELS * DEPTH_OPS_PER_PAIR
+    nbytes = k1.table.numel() * 4 + n_pairs * 4 + k1.seg.numel() * 4 + size * size * 4
+    bound_ms, bound_by = _bound(ops, nbytes)
+    _log(f"raster_depth: {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, "
+         f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
+    return {
+        "name": "raster_depth",
+        "route": "cuda",
+        "source": "renderer_rs_tpu_torch/csrc/raster_depth.cu",
+        "replaces": "renderer_rs_tpu/ops/raster_pallas.py:203",
+        "max_abs_err": max_abs_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes this function
+    }
+
+
+def phase_kernels() -> dict:
+    from renderer_rs_tpu_torch.app.scenes import blinnphong_scene, full_scene
+
+    scene, layout, kw, _ = blinnphong_scene(W, H, device="cuda", **BLINNPHONG)
+    k2 = _check_resolve("blinnphong flagship", scene, layout, kw["pipeline"], timed=True)
+    scene, layout, kw, _ = full_scene(W, H, device="cuda", **FULL)
+    k1 = _check_depth(scene, layout, kw["shadow_map_size"])
+    _check_resolve("pbr flagship", scene, layout, kw["pipeline"], timed=False)
+    return {"raster_depth": k1, "raster_resolve": k2}
+
+
+def _launch_counters() -> dict:
+    from renderer_rs_tpu_torch.ops.raster_cuda import raster_depth, raster_resolve
+
+    return {"raster_depth": raster_depth, "raster_resolve": raster_resolve}
+
+
+def _drive(label: str, renderer, frames: int, expect: dict, before_frame=None) -> dict:
+    """Render `frames` frames with every launch counter zeroed just before
+    and read just after; fail unless the counts are `expect`."""
     counters = _launch_counters()
     for fn in counters.values():
         fn.launches = 0
     frame_ms = []
-    for _ in range(TIMED_FRAMES):
+    img = None
+    for i in range(frames):
         t1 = time.perf_counter()
+        if before_frame is not None:
+            before_frame(i)
         img = renderer.render_frame()
         frame_ms.append((time.perf_counter() - t1) * 1e3)
     launches = {name: fn.launches for name, fn in counters.items()}
-    _log(f"main path: {TIMED_FRAMES} frames, launches {launches}, "
+    _log(f"main path, {label}: {frames} frames, launches {launches}, "
          f"frame ms median {_median(frame_ms):.3f} (all {[round(x, 3) for x in frame_ms]})")
-    if launches["raster_resolve"] != TIMED_FRAMES:
-        raise SystemExit("phase main path: K2 did not launch exactly once per frame")
-    if img is None or img.shape != (h, w, 4):
-        raise SystemExit("phase main path: no presented frame")
-    hdr = renderer.render_frame_hdr()
-    finite = bool(torch.isfinite(hdr).all())
-    diag = renderer.frame_diagnostics()
-    covered = diag["covered_pixels"]
-    _log(f"frame {tuple(hdr.shape)} finite {finite}, covered pixels {covered}, "
-         f"clip_overflow {diag['clip_overflow']}, bin_overflow big {diag['bin_overflow_big']} "
-         f"huge {diag['bin_overflow_huge']}, scene setup {setup_s:.2f}s")
-    if not finite or covered == 0:
-        raise SystemExit("phase main path: frame not finite or empty")
+    if launches != expect:
+        raise SystemExit(f"phase main path, {label}: launches {launches}, expected {expect}")
+    if img is None or img.shape != (H, W, 4):
+        raise SystemExit(f"phase main path, {label}: no presented frame")
     return launches
 
 
-def phase_small_reference() -> None:
-    """The 160x120 frame on the card against the repo's golden image."""
+def _check_frame(label: str, renderer) -> None:
+    import torch
+
+    hdr = renderer.render_frame_hdr()
+    finite = bool(torch.isfinite(hdr).all())
+    diag = renderer.frame_diagnostics()
+    _log(f"{label}: frame {tuple(hdr.shape)} finite {finite}, covered pixels "
+         f"{diag['covered_pixels']}, clip_overflow {diag['clip_overflow']}, bin_overflow big "
+         f"{diag['bin_overflow_big']} huge {diag['bin_overflow_huge']}, "
+         f"mean rgb {[round(float(v), 4) for v in hdr[..., :3].mean((0, 1))]}")
+    if not finite or diag["covered_pixels"] == 0:
+        raise SystemExit(f"phase main path, {label}: frame not finite or empty")
+
+
+def phase_main_paths() -> dict:
+    """Renderer.render_frame at full size on both flagship frames."""
+    import dataclasses
+
+    import torch
+
+    from renderer_rs_tpu_torch.app.scenes import blinnphong_scene, full_scene
+    from renderer_rs_tpu_torch.core.config import RendererConfig
+    from renderer_rs_tpu_torch.ops.shadow import directional_light_matrix
+    from renderer_rs_tpu_torch.renderer.renderer import Renderer
+
+    def make(scene, layout, kw):
+        renderer = Renderer(RendererConfig(width=W, height=H), device="cuda", **kw)
+        renderer.set_scene(scene, layout)
+        return renderer
+
+    by_path = {}
+    t0 = time.perf_counter()
+    scene, layout, kw, _ = blinnphong_scene(W, H, device="cuda", **BLINNPHONG)
+    renderer = make(scene, layout, kw)
+    _log(f"blinnphong scene setup {time.perf_counter() - t0:.2f}s")
+    for _ in range(2):  # warm-up
+        renderer.render_frame()
+    by_path["blinnphong"] = _drive(
+        "blinnphong", renderer, BP_FRAMES, {"raster_depth": 0, "raster_resolve": BP_FRAMES})
+    _check_frame("blinnphong", renderer)
+
+    t0 = time.perf_counter()
+    scene, layout, kw, _ = full_scene(W, H, device="cuda", **FULL)
+    _log(f"pbr scene setup {time.perf_counter() - t0:.2f}s")
+    warm = make(scene, layout, kw)
+    for _ in range(2):  # warm-up on a renderer of its own: loop A starts with no map
+        warm.render_frame()
+    # loop A, static scene: the first frame renders the shadow map, the
+    # others reuse it
+    renderer = make(scene, layout, kw)
+    by_path["pbr_static"] = _drive(
+        "pbr loop A (static scene)", renderer, PBR_FRAMES,
+        {"raster_depth": 1, "raster_resolve": PBR_FRAMES})
+    _check_frame("pbr", renderer)
+
+    # loop B, moving sun: a new direction and light matrix every frame
+    def move_sun(i: int) -> None:
+        a = 0.15 * (i + 1)
+        sun = (-0.45 * math.cos(a) + 0.35 * math.sin(a), -1.0,
+               -0.35 * math.cos(a) - 0.45 * math.sin(a))
+        cur = renderer._scene
+        lights = dataclasses.replace(
+            cur.lights, sun_direction=torch.tensor(sun, dtype=torch.float32, device="cuda"))
+        lsm = directional_light_matrix(sun, [0.0, 0.0, 0.0], 3.5).to("cuda")
+        renderer.update_scene(cur.replace(lights=lights, light_space_matrix=lsm))
+
+    by_path["pbr_moving_sun"] = _drive(
+        "pbr loop B (moving sun)", renderer, PBR_FRAMES,
+        {"raster_depth": PBR_FRAMES, "raster_resolve": PBR_FRAMES}, before_frame=move_sun)
+    _check_frame("pbr, sun moved", renderer)
+    return by_path
+
+
+def _golden_check(name: str, got) -> None:
     import numpy as np
 
-    from renderer_rs_tpu_torch.app.scenes import blinnphong_scene
-    from renderer_rs_tpu_torch.core.config import RendererConfig
-    from renderer_rs_tpu_torch.renderer.renderer import Renderer
     from renderer_rs_tpu_torch.utils.image_io import read_png
 
-    scene, layout, kw, _ = blinnphong_scene(160, 120, device="cuda")
-    renderer = Renderer(RendererConfig(width=160, height=120), device="cuda", **kw)
-    renderer.set_scene(scene, layout)
-    got = renderer.render_frame().astype(np.int32)
     golden = read_png(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                   "tests", "goldens", "blinnphong_160x120.png"))
-    diff = np.abs(golden.astype(np.int32) - got)
+                                   "tests", "goldens", f"{name}_160x120.png"))
+    diff = np.abs(golden.astype(np.int32) - got.astype(np.int32))
     mean, frac_big = float(diff.mean()), float((diff.max(-1) > 8).mean())
-    _log(f"160x120 vs golden: mean |diff| {mean:.4f}, pixels off by >8: {frac_big:.4%}")
+    _log(f"{name} 160x120 vs golden: mean |diff| {mean:.4f}, pixels off by >8: {frac_big:.4%}")
     if not (mean < 1.0 and frac_big < 0.005):
-        raise SystemExit("phase small reference: frame differs from the golden image")
+        raise SystemExit(f"phase small reference: the {name} frame differs from the golden image")
+
+
+def phase_small_reference() -> None:
+    """160x120 frames on the card against the repo's golden images, and the
+    shadow-mapped PBR frame on the card against the port's frame on the CPU."""
+    import numpy as np
+
+    from renderer_rs_tpu_torch.app.scenes import blinnphong_scene, full_scene, gltf_pbr_scene
+    from renderer_rs_tpu_torch.core.config import RendererConfig
+    from renderer_rs_tpu_torch.renderer.renderer import Renderer
+
+    def render(factory, device, hdr=False, **scene_kw):
+        scene, layout, kw, _ = factory(160, 120, device=device, **scene_kw)
+        if "shadow_map_size" in kw:
+            kw["shadow_map_size"] = 256
+        renderer = Renderer(RendererConfig(width=160, height=120), device=device, **kw)
+        renderer.set_scene(scene, layout)
+        return renderer.render_frame_hdr().cpu().numpy() if hdr else renderer.render_frame()
+
+    _golden_check("blinnphong", render(blinnphong_scene, "cuda"))
+    _golden_check("gltf-pbr", render(gltf_pbr_scene, "cuda"))
+    # cuda vs cpu on the PBR frame. The PCF compares are hard and the two
+    # devices' matmuls round apart, so single taps may flip: >= 99.5% of the
+    # values within 2e-3 + 2e-3*|ref|, and none off by more than one tap of
+    # the sun term after ACES (0.15)
+    got = render(full_scene, "cuda", hdr=True, **SMALL_FULL)
+    ref = render(full_scene, "cpu", hdr=True, **SMALL_FULL)
+    err = np.abs(got - ref)
+    off = float((err > 2e-3 + 2e-3 * np.abs(ref)).mean())
+    _log(f"full_scene(160, 120, tri_budget=2000, ibl=False) cuda vs cpu: max |d| {err.max():.3e}, "
+         f"values off the bar {off:.4%}, mean {got[..., :3].mean():.4f} vs {ref[..., :3].mean():.4f}")
+    if not (np.isfinite(got).all() and off < 0.005 and err.max() < 0.15):
+        raise SystemExit("phase small reference: the PBR frame on cuda differs from the cpu frame")
 
 
 def main() -> int:
@@ -249,13 +421,18 @@ def main() -> int:
         return 2
     import renderer_rs_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    t0 = time.perf_counter()
     phase_versions()
     phase_build()
-    kernels = {"raster_resolve": phase_kernels()}
-    launches = phase_main_path()
+    kernels = phase_kernels()
+    by_path = phase_main_paths()
     phase_small_reference()
     for name, k in kernels.items():
-        k["launches"] = launches[name]
+        k["launches"] = sum(path[name] for path in by_path.values())
+        k["launches_by_path"] = {label: path[name] for label, path in by_path.items()}
+        if k["launches"] == 0:
+            raise SystemExit(f"kernel {name} was launched by no main path")
+    _log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

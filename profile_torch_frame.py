@@ -1,25 +1,33 @@
 #!/usr/bin/env python3
 """Where a frame's time goes in the PyTorch/CUDA port, on one NVIDIA GPU.
 
-    python3 profile_torch_frame.py [--width 1920 --height 1080 --rings 160
-                                    --sectors 320 --frames 5 --out out/profile]
+    python3 profile_torch_frame.py [--scene blinnphong|full --moving-sun
+                                    --width 1920 --height 1080 --rings 160
+                                    --sectors 320 --tris 100000 --frames 5
+                                    --out out/profile]
 
-Renders the Blinn-Phong frame (default: the flagship 1920x1080, T = 102,402
-triangles) through Renderer.render_frame: 3 warm-up frames, then `frames`
-steady frames under torch.profiler (CPU + CUDA activities). Prints the
+Renders a flagship frame through Renderer.render_frame: `--scene
+blinnphong` (default: 1920x1080, T = 102,402 triangles) or `--scene full`,
+the shadow-mapped PBR frame full_scene(ibl=False) (T = 97,346 at the
+default --tris; static scene, so the shadow map is reused; `--moving-sun`
+gives every frame a new sun direction and light matrix, so the shadow pass
+runs every frame). 3 warm-up frames, then `frames` steady frames under
+torch.profiler (CPU + CUDA activities). Prints the
 host wall time per frame, the device busy time per frame (the union of
 kernel and copy intervals on the timeline), the device idle share, the
 device events (kernels and copies) per frame; for each `frame/*` stage
 span its host time, its device-timeline span and the device busy time
-inside it; and the top device-time entries by name. Writes the chrome
-trace and a JSON summary to --out.
+inside it; and the top device-time entries by name. Writes a JSON summary
+to --out, and with --trace the chrome trace.
 Needs a card; it refuses to run on the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -49,18 +57,25 @@ def main(argv=None) -> int:
     parser.add_argument("--height", type=int, default=1080)
     parser.add_argument("--rings", type=int, default=160)
     parser.add_argument("--sectors", type=int, default=320)
+    parser.add_argument("--scene", choices=["blinnphong", "full"], default="blinnphong")
+    parser.add_argument("--tris", type=int, default=100_000,
+                        help="triangle budget of the full scene")
+    parser.add_argument("--moving-sun", action="store_true",
+                        help="full scene: move the sun every frame (shadow pass per frame)")
     parser.add_argument("--frames", type=int, default=5)
     parser.add_argument("--out", default=os.path.join("out", "profile"),
-                        help="directory for the trace and the JSON summary")
+                        help="directory for the JSON summary (and the trace)")
+    parser.add_argument("--trace", action="store_true", help="also write the chrome trace")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_frame: needs a CUDA device", file=sys.stderr)
         return 2
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    from renderer_rs_tpu_torch.app.scenes import blinnphong_scene
+    from renderer_rs_tpu_torch.app.scenes import blinnphong_scene, full_scene
     from renderer_rs_tpu_torch.core.config import RendererConfig
+    from renderer_rs_tpu_torch.ops.shadow import directional_light_matrix
     from renderer_rs_tpu_torch.renderer.renderer import Renderer
 
     card = subprocess.run(
@@ -68,19 +83,42 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(card)
-    scene, layout, kw, _ = blinnphong_scene(
-        args.width, args.height, rings=args.rings, sectors=args.sectors, device="cuda"
-    )
+    if args.scene == "full":
+        scene, layout, kw, _ = full_scene(
+            args.width, args.height, tri_budget=args.tris, ibl=False, device="cuda"
+        )
+    else:
+        scene, layout, kw, _ = blinnphong_scene(
+            args.width, args.height, rings=args.rings, sectors=args.sectors, device="cuda"
+        )
     renderer = Renderer(RendererConfig(width=args.width, height=args.height), device="cuda", **kw)
     renderer.set_scene(scene, layout)
-    for _ in range(3):
+    steps = iter(range(1, 1000))
+
+    def move_sun() -> None:
+        a = 0.15 * next(steps)
+        sun = (-0.45 * math.cos(a) + 0.35 * math.sin(a), -1.0,
+               -0.35 * math.cos(a) - 0.45 * math.sin(a))
+        cur = renderer._scene
+        lights = dataclasses.replace(
+            cur.lights, sun_direction=torch.tensor(sun, dtype=torch.float32, device="cuda"))
+        lsm = directional_light_matrix(sun, [0.0, 0.0, 0.0], 3.5).to("cuda")
+        renderer.update_scene(cur.replace(lights=lights, light_space_matrix=lsm))
+
+    def one_frame() -> None:
+        if args.moving_sun and args.scene == "full":
+            with record_function("frame/move_sun"):
+                move_sun()
         renderer.render_frame()
+
+    for _ in range(3):
+        one_frame()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.frames):
-            renderer.render_frame()
+            one_frame()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.frames
 
@@ -111,6 +149,8 @@ def main(argv=None) -> int:
             st["host_ms"] += (t1_ - t0_) / 1e3 / args.frames
     summary = {
         "card": card,
+        "scene": args.scene,
+        "moving_sun": bool(args.moving_sun),
         "shape": [args.width, args.height],
         "triangles": layout.num_triangles,
         "frames": args.frames,
@@ -132,8 +172,10 @@ def main(argv=None) -> int:
     for row in summary["top"]:
         print(f"  {row['ms_per_frame']:9.4f} ms  x{row['count_per_frame']:5.1f}  {row['name'][:110]}")
     os.makedirs(args.out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(args.out, "torch_frame_trace.json"))
-    with open(os.path.join(args.out, "torch_frame_profile.json"), "w") as f:
+    if args.trace:
+        prof.export_chrome_trace(os.path.join(args.out, f"torch_frame_trace_{args.scene}.json"))
+    tag = args.scene + ("_moving_sun" if args.moving_sun else "")
+    with open(os.path.join(args.out, f"torch_frame_profile_{tag}.json"), "w") as f:
         json.dump(summary, f, indent=1)
     return 0
 

@@ -5,9 +5,14 @@ write PNGs. Runs on the CUDA card; without one it raises.
 Usage:
     python -m renderer_rs_tpu_torch.app.main --scene blinnphong \
         --width 1920 --height 1080 --frames 8 --out /tmp/out
+    python -m renderer_rs_tpu_torch.app.main --scene full --no-ibl \
+        --tris 100000 --width 1920 --height 1080 --out /tmp/out
+    python -m renderer_rs_tpu_torch.app.main --scene gltf-pbr --out /tmp/out
 
-The X11 window, the scripted orbit/fly cameras and the other scenes wait
-for later slices (ROADMAP Queue 1 items 13-14)."""
+`--scene full` needs `--no-ibl` for now: the IBL environment, `--csm`,
+`--textured`, `--hdr` and `--gltf` raise NotImplementedError until their
+slices are ported. The X11 window, the scripted orbit/fly cameras and the
+other scenes wait for later slices (ROADMAP Queue 1 items 13-14)."""
 
 from __future__ import annotations
 
@@ -17,6 +22,21 @@ import os
 import time
 
 log = logging.getLogger("renderer_rs_tpu_torch.app")
+
+
+def build(args, device):
+    """The scene factory call for the parsed arguments (≙ main.py:68)."""
+    from renderer_rs_tpu_torch.app.scenes import SCENES, full_scene, gltf_pbr_scene
+
+    if args.scene == "gltf-pbr" and args.gltf:
+        return gltf_pbr_scene(args.width, args.height, args.gltf, device=device)
+    if args.scene == "full":
+        return full_scene(
+            args.width, args.height, tri_budget=args.tris, ibl=not args.no_ibl,
+            csm=args.csm, textured=args.textured, hdr=args.hdr, gltf=args.gltf,
+            device=device,
+        )
+    return SCENES[args.scene](args.width, args.height, device=device)
 
 
 def main(argv=None, device="cuda") -> int:
@@ -31,10 +51,22 @@ def main(argv=None, device="cuda") -> int:
     parser.add_argument("--height", type=int, default=720)
     parser.add_argument("--frames", type=int, default=1)
     parser.add_argument("--out", type=str, default=None, help="PNG output directory")
+    parser.add_argument("--tris", type=int, default=100_000,
+                        help="triangle budget for the full scene")
+    parser.add_argument("--no-ibl", action="store_true",
+                        help="full scene without the IBL environment: shadow-mapped PBR, "
+                             "skybox, ACES (the only ported form so far)")
+    parser.add_argument("--csm", action="store_true",
+                        help="cascaded shadow maps (full scene; not ported yet)")
+    parser.add_argument("--textured", action="store_true",
+                        help="the 5-slot procedural PBR texture set (full scene; not ported yet)")
+    parser.add_argument("--hdr", type=str, default=None,
+                        help="Radiance .hdr environment (full scene; not ported yet)")
+    parser.add_argument("--gltf", type=str, default=None, help="glTF path (not ported yet)")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
-    scene, layout, kwargs, animate = SCENES[args.scene](args.width, args.height, device=device)
+    scene, layout, kwargs, animate = build(args, device)
     renderer = Renderer(
         RendererConfig(width=args.width, height=args.height), device=device, **kwargs
     )

@@ -1,6 +1,7 @@
-"""Demo scene factories (≙ renderer_rs_tpu/app/scenes.py). This slice
-ports config 2, the Blinn-Phong sphere; the others wait for later slices
-(ROADMAP Queue 1).
+"""Demo scene factories (≙ renderer_rs_tpu/app/scenes.py). Ported: config
+2, the Blinn-Phong sphere; config 3, the procedural PBR sphere grid; and
+config 4 without IBL, the shadow-mapped PBR frame with skybox and ACES.
+The others wait for later slices (ROADMAP Queue 1).
 
 A factory returns (scene, layout, renderer_kwargs, animate_fn), where
 animate_fn(scene, t, dt) -> scene updates the dynamic state per frame."""
@@ -12,8 +13,10 @@ import math
 
 import numpy as np
 
+from renderer_rs_tpu_torch.ops.ibl import procedural_sky_cubemap
+from renderer_rs_tpu_torch.ops.shadow import ShadowParams, directional_light_matrix
 from renderer_rs_tpu_torch.renderer.passes import ShadingModel
-from renderer_rs_tpu_torch.renderer.scene_build import SceneBuilder
+from renderer_rs_tpu_torch.renderer.scene_build import Environment, SceneBuilder
 from renderer_rs_tpu_torch.resources.material import Material
 from renderer_rs_tpu_torch.resources.ubo import CameraUbo, SceneUbo
 from renderer_rs_tpu_torch.rhi.command import CommandBuffer
@@ -90,19 +93,138 @@ def blinnphong_scene(width: int, height: int, rings=32, sectors=48, device="cuda
     return scene, layout, kwargs, animate
 
 
-def _not_ported(name: str, queue_item: str):
-    def factory(*args, **kwargs):
-        raise NotImplementedError(
-            f"the {name!r} scene is not ported yet (ROADMAP Queue 1: {queue_item})"
+def _not_ported(what: str, queue_item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1: {queue_item})")
+
+
+def gltf_pbr_scene(width: int, height: int, gltf_path: str | None = None, device="cuda"):
+    """Config 3 (scenes.py:148): the procedural PBR scene, a 4x4 grid of
+    metal/rough spheres on parented transforms over a floor (12,290
+    triangles), lit by a sun. No shadow, no environment."""
+    if gltf_path:
+        raise _not_ported("loading a .gltf model", "item 9, glTF loader")
+    pipeline = GraphicsPipelineBuilder().build()
+    cb = CommandBuffer().begin().bind_pipeline(pipeline).set_viewport(width, height)
+    n = 4
+    for i in range(n):
+        for j in range(n):
+            mat = Material(
+                base_color=(0.9, 0.2, 0.15, 1.0),
+                metallic=i / (n - 1),
+                roughness=max(j / (n - 1), 0.05),
+            )
+            root = Transform().with_position([0.0, 0.0, 0.0])
+            child = (
+                Transform()
+                .with_position([(i - (n - 1) / 2) * 1.2, 0.4, (j - (n - 1) / 2) * 1.2])
+                .with_scale([0.45, 0.45, 0.45])
+                .with_parent(root)
+            )
+            cb.draw_mesh(meshgen.uv_sphere_mesh(1.0, 16, 24), child, mat)
+    cb.draw_mesh(
+        meshgen.plane_mesh(10.0),
+        Transform().with_position([0.0, 0.0, 0.0]),
+        Material(base_color=(0.5, 0.5, 0.55, 1.0), roughness=0.9),
+    )
+    cb.end()
+    builder = SceneBuilder()
+    cam = _orbit_camera(width, height, distance=4.2, height_y=2.8, fov=50.0)
+    builder.set_camera(_camera_ubo(cam))
+    builder.set_lights(
+        LightBank.create(
+            sun=DirectionalLight.create(direction=(-0.5, -1.0, -0.4), intensity=3.0)
         )
+    )
+    scene, layout, pipeline = cb.build_scene(builder, device=device)
+    kwargs = dict(pipeline=pipeline, shading=ShadingModel.PBR, camera=cam)
+    return scene, layout, kwargs, None
+
+
+def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = True,
+               csm: bool = False, textured: bool = False, hdr: str | None = None,
+               gltf: str | None = None, device="cuda"):
+    """Config 4 (scenes.py:203) with ibl=False: a 3x3 grid of PBR spheres
+    sized to tri_budget on a floor, a shadow-mapped sun (1024² map), the
+    procedural sky as skybox, ACES tonemap. tri_budget=100_000 gives 97,346
+    triangles. The IBL precompute, cascaded shadows, the texture set, a
+    Radiance .hdr environment and glTF instancing are not ported: each
+    raises rather than render a lesser scene."""
+    if ibl:
+        raise _not_ported("the IBL environment of the full scene (pass ibl=False)",
+                          "items 7 and 9, textured + IBL slice")
+    if csm:
+        raise _not_ported("cascaded shadow maps", "item 10, CSM")
+    if textured:
+        raise _not_ported("the 5-slot PBR texture set", "items 7 and 9, textured + IBL slice")
+    if hdr is not None:
+        raise _not_ported("a Radiance .hdr environment", "item 9, HDR loader")
+    if gltf:
+        raise _not_ported("glTF instancing", "item 9, glTF loader")
+    # sphere subdivision hitting ~tri_budget across the grid + floor:
+    # tris/sphere = 2*rings*sectors = 4*rings^2 (sectors = 2*rings)
+    n = 3
+    per_sphere = max(tri_budget // (n * n), 32)
+    rings = max(int(math.sqrt(per_sphere / 4)), 4)
+    sectors = 2 * rings
+
+    pipeline = GraphicsPipelineBuilder().build()
+    cb = CommandBuffer().begin().bind_pipeline(pipeline).set_viewport(width, height)
+    for i in range(n):
+        for j in range(n):
+            mat = Material(
+                base_color=(0.85, 0.3, 0.2, 1.0),
+                metallic=i / max(n - 1, 1),
+                roughness=max(j / max(n - 1, 1), 0.08),
+            )
+            tr = (
+                Transform()
+                .with_position([(i - (n - 1) / 2) * 1.6, 0.6, (j - (n - 1) / 2) * 1.6])
+                .with_scale([0.6, 0.6, 0.6])
+            )
+            cb.draw_mesh(meshgen.uv_sphere_mesh(1.0, rings, sectors), tr, mat)
+    cb.draw_mesh(
+        meshgen.plane_mesh(12.0),
+        Transform(),
+        Material(base_color=(0.55, 0.55, 0.6, 1.0), roughness=0.85),
+    )
+    cb.end()
+    builder = SceneBuilder()
+    cam = _orbit_camera(width, height, distance=5.0, height_y=3.0, fov=50.0)
+    builder.set_camera(_camera_ubo(cam))
+    sun_dir = np.array([-0.45, -1.0, -0.35], np.float32)
+    builder.set_lights(
+        LightBank.create(sun=DirectionalLight.create(direction=sun_dir, intensity=3.5))
+    )
+    # ortho box fitted to the shadow casters (sphere grid extent ~2.2 +
+    # radius margin): a loose box wastes map resolution and concentrates
+    # raster bins
+    builder.set_shadow_matrix(directional_light_matrix(sun_dir, [0.0, 0.0, 0.0], 3.5))
+    sky = procedural_sky_cubemap(64, sun_direction=tuple(float(v) for v in sun_dir))
+    builder.set_environment(Environment(skybox_mips=(sky,)))
+    scene, layout, pipeline = cb.build_scene(builder, device=device)
+    # bias scaled to the shadow texel world size (ortho box 14 units / 1024)
+    kwargs = dict(
+        pipeline=pipeline,
+        shading=ShadingModel.PBR,
+        camera=cam,
+        tonemap="aces",
+        shadow_map_size=1024,
+        shadow_params=ShadowParams(shadow_bias=0.012, normal_bias=0.06),
+    )
+    return scene, layout, kwargs, None
+
+
+def _not_ported_scene(name: str, queue_item: str):
+    def factory(*args, **kwargs):
+        raise _not_ported(f"the {name!r} scene", queue_item)
 
     return factory
 
 
 SCENES = {
-    "triangle": _not_ported("triangle", "scan rasterizer and FLAT shading"),
-    "cube": _not_ported("cube", "textured scenes"),
+    "triangle": _not_ported_scene("triangle", "item 13, scan rasterizer and FLAT shading"),
+    "cube": _not_ported_scene("cube", "item 7, textured scenes"),
     "blinnphong": blinnphong_scene,
-    "gltf-pbr": _not_ported("gltf-pbr", "PBR and glTF scene build"),
-    "full": _not_ported("full", "full_scene slices"),
+    "gltf-pbr": gltf_pbr_scene,
+    "full": full_scene,
 }

@@ -12,7 +12,9 @@ fields: {"positions", "normals", "uvs", "tangents", "colors", "tris",
                        normal_scale, tex_ids},
          "lights": {sun_direction, ..., num_point, ..., num_spot},
          "camera": {view, projection, view_projection, camera_position},
-         "scene_ubo": {ambient_color, time, delta_time}}
+         "scene_ubo": {ambient_color, time, delta_time},
+         "light_space_matrix": [4,4] or None,
+         "environment": {"skybox_mips": (faces [6,S,S,C], ...)} or None}
 layout_fields: the SceneLayout dataclass fields as Python values.
 """
 
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from renderer_rs_tpu_torch.core.device import resolve_device
-from renderer_rs_tpu_torch.renderer.scene_build import GpuScene, SceneLayout
+from renderer_rs_tpu_torch.renderer.scene_build import Environment, GpuScene, SceneLayout
 from renderer_rs_tpu_torch.resources.material import MaterialBank
 from renderer_rs_tpu_torch.resources.ubo import CameraUbo, SceneUbo
 from renderer_rs_tpu_torch.scene.light import LightBank
@@ -52,12 +54,19 @@ def scene_from_numpy(fields: dict, layout_fields: dict, device="cuda"):
         for k in ("positions", "normals", "uvs", "tangents", "colors", "tris",
                   "tri_material", "models", "normal_mats")
     }
+    env = fields.get("environment")
+    lsm = fields.get("light_space_matrix")
     scene = GpuScene(
         **top,
         materials=group(MaterialBank, "materials"),
         lights=group(LightBank, "lights"),
         camera=group(CameraUbo, "camera"),
         scene_ubo=group(SceneUbo, "scene_ubo"),
+        environment=(
+            None if env is None
+            else Environment(skybox_mips=tuple(_tensor("skybox", m, dev) for m in env["skybox_mips"]))
+        ),
+        light_space_matrix=None if lsm is None else _tensor("light_space_matrix", lsm, dev),
     )
     lf = dict(layout_fields)
     lf["object_ranges"] = tuple(tuple(int(v) for v in r) for r in lf["object_ranges"])

@@ -1,0 +1,154 @@
+// K1: depth-only rasterization, written for Hopper (sm_90a).
+//
+// Replaces the TPU kernel renderer_rs_tpu/ops/raster_pallas.py:_make_kernel
+// with depth_only=True (body :203-297), launched by rasterize_binned_pallas
+// (pallas_call :1281) for the sun's shadow map, and its batched launch
+// rasterize_depth_only_batch (pallas_call :747) for N cascades. For every
+// pixel it reduces, from the clear depth, the min (max under GREATER
+// compares) of the interpolated z of the candidates of its 16x128 bin that
+// cover the pixel. No ids, no tie rule, no epilogue.
+//
+// Table row layout (one row per raster slot, row t = pad), n_cols >= 19:
+//   [0..14]  3 edges x (ax, ay, sdx, sdy, thresh)  sign-folded canonical form
+//   [15..17] z0, z1, z2      [18] inv_area
+// `table` holds n_batch such tables of n_rows rows each; `seg` holds n_batch
+// rows of n_bins+1 offsets into the one `sorted_tris` array.
+//
+// What bounds it on this card: operations. A (candidate, pixel) pair costs
+// ~29 f32 ops and a bin's segment is walked for all 2048 of its pixels; the
+// bytes are one read of the table and one write of the map. The design is
+// K2's walk without the winner: a block owns one bin of one set, stages 128
+// rows of the 19 columns at a time in shared memory (every thread reads the
+// same row: a broadcast), keeps its 8 pixels' depths in registers and
+// hoists px - ax per thread. The reduction is order-free, so no atomics and
+// no ordering are needed; dense bins still serialize on one block, and
+// splitting them over blocks is later work.
+//
+// Exactness: the JAX kernel, as XLA compiles its depth-only body, fuses the
+// same two products into FMAs as the visibility body does: the edge function
+// e = fma(sdx, py-ay, -(sdy*(px-ax))) and the depth
+// zc = fma(b2, z2, fma(b0, z0, b1*z1)). Measured: with both, depth is bit-equal
+// to the interpret-mode kernel on the parity tests; without either one,
+// about a fifth of the covered pixels differ. This file writes exactly those
+// FMAs with __fmaf_rn and is built with --fmad=false, so nvcc fuses nothing
+// else. fminf/fmaxf order -0.0 below +0.0, as XLA's min and max do, and a
+// -0.0 passes the bound zc >= 0 there as here.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int BIN_H = 16;
+constexpr int BIN_W = 128;
+constexpr int THREADS = 256;
+constexpr int ROW_STEP = THREADS / BIN_W;         // 2 rows per pass of the block
+constexpr int PX = BIN_H * BIN_W / THREADS;       // 8 pixels per thread
+constexpr int STAGE = 128;                        // candidate rows per shared stage
+constexpr int COLS = 19;                          // edges, z, inv_area
+
+// e = sdx*(py-ay) - sdy*(px-ax), with the reference's single rounding of
+// the first product
+__device__ __forceinline__ float edge_fn(float sdx, float dy, float sdy, float dx) {
+    return __fmaf_rn(sdx, dy, -(sdy * dx));
+}
+
+// zc = b0*z0 + b1*z1 + b2*z2 in the reference's rounding order
+__device__ __forceinline__ float depth_fn(float b0, float b1, float b2, float z0,
+                                          float z1, float z2) {
+    return __fmaf_rn(b2, z2, __fmaf_rn(b0, z0, b1 * z1));
+}
+
+template <bool GREATER>
+__global__ void __launch_bounds__(THREADS)
+raster_depth_kernel(const float* __restrict__ table, int n_rows, int n_cols,
+                    const int* __restrict__ sorted_tris,
+                    const int* __restrict__ seg, int n_bins, int nbx,
+                    int height, int width, float depth_clear,
+                    float* __restrict__ depth_out) {
+    __shared__ float s_coef[STAGE * COLS];
+
+    const int b = blockIdx.x;
+    const int set = blockIdx.y;
+    const int by = b / nbx;
+    const int bx = b - by * nbx;
+    const int y0 = by * BIN_H;
+    if (y0 >= height) return;  // bin in the tile padding below the map
+    const float* tab = table + (size_t)set * n_rows * n_cols;
+    const int x = bx * BIN_W + (threadIdx.x % BIN_W);
+    const int r0 = threadIdx.x / BIN_W;
+    // pixel centers: integers + 0.5, exact in f32 (map < 2^24)
+    const float px = (float)x + 0.5f;
+    float py[PX], depth[PX];
+#pragma unroll
+    for (int i = 0; i < PX; ++i) {
+        py[i] = (float)(y0 + r0 + ROW_STEP * i) + 0.5f;
+        depth[i] = depth_clear;
+    }
+
+    const int s0 = seg[(size_t)set * (n_bins + 1) + b];
+    const int s1 = seg[(size_t)set * (n_bins + 1) + b + 1];
+    for (int base = s0; base < s1; base += STAGE) {
+        const int n = min(STAGE, s1 - base);
+        __syncthreads();  // previous stage fully consumed
+        for (int k = threadIdx.x; k < n * COLS; k += THREADS) {
+            const int r = k / COLS;
+            const int c = k - r * COLS;
+            s_coef[k] = tab[(size_t)sorted_tris[base + r] * n_cols + c];
+        }
+        __syncthreads();
+        for (int j = 0; j < n; ++j) {
+            const float* c = s_coef + j * COLS;
+            const float ay0 = c[1], sdx0 = c[2], sdy0 = c[3], th0 = c[4];
+            const float ay1 = c[6], sdx1 = c[7], sdy1 = c[8], th1 = c[9];
+            const float ay2 = c[11], sdx2 = c[12], sdy2 = c[13], th2 = c[14];
+            const float z0 = c[15], z1 = c[16], z2 = c[17], inv = c[18];
+            const float dx0 = px - c[0];
+            const float dx1 = px - c[5];
+            const float dx2 = px - c[10];
+#pragma unroll
+            for (int i = 0; i < PX; ++i) {
+                const float e0 = edge_fn(sdx0, py[i] - ay0, sdy0, dx0);
+                const float e1 = edge_fn(sdx1, py[i] - ay1, sdy1, dx1);
+                const float e2 = edge_fn(sdx2, py[i] - ay2, sdy2, dx2);
+                const float b0 = e0 * inv;
+                const float b1 = e1 * inv;
+                const float b2 = 1.0f - b0 - b1;
+                const float zc = depth_fn(b0, b1, b2, z0, z1, z2);
+                // one-sided viewport bound; the reduction against a clear
+                // in [0,1] implies the other side (raster_pallas.py:252-255)
+                const bool in_z = GREATER ? (zc <= 1.0f) : (zc >= 0.0f);
+                if ((e0 >= th0) & (e1 >= th1) & (e2 >= th2) & in_z)
+                    depth[i] = GREATER ? fmaxf(depth[i], zc) : fminf(depth[i], zc);
+            }
+        }
+    }
+
+    float* out = depth_out + (size_t)set * height * width;
+#pragma unroll
+    for (int i = 0; i < PX; ++i) {
+        const int y = y0 + r0 + ROW_STEP * i;
+        if (y < height && x < width) out[(size_t)y * width + x] = depth[i];
+    }
+}
+
+}  // namespace
+
+// Launch on `stream` (PyTorch's current stream). Grid: one block per bin of
+// each of the n_batch sets. Returns cudaGetLastError() after the launch
+// (0 = launched).
+extern "C" int raster_depth_launch(const float* table, int n_rows, int n_cols,
+                                   const int* sorted_tris, const int* seg,
+                                   int n_batch, int n_bins, int nbx, int height,
+                                   int width, int greater, float depth_clear,
+                                   float* depth_out, void* stream) {
+    if (n_bins <= 0 || n_batch <= 0) return 0;
+    if (n_batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(n_bins, n_batch);
+    const dim3 block(THREADS);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (greater)
+        raster_depth_kernel<true><<<grid, block, 0, s>>>(table, n_rows, n_cols, sorted_tris, seg, n_bins, nbx, height, width, depth_clear, depth_out);
+    else
+        raster_depth_kernel<false><<<grid, block, 0, s>>>(table, n_rows, n_cols, sorted_tris, seg, n_bins, nbx, height, width, depth_clear, depth_out);
+    return static_cast<int>(cudaGetLastError());
+}

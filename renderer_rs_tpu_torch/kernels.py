@@ -6,11 +6,16 @@ PyTorch headers, so a build takes seconds). Builds happen at first use, into
 ``renderer_rs_tpu_torch/_build/`` (listed in .gitignore), keyed by a hash of
 the source and flags; ``build()`` starts one nvcc per source at once.
 
-Flags: ``--fmad=false`` keeps every ``a*b + c`` a separate multiply and add,
-as in the JAX kernels (Mosaic and XLA:CPU do not contract them): fused
-edge functions would move coverage on exact edges and break the bit-equal
-tid/depth contract. ``--use_fast_math`` is never used (it flushes
-subnormals and approximates ``1/x``).
+Flags: ``--fmad=false`` stops nvcc from contracting any ``a*b + c`` on its
+own. The JAX kernels are not free of FMAs: measured against the Pallas
+kernels in interpret mode, XLA fuses a fixed handful of products (the edge
+function and the depth sum in every body, plus b2 and the lane blends in
+K2's winner epilogue), and nothing else. Each ``.cu`` file writes exactly
+those with ``__fmaf_rn`` and lists them under "Exactness"; with the flag,
+every other product and sum rounds on its own. Either a missing or an extra
+fusion moves coverage on exact edges and breaks the bit-equal tid/depth
+contract. ``--use_fast_math`` is never used (it flushes subnormals and
+approximates ``1/x``).
 """
 
 from __future__ import annotations
@@ -25,7 +30,10 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
-SOURCES = {"raster_resolve": _PKG / "csrc" / "raster_resolve.cu"}
+SOURCES = {
+    "raster_depth": _PKG / "csrc" / "raster_depth.cu",
+    "raster_resolve": _PKG / "csrc" / "raster_resolve.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",

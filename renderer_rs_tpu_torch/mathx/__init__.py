@@ -5,6 +5,7 @@ from renderer_rs_tpu_torch.mathx.mat4 import (  # noqa: F401
     compose_srt,
     inverse_transpose_3x3,
     look_at_rh,
+    orthographic_rh,
     perspective_rh,
     vulkan_y_flip,
 )

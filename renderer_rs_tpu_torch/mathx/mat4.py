@@ -1,12 +1,17 @@
 """4x4 matrices with glam semantics (≙ renderer_rs_tpu/mathx/mat4.py):
 column vectors, ``M @ v``. Host-side f32 CPU tensors; the scene build moves
-the results to the device."""
+the results to the device.
+
+The camera and light matrices feed every coverage test downstream, so they
+are built bit-equal to the JAX package's. Measured against jnp on the CPU:
+its 3-vector norm is the FMA chain fma(z, z, fma(y, y, x*x)), its cross
+product is fma(a_i, b_j, -(a_j*b_i)), its dot is the plain left-to-right
+sum, and its cos and sin are correctly rounded. `_norm`, `_cross` and
+`perspective_rh` reproduce exactly that."""
 
 from __future__ import annotations
 
 import torch
-
-from renderer_rs_tpu_torch.mathx.vec import cross
 
 _F32 = torch.float32
 
@@ -15,8 +20,21 @@ def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=_F32)
 
 
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 a*b + c with one rounding (the product is exact in f64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def _norm(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(v * v))
+    """Length of a 3-vector, rounded as jnp.linalg.norm rounds it."""
+    return torch.sqrt(_fma(v[2], v[2], _fma(v[1], v[1], v[0] * v[0])))
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cross product of 3-vectors, rounded as jnp.cross rounds it."""
+    return torch.stack([
+        _fma(a[i], b[j], -(a[j] * b[i])) for i, j in ((1, 2), (2, 0), (0, 1))
+    ])
 
 
 def compose_srt(scale, rot3: torch.Tensor, translation) -> torch.Tensor:
@@ -32,9 +50,9 @@ def look_at_rh(eye, center, up) -> torch.Tensor:
     eye, center, up = _f32(eye), _f32(center), _f32(up)
     f = center - eye
     f = f / torch.clamp(_norm(f), min=1e-12)
-    s = cross(f, up)
+    s = _cross(f, up)
     s = s / torch.clamp(_norm(s), min=1e-12)
-    u = cross(s, f)
+    u = _cross(s, f)
     m = torch.zeros((4, 4), dtype=_F32)
     m[0, :3], m[0, 3] = s, -torch.sum(s * eye)
     m[1, :3], m[1, 3] = u, -torch.sum(u * eye)
@@ -46,9 +64,10 @@ def look_at_rh(eye, center, up) -> torch.Tensor:
 def perspective_rh(fov_y: float, aspect: float, z_near: float, z_far: float) -> torch.Tensor:
     """Right-handed perspective with [0,1] depth (glam `Mat4::perspective_rh`,
     camera.rs:117-125). Like the JAX form, h is f32 math and r is computed
-    in Python floats before the f32 store."""
-    half = 0.5 * _f32(fov_y)
-    h = torch.cos(half) / torch.sin(half)
+    in Python floats before the f32 store; cos and sin of the f32 half angle
+    are correctly rounded (torch's scalar f32 cos is 1 ulp off at 25 deg)."""
+    half = (0.5 * _f32(fov_y)).double()
+    h = torch.cos(half).float() / torch.sin(half).float()
     r = z_far / (z_near - z_far)
     m = torch.zeros((4, 4), dtype=_F32)
     m[0, 0] = h / _f32(aspect)
@@ -56,6 +75,24 @@ def perspective_rh(fov_y: float, aspect: float, z_near: float, z_far: float) -> 
     m[2, 2] = r
     m[2, 3] = r * z_near
     m[3, 2] = -1.0
+    return m
+
+
+def orthographic_rh(left: float, right: float, bottom: float, top: float,
+                    near: float, far: float) -> torch.Tensor:
+    """Right-handed orthographic with [0,1] depth (glam `Mat4::orthographic_rh`,
+    camera.rs:126-133); the entries are Python-float math stored as f32."""
+    rcp_w = 1.0 / (right - left)
+    rcp_h = 1.0 / (top - bottom)
+    r = 1.0 / (near - far)
+    m = torch.zeros((4, 4), dtype=_F32)
+    m[0, 0] = 2.0 * rcp_w
+    m[1, 1] = 2.0 * rcp_h
+    m[2, 2] = r
+    m[0, 3] = -(left + right) * rcp_w
+    m[1, 3] = -(top + bottom) * rcp_h
+    m[2, 3] = r * near
+    m[3, 3] = 1.0
     return m
 
 

@@ -49,6 +49,34 @@ def gather_triangle_clip(clip: torch.Tensor, tris: torch.Tensor) -> torch.Tensor
     return clip[tris]
 
 
+def gather_triangle_planes(clip: torch.Tensor, tris: torch.Tensor):
+    """Plane-form gather (raster.py:87): three [T,4] per-vertex rows
+    (v0, v1, v2), no [T,3,4] array."""
+    return clip[tris[:, 0]], clip[tris[:, 1]], clip[tris[:, 2]]
+
+
+def _facing_valid(area2, ok_w, pipeline: GraphicsPipeline, tri_valid):
+    """Facing/cull and validity of triangle-list primitives."""
+    front = (area2 < 0.0) if pipeline.front_face == FrontFace.COUNTER_CLOCKWISE else (area2 > 0.0)
+    if pipeline.cull_mode == CullMode.NONE:
+        cull_ok = torch.ones_like(front)
+    elif pipeline.cull_mode == CullMode.BACK:
+        cull_ok = front
+    elif pipeline.cull_mode == CullMode.FRONT:
+        cull_ok = ~front
+    else:  # FRONT_AND_BACK (pipeline.rs:349: rasterize nothing)
+        cull_ok = torch.zeros_like(front)
+    valid = ok_w & cull_ok & (area2 != 0.0)
+    return valid if tri_valid is None else valid & tri_valid
+
+
+def _require_triangle_list(pipeline: GraphicsPipeline) -> None:
+    if pipeline.topology != PrimitiveTopology.TRIANGLE_LIST:
+        raise NotImplementedError(
+            "point/line topologies wait for ROADMAP Queue 1 item 13 (scan rasterizer)"
+        )
+
+
 def setup_triangles(
     tri_clip: torch.Tensor,
     width: int,
@@ -57,10 +85,7 @@ def setup_triangles(
     tri_valid: torch.Tensor | None = None,
 ) -> TriangleSetup:
     """Divide, viewport transform, facing/cull, validity (raster.py:99)."""
-    if pipeline.topology != PrimitiveTopology.TRIANGLE_LIST:
-        raise NotImplementedError(
-            "point/line topologies wait for ROADMAP Queue 1 item 13 (scan rasterizer)"
-        )
+    _require_triangle_list(pipeline)
     w_clip = tri_clip[..., 3]
     ok_w = torch.all(w_clip > _W_EPS, dim=-1)
     inv_w = 1.0 / torch.clamp(w_clip, min=_W_EPS)
@@ -79,19 +104,40 @@ def setup_triangles(
         z, ((sx[:, 0], sy[:, 0]), (sx[:, 1], sy[:, 1]), (sx[:, 2], sy[:, 2])),
         area2, pipeline,
     )
-    front = (area2 < 0.0) if pipeline.front_face == FrontFace.COUNTER_CLOCKWISE else (area2 > 0.0)
-    if pipeline.cull_mode == CullMode.NONE:
-        cull_ok = torch.ones_like(front)
-    elif pipeline.cull_mode == CullMode.BACK:
-        cull_ok = front
-    elif pipeline.cull_mode == CullMode.FRONT:
-        cull_ok = ~front
-    else:  # FRONT_AND_BACK (pipeline.rs:349: rasterize nothing)
-        cull_ok = torch.zeros_like(front)
-    valid = ok_w & cull_ok & (area2 != 0.0)
-    if tri_valid is not None:
-        valid = valid & tri_valid
+    valid = _facing_valid(area2, ok_w, pipeline, tri_valid)
     return TriangleSetup(xy=xy, z=z, w=w_clip, area2=area2, valid=valid)
+
+
+def setup_triangles_planes(
+    verts: tuple,
+    width: int,
+    height: int,
+    pipeline: GraphicsPipeline,
+    tri_valid: torch.Tensor | None = None,
+) -> TriangleSetup:
+    """Plane-form setup (raster.py:171): verts = (v0, v1, v2), each [T,4]
+    clip rows. Every formula is setup_triangles' op on the same floats,
+    evaluated per vertex plane, so the result is bit-identical to
+    setup_triangles(stack(verts, 1), ...). The shadow pass uses this form."""
+    _require_triangle_list(pipeline)
+    sxy, zs, ws = [], [], []
+    ok_w = None
+    for v in verts:
+        w_v = v[:, 3]
+        ok_w = (w_v > _W_EPS) if ok_w is None else ok_w & (w_v > _W_EPS)
+        inv_w = 1.0 / torch.clamp(w_v, min=_W_EPS)
+        sxy.append((
+            (v[:, 0] * inv_w * 0.5 + 0.5) * width,
+            (v[:, 1] * inv_w * 0.5 + 0.5) * height,
+        ))
+        zs.append(v[:, 2] * inv_w)
+        ws.append(w_v)
+    (sx0, sy0), (sx1, sy1), (sx2, sy2) = sxy
+    area2 = (sx1 - sx0) * (sy2 - sy0) - (sy1 - sy0) * (sx2 - sx0)
+    z = _biased_z(torch.stack(zs, dim=-1), tuple(sxy), area2, pipeline)
+    valid = _facing_valid(area2, ok_w, pipeline, tri_valid)
+    xy = torch.stack([torch.stack([sx, sy], dim=-1) for sx, sy in sxy], dim=1)
+    return TriangleSetup(xy=xy, z=z, w=torch.stack(ws, dim=-1), area2=area2, valid=valid)
 
 
 def _z_gradient(x0, y0, x1, y1, x2, y2, z0, z1, z2, area2):

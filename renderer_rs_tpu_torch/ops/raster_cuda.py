@@ -1,5 +1,7 @@
-"""K2 — visibility with in-kernel winner resolve, on Hopper (≙ the
-gather-mode path of renderer_rs_tpu/ops/raster_pallas.py).
+"""K1 and K2 — the binned raster kernels on Hopper (≙ the depth-only and
+the gather-mode paths of renderer_rs_tpu/ops/raster_pallas.py).
+
+K2, visibility with in-kernel winner resolve:
 
 The frame's fast raster path: compact binning -> one per-slot coefficient
 table -> ONE kernel launch that, per pixel, walks its 16x128 bin's exact
@@ -26,6 +28,16 @@ chunk+8 slab tail pad (:640-642) and the 128-lane table padding
 (:1153-1157). The table keeps only the used columns plus the pad row t
 (+inf thresholds), and the kernel reads table[sorted_tris[i]] directly
 instead of a pre-gathered slab.
+
+K1, depth only (the shadow pass): the same binning and the first 19 table
+columns, one launch that keeps per pixel the min (max under GREATER
+compares) of the covering candidates' interpolated z, from the clear
+depth. ``raster_depth`` launches ``csrc/raster_depth.cu`` on CUDA tensors
+(counting in ``raster_depth.launches``) and runs ``raster_depth_plain`` on
+CPU tensors. Its inputs carry a leading batch axis: N independent triangle
+sets (the cascades of a CSM pass, raster_pallas.py:646) are one launch
+with N > 1. The reduction is order-free, and signed zeros are ordered
+-0.0 < +0.0 in both versions, as XLA's min/max order them.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ _COV_MIN_NORMAL = 1.1754943508222875e-38
 _THRESH_COLS = (4, 9, 14)
 TILE_H, BIN_H, BIN_W = 32, 16, 128  # bins are the Pallas kernel's sub-bins
 VIS_COLS = 20  # edges x 5, z x 3, inv_area, id
+DEPTH_COLS = 19  # K1 reads no id
 _PLAIN_CHUNK = 8  # candidates per step of the plain version
 _OPS = {
     CompareOp.LESS: 0,
@@ -92,9 +105,9 @@ def _canonical_edges_block(xy, s, valid=None):
     return torch.stack(cols, dim=-1).reshape(xy.shape[0], 15)
 
 
-def _base_coef_table(setup: TriangleSetup, ids_col: torch.Tensor) -> torch.Tensor:
-    """The 20 visibility columns per slot (raster_pallas.py:565): edges,
-    z0..2, inv_area (positive), ids as f32 (exact below 2^24)."""
+def _depth_coef_table(setup: TriangleSetup) -> torch.Tensor:
+    """The 19 depth columns per slot (raster_pallas.py:565, columns 0-18):
+    canonical edges, z0..2, inv_area (positive)."""
     # jnp.sign keeps the sign of a zero, torch.sign returns +0.0; a signed
     # zero only reaches the deltas of invalid rows, but the table stays
     # bit-equal
@@ -104,7 +117,20 @@ def _base_coef_table(setup: TriangleSetup, ids_col: torch.Tensor) -> torch.Tenso
         area_abs > 0.0, 1.0 / torch.clamp(area_abs, min=1e-30), torch.zeros_like(area_abs)
     )
     e15 = _canonical_edges_block(setup.xy, s, valid=setup.valid)
-    return torch.cat([e15, setup.z, inv_area[:, None], ids_col[:, None]], dim=-1)
+    return torch.cat([e15, setup.z, inv_area[:, None]], dim=-1)
+
+
+def _base_coef_table(setup: TriangleSetup, ids_col: torch.Tensor) -> torch.Tensor:
+    """The 20 visibility columns per slot (raster_pallas.py:565): the depth
+    columns, then ids as f32 (exact below 2^24)."""
+    return torch.cat([_depth_coef_table(setup), ids_col[:, None]], dim=-1)
+
+
+def _with_pad_row(table: torch.Tensor) -> torch.Tensor:
+    """Append the pad row t, whose +inf thresholds never cover."""
+    pad = torch.zeros((1, table.shape[1]), dtype=_F32, device=table.device)
+    pad[0, list(_THRESH_COLS)] = float("inf")
+    return torch.cat([table, pad]).contiguous()
 
 
 def build_gather_table(
@@ -138,10 +164,7 @@ def build_gather_table(
     parts = [base, inv_w, *blocks]
     if flat is not None:
         parts.append(flat[vary_src])
-    table = torch.cat(parts, dim=-1)
-    pad = torch.zeros((1, table.shape[1]), dtype=_F32, device=table.device)
-    pad[0, list(_THRESH_COLS)] = float("inf")
-    return torch.cat([table, pad]).contiguous()
+    return _with_pad_row(torch.cat(parts, dim=-1))
 
 
 def bin_compact(setup: TriangleSetup, height: int, width: int, small_limit=None):
@@ -383,3 +406,189 @@ def prepare_resolve(setup: TriangleSetup, height: int, width: int, attr, vtx,
         n_flat=0 if flat is None else flat.shape[-1],
         bin_overflow=overflow,
     )
+
+
+# --- K1: depth only ----------------------------------------------------------------
+
+@dataclasses.dataclass
+class DepthInputs:
+    """K1's inputs for N triangle sets rasterized in one launch: table
+    [N, t+1, 19], the concatenated sorted ids, seg [N, bins+1] addressing
+    them, and the binning overflow counters [N, 2] (big, huge)."""
+
+    table: torch.Tensor
+    sorted_tris: torch.Tensor
+    seg: torch.Tensor
+    nbx: int
+    bin_overflow: torch.Tensor
+
+    @property
+    def n_pairs(self) -> torch.Tensor:
+        """Binned (bin, triangle) pairs the kernel walks (device scalar)."""
+        return (self.seg[:, -1] - self.seg[:, 0]).sum()
+
+
+def prepare_depth(setups, height: int, width: int) -> DepthInputs:
+    """Bin and build the depth table of each setup (≙ rasterize_binned_pallas
+    with depth_only=True up to the pallas_call; several setups ≙
+    rasterize_depth_only_batch). All setups share one triangle count."""
+    t = setups[0].num_triangles
+    if any(s.num_triangles != t for s in setups):
+        raise ValueError("prepare_depth: all setups must share a triangle count")
+    tables, ids, segs, overflow = [], [], [], []
+    offset = 0
+    for setup in setups:
+        sorted_tris, seg, _nby, nbx, ovf = bin_compact(setup, height, width)
+        tables.append(_with_pad_row(_depth_coef_table(setup)))
+        ids.append(sorted_tris)
+        segs.append(seg + offset)
+        overflow.append(ovf)
+        offset += sorted_tris.numel()
+    return DepthInputs(
+        table=torch.stack(tables),
+        sorted_tris=torch.cat(ids),
+        seg=torch.stack(segs),
+        nbx=nbx,
+        bin_overflow=torch.stack(overflow),
+    )
+
+
+def _to_key(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 whose signed order is the floats' total order, with
+    -0.0 below +0.0 (XLA's min and max order signed zeros so)."""
+    i = x.contiguous().view(torch.int32)
+    return i ^ ((i >> 31) & 0x7FFFFFFF)
+
+
+def _from_key(k: torch.Tensor) -> torch.Tensor:
+    return (k ^ ((k >> 31) & 0x7FFFFFFF)).view(_F32)
+
+
+def _check_depth_inputs(table, sorted_tris, seg, nbx, height, width, compare_op):
+    if table.dtype != _F32 or table.dim() != 3 or not table.is_contiguous():
+        raise ValueError("table must be a contiguous [N, t+1, C] float32 tensor")
+    if table.shape[2] < DEPTH_COLS:
+        raise ValueError(f"table has {table.shape[2]} columns, needs {DEPTH_COLS}")
+    if seg.dtype != torch.int32 or seg.dim() != 2 or not seg.is_contiguous():
+        raise ValueError("seg must be a contiguous [N, bins+1] int32 tensor")
+    if seg.shape[0] != table.shape[0]:
+        raise ValueError(f"seg holds {seg.shape[0]} sets, table {table.shape[0]}")
+    if sorted_tris.dtype != torch.int32 or sorted_tris.dim() != 1 or not sorted_tris.is_contiguous():
+        raise ValueError("sorted_tris must be a contiguous 1-D int32 tensor")
+    for name, x in (("sorted_tris", sorted_tris), ("seg", seg)):
+        if x.device != table.device:
+            raise ValueError(f"{name} is on {x.device}, table on {table.device}")
+    n_bins = seg.shape[1] - 1
+    if nbx < 1 or n_bins % nbx or nbx * BIN_W < width or (n_bins // nbx) * BIN_H < height:
+        raise ValueError(
+            f"{n_bins} bins in rows of {nbx} do not cover a {width}x{height} map"
+        )
+    if compare_op not in _OPS:
+        raise ValueError(f"depth compare {compare_op} is not a binned compare op")
+
+
+def _launch_depth(table, sorted_tris, seg, nbx, height, width, compare_op, depth_clear):
+    from renderer_rs_tpu_torch.kernels import load
+
+    lib = load("raster_depth")
+    fn = lib.raster_depth_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    dev = table.device
+    n_batch = table.shape[0]
+    depth = torch.empty((n_batch, height, width), dtype=_F32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            table.data_ptr(), table.shape[1], table.shape[2], sorted_tris.data_ptr(),
+            seg.data_ptr(), n_batch, seg.shape[1] - 1, nbx, height, width,
+            int(_OPS[compare_op] >= 2), float(depth_clear), depth.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"raster_depth launch failed: cudaError {err}")
+    raster_depth.launches += 1
+    return depth
+
+
+def raster_depth(table, sorted_tris, seg, nbx, height, width,
+                 compare_op=CompareOp.LESS, depth_clear=1.0):
+    """K1 over the binned candidates of N triangle sets. table [N, t+1, C]
+    f32, sorted_tris int32, seg [N, bins+1] int32 (prepare_depth), nbx bins
+    per row. Returns depth [N,H,W] f32: per pixel the min (max under
+    GREATER compares) of the clear depth and the covering candidates' z.
+    CUDA tensors launch the kernel; CPU tensors run raster_depth_plain."""
+    _check_depth_inputs(table, sorted_tris, seg, nbx, height, width, compare_op)
+    if table.device.type == "cuda":
+        return _launch_depth(table, sorted_tris, seg, nbx, height, width, compare_op,
+                             depth_clear)
+    if table.device.type != "cpu":
+        raise ValueError(f"raster_depth: unsupported device {table.device}")
+    return raster_depth_plain(table, sorted_tris, seg, nbx, height, width, compare_op,
+                              depth_clear)
+
+
+raster_depth.launches = 0  # kernel launches, read and reset by chip_smoke.py
+
+
+def raster_depth_plain(table, sorted_tris, seg, nbx, height, width,
+                       compare_op=CompareOp.LESS, depth_clear=1.0):
+    """The same function as torch ops, in the kernel's f32 operation order.
+    All bins of all sets advance together, _PLAIN_CHUNK candidates at a
+    time; the reduction runs on order keys (_to_key) so that signed zeros
+    come out as in the kernel."""
+    _check_depth_inputs(table, sorted_tris, seg, nbx, height, width, compare_op)
+    chunk = _PLAIN_CHUNK
+    dev = table.device
+    greater = compare_op in (CompareOp.GREATER, CompareOp.GREATER_OR_EQUAL)
+    n_batch, n_rows, _ = table.shape
+    n_bins = seg.shape[1] - 1
+    nby = n_bins // nbx
+    rows_flat = table.reshape(n_batch * n_rows, -1)[:, :DEPTH_COLS]
+    seg_l = seg.long()
+    starts = seg_l[:, :-1].reshape(-1)
+    ends = seg_l[:, 1:].reshape(-1)
+    counts = ends - starts
+    row_base = (torch.arange(n_batch, device=dev) * n_rows).repeat_interleave(n_bins)
+    b_ids = torch.arange(n_bins, device=dev).repeat(n_batch)
+    rows_i = (b_ids // nbx)[:, None, None] * BIN_H + torch.arange(BIN_H, device=dev)[None, :, None]
+    cols_i = (b_ids % nbx)[:, None, None] * BIN_W + torch.arange(BIN_W, device=dev)[None, None, :]
+    py_all = rows_i.to(_F32) + 0.5  # [bins,16,1]
+    px_all = cols_i.to(_F32) + 0.5  # [bins,1,128]
+    key = _to_key(torch.full((n_batch * n_bins, BIN_H, BIN_W), float(depth_clear),
+                             dtype=_F32, device=dev))
+    big = float("-inf") if greater else float("inf")
+    max_count = int(counts.max()) if counts.numel() else 0
+    for j0 in range(0, max_count, chunk):
+        act = torch.nonzero(counts > j0).squeeze(1)
+        pos = starts[act, None] + j0 + torch.arange(chunk, device=dev)  # [A,C]
+        in_seg = pos < ends[act, None]
+        tri = sorted_tris[torch.clamp(pos, max=sorted_tris.numel() - 1)].long()
+        tab = rows_flat[tri + row_base[act, None]]  # [A,C,19]
+
+        def col(k, tab=tab):
+            return tab[:, :, k, None, None]  # [A,C,1,1]
+
+        py = py_all[act][:, None]  # [A,1,16,1]
+        px = px_all[act][:, None]  # [A,1,1,128]
+        e = [
+            _edge(col(k0 + 2), py - col(k0 + 1), col(k0 + 3), px - col(k0))
+            for k0 in (0, 5, 10)
+        ]
+        cov = (e[0] >= col(4)) & (e[1] >= col(9)) & (e[2] >= col(14))
+        cov = cov & in_seg[:, :, None, None]
+        b0 = e[0] * col(18)
+        b1 = e[1] * col(18)
+        b2 = 1.0 - b0 - b1
+        zc = _depth(b0, b1, b2, col(15), col(16), col(17))
+        cov = cov & ((zc <= 1.0) if greater else (zc >= 0.0))
+        k = _to_key(torch.where(cov, zc, torch.full_like(zc, big)))
+        if greater:
+            key[act] = torch.maximum(key[act], k.amax(1))
+        else:
+            key[act] = torch.minimum(key[act], k.amin(1))
+    depth = _from_key(key).reshape(n_batch, nby, nbx, BIN_H, BIN_W).transpose(2, 3)
+    return depth.reshape(n_batch, nby * BIN_H, nbx * BIN_W)[:, :height, :width].contiguous()

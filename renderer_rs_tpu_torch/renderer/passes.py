@@ -1,13 +1,15 @@
-"""Render passes (≙ renderer_rs_tpu/renderer/passes.py): vertex stage ->
-near clip -> setup -> compact binning -> K2 visibility + resolve ->
-per-pixel shading -> composite, run eagerly on the scene's device.
+"""Render passes (≙ renderer_rs_tpu/renderer/passes.py): sun shadow pass
+(K1) -> vertex stage -> near clip -> setup -> compact binning -> K2
+visibility + resolve -> per-pixel shading with the PCF shadow term ->
+composite -> skybox -> tonemap, run eagerly on the scene's device.
 
-This slice ports the fused fast path the JAX package takes for every
-non-FLAT scene on the TPU (`forward_frame`'s `fuse` branch with its
-defaults: in-kernel winner resolve, arithmetic slot->source ids, SoA table
-build, clip cap T/16, triangle setup) and the untextured Blinn-Phong
-shader. Every other branch raises NotImplementedError naming its ROADMAP
-queue item.
+Ported: the fused fast path the JAX package takes for every non-FLAT scene
+on the TPU (`forward_frame`'s `fuse` branch with its defaults: in-kernel
+winner resolve, arithmetic slot->source ids, SoA table build, clip cap
+T/16, triangle setup), the single-map shadow pass with its default
+plane-form setup, and the untextured Blinn-Phong and Cook-Torrance PBR
+shaders with the reduced-rate shadow ladder. Every other branch raises
+NotImplementedError naming its ROADMAP queue item.
 """
 
 from __future__ import annotations
@@ -20,16 +22,32 @@ from torch.profiler import record_function
 
 from renderer_rs_tpu_torch.mathx.vec import normalize
 from renderer_rs_tpu_torch.ops import blinn_phong as bp
+from renderer_rs_tpu_torch.ops import pbr as pbr_ops
 from renderer_rs_tpu_torch.ops.clip import clip_triangles_near_planes, compact_secondary
 from renderer_rs_tpu_torch.ops.raster import (
     VisibilityBuffer,
     gather_triangle_clip,
+    gather_triangle_planes,
     setup_triangles,
+    setup_triangles_planes,
 )
 from renderer_rs_tpu_torch.ops.raster_binned import supports_binned
-from renderer_rs_tpu_torch.ops.raster_cuda import prepare_resolve, raster_resolve
+from renderer_rs_tpu_torch.ops.raster_cuda import (
+    prepare_depth,
+    prepare_resolve,
+    raster_depth,
+    raster_resolve,
+)
+from renderer_rs_tpu_torch.ops.shadow import (
+    ShadowParams,
+    calculate_shadow,
+    upsample2x_y,
+    upsample4x_y,
+)
+from renderer_rs_tpu_torch.ops.skybox import skybox_pass
+from renderer_rs_tpu_torch.ops.tonemap import TONEMAPPERS, apply_tonemap
 from renderer_rs_tpu_torch.renderer.scene_build import GpuScene, SceneLayout
-from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipeline
+from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipeline, GraphicsPipelineBuilder
 
 # near-clip secondary compaction (passes.py:1689): cap max(128, T/16),
 # engaged from 1024 triangles
@@ -104,20 +122,65 @@ def _not_ported(what: str, queue: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {queue})")
 
 
+def shadow_vertex_stage(scene: GpuScene, layout: SceneLayout) -> torch.Tensor:
+    """Light-space positions [V,4] (passes.py:205; ≙ vertex/shadow.hlsl:
+    lightSpaceMatrix * model * pos), in the per-object pre-composed form the
+    single-map pass takes: (lsm @ model), then homo @ m.T. The
+    world-then-light form and a per-cascade matrix come with CSM (ROADMAP
+    Queue 1 item 10)."""
+    lsm = scene.light_space_matrix
+    clips = []
+    for o, (v0, nv, _, _) in enumerate(layout.object_ranges):
+        pos = scene.positions[v0 : v0 + nv]
+        m = lsm @ scene.models[o]
+        homo = torch.cat([pos, torch.ones_like(pos[:, :1])], dim=-1)
+        clips.append(homo @ m.T)
+    return torch.cat(clips)
+
+
+# depth LESS, cull back: the standard shadow raster (passes.py:252)
+_SHADOW_PIPELINE = GraphicsPipelineBuilder().build()
+
+
+def _shadow_setup(clip: torch.Tensor, tris: torch.Tensor, size: int):
+    """Triangle setup of a depth-only pass (passes.py:344), in the plane
+    form the JAX package defaults to there. No near clip: the shadow pass
+    has no clip stage, and its raster slots are the T triangles."""
+    return setup_triangles_planes(
+        gather_triangle_planes(clip, tris), size, size, _SHADOW_PIPELINE
+    )
+
+
+def shadow_map_pass(scene: GpuScene, layout: SceneLayout, size: int) -> torch.Tensor:
+    """Depth-only sun shadow render [size,size] (passes.py:366): light-space
+    vertex stage -> plane-form setup -> compact binning -> K1."""
+    if not supports_binned(_SHADOW_PIPELINE, layout.num_triangles):
+        raise _not_ported(
+            "the scan rasterizer's depth-only pass (scenes below 64 triangles)",
+            "Queue 1 item 13",
+        )
+    clip = shadow_vertex_stage(scene, layout)
+    k1 = prepare_depth([_shadow_setup(clip, scene.tris, size)], size, size)
+    return raster_depth(
+        k1.table, k1.sorted_tris, k1.seg, k1.nbx, size, size,
+        _SHADOW_PIPELINE.depth_compare_op,
+    )[0]
+
+
 def _check_fused_path(layout: SceneLayout, pipeline: GraphicsPipeline,
                       shading: ShadingModel, tonemap: str, n_raster: int) -> None:
     if pipeline.msaa_samples > 1:
         raise _not_ported("MSAA", "Queue 1 item 11 / Queue 2 K4")
-    if layout.has_csm or layout.has_shadow:
-        raise _not_ported("shadow mapping", "Queue 1 item 5 / Queue 2 K1, next slice")
+    if layout.has_csm:
+        raise _not_ported("cascaded shadow maps", "Queue 1 item 10 / Queue 2 K6")
     if layout.has_textures:
         raise _not_ported("textured shading", "Queue 1 item 7")
-    if layout.has_environment:
-        raise _not_ported("sky / IBL environments", "Queue 1 item 7")
-    if tonemap != "none":
-        raise _not_ported("tonemapping", "Queue 1 item 7")
-    if shading != ShadingModel.BLINN_PHONG:
-        raise _not_ported(f"{shading.value} shading", "Queue 1 items 7 and 13")
+    if tonemap not in TONEMAPPERS:
+        raise ValueError(f"unknown tonemap {tonemap!r}; one of {sorted(TONEMAPPERS)}")
+    if shading == ShadingModel.PBR_IBL:
+        raise _not_ported("image-based lighting (pbr_ibl shading)", "Queue 1 item 7")
+    if shading == ShadingModel.FLAT:
+        raise _not_ported("flat shading", "Queue 1 item 13")
     if pipeline.alpha_cutoff is not None:
         raise _not_ported("alpha-cutoff peeling", "Queue 1 item 12 / Queue 2 K5")
     if not supports_binned(pipeline, n_raster):
@@ -188,16 +251,22 @@ def forward_frame(
     height: int,
     clear_color: tuple[float, float, float, float] = (0.1, 0.1, 0.15, 1.0),
     tonemap: str = "none",
+    shadow_map_size: int = 1024,
+    shadow_params: ShadowParams = ShadowParams(),
+    shadow_map: torch.Tensor | None = None,
     depth_clear: float = 1.0,
     diagnostics: bool = False,
     return_ids: bool = False,
 ):
     """The full frame (≙ passes.py:1442, fused branch). Returns linear
-    [H,W,4] ready for sRGB encode. return_ids=True appends the [H,W]
-    int32 winner SOURCE triangle ids (-1 = miss); diagnostics=True then
-    appends a dict of device scalars: clip_overflow (near-clip secondary
-    halves beyond the compaction cap, dropped), bin_overflow ([big, huge]
-    triangles beyond the binning caps, dropped) and covered_pixels."""
+    [H,W,4] ready for sRGB encode. shadow_map may be rendered by the caller
+    (the Renderer keeps it across frames whose shadow inputs did not
+    change); otherwise a scene with a shadow matrix renders it here.
+    return_ids=True appends the [H,W] int32 winner SOURCE triangle ids
+    (-1 = miss); diagnostics=True then appends a dict of device scalars:
+    clip_overflow (near-clip secondary halves beyond the compaction cap,
+    dropped), bin_overflow ([big, huge] triangles beyond the binning caps,
+    dropped) and covered_pixels."""
     t_prim = layout.num_triangles
     n_raster = (
         t_prim + min(max(128, t_prim // CLIP_COMPACT_DEN), t_prim)
@@ -206,6 +275,9 @@ def forward_frame(
     _check_fused_path(layout, pipeline, shading, tonemap, n_raster)
     # record_function spans name the frame's stages in torch.profiler traces
     # (profile_torch_frame.py); they cost ~1 us each when no profiler runs
+    if shadow_map is None and layout.has_shadow:
+        with record_function("frame/shadow"):
+            shadow_map = shadow_map_pass(scene, layout, shadow_map_size)
     with record_function("frame/geometry"):
         geo = frame_geometry(scene, layout, pipeline, width, height)
     with record_function("frame/bin_table"):
@@ -230,9 +302,19 @@ def forward_frame(
             mat_id_img = torch.where(hit, varying[..., -1].to(torch.int32), 0)
             tri_id = torch.where(slot >= t_prim, slot - t_prim, slot)
         vis = VisibilityBuffer(tri_id=tri_id, depth=depth)
-        color = _shade_pixels(scene, varying, mat_id_img)
+        color = _shade_pixels(scene, layout, shading, varying, mat_id_img,
+                              shadow_map, shadow_params)
         bg = torch.tensor(clear_color, dtype=torch.float32, device=scene.device)
         out = torch.where(vis.covered[..., None], color, bg)
+    if layout.has_environment or tonemap != "none":
+        with record_function("frame/sky_tonemap"):
+            if layout.has_environment:
+                # outside any kernel, as in the JAX frame (passes.py:2230)
+                with record_function("frame/inv_vp"):
+                    inv_vp = torch.linalg.inv(scene.camera.view_projection)
+                out = skybox_pass(out, vis.depth, inv_vp, scene.environment.skybox_mips[0])
+            if tonemap != "none":
+                out = apply_tonemap(out, tonemap)
     outs = (out, vis.tri_id) if return_ids else (out,)
     if diagnostics:
         outs += ({
@@ -243,42 +325,107 @@ def forward_frame(
     return outs if len(outs) > 1 else out
 
 
-def _shade_pixels(scene: GpuScene, varying: torch.Tensor, mat_id_img: torch.Tensor):
-    """The untextured Blinn-Phong fragment stage (passes.py:452-560,
-    779-784, 970-992; ≙ pixel/model_full.hlsl): sun + masked point/spot
-    loops + ambient + emissive. Material parameters come from the exact
-    gather bank[mat_id] (the JAX one-hot HIGHEST matmul computes the same
-    values). No shadow map on this path, so the sun term is unshadowed.
-    Returns linear [H,W,4]; misses hold garbage (the caller composites)."""
+def _shadow_term(scene: GpuScene, world_pos, normal, sun_dir, shadow_map,
+                 shadow_params: ShadowParams) -> torch.Tensor:
+    """The sun's lit factor [H,W,1] with the JAX frame's default rate
+    ladder (passes.py:903-966): frames of >= 256 rows evaluate the PCF stack
+    on every 4th row and upsample linearly in y, 128-255 rows on every 2nd,
+    smaller frames per pixel."""
+    rows = world_pos.shape[0]
+    stride = 4 if rows >= 256 else 2 if rows >= 128 else 1
+    wp = world_pos[::stride]
+    lit = calculate_shadow(
+        shadow_map, scene.light_space_matrix, wp, normal[::stride],
+        sun_dir.expand(wp.shape), shadow_params,
+    )
+    if stride == 4:
+        lit = upsample4x_y(lit, rows)
+    elif stride == 2:
+        lit = upsample2x_y(lit, rows)
+    return lit[..., None]
+
+
+def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
+                  varying: torch.Tensor, mat_id_img: torch.Tensor,
+                  shadow_map: torch.Tensor | None = None,
+                  shadow_params: ShadowParams = ShadowParams()):
+    """The untextured fragment stage (passes.py:452-560, 779-1032,
+    1308-1313): Blinn-Phong (≙ pixel/model_full.hlsl) or Cook-Torrance PBR
+    with the hemisphere ambient (≙ pixel/model_pbr.hlsl), each with the
+    shadowed sun, the masked point/spot loops, ambient and emissive.
+    Material parameters come from the exact gather bank[mat_id] (the JAX
+    one-hot HIGHEST matmul computes the same values). Returns linear
+    [H,W,4]; misses hold garbage (the caller composites)."""
     world_pos = varying[..., 0:3]
     normal = normalize(varying[..., 3:6])
     mat_px = _material_bank(scene.materials)[mat_id_img.long()]  # [H,W,11]
     base_color = mat_px[..., 0:4]
+    metallic = mat_px[..., 4]
     roughness = mat_px[..., 5]
     ao = mat_px[..., 6]
     emissive = mat_px[..., 7:10]
     albedo = base_color[..., :3]
     view_dir = normalize(scene.camera.camera_position - world_pos)
     lights = scene.lights
-    lo = bp.directional_light(
-        lights.sun_direction, lights.sun_color, lights.sun_intensity,
-        normal, view_dir, albedo, roughness,
-    )
-    for i in range(lights.point_position.shape[0]):
-        mask = (i < lights.num_point).to(torch.float32)
-        lo = lo + mask * bp.point_light(
-            lights.point_position[i], lights.point_radius[i],
-            lights.point_color[i], lights.point_intensity[i],
-            world_pos, normal, view_dir, albedo, roughness,
+    sun_dir = normalize(-lights.sun_direction)  # surface -> light
+    if layout.has_shadow and shadow_map is not None:
+        shadow = _shadow_term(scene, world_pos, normal, sun_dir, shadow_map, shadow_params)
+    else:
+        shadow = 1.0
+
+    if shading == ShadingModel.BLINN_PHONG:
+        lo = shadow * bp.directional_light(
+            lights.sun_direction, lights.sun_color, lights.sun_intensity,
+            normal, view_dir, albedo, roughness,
         )
-    for i in range(lights.spot_position.shape[0]):
-        mask = (i < lights.num_spot).to(torch.float32)
-        lo = lo + mask * bp.spot_light(
-            lights.spot_position[i], lights.spot_direction[i],
-            lights.spot_color[i], lights.spot_intensity[i],
-            lights.spot_inner[i], lights.spot_outer[i],
-            world_pos, normal, view_dir, albedo, roughness,
+        for i in range(lights.point_position.shape[0]):
+            mask = (i < lights.num_point).to(torch.float32)
+            lo = lo + mask * bp.point_light(
+                lights.point_position[i], lights.point_radius[i],
+                lights.point_color[i], lights.point_intensity[i],
+                world_pos, normal, view_dir, albedo, roughness,
+            )
+        for i in range(lights.spot_position.shape[0]):
+            mask = (i < lights.num_spot).to(torch.float32)
+            lo = lo + mask * bp.spot_light(
+                lights.spot_position[i], lights.spot_direction[i],
+                lights.spot_color[i], lights.spot_intensity[i],
+                lights.spot_inner[i], lights.spot_outer[i],
+                world_pos, normal, view_dir, albedo, roughness,
+            )
+        ambient = scene.scene_ubo.ambient_color * albedo * ao[..., None]
+    else:
+        # Cook-Torrance direct (pixel/model_pbr.hlsl:278-345)
+        mat = pbr_ops.PBRMaterialParams(
+            albedo=albedo, metallic=metallic,
+            roughness=pbr_ops.clamp_roughness(roughness), ao=ao, emissive=emissive,
         )
-    ambient = scene.scene_ubo.ambient_color * albedo * ao[..., None]
+        lo = shadow * pbr_ops.pbr_direct(
+            normal, view_dir, sun_dir.expand(world_pos.shape),
+            lights.sun_color * lights.sun_intensity, mat,
+        )
+
+        def punctual(position):
+            lvec = position - world_pos
+            dist = torch.sqrt(torch.clamp(torch.sum(lvec * lvec, -1, keepdim=True), min=1e-12))
+            return lvec / dist, dist[..., 0]
+
+        for i in range(lights.point_position.shape[0]):
+            mask = (i < lights.num_point).to(torch.float32)
+            ldir, dist = punctual(lights.point_position[i])
+            att = bp.calculate_attenuation(dist, lights.point_radius[i])
+            radiance = lights.point_color[i] * lights.point_intensity[i] * att[..., None]
+            lo = lo + mask * pbr_ops.pbr_direct(normal, view_dir, ldir, radiance, mat)
+        for i in range(lights.spot_position.shape[0]):
+            mask = (i < lights.num_spot).to(torch.float32)
+            ldir, dist = punctual(lights.spot_position[i])
+            att = bp.calculate_attenuation(dist, 50.0) * bp.calculate_spot_attenuation(
+                ldir, normalize(lights.spot_direction[i]),
+                lights.spot_inner[i], lights.spot_outer[i],
+            )
+            radiance = lights.spot_color[i] * lights.spot_intensity[i] * att[..., None]
+            lo = lo + mask * pbr_ops.pbr_direct(normal, view_dir, ldir, radiance, mat)
+        # hemisphere ambient (model_pbr.hlsl ambient, pbr.hlsli:480-490)
+        ambient = pbr_ops.hemisphere_ambient(normal, albedo, ao)
     rgb = ambient + lo + emissive
     return torch.cat([rgb, base_color[..., 3:4]], dim=-1)

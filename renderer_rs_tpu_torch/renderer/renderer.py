@@ -3,12 +3,18 @@ crates/renderer/src/renderer.rs).
 
 The per-frame hot path (renderer.rs:367-449) is eager:
 
-    render_frame(): forward_frame enqueued on the stream -> FrameManager
-                    (2 frames in flight, CUDA events) -> sRGB encode on the
-                    device -> uint8 readback
+    render_frame(): [shadow pass, when its inputs changed] -> forward_frame
+                    enqueued on the stream -> FrameManager (2 frames in
+                    flight, CUDA events) -> sRGB encode on the device ->
+                    uint8 readback
 
-Swapchain, resize, validation, shadow passes and descriptor layouts wait
-for ROADMAP Queue 1 item 14.
+The shadow pass is its own step (≙ the JAX Renderer's separate shadow jit):
+its map is kept across frames and re-rendered only when the geometry, the
+object transforms or the light matrix are new tensors, so camera-only
+frames of a static scene reuse it.
+
+Swapchain, resize, validation and descriptor layouts wait for ROADMAP
+Queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ from torch.profiler import record_function
 from renderer_rs_tpu_torch.core.config import RendererConfig
 from renderer_rs_tpu_torch.core.device import resolve_device
 from renderer_rs_tpu_torch.renderer.frame_manager import FrameManager
-from renderer_rs_tpu_torch.renderer.passes import ShadingModel, forward_frame
+from renderer_rs_tpu_torch.ops.shadow import ShadowParams
+from renderer_rs_tpu_torch.renderer.passes import ShadingModel, forward_frame, shadow_map_pass
 from renderer_rs_tpu_torch.renderer.scene_build import GpuScene, SceneLayout
 from renderer_rs_tpu_torch.resources.ubo import CameraUbo
 from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipeline, GraphicsPipelineBuilder
@@ -44,6 +51,8 @@ class Renderer:
         shading: ShadingModel = ShadingModel.BLINN_PHONG,
         clear_color: tuple = DEFAULT_CLEAR,
         tonemap: str = "none",
+        shadow_map_size: int = 1024,
+        shadow_params: ShadowParams = ShadowParams(),
         camera=None,
         device="cuda",
     ) -> None:
@@ -53,6 +62,9 @@ class Renderer:
         self.shading = shading
         self.clear_color = tuple(clear_color)
         self.tonemap = tonemap
+        self.shadow_map_size = shadow_map_size
+        self.shadow_params = shadow_params
+        self._shadow_cache = None  # (shadow-input tensors, shadow map)
         self.depth_clear = 1.0  # ≙ the DepthBuffer's clear value
         # host-side Camera the app's controllers mutate; update_camera()
         # refreshes the UBO from it
@@ -68,6 +80,8 @@ class Renderer:
         """Bind the scene (it must live on the renderer's device)."""
         if scene.device.type != self.device.type:
             raise ValueError(f"scene is on {scene.device}, renderer on {self.device}")
+        if layout != self._layout:
+            self._shadow_cache = None
         self._scene = scene
         self._layout = layout
 
@@ -82,12 +96,30 @@ class Renderer:
         """Swap dynamic scene state (same layout)."""
         self._scene = scene
 
-    def _run_frame(self, scene: GpuScene) -> torch.Tensor:
+    def _shadow_map(self, scene: GpuScene) -> torch.Tensor | None:
+        """The sun's shadow map for `scene` (renderer.py:338-366). The cache
+        key holds the tensors the shadow pass reads (geometry, transforms,
+        light matrix) and compares them with `is`: holding the references
+        keeps a freed tensor's identity from being reused. Camera, material
+        and light-color updates leave the map as it is."""
+        if not self._layout.has_shadow:
+            return None
+        key = (scene.positions, scene.tris, scene.models, scene.light_space_matrix)
+        cache = self._shadow_cache
+        if cache is None or not all(a is b for a, b in zip(cache[0], key)):
+            with record_function("frame/shadow"):
+                cache = (key, shadow_map_pass(scene, self._layout, self.shadow_map_size))
+            self._shadow_cache = cache
+        return cache[1]
+
+    def _run_frame(self, scene: GpuScene, **extra):
         return forward_frame(
             scene, self._layout, self.pipeline, self.shading,
             self.config.width, self.config.height,
             clear_color=self.clear_color, tonemap=self.tonemap,
-            depth_clear=self.depth_clear,
+            shadow_map_size=self.shadow_map_size, shadow_params=self.shadow_params,
+            shadow_map=self._shadow_map(scene),
+            depth_clear=self.depth_clear, **extra,
         )
 
     def render_frame(self, present: bool = True) -> np.ndarray | None:
@@ -121,12 +153,7 @@ class Renderer:
         covered_pixels."""
         if self._scene is None or self._layout is None:
             raise RuntimeError("no scene bound — call set_scene first")
-        _, diag = forward_frame(
-            self._scene, self._layout, self.pipeline, self.shading,
-            self.config.width, self.config.height,
-            clear_color=self.clear_color, tonemap=self.tonemap,
-            depth_clear=self.depth_clear, diagnostics=True,
-        )
+        _, diag = self._run_frame(self._scene, diagnostics=True)
         big, huge = (int(v) for v in diag["bin_overflow"].tolist())
         out = {
             "clip_overflow": int(diag["clip_overflow"]),

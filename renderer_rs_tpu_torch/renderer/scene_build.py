@@ -4,9 +4,9 @@ assembly of the device scene.
 All meshes are concatenated into single SoA vertex/index tensors at build
 time, with a static `SceneLayout` (per-object vertex ranges, which the
 vertex stage loops over) and per-triangle material ids resolved at shading
-time. This slice builds the untextured, no-environment, no-shadow subset;
-textures, IBL environments and shadow matrices wait for the next slices
-(ROADMAP Queue 1)."""
+time. Built so far: untextured scenes with an optional sun shadow matrix
+and a skybox-only environment; textures, the IBL maps of an environment
+and cascaded shadow matrices wait for the next slices (ROADMAP Queue 1)."""
 
 from __future__ import annotations
 
@@ -21,6 +21,19 @@ from renderer_rs_tpu_torch.resources.model import Mesh
 from renderer_rs_tpu_torch.resources.ubo import CameraUbo, SceneUbo
 from renderer_rs_tpu_torch.scene.light import LightBank
 from renderer_rs_tpu_torch.scene.transform import Transform
+
+
+@dataclasses.dataclass
+class Environment:
+    """Skybox maps (≙ Environment, scene_build.py:62). skybox_mips is a
+    tuple of [6,H,W,C] cubemap levels; the frame samples level 0. The IBL
+    fields of the JAX class (irradiance, prefiltered chain, BRDF LUT, SH9,
+    atlases) wait for ROADMAP Queue 1 item 7."""
+
+    skybox_mips: tuple
+
+    def to(self, device) -> "Environment":
+        return Environment(skybox_mips=tuple(m.to(device) for m in self.skybox_mips))
 
 
 @dataclasses.dataclass
@@ -40,6 +53,9 @@ class GpuScene:
     lights: LightBank
     camera: CameraUbo
     scene_ubo: SceneUbo
+    # optional features (None = feature off; the layout carries the flags)
+    environment: Environment | None = None
+    light_space_matrix: torch.Tensor | None = None  # [4,4] sun shadow matrix
 
     @property
     def device(self) -> torch.device:
@@ -81,6 +97,8 @@ class SceneBuilder:
         self._lights: LightBank | None = None
         self._camera: CameraUbo | None = None
         self._scene_ubo: SceneUbo | None = None
+        self._environment: Environment | None = None
+        self._light_space_matrix: torch.Tensor | None = None
 
     def add_mesh(self, mesh: Mesh, transform: Transform | None = None,
                  material: Material | int | None = None) -> "SceneBuilder":
@@ -102,6 +120,16 @@ class SceneBuilder:
 
     def set_scene_ubo(self, ubo: SceneUbo) -> "SceneBuilder":
         self._scene_ubo = ubo
+        return self
+
+    def set_environment(self, env: Environment) -> "SceneBuilder":
+        """Attach the skybox environment."""
+        self._environment = env
+        return self
+
+    def set_shadow_matrix(self, light_space_matrix) -> "SceneBuilder":
+        """The sun's light-space view-projection; turns the shadow pass on."""
+        self._light_space_matrix = torch.as_tensor(light_space_matrix, dtype=torch.float32)
         return self
 
     def build(self, device="cuda") -> tuple[GpuScene, SceneLayout]:
@@ -150,6 +178,10 @@ class SceneBuilder:
                 or CameraUbo.create(torch.eye(4), torch.eye(4), torch.zeros(3))
             ).to(dev),
             scene_ubo=(self._scene_ubo or SceneUbo.create()).to(dev),
+            environment=None if self._environment is None else self._environment.to(dev),
+            light_space_matrix=(
+                None if self._light_space_matrix is None else self._light_space_matrix.to(dev)
+            ),
         )
         # static per-column constants of the material bank (host-side, exact
         # float compare; order of renderer/passes._material_bank)
@@ -171,5 +203,7 @@ class SceneBuilder:
             num_vertices=v_off,
             num_triangles=t_off,
             material_constants=mat_consts,
+            has_environment=self._environment is not None,
+            has_shadow=self._light_space_matrix is not None,
         )
         return scene, layout

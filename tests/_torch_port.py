@@ -9,7 +9,8 @@ import numpy as np
 
 def flatten_jax_scene(scene, layout):
     """(fields, layout_fields) of a JAX GpuScene/SceneLayout as numpy arrays
-    and Python values (the untextured, no-environment subset)."""
+    and Python values (the untextured subset; of an environment only the
+    skybox levels, which is what the port's frames read)."""
 
     def group(obj):
         return {f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
@@ -21,6 +22,12 @@ def flatten_jax_scene(scene, layout):
     }
     for k in ("materials", "lights", "camera", "scene_ubo"):
         fields[k] = group(getattr(scene, k))
+    lsm = getattr(scene, "light_space_matrix", None)
+    fields["light_space_matrix"] = None if lsm is None else np.asarray(lsm)
+    env = getattr(scene, "environment", None)
+    fields["environment"] = (
+        None if env is None else {"skybox_mips": tuple(np.asarray(m) for m in env.skybox_mips)}
+    )
     layout_fields = {f.name: getattr(layout, f.name) for f in dataclasses.fields(layout)}
     return fields, layout_fields
 
@@ -55,3 +62,31 @@ def interpret_pallas(monkeypatch):
 
     monkeypatch.setattr(rp.pl, "pallas_call", interp)
     monkeypatch.setattr(passes, "_use_pallas", lambda: True)
+
+
+def port_renderer_kwargs(jax_kwargs):
+    """A JAX scene factory's renderer kwargs as the port's Renderer takes
+    them: shading and shadow parameters rebuilt by value, tonemap and
+    shadow map size passed through, and the default pipeline (which every
+    demo scene uses; checked by value)."""
+    import dataclasses as dc
+    import enum
+
+    from renderer_rs_tpu_torch.ops.shadow import ShadowParams
+    from renderer_rs_tpu_torch.renderer.passes import ShadingModel
+    from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipelineBuilder
+
+    def plain(x):
+        if isinstance(x, dict):
+            return {k: plain(v) for k, v in x.items()}
+        return x.value if isinstance(x, enum.Enum) else x
+
+    pipeline = GraphicsPipelineBuilder().build()
+    assert plain(dc.asdict(jax_kwargs["pipeline"])) == plain(dc.asdict(pipeline))
+    out = {"pipeline": pipeline, "shading": ShadingModel(jax_kwargs["shading"].value)}
+    if "shadow_params" in jax_kwargs:
+        out["shadow_params"] = ShadowParams(**dc.asdict(jax_kwargs["shadow_params"]))
+    for key in ("tonemap", "shadow_map_size"):
+        if key in jax_kwargs:
+            out[key] = jax_kwargs[key]
+    return out

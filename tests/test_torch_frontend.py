@@ -136,3 +136,70 @@ def test_coef_table_matches(case, bp_scene):
         _base_coef_table(ps, torch.from_numpy(ids)).numpy(),
         np.asarray(jax_table(js, jnp.asarray(ids))), "table",
     )
+
+
+@pytest.mark.parametrize("case", ["blinnphong", "near_cross", "depth_bias"])
+def test_setup_planes_matches(case, bp_scene):
+    """The plane-form setup of the shadow pass is bit-equal to the port's
+    setup_triangles on the stacked vertices and to JAX's
+    setup_triangles_planes, with and without depth bias."""
+    import jax.numpy as jnp
+
+    from renderer_rs_tpu.ops.raster import setup_triangles_planes as jax_planes
+    from renderer_rs_tpu.rhi.pipeline import CullMode as JCull
+    from renderer_rs_tpu.rhi.pipeline import GraphicsPipelineBuilder as JBuilder
+    from renderer_rs_tpu_torch.ops.raster import (
+        gather_triangle_planes,
+        setup_triangles,
+        setup_triangles_planes,
+    )
+    from renderer_rs_tpu_torch.rhi.pipeline import CullMode, GraphicsPipelineBuilder
+
+    tri_clip, w, h = _clip_inputs(case, bp_scene)
+
+    def pipe(builder, cull):
+        builder = builder.cull_mode(cull.BACK)
+        if case == "depth_bias":
+            builder = builder.depth_bias(1.25, 1.75, clamp=0.01)
+        return builder.build()
+
+    t = tri_clip.shape[0]
+    clip = torch.from_numpy(tri_clip.reshape(t * 3, 4))
+    tris = torch.arange(t * 3).reshape(t, 3)
+    verts = gather_triangle_planes(clip, tris)
+    got = setup_triangles_planes(verts, w, h, pipe(GraphicsPipelineBuilder(), CullMode))
+    stacked = setup_triangles(clip[tris], w, h, pipe(GraphicsPipelineBuilder(), CullMode))
+    want = jax_planes(
+        tuple(jnp.asarray(v.numpy()) for v in verts), w, h, pipe(JBuilder(), JCull)
+    )
+    assert 0 < int(got.valid.sum()) < t
+    for name in ("xy", "z", "w", "area2", "valid"):
+        _bits_equal(getattr(got, name).numpy(), getattr(stacked, name).numpy(), name)
+        _bits_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)), name)
+
+
+def test_shadow_vertex_stage_matches(bp_scene):
+    """Light-space positions in the per-object pre-composed form
+    (lsm @ model, then positions): within two f32 ulps of the magnitude of
+    the four products of each entry. XLA's and PyTorch's CPU matmuls sum
+    (or fuse) the products in another order, which can move a 4-term sum by
+    up to 3 such ulps; measured here: at most 1.71."""
+    import jax.numpy as jnp
+
+    from renderer_rs_tpu.ops.shadow import directional_light_matrix as jax_dlm
+    from renderer_rs_tpu.renderer.passes import shadow_vertex_stage as jax_svs
+    from renderer_rs_tpu_torch.renderer.passes import shadow_vertex_stage
+
+    js, jl, ps, pl = bp_scene
+    lsm = jax_dlm(jnp.asarray([-0.4, -1.0, -0.2], jnp.float32), jnp.zeros(3), 2.0)
+    lsm_t = torch.from_numpy(np.array(lsm))
+    want = np.asarray(jax_svs(js.replace(light_space_matrix=lsm), jl))
+    got = shadow_vertex_stage(ps.replace(light_space_matrix=lsm_t), pl)
+    assert got.shape == (pl.num_vertices, 4)
+    homo = torch.cat([ps.positions, torch.ones_like(ps.positions[:, :1])], dim=-1)
+    mag = torch.zeros_like(got)
+    for o, (v0, nv, _, _) in enumerate(pl.object_ranges):
+        mag[v0:v0 + nv] = homo[v0:v0 + nv].abs() @ (lsm_t.abs() @ ps.models[o].abs()).T
+    err = np.abs(got.numpy() - want)
+    bound = 2.0 * 2.0**-23 * mag.numpy()
+    assert (err <= bound).all(), float((err / np.maximum(bound, 1e-30)).max())

@@ -52,9 +52,19 @@ def test_sources_import_no_jax():
         assert not pattern.search(path.read_text()), f"{path} imports JAX or the JAX package"
 
 
+def test_sources_read_no_renderer_variable():
+    """The JAX package's RENDERER_* knobs are not carried over: the port
+    implements their defaults and reads no such environment variable."""
+    names = {p.name for p in PKG.rglob("*.py")}
+    assert {"shadow.py", "pbr.py", "sampling.py", "skybox.py", "tonemap.py", "ibl.py"} <= names
+    for path in list(PKG.rglob("*.py")) + list(PKG.rglob("*.cu")):
+        found = re.search(r"os\.environ|getenv|RENDERER_[A-Z]", path.read_text())
+        assert not found, f"{path} reads or names an environment knob: {found.group(0)}"
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from renderer_rs_tpu_torch.app.main import main
-    from renderer_rs_tpu_torch.app.scenes import blinnphong_scene
+    from renderer_rs_tpu_torch.app.scenes import blinnphong_scene, full_scene, gltf_pbr_scene
     from renderer_rs_tpu_torch.renderer.renderer import Renderer
     from renderer_rs_tpu_torch.renderer.scene_build import SceneBuilder
     from renderer_rs_tpu_torch.utils.meshgen import plane_mesh
@@ -66,6 +76,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         SceneBuilder().add_mesh(plane_mesh()).build()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         blinnphong_scene(32, 32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        full_scene(32, 32, tri_budget=600, ibl=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gltf_pbr_scene(32, 32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--scene", "full", "--no-ibl", "--frames", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--frames", "1"])
     # the explicit CPU request works
