@@ -9,32 +9,43 @@ Phases (any failure exits nonzero before the result lines):
   2. Build every CUDA kernel of the port with nvcc for sm_90a (one nvcc
      per source, started together), printing the build seconds.
   3. Each kernel beside its plain PyTorch version on the real inputs of the
-     two flagship frames:
+     flagship frames:
        - blinnphong_scene(1920, 1080, rings=160, sectors=320), T = 102,402:
          K2 (raster_resolve) on its vertex stage, near clip, setup, binning
          and table build;
        - full_scene(1920, 1080, tri_budget=100_000, ibl=False), T = 97,346:
-         K1 (raster_depth) on the 1024x1024 sun shadow pass, and K2 on the
-         forward pass.
-     K1's depth must be bit-equal; K2 must give bit-equal tid/depth and
-     lanes within rtol 1e-5 / atol 1e-6. Prints binned pairs, densest bin,
-     kernel ms (median of >= 20 CUDA-event timings after warm-up), plain ms
-     and the kernel's roofline bound.
+         K1 (raster_depth) on the 1024x1024 sun shadow pass, K2 on the
+         forward pass, and K4 (raster_ids) on the 3840x2160 sample pass of
+         MSAA 4x;
+       - the same scene with csm=True: K6, the four 1024x1024 cascades in
+         one raster_depth launch (N = 4), also against four N = 1 launches.
+     K1's and K6's depth must be bit-equal; K2 must give bit-equal
+     tid/depth and lanes within rtol 1e-5 / atol 1e-6; K4 bit-equal tid and
+     depth. Prints binned pairs, densest bin, bin overflow, kernel ms
+     (median of >= 20 CUDA-event timings after warm-up), plain ms and the
+     kernel's roofline bound.
   4. The main paths through Renderer.render_frame at 1920x1080 on cuda,
      every launch counter set to 0 just before each and read just after:
-       - the Blinn-Phong frame: one K2 launch per frame, no K1;
+       - the Blinn-Phong frame: one K2 launch per frame, nothing else;
        - the PBR frame, loop A, static scene: one K2 launch per frame and
          one K1 launch in all (the shadow map is kept while its inputs do
          not change);
        - the PBR frame, loop B, moving sun (a new direction and light
-         matrix each frame): one K1 and one K2 launch per frame.
+         matrix each frame): one K1 and one K2 launch per frame;
+       - the CSM frame, static scene: one K2 launch per frame and ONE K6
+         launch in all (never four single launches);
+       - the CSM frame with the cascades refitted to a moving sun every
+         frame: one K6 and one K2 launch per frame;
+       - the PBR frame with MSAA 4x (shade-once resolve): one K2 and one K4
+         launch per frame, one K1 launch in all.
      The frames must be finite with covered pixels; the clip and bin
      overflow counters are printed.
   5. Correctness on small inputs by the repo's own means, on the card: the
      160x120 Blinn-Phong and gltf-pbr frames against tests/goldens/*.png
      with tests/test_golden.py's bar, and full_scene(160, 120,
-     tri_budget=2000, ibl=False) on cuda against the same frame of the port
-     on the cpu (PCF, sky and ACES included).
+     tri_budget=2000, ibl=False) single-map, with csm=True and with MSAA 4x
+     on cuda against the same frames of the port on the cpu (PCF, sky and
+     ACES included).
 Then a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the JAX package.
 """
@@ -57,14 +68,28 @@ OPS_PER_PAIR = 3 * 6 + 4 + 5 + 2 + 1
 # K1's walk: the same edges, barycentrics and depth, then 1 compare for the
 # one-sided z bound and 1 min
 DEPTH_OPS_PER_PAIR = 3 * 6 + 4 + 5 + 1 + 1
+# K4's walk is K2's (the payload id takes the place of the winner row)
+IDS_OPS_PER_PAIR = OPS_PER_PAIR
 BIN_PIXELS = 16 * 128
 W, H = 1920, 1080
+MSAA = 4  # samples: a 2x2 ordered grid, 3840x2160 sample points
+SX, SY = 2, 2
 BLINNPHONG = dict(rings=160, sectors=320)
 FULL = dict(tri_budget=100_000, ibl=False)
 SMALL_FULL = dict(tri_budget=2000, ibl=False)
 BP_FRAMES = 5
 PBR_FRAMES = 7
+CSM_FRAMES = 5
+MSAA_FRAMES = 5
 KERNEL_TIMINGS = 25
+SUN = (-0.45, -1.0, -0.35)  # full_scene's sun
+
+
+def _moved_sun(i: int) -> tuple:
+    """The scene's sun turned about the vertical by 0.15 rad per step."""
+    a = 0.15 * (i + 1)
+    return (SUN[0] * math.cos(a) - SUN[2] * math.sin(a), SUN[1],
+            SUN[2] * math.cos(a) + SUN[0] * math.sin(a))
 
 
 def _log(msg: str) -> None:
@@ -251,6 +276,139 @@ def _check_depth(scene, layout, size: int) -> dict:
     }
 
 
+def _check_ids(scene, layout, pipeline) -> dict:
+    """K4 beside its plain version on the MSAA 4x sample pass of one frame."""
+    import torch
+
+    from renderer_rs_tpu_torch.ops.raster_cuda import prepare_ids, raster_ids, raster_ids_plain
+    from renderer_rs_tpu_torch.renderer.passes import frame_geometry
+
+    hs, ws = H * SY, W * SX
+    geo = frame_geometry(scene, layout, pipeline, W, H).at_extent(pipeline, ws, hs)
+    t = layout.num_triangles
+    k4 = prepare_ids(geo.setup, hs, ws, geo.clip_src, small_limit=t, id_bound=t)
+    args = (k4.table, k4.sorted_tris, k4.seg, k4.nbx, hs, ws, pipeline.depth_compare_op)
+    n_pairs = int(k4.n_pairs)
+    densest = int((k4.seg[1:] - k4.seg[:-1]).max())
+    big, huge = (int(v) for v in k4.bin_overflow.tolist())
+    _log(f"msaa{MSAA} sample pass {ws}x{hs}: T={t} raster slots={geo.setup.num_triangles} "
+         f"bins={k4.seg.numel() - 1} binned pairs={n_pairs} densest bin={densest} "
+         f"bin_overflow big {big} huge {huge} table={tuple(k4.table.shape)}")
+
+    depth, tid = raster_ids(*args)
+    torch.cuda.synchronize()
+    depth_p, tid_p = raster_ids_plain(*args)
+    torch.cuda.synchronize()
+    tid_equal = bool(torch.equal(tid, tid_p))
+    depth_equal = bool(torch.equal(depth.view(torch.int32), depth_p.view(torch.int32)))
+    max_abs_err = float((depth - depth_p).abs().max())
+    covered = int((tid >= 0).sum())
+    in_range = bool((tid < t).all())
+    _log(f"raster_ids vs plain: tid equal {tid_equal}, depth bit-equal {depth_equal}, "
+         f"max |err| {max_abs_err:.3e}, covered samples {covered}, ids below T {in_range}")
+    # bin_overflow is printed, not held to 0: the binning's class caps are
+    # the reference's own (max(1024, T/96) big triangles), and at the sample
+    # extent more triangles span three bins than the cap keeps
+    if not (tid_equal and depth_equal and in_range and covered > 0):
+        raise SystemExit("phase kernels: raster_ids disagrees with its plain version")
+    del depth_p, tid_p
+
+    ms = _median(_event_times_ms(lambda: raster_ids(*args), KERNEL_TIMINGS))
+    plain_ms = _median(_event_times_ms(lambda: raster_ids_plain(*args), 3, warmup=1))
+    ops = n_pairs * BIN_PIXELS * IDS_OPS_PER_PAIR
+    nbytes = k4.table.numel() * 4 + n_pairs * 4 + k4.seg.numel() * 4 + hs * ws * (4 + 4)
+    bound_ms, bound_by = _bound(ops, nbytes)
+    _log(f"raster_ids: {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, "
+         f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
+    return {
+        "name": "raster_ids",
+        "route": "cuda",
+        "source": "renderer_rs_tpu_torch/csrc/raster_ids.cu",
+        "replaces": "renderer_rs_tpu/ops/raster_pallas.py:397",
+        "max_abs_err": max_abs_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes this function
+    }
+
+
+def _check_depth_batch(scene, layout, size: int) -> dict:
+    """K6: the four cascades in ONE raster_depth launch, beside the plain
+    version and beside four single launches, on the cascade pass's inputs
+    as the Renderer's shadow step builds them."""
+    import torch
+
+    from renderer_rs_tpu_torch.ops.raster_cuda import (
+        prepare_depth,
+        raster_depth,
+        raster_depth_plain,
+    )
+    from renderer_rs_tpu_torch.renderer.passes import (
+        _SHADOW_PIPELINE,
+        _shadow_setup,
+        shadow_vertex_stage,
+    )
+
+    op = _SHADOW_PIPELINE.depth_compare_op
+    setups = [
+        _shadow_setup(shadow_vertex_stage(scene, layout, m), scene.tris, size)
+        for m in scene.csm_matrices
+    ]
+    k6 = prepare_depth(setups, size, size)
+    args = (k6.table, k6.sorted_tris, k6.seg, k6.nbx, size, size, op)
+    n_pairs = int(k6.n_pairs)
+    per_set = (k6.seg[:, -1] - k6.seg[:, 0]).tolist()
+    densest = (k6.seg[:, 1:] - k6.seg[:, :-1]).amax(1).tolist()
+    overflow = k6.bin_overflow.tolist()
+    _log(f"cascade pass 4 x {size}x{size}: T={layout.num_triangles} "
+         f"valid={[int(s.valid.sum()) for s in setups]} bins={k6.seg.shape[1] - 1} per set, "
+         f"binned pairs={n_pairs} (per cascade {per_set}) densest bin per cascade {densest} "
+         f"bin_overflow [big, huge] per cascade {overflow} table={tuple(k6.table.shape)}")
+
+    before = raster_depth.batched_launches
+    depth = raster_depth(*args)
+    torch.cuda.synchronize()
+    if raster_depth.batched_launches != before + 1:
+        raise SystemExit("phase kernels: the N = 4 launch was not counted as batched")
+    depth_p = raster_depth_plain(*args)
+    singles = []
+    for setup in setups:
+        k1 = prepare_depth([setup], size, size)
+        singles.append(raster_depth(k1.table, k1.sorted_tris, k1.seg, k1.nbx, size, size, op)[0])
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(depth.view(torch.int32), depth_p.view(torch.int32)))
+    equal_singles = bool(torch.equal(depth.view(torch.int32),
+                                     torch.stack(singles).view(torch.int32)))
+    max_abs_err = float((depth - depth_p).abs().max())
+    covered = [int((d < 1.0).sum()) for d in depth]
+    _log(f"raster_depth N=4 vs plain: depth bit-equal {equal}; vs four N=1 launches: bit-equal "
+         f"{equal_singles}; max |err| {max_abs_err:.3e}, covered texels per cascade {covered}")
+    if not (equal and equal_singles and min(covered) > 0 and bool(torch.isfinite(depth).all())):
+        raise SystemExit("phase kernels: the batched raster_depth launch disagrees")
+
+    ms = _median(_event_times_ms(lambda: raster_depth(*args), KERNEL_TIMINGS))
+    plain_ms = _median(_event_times_ms(lambda: raster_depth_plain(*args), 3, warmup=1))
+    ops = n_pairs * BIN_PIXELS * DEPTH_OPS_PER_PAIR
+    nbytes = k6.table.numel() * 4 + n_pairs * 4 + k6.seg.numel() * 4 + 4 * size * size * 4
+    bound_ms, bound_by = _bound(ops, nbytes)
+    _log(f"raster_depth N=4: {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, "
+         f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
+    return {
+        "name": "raster_depth_batch",
+        "route": "cuda",
+        "source": "renderer_rs_tpu_torch/csrc/raster_depth.cu",
+        "replaces": "renderer_rs_tpu/ops/raster_pallas.py:646",
+        "max_abs_err": max_abs_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes this function
+    }
+
+
 def phase_kernels() -> dict:
     from renderer_rs_tpu_torch.app.scenes import blinnphong_scene, full_scene
 
@@ -259,21 +417,41 @@ def phase_kernels() -> dict:
     scene, layout, kw, _ = full_scene(W, H, device="cuda", **FULL)
     k1 = _check_depth(scene, layout, kw["shadow_map_size"])
     _check_resolve("pbr flagship", scene, layout, kw["pipeline"], timed=False)
-    return {"raster_depth": k1, "raster_resolve": k2}
+    k4 = _check_ids(scene, layout, kw["pipeline"])
+    scene, layout, kw, _ = full_scene(W, H, device="cuda", csm=True, **FULL)
+    k6 = _check_depth_batch(scene, layout, kw["shadow_map_size"])
+    return {"raster_depth": k1, "raster_resolve": k2, "raster_ids": k4,
+            "raster_depth_batch": k6}
 
 
-def _launch_counters() -> dict:
-    from renderer_rs_tpu_torch.ops.raster_cuda import raster_depth, raster_resolve
+def _zero_launch_counts() -> None:
+    from renderer_rs_tpu_torch.ops.raster_cuda import raster_depth, raster_ids, raster_resolve
 
-    return {"raster_depth": raster_depth, "raster_resolve": raster_resolve}
+    raster_depth.launches = raster_depth.batched_launches = 0
+    raster_resolve.launches = raster_ids.launches = 0
+
+
+def _launch_counts() -> dict:
+    """Launches per kernel since the last zeroing: K1 counts raster_depth's
+    single-set launches, K6 its launches with N > 1."""
+    from renderer_rs_tpu_torch.ops.raster_cuda import raster_depth, raster_ids, raster_resolve
+
+    return {
+        "raster_depth": raster_depth.launches - raster_depth.batched_launches,
+        "raster_resolve": raster_resolve.launches,
+        "raster_ids": raster_ids.launches,
+        "raster_depth_batch": raster_depth.batched_launches,
+    }
+
+
+def _counts(**kw) -> dict:
+    return {"raster_depth": 0, "raster_resolve": 0, "raster_ids": 0, "raster_depth_batch": 0, **kw}
 
 
 def _drive(label: str, renderer, frames: int, expect: dict, before_frame=None) -> dict:
     """Render `frames` frames with every launch counter zeroed just before
     and read just after; fail unless the counts are `expect`."""
-    counters = _launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    _zero_launch_counts()
     frame_ms = []
     img = None
     for i in range(frames):
@@ -282,7 +460,7 @@ def _drive(label: str, renderer, frames: int, expect: dict, before_frame=None) -
             before_frame(i)
         img = renderer.render_frame()
         frame_ms.append((time.perf_counter() - t1) * 1e3)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _launch_counts()
     _log(f"main path, {label}: {frames} frames, launches {launches}, "
          f"frame ms median {_median(frame_ms):.3f} (all {[round(x, 3) for x in frame_ms]})")
     if launches != expect:
@@ -292,7 +470,9 @@ def _drive(label: str, renderer, frames: int, expect: dict, before_frame=None) -
     return launches
 
 
-def _check_frame(label: str, renderer) -> None:
+def _check_frame(label: str, renderer):
+    """A finite frame with covered pixels (from the frame's diagnostics);
+    returns the linear frame."""
     import torch
 
     hdr = renderer.render_frame_hdr()
@@ -304,16 +484,18 @@ def _check_frame(label: str, renderer) -> None:
          f"mean rgb {[round(float(v), 4) for v in hdr[..., :3].mean((0, 1))]}")
     if not finite or diag["covered_pixels"] == 0:
         raise SystemExit(f"phase main path, {label}: frame not finite or empty")
+    return hdr
 
 
 def phase_main_paths() -> dict:
-    """Renderer.render_frame at full size on both flagship frames."""
+    """Renderer.render_frame at full size on the flagship frames."""
     import dataclasses
 
     import torch
 
     from renderer_rs_tpu_torch.app.scenes import blinnphong_scene, full_scene
     from renderer_rs_tpu_torch.core.config import RendererConfig
+    from renderer_rs_tpu_torch.ops.csm import fit_cascades
     from renderer_rs_tpu_torch.ops.shadow import directional_light_matrix
     from renderer_rs_tpu_torch.renderer.renderer import Renderer
 
@@ -330,7 +512,7 @@ def phase_main_paths() -> dict:
     for _ in range(2):  # warm-up
         renderer.render_frame()
     by_path["blinnphong"] = _drive(
-        "blinnphong", renderer, BP_FRAMES, {"raster_depth": 0, "raster_resolve": BP_FRAMES})
+        "blinnphong", renderer, BP_FRAMES, _counts(raster_resolve=BP_FRAMES))
     _check_frame("blinnphong", renderer)
 
     t0 = time.perf_counter()
@@ -344,14 +526,12 @@ def phase_main_paths() -> dict:
     renderer = make(scene, layout, kw)
     by_path["pbr_static"] = _drive(
         "pbr loop A (static scene)", renderer, PBR_FRAMES,
-        {"raster_depth": 1, "raster_resolve": PBR_FRAMES})
-    _check_frame("pbr", renderer)
+        _counts(raster_depth=1, raster_resolve=PBR_FRAMES))
+    hdr_1x = _check_frame("pbr", renderer)
 
     # loop B, moving sun: a new direction and light matrix every frame
     def move_sun(i: int) -> None:
-        a = 0.15 * (i + 1)
-        sun = (-0.45 * math.cos(a) + 0.35 * math.sin(a), -1.0,
-               -0.35 * math.cos(a) - 0.45 * math.sin(a))
+        sun = _moved_sun(i)
         cur = renderer._scene
         lights = dataclasses.replace(
             cur.lights, sun_direction=torch.tensor(sun, dtype=torch.float32, device="cuda"))
@@ -360,8 +540,61 @@ def phase_main_paths() -> dict:
 
     by_path["pbr_moving_sun"] = _drive(
         "pbr loop B (moving sun)", renderer, PBR_FRAMES,
-        {"raster_depth": PBR_FRAMES, "raster_resolve": PBR_FRAMES}, before_frame=move_sun)
+        _counts(raster_depth=PBR_FRAMES, raster_resolve=PBR_FRAMES), before_frame=move_sun)
     _check_frame("pbr, sun moved", renderer)
+
+    # MSAA 4x on the static PBR scene: the 1x frame, the ids-only sample
+    # pass on K4 and the resolve, every frame; the shadow map once
+    msaa_kw = {**kw, "pipeline": dataclasses.replace(kw["pipeline"], msaa_samples=MSAA)}
+    warm = make(scene, layout, msaa_kw)
+    for _ in range(2):
+        warm.render_frame()
+    renderer = make(scene, layout, msaa_kw)
+    by_path["pbr_msaa4"] = _drive(
+        f"pbr msaa{MSAA} (static scene)", renderer, MSAA_FRAMES,
+        _counts(raster_depth=1, raster_resolve=MSAA_FRAMES, raster_ids=MSAA_FRAMES))
+    # the MSAA frame has no diagnostics (as in the reference): it must be
+    # finite and differ from the 1x frame on edge pixels only
+    hdr = renderer.render_frame_hdr()
+    changed = float(((hdr - hdr_1x).abs().amax(-1) > 1e-5).float().mean())
+    _log(f"pbr msaa{MSAA}: frame {tuple(hdr.shape)} finite {bool(torch.isfinite(hdr).all())}, "
+         f"pixels differing from the 1x frame {changed:.4%}, max |d| "
+         f"{float((hdr - hdr_1x).abs().max()):.4f}")
+    if not (bool(torch.isfinite(hdr).all()) and 0.001 < changed < 0.2):
+        raise SystemExit("phase main path, msaa: the resolved frame is not finite, or does "
+                         "not differ from the 1x frame on edges only")
+
+    # CSM, static scene: four cascades in ONE raster_depth launch, kept
+    t0 = time.perf_counter()
+    scene, layout, kw, _ = full_scene(W, H, device="cuda", csm=True, **FULL)
+    _log(f"csm scene setup {time.perf_counter() - t0:.2f}s")
+    warm = make(scene, layout, kw)
+    for _ in range(2):
+        warm.render_frame()
+    renderer = make(scene, layout, kw)
+    by_path["csm_static"] = _drive(
+        "csm (static scene)", renderer, CSM_FRAMES,
+        _counts(raster_depth_batch=1, raster_resolve=CSM_FRAMES))
+    _check_frame("csm", renderer)
+
+    # CSM with the cascades refitted to a moving sun every frame
+    camera = kw["camera"]
+
+    def refit_cascades(i: int) -> None:
+        sun = _moved_sun(i)
+        cur = renderer._scene
+        lights = dataclasses.replace(
+            cur.lights, sun_direction=torch.tensor(sun, dtype=torch.float32, device="cuda"))
+        mats, splits = fit_cascades(camera, sun)
+        renderer.update_scene(cur.replace(
+            lights=lights, csm_matrices=torch.from_numpy(mats).to("cuda"),
+            csm_splits=torch.from_numpy(splits).to("cuda")))
+
+    by_path["csm_moving_sun"] = _drive(
+        "csm (cascades refitted every frame)", renderer, CSM_FRAMES,
+        _counts(raster_depth_batch=CSM_FRAMES, raster_resolve=CSM_FRAMES),
+        before_frame=refit_cascades)
+    _check_frame("csm, sun moved", renderer)
     return by_path
 
 
@@ -381,35 +614,44 @@ def _golden_check(name: str, got) -> None:
 
 def phase_small_reference() -> None:
     """160x120 frames on the card against the repo's golden images, and the
-    shadow-mapped PBR frame on the card against the port's frame on the CPU."""
+    shadow-mapped PBR frames (single map, cascades, MSAA 4x) on the card
+    against the port's frames on the CPU."""
+    import dataclasses
+
     import numpy as np
 
     from renderer_rs_tpu_torch.app.scenes import blinnphong_scene, full_scene, gltf_pbr_scene
     from renderer_rs_tpu_torch.core.config import RendererConfig
     from renderer_rs_tpu_torch.renderer.renderer import Renderer
 
-    def render(factory, device, hdr=False, **scene_kw):
+    def render(factory, device, hdr=False, msaa=1, **scene_kw):
         scene, layout, kw, _ = factory(160, 120, device=device, **scene_kw)
         if "shadow_map_size" in kw:
             kw["shadow_map_size"] = 256
+        kw["pipeline"] = dataclasses.replace(kw["pipeline"], msaa_samples=msaa)
         renderer = Renderer(RendererConfig(width=160, height=120), device=device, **kw)
         renderer.set_scene(scene, layout)
         return renderer.render_frame_hdr().cpu().numpy() if hdr else renderer.render_frame()
 
     _golden_check("blinnphong", render(blinnphong_scene, "cuda"))
     _golden_check("gltf-pbr", render(gltf_pbr_scene, "cuda"))
-    # cuda vs cpu on the PBR frame. The PCF compares are hard and the two
-    # devices' matmuls round apart, so single taps may flip: >= 99.5% of the
-    # values within 2e-3 + 2e-3*|ref|, and none off by more than one tap of
-    # the sun term after ACES (0.15)
-    got = render(full_scene, "cuda", hdr=True, **SMALL_FULL)
-    ref = render(full_scene, "cpu", hdr=True, **SMALL_FULL)
-    err = np.abs(got - ref)
-    off = float((err > 2e-3 + 2e-3 * np.abs(ref)).mean())
-    _log(f"full_scene(160, 120, tri_budget=2000, ibl=False) cuda vs cpu: max |d| {err.max():.3e}, "
-         f"values off the bar {off:.4%}, mean {got[..., :3].mean():.4f} vs {ref[..., :3].mean():.4f}")
-    if not (np.isfinite(got).all() and off < 0.005 and err.max() < 0.15):
-        raise SystemExit("phase small reference: the PBR frame on cuda differs from the cpu frame")
+    # cuda vs cpu on the PBR frame, with the single map, with four cascades
+    # and with MSAA 4x. The PCF compares are hard and the two devices'
+    # matmuls round apart, so single taps may flip: >= 99.5% of the values
+    # within 2e-3 + 2e-3*|ref|, and none off by more than one tap of the sun
+    # term after ACES (0.15)
+    for label, extra in (("single map", {}), ("csm", dict(csm=True)),
+                         (f"msaa{MSAA}", dict(msaa=MSAA))):
+        got = render(full_scene, "cuda", hdr=True, **SMALL_FULL, **extra)
+        ref = render(full_scene, "cpu", hdr=True, **SMALL_FULL, **extra)
+        err = np.abs(got - ref)
+        off = float((err > 2e-3 + 2e-3 * np.abs(ref)).mean())
+        _log(f"full_scene(160, 120, tri_budget=2000, ibl=False) {label}, cuda vs cpu: max |d| "
+             f"{err.max():.3e}, values off the bar {off:.4%}, mean {got[..., :3].mean():.4f} "
+             f"vs {ref[..., :3].mean():.4f}")
+        if not (np.isfinite(got).all() and off < 0.005 and err.max() < 0.15):
+            raise SystemExit(f"phase small reference: the PBR frame ({label}) on cuda differs "
+                             "from the cpu frame")
 
 
 def main() -> int:

@@ -2,6 +2,7 @@
 """Where a frame's time goes in the PyTorch/CUDA port, on one NVIDIA GPU.
 
     python3 profile_torch_frame.py [--scene blinnphong|full --moving-sun
+                                    --csm --msaa 4
                                     --width 1920 --height 1080 --rings 160
                                     --sectors 320 --tris 100000 --frames 5
                                     --out out/profile]
@@ -11,7 +12,15 @@ blinnphong` (default: 1920x1080, T = 102,402 triangles) or `--scene full`,
 the shadow-mapped PBR frame full_scene(ibl=False) (T = 97,346 at the
 default --tris; static scene, so the shadow map is reused; `--moving-sun`
 gives every frame a new sun direction and light matrix, so the shadow pass
-runs every frame). 3 warm-up frames, then `frames` steady frames under
+runs every frame). With `--csm` the full scene has four shadow cascades
+(`frame/shadow` is then the cascade pass, one K6 launch; `--moving-sun`
+refits the cascades every frame). `--msaa N` (2, 4 or 8) renders through
+the shade-once resolve: the spans `frame/msaa_ids` (the whole sample pass:
+setup at the sample extent, then `frame/ids_bin_table` and `frame/k4`
+nested in it) and `frame/msaa_resolve` appear beside the 1x frame's. A
+span's host time includes the spans nested in it; its device figures do
+not (the device-side annotation of an outer span is split around them).
+3 warm-up frames, then `frames` steady frames under
 torch.profiler (CPU + CUDA activities). Prints the
 host wall time per frame, the device busy time per frame (the union of
 kernel and copy intervals on the timeline), the device idle share, the
@@ -62,6 +71,10 @@ def main(argv=None) -> int:
                         help="triangle budget of the full scene")
     parser.add_argument("--moving-sun", action="store_true",
                         help="full scene: move the sun every frame (shadow pass per frame)")
+    parser.add_argument("--csm", action="store_true",
+                        help="full scene: four shadow cascades instead of the single map")
+    parser.add_argument("--msaa", type=int, choices=[1, 2, 4, 8], default=1,
+                        help="MSAA samples (shade-once resolve)")
     parser.add_argument("--frames", type=int, default=5)
     parser.add_argument("--out", default=os.path.join("out", "profile"),
                         help="directory for the JSON summary (and the trace)")
@@ -75,6 +88,7 @@ def main(argv=None) -> int:
 
     from renderer_rs_tpu_torch.app.scenes import blinnphong_scene, full_scene
     from renderer_rs_tpu_torch.core.config import RendererConfig
+    from renderer_rs_tpu_torch.ops.csm import fit_cascades
     from renderer_rs_tpu_torch.ops.shadow import directional_light_matrix
     from renderer_rs_tpu_torch.renderer.renderer import Renderer
 
@@ -85,12 +99,14 @@ def main(argv=None) -> int:
     print(card)
     if args.scene == "full":
         scene, layout, kw, _ = full_scene(
-            args.width, args.height, tri_budget=args.tris, ibl=False, device="cuda"
+            args.width, args.height, tri_budget=args.tris, ibl=False, csm=args.csm,
+            device="cuda",
         )
     else:
         scene, layout, kw, _ = blinnphong_scene(
             args.width, args.height, rings=args.rings, sectors=args.sectors, device="cuda"
         )
+    kw["pipeline"] = dataclasses.replace(kw["pipeline"], msaa_samples=args.msaa)
     renderer = Renderer(RendererConfig(width=args.width, height=args.height), device="cuda", **kw)
     renderer.set_scene(scene, layout)
     steps = iter(range(1, 1000))
@@ -102,6 +118,12 @@ def main(argv=None) -> int:
         cur = renderer._scene
         lights = dataclasses.replace(
             cur.lights, sun_direction=torch.tensor(sun, dtype=torch.float32, device="cuda"))
+        if args.csm:
+            mats, splits = fit_cascades(kw["camera"], sun)
+            renderer.update_scene(cur.replace(
+                lights=lights, csm_matrices=torch.from_numpy(mats).to("cuda"),
+                csm_splits=torch.from_numpy(splits).to("cuda")))
+            return
         lsm = directional_light_matrix(sun, [0.0, 0.0, 0.0], 3.5).to("cuda")
         renderer.update_scene(cur.replace(lights=lights, light_space_matrix=lsm))
 
@@ -151,6 +173,8 @@ def main(argv=None) -> int:
         "card": card,
         "scene": args.scene,
         "moving_sun": bool(args.moving_sun),
+        "csm": bool(args.csm),
+        "msaa": args.msaa,
         "shape": [args.width, args.height],
         "triangles": layout.num_triangles,
         "frames": args.frames,
@@ -174,7 +198,8 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     if args.trace:
         prof.export_chrome_trace(os.path.join(args.out, f"torch_frame_trace_{args.scene}.json"))
-    tag = args.scene + ("_moving_sun" if args.moving_sun else "")
+    tag = (args.scene + ("_csm" if args.csm else "") + (f"_msaa{args.msaa}" if args.msaa > 1 else "")
+           + ("_moving_sun" if args.moving_sun else ""))
     with open(os.path.join(args.out, f"torch_frame_profile_{tag}.json"), "w") as f:
         json.dump(summary, f, indent=1)
     return 0

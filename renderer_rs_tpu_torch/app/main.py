@@ -7,11 +7,12 @@ Usage:
         --width 1920 --height 1080 --frames 8 --out /tmp/out
     python -m renderer_rs_tpu_torch.app.main --scene full --no-ibl \
         --tris 100000 --width 1920 --height 1080 --out /tmp/out
+    python -m renderer_rs_tpu_torch.app.main --scene full --no-ibl --csm --out /tmp/out
     python -m renderer_rs_tpu_torch.app.main --scene gltf-pbr --out /tmp/out
 
-`--scene full` needs `--no-ibl` for now: the IBL environment, `--csm`,
-`--textured`, `--hdr` and `--gltf` raise NotImplementedError until their
-slices are ported. The X11 window, the scripted orbit/fly cameras and the
+`--scene full` needs `--no-ibl` for now (`--csm` switches it to four shadow
+cascades): the IBL environment, `--textured`, `--hdr` and `--gltf` raise
+NotImplementedError until their slices are ported. The X11 window, the scripted orbit/fly cameras and the
 other scenes wait for later slices (ROADMAP Queue 1 items 13-14)."""
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ def main(argv=None, device="cuda") -> int:
                         help="full scene without the IBL environment: shadow-mapped PBR, "
                              "skybox, ACES (the only ported form so far)")
     parser.add_argument("--csm", action="store_true",
-                        help="cascaded shadow maps (full scene; not ported yet)")
+                        help="cascaded shadow maps: four cascades instead of the single sun map "
+                             "(full scene)")
     parser.add_argument("--textured", action="store_true",
                         help="the 5-slot procedural PBR texture set (full scene; not ported yet)")
     parser.add_argument("--hdr", type=str, default=None,

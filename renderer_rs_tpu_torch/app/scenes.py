@@ -1,7 +1,7 @@
 """Demo scene factories (≙ renderer_rs_tpu/app/scenes.py). Ported: config
 2, the Blinn-Phong sphere; config 3, the procedural PBR sphere grid; and
-config 4 without IBL, the shadow-mapped PBR frame with skybox and ACES.
-The others wait for later slices (ROADMAP Queue 1).
+config 4 without IBL, the shadow-mapped PBR frame with skybox and ACES,
+with a single sun map or four cascades. The others wait for later slices (ROADMAP Queue 1).
 
 A factory returns (scene, layout, renderer_kwargs, animate_fn), where
 animate_fn(scene, t, dt) -> scene updates the dynamic state per frame."""
@@ -13,6 +13,7 @@ import math
 
 import numpy as np
 
+from renderer_rs_tpu_torch.ops.csm import fit_cascades
 from renderer_rs_tpu_torch.ops.ibl import procedural_sky_cubemap
 from renderer_rs_tpu_torch.ops.shadow import ShadowParams, directional_light_matrix
 from renderer_rs_tpu_torch.renderer.passes import ShadingModel
@@ -144,16 +145,15 @@ def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = T
                csm: bool = False, textured: bool = False, hdr: str | None = None,
                gltf: str | None = None, device="cuda"):
     """Config 4 (scenes.py:203) with ibl=False: a 3x3 grid of PBR spheres
-    sized to tri_budget on a floor, a shadow-mapped sun (1024² map), the
+    sized to tri_budget on a floor, a shadow-mapped sun (1024² map; with
+    csm=True four 1024² cascades fitted to the camera frustum), the
     procedural sky as skybox, ACES tonemap. tri_budget=100_000 gives 97,346
-    triangles. The IBL precompute, cascaded shadows, the texture set, a
-    Radiance .hdr environment and glTF instancing are not ported: each
-    raises rather than render a lesser scene."""
+    triangles. The IBL precompute, the texture set, a Radiance .hdr
+    environment and glTF instancing are not ported: each raises rather than
+    render a lesser scene."""
     if ibl:
         raise _not_ported("the IBL environment of the full scene (pass ibl=False)",
                           "items 7 and 9, textured + IBL slice")
-    if csm:
-        raise _not_ported("cascaded shadow maps", "item 10, CSM")
     if textured:
         raise _not_ported("the 5-slot PBR texture set", "items 7 and 9, textured + IBL slice")
     if hdr is not None:
@@ -195,10 +195,14 @@ def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = T
     builder.set_lights(
         LightBank.create(sun=DirectionalLight.create(direction=sun_dir, intensity=3.5))
     )
-    # ortho box fitted to the shadow casters (sphere grid extent ~2.2 +
-    # radius margin): a loose box wastes map resolution and concentrates
-    # raster bins
-    builder.set_shadow_matrix(directional_light_matrix(sun_dir, [0.0, 0.0, 0.0], 3.5))
+    if csm:
+        # 4-cascade sun shadows fitted to the camera frustum (ops/csm.py)
+        builder.set_csm(*fit_cascades(cam, sun_dir))
+    else:
+        # ortho box fitted to the shadow casters (sphere grid extent ~2.2 +
+        # radius margin): a loose box wastes map resolution and concentrates
+        # raster bins
+        builder.set_shadow_matrix(directional_light_matrix(sun_dir, [0.0, 0.0, 0.0], 3.5))
     sky = procedural_sky_cubemap(64, sun_direction=tuple(float(v) for v in sun_dir))
     builder.set_environment(Environment(skybox_mips=(sky,)))
     scene, layout, pipeline = cb.build_scene(builder, device=device)

@@ -14,6 +14,7 @@ fields: {"positions", "normals", "uvs", "tangents", "colors", "tris",
          "camera": {view, projection, view_projection, camera_position},
          "scene_ubo": {ambient_color, time, delta_time},
          "light_space_matrix": [4,4] or None,
+         "csm_matrices": [C,4,4] or None, "csm_splits": [C] or None,
          "environment": {"skybox_mips": (faces [6,S,S,C], ...)} or None}
 layout_fields: the SceneLayout dataclass fields as Python values.
 """
@@ -55,7 +56,11 @@ def scene_from_numpy(fields: dict, layout_fields: dict, device="cuda"):
                   "tri_material", "models", "normal_mats")
     }
     env = fields.get("environment")
-    lsm = fields.get("light_space_matrix")
+
+    def optional(key):
+        value = fields.get(key)
+        return None if value is None else _tensor(key, value, dev)
+
     scene = GpuScene(
         **top,
         materials=group(MaterialBank, "materials"),
@@ -66,7 +71,9 @@ def scene_from_numpy(fields: dict, layout_fields: dict, device="cuda"):
             None if env is None
             else Environment(skybox_mips=tuple(_tensor("skybox", m, dev) for m in env["skybox_mips"]))
         ),
-        light_space_matrix=None if lsm is None else _tensor("light_space_matrix", lsm, dev),
+        light_space_matrix=optional("light_space_matrix"),
+        csm_matrices=optional("csm_matrices"),
+        csm_splits=optional("csm_splits"),
     )
     lf = dict(layout_fields)
     lf["object_ranges"] = tuple(tuple(int(v) for v in r) for r in lf["object_ranges"])

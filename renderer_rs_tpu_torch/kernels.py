@@ -32,6 +32,7 @@ _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "raster_depth": _PKG / "csrc" / "raster_depth.cu",
+    "raster_ids": _PKG / "csrc" / "raster_ids.cu",
     "raster_resolve": _PKG / "csrc" / "raster_resolve.cu",
 }
 NVCC_FLAGS = (

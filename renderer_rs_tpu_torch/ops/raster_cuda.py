@@ -196,8 +196,7 @@ def _depth(b0, b1, b2, z0, z1, z2):
     return _fma(b2, z2, _fma(b0, z0, b1 * z1))
 
 
-def _check_inputs(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat,
-                  compare_op):
+def _check_inputs(table, sorted_tris, seg, nbx, height, width, min_cols, compare_op):
     n_bins = seg.numel() - 1
     if nbx < 1 or n_bins % nbx or nbx * BIN_W < width or (n_bins // nbx) * BIN_H < height:
         raise ValueError(
@@ -205,8 +204,8 @@ def _check_inputs(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat,
         )
     if table.dtype != _F32 or table.dim() != 2 or not table.is_contiguous():
         raise ValueError("table must be a contiguous 2-D float32 tensor")
-    if table.shape[1] < 23 + 3 * n_vary + n_flat:
-        raise ValueError(f"table has {table.shape[1]} columns, needs {23 + 3 * n_vary + n_flat}")
+    if table.shape[1] < min_cols:
+        raise ValueError(f"table has {table.shape[1]} columns, needs {min_cols}")
     for name, x in (("sorted_tris", sorted_tris), ("seg", seg)):
         if x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 1-D int32 tensor")
@@ -252,7 +251,8 @@ def raster_resolve(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat,
     sorted_tris/seg int32 (bin_compact), nbx bins per row. Returns
     (depth [H,W] f32, tid [H,W] int32 slot id or -1, lanes [H,W,K+Kf] f32).
     CUDA tensors launch the kernel; CPU tensors run raster_resolve_plain."""
-    _check_inputs(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat, compare_op)
+    _check_inputs(table, sorted_tris, seg, nbx, height, width, 23 + 3 * n_vary + n_flat,
+                  compare_op)
     if table.device.type == "cuda":
         return _launch(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat,
                        compare_op, depth_clear)
@@ -265,23 +265,20 @@ def raster_resolve(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat,
 raster_resolve.launches = 0  # kernel launches, read and reset by chip_smoke.py
 
 
-def raster_resolve_plain(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat,
-                         compare_op=CompareOp.LESS, depth_clear=1.0):
-    """The same function as torch ops, in the kernel's f32 operation order.
-
-    All bins advance together, _PLAIN_CHUNK candidates at a time, over
-    [bins, chunk, 16, 128]: the chunk's nearest covered candidate (first
-    for strict compares, last for LE/GE among equal depths) replaces the
-    carry when it passes the depth test — the Pallas kernel's per-chunk
-    reduction, equal to the kernel's sequential walk. The winner's row
-    then resolves the lanes as in the kernel's epilogue."""
-    _check_inputs(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat, compare_op)
+def _walk_plain(table, sorted_tris, seg, nbx, compare_op, depth_clear):
+    """The candidate walk of K2 and K4 as torch ops, in the kernels' f32
+    operation order. All bins advance together, _PLAIN_CHUNK candidates at
+    a time, over [bins, chunk, 16, 128]: the chunk's nearest covered
+    candidate (first for strict compares, last for LE/GE among equal
+    depths) replaces the carry when it passes the depth test — the Pallas
+    kernel's per-chunk reduction, equal to the kernels' sequential walk.
+    Returns (depth, winner table row or -1) as [bins,16,128] and the pixel
+    centers (py [bins,16,1], px [bins,1,128])."""
     chunk = _PLAIN_CHUNK
     dev = table.device
     greater = compare_op in (CompareOp.GREATER, CompareOp.GREATER_OR_EQUAL)
     keep_last = compare_op in (CompareOp.LESS_OR_EQUAL, CompareOp.GREATER_OR_EQUAL)
     n_bins = seg.numel() - 1
-    nby = n_bins // nbx
     seg_l = seg.long()
     counts = seg_l[1:] - seg_l[:-1]
     b_ids = torch.arange(n_bins, device=dev)
@@ -299,7 +296,7 @@ def raster_resolve_plain(table, sorted_tris, seg, nbx, height, width, n_vary, n_
         pos = seg_l[act, None] + j0 + torch.arange(chunk, device=dev)  # [A,C]
         in_seg = pos < seg_l[act + 1, None]
         rows = sorted_tris[torch.clamp(pos, max=sorted_tris.numel() - 1)].long()
-        tab = table[rows][..., :VIS_COLS]  # [A,C,20]
+        tab = table[rows][..., :DEPTH_COLS]  # [A,C,19]
 
         def col(k, tab=tab):
             return tab[:, :, k, None, None]  # [A,C,1,1]
@@ -335,6 +332,25 @@ def raster_resolve_plain(table, sorted_tris, seg, nbx, height, width, n_vary, n_
         w_row = torch.gather(rows, 1, torch.clamp(slot, 0, chunk - 1).reshape(len(act), -1))
         depth[act] = torch.where(accept, z_best, d)
         win[act] = torch.where(accept, w_row.reshape(slot.shape), win[act])
+    return depth, win, py_all, px_all
+
+
+def _stitch(x, nbx, height, width):
+    """[bins,16,128,...] -> [H,W,...] (raster_pallas.py:1287-1289)."""
+    nby = x.shape[0] // nbx
+    x = x.reshape(nby, nbx, BIN_H, BIN_W, *x.shape[3:]).transpose(1, 2)
+    return x.reshape(nby * BIN_H, nbx * BIN_W, *x.shape[4:])[:height, :width]
+
+
+def raster_resolve_plain(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat,
+                         compare_op=CompareOp.LESS, depth_clear=1.0):
+    """The same function as torch ops, in the kernel's f32 operation order:
+    the candidate walk (_walk_plain), then the winner's row resolves the
+    lanes as in the kernel's epilogue."""
+    _check_inputs(table, sorted_tris, seg, nbx, height, width, 23 + 3 * n_vary + n_flat,
+                  compare_op)
+    depth, win, py_all, px_all = _walk_plain(table, sorted_tris, seg, nbx, compare_op,
+                                             depth_clear)
 
     # epilogue: winner-only edge re-evaluation + perspective lane resolve,
     # rounded as the reference rounds it (see csrc "Exactness")
@@ -363,12 +379,9 @@ def raster_resolve_plain(table, sorted_tris, seg, nbx, height, width, n_vary, n_
     hit = win >= 0
     tid = torch.where(hit, gc(19).to(torch.int32), -1)
     lanes = torch.where(hit[..., None], lanes, 0.0)
-
-    def stitch(x):  # [bins,16,128,...] -> [H,W,...] (raster_pallas.py:1287-1289)
-        x = x.reshape(nby, nbx, BIN_H, BIN_W, *x.shape[3:]).transpose(1, 2)
-        return x.reshape(nby * BIN_H, nbx * BIN_W, *x.shape[4:])[:height, :width]
-
-    return stitch(depth), stitch(tid).to(torch.int32), stitch(lanes)
+    return (_stitch(depth, nbx, height, width),
+            _stitch(tid, nbx, height, width).to(torch.int32),
+            _stitch(lanes, nbx, height, width))
 
 
 # --- the fast raster path --------------------------------------------------------
@@ -406,6 +419,116 @@ def prepare_resolve(setup: TriangleSetup, height: int, width: int, attr, vtx,
         n_flat=0 if flat is None else flat.shape[-1],
         bin_overflow=overflow,
     )
+
+
+# --- K4: ids only ------------------------------------------------------------------
+
+MAX_PAYLOAD_ID = 1 << 24  # ids ride an f32 column: whole numbers stay exact below 2^24
+
+
+@dataclasses.dataclass
+class IdsInputs:
+    """K4's inputs for one pass: the 20-column table (payload id in column
+    19), the binned segments, and the binning overflow counters [big, huge]."""
+
+    table: torch.Tensor
+    sorted_tris: torch.Tensor
+    seg: torch.Tensor
+    nbx: int
+    bin_overflow: torch.Tensor
+
+    @property
+    def n_pairs(self) -> torch.Tensor:
+        """Binned (bin, triangle) pairs the kernel walks (device scalar)."""
+        return self.seg[-1]
+
+
+def prepare_ids(setup: TriangleSetup, height: int, width: int, ids: torch.Tensor,
+                small_limit=None, id_bound: int | None = None) -> IdsInputs:
+    """Bin and build K4's table (≙ rasterize_binned_pallas(skip_bary=True,
+    ids=...) up to the pallas_call, raster_pallas.py:909-915): the 19 depth
+    columns, then `ids` [t] (one payload id per raster slot) as f32 in
+    column 19. id_bound is an exclusive upper bound of the ids known to the
+    caller (the source triangle count); without it the ids are read back to
+    check them. Ids of 2^24 or more would round in the f32 column and are
+    rejected."""
+    t = setup.num_triangles
+    if ids.shape != (t,):
+        raise ValueError(f"ids has shape {tuple(ids.shape)}, needs ({t},): one id per raster slot")
+    if ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"ids must be int32 or int64, got {ids.dtype}")
+    bound = int(ids.max()) + 1 if id_bound is None and t else (id_bound or 0)
+    if bound > MAX_PAYLOAD_ID:
+        raise ValueError(
+            f"payload ids reach {bound - 1}: they ride an f32 table column and are "
+            f"exact only below 2^24 = {MAX_PAYLOAD_ID}"
+        )
+    sorted_tris, seg, _nby, nbx, overflow = bin_compact(setup, height, width, small_limit)
+    return IdsInputs(
+        table=_with_pad_row(_base_coef_table(setup, ids.to(_F32))),
+        sorted_tris=sorted_tris,
+        seg=seg,
+        nbx=nbx,
+        bin_overflow=overflow,
+    )
+
+
+def _launch_ids(table, sorted_tris, seg, nbx, height, width, compare_op, depth_clear):
+    from renderer_rs_tpu_torch.kernels import load
+
+    lib = load("raster_ids")
+    fn = lib.raster_ids_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    dev = table.device
+    depth = torch.empty((height, width), dtype=_F32, device=dev)
+    tid = torch.empty((height, width), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            table.data_ptr(), table.shape[1], sorted_tris.data_ptr(), seg.data_ptr(),
+            seg.numel() - 1, nbx, height, width, _OPS[compare_op], float(depth_clear),
+            depth.data_ptr(), tid.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"raster_ids launch failed: cudaError {err}")
+    raster_ids.launches += 1
+    return depth, tid
+
+
+def raster_ids(table, sorted_tris, seg, nbx, height, width,
+               compare_op=CompareOp.LESS, depth_clear=1.0):
+    """K4 over the binned candidates. table [t+1, >=20] f32 (prepare_ids),
+    sorted_tris/seg int32 (bin_compact), nbx bins per row. Returns (depth
+    [H,W] f32, tid [H,W] int32: the winner's payload id from column 19, or
+    -1). CUDA tensors launch the kernel; CPU tensors run raster_ids_plain."""
+    _check_inputs(table, sorted_tris, seg, nbx, height, width, VIS_COLS, compare_op)
+    if table.device.type == "cuda":
+        return _launch_ids(table, sorted_tris, seg, nbx, height, width, compare_op,
+                           depth_clear)
+    if table.device.type != "cpu":
+        raise ValueError(f"raster_ids: unsupported device {table.device}")
+    return raster_ids_plain(table, sorted_tris, seg, nbx, height, width, compare_op,
+                            depth_clear)
+
+
+raster_ids.launches = 0  # kernel launches, read and reset by chip_smoke.py
+
+
+def raster_ids_plain(table, sorted_tris, seg, nbx, height, width,
+                     compare_op=CompareOp.LESS, depth_clear=1.0):
+    """The same function as torch ops: the candidate walk (_walk_plain),
+    then the winner row's payload id."""
+    _check_inputs(table, sorted_tris, seg, nbx, height, width, VIS_COLS, compare_op)
+    depth, win, _, _ = _walk_plain(table, sorted_tris, seg, nbx, compare_op, depth_clear)
+    ids = table[:, 19].to(torch.int32)
+    tid = torch.where(win >= 0, ids[torch.clamp(win, min=0)], -1)
+    return (_stitch(depth, nbx, height, width).contiguous(),
+            _stitch(tid, nbx, height, width).to(torch.int32).contiguous())
 
 
 # --- K1: depth only ----------------------------------------------------------------
@@ -511,6 +634,7 @@ def _launch_depth(table, sorted_tris, seg, nbx, height, width, compare_op, depth
     if err != 0:
         raise RuntimeError(f"raster_depth launch failed: cudaError {err}")
     raster_depth.launches += 1
+    raster_depth.batched_launches += int(n_batch > 1)
     return depth
 
 
@@ -532,6 +656,7 @@ def raster_depth(table, sorted_tris, seg, nbx, height, width,
 
 
 raster_depth.launches = 0  # kernel launches, read and reset by chip_smoke.py
+raster_depth.batched_launches = 0  # of those, the launches with N > 1 sets (K6)
 
 
 def raster_depth_plain(table, sorted_tris, seg, nbx, height, width,

@@ -1,14 +1,17 @@
 """Render passes (≙ renderer_rs_tpu/renderer/passes.py): sun shadow pass
-(K1) -> vertex stage -> near clip -> setup -> compact binning -> K2
-visibility + resolve -> per-pixel shading with the PCF shadow term ->
-composite -> skybox -> tonemap, run eagerly on the scene's device.
+(K1; four cascades in one K6 launch) -> vertex stage -> near clip -> setup
+-> compact binning -> K2 visibility + resolve -> per-pixel shading with the
+PCF shadow term -> composite -> skybox -> tonemap, run eagerly on the
+scene's device. An MSAA pipeline adds a sample-rate ids-only pass (K4) and
+the id-matching resolve.
 
 Ported: the fused fast path the JAX package takes for every non-FLAT scene
 on the TPU (`forward_frame`'s `fuse` branch with its defaults: in-kernel
 winner resolve, arithmetic slot->source ids, SoA table build, clip cap
-T/16, triangle setup), the single-map shadow pass with its default
-plane-form setup, and the untextured Blinn-Phong and Cook-Torrance PBR
-shaders with the reduced-rate shadow ladder. Every other branch raises
+T/16, triangle setup), the single-map and the cascaded shadow pass with
+their default plane-form setup, the ids-only frame and the shade-once MSAA
+resolve, and the untextured Blinn-Phong and Cook-Torrance PBR shaders with
+the reduced-rate shadow ladder. Every other branch raises
 NotImplementedError naming its ROADMAP queue item.
 """
 
@@ -24,6 +27,8 @@ from renderer_rs_tpu_torch.mathx.vec import normalize
 from renderer_rs_tpu_torch.ops import blinn_phong as bp
 from renderer_rs_tpu_torch.ops import pbr as pbr_ops
 from renderer_rs_tpu_torch.ops.clip import clip_triangles_near_planes, compact_secondary
+from renderer_rs_tpu_torch.ops.csm import CASCADE_COUNT, CSMParams, calculate_shadow_csm_blended
+from renderer_rs_tpu_torch.ops.msaa import msaa_id_resolve
 from renderer_rs_tpu_torch.ops.raster import (
     VisibilityBuffer,
     gather_triangle_clip,
@@ -34,8 +39,10 @@ from renderer_rs_tpu_torch.ops.raster import (
 from renderer_rs_tpu_torch.ops.raster_binned import supports_binned
 from renderer_rs_tpu_torch.ops.raster_cuda import (
     prepare_depth,
+    prepare_ids,
     prepare_resolve,
     raster_depth,
+    raster_ids,
     raster_resolve,
 )
 from renderer_rs_tpu_torch.ops.shadow import (
@@ -122,13 +129,23 @@ def _not_ported(what: str, queue: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {queue})")
 
 
-def shadow_vertex_stage(scene: GpuScene, layout: SceneLayout) -> torch.Tensor:
+def shadow_vertex_stage(scene: GpuScene, layout: SceneLayout, light_matrix=None,
+                        world_pos: torch.Tensor | None = None) -> torch.Tensor:
     """Light-space positions [V,4] (passes.py:205; ≙ vertex/shadow.hlsl:
-    lightSpaceMatrix * model * pos), in the per-object pre-composed form the
-    single-map pass takes: (lsm @ model), then homo @ m.T. The
-    world-then-light form and a per-cascade matrix come with CSM (ROADMAP
-    Queue 1 item 10)."""
-    lsm = scene.light_space_matrix
+    lightSpaceMatrix * model * pos) under `light_matrix` (default: the
+    scene's single shadow matrix; a cascade's matrix for CSM).
+
+    Two forms, ~1 ulp apart. Without world_pos: per object, (lsm @ model)
+    pre-composed, then homo @ m.T. The single-map pass and the Renderer's
+    own shadow step (for either kind of shadow) take this form. With
+    world_pos, the [V,3] world positions of the forward vertex stage: ONE
+    [V,4] @ lsm.T product (world-then-light, the reference shader's own
+    associativity; the model's affine last row makes world w exactly 1).
+    forward_frame takes this form for the cascades it renders itself."""
+    lsm = scene.light_space_matrix if light_matrix is None else light_matrix
+    if world_pos is not None:
+        homo = torch.cat([world_pos, torch.ones_like(world_pos[:, :1])], dim=-1)
+        return homo @ lsm.T
     clips = []
     for o, (v0, nv, _, _) in enumerate(layout.object_ranges):
         pos = scene.positions[v0 : v0 + nv]
@@ -151,28 +168,55 @@ def _shadow_setup(clip: torch.Tensor, tris: torch.Tensor, size: int):
     )
 
 
-def shadow_map_pass(scene: GpuScene, layout: SceneLayout, size: int) -> torch.Tensor:
-    """Depth-only sun shadow render [size,size] (passes.py:366): light-space
-    vertex stage -> plane-form setup -> compact binning -> K1."""
+def _depth_maps(scene: GpuScene, layout: SceneLayout, size: int, light_matrices,
+                world_pos) -> torch.Tensor:
+    """[N,size,size] depth-only renders under N light matrices, in ONE
+    raster_depth launch: light-space vertex stage -> plane-form setup ->
+    compact binning per matrix, then K1 over the N sets."""
     if not supports_binned(_SHADOW_PIPELINE, layout.num_triangles):
         raise _not_ported(
             "the scan rasterizer's depth-only pass (scenes below 64 triangles)",
             "Queue 1 item 13",
         )
-    clip = shadow_vertex_stage(scene, layout)
-    k1 = prepare_depth([_shadow_setup(clip, scene.tris, size)], size, size)
+    setups = [
+        _shadow_setup(shadow_vertex_stage(scene, layout, m, world_pos), scene.tris, size)
+        for m in light_matrices
+    ]
+    k1 = prepare_depth(setups, size, size)
     return raster_depth(
         k1.table, k1.sorted_tris, k1.seg, k1.nbx, size, size,
         _SHADOW_PIPELINE.depth_compare_op,
-    )[0]
+    )
+
+
+def shadow_map_pass(scene: GpuScene, layout: SceneLayout, size: int, light_matrix=None,
+                    world_pos=None) -> torch.Tensor:
+    """Depth-only sun shadow render [size,size] (passes.py:366): light-space
+    vertex stage -> plane-form setup -> compact binning -> K1."""
+    lsm = scene.light_space_matrix if light_matrix is None else light_matrix
+    return _depth_maps(scene, layout, size, [lsm], world_pos)[0]
+
+
+def csm_shadow_pass(scene: GpuScene, layout: SceneLayout, size: int,
+                    world_pos=None) -> torch.Tensor:
+    """The 4-cascade shadow array [C,size,size] (passes.py:386; ≙ the
+    Texture2DArray the CSM shader samples, shadow_csm.hlsli:94-166): four
+    plane-form setups, one binning and table build over them, and ONE
+    raster_depth launch with N = 4 (K6, grid (bins, 4)).
+
+    The JAX package renders the cascades as four sequential K1 launches by
+    default and keeps its batched launch (rasterize_depth_only_batch) behind
+    an environment knob, for a reason of the TPU compiler; the two are
+    bit-identical there (tests/test_raster_pallas.py:194) and here
+    (tests/test_torch_csm.py). The port has no such knob: blocks of
+    different cascades run side by side on the card, so one launch is the
+    natural shape."""
+    mats = [scene.csm_matrices[c] for c in range(CASCADE_COUNT)]
+    return _depth_maps(scene, layout, size, mats, world_pos)
 
 
 def _check_fused_path(layout: SceneLayout, pipeline: GraphicsPipeline,
                       shading: ShadingModel, tonemap: str, n_raster: int) -> None:
-    if pipeline.msaa_samples > 1:
-        raise _not_ported("MSAA", "Queue 1 item 11 / Queue 2 K4")
-    if layout.has_csm:
-        raise _not_ported("cascaded shadow maps", "Queue 1 item 10 / Queue 2 K6")
     if layout.has_textures:
         raise _not_ported("textured shading", "Queue 1 item 7")
     if tonemap not in TONEMAPPERS:
@@ -196,12 +240,22 @@ class FrameGeometry:
     compaction and setup (passes.py:1612-1766, 1926-1970)."""
 
     setup: object  # ops.raster.TriangleSetup over the raster slots
+    tri_clip: torch.Tensor  # [t,3,4] clip-space vertices of the raster slots
+    clip_valid: torch.Tensor  # [t] slot holds a triangle
     attr: torch.Tensor  # [V,6] world_pos | world_normal
     clip_src: torch.Tensor  # [t] raster slot -> source triangle
     clip_planes: tuple  # 3x3 of [t] source-barycentric clip frames
     mat_flat: torch.Tensor  # [T,1|2] flat lanes: material id (| source id)
     compact: bool  # secondary compaction on (source id rides a lane)
     clip_overflow: torch.Tensor  # dropped near-clip halves (device scalar)
+
+    def at_extent(self, pipeline: GraphicsPipeline, width: int, height: int) -> "FrameGeometry":
+        """The same geometry set up for another framebuffer extent. All but
+        the setup (viewport transform, edge functions) is a function of the
+        scene alone, so the MSAA sample pass reuses the 1x pass's vertex
+        stage, near clip and compaction instead of computing them again."""
+        setup = setup_triangles(self.tri_clip, width, height, pipeline, tri_valid=self.clip_valid)
+        return dataclasses.replace(self, setup=setup)
 
 
 def frame_geometry(scene: GpuScene, layout: SceneLayout, pipeline: GraphicsPipeline,
@@ -233,6 +287,8 @@ def frame_geometry(scene: GpuScene, layout: SceneLayout, pipeline: GraphicsPipel
         mat_flat = torch.cat([mat_flat, src_col], dim=-1)
     return FrameGeometry(
         setup=setup,
+        tri_clip=tri_clip,
+        clip_valid=clip_valid,
         attr=torch.cat([vs.world_pos, vs.world_normal], dim=-1),
         clip_src=clip_src,
         clip_planes=clip_planes,
@@ -256,17 +312,71 @@ def forward_frame(
     shadow_map: torch.Tensor | None = None,
     depth_clear: float = 1.0,
     diagnostics: bool = False,
+    ids_only: bool = False,
     return_ids: bool = False,
+    band: tuple | None = None,
+    return_depth: bool = False,
+    stencil=None,
+    geometry: FrameGeometry | None = None,
 ):
     """The full frame (≙ passes.py:1442, fused branch). Returns linear
     [H,W,4] ready for sRGB encode. shadow_map may be rendered by the caller
     (the Renderer keeps it across frames whose shadow inputs did not
-    change); otherwise a scene with a shadow matrix renders it here.
-    return_ids=True appends the [H,W] int32 winner SOURCE triangle ids
-    (-1 = miss); diagnostics=True then appends a dict of device scalars:
-    clip_overflow (near-clip secondary halves beyond the compaction cap,
-    dropped), bin_overflow ([big, huge] triangles beyond the binning caps,
-    dropped) and covered_pixels."""
+    change); otherwise a scene with a shadow matrix or cascade matrices
+    renders it here. return_ids=True appends the [H,W] int32 winner SOURCE
+    triangle ids (-1 = miss); diagnostics=True then appends a dict of device
+    scalars: clip_overflow (near-clip secondary halves beyond the compaction
+    cap, dropped), bin_overflow ([big, huge] triangles beyond the binning
+    caps, dropped) and covered_pixels.
+
+    ids_only=True is the visibility-only frame (passes.py:1613, :2092-2105,
+    :2176-2179): no shadow pass, no lanes, no shading; the same geometry,
+    then K4 with the near clip's slot -> source map as payload. It returns
+    just the [H,W] int32 source ids.
+
+    MSAA (pipeline.msaa_samples in {2,4,8}, ≙ rasterization samples,
+    pipeline.rs:796-799) is the shade-once resolve (passes.py:1518-1548):
+    the 1x frame with its ids, an ids-only pass on the 2x1 / 2x2 / 4x2
+    ordered sample grid, and ops/msaa.msaa_id_resolve. The supersampling
+    branch the JAX frame takes for band, stencil or return_depth is not
+    ported; `geometry` hands a pass the frame_geometry its caller already
+    computed for this extent."""
+    msaa = pipeline.msaa_samples > 1
+    for what, given, item in (
+        ("band rendering", band is not None, "15"),
+        ("the stencil state machine", stencil is not None, "13"),
+        ("return_depth", return_depth, "11" if msaa else "12"),
+    ):
+        if given and msaa:
+            items = "item 11" if item == "11" else f"item {item} and item 11"
+            raise _not_ported(f"{what} under MSAA (the supersampling branch)", f"Queue 1 {items}")
+        if given:
+            raise _not_ported(what, f"Queue 1 item {item}")
+    if msaa:
+        if diagnostics:
+            raise ValueError("forward_frame(diagnostics=True) does not compose with MSAA")
+        if return_ids:
+            # as in the JAX frame: return_ids routes to its supersampling
+            # branch, which has no 1x id map to return
+            raise ValueError("return_ids does not compose with the supersampling MSAA path")
+        sx, sy = {2: (2, 1), 4: (2, 2), 8: (4, 2)}[pipeline.msaa_samples]
+        sub = dataclasses.replace(pipeline, msaa_samples=1)
+        common = dict(clear_color=clear_color, tonemap=tonemap, shadow_map_size=shadow_map_size,
+                      shadow_params=shadow_params, shadow_map=shadow_map, depth_clear=depth_clear)
+        # one vertex stage, near clip and compaction for both passes: they
+        # are pure functions of the scene (the JAX frame traces them twice
+        # and gets the same values)
+        with record_function("frame/geometry"):
+            geo = frame_geometry(scene, layout, sub, width, height)
+        lo, lo_ids = forward_frame(scene, layout, sub, shading, width, height,
+                                   return_ids=True, geometry=geo, **common)
+        with record_function("frame/msaa_ids"):
+            sample_ids = forward_frame(
+                scene, layout, sub, shading, width * sx, height * sy, ids_only=True,
+                geometry=geo.at_extent(sub, width * sx, height * sy), **common,
+            )
+        with record_function("frame/msaa_resolve"):
+            return msaa_id_resolve(lo, lo_ids, sample_ids, sx, sy)
     t_prim = layout.num_triangles
     n_raster = (
         t_prim + min(max(128, t_prim // CLIP_COMPACT_DEN), t_prim)
@@ -275,11 +385,28 @@ def forward_frame(
     _check_fused_path(layout, pipeline, shading, tonemap, n_raster)
     # record_function spans name the frame's stages in torch.profiler traces
     # (profile_torch_frame.py); they cost ~1 us each when no profiler runs
-    if shadow_map is None and layout.has_shadow:
+    geo = geometry
+    if geo is None:
+        with record_function("frame/geometry"):
+            geo = frame_geometry(scene, layout, pipeline, width, height)
+    if ids_only:
+        with record_function("frame/ids_bin_table"):
+            k4 = prepare_ids(geo.setup, height, width, geo.clip_src, small_limit=t_prim,
+                             id_bound=t_prim)
+        with record_function("frame/k4"):
+            _, source_ids = raster_ids(k4.table, k4.sorted_tris, k4.seg, k4.nbx, height,
+                                       width, pipeline.depth_compare_op, depth_clear)
+        return source_ids
+    if shadow_map is None and (layout.has_csm or layout.has_shadow):
         with record_function("frame/shadow"):
-            shadow_map = shadow_map_pass(scene, layout, shadow_map_size)
-    with record_function("frame/geometry"):
-        geo = frame_geometry(scene, layout, pipeline, width, height)
+            if layout.has_csm:
+                # the cascades reuse the forward vertex stage's world
+                # positions (passes.py:1623-1633); the single map keeps the
+                # pre-composed form
+                shadow_map = csm_shadow_pass(scene, layout, shadow_map_size,
+                                             world_pos=geo.attr[:, :3])
+            else:
+                shadow_map = shadow_map_pass(scene, layout, shadow_map_size)
     with record_function("frame/bin_table"):
         k2 = prepare_resolve(
             geo.setup, height, width, geo.attr, scene.tris, geo.clip_src,
@@ -303,7 +430,7 @@ def forward_frame(
             tri_id = torch.where(slot >= t_prim, slot - t_prim, slot)
         vis = VisibilityBuffer(tri_id=tri_id, depth=depth)
         color = _shade_pixels(scene, layout, shading, varying, mat_id_img,
-                              shadow_map, shadow_params)
+                              shadow_map, shadow_params, depth=depth)
         bg = torch.tensor(clear_color, dtype=torch.float32, device=scene.device)
         out = torch.where(vis.covered[..., None], color, bg)
     if layout.has_environment or tonemap != "none":
@@ -325,19 +452,30 @@ def forward_frame(
     return outs if len(outs) > 1 else out
 
 
-def _shadow_term(scene: GpuScene, world_pos, normal, sun_dir, shadow_map,
-                 shadow_params: ShadowParams) -> torch.Tensor:
+def _shadow_term(scene: GpuScene, layout: SceneLayout, world_pos, normal, sun_dir, depth,
+                 shadow_map, shadow_params: ShadowParams) -> torch.Tensor:
     """The sun's lit factor [H,W,1] with the JAX frame's default rate
-    ladder (passes.py:903-966): frames of >= 256 rows evaluate the PCF stack
-    on every 4th row and upsample linearly in y, 128-255 rows on every 2nd,
-    smaller frames per pixel."""
+    ladder (passes.py:817-862 for cascades, :903-966 for the single map):
+    frames of >= 256 rows evaluate the PCF stack on every 4th row and
+    upsample linearly in y, 128-255 rows on every 2nd, smaller frames per
+    pixel. Under CSM shadow_map is the [C,S,S] cascade array and the
+    fragment's NDC depth (K2's depth, ≙ SV_Position.z) selects the cascade;
+    the cascade term has no strength parameter."""
     rows = world_pos.shape[0]
     stride = 4 if rows >= 256 else 2 if rows >= 128 else 1
     wp = world_pos[::stride]
-    lit = calculate_shadow(
-        shadow_map, scene.light_space_matrix, wp, normal[::stride],
-        sun_dir.expand(wp.shape), shadow_params,
-    )
+    if layout.has_csm:
+        lit = calculate_shadow_csm_blended(
+            shadow_map, scene.csm_matrices, scene.csm_splits, wp, normal[::stride],
+            sun_dir.expand(wp.shape), depth[::stride],
+            CSMParams(shadow_bias=shadow_params.shadow_bias,
+                      normal_bias=shadow_params.normal_bias, pcf=shadow_params.pcf),
+        )
+    else:
+        lit = calculate_shadow(
+            shadow_map, scene.light_space_matrix, wp, normal[::stride],
+            sun_dir.expand(wp.shape), shadow_params,
+        )
     if stride == 4:
         lit = upsample4x_y(lit, rows)
     elif stride == 2:
@@ -348,14 +486,16 @@ def _shadow_term(scene: GpuScene, world_pos, normal, sun_dir, shadow_map,
 def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
                   varying: torch.Tensor, mat_id_img: torch.Tensor,
                   shadow_map: torch.Tensor | None = None,
-                  shadow_params: ShadowParams = ShadowParams()):
+                  shadow_params: ShadowParams = ShadowParams(),
+                  depth: torch.Tensor | None = None):
     """The untextured fragment stage (passes.py:452-560, 779-1032,
     1308-1313): Blinn-Phong (≙ pixel/model_full.hlsl) or Cook-Torrance PBR
     with the hemisphere ambient (≙ pixel/model_pbr.hlsl), each with the
     shadowed sun, the masked point/spot loops, ambient and emissive.
     Material parameters come from the exact gather bank[mat_id] (the JAX
     one-hot HIGHEST matmul computes the same values). Returns linear
-    [H,W,4]; misses hold garbage (the caller composites)."""
+    [H,W,4]; misses hold garbage (the caller composites). depth [H,W] is
+    the visibility pass's depth, which the cascaded shadow term reads."""
     world_pos = varying[..., 0:3]
     normal = normalize(varying[..., 3:6])
     mat_px = _material_bank(scene.materials)[mat_id_img.long()]  # [H,W,11]
@@ -368,8 +508,9 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
     view_dir = normalize(scene.camera.camera_position - world_pos)
     lights = scene.lights
     sun_dir = normalize(-lights.sun_direction)  # surface -> light
-    if layout.has_shadow and shadow_map is not None:
-        shadow = _shadow_term(scene, world_pos, normal, sun_dir, shadow_map, shadow_params)
+    if (layout.has_csm or layout.has_shadow) and shadow_map is not None:
+        shadow = _shadow_term(scene, layout, world_pos, normal, sun_dir, depth, shadow_map,
+                              shadow_params)
     else:
         shadow = 1.0
 

@@ -9,9 +9,11 @@ The per-frame hot path (renderer.rs:367-449) is eager:
                     uint8 readback
 
 The shadow pass is its own step (≙ the JAX Renderer's separate shadow jit):
-its map is kept across frames and re-rendered only when the geometry, the
-object transforms or the light matrix are new tensors, so camera-only
-frames of a static scene reuse it.
+its map (the four cascade maps under CSM, one launch) is kept across frames
+and re-rendered only when the geometry, the object transforms, the light
+matrix or the cascade matrices are new tensors, so camera-only frames of a
+static scene reuse it. An MSAA pipeline renders through forward_frame's
+shade-once resolve.
 
 Swapchain, resize, validation and descriptor layouts wait for ROADMAP
 Queue 1 item 14.
@@ -29,7 +31,12 @@ from renderer_rs_tpu_torch.core.config import RendererConfig
 from renderer_rs_tpu_torch.core.device import resolve_device
 from renderer_rs_tpu_torch.renderer.frame_manager import FrameManager
 from renderer_rs_tpu_torch.ops.shadow import ShadowParams
-from renderer_rs_tpu_torch.renderer.passes import ShadingModel, forward_frame, shadow_map_pass
+from renderer_rs_tpu_torch.renderer.passes import (
+    ShadingModel,
+    csm_shadow_pass,
+    forward_frame,
+    shadow_map_pass,
+)
 from renderer_rs_tpu_torch.renderer.scene_build import GpuScene, SceneLayout
 from renderer_rs_tpu_torch.resources.ubo import CameraUbo
 from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipeline, GraphicsPipelineBuilder
@@ -97,18 +104,22 @@ class Renderer:
         self._scene = scene
 
     def _shadow_map(self, scene: GpuScene) -> torch.Tensor | None:
-        """The sun's shadow map for `scene` (renderer.py:338-366). The cache
-        key holds the tensors the shadow pass reads (geometry, transforms,
-        light matrix) and compares them with `is`: holding the references
-        keeps a freed tensor's identity from being reused. Camera, material
-        and light-color updates leave the map as it is."""
-        if not self._layout.has_shadow:
+        """The sun's shadow map for `scene`, or its [4,S,S] cascade array
+        under CSM (renderer.py:185-188, :338-366). The cache key holds the
+        tensors the shadow pass reads (geometry, transforms, light matrix,
+        cascade matrices) and compares them with `is`: holding the
+        references keeps a freed tensor's identity from being reused.
+        Camera, material and light-color updates leave the map as it is."""
+        layout = self._layout
+        if not (layout.has_csm or layout.has_shadow):
             return None
-        key = (scene.positions, scene.tris, scene.models, scene.light_space_matrix)
+        key = (scene.positions, scene.tris, scene.models, scene.light_space_matrix,
+               scene.csm_matrices)
         cache = self._shadow_cache
         if cache is None or not all(a is b for a, b in zip(cache[0], key)):
+            render = csm_shadow_pass if layout.has_csm else shadow_map_pass
             with record_function("frame/shadow"):
-                cache = (key, shadow_map_pass(scene, self._layout, self.shadow_map_size))
+                cache = (key, render(scene, layout, self.shadow_map_size))
             self._shadow_cache = cache
         return cache[1]
 

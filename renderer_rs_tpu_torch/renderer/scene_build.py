@@ -5,8 +5,8 @@ All meshes are concatenated into single SoA vertex/index tensors at build
 time, with a static `SceneLayout` (per-object vertex ranges, which the
 vertex stage loops over) and per-triangle material ids resolved at shading
 time. Built so far: untextured scenes with an optional sun shadow matrix
-and a skybox-only environment; textures, the IBL maps of an environment
-and cascaded shadow matrices wait for the next slices (ROADMAP Queue 1)."""
+or cascaded shadow matrices and a skybox-only environment; textures and the
+IBL maps of an environment wait for the next slices (ROADMAP Queue 1)."""
 
 from __future__ import annotations
 
@@ -56,6 +56,9 @@ class GpuScene:
     # optional features (None = feature off; the layout carries the flags)
     environment: Environment | None = None
     light_space_matrix: torch.Tensor | None = None  # [4,4] sun shadow matrix
+    # cascaded shadow maps (≙ CSMParams cbuffer data, shadow_csm.hlsli:31-40)
+    csm_matrices: torch.Tensor | None = None  # [C,4,4]
+    csm_splits: torch.Tensor | None = None  # [C] NDC split depths
 
     @property
     def device(self) -> torch.device:
@@ -99,6 +102,8 @@ class SceneBuilder:
         self._scene_ubo: SceneUbo | None = None
         self._environment: Environment | None = None
         self._light_space_matrix: torch.Tensor | None = None
+        self._csm_matrices: torch.Tensor | None = None
+        self._csm_splits: torch.Tensor | None = None
 
     def add_mesh(self, mesh: Mesh, transform: Transform | None = None,
                  material: Material | int | None = None) -> "SceneBuilder":
@@ -132,6 +137,12 @@ class SceneBuilder:
         self._light_space_matrix = torch.as_tensor(light_space_matrix, dtype=torch.float32)
         return self
 
+    def set_csm(self, cascade_matrices, split_depths) -> "SceneBuilder":
+        """Enable cascaded shadow maps (use ops.csm.fit_cascades to build)."""
+        self._csm_matrices = torch.as_tensor(cascade_matrices, dtype=torch.float32)
+        self._csm_splits = torch.as_tensor(split_depths, dtype=torch.float32)
+        return self
+
     def build(self, device="cuda") -> tuple[GpuScene, SceneLayout]:
         """Concatenate the draws and place the scene on `device` (≙ build,
         scene_build.py:348)."""
@@ -161,6 +172,9 @@ class SceneBuilder:
         def put(arrs):
             return torch.from_numpy(np.concatenate(arrs)).to(dev)
 
+        def optional(x):
+            return None if x is None else x.to(dev)
+
         scene = GpuScene(
             positions=put(pos_l),
             normals=put(nrm_l),
@@ -179,9 +193,9 @@ class SceneBuilder:
             ).to(dev),
             scene_ubo=(self._scene_ubo or SceneUbo.create()).to(dev),
             environment=None if self._environment is None else self._environment.to(dev),
-            light_space_matrix=(
-                None if self._light_space_matrix is None else self._light_space_matrix.to(dev)
-            ),
+            light_space_matrix=optional(self._light_space_matrix),
+            csm_matrices=optional(self._csm_matrices),
+            csm_splits=optional(self._csm_splits),
         )
         # static per-column constants of the material bank (host-side, exact
         # float compare; order of renderer/passes._material_bank)
@@ -205,5 +219,6 @@ class SceneBuilder:
             material_constants=mat_consts,
             has_environment=self._environment is not None,
             has_shadow=self._light_space_matrix is not None,
+            has_csm=self._csm_matrices is not None,
         )
         return scene, layout

@@ -56,6 +56,9 @@ class Camera:
         p = self.projection
         return vulkan_y_flip(perspective_rh(p.fov_y, p.aspect, p.near, p.far))
 
+    def view_projection_matrix(self) -> torch.Tensor:
+        return self.projection_matrix() @ self.view_matrix()
+
     def forward(self) -> torch.Tensor:
         return quat_rotate(self.rotation, [0.0, 0.0, -1.0])
 

@@ -22,8 +22,9 @@ def flatten_jax_scene(scene, layout):
     }
     for k in ("materials", "lights", "camera", "scene_ubo"):
         fields[k] = group(getattr(scene, k))
-    lsm = getattr(scene, "light_space_matrix", None)
-    fields["light_space_matrix"] = None if lsm is None else np.asarray(lsm)
+    for k in ("light_space_matrix", "csm_matrices", "csm_splits"):
+        value = getattr(scene, k, None)
+        fields[k] = None if value is None else np.asarray(value)
     env = getattr(scene, "environment", None)
     fields["environment"] = (
         None if env is None else {"skybox_mips": tuple(np.asarray(m) for m in env.skybox_mips)}

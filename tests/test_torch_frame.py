@@ -148,27 +148,41 @@ def test_app_main_writes_pngs(tmp_path):
     assert all(img.shape == (48, 64, 4) for img in imgs)
 
 
-@pytest.mark.parametrize("branch", ["pbr", "tonemap", "msaa", "scan"])
+@pytest.mark.parametrize("branch", ["pbr", "tonemap", "msaa", "scan", "msaa_band",
+                                    "msaa_stencil", "return_depth"])
 def test_unported_branches_raise(branch):
-    """PBR shading and the tonemappers are ported: of those two branches,
-    what still raises is image-based lighting and an unknown operator."""
+    """PBR shading, the tonemappers, the shade-once MSAA resolve and CSM are
+    ported (tests/test_torch_msaa.py, tests/test_torch_csm.py): of those
+    branches, what still raises is image-based lighting, an unknown
+    operator, and the MSAA combinations the JAX frame sends to its
+    supersampling branch (return_depth, band, stencil)."""
     from renderer_rs_tpu_torch.app.scenes import blinnphong_scene
     from renderer_rs_tpu_torch.renderer.passes import ShadingModel, forward_frame
     from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipelineBuilder
 
     scene, layout, kw, _ = blinnphong_scene(32, 32, rings=4, sectors=6, device="cpu")
-    pipe, shading, tonemap = kw["pipeline"], kw["shading"], "none"
+    pipe, shading, tonemap, extra = kw["pipeline"], kw["shading"], "none", {}
     error, match = NotImplementedError, "ROADMAP"
+    msaa4 = GraphicsPipelineBuilder().msaa_samples(4).build()
     if branch == "pbr":
         shading = ShadingModel.PBR_IBL
     elif branch == "tonemap":
         tonemap, error, match = "filmic", ValueError, "unknown tonemap"
     elif branch == "msaa":
-        pipe = GraphicsPipelineBuilder().msaa_samples(4).build()
+        pipe, extra, match = msaa4, dict(return_depth=True), "supersampling.*ROADMAP Queue 1 item 11"
+    elif branch == "msaa_band":
+        pipe, extra, match = msaa4, dict(band=(0, 16)), "supersampling.*ROADMAP Queue 1 item 15"
+    elif branch == "msaa_stencil":
+        pipe, extra, match = msaa4, dict(stencil=object()), "supersampling.*ROADMAP Queue 1 item 13"
+    elif branch == "return_depth":
+        extra = dict(return_depth=True)
     else:
         pipe = GraphicsPipelineBuilder().depth_write_enable(False).build()
     with pytest.raises(error, match=match):
-        forward_frame(scene, layout, pipe, shading, 32, 32, tonemap=tonemap)
+        forward_frame(scene, layout, pipe, shading, 32, 32, tonemap=tonemap, **extra)
+    if branch == "msaa":  # the shade-once resolve itself renders
+        out = forward_frame(scene, layout, msaa4, shading, 32, 32)
+        assert out.shape == (32, 32, 4) and torch.isfinite(out).all()
     if branch in ("pbr", "tonemap"):  # the ported halves of these branches render
         out = forward_frame(scene, layout, kw["pipeline"], ShadingModel.PBR, 32, 32,
                             tonemap="aces")
@@ -313,12 +327,13 @@ def test_app_main_renders_the_pbr_scenes(tmp_path, scene_args):
 
 
 @pytest.mark.parametrize("extra", [
-    [], ["--no-ibl", "--csm"], ["--no-ibl", "--textured"], ["--no-ibl", "--hdr", "sky.hdr"],
+    [], ["--csm"], ["--no-ibl", "--textured"], ["--no-ibl", "--hdr", "sky.hdr"],
     ["--no-ibl", "--gltf", "model.gltf"],
 ])
 def test_app_main_full_scene_refuses_unported_options(extra):
-    """`--scene full` without --no-ibl, and each unported option with it,
-    raise naming their ROADMAP item: nothing renders a lesser scene."""
+    """`--scene full` without --no-ibl (with or without --csm, which is
+    ported), and each unported option with it, raise naming their ROADMAP
+    item: nothing renders a lesser scene."""
     from renderer_rs_tpu_torch.app.main import main
 
     with pytest.raises(NotImplementedError, match="not ported yet .ROADMAP Queue 1: item"):

@@ -185,11 +185,39 @@ def test_full_scene_flagship_counts():
     assert (s_nby * s_nbx + 1) * (t + 1) < 2**31
 
 
+def test_msaa4_and_csm_flagship_counts():
+    """The sample pass of MSAA 4x on the flagship PBR frame, from the scene
+    build alone: a 3840x2160 sample grid over 136x30 = 4,080 bins of 16x128
+    (2,176 rows with the tile padding), the same 103,430 raster slots, and a
+    fused (bin, tri) binning key below 2^31. The CSM build has four cascade
+    matrices with rising NDC splits and no single shadow matrix; each
+    cascade pass bins T slots over 512 bins."""
+    from renderer_rs_tpu_torch.app.scenes import full_scene
+    from renderer_rs_tpu_torch.ops.raster_binned import _cdiv
+    from renderer_rs_tpu_torch.ops.raster_cuda import BIN_H, BIN_W, MAX_PAYLOAD_ID, TILE_H
+    from renderer_rs_tpu_torch.renderer.passes import CLIP_COMPACT_DEN
+
+    scene, layout, kw, _ = full_scene(1920, 1080, tri_budget=100_000, ibl=False, csm=True,
+                                      device="cpu")
+    t = layout.num_triangles
+    slots = t + max(128, t // CLIP_COMPACT_DEN)
+    nby, nbx = _cdiv(2 * 1080, TILE_H) * TILE_H // BIN_H, _cdiv(2 * 1920, BIN_W)
+    assert (t, slots, nby, nbx) == (97_346, 103_430, 136, 30)
+    assert (nby * nbx + 1) * (slots + 1) < 2**31
+    assert t < MAX_PAYLOAD_ID  # source ids ride an f32 column
+    assert layout.has_csm and not layout.has_shadow and scene.light_space_matrix is None
+    assert scene.csm_matrices.shape == (4, 4, 4) and scene.csm_splits.shape == (4,)
+    assert bool((scene.csm_splits[1:] > scene.csm_splits[:-1]).all())
+    assert kw["shadow_map_size"] == 1024
+
+
 @pytest.mark.parametrize("kwargs", [
-    dict(), dict(ibl=False, csm=True), dict(ibl=False, textured=True),
+    dict(), dict(csm=True), dict(ibl=False, textured=True),
     dict(ibl=False, hdr="sky.hdr"), dict(ibl=False, gltf="model.gltf"),
 ])
 def test_full_scene_refuses_unported_options(kwargs):
+    """Cascaded shadows are ported (tests/test_torch_csm.py); with the IBL
+    environment they still raise, for the environment."""
     from renderer_rs_tpu_torch.app.scenes import SCENES, full_scene, gltf_pbr_scene
 
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: item"):
