@@ -18,10 +18,15 @@ Phases (any failure exits nonzero before the result lines):
          forward pass, and K4 (raster_ids) on the 3840x2160 sample pass of
          MSAA 4x;
        - the same scene with csm=True: K6, the four 1024x1024 cascades in
-         one raster_depth launch (N = 4), also against four N = 1 launches.
+         one raster_depth launch (N = 4), also against four N = 1 launches;
+       - the same scene with textured=True: K2 on the textured frame's
+         61-column table (12 lanes: world_pos, normal, uv, tangent), and
+         K5 (raster_peel) on its alpha-cutoff (MASK) frame's 71-column
+         table, with no floor and with the layer-0 depth as floor on every
+         pixel (the whole frame peels to its next-nearest fragment).
      K1's and K6's depth must be bit-equal; K2 must give bit-equal
      tid/depth and lanes within rtol 1e-5 / atol 1e-6; K4 bit-equal tid and
-     depth. Prints binned pairs, densest bin, bin overflow, kernel ms
+     depth; K5 bit-equal tid and depth, lanes within rtol 1e-5 / atol 1e-6. Prints binned pairs, densest bin, bin overflow, kernel ms
      (median of >= 20 CUDA-event timings after warm-up), plain ms and the
      kernel's roofline bound.
   4. The main paths through Renderer.render_frame at 1920x1080 on cuda,
@@ -37,15 +42,21 @@ Phases (any failure exits nonzero before the result lines):
        - the CSM frame with the cascades refitted to a moving sun every
          frame: one K6 and one K2 launch per frame;
        - the PBR frame with MSAA 4x (shade-once resolve): one K2 and one K4
-         launch per frame, one K1 launch in all.
-     The frames must be finite with covered pixels; the clip and bin
+         launch per frame, one K1 launch in all;
+       - the textured PBR frame: one K2 launch per frame, one K1 in all;
+       - the textured frame under an alpha-cutoff (MASK) pipeline,
+         GraphicsPipelineBuilder().alpha_cutoff(0.5): four K5 launches per
+         frame (the 4-layer depth peel), no K2 launch, one K1 in all.
+     The frames must be finite with covered pixels; the peel, clip and bin
      overflow counters are printed.
   5. Correctness on small inputs by the repo's own means, on the card: the
      160x120 Blinn-Phong and gltf-pbr frames against tests/goldens/*.png
      with tests/test_golden.py's bar, and full_scene(160, 120,
-     tri_budget=2000, ibl=False) single-map, with csm=True and with MSAA 4x
-     on cuda against the same frames of the port on the cpu (PCF, sky and
-     ACES included).
+     tri_budget=2000, ibl=False) single-map, with csm=True, with MSAA 4x,
+     textured, and textured under the MASK pipeline on cuda against the
+     same frames of the port on the cpu (PCF, sky and ACES included); and
+     the 128x96 alpha-cutout stack (tests/_torch_port.py::alpha_cutout_scene),
+     where fragments really peel, cuda against cpu.
 Then a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the JAX package.
 """
@@ -70,6 +81,14 @@ OPS_PER_PAIR = 3 * 6 + 4 + 5 + 2 + 1
 DEPTH_OPS_PER_PAIR = 3 * 6 + 4 + 5 + 1 + 1
 # K4's walk is K2's (the payload id takes the place of the winner row)
 IDS_OPS_PER_PAIR = OPS_PER_PAIR
+# K5's walk is K2's with one more compare (the floor) when a floor is given
+PEEL_OPS_PER_PAIR = OPS_PER_PAIR + 1
+# K5's winner epilogue per covered pixel: two edges (12), barycentrics and
+# weights (~16), a divide, 12 lanes x 4 (two fmas, a multiply, the zero
+# fold) and 12 flat folds
+PEEL_OPS_PER_PIXEL = 12 + 16 + 1 + 12 * 4 + 12
+# the table columns the candidate walk reads: edges, z plane, 1/area
+WALK_COLS = 19
 BIN_PIXELS = 16 * 128
 W, H = 1920, 1080
 MSAA = 4  # samples: a 2x2 ordered grid, 3840x2160 sample points
@@ -81,6 +100,9 @@ BP_FRAMES = 5
 PBR_FRAMES = 7
 CSM_FRAMES = 5
 MSAA_FRAMES = 5
+TEX_FRAMES = 5
+MASK_FRAMES = 5
+CUTOFF = 0.5
 KERNEL_TIMINGS = 25
 SUN = (-0.45, -1.0, -0.35)  # full_scene's sun
 
@@ -409,6 +431,102 @@ def _check_depth_batch(scene, layout, size: int) -> dict:
     }
 
 
+def _check_peel(scene, layout, pipeline) -> dict:
+    """K5 beside its plain version on the MASK frame's table: the layer-0
+    launch (no floor) and a launch with the layer-0 depth as every pixel's
+    floor (the whole frame peels to its next-nearest fragment)."""
+    import torch
+
+    from renderer_rs_tpu_torch.ops.raster_cuda import raster_peel, raster_peel_plain
+    from renderer_rs_tpu_torch.renderer.passes import frame_geometry, peel_inputs
+
+    geo = frame_geometry(scene, layout, pipeline, W, H)
+    k5 = peel_inputs(scene, layout, geo, H, W)
+    base = (k5.table, k5.sorted_tris, k5.seg, k5.nbx, H, W, k5.n_vary, k5.n_flat)
+    n_pairs = int(k5.n_pairs)
+    densest = int((k5.seg[1:] - k5.seg[:-1]).max())
+    big, huge = (int(v) for v in k5.bin_overflow.tolist())
+    _log(f"mask frame: T={layout.num_triangles} raster slots={geo.setup.num_triangles} "
+         f"bins={k5.seg.numel() - 1} binned pairs={n_pairs} densest bin={densest} "
+         f"bin_overflow big {big} huge {huge} table={tuple(k5.table.shape)}")
+    depth0, tid0, _ = raster_peel(*base, None, pipeline.depth_compare_op)
+    floor = torch.where(tid0 >= 0, depth0, torch.full_like(depth0, float("inf")))
+    cases = {"no floor": None, "layer-0 floor": floor}
+    max_abs_err, timings, covered = 0.0, {}, {}
+    for label, z_floor in cases.items():
+        args = (*base, z_floor, pipeline.depth_compare_op)
+        depth, tid, lanes = raster_peel(*args)
+        torch.cuda.synchronize()
+        depth_p, tid_p, lanes_p = raster_peel_plain(*args)
+        torch.cuda.synchronize()
+        tid_equal = bool(torch.equal(tid, tid_p))
+        depth_equal = bool(torch.equal(depth.view(torch.int32), depth_p.view(torch.int32)))
+        lane_err = (lanes - lanes_p).abs()
+        lanes_ok = bool((lane_err <= 1e-6 + 1e-5 * lanes_p.abs()).all())
+        lane_bits = bool(torch.equal(lanes.view(torch.int32), lanes_p.view(torch.int32)))
+        err = float(lane_err.max())
+        max_abs_err = max(max_abs_err, err)
+        covered[label] = int((tid >= 0).sum())
+        above = bool((depth[tid >= 0] > floor[tid >= 0]).all()) if z_floor is not None else True
+        _log(f"raster_peel ({label}) vs plain: tid equal {tid_equal}, depth bit-equal "
+             f"{depth_equal}, lanes max |err| {err:.3e} (rtol 1e-5 atol 1e-6 ok {lanes_ok}, "
+             f"bit-equal {lane_bits}), covered {covered[label]}, strictly above the floor {above}")
+        if not (tid_equal and depth_equal and lanes_ok and above and covered[label] > 0):
+            raise SystemExit(f"phase kernels: raster_peel disagrees with its plain version ({label})")
+        del depth_p, tid_p, lanes_p, lane_err
+        ms = _median(_event_times_ms(lambda args=args: raster_peel(*args), KERNEL_TIMINGS))
+        plain_ms = _median(_event_times_ms(lambda args=args: raster_peel_plain(*args), 3, warmup=1))
+        # least time: the walk's ops (one more compare with a floor) and the
+        # winner epilogue's, against the bytes the function must move once:
+        # the 19 walk columns of every binned row and the rest of every
+        # winning row (no more of the table), the sorted ids, segments, the
+        # floor, and depth, tid and lanes written
+        ops = (n_pairs * BIN_PIXELS * (PEEL_OPS_PER_PAIR if z_floor is not None else OPS_PER_PAIR)
+               + covered[label] * PEEL_OPS_PER_PIXEL)
+        n_cols = k5.table.shape[1]
+        binned_rows = int(torch.unique(k5.sorted_tris[:n_pairs]).numel())
+        winner_rows = _peel_winner_rows(k5, z_floor, pipeline.depth_compare_op)
+        nbytes = (binned_rows * WALK_COLS * 4 + winner_rows * (n_cols - WALK_COLS) * 4
+                  + n_pairs * 4 + k5.seg.numel() * 4
+                  + (H * W * 4 if z_floor is not None else 0)
+                  + H * W * (4 + 4 + 4 * (k5.n_vary + k5.n_flat)))
+        bound_ms, bound_by = _bound(ops, nbytes)
+        timings[label] = (ms, plain_ms, bound_ms, bound_by, ops, nbytes)
+        _log(f"raster_peel ({label}): {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain "
+             f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, "
+             f"{nbytes:.3e} bytes: {binned_rows} binned rows of {k5.table.shape[0]}, "
+             f"{winner_rows} winning rows)")
+    ms, plain_ms, bound_ms, bound_by, _, _ = timings["layer-0 floor"]
+    return {
+        "name": "raster_peel",
+        "route": "cuda",
+        "source": "renderer_rs_tpu_torch/csrc/raster_peel.cu",
+        "replaces": "renderer_rs_tpu/ops/raster_pallas.py:87",
+        "max_abs_err": max_abs_err,
+        "ms": ms,  # the floored launch: layers 1-3 of the peel take this form
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes this function
+        "ms_no_floor": timings["no floor"][0],
+        "bound_ms_no_floor": timings["no floor"][2],
+    }
+
+
+def _peel_winner_rows(k5, z_floor, compare_op) -> int:
+    """The distinct table rows that win a pixel in this K5 launch: the rows
+    whose lane columns the function must read."""
+    import torch
+
+    from renderer_rs_tpu_torch.ops.raster_cuda import _unstitch, _walk_plain
+
+    floor_bins = (None if z_floor is None
+                  else _unstitch(z_floor, k5.seg.numel() - 1, k5.nbx, float("inf")))
+    _, win, _, _ = _walk_plain(k5.table, k5.sorted_tris, k5.seg, k5.nbx, compare_op, 1.0,
+                               floor_bins)
+    return int(torch.unique(win[win >= 0]).numel())
+
+
 def phase_kernels() -> dict:
     from renderer_rs_tpu_torch.app.scenes import blinnphong_scene, full_scene
 
@@ -420,32 +538,57 @@ def phase_kernels() -> dict:
     k4 = _check_ids(scene, layout, kw["pipeline"])
     scene, layout, kw, _ = full_scene(W, H, device="cuda", csm=True, **FULL)
     k6 = _check_depth_batch(scene, layout, kw["shadow_map_size"])
+    scene, layout, kw, _ = full_scene(W, H, device="cuda", textured=True, **FULL)
+    k2_tex = _check_resolve("textured flagship", scene, layout, kw["pipeline"], timed=True)
+    k2["ms_textured"], k2["plain_ms_textured"] = k2_tex["ms"], k2_tex["plain_ms"]
+    k2["bound_ms_textured"] = k2_tex["bound_ms"]
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_tex["max_abs_err"])
+    k5 = _check_peel(scene, layout, _mask_pipeline())
     return {"raster_depth": k1, "raster_resolve": k2, "raster_ids": k4,
-            "raster_depth_batch": k6}
+            "raster_depth_batch": k6, "raster_peel": k5}
+
+
+def _mask_pipeline():
+    """The alpha-cutoff (MASK) pipeline a glTF alphaMode MASK user builds."""
+    from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipelineBuilder
+
+    return GraphicsPipelineBuilder().alpha_cutoff(CUTOFF).build()
 
 
 def _zero_launch_counts() -> None:
-    from renderer_rs_tpu_torch.ops.raster_cuda import raster_depth, raster_ids, raster_resolve
+    from renderer_rs_tpu_torch.ops.raster_cuda import (
+        raster_depth,
+        raster_ids,
+        raster_peel,
+        raster_resolve,
+    )
 
     raster_depth.launches = raster_depth.batched_launches = 0
-    raster_resolve.launches = raster_ids.launches = 0
+    raster_resolve.launches = raster_ids.launches = raster_peel.launches = 0
 
 
 def _launch_counts() -> dict:
     """Launches per kernel since the last zeroing: K1 counts raster_depth's
     single-set launches, K6 its launches with N > 1."""
-    from renderer_rs_tpu_torch.ops.raster_cuda import raster_depth, raster_ids, raster_resolve
+    from renderer_rs_tpu_torch.ops.raster_cuda import (
+        raster_depth,
+        raster_ids,
+        raster_peel,
+        raster_resolve,
+    )
 
     return {
         "raster_depth": raster_depth.launches - raster_depth.batched_launches,
         "raster_resolve": raster_resolve.launches,
         "raster_ids": raster_ids.launches,
         "raster_depth_batch": raster_depth.batched_launches,
+        "raster_peel": raster_peel.launches,
     }
 
 
 def _counts(**kw) -> dict:
-    return {"raster_depth": 0, "raster_resolve": 0, "raster_ids": 0, "raster_depth_batch": 0, **kw}
+    return {"raster_depth": 0, "raster_resolve": 0, "raster_ids": 0, "raster_depth_batch": 0,
+            "raster_peel": 0, **kw}
 
 
 def _drive(label: str, renderer, frames: int, expect: dict, before_frame=None) -> dict:
@@ -479,7 +622,8 @@ def _check_frame(label: str, renderer):
     finite = bool(torch.isfinite(hdr).all())
     diag = renderer.frame_diagnostics()
     _log(f"{label}: frame {tuple(hdr.shape)} finite {finite}, covered pixels "
-         f"{diag['covered_pixels']}, clip_overflow {diag['clip_overflow']}, bin_overflow big "
+         f"{diag['covered_pixels']}, peel_exhausted {diag['peel_exhausted']}, "
+         f"clip_overflow {diag['clip_overflow']}, bin_overflow big "
          f"{diag['bin_overflow_big']} huge {diag['bin_overflow_huge']}, "
          f"mean rgb {[round(float(v), 4) for v in hdr[..., :3].mean((0, 1))]}")
     if not finite or diag["covered_pixels"] == 0:
@@ -595,6 +739,27 @@ def phase_main_paths() -> dict:
         _counts(raster_depth_batch=CSM_FRAMES, raster_resolve=CSM_FRAMES),
         before_frame=refit_cascades)
     _check_frame("csm, sun moved", renderer)
+
+    # the textured frame: K2 with the uv and tangent lanes, then the atlas
+    # fetch and TBN mapping; the shadow map once
+    t0 = time.perf_counter()
+    scene, layout, kw, _ = full_scene(W, H, device="cuda", textured=True, **FULL)
+    _log(f"textured scene setup {time.perf_counter() - t0:.2f}s")
+    for label, pipeline, frames, expect in (
+        ("textured (static scene)", kw["pipeline"], TEX_FRAMES,
+         _counts(raster_depth=1, raster_resolve=TEX_FRAMES)),
+        # the MASK frame: the 4-layer depth peel on K5, no K2 launch
+        (f"textured MASK, alpha_cutoff({CUTOFF}) (static scene)", _mask_pipeline(), MASK_FRAMES,
+         _counts(raster_depth=1, raster_peel=4 * MASK_FRAMES)),
+    ):
+        pkw = {**kw, "pipeline": pipeline}
+        warm = make(scene, layout, pkw)
+        for _ in range(2):
+            warm.render_frame()
+        renderer = make(scene, layout, pkw)
+        key = "textured" if pipeline is kw["pipeline"] else "textured_mask"
+        by_path[key] = _drive(label, renderer, frames, expect)
+        _check_frame(label.split(" (")[0], renderer)
     return by_path
 
 
@@ -624,11 +789,12 @@ def phase_small_reference() -> None:
     from renderer_rs_tpu_torch.core.config import RendererConfig
     from renderer_rs_tpu_torch.renderer.renderer import Renderer
 
-    def render(factory, device, hdr=False, msaa=1, **scene_kw):
+    def render(factory, device, hdr=False, msaa=1, mask=False, **scene_kw):
         scene, layout, kw, _ = factory(160, 120, device=device, **scene_kw)
         if "shadow_map_size" in kw:
             kw["shadow_map_size"] = 256
-        kw["pipeline"] = dataclasses.replace(kw["pipeline"], msaa_samples=msaa)
+        kw["pipeline"] = dataclasses.replace(kw["pipeline"], msaa_samples=msaa,
+                                             alpha_cutoff=CUTOFF if mask else None)
         renderer = Renderer(RendererConfig(width=160, height=120), device=device, **kw)
         renderer.set_scene(scene, layout)
         return renderer.render_frame_hdr().cpu().numpy() if hdr else renderer.render_frame()
@@ -641,7 +807,8 @@ def phase_small_reference() -> None:
     # within 2e-3 + 2e-3*|ref|, and none off by more than one tap of the sun
     # term after ACES (0.15)
     for label, extra in (("single map", {}), ("csm", dict(csm=True)),
-                         (f"msaa{MSAA}", dict(msaa=MSAA))):
+                         (f"msaa{MSAA}", dict(msaa=MSAA)), ("textured", dict(textured=True)),
+                         ("textured MASK", dict(textured=True, mask=True))):
         got = render(full_scene, "cuda", hdr=True, **SMALL_FULL, **extra)
         ref = render(full_scene, "cpu", hdr=True, **SMALL_FULL, **extra)
         err = np.abs(got - ref)
@@ -652,6 +819,41 @@ def phase_small_reference() -> None:
         if not (np.isfinite(got).all() and off < 0.005 and err.max() < 0.15):
             raise SystemExit(f"phase small reference: the PBR frame ({label}) on cuda differs "
                              "from the cpu frame")
+    _cutout_check()
+
+
+def _cutout_check() -> None:
+    """The alpha-cutout stack at 128x96 (3 cutout quads over a floor, and
+    the 6-layer aligned stack that exhausts the 4-layer peel), built by the
+    port's SceneBuilder, on cuda against cpu: the frame within the bar,
+    equal peel_exhausted, winner ids compared."""
+    import numpy as np
+
+    from renderer_rs_tpu_torch.renderer.passes import ShadingModel, forward_frame
+
+    # the test stack's builder lives with the port's test helpers (no JAX there)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from _torch_port import alpha_cutout_scene
+    from renderer_rs_tpu_torch.rhi.pipeline import CullMode, GraphicsPipelineBuilder
+
+    pipe = GraphicsPipelineBuilder().cull_mode(CullMode.NONE).alpha_cutoff(CUTOFF).build()
+    for layers, dx in ((3, 0.15), (6, 0.0)):
+        res = {}
+        for device in ("cuda", "cpu"):
+            scene, layout = alpha_cutout_scene(128, 96, layers=layers, dx=dx, device=device)
+            out, ids, diag = forward_frame(scene, layout, pipe, ShadingModel.PBR, 128, 96,
+                                           return_ids=True, diagnostics=True)
+            res[device] = (out.cpu().numpy(), ids.cpu().numpy(), int(diag["peel_exhausted"]))
+        (got, gids, gex), (ref, rids, rex) = res["cuda"], res["cpu"]
+        err = np.abs(got - ref)
+        off = float((err > 2e-3 + 2e-3 * np.abs(ref)).mean())
+        _log(f"alpha-cutout stack ({layers} layers, dx {dx}) 128x96, cuda vs cpu: max |d| "
+             f"{err.max():.3e}, values off the bar {off:.4%}, winner ids differing "
+             f"{int((gids != rids).sum())}, covered {int((rids >= 0).sum())}, peel_exhausted "
+             f"{gex} vs {rex}")
+        if not (np.isfinite(got).all() and off < 0.005 and err.max() < 0.15 and gex == rex):
+            raise SystemExit("phase small reference: the alpha-cutout frame on cuda differs from "
+                             "the cpu frame")
 
 
 def main() -> int:

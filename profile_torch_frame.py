@@ -2,7 +2,8 @@
 """Where a frame's time goes in the PyTorch/CUDA port, on one NVIDIA GPU.
 
     python3 profile_torch_frame.py [--scene blinnphong|full --moving-sun
-                                    --csm --msaa 4
+                                    --csm --msaa 4 --textured
+                                    --alpha-cutoff 0.5
                                     --width 1920 --height 1080 --rings 160
                                     --sectors 320 --tris 100000 --frames 5
                                     --out out/profile]
@@ -14,7 +15,12 @@ default --tris; static scene, so the shadow map is reused; `--moving-sun`
 gives every frame a new sun direction and light matrix, so the shadow pass
 runs every frame). With `--csm` the full scene has four shadow cascades
 (`frame/shadow` is then the cascade pass, one K6 launch; `--moving-sun`
-refits the cascades every frame). `--msaa N` (2, 4 or 8) renders through
+refits the cascades every frame). `--textured` binds the 5-slot texture set
+to the full scene; `--alpha-cutoff C` renders it under an alpha-cutoff
+(MASK) pipeline: the span `frame/peel` then takes the place of
+`frame/bin_table` and `frame/k2` (the binning and table,
+`frame/peel_bin_table`, and the four K5 launches, `frame/k5`, nested in
+it, with the alpha tests between them). `--msaa N` (2, 4 or 8) renders through
 the shade-once resolve: the spans `frame/msaa_ids` (the whole sample pass:
 setup at the sample extent, then `frame/ids_bin_table` and `frame/k4`
 nested in it) and `frame/msaa_resolve` appear beside the 1x frame's. A
@@ -75,6 +81,11 @@ def main(argv=None) -> int:
                         help="full scene: four shadow cascades instead of the single map")
     parser.add_argument("--msaa", type=int, choices=[1, 2, 4, 8], default=1,
                         help="MSAA samples (shade-once resolve)")
+    parser.add_argument("--textured", action="store_true",
+                        help="full scene: bind the 5-slot PBR texture set")
+    parser.add_argument("--alpha-cutoff", type=float, default=None,
+                        help="full scene: an alpha-cutoff (MASK) pipeline with this cutoff "
+                             "(needs --textured)")
     parser.add_argument("--frames", type=int, default=5)
     parser.add_argument("--out", default=os.path.join("out", "profile"),
                         help="directory for the JSON summary (and the trace)")
@@ -100,13 +111,14 @@ def main(argv=None) -> int:
     if args.scene == "full":
         scene, layout, kw, _ = full_scene(
             args.width, args.height, tri_budget=args.tris, ibl=False, csm=args.csm,
-            device="cuda",
+            textured=args.textured, device="cuda",
         )
     else:
         scene, layout, kw, _ = blinnphong_scene(
             args.width, args.height, rings=args.rings, sectors=args.sectors, device="cuda"
         )
-    kw["pipeline"] = dataclasses.replace(kw["pipeline"], msaa_samples=args.msaa)
+    kw["pipeline"] = dataclasses.replace(kw["pipeline"], msaa_samples=args.msaa,
+                                         alpha_cutoff=args.alpha_cutoff)
     renderer = Renderer(RendererConfig(width=args.width, height=args.height), device="cuda", **kw)
     renderer.set_scene(scene, layout)
     steps = iter(range(1, 1000))
@@ -175,6 +187,8 @@ def main(argv=None) -> int:
         "moving_sun": bool(args.moving_sun),
         "csm": bool(args.csm),
         "msaa": args.msaa,
+        "textured": bool(args.textured),
+        "alpha_cutoff": args.alpha_cutoff,
         "shape": [args.width, args.height],
         "triangles": layout.num_triangles,
         "frames": args.frames,
@@ -199,6 +213,8 @@ def main(argv=None) -> int:
     if args.trace:
         prof.export_chrome_trace(os.path.join(args.out, f"torch_frame_trace_{args.scene}.json"))
     tag = (args.scene + ("_csm" if args.csm else "") + (f"_msaa{args.msaa}" if args.msaa > 1 else "")
+           + ("_textured" if args.textured else "")
+           + (f"_mask{args.alpha_cutoff}" if args.alpha_cutoff is not None else "")
            + ("_moving_sun" if args.moving_sun else ""))
     with open(os.path.join(args.out, f"torch_frame_profile_{tag}.json"), "w") as f:
         json.dump(summary, f, indent=1)

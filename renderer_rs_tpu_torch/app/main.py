@@ -8,11 +8,15 @@ Usage:
     python -m renderer_rs_tpu_torch.app.main --scene full --no-ibl \
         --tris 100000 --width 1920 --height 1080 --out /tmp/out
     python -m renderer_rs_tpu_torch.app.main --scene full --no-ibl --csm --out /tmp/out
+    python -m renderer_rs_tpu_torch.app.main --scene full --no-ibl --textured --out /tmp/out
     python -m renderer_rs_tpu_torch.app.main --scene gltf-pbr --out /tmp/out
 
 `--scene full` needs `--no-ibl` for now (`--csm` switches it to four shadow
-cascades): the IBL environment, `--textured`, `--hdr` and `--gltf` raise
-NotImplementedError until their slices are ported. The X11 window, the scripted orbit/fly cameras and the
+cascades, `--textured` binds the 5-slot PBR texture set): the IBL
+environment, `--hdr` and `--gltf` raise NotImplementedError until their
+slices are ported. As in the JAX app there is no alpha-cutoff flag: a MASK
+pipeline (`GraphicsPipelineBuilder().alpha_cutoff(0.5)`) reaches the
+Renderer as its `pipeline`. The X11 window, the scripted orbit/fly cameras and the
 other scenes wait for later slices (ROADMAP Queue 1 items 13-14)."""
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ def main(argv=None, device="cuda") -> int:
                         help="cascaded shadow maps: four cascades instead of the single sun map "
                              "(full scene)")
     parser.add_argument("--textured", action="store_true",
-                        help="the 5-slot procedural PBR texture set (full scene; not ported yet)")
+                        help="the 5-slot procedural PBR texture set (full scene)")
     parser.add_argument("--hdr", type=str, default=None,
                         help="Radiance .hdr environment (full scene; not ported yet)")
     parser.add_argument("--gltf", type=str, default=None, help="glTF path (not ported yet)")

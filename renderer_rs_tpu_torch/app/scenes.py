@@ -1,7 +1,8 @@
 """Demo scene factories (≙ renderer_rs_tpu/app/scenes.py). Ported: config
 2, the Blinn-Phong sphere; config 3, the procedural PBR sphere grid; and
 config 4 without IBL, the shadow-mapped PBR frame with skybox and ACES,
-with a single sun map or four cascades. The others wait for later slices (ROADMAP Queue 1).
+with a single sun map or four cascades, untextured or with the 5-slot
+procedural texture set. The others wait for later slices (ROADMAP Queue 1).
 
 A factory returns (scene, layout, renderer_kwargs, animate_fn), where
 animate_fn(scene, t, dt) -> scene updates the dynamic state per frame."""
@@ -148,14 +149,14 @@ def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = T
     sized to tri_budget on a floor, a shadow-mapped sun (1024² map; with
     csm=True four 1024² cascades fitted to the camera frustum), the
     procedural sky as skybox, ACES tonemap. tri_budget=100_000 gives 97,346
-    triangles. The IBL precompute, the texture set, a Radiance .hdr
-    environment and glTF instancing are not ported: each raises rather than
-    render a lesser scene."""
+    triangles. textured=True binds the procedural 5-slot 256² PBR texture
+    set (base/normal/MR/AO/emissive, meshgen.procedural_pbr_textures) to
+    every material, the texture x factor semantics of model_pbr.hlsl. The
+    IBL precompute, a Radiance .hdr environment and glTF instancing are not
+    ported: each raises rather than render a lesser scene."""
     if ibl:
         raise _not_ported("the IBL environment of the full scene (pass ibl=False)",
-                          "items 7 and 9, textured + IBL slice")
-    if textured:
-        raise _not_ported("the 5-slot PBR texture set", "items 7 and 9, textured + IBL slice")
+                          "items 7 and 9, IBL slice")
     if hdr is not None:
         raise _not_ported("a Radiance .hdr environment", "item 9, HDR loader")
     if gltf:
@@ -169,12 +170,28 @@ def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = T
 
     pipeline = GraphicsPipelineBuilder().build()
     cb = CommandBuffer().begin().bind_pipeline(pipeline).set_viewport(width, height)
+    builder = SceneBuilder()
+    tex_kw = {}
+    if textured:
+        # one shared 5-slot set; per-material FACTORS still vary across the grid
+        maps = meshgen.procedural_pbr_textures(256)
+        builder.set_textures([maps["base_color"], maps["normal"], maps["metallic_roughness"],
+                              maps["occlusion"], maps["emissive"]])
+        tex_kw = dict(
+            base_color_texture=0,
+            normal_texture=1,
+            metallic_roughness_texture=2,
+            occlusion_texture=3,
+            emissive_texture=4,
+            emissive=(1.0, 1.0, 1.0, 0.0),  # emissive factor gates the map
+        )
     for i in range(n):
         for j in range(n):
             mat = Material(
                 base_color=(0.85, 0.3, 0.2, 1.0),
                 metallic=i / max(n - 1, 1),
                 roughness=max(j / max(n - 1, 1), 0.08),
+                **tex_kw,
             )
             tr = (
                 Transform()
@@ -185,10 +202,9 @@ def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = T
     cb.draw_mesh(
         meshgen.plane_mesh(12.0),
         Transform(),
-        Material(base_color=(0.55, 0.55, 0.6, 1.0), roughness=0.85),
+        Material(base_color=(0.55, 0.55, 0.6, 1.0), roughness=0.85, **tex_kw),
     )
     cb.end()
-    builder = SceneBuilder()
     cam = _orbit_camera(width, height, distance=5.0, height_y=3.0, fov=50.0)
     builder.set_camera(_camera_ubo(cam))
     sun_dir = np.array([-0.45, -1.0, -0.35], np.float32)

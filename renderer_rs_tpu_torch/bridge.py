@@ -15,7 +15,14 @@ fields: {"positions", "normals", "uvs", "tangents", "colors", "tris",
          "scene_ubo": {ambient_color, time, delta_time},
          "light_space_matrix": [4,4] or None,
          "csm_matrices": [C,4,4] or None, "csm_splits": [C] or None,
-         "environment": {"skybox_mips": (faces [6,S,S,C], ...)} or None}
+         "environment": {"skybox_mips": (faces [6,S,S,C], ...)} or None,
+         "textures": {"mips": ([N,h,w,4] f32, ...),
+                      "mat_atlas_tri": [R,8C] uint16 (the bf16 BITS) or None,
+                      "mat_set": [M] int or None} or None}
+
+A JAX bf16 array reaches numpy as an ml_dtypes.bfloat16 array, which
+torch.from_numpy rejects: the caller passes its bits (`.view(np.uint16)`),
+and they come back as torch.bfloat16 through int16 with every bit kept.
 layout_fields: the SceneLayout dataclass fields as Python values.
 """
 
@@ -25,7 +32,12 @@ import numpy as np
 import torch
 
 from renderer_rs_tpu_torch.core.device import resolve_device
-from renderer_rs_tpu_torch.renderer.scene_build import Environment, GpuScene, SceneLayout
+from renderer_rs_tpu_torch.renderer.scene_build import (
+    Environment,
+    GpuScene,
+    SceneLayout,
+    TextureArrays,
+)
 from renderer_rs_tpu_torch.resources.material import MaterialBank
 from renderer_rs_tpu_torch.resources.ubo import CameraUbo, SceneUbo
 from renderer_rs_tpu_torch.scene.light import LightBank
@@ -41,6 +53,23 @@ def _tensor(name: str, value, dev: torch.device) -> torch.Tensor:
     else:
         dtype = np.float32
     return torch.from_numpy(np.array(value, dtype=dtype)).to(dev)
+
+
+def _bf16_from_bits(bits, dev: torch.device) -> torch.Tensor:
+    """bf16 tensor from its uint16 bit patterns, bit for bit."""
+    bits = np.array(bits, dtype=np.uint16)  # a writable copy
+    return torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16).to(dev)
+
+
+def _textures(tex, dev: torch.device) -> TextureArrays | None:
+    if tex is None:
+        return None
+    atlas, mat_set = tex.get("mat_atlas_tri"), tex.get("mat_set")
+    return TextureArrays(
+        mips=tuple(_tensor("mip", m, dev) for m in tex["mips"]),
+        mat_atlas_tri=None if atlas is None else _bf16_from_bits(atlas, dev),
+        mat_set=None if mat_set is None else torch.from_numpy(np.array(mat_set, np.int64)).to(dev),
+    )
 
 
 def scene_from_numpy(fields: dict, layout_fields: dict, device="cuda"):
@@ -67,6 +96,7 @@ def scene_from_numpy(fields: dict, layout_fields: dict, device="cuda"):
         lights=group(LightBank, "lights"),
         camera=group(CameraUbo, "camera"),
         scene_ubo=group(SceneUbo, "scene_ubo"),
+        textures=_textures(fields.get("textures"), dev),
         environment=(
             None if env is None
             else Environment(skybox_mips=tuple(_tensor("skybox", m, dev) for m in env["skybox_mips"]))

@@ -10,7 +10,7 @@ Flags: ``--fmad=false`` stops nvcc from contracting any ``a*b + c`` on its
 own. The JAX kernels are not free of FMAs: measured against the Pallas
 kernels in interpret mode, XLA fuses a fixed handful of products (the edge
 function and the depth sum in every body, plus b2 and the lane blends in
-K2's winner epilogue), and nothing else. Each ``.cu`` file writes exactly
+the winner epilogues of K2 and K5), and nothing else. Each ``.cu`` file writes exactly
 those with ``__fmaf_rn`` and lists them under "Exactness"; with the flag,
 every other product and sum rounds on its own. Either a missing or an extra
 fusion moves coverage on exact edges and breaks the bit-equal tid/depth
@@ -33,6 +33,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "raster_depth": _PKG / "csrc" / "raster_depth.cu",
     "raster_ids": _PKG / "csrc" / "raster_ids.cu",
+    "raster_peel": _PKG / "csrc" / "raster_peel.cu",
     "raster_resolve": _PKG / "csrc" / "raster_resolve.cu",
 }
 NVCC_FLAGS = (

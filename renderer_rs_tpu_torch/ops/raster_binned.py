@@ -172,13 +172,16 @@ def bin_triangles_compact(
     return sorted_tris, seg, nby, nbx, overflow
 
 
-def supports_binned(pipeline: GraphicsPipeline, num_triangles: int, threshold: int = 64) -> bool:
+def supports_binned(pipeline: GraphicsPipeline, num_triangles: int, threshold: int = 64,
+                    allow_alpha_cutoff: bool = False) -> bool:
     """Whether the fast path applies (raster_binned.py:860): no blend, no
-    alpha cutoff, FILL triangle lists, depth test AND write on with a
-    LESS/GREATER-family compare, and at least `threshold` triangles."""
+    alpha cutoff (unless the caller is the depth-peel loop, which handles
+    one with several binned passes: allow_alpha_cutoff), FILL triangle
+    lists, depth test AND write on with a LESS/GREATER-family compare, and
+    at least `threshold` triangles."""
     return (
         not pipeline.blend.blend_enable
-        and pipeline.alpha_cutoff is None
+        and (pipeline.alpha_cutoff is None or allow_alpha_cutoff)
         and pipeline.topology == PrimitiveTopology.TRIANGLE_LIST
         and pipeline.polygon_mode == PolygonMode.FILL
         and pipeline.depth_test_enable

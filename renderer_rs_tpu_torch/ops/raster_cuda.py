@@ -1,5 +1,9 @@
-"""K1 and K2 — the binned raster kernels on Hopper (≙ the depth-only and
-the gather-mode paths of renderer_rs_tpu/ops/raster_pallas.py).
+"""K1, K2, K4 and K5 — the binned raster kernels on Hopper (≙ the
+depth-only, gather-mode, ids-only and masked-lane paths of
+renderer_rs_tpu/ops/raster_pallas.py). K4 (`raster_ids`) and K5
+(`raster_peel`, the alpha-cutoff peel's kernel: K2's walk under a strict
+per-pixel depth floor, an ids payload, the winner's lanes in the
+reference's masked-lane rounding) are described at their sections below.
 
 K2, visibility with in-kernel winner resolve:
 
@@ -133,6 +137,20 @@ def _with_pad_row(table: torch.Tensor) -> torch.Tensor:
     return torch.cat([table, pad]).contiguous()
 
 
+def _composed_blocks(attr, vtx, vary_src, bary_planes) -> list:
+    """Per raster slot, each vertex's attributes composed through the near
+    clip's source-barycentric frame: 3 x [t,K], block i = sum_j planes[i][j]
+    * attr[source vertex j] (raster_pallas.py:960-964, 1099-1106)."""
+    tsrc = vtx[vary_src]  # [t,3] source vertex ids
+    rows = [attr[tsrc[:, j]] for j in range(3)]  # 3 x [t,K]
+    return [
+        bary_planes[i][0][:, None] * rows[0]
+        + bary_planes[i][1][:, None] * rows[1]
+        + bary_planes[i][2][:, None] * rows[2]
+        for i in range(3)
+    ]
+
+
 def build_gather_table(
     setup: TriangleSetup,
     attr: torch.Tensor,
@@ -152,16 +170,8 @@ def build_gather_table(
     flat [T0,Kf] per-source-triangle flat lanes."""
     t = setup.num_triangles
     base = _base_coef_table(setup, torch.arange(t, dtype=_F32, device=attr.device))
-    tsrc = vtx[vary_src]  # [t,3] source vertex ids
-    rows = [attr[tsrc[:, j]] for j in range(3)]  # 3 x [t,K]
-    blocks = [
-        bary_planes[i][0][:, None] * rows[0]
-        + bary_planes[i][1][:, None] * rows[1]
-        + bary_planes[i][2][:, None] * rows[2]
-        for i in range(3)
-    ]
     inv_w = 1.0 / torch.clamp(setup.w, min=1e-12)
-    parts = [base, inv_w, *blocks]
+    parts = [base, inv_w, *_composed_blocks(attr, vtx, vary_src, bary_planes)]
     if flat is not None:
         parts.append(flat[vary_src])
     return _with_pad_row(torch.cat(parts, dim=-1))
@@ -265,15 +275,16 @@ def raster_resolve(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat,
 raster_resolve.launches = 0  # kernel launches, read and reset by chip_smoke.py
 
 
-def _walk_plain(table, sorted_tris, seg, nbx, compare_op, depth_clear):
-    """The candidate walk of K2 and K4 as torch ops, in the kernels' f32
+def _walk_plain(table, sorted_tris, seg, nbx, compare_op, depth_clear, z_floor=None):
+    """The candidate walk of K2, K4 and K5 as torch ops, in the kernels' f32
     operation order. All bins advance together, _PLAIN_CHUNK candidates at
     a time, over [bins, chunk, 16, 128]: the chunk's nearest covered
     candidate (first for strict compares, last for LE/GE among equal
     depths) replaces the carry when it passes the depth test — the Pallas
     kernel's per-chunk reduction, equal to the kernels' sequential walk.
-    Returns (depth, winner table row or -1) as [bins,16,128] and the pixel
-    centers (py [bins,16,1], px [bins,1,128])."""
+    z_floor [bins,16,128] (K5) admits only candidates with z strictly
+    above it. Returns (depth, winner table row or -1) as [bins,16,128] and
+    the pixel centers (py [bins,16,1], px [bins,1,128])."""
     chunk = _PLAIN_CHUNK
     dev = table.device
     greater = compare_op in (CompareOp.GREATER, CompareOp.GREATER_OR_EQUAL)
@@ -314,6 +325,8 @@ def _walk_plain(table, sorted_tris, seg, nbx, compare_op, depth_clear):
         b2 = 1.0 - b0 - b1
         zc = _depth(b0, b1, b2, col(15), col(16), col(17))
         cov = cov & ((zc <= 1.0) if greater else (zc >= 0.0))
+        if z_floor is not None:
+            cov = cov & (zc > z_floor[act][:, None])
         key = torch.where(cov, zc, torch.full_like(zc, big))
         z_best = key.amax(1) if greater else key.amin(1)  # [A,16,128]
         winners = cov & (zc == z_best[:, None])
@@ -340,6 +353,15 @@ def _stitch(x, nbx, height, width):
     nby = x.shape[0] // nbx
     x = x.reshape(nby, nbx, BIN_H, BIN_W, *x.shape[3:]).transpose(1, 2)
     return x.reshape(nby * BIN_H, nbx * BIN_W, *x.shape[4:])[:height, :width]
+
+
+def _unstitch(x, n_bins, nbx, fill):
+    """[H,W] -> [bins,16,128], the bins' padding filled with `fill`
+    (raster_pallas.py:1190-1198)."""
+    nby = n_bins // nbx
+    pad = torch.full((nby * BIN_H, nbx * BIN_W), fill, dtype=x.dtype, device=x.device)
+    pad[: x.shape[0], : x.shape[1]] = x
+    return pad.reshape(nby, BIN_H, nbx, BIN_W).transpose(1, 2).reshape(n_bins, BIN_H, BIN_W)
 
 
 def raster_resolve_plain(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat,
@@ -443,16 +465,11 @@ class IdsInputs:
         return self.seg[-1]
 
 
-def prepare_ids(setup: TriangleSetup, height: int, width: int, ids: torch.Tensor,
-                small_limit=None, id_bound: int | None = None) -> IdsInputs:
-    """Bin and build K4's table (≙ rasterize_binned_pallas(skip_bary=True,
-    ids=...) up to the pallas_call, raster_pallas.py:909-915): the 19 depth
-    columns, then `ids` [t] (one payload id per raster slot) as f32 in
-    column 19. id_bound is an exclusive upper bound of the ids known to the
-    caller (the source triangle count); without it the ids are read back to
-    check them. Ids of 2^24 or more would round in the f32 column and are
-    rejected."""
-    t = setup.num_triangles
+def _check_payload_ids(ids: torch.Tensor, t: int, id_bound: int | None) -> None:
+    """Refuse an ids payload (K4's and K5's column 19) that is not one
+    integer id per raster slot, or whose ids reach 2^24, where the f32
+    column would round them. id_bound is the ids' exclusive upper bound if
+    the caller knows it; without it the ids are read back."""
     if ids.shape != (t,):
         raise ValueError(f"ids has shape {tuple(ids.shape)}, needs ({t},): one id per raster slot")
     if ids.dtype not in (torch.int32, torch.int64):
@@ -463,6 +480,18 @@ def prepare_ids(setup: TriangleSetup, height: int, width: int, ids: torch.Tensor
             f"payload ids reach {bound - 1}: they ride an f32 table column and are "
             f"exact only below 2^24 = {MAX_PAYLOAD_ID}"
         )
+
+
+def prepare_ids(setup: TriangleSetup, height: int, width: int, ids: torch.Tensor,
+                small_limit=None, id_bound: int | None = None) -> IdsInputs:
+    """Bin and build K4's table (≙ rasterize_binned_pallas(skip_bary=True,
+    ids=...) up to the pallas_call, raster_pallas.py:909-915): the 19 depth
+    columns, then `ids` [t] (one payload id per raster slot) as f32 in
+    column 19. id_bound is an exclusive upper bound of the ids known to the
+    caller (the source triangle count); without it the ids are read back to
+    check them. Ids of 2^24 or more would round in the f32 column and are
+    rejected."""
+    _check_payload_ids(ids, setup.num_triangles, id_bound)
     sorted_tris, seg, _nby, nbx, overflow = bin_compact(setup, height, width, small_limit)
     return IdsInputs(
         table=_with_pad_row(_base_coef_table(setup, ids.to(_F32))),
@@ -717,3 +746,171 @@ def raster_depth_plain(table, sorted_tris, seg, nbx, height, width,
             key[act] = torch.minimum(key[act], k.amin(1))
     depth = _from_key(key).reshape(n_batch, nby, nbx, BIN_H, BIN_W).transpose(2, 3)
     return depth.reshape(n_batch, nby * BIN_H, nbx * BIN_W)[:, :height, :width].contiguous()
+
+
+# --- K5: masked lanes under a depth floor (the alpha-cutoff peel) ----------------
+
+@dataclasses.dataclass
+class PeelInputs:
+    """K5's inputs for one frame, shared by its peel layers: the table
+    (payload id in column 19, channel-major attributes, flats), the binned
+    segments, the lane counts, and the binning overflow counters [big, huge]."""
+
+    table: torch.Tensor
+    sorted_tris: torch.Tensor
+    seg: torch.Tensor
+    nbx: int
+    n_vary: int
+    n_flat: int
+    bin_overflow: torch.Tensor
+
+    @property
+    def n_pairs(self) -> torch.Tensor:
+        """Binned (bin, triangle) pairs the kernel walks (device scalar)."""
+        return self.seg[-1]
+
+
+def build_peel_table(setup: TriangleSetup, attr, vtx, vary_src, bary_planes, flat,
+                     ids) -> torch.Tensor:
+    """K5's table [t+1, 23+3K+Kf] (raster_pallas.py:909-979, the in-kernel
+    lane form): base columns with the `ids` payload as f32 in column 19,
+    inv_w (3), the clip-frame-composed vertex attributes CHANNEL-major
+    (column 23 + 3k + i is vertex i, attribute k), the flat lanes, then the
+    pad row t.
+
+    attr [V,K] per-vertex attributes, vtx [T0,3] vertex ids, vary_src [t]
+    raster slot -> source triangle, bary_planes 3x3 of [t] clip frames,
+    flat [T0,Kf] per-source-triangle flat lanes, ids [t]."""
+    t = setup.num_triangles
+    base = _base_coef_table(setup, ids.to(_F32))
+    blocks = _composed_blocks(attr, vtx, vary_src, bary_planes)
+    a_cols = torch.stack(blocks, dim=-1).reshape(t, 3 * attr.shape[-1])
+    inv_w = 1.0 / torch.clamp(setup.w, min=1e-12)
+    return _with_pad_row(torch.cat([base, inv_w, a_cols, flat[vary_src]], dim=-1))
+
+
+def prepare_peel(setup: TriangleSetup, height: int, width: int, attr, vtx, vary_src,
+                 bary_planes, flat, ids, id_bound: int) -> PeelInputs:
+    """Bin once and build K5's table for all the peel layers of a frame
+    (≙ rasterize_binned_pallas(varyings, vary_src, vary_bary, flat_varyings,
+    ids, skip_bary=True) up to the pallas_call, with its default
+    small_limit=None; the JAX frame rebuilds the same values per layer).
+    The ids ride an f32 column, so id_bound, their exclusive upper bound
+    (the source triangle count), must not exceed 2^24."""
+    _check_payload_ids(ids, setup.num_triangles, id_bound)
+    sorted_tris, seg, _nby, nbx, overflow = bin_compact(setup, height, width)
+    return PeelInputs(
+        table=build_peel_table(setup, attr, vtx, vary_src, bary_planes, flat, ids),
+        sorted_tris=sorted_tris,
+        seg=seg,
+        nbx=nbx,
+        n_vary=attr.shape[-1],
+        n_flat=flat.shape[-1],
+        bin_overflow=overflow,
+    )
+
+
+def _check_floor(z_floor, table, height, width):
+    if z_floor is None:
+        return
+    if z_floor.dtype != _F32 or z_floor.shape != (height, width) or not z_floor.is_contiguous():
+        raise ValueError(f"z_floor must be a contiguous [{height}, {width}] float32 tensor")
+    if z_floor.device != table.device:
+        raise ValueError(f"z_floor is on {z_floor.device}, table on {table.device}")
+
+
+def _launch_peel(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat, z_floor,
+                 compare_op, depth_clear):
+    from renderer_rs_tpu_torch.kernels import load
+
+    lib = load("raster_peel")
+    fn = lib.raster_peel_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    dev = table.device
+    depth = torch.empty((height, width), dtype=_F32, device=dev)
+    tid = torch.empty((height, width), dtype=torch.int32, device=dev)
+    lanes = torch.empty((height, width, n_vary + n_flat), dtype=_F32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            table.data_ptr(), table.shape[1], sorted_tris.data_ptr(), seg.data_ptr(),
+            seg.numel() - 1, nbx, height, width, n_vary, n_flat,
+            None if z_floor is None else z_floor.data_ptr(), _OPS[compare_op],
+            float(depth_clear), depth.data_ptr(), tid.data_ptr(), lanes.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"raster_peel launch failed: cudaError {err}")
+    raster_peel.launches += 1
+    return depth, tid, lanes
+
+
+def raster_peel(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat, z_floor=None,
+                compare_op=CompareOp.LESS, depth_clear=1.0):
+    """K5 over the binned candidates. table [t+1, 23+3K+Kf] f32
+    (prepare_peel), sorted_tris/seg int32 (bin_compact), nbx bins per row,
+    z_floor [H,W] f32 or None: only candidates with z strictly above the
+    pixel's floor compete. Returns (depth [H,W] f32, tid [H,W] int32: the
+    winner's payload id from column 19, or -1; lanes [H,W,K+Kf] f32: the
+    winner's perspective-correct varyings, then its flat lanes). CUDA
+    tensors launch the kernel; CPU tensors run raster_peel_plain."""
+    _check_inputs(table, sorted_tris, seg, nbx, height, width, 23 + 3 * n_vary + n_flat,
+                  compare_op)
+    _check_floor(z_floor, table, height, width)
+    if table.device.type == "cuda":
+        return _launch_peel(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat,
+                            z_floor, compare_op, depth_clear)
+    if table.device.type != "cpu":
+        raise ValueError(f"raster_peel: unsupported device {table.device}")
+    return raster_peel_plain(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat,
+                             z_floor, compare_op, depth_clear)
+
+
+raster_peel.launches = 0  # kernel launches, read and reset by chip_smoke.py
+
+
+def raster_peel_plain(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat,
+                      z_floor=None, compare_op=CompareOp.LESS, depth_clear=1.0):
+    """The same function as torch ops: the candidate walk with the floor
+    (_walk_plain), then the winner's row resolves its lanes once, rounded
+    as the kernel rounds them (csrc/raster_peel.cu "Exactness"). The
+    reference selects each lane as a masked sum over the chunk, which turns
+    a winning -0.0 into +0.0: `+ 0.0` does the same here."""
+    _check_inputs(table, sorted_tris, seg, nbx, height, width, 23 + 3 * n_vary + n_flat,
+                  compare_op)
+    _check_floor(z_floor, table, height, width)
+    floor_bins = None if z_floor is None else _unstitch(z_floor, seg.numel() - 1, nbx, float("inf"))
+    depth, win, py_all, px_all = _walk_plain(table, sorted_tris, seg, nbx, compare_op,
+                                             depth_clear, floor_bins)
+    g = table[torch.clamp(win, min=0)]  # [bins,16,128,C]
+
+    def gc(k):
+        return g[..., k]
+
+    e0 = _edge(gc(2), py_all - gc(1), gc(3), px_all - gc(0))
+    e1 = _edge(gc(7), py_all - gc(6), gc(8), px_all - gc(5))
+    inv = gc(18)
+    b0 = e0 * inv
+    b1 = e1 * inv
+    b2 = 1.0 - b0 - b1  # the walk's b2: the denominator reads it
+    b2f = _fma(-e1, inv, _fma(-e0, inv, torch.ones_like(e0)))  # the third weight's
+    denom = _fma(b2, gc(22), _fma(b0, gc(20), b1 * gc(21)))
+    inv_d = 1.0 / torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    aw0 = (b0 * gc(20) * inv_d + 0.0)[..., None]
+    aw1 = (b1 * gc(21) * inv_d + 0.0)[..., None]
+    aw2 = (b2f * gc(22) * inv_d + 0.0)[..., None]
+    k = n_vary
+    a = g[..., 23:23 + 3 * k].reshape(*g.shape[:-1], k, 3) + 0.0
+    vary = _fma(aw2, a[..., 2], _fma(aw0, a[..., 0], aw1 * a[..., 1]))
+    lanes = torch.cat([vary, g[..., 23 + 3 * k:23 + 3 * k + n_flat] + 0.0], dim=-1)
+    hit = win >= 0
+    tid = torch.where(hit, gc(19).to(torch.int32), -1)
+    lanes = torch.where(hit[..., None], lanes, 0.0)
+    return (_stitch(depth, nbx, height, width).contiguous(),
+            _stitch(tid, nbx, height, width).to(torch.int32).contiguous(),
+            _stitch(lanes, nbx, height, width).contiguous())

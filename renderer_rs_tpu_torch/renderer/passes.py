@@ -10,9 +10,11 @@ on the TPU (`forward_frame`'s `fuse` branch with its defaults: in-kernel
 winner resolve, arithmetic slot->source ids, SoA table build, clip cap
 T/16, triangle setup), the single-map and the cascaded shadow pass with
 their default plane-form setup, the ids-only frame and the shade-once MSAA
-resolve, and the untextured Blinn-Phong and Cook-Torrance PBR shaders with
-the reduced-rate shadow ladder. Every other branch raises
-NotImplementedError naming its ROADMAP queue item.
+resolve, the Blinn-Phong and Cook-Torrance PBR shaders with the
+reduced-rate shadow ladder, the textured branch (the single-gather trilinear
+material atlas and TBN normal mapping), and the alpha-cutoff (MASK) frame:
+the bounded 4-layer depth peel on K5 (`_alpha_peeled_raster`). Every other
+branch raises NotImplementedError naming its ROADMAP queue item.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import enum
 import torch
 from torch.profiler import record_function
 
-from renderer_rs_tpu_torch.mathx.vec import normalize
+from renderer_rs_tpu_torch.mathx.vec import cross, normalize
 from renderer_rs_tpu_torch.ops import blinn_phong as bp
 from renderer_rs_tpu_torch.ops import pbr as pbr_ops
 from renderer_rs_tpu_torch.ops.clip import clip_triangles_near_planes, compact_secondary
@@ -40,10 +42,17 @@ from renderer_rs_tpu_torch.ops.raster_binned import supports_binned
 from renderer_rs_tpu_torch.ops.raster_cuda import (
     prepare_depth,
     prepare_ids,
+    prepare_peel,
     prepare_resolve,
     raster_depth,
     raster_ids,
+    raster_peel,
     raster_resolve,
+)
+from renderer_rs_tpu_torch.ops.sampling import (
+    _SLOT_CHANNELS,
+    sample_array_bilinear,
+    sample_material_atlas_tri,
 )
 from renderer_rs_tpu_torch.ops.shadow import (
     ShadowParams,
@@ -60,6 +69,8 @@ from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipeline, GraphicsPipelin
 # engaged from 1024 triangles
 CLIP_COMPACT_DEN = 16
 CLIP_COMPACT_MIN_TRIS = 1024
+# depth-peel layers of an alpha-cutoff frame (passes.py:1327)
+PEEL_LAYERS = 4
 
 
 class ShadingModel(enum.Enum):
@@ -216,18 +227,22 @@ def csm_shadow_pass(scene: GpuScene, layout: SceneLayout, size: int,
 
 
 def _check_fused_path(layout: SceneLayout, pipeline: GraphicsPipeline,
-                      shading: ShadingModel, tonemap: str, n_raster: int) -> None:
-    if layout.has_textures:
-        raise _not_ported("textured shading", "Queue 1 item 7")
+                      shading: ShadingModel, tonemap: str, n_raster: int, peel: bool) -> None:
     if tonemap not in TONEMAPPERS:
         raise ValueError(f"unknown tonemap {tonemap!r}; one of {sorted(TONEMAPPERS)}")
     if shading == ShadingModel.PBR_IBL:
         raise _not_ported("image-based lighting (pbr_ibl shading)", "Queue 1 item 7")
     if shading == ShadingModel.FLAT:
         raise _not_ported("flat shading", "Queue 1 item 13")
-    if pipeline.alpha_cutoff is not None:
-        raise _not_ported("alpha-cutoff peeling", "Queue 1 item 12 / Queue 2 K5")
-    if not supports_binned(pipeline, n_raster):
+    if pipeline.alpha_cutoff is not None and not peel:
+        if layout.has_textures:
+            # passes.py:1784-1813: the scan path's per-fragment coverage test
+            raise _not_ported("the alpha-cutoff coverage callback of the scan rasterizer",
+                              "Queue 1 item 13")
+        # passes.py:2092: no peel without textures, and MASK is no fused path
+        raise _not_ported("the non-fused binned rasterizer (an alpha cutoff without textures)",
+                          "Queue 1 item 4")
+    if not supports_binned(pipeline, n_raster, allow_alpha_cutoff=peel):
         raise _not_ported(
             "the scan rasterizer (blend, non-binned compares, small scenes, "
             "points/lines)", "Queue 1 item 13",
@@ -242,7 +257,7 @@ class FrameGeometry:
     setup: object  # ops.raster.TriangleSetup over the raster slots
     tri_clip: torch.Tensor  # [t,3,4] clip-space vertices of the raster slots
     clip_valid: torch.Tensor  # [t] slot holds a triangle
-    attr: torch.Tensor  # [V,6] world_pos | world_normal
+    attr: torch.Tensor  # [V,K] world_pos | world_normal (| uv (| world_tangent))
     clip_src: torch.Tensor  # [t] raster slot -> source triangle
     clip_planes: tuple  # 3x3 of [t] source-barycentric clip frames
     mat_flat: torch.Tensor  # [T,1|2] flat lanes: material id (| source id)
@@ -261,7 +276,9 @@ class FrameGeometry:
 def frame_geometry(scene: GpuScene, layout: SceneLayout, pipeline: GraphicsPipeline,
                    width: int, height: int) -> FrameGeometry:
     """Vertex stage -> near clip -> T/16 secondary compaction -> setup, and
-    the K2 payload: attributes and the arithmetic-source flat lanes."""
+    the raster payload: attributes (world_pos, world_normal; on a textured
+    scene the uv and, with a normal map bound, the world tangent,
+    passes.py:1926-1932) and K2's arithmetic-source flat lanes."""
     t_prim = layout.num_triangles
     compact = t_prim >= CLIP_COMPACT_MIN_TRIS
     dev = scene.device
@@ -285,11 +302,17 @@ def frame_geometry(scene: GpuScene, layout: SceneLayout, pipeline: GraphicsPipel
     if compact:
         src_col = torch.arange(t_prim, dtype=torch.float32, device=dev)[:, None]
         mat_flat = torch.cat([mat_flat, src_col], dim=-1)
+    packed = [vs.world_pos, vs.world_normal]
+    if layout.has_textures:
+        # uv (and tangent) lanes only when a sampler reads them
+        packed.append(scene.uvs)
+        if layout.texture_slots[1]:
+            packed.append(vs.world_tangent)
     return FrameGeometry(
         setup=setup,
         tri_clip=tri_clip,
         clip_valid=clip_valid,
-        attr=torch.cat([vs.world_pos, vs.world_normal], dim=-1),
+        attr=torch.cat(packed, dim=-1),
         clip_src=clip_src,
         clip_planes=clip_planes,
         mat_flat=mat_flat,
@@ -359,6 +382,11 @@ def forward_frame(
             # as in the JAX frame: return_ids routes to its supersampling
             # branch, which has no 1x id map to return
             raise ValueError("return_ids does not compose with the supersampling MSAA path")
+        if pipeline.alpha_cutoff is not None and layout.has_textures:
+            # the ids-only sample pass takes the scan path's coverage
+            # callback under a MASK pipeline (passes.py:1784-1813)
+            raise _not_ported("an alpha cutoff under MSAA (the sample pass's scan coverage "
+                              "callback)", "Queue 1 item 13")
         sx, sy = {2: (2, 1), 4: (2, 2), 8: (4, 2)}[pipeline.msaa_samples]
         sub = dataclasses.replace(pipeline, msaa_samples=1)
         common = dict(clear_color=clear_color, tonemap=tonemap, shadow_map_size=shadow_map_size,
@@ -382,7 +410,16 @@ def forward_frame(
         t_prim + min(max(128, t_prim // CLIP_COMPACT_DEN), t_prim)
         if t_prim >= CLIP_COMPACT_MIN_TRIS else 2 * t_prim
     )
-    _check_fused_path(layout, pipeline, shading, tonemap, n_raster)
+    # alpha-cutoff (MASK) materials: the bounded depth peel over the binned
+    # rasterizer (passes.py:1775-1783)
+    peel = (
+        pipeline.alpha_cutoff is not None
+        and layout.has_textures
+        and not ids_only
+        and shading != ShadingModel.FLAT
+        and supports_binned(pipeline, n_raster, allow_alpha_cutoff=True)
+    )
+    _check_fused_path(layout, pipeline, shading, tonemap, n_raster, peel)
     # record_function spans name the frame's stages in torch.profiler traces
     # (profile_torch_frame.py); they cost ~1 us each when no profiler runs
     geo = geometry
@@ -407,30 +444,43 @@ def forward_frame(
                                              world_pos=geo.attr[:, :3])
             else:
                 shadow_map = shadow_map_pass(scene, layout, shadow_map_size)
-    with record_function("frame/bin_table"):
-        k2 = prepare_resolve(
-            geo.setup, height, width, geo.attr, scene.tris, geo.clip_src,
-            geo.clip_planes, geo.mat_flat, small_limit=t_prim,
-        )
-    with record_function("frame/k2"):
-        depth, slot, varying = raster_resolve(
-            k2.table, k2.sorted_tris, k2.seg, k2.nbx, height, width, k2.n_vary,
-            k2.n_flat, pipeline.depth_compare_op, depth_clear,
-        )
+    peel_exhausted = None
+    if peel:
+        with record_function("frame/peel"):
+            vis, varying, peel_exhausted, bin_overflow = _alpha_peeled_raster(
+                scene, layout, geo, height, width, pipeline)
+        with record_function("frame/shade"):
+            # the post-peel contract: materials ride the last 11 lanes, the
+            # winner ids are source ids already (passes.py:545-550, :589)
+            color = _shade_pixels(scene, layout, shading, varying, None, shadow_map,
+                                  shadow_params, depth=vis.depth, tri_id=vis.tri_id)
+    else:
+        with record_function("frame/bin_table"):
+            k2 = prepare_resolve(
+                geo.setup, height, width, geo.attr, scene.tris, geo.clip_src,
+                geo.clip_planes, geo.mat_flat, small_limit=t_prim,
+            )
+        bin_overflow = k2.bin_overflow
+        with record_function("frame/k2"):
+            depth, slot, varying = raster_resolve(
+                k2.table, k2.sorted_tris, k2.seg, k2.nbx, height, width, k2.n_vary,
+                k2.n_flat, pipeline.depth_compare_op, depth_clear,
+            )
+        with record_function("frame/shade"):
+            # winner slot -> (source triangle, material id), passes.py:2035-2060
+            hit = slot >= 0
+            if geo.compact:
+                # material id at flat lane -2, source id at the trailing lane
+                mat_id_img = torch.where(hit, varying[..., -2].to(torch.int32), 0)
+                tri_id = torch.where(hit, varying[..., -1].to(torch.int32), slot)
+            else:
+                # source = slot mod T by clip construction; material id trailing
+                mat_id_img = torch.where(hit, varying[..., -1].to(torch.int32), 0)
+                tri_id = torch.where(slot >= t_prim, slot - t_prim, slot)
+            vis = VisibilityBuffer(tri_id=tri_id, depth=depth)
+            color = _shade_pixels(scene, layout, shading, varying, mat_id_img,
+                                  shadow_map, shadow_params, depth=depth)
     with record_function("frame/shade"):
-        # winner slot -> (source triangle, material id), passes.py:2035-2060
-        hit = slot >= 0
-        if geo.compact:
-            # material id at flat lane -2, source id at the trailing lane
-            mat_id_img = torch.where(hit, varying[..., -2].to(torch.int32), 0)
-            tri_id = torch.where(hit, varying[..., -1].to(torch.int32), slot)
-        else:
-            # source = slot mod T by clip construction; material id trailing
-            mat_id_img = torch.where(hit, varying[..., -1].to(torch.int32), 0)
-            tri_id = torch.where(slot >= t_prim, slot - t_prim, slot)
-        vis = VisibilityBuffer(tri_id=tri_id, depth=depth)
-        color = _shade_pixels(scene, layout, shading, varying, mat_id_img,
-                              shadow_map, shadow_params, depth=depth)
         bg = torch.tensor(clear_color, dtype=torch.float32, device=scene.device)
         out = torch.where(vis.covered[..., None], color, bg)
     if layout.has_environment or tonemap != "none":
@@ -446,10 +496,84 @@ def forward_frame(
     if diagnostics:
         outs += ({
             "clip_overflow": geo.clip_overflow,
-            "bin_overflow": k2.bin_overflow,
+            "bin_overflow": bin_overflow,
             "covered_pixels": vis.covered.sum(),
+            "peel_exhausted": (peel_exhausted if peel_exhausted is not None
+                               else torch.zeros((), dtype=torch.long, device=scene.device)),
         },)
     return outs if len(outs) > 1 else out
+
+
+def peel_inputs(scene: GpuScene, layout: SceneLayout, geo: FrameGeometry, height: int,
+                width: int):
+    """K5's inputs for every layer of the peel: one binning (small_limit
+    None, as passes.py:1371-1377 calls it) and the table of the frame's
+    attributes, the flats [alpha texture id, material bank (11)] and the near
+    clip's source map as ids payload (passes.py:1358-1369)."""
+    tex_of_tri = scene.materials.tex_ids[scene.tri_material][:, 0]  # [T]
+    flat = torch.cat(
+        [tex_of_tri[:, None].to(torch.float32), _material_bank(scene.materials)[scene.tri_material]],
+        dim=-1,
+    )  # [T, 12]
+    return prepare_peel(geo.setup, height, width, geo.attr, scene.tris, geo.clip_src,
+                        geo.clip_planes, flat, geo.clip_src, id_bound=layout.num_triangles)
+
+
+def _alpha_peeled_raster(scene: GpuScene, layout: SceneLayout, geo: FrameGeometry,
+                         height: int, width: int, pipeline: GraphicsPipeline):
+    """Alpha-cutoff (MASK) rasterization by bounded depth peeling on K5
+    (≙ passes.py:1316, its Pallas branch; model_pbr.hlsl:218-221 `discard`
+    before the depth write). One binning and table serve every layer.
+    Layer 0 rasters normally; each further layer re-rasters the pixels whose
+    winner failed the alpha test, with a strict per-pixel floor at that
+    winner's depth, which yields the next-nearest fragment; a pixel whose
+    winner passes (or that has none) stops peeling (floor +inf). The alpha
+    test samples base-color mip 0 bilinearly at the winner's uv, times the
+    material's base_color.a, against the cutoff (a texture id < 0 passes).
+    After PEEL_LAYERS layers a pixel still failing resolves to background at
+    depth 1.0.
+
+    The lanes are the frame's attributes, then the flats [alpha texture id,
+    material bank (11)], materials last (the _shade_pixels contract); the
+    winner ids are SOURCE triangles (the near clip's source map rides the
+    ids payload). Returns (vis, lanes [H,W,K+12], peel_exhausted: the pixels
+    still failing after the budget (device scalar), bin_overflow)."""
+    cutoff = pipeline.alpha_cutoff
+    base_mip = scene.textures.mips[0]
+    with record_function("frame/peel_bin_table"):
+        k5 = peel_inputs(scene, layout, geo, height, width)
+    nv = k5.n_vary + k5.n_flat
+
+    def raster(z_floor):
+        # the JAX peel passes no depth_init: every layer clears to 1.0
+        with record_function("frame/k5"):
+            return raster_peel(k5.table, k5.sorted_tris, k5.seg, k5.nbx, height, width,
+                               k5.n_vary, k5.n_flat, z_floor, pipeline.depth_compare_op)
+
+    def alpha_ok(lanes):
+        uv = lanes[..., 6:8]
+        tex = lanes[..., nv - 12].to(torch.int32)
+        afac = lanes[..., nv - 8]  # material base_color.a (bank column 3)
+        a = sample_array_bilinear(base_mip, tex, uv)[..., 3] * afac
+        return torch.where(tex >= 0, a >= cutoff, True)
+
+    depth, tid, lanes = raster(None)
+    done = alpha_ok(lanes) | (tid < 0)
+    inf = torch.full_like(depth, float("inf"))
+    for _ in range(PEEL_LAYERS - 1):
+        depth2, tid2, lanes2 = raster(torch.where(done, inf, depth))
+        upd = ~done
+        tid = torch.where(upd, tid2, tid)
+        depth = torch.where(upd, depth2, depth)
+        lanes = torch.where(upd[..., None], lanes2, lanes)
+        done = done | (upd & (alpha_ok(lanes) | (tid2 < 0)))
+    # exhausted the peel budget with the winner still failing -> background
+    fail = ~done
+    vis = VisibilityBuffer(
+        tri_id=torch.where(fail, -1, tid),
+        depth=torch.where(fail, torch.ones_like(depth), depth),
+    )
+    return vis, lanes, fail.sum(), k5.bin_overflow
 
 
 def _shadow_term(scene: GpuScene, layout: SceneLayout, world_pos, normal, sun_dir, depth,
@@ -484,26 +608,74 @@ def _shadow_term(scene: GpuScene, layout: SceneLayout, world_pos, normal, sun_di
 
 
 def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
-                  varying: torch.Tensor, mat_id_img: torch.Tensor,
+                  varying: torch.Tensor, mat_id_img: torch.Tensor | None,
                   shadow_map: torch.Tensor | None = None,
                   shadow_params: ShadowParams = ShadowParams(),
-                  depth: torch.Tensor | None = None):
-    """The untextured fragment stage (passes.py:452-560, 779-1032,
-    1308-1313): Blinn-Phong (≙ pixel/model_full.hlsl) or Cook-Torrance PBR
-    with the hemisphere ambient (≙ pixel/model_pbr.hlsl), each with the
-    shadowed sun, the masked point/spot loops, ambient and emissive.
-    Material parameters come from the exact gather bank[mat_id] (the JAX
-    one-hot HIGHEST matmul computes the same values). Returns linear
+                  depth: torch.Tensor | None = None,
+                  tri_id: torch.Tensor | None = None):
+    """The fragment stage (passes.py:452-560, 779-1032, 1308-1313):
+    Blinn-Phong (≙ pixel/model_full.hlsl) or Cook-Torrance PBR with the
+    hemisphere ambient (≙ pixel/model_pbr.hlsl), each with the shadowed sun,
+    the masked point/spot loops, ambient and emissive; on a textured scene
+    the five material slots from the single-gather trilinear atlas, with
+    TBN normal mapping (passes.py:562-646). Material parameters come from
+    the exact gather bank[mat_id] (the JAX one-hot HIGHEST matmul computes
+    the same values, the texture-set id too), or, with mat_id_img None
+    (the peel contract, passes.py:545-550, :589), from the last 11 lanes,
+    with the set id gathered through tri_id (SOURCE ids). Returns linear
     [H,W,4]; misses hold garbage (the caller composites). depth [H,W] is
     the visibility pass's depth, which the cascaded shadow term reads."""
     world_pos = varying[..., 0:3]
     normal = normalize(varying[..., 3:6])
-    mat_px = _material_bank(scene.materials)[mat_id_img.long()]  # [H,W,11]
+    if mat_id_img is not None:
+        mat_px = _material_bank(scene.materials)[mat_id_img.long()]  # [H,W,11]
+    else:
+        mat_px = varying[..., varying.shape[-1] - 11:]
     base_color = mat_px[..., 0:4]
     metallic = mat_px[..., 4]
     roughness = mat_px[..., 5]
     ao = mat_px[..., 6]
     emissive = mat_px[..., 7:10]
+    if layout.has_textures and any(layout.texture_slots):
+        tex = scene.textures
+        if tex is None or tex.mat_atlas_tri is None:
+            raise _not_ported("the per-slot texture fetch (no single-gather material atlas)",
+                              "Queue 1 item 7")
+        if mat_id_img is not None:
+            mid = tex.mat_set[mat_id_img.long()]
+        else:
+            mid = tex.mat_set[scene.tri_material][torch.clamp(tri_id, min=0).long()]
+        used = [i for i, u in enumerate(layout.texture_slots) if u]
+        pos, c13 = {}, 0
+        for slot in used:
+            pos[slot] = c13
+            c13 += len(_SLOT_CHANNELS[slot])
+        shapes = tuple((int(m.shape[1]), int(m.shape[2])) for m in tex.mips)
+        n_sets = tex.mat_atlas_tri.shape[0] // sum(h * w for h, w in shapes)
+        offs, off = [], 0
+        for h_, w_ in shapes:
+            offs.append(off)
+            off += n_sets * h_ * w_
+        samp = sample_material_atlas_tri(tex.mat_atlas_tri, tuple(offs), shapes, len(shapes),
+                                         shapes[0], c13, mid, varying[..., 6:8])
+        if 0 in pos:
+            base_color = base_color * samp[..., pos[0]:pos[0] + 4]
+        if 1 in pos:
+            # TBN normal mapping (model_pbr.hlsl:168-197); packed XYZ only
+            t4 = varying[..., 8:12]
+            t3 = normalize(t4[..., :3])
+            b3 = cross(normal, t3) * t4[..., 3:4]
+            n_ts = samp[..., pos[1]:pos[1] + 3] * 2.0 - 1.0
+            n_ts = torch.cat([n_ts[..., :2] * mat_px[..., 10:11], n_ts[..., 2:3]], dim=-1)
+            normal = normalize(t3 * n_ts[..., 0:1] + b3 * n_ts[..., 1:2] + normal * n_ts[..., 2:3])
+        if 2 in pos:
+            # packed MR channels are (G, B) = (roughness, metallic)
+            roughness = roughness * samp[..., pos[2]]
+            metallic = metallic * samp[..., pos[2] + 1]
+        if 3 in pos:
+            ao = ao * samp[..., pos[3]]
+        if 4 in pos:
+            emissive = emissive * samp[..., pos[4]:pos[4] + 3]
     albedo = base_color[..., :3]
     view_dir = normalize(scene.camera.camera_position - world_pos)
     lights = scene.lights

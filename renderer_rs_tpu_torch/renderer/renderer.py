@@ -158,15 +158,17 @@ class Renderer:
 
     def frame_diagnostics(self) -> dict:
         """Render one diagnostics frame and return the bounded-path counters
-        as Python ints: clip_overflow (dropped near-clip halves) and
-        bin_overflow_big / bin_overflow_huge (triangles beyond the binning
-        caps, dropped), logged at WARNING when non-zero, and the frame's
-        covered_pixels."""
+        as Python ints: peel_exhausted (alpha-cutoff pixels still failing
+        after the 4-layer peel, resolved to background), clip_overflow
+        (dropped near-clip halves) and bin_overflow_big / bin_overflow_huge
+        (triangles beyond the binning caps, dropped), logged at WARNING when
+        non-zero, and the frame's covered_pixels."""
         if self._scene is None or self._layout is None:
             raise RuntimeError("no scene bound — call set_scene first")
         _, diag = self._run_frame(self._scene, diagnostics=True)
         big, huge = (int(v) for v in diag["bin_overflow"].tolist())
         out = {
+            "peel_exhausted": int(diag["peel_exhausted"]),
             "clip_overflow": int(diag["clip_overflow"]),
             "bin_overflow_big": big,
             "bin_overflow_huge": huge,

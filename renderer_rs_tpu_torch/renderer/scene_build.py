@@ -4,9 +4,10 @@ assembly of the device scene.
 All meshes are concatenated into single SoA vertex/index tensors at build
 time, with a static `SceneLayout` (per-object vertex ranges, which the
 vertex stage loops over) and per-triangle material ids resolved at shading
-time. Built so far: untextured scenes with an optional sun shadow matrix
-or cascaded shadow matrices and a skybox-only environment; textures and the
-IBL maps of an environment wait for the next slices (ROADMAP Queue 1)."""
+time. Built so far: scenes with an optional texture array (and its
+single-gather trilinear material atlas), an optional sun shadow matrix or
+cascaded shadow matrices and a skybox-only environment; the IBL maps of an
+environment wait for the next slice (ROADMAP Queue 1)."""
 
 from __future__ import annotations
 
@@ -21,6 +22,32 @@ from renderer_rs_tpu_torch.resources.model import Mesh
 from renderer_rs_tpu_torch.resources.ubo import CameraUbo, SceneUbo
 from renderer_rs_tpu_torch.scene.light import LightBank
 from renderer_rs_tpu_torch.scene.transform import Transform
+
+
+@dataclasses.dataclass
+class TextureArrays:
+    """The scene's textures as one [N,S,S,4] array per mip level (≙
+    TextureArrays, scene_build.py:31): a per-pixel texture id gathers without
+    dynamic shapes; tex id -1 = none.
+
+    mat_atlas_tri: the single-gather trilinear material atlas
+    (ops/sampling.build_material_atlas_tri), [R, 8*C] bf16, indexed by
+    texture-SET id: materials with the same 5-slot binding share rows, and
+    mat_set [M] maps a material to its set. The JAX class also carries the
+    f32 per-material atlas and the per-texture window atlas, which its shade
+    path reads only when mat_atlas_tri is absent; the port builds neither
+    (ROADMAP Queue 1 item 7)."""
+
+    mips: tuple  # [N,h,w,4] f32 per level
+    mat_atlas_tri: torch.Tensor | None = None  # [R, 8*C] bf16
+    mat_set: torch.Tensor | None = None  # [M] int64
+
+    def to(self, device) -> "TextureArrays":
+        def opt(x):
+            return None if x is None else x.to(device)
+
+        return TextureArrays(mips=tuple(m.to(device) for m in self.mips),
+                             mat_atlas_tri=opt(self.mat_atlas_tri), mat_set=opt(self.mat_set))
 
 
 @dataclasses.dataclass
@@ -54,6 +81,7 @@ class GpuScene:
     camera: CameraUbo
     scene_ubo: SceneUbo
     # optional features (None = feature off; the layout carries the flags)
+    textures: TextureArrays | None = None
     environment: Environment | None = None
     light_space_matrix: torch.Tensor | None = None  # [4,4] sun shadow matrix
     # cascaded shadow maps (≙ CSMParams cbuffer data, shadow_csm.hlsli:31-40)
@@ -101,6 +129,7 @@ class SceneBuilder:
         self._camera: CameraUbo | None = None
         self._scene_ubo: SceneUbo | None = None
         self._environment: Environment | None = None
+        self._textures: TextureArrays | None = None
         self._light_space_matrix: torch.Tensor | None = None
         self._csm_matrices: torch.Tensor | None = None
         self._csm_splits: torch.Tensor | None = None
@@ -125,6 +154,34 @@ class SceneBuilder:
 
     def set_scene_ubo(self, ubo: SceneUbo) -> "SceneBuilder":
         self._scene_ubo = ubo
+        return self
+
+    def set_textures(self, images, size: int = 256) -> "SceneBuilder":
+        """Build the texture array (≙ set_textures, scene_build.py:292): all
+        images as size x size RGBA (gray and RGB images get alpha 1), then
+        the 2x2 box mip chain down to 1x1, in host numpy f32."""
+        arrs = []
+        for img in images:
+            img = np.asarray(img, np.float32)
+            if img.ndim == 2:
+                img = img[..., None]
+            if img.shape[-1] == 3:
+                img = np.concatenate([img, np.ones_like(img[..., :1])], -1)
+            elif img.shape[-1] == 1:
+                img = np.concatenate([img] * 3 + [np.ones_like(img)], -1)
+            if img.shape[0] != size or img.shape[1] != size:
+                img = _resize_bilinear(img, size, size)
+            arrs.append(img)
+        mips = [np.stack(arrs).astype(np.float32)]  # [N,S,S,4]
+        while mips[-1].shape[1] > 1:
+            lvl = mips[-1]
+            h, w = lvl.shape[1] & ~1, lvl.shape[2] & ~1
+            lvl = lvl[:, :h, :w]
+            mips.append(
+                (lvl[:, 0::2, 0::2] + lvl[:, 1::2, 0::2] + lvl[:, 0::2, 1::2] + lvl[:, 1::2, 1::2])
+                * 0.25
+            )
+        self._textures = TextureArrays(mips=tuple(torch.from_numpy(m) for m in mips))
         return self
 
     def set_environment(self, env: Environment) -> "SceneBuilder":
@@ -192,6 +249,7 @@ class SceneBuilder:
                 or CameraUbo.create(torch.eye(4), torch.eye(4), torch.zeros(3))
             ).to(dev),
             scene_ubo=(self._scene_ubo or SceneUbo.create()).to(dev),
+            textures=None if self._textures is None else self._textures.to(dev),
             environment=None if self._environment is None else self._environment.to(dev),
             light_space_matrix=optional(self._light_space_matrix),
             csm_matrices=optional(self._csm_matrices),
@@ -212,6 +270,13 @@ class SceneBuilder:
         mat_consts = tuple(
             float(col[0]) if np.all(col == col[0]) else None for col in bank_rows.T
         )
+        slot_used = tuple(
+            any(getattr(m, attr) >= 0 for m in self._materials)
+            for attr in ("base_color_texture", "normal_texture", "metallic_roughness_texture",
+                         "occlusion_texture", "emissive_texture")
+        )
+        if self._textures is not None and any(slot_used):
+            scene.textures = self._material_atlas(slot_used, dev)
         layout = SceneLayout(
             object_ranges=tuple(ranges),
             num_vertices=v_off,
@@ -220,5 +285,40 @@ class SceneBuilder:
             has_environment=self._environment is not None,
             has_shadow=self._light_space_matrix is not None,
             has_csm=self._csm_matrices is not None,
+            has_textures=self._textures is not None,
+            texture_slots=slot_used if self._textures is not None else (False,) * 5,
         )
         return scene, layout
+
+    def _material_atlas(self, slot_used, dev) -> TextureArrays:
+        """The material-atlas step of build (scene_build.py:447-484): dedupe
+        the materials' 5-slot bindings into texture sets (np.unique), then the
+        single-gather trilinear atlas over the used slots."""
+        from renderer_rs_tpu_torch.ops.sampling import build_material_atlas_tri
+
+        mips = tuple(m.numpy() for m in self._textures.mips)
+        s0 = mips[0].shape[1]
+        used = tuple(i for i, u in enumerate(slot_used) if u)
+        id_rows = MaterialBank.create(self._materials).tex_ids.numpy()
+        uniq, mat_set = np.unique(id_rows, axis=0, return_inverse=True)
+        if uniq.shape[0] * s0 * s0 > 16_000_000:
+            raise NotImplementedError(
+                f"{uniq.shape[0]} texture sets of {s0}x{s0} exceed the packed material "
+                "atlas's 16M-row budget; the per-slot atlas path is not ported yet "
+                "(ROADMAP Queue 1 item 7)"
+            )
+        atlas, _, _ = build_material_atlas_tri(mips, uniq, used)
+        return TextureArrays(
+            mips=self._textures.mips,
+            mat_atlas_tri=atlas,
+            mat_set=torch.from_numpy(mat_set.reshape(-1).astype(np.int64)),
+        ).to(dev)
+
+
+def _resize_bilinear(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Host-side bilinear resize (scene_build.py:499, jax.image.resize):
+    images whose size differs from the array's. Not ported yet."""
+    raise NotImplementedError(
+        f"resizing a {img.shape[0]}x{img.shape[1]} texture to {h}x{w} is not ported yet "
+        "(ROADMAP Queue 1 item 9, texture resize)"
+    )

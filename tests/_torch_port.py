@@ -9,8 +9,10 @@ import numpy as np
 
 def flatten_jax_scene(scene, layout):
     """(fields, layout_fields) of a JAX GpuScene/SceneLayout as numpy arrays
-    and Python values (the untextured subset; of an environment only the
-    skybox levels, which is what the port's frames read)."""
+    and Python values: of an environment only the skybox levels, of the
+    textures the mips, the single-gather material atlas (its bf16 bits as
+    uint16) and the material -> set map, which is what the port's frames
+    read."""
 
     def group(obj):
         return {f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
@@ -29,6 +31,13 @@ def flatten_jax_scene(scene, layout):
     fields["environment"] = (
         None if env is None else {"skybox_mips": tuple(np.asarray(m) for m in env.skybox_mips)}
     )
+    tex = getattr(scene, "textures", None)
+    fields["textures"] = None if tex is None else {
+        "mips": tuple(np.asarray(m) for m in tex.mips),
+        "mat_atlas_tri": (None if tex.mat_atlas_tri is None
+                          else np.asarray(tex.mat_atlas_tri).view(np.uint16)),
+        "mat_set": None if tex.mat_set is None else np.asarray(tex.mat_set),
+    }
     layout_fields = {f.name: getattr(layout, f.name) for f in dataclasses.fields(layout)}
     return fields, layout_fields
 
@@ -91,3 +100,59 @@ def port_renderer_kwargs(jax_kwargs):
         if key in jax_kwargs:
             out[key] = jax_kwargs[key]
     return out
+
+
+def _cutout_texture(size: int = 64) -> np.ndarray:
+    """RGBA with a hard-edged alpha stripe pattern (alpha 0 or 1 in 16-texel
+    bands), so bilinear alpha lands far from a 0.5 cutoff except on a thin
+    boundary line (≙ tests/test_alpha_cutoff.py::_cutout_texture)."""
+    y, x = np.mgrid[0:size, 0:size]
+    a = ((x // 16) % 2).astype(np.float32)
+    img = np.stack([np.full_like(a, 0.9), np.full_like(a, 0.4), np.full_like(a, 0.2), a], -1)
+    return img.astype(np.float32)
+
+
+def alpha_cutout_scene(width: int, height: int, layers: int = 3, dx: float = 0.15,
+                       device="cuda"):
+    """(scene, layout) of the alpha-cutout test stack built by the port's own
+    SceneBuilder (≙ tests/test_alpha_cutoff.py::_mask_scene): `layers`
+    stacked quads with the cutout texture in front of an opaque floor,
+    viewed down -Z, plus 20 small cubes that lift the triangle count over
+    the binned threshold. dx=0 aligns every layer's alpha-0 stripes, so
+    failing-fragment stacks deeper than the 4-layer peel occur. Render it
+    with `.cull_mode(CullMode.NONE).alpha_cutoff(0.5)` and PBR shading.
+    Imports no JAX, so chip_smoke.py uses it too."""
+    import math
+
+    from renderer_rs_tpu_torch.app.scenes import _camera_ubo
+    from renderer_rs_tpu_torch.renderer.scene_build import SceneBuilder
+    from renderer_rs_tpu_torch.resources.material import Material
+    from renderer_rs_tpu_torch.resources.ubo import SceneUbo
+    from renderer_rs_tpu_torch.scene.camera import Camera, Projection
+    from renderer_rs_tpu_torch.scene.light import DirectionalLight, LightBank
+    from renderer_rs_tpu_torch.scene.transform import Transform
+    from renderer_rs_tpu_torch.utils import meshgen
+
+    # quat_from_axis_angle(+X, pi/2) as jnp computes it: the f32 half angle,
+    # its sin and cos correctly rounded; plane_mesh (+Y) then faces +Z
+    half = float(np.float32(0.5) * np.float32(math.pi / 2))
+    rot = np.array([math.sin(half), 0.0, 0.0, math.cos(half)], np.float32)
+    b = SceneBuilder()
+    mask_mat = Material(base_color=(1, 1, 1, 1), roughness=0.7, base_color_texture=0)
+    for i in range(layers):
+        tr = Transform().with_position([dx * i, 0.1 * i, -0.4 * i]).with_rotation(rot)
+        b.add_mesh(meshgen.plane_mesh(2.0, uv_scale=1.0), tr, mask_mat if i == 0 else 0)
+    b.add_mesh(meshgen.plane_mesh(6.0), Transform().with_position([0, -1.2, 0]),
+               Material(base_color=(0.2, 0.6, 0.3, 1.0), roughness=0.9))
+    filler = Material(base_color=(0.5, 0.2, 0.2, 1.0))
+    for k in range(20):
+        b.add_mesh(meshgen.cube_mesh(0.08),
+                   Transform().with_position([-1.6 + 0.16 * k, -0.9, -1.0]), filler)
+    b.set_textures([_cutout_texture()], size=64)
+    cam = Camera(Projection.perspective(np.radians(50.0), width / height, 0.1, 50.0))
+    cam.position = np.array([0.0, 0.0, 3.0], np.float32)
+    cam.look_at([0.0, 0.0, 0.0])
+    b.set_camera(_camera_ubo(cam))
+    b.set_lights(LightBank.create(sun=DirectionalLight.create(direction=(-0.3, -1.0, -0.4))))
+    b.set_scene_ubo(SceneUbo.create(ambient_color=(0.1, 0.1, 0.1)))
+    return b.build(device=device)

@@ -254,6 +254,60 @@ def test_full_u8_frame_matches_jax(jax_full_frame):
     assert (diff.max(axis=-1) > 8).mean() < 0.005
 
 
+# --- the textured PBR frame: full_scene(textured=True, ibl=False) -----------------
+
+@pytest.fixture(scope="module")
+def jax_textured_frame():
+    """The JAX fused frame of full_scene(160, 120, tri_budget=2000,
+    textured=True, ibl=False) with a 256² shadow map: K2 with 12 lanes
+    (world_pos, normal, uv, tangent) and the single-gather atlas fetch."""
+    from renderer_rs_tpu.app.scenes import full_scene
+    from renderer_rs_tpu.renderer.passes import forward_frame, shadow_map_pass
+
+    scene, layout, kw, _ = full_scene(W, H, textured=True, **FULL)
+    shadow_map = shadow_map_pass(scene, layout, SHADOW_SIZE)
+    with pytest.MonkeyPatch.context() as mp:
+        interpret_pallas(mp)
+        frame, ids = forward_frame(
+            scene, layout, kw["pipeline"], kw["shading"], W, H, tonemap=kw["tonemap"],
+            shadow_params=kw["shadow_params"], shadow_map=shadow_map, return_ids=True,
+        )
+    port_kw = {**port_renderer_kwargs(kw), "shadow_map_size": SHADOW_SIZE}
+    return np.asarray(frame), np.asarray(ids), flatten_jax_scene(scene, layout), port_kw
+
+
+@pytest.mark.parametrize("which", ["ported_scene", "bridged_scene"])
+def test_textured_frame_matches_jax_fused(jax_textured_frame, which):
+    """The linear bar, winner ids exact (measured: max |d| 1.2e-5 after
+    ACES), through the Renderer and through forward_frame; the app's
+    --textured flag renders the same scene."""
+    from renderer_rs_tpu_torch.app.main import main
+    from renderer_rs_tpu_torch.app.scenes import full_scene
+    from renderer_rs_tpu_torch.bridge import scene_from_numpy
+    from renderer_rs_tpu_torch.ops.raster_cuda import raster_resolve
+    from renderer_rs_tpu_torch.renderer.passes import forward_frame
+
+    ref, ref_ids, (fields, layout_fields), kw = jax_textured_frame
+    if which == "bridged_scene":
+        scene, layout = scene_from_numpy(fields, layout_fields, device="cpu")
+    else:
+        scene, layout, _, _ = full_scene(W, H, textured=True, device="cpu", **FULL)
+    assert layout.has_textures and layout.texture_slots == (True,) * 5
+    out = _port_renderer((scene, layout), kw).render_frame_hdr().numpy()
+    _check_frame_bar(out, ref)
+    before = raster_resolve.launches
+    out2, ids = forward_frame(
+        scene, layout, kw["pipeline"], kw["shading"], W, H, tonemap=kw["tonemap"],
+        shadow_map_size=SHADOW_SIZE, shadow_params=kw["shadow_params"], return_ids=True,
+    )
+    assert raster_resolve.launches == before  # CPU: the plain version
+    np.testing.assert_array_equal(ids.numpy(), ref_ids)
+    assert np.array_equal(out2.numpy(), out)
+    if which == "ported_scene":
+        assert main(["--scene", "full", "--no-ibl", "--textured", "--tris", "2000",
+                     "--width", "32", "--height", "24"], device="cpu") == 0
+
+
 def test_gltf_pbr_frame_matches_golden():
     """The procedural gltf-pbr frame (PBR, no shadow, no environment) against
     the repo's golden image, with tests/test_golden.py:84-86's bar."""
@@ -327,13 +381,13 @@ def test_app_main_renders_the_pbr_scenes(tmp_path, scene_args):
 
 
 @pytest.mark.parametrize("extra", [
-    [], ["--csm"], ["--no-ibl", "--textured"], ["--no-ibl", "--hdr", "sky.hdr"],
+    [], ["--csm"], ["--textured"], ["--no-ibl", "--hdr", "sky.hdr"],
     ["--no-ibl", "--gltf", "model.gltf"],
 ])
 def test_app_main_full_scene_refuses_unported_options(extra):
-    """`--scene full` without --no-ibl (with or without --csm, which is
-    ported), and each unported option with it, raise naming their ROADMAP
-    item: nothing renders a lesser scene."""
+    """`--scene full` without --no-ibl (with or without --csm or --textured,
+    which are ported), and each unported option with it, raise naming their
+    ROADMAP item: nothing renders a lesser scene."""
     from renderer_rs_tpu_torch.app.main import main
 
     with pytest.raises(NotImplementedError, match="not ported yet .ROADMAP Queue 1: item"):

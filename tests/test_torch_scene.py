@@ -30,6 +30,14 @@ def scenes():
     return fields, layout_fields, jkw, ported, bridged
 
 
+def _np(x):
+    """numpy view of a tensor; a bf16 tensor as its uint16 bits (as the
+    bridge's fields carry it)."""
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(np.uint16)
+    return x.numpy()
+
+
 def _leaves(scene):
     """name -> numpy array of every tensor the scene holds (absent optional
     features hold none)."""
@@ -42,9 +50,9 @@ def _leaves(scene):
             for g in dataclasses.fields(v):
                 w = getattr(v, g.name)
                 if isinstance(w, tuple):
-                    out.update({f"{f.name}.{g.name}.{i}": x.numpy() for i, x in enumerate(w)})
-                else:
-                    out[f"{f.name}.{g.name}"] = w.numpy()
+                    out.update({f"{f.name}.{g.name}.{i}": _np(x) for i, x in enumerate(w)})
+                elif w is not None:
+                    out[f"{f.name}.{g.name}"] = _np(w)
     return out
 
 
@@ -55,7 +63,7 @@ def _flat_fields(fields):
             for g, w in v.items():
                 if isinstance(w, tuple):
                     out.update({f"{k}.{g}.{i}": x for i, x in enumerate(w)})
-                else:
+                elif w is not None:
                     out[f"{k}.{g}"] = w
         elif v is not None:
             out[k] = v
@@ -126,21 +134,26 @@ def test_flagship_scene_counts():
 
 @pytest.mark.parametrize("name,which", [
     ("full", "ported"), ("full", "bridged"), ("gltf-pbr", "ported"), ("gltf-pbr", "bridged"),
+    ("full_textured", "ported"), ("full_textured", "bridged"),
 ])
 def test_pbr_scenes_bit_equal(name, which):
     """Geometry, parented transforms, materials, lights, camera (fov 50) and
     the sun's light matrix are bit-equal; the bridged sky is the JAX sky,
     the port's own sky is within the pow tolerance. The renderer kwargs
-    carry the same shading, tonemap and shadow settings."""
+    carry the same shading, tonemap and shadow settings. With the texture
+    set: the nine 256² mip levels, the material atlas's bf16 bits, the
+    material -> set map and the layout's texture slots, bit-equal."""
     from _torch_port import port_renderer_kwargs
 
     from renderer_rs_tpu.app import scenes as jscenes
     from renderer_rs_tpu_torch.app import scenes as pscenes
     from renderer_rs_tpu_torch.bridge import scene_from_numpy
 
-    if name == "full":
-        js, jl, jkw, _ = jscenes.full_scene(160, 120, tri_budget=2000, ibl=False)
-        ported = pscenes.full_scene(160, 120, tri_budget=2000, ibl=False, device="cpu")
+    if name.startswith("full"):
+        textured = name == "full_textured"
+        js, jl, jkw, _ = jscenes.full_scene(160, 120, tri_budget=2000, ibl=False, textured=textured)
+        ported = pscenes.full_scene(160, 120, tri_budget=2000, ibl=False, textured=textured,
+                                    device="cpu")
     else:
         js, jl, jkw, _ = jscenes.gltf_pbr_scene(160, 120)
         ported = pscenes.gltf_pbr_scene(160, 120, device="cpu")
@@ -152,7 +165,12 @@ def test_pbr_scenes_bit_equal(name, which):
         scene, layout = ported[:2]
         tolerant = ("environment.skybox_mips.0",)
     _assert_scene_equal(scene, layout, fields, layout_fields, tolerant)
-    assert layout.has_shadow == layout.has_environment == (name == "full")
+    assert layout.has_shadow == layout.has_environment == name.startswith("full")
+    assert layout.has_textures == (name == "full_textured")
+    if layout.has_textures:
+        assert layout.texture_slots == (True,) * 5 and len(scene.textures.mips) == 9
+        assert scene.textures.mat_atlas_tri.dtype == torch.bfloat16
+        assert scene.textures.mat_atlas_tri.shape == (87_381, 104)  # one set, 13 channels
     want_kw = port_renderer_kwargs(jkw)
     got_kw = {k: v for k, v in ported[2].items() if k != "camera"}
     assert got_kw == want_kw
@@ -212,12 +230,13 @@ def test_msaa4_and_csm_flagship_counts():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(), dict(csm=True), dict(ibl=False, textured=True),
+    dict(), dict(csm=True), dict(textured=True),
     dict(ibl=False, hdr="sky.hdr"), dict(ibl=False, gltf="model.gltf"),
 ])
 def test_full_scene_refuses_unported_options(kwargs):
-    """Cascaded shadows are ported (tests/test_torch_csm.py); with the IBL
-    environment they still raise, for the environment."""
+    """Cascaded shadows and the texture set are ported
+    (tests/test_torch_csm.py, test_torch_frame.py); with the IBL environment
+    they still raise, for the environment."""
     from renderer_rs_tpu_torch.app.scenes import SCENES, full_scene, gltf_pbr_scene
 
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: item"):
