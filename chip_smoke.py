@@ -19,16 +19,23 @@ Phases (any failure exits nonzero before the result lines):
          MSAA 4x;
        - the same scene with csm=True: K6, the four 1024x1024 cascades in
          one raster_depth launch (N = 4), also against four N = 1 launches;
-       - the same scene with textured=True: K2 on the textured frame's
-         61-column table (12 lanes: world_pos, normal, uv, tangent), and
-         K5 (raster_peel) on its alpha-cutoff (MASK) frame's 71-column
-         table, with no floor and with the layer-0 depth as floor on every
-         pixel (the whole frame peels to its next-nearest fragment).
+       - the headline scene, full_scene(1920, 1080, tri_budget=100_000,
+         textured=True) with its default IBL environment (whose one-time
+         precompute is timed here): K2 on the textured frame's 61-column
+         table (12 lanes: world_pos, normal, uv, tangent), K5
+         (raster_peel) on its alpha-cutoff (MASK) frame's 71-column table,
+         with no floor and with the layer-0 depth as floor on every pixel
+         (the whole frame peels to its next-nearest fragment), and K3
+         (raster_visibility) in three band forms: the whole frame
+         (band (0, 1080)), the contiguous band (270, 270) and the
+         pair-interleaved band (2, 270, 4, True).
      K1's and K6's depth must be bit-equal; K2 must give bit-equal
      tid/depth and lanes within rtol 1e-5 / atol 1e-6; K4 bit-equal tid and
-     depth; K5 bit-equal tid and depth, lanes within rtol 1e-5 / atol 1e-6. Prints binned pairs, densest bin, bin overflow, kernel ms
-     (median of >= 20 CUDA-event timings after warm-up), plain ms and the
-     kernel's roofline bound.
+     depth; K5 bit-equal tid and depth, lanes within rtol 1e-5 / atol 1e-6;
+     K3 bit-equal tid, depth and barycentrics. Prints binned pairs, densest
+     bin, bin overflow, kernel ms (median of >= 20 CUDA-event timings after
+     warm-up), plain ms and the kernel's roofline bound (the work of the
+     bins its blocks walk, over their pixels inside the frame or band).
   4. The main paths through Renderer.render_frame at 1920x1080 on cuda,
      every launch counter set to 0 just before each and read just after:
        - the Blinn-Phong frame: one K2 launch per frame, nothing else;
@@ -43,20 +50,38 @@ Phases (any failure exits nonzero before the result lines):
          frame: one K6 and one K2 launch per frame;
        - the PBR frame with MSAA 4x (shade-once resolve): one K2 and one K4
          launch per frame, one K1 launch in all;
-       - the textured PBR frame: one K2 launch per frame, one K1 in all;
+       - the textured frame (full_scene(textured=True, ibl=False)), static
+         scene: one K2 launch per frame, one K1 launch in all;
        - the textured frame under an alpha-cutoff (MASK) pipeline,
          GraphicsPipelineBuilder().alpha_cutoff(0.5): four K5 launches per
-         frame (the 4-layer depth peel), no K2 launch, one K1 in all.
+         frame (the 4-layer depth peel), no K2 launch, one K1 in all;
+       - the headline frame (bench.py's: textured, IBL): one K2 launch per
+         frame, one K1 in all, no K3;
+       - the same scene through parallel.render_frame_sharded on a mesh of
+         one frame x 4 rows, all on cuda:0, contiguous and then
+         pair-interleaved, with the scene's 1024² map, shadow parameters
+         and ACES: four K3 and four K1 launches per frame (each band
+         renders its own sun map, as the JAX function does), no K2.
      The frames must be finite with covered pixels; the peel, clip and bin
-     overflow counters are printed.
+     overflow counters are printed. The bands' ids (forward_frame(band=...)
+     with render_frame_sharded's band specs, stitched by band_rows) must
+     equal the headline frame's (forward_frame), and their K3 depth the
+     frame's K2 depth, wherever no band and not the frame reports
+     bin_overflow; the stitched frames' colours differ from the headline
+     frame's by the reduced rates' drift only (bands shade at the full
+     rate): p99 of |d| < 0.01.
   5. Correctness on small inputs by the repo's own means, on the card: the
      160x120 Blinn-Phong and gltf-pbr frames against tests/goldens/*.png
      with tests/test_golden.py's bar, and full_scene(160, 120,
      tri_budget=2000, ibl=False) single-map, with csm=True, with MSAA 4x,
      textured, and textured under the MASK pipeline on cuda against the
-     same frames of the port on the cpu (PCF, sky and ACES included); and
-     the 128x96 alpha-cutout stack (tests/_torch_port.py::alpha_cutout_scene),
-     where fragments really peel, cuda against cpu.
+     same frames of the port on the cpu (PCF, sky and ACES included); the
+     128x96 alpha-cutout stack (tests/_torch_port.py::alpha_cutout_scene),
+     where fragments really peel, cuda against cpu; the IBL frames `full`
+     and `full_textured` (full_scene(160, 120, tri_budget=2000[,
+     textured=True])) against their goldens and cuda against cpu; and the
+     small full_textured frame as 4 bands, contiguous and interleaved, on
+     cuda: stitched ids equal to the frame's, colours within the bar.
 Then a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the JAX package.
 """
@@ -89,19 +114,29 @@ PEEL_OPS_PER_PAIR = OPS_PER_PAIR + 1
 PEEL_OPS_PER_PIXEL = 12 + 16 + 1 + 12 * 4 + 12
 # the table columns the candidate walk reads: edges, z plane, 1/area
 WALK_COLS = 19
-BIN_PIXELS = 16 * 128
 W, H = 1920, 1080
 MSAA = 4  # samples: a 2x2 ordered grid, 3840x2160 sample points
 SX, SY = 2, 2
 BLINNPHONG = dict(rings=160, sectors=320)
 FULL = dict(tri_budget=100_000, ibl=False)
+HEADLINE = dict(tri_budget=100_000, textured=True)  # bench.py's frame: IBL on
 SMALL_FULL = dict(tri_budget=2000, ibl=False)
+# K3's band forms on the headline frame: (y_offset, rows[, stride, pair])
+K3_BANDS = {"whole frame": (0, H), "contiguous band": (270, 270),
+            "pair-interleaved band": (2, 270, 4, True)}
+N_BANDS = 4
+# the reference's own gate on its reduced-rate drift (passes.py:1206-1212):
+# a band shades at the full rate, the 1080p frame at y-quarter PCF and
+# y-half cube rate
+BAND_DRIFT_P99 = 0.01
 BP_FRAMES = 5
 PBR_FRAMES = 7
 CSM_FRAMES = 5
 MSAA_FRAMES = 5
 TEX_FRAMES = 5
 MASK_FRAMES = 5
+HEADLINE_FRAMES = 5
+BAND_FRAMES = 5
 CUTOFF = 0.5
 KERNEL_TIMINGS = 25
 SUN = (-0.45, -1.0, -0.35)  # full_scene's sun
@@ -148,6 +183,24 @@ def _bound(ops: float, nbytes: float):
     ops_ms = ops / H100_F32_FLOPS * 1e3
     bytes_ms = nbytes / H100_HBM_BYTES_S * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def _walked(seg, nbx: int, rows: int, width: int):
+    """The work a kernel's blocks do on one binning: a block whose 16x128
+    bin lies wholly in the tile padding below `rows` returns at once, and
+    only the bin's pixels inside rows x width count. Returns (the pairs of
+    the walked bins, the sum over bins of pairs x valid pixels, the number
+    of walked bins), over every set of seg ([..., bins + 1])."""
+    import torch
+
+    counts = (seg[..., 1:] - seg[..., :-1]).reshape(-1, nbx).to(torch.int64)
+    nby = (seg.shape[-1] - 1) // nbx
+    by = torch.arange(nby, device=seg.device).repeat(counts.shape[0] // nby)
+    valid_rows = (rows - by * 16).clamp(0, 16)
+    valid_cols = (width - torch.arange(nbx, device=seg.device) * 128).clamp(0, 128)
+    walked = valid_rows > 0
+    pixel_pairs = (counts * valid_rows[:, None] * valid_cols[None, :]).sum()
+    return int(counts[walked].sum()), int(pixel_pairs), int(walked.sum()) * nbx
 
 
 def phase_versions() -> None:
@@ -214,11 +267,13 @@ def _check_resolve(label, scene, layout, pipeline, timed: bool) -> dict:
 
     ms = _median(_event_times_ms(lambda: raster_resolve(*args), KERNEL_TIMINGS))
     plain_ms = _median(_event_times_ms(lambda: raster_resolve_plain(*args), 3, warmup=1)) if timed else None
-    # least time for the same work: the walk's f32 ops vs the bytes moved
-    # (table, sorted ids and segments read once, outputs written once)
-    ops = n_pairs * BIN_PIXELS * OPS_PER_PAIR
+    # least time for the same work: the walk's f32 ops over the frame's
+    # pixels vs the bytes moved (table, the walked bins' sorted ids and
+    # segments read once, outputs written once)
+    walked, pixel_pairs, bins = _walked(k2.seg, k2.nbx, H, W)
+    ops = pixel_pairs * OPS_PER_PAIR
     n_lanes = k2.n_vary + k2.n_flat
-    nbytes = (k2.table.numel() * 4 + n_pairs * 4 + k2.seg.numel() * 4
+    nbytes = (k2.table.numel() * 4 + walked * 4 + (bins + 1) * 4
               + H * W * (4 + 4 + 4 * n_lanes))
     bound_ms, bound_by = _bound(ops, nbytes)
     _log(f"{label}: raster_resolve {ms:.4f} ms (median of {KERNEL_TIMINGS})"
@@ -279,8 +334,9 @@ def _check_depth(scene, layout, size: int) -> dict:
 
     ms = _median(_event_times_ms(lambda: raster_depth(*args), KERNEL_TIMINGS))
     plain_ms = _median(_event_times_ms(lambda: raster_depth_plain(*args), 3, warmup=1))
-    ops = n_pairs * BIN_PIXELS * DEPTH_OPS_PER_PAIR
-    nbytes = k1.table.numel() * 4 + n_pairs * 4 + k1.seg.numel() * 4 + size * size * 4
+    walked, pixel_pairs, bins = _walked(k1.seg, k1.nbx, size, size)
+    ops = pixel_pairs * DEPTH_OPS_PER_PAIR
+    nbytes = k1.table.numel() * 4 + walked * 4 + (bins + 1) * 4 + size * size * 4
     bound_ms, bound_by = _bound(ops, nbytes)
     _log(f"raster_depth: {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, "
          f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
@@ -337,8 +393,9 @@ def _check_ids(scene, layout, pipeline) -> dict:
 
     ms = _median(_event_times_ms(lambda: raster_ids(*args), KERNEL_TIMINGS))
     plain_ms = _median(_event_times_ms(lambda: raster_ids_plain(*args), 3, warmup=1))
-    ops = n_pairs * BIN_PIXELS * IDS_OPS_PER_PAIR
-    nbytes = k4.table.numel() * 4 + n_pairs * 4 + k4.seg.numel() * 4 + hs * ws * (4 + 4)
+    walked, pixel_pairs, bins = _walked(k4.seg, k4.nbx, hs, ws)
+    ops = pixel_pairs * IDS_OPS_PER_PAIR
+    nbytes = k4.table.numel() * 4 + walked * 4 + (bins + 1) * 4 + hs * ws * (4 + 4)
     bound_ms, bound_by = _bound(ops, nbytes)
     _log(f"raster_ids: {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, "
          f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
@@ -412,8 +469,9 @@ def _check_depth_batch(scene, layout, size: int) -> dict:
 
     ms = _median(_event_times_ms(lambda: raster_depth(*args), KERNEL_TIMINGS))
     plain_ms = _median(_event_times_ms(lambda: raster_depth_plain(*args), 3, warmup=1))
-    ops = n_pairs * BIN_PIXELS * DEPTH_OPS_PER_PAIR
-    nbytes = k6.table.numel() * 4 + n_pairs * 4 + k6.seg.numel() * 4 + 4 * size * size * 4
+    walked, pixel_pairs, bins = _walked(k6.seg, k6.nbx, size, size)
+    ops = pixel_pairs * DEPTH_OPS_PER_PAIR
+    nbytes = k6.table.numel() * 4 + walked * 4 + (bins + 4) * 4 + 4 * size * size * 4
     bound_ms, bound_by = _bound(ops, nbytes)
     _log(f"raster_depth N=4: {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, "
          f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
@@ -481,13 +539,14 @@ def _check_peel(scene, layout, pipeline) -> dict:
         # the 19 walk columns of every binned row and the rest of every
         # winning row (no more of the table), the sorted ids, segments, the
         # floor, and depth, tid and lanes written
-        ops = (n_pairs * BIN_PIXELS * (PEEL_OPS_PER_PAIR if z_floor is not None else OPS_PER_PAIR)
+        walked, pixel_pairs, bins = _walked(k5.seg, k5.nbx, H, W)
+        ops = (pixel_pairs * (PEEL_OPS_PER_PAIR if z_floor is not None else OPS_PER_PAIR)
                + covered[label] * PEEL_OPS_PER_PIXEL)
         n_cols = k5.table.shape[1]
-        binned_rows = int(torch.unique(k5.sorted_tris[:n_pairs]).numel())
+        binned_rows = int(torch.unique(k5.sorted_tris[:walked]).numel())
         winner_rows = _peel_winner_rows(k5, z_floor, pipeline.depth_compare_op)
         nbytes = (binned_rows * WALK_COLS * 4 + winner_rows * (n_cols - WALK_COLS) * 4
-                  + n_pairs * 4 + k5.seg.numel() * 4
+                  + walked * 4 + (bins + 1) * 4
                   + (H * W * 4 if z_floor is not None else 0)
                   + H * W * (4 + 4 + 4 * (k5.n_vary + k5.n_flat)))
         bound_ms, bound_by = _bound(ops, nbytes)
@@ -527,7 +586,10 @@ def _peel_winner_rows(k5, z_floor, compare_op) -> int:
     return int(torch.unique(win[win >= 0]).numel())
 
 
-def phase_kernels() -> dict:
+def phase_kernels() -> tuple[dict, tuple]:
+    """Every kernel beside its plain version; returns the kernels' entries
+    and the headline scene (scene, layout, kw), built once for this phase
+    and the main paths."""
     from renderer_rs_tpu_torch.app.scenes import blinnphong_scene, full_scene
 
     scene, layout, kw, _ = blinnphong_scene(W, H, device="cuda", **BLINNPHONG)
@@ -538,14 +600,128 @@ def phase_kernels() -> dict:
     k4 = _check_ids(scene, layout, kw["pipeline"])
     scene, layout, kw, _ = full_scene(W, H, device="cuda", csm=True, **FULL)
     k6 = _check_depth_batch(scene, layout, kw["shadow_map_size"])
-    scene, layout, kw, _ = full_scene(W, H, device="cuda", textured=True, **FULL)
-    k2_tex = _check_resolve("textured flagship", scene, layout, kw["pipeline"], timed=True)
+    headline = scene, layout, kw = _headline_scene()[:3]
+    k2_tex = _check_resolve("headline (textured, IBL)", scene, layout, kw["pipeline"], timed=True)
     k2["ms_textured"], k2["plain_ms_textured"] = k2_tex["ms"], k2_tex["plain_ms"]
     k2["bound_ms_textured"] = k2_tex["bound_ms"]
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_tex["max_abs_err"])
     k5 = _check_peel(scene, layout, _mask_pipeline())
+    k3 = _check_visibility(scene, layout, kw["pipeline"])
     return {"raster_depth": k1, "raster_resolve": k2, "raster_ids": k4,
-            "raster_depth_batch": k6, "raster_peel": k5}
+            "raster_depth_batch": k6, "raster_peel": k5, "raster_visibility": k3}, headline
+
+
+def _headline_scene():
+    """bench.py's headline scene on the card, with the IBL precompute timed:
+    the whole factory, then the precompute alone twice more (the first call
+    of a process also pays cuBLAS's and the allocator's start-up)."""
+    import torch
+
+    from renderer_rs_tpu_torch.app import scenes
+    from renderer_rs_tpu_torch.renderer.scene_build import finalize_environment
+
+    t0 = time.perf_counter()
+    out = scenes.full_scene(W, H, device="cuda", **HEADLINE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sky = out[0].environment.skybox_mips[0]
+    ms = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        env = scenes._ibl_environment(sky)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    fin = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        finalize_environment(env)
+        torch.cuda.synchronize()
+        fin.append((time.perf_counter() - t1) * 1e3)
+    _log(f"headline scene: T={out[1].num_triangles}, built in {build_s:.2f}s; IBL precompute "
+         f"(sky mips, irradiance 16², prefilter 32² x 5 x 32 samples, LUT 64² x 256) "
+         f"{[round(x, 3) for x in ms]} ms, finalize (SH9, atlases) {[round(x, 3) for x in fin]} "
+         f"ms; environment atlas_tri {tuple(out[0].environment.atlas_tri.shape)}")
+    return out
+
+
+def _check_visibility(scene, layout, pipeline) -> dict:
+    """K3 beside its plain version on the headline frame's setup, in three
+    band forms (K3_BANDS): the whole frame, a contiguous band of 270 rows
+    and a pair-interleaved band of 270 rows."""
+    import torch
+
+    from renderer_rs_tpu_torch.ops.raster_cuda import (
+        VIS_COLS,
+        prepare_visibility,
+        raster_visibility,
+        raster_visibility_plain,
+    )
+    from renderer_rs_tpu_torch.renderer.passes import frame_geometry
+
+    geo = frame_geometry(scene, layout, pipeline, W, H)
+    t = layout.num_triangles
+    cases, max_abs_err = {}, 0.0
+    for label, band in K3_BANDS.items():
+        y0, rows = band[0], band[1]
+        stride = band[2] if len(band) > 2 else 1
+        pair = len(band) > 3 and band[3]
+        k3 = prepare_visibility(geo.setup, rows, W, y0, stride, pair, small_limit=t)
+        args = (k3.table, k3.sorted_tris, k3.seg, k3.nbx, rows, W, y0, stride, pair,
+                pipeline.depth_compare_op)
+        n_pairs = int(k3.n_pairs)
+        densest = int((k3.seg[1:] - k3.seg[:-1]).max())
+        big, huge = (int(v) for v in k3.bin_overflow.tolist())
+        out = raster_visibility(*args)
+        torch.cuda.synchronize()
+        ref = raster_visibility_plain(*args)
+        torch.cuda.synchronize()
+        equal = [bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+                 for a, b in zip(out, ref)]
+        err = max(float((out[i] - ref[i]).abs().max()) for i in (0, 2, 3))
+        max_abs_err = max(max_abs_err, err)
+        covered = int((out[1] >= 0).sum())
+        _log(f"K3 {label} {band}: bins={k3.seg.numel() - 1} binned pairs={n_pairs} densest "
+             f"bin={densest} bin_overflow big {big} huge {huge}; vs plain: depth, tid, b0, b1 "
+             f"bit-equal {equal}, max |err| {err:.3e}, covered {covered}")
+        if not (all(equal) and covered > 0):
+            raise SystemExit(f"phase kernels: raster_visibility disagrees with its plain "
+                             f"version ({label})")
+        del ref
+        ms = _median(_event_times_ms(lambda args=args: raster_visibility(*args), KERNEL_TIMINGS))
+        plain_ms = _median(_event_times_ms(lambda args=args: raster_visibility_plain(*args), 3,
+                                           warmup=1))
+        # least time: the walk's f32 ops over the band's pixels (a bin row
+        # wholly in the tile padding below the band is binned but never
+        # walked), against the bytes the function must move once: the 20
+        # columns of every walked row (no more of the table), the walked
+        # bins' sorted ids and segments, and depth, tid, b0, b1 written
+        walked, pixel_pairs, bins = _walked(k3.seg, k3.nbx, rows, W)
+        ops = pixel_pairs * OPS_PER_PAIR
+        binned_rows = int(torch.unique(k3.sorted_tris[:walked]).numel())
+        nbytes = (binned_rows * VIS_COLS * 4 + walked * 4 + (bins + 1) * 4
+                  + rows * W * 4 * 4)
+        bound_ms, bound_by = _bound(ops, nbytes)
+        cases[label] = dict(band=list(band), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, n_pairs=n_pairs, walked_pairs=walked,
+                            densest=densest, bin_overflow=[big, huge], covered=covered)
+        _log(f"K3 {label}: {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, "
+             f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes: "
+             f"{walked} walked pairs of {n_pairs}, {binned_rows} walked rows of "
+             f"{k3.table.shape[0]})")
+    band = cases["contiguous band"]
+    return {
+        "name": "raster_visibility",
+        "route": "cuda",
+        "source": "renderer_rs_tpu_torch/csrc/raster_vis.cu",
+        "replaces": "renderer_rs_tpu/ops/raster_pallas.py:180",
+        "max_abs_err": max_abs_err,
+        "ms": band["ms"],  # one band of the banded main path
+        "plain_ms": band["plain_ms"],
+        "bound_ms": band["bound_ms"],
+        "bound_by": band["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this function
+        "cases": cases,
+    }
 
 
 def _mask_pipeline():
@@ -561,10 +737,12 @@ def _zero_launch_counts() -> None:
         raster_ids,
         raster_peel,
         raster_resolve,
+        raster_visibility,
     )
 
     raster_depth.launches = raster_depth.batched_launches = 0
     raster_resolve.launches = raster_ids.launches = raster_peel.launches = 0
+    raster_visibility.launches = 0
 
 
 def _launch_counts() -> dict:
@@ -575,6 +753,7 @@ def _launch_counts() -> dict:
         raster_ids,
         raster_peel,
         raster_resolve,
+        raster_visibility,
     )
 
     return {
@@ -583,25 +762,28 @@ def _launch_counts() -> dict:
         "raster_ids": raster_ids.launches,
         "raster_depth_batch": raster_depth.batched_launches,
         "raster_peel": raster_peel.launches,
+        "raster_visibility": raster_visibility.launches,
     }
 
 
 def _counts(**kw) -> dict:
     return {"raster_depth": 0, "raster_resolve": 0, "raster_ids": 0, "raster_depth_batch": 0,
-            "raster_peel": 0, **kw}
+            "raster_peel": 0, "raster_visibility": 0, **kw}
 
 
 def _drive(label: str, renderer, frames: int, expect: dict, before_frame=None) -> dict:
     """Render `frames` frames with every launch counter zeroed just before
-    and read just after; fail unless the counts are `expect`."""
+    and read just after; fail unless the counts are `expect`. `renderer` is
+    a Renderer or a callable that renders and presents one frame."""
     _zero_launch_counts()
+    render = renderer if callable(renderer) else renderer.render_frame
     frame_ms = []
     img = None
     for i in range(frames):
         t1 = time.perf_counter()
         if before_frame is not None:
             before_frame(i)
-        img = renderer.render_frame()
+        img = render()
         frame_ms.append((time.perf_counter() - t1) * 1e3)
     launches = _launch_counts()
     _log(f"main path, {label}: {frames} frames, launches {launches}, "
@@ -631,8 +813,9 @@ def _check_frame(label: str, renderer):
     return hdr
 
 
-def phase_main_paths() -> dict:
-    """Renderer.render_frame at full size on the flagship frames."""
+def phase_main_paths(headline: tuple) -> dict:
+    """Renderer.render_frame at full size on the flagship frames; the
+    headline scene (scene, layout, kw) comes built from the kernel phase."""
     import dataclasses
 
     import torch
@@ -760,7 +943,114 @@ def phase_main_paths() -> dict:
         key = "textured" if pipeline is kw["pipeline"] else "textured_mask"
         by_path[key] = _drive(label, renderer, frames, expect)
         _check_frame(label.split(" (")[0], renderer)
+    del scene, renderer, warm
+    by_path.update(_headline_paths(make, *headline))
     return by_path
+
+
+def _headline_paths(make, scene, layout, kw) -> dict:
+    """The headline frame through Renderer.render_frame, then the same
+    scene as four row bands through render_frame_sharded, contiguous and
+    pair-interleaved; then the bands' stitched ids and depth against the
+    frame's, and their colours."""
+    import torch
+
+    from renderer_rs_tpu_torch.parallel import make_device_mesh, render_frame_sharded, unshard_rows
+    from renderer_rs_tpu_torch.utils.image_io import framebuffer_to_u8
+
+    by_path = {}
+    warm = make(scene, layout, kw)
+    for _ in range(2):
+        warm.render_frame()
+    renderer = make(scene, layout, kw)
+    by_path["headline"] = _drive(
+        "headline (textured, IBL; static scene)", renderer, HEADLINE_FRAMES,
+        _counts(raster_depth=1, raster_resolve=HEADLINE_FRAMES))
+    full = _check_frame("headline", renderer)
+    mesh = make_device_mesh(N_BANDS, frame_axis=1, devices=["cuda:0"] * N_BANDS)
+    for interleaved in (False, True):
+        label = "banded, " + ("pair-interleaved" if interleaved else "contiguous")
+
+        def render(interleaved=interleaved):
+            out = render_frame_sharded(
+                [scene], layout, kw["pipeline"], kw["shading"], W, H, mesh,
+                tonemap=kw["tonemap"], shadow_map_size=kw["shadow_map_size"],
+                shadow_params=kw["shadow_params"], interleaved=interleaved)
+            return framebuffer_to_u8(unshard_rows(out, N_BANDS, interleaved)[0])
+
+        for _ in range(2):  # warm-up
+            render()
+        key = "banded_interleaved" if interleaved else "banded"
+        by_path[key] = _drive(label, render, BAND_FRAMES,
+                              _counts(raster_depth=N_BANDS * BAND_FRAMES,
+                                      raster_visibility=N_BANDS * BAND_FRAMES))
+        out = unshard_rows(render_frame_sharded(
+            [scene], layout, kw["pipeline"], kw["shading"], W, H, mesh, tonemap=kw["tonemap"],
+            shadow_map_size=kw["shadow_map_size"], shadow_params=kw["shadow_params"],
+            interleaved=interleaved), N_BANDS, interleaved)[0]
+        d = (out - full)[..., :3].abs().flatten()
+        p99 = float(d.kthvalue(math.ceil(0.99 * d.numel())).values)
+        _log(f"{label}: stitched frame vs the headline frame, rgb: mean |d| {float(d.mean()):.3e}, "
+             f"p99 {p99:.3e}, max {float(d.max()):.3e}, finite "
+             f"{bool(torch.isfinite(out).all())}")
+        if not (bool(torch.isfinite(out).all()) and p99 < BAND_DRIFT_P99):
+            raise SystemExit(f"phase main path, {label}: the stitched frame drifts from the "
+                             "headline frame beyond p99 0.01")
+        _check_band_stitch(label, scene, layout, kw, interleaved)
+    return by_path
+
+
+def _check_band_stitch(label, scene, layout, kw, interleaved) -> None:
+    """The bands' winner source ids, each band from forward_frame(band=...)
+    with render_frame_sharded's band_spec and stitched by band_rows, against
+    the whole frame's from forward_frame; and the bands' K3 depth against
+    the frame's K2 depth (forward_frame returns no depth). Both must be
+    equal wherever neither side's binning dropped a triangle
+    (bin_overflow 0)."""
+    import torch
+
+    from renderer_rs_tpu_torch.ops.raster_cuda import (
+        prepare_resolve,
+        prepare_visibility,
+        raster_resolve,
+        raster_visibility,
+    )
+    from renderer_rs_tpu_torch.parallel import band_rows, band_spec
+    from renderer_rs_tpu_torch.renderer.passes import forward_frame, frame_geometry
+
+    pipeline, t = kw["pipeline"], layout.num_triangles
+    common = dict(tonemap=kw["tonemap"], shadow_map_size=kw["shadow_map_size"],
+                  shadow_params=kw["shadow_params"], return_ids=True, diagnostics=True)
+    _, ids, diag = forward_frame(scene, layout, pipeline, kw["shading"], W, H, **common)
+    overflow = [diag["bin_overflow"].tolist()]
+    geo = frame_geometry(scene, layout, pipeline, W, H)
+    k2 = prepare_resolve(geo.setup, H, W, geo.attr, scene.tris, geo.clip_src, geo.clip_planes,
+                         geo.mat_flat, small_limit=t)
+    depth = raster_resolve(k2.table, k2.sorted_tris, k2.seg, k2.nbx, H, W, k2.n_vary,
+                           k2.n_flat, pipeline.depth_compare_op)[0]
+    band_h = H // N_BANDS
+    got_ids, got_depth = torch.full_like(ids, -2), torch.full_like(depth, -2.0)
+    for k in range(N_BANDS):
+        spec = band_spec(k, N_BANDS, band_h, interleaved)
+        _, b_ids, b_diag = forward_frame(scene, layout, pipeline, kw["shading"], W, H,
+                                         band=spec, **common)
+        rows = band_rows(spec, device=ids.device)
+        got_ids[rows] = b_ids
+        y0, stride, pair = spec[0], spec[2] if len(spec) > 2 else 1, len(spec) > 3
+        k3 = prepare_visibility(geo.setup, band_h, W, y0, stride, pair, small_limit=t)
+        got_depth[rows] = raster_visibility(k3.table, k3.sorted_tris, k3.seg, k3.nbx, band_h,
+                                            W, y0, stride, pair, pipeline.depth_compare_op)[0]
+        overflow.append(b_diag["bin_overflow"].tolist())
+        _log(f"{label}, band {k} {spec}: binned pairs {int(k3.n_pairs)}, densest bin "
+             f"{int((k3.seg[1:] - k3.seg[:-1]).max())}, covered {int(b_diag['covered_pixels'])}")
+    clean = all(o == [0, 0] for o in overflow)
+    ids_equal = bool(torch.equal(got_ids, ids))
+    depth_equal = bool(torch.equal(got_depth.view(torch.int32), depth.view(torch.int32)))
+    _log(f"{label}: stitched ids (forward_frame) equal {ids_equal}, depth (K3 vs K2) bit-equal "
+         f"{depth_equal}; bin_overflow [big, huge] frame then bands {overflow}")
+    if clean and not (ids_equal and depth_equal):
+        raise SystemExit(f"phase main path, {label}: the stitched bands' ids or depth differ "
+                         "from the whole frame's")
 
 
 def _golden_check(name: str, got) -> None:
@@ -820,6 +1110,73 @@ def phase_small_reference() -> None:
             raise SystemExit(f"phase small reference: the PBR frame ({label}) on cuda differs "
                              "from the cpu frame")
     _cutout_check()
+    _ibl_small_check()
+
+
+def _ibl_small_check() -> None:
+    """The IBL frames full and full_textured at 160x120 (tests/test_golden.py's
+    recipe: a 256² sun map) on cuda against their goldens and against the
+    cpu frames; then full_textured as 4 bands, contiguous and pair-
+    interleaved, on cuda: stitched ids equal to the frame's, colours within
+    the bar (120 rows: exact rates on both sides)."""
+    import numpy as np
+    import torch
+
+    from renderer_rs_tpu_torch.app.scenes import full_scene
+    from renderer_rs_tpu_torch.parallel import (
+        band_rows,
+        band_spec,
+        make_device_mesh,
+        render_frame_sharded,
+        unshard_rows,
+    )
+    from renderer_rs_tpu_torch.renderer.passes import forward_frame
+    from renderer_rs_tpu_torch.utils.image_io import framebuffer_to_u8
+
+    def frame(device, textured, **extra):
+        scene, layout, kw, _ = full_scene(160, 120, tri_budget=2000, textured=textured,
+                                          device=device)
+        out = forward_frame(scene, layout, kw["pipeline"], kw["shading"], 160, 120,
+                            tonemap=kw["tonemap"], shadow_map_size=256,
+                            shadow_params=kw["shadow_params"], **extra)
+        return out, (scene, layout, kw)
+
+    for name, textured in (("full", False), ("full_textured", True)):
+        got, _ = frame("cuda", textured)
+        ref, _ = frame("cpu", textured)
+        _golden_check(name, framebuffer_to_u8(got))
+        got, ref = got.cpu().numpy(), ref.numpy()
+        err = np.abs(got - ref)
+        off = float((err > 2e-3 + 2e-3 * np.abs(ref)).mean())
+        _log(f"{name} 160x120 (IBL), cuda vs cpu: max |d| {err.max():.3e}, values off the bar "
+             f"{off:.4%}")
+        if not (np.isfinite(got).all() and off < 0.005 and err.max() < 0.15):
+            raise SystemExit(f"phase small reference: the {name} IBL frame on cuda differs from "
+                             "the cpu frame")
+    (full, full_ids), (scene, layout, kw) = frame("cuda", True, return_ids=True)
+    mesh = make_device_mesh(N_BANDS, frame_axis=1, devices=["cuda:0"] * N_BANDS)
+    band_h = 120 // N_BANDS
+    for interleaved in (False, True):
+        out = unshard_rows(render_frame_sharded(
+            [scene], layout, kw["pipeline"], kw["shading"], 160, 120, mesh,
+            tonemap=kw["tonemap"], shadow_map_size=256, shadow_params=kw["shadow_params"],
+            interleaved=interleaved), N_BANDS, interleaved)[0]
+        ids = torch.full_like(full_ids, -2)
+        for k in range(N_BANDS):
+            spec = band_spec(k, N_BANDS, band_h, interleaved)
+            _, band_ids = forward_frame(scene, layout, kw["pipeline"], kw["shading"], 160, 120,
+                                        tonemap=kw["tonemap"], shadow_map_size=256,
+                                        shadow_params=kw["shadow_params"], band=spec,
+                                        return_ids=True)
+            ids[band_rows(spec, device=ids.device)] = band_ids
+        err = (out - full).abs()
+        off = float((err > 2e-3 + 2e-3 * full.abs()).float().mean())
+        ids_equal = bool(torch.equal(ids, full_ids))
+        _log(f"full_textured 160x120 as {N_BANDS} {'interleaved' if interleaved else 'contiguous'} "
+             f"bands on cuda: stitched ids equal {ids_equal}, max |d| {float(err.max()):.3e}, "
+             f"values off the bar {off:.4%}")
+        if not (ids_equal and off < 0.002 and float(err.max()) < 0.05):
+            raise SystemExit("phase small reference: the stitched bands differ from the frame")
 
 
 def _cutout_check() -> None:
@@ -868,8 +1225,8 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_versions()
     phase_build()
-    kernels = phase_kernels()
-    by_path = phase_main_paths()
+    kernels, headline = phase_kernels()
+    by_path = phase_main_paths(headline)
     phase_small_reference()
     for name, k in kernels.items():
         k["launches"] = sum(path[name] for path in by_path.values())

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where a frame's time goes in the PyTorch/CUDA port, on one NVIDIA GPU.
 
-    python3 profile_torch_frame.py [--scene blinnphong|full --moving-sun
-                                    --csm --msaa 4 --textured
+    python3 profile_torch_frame.py [--scene blinnphong|full --no-ibl
+                                    --moving-sun --csm --msaa 4 --textured
                                     --alpha-cutoff 0.5
                                     --width 1920 --height 1080 --rings 160
                                     --sectors 320 --tris 100000 --frames 5
@@ -10,10 +10,13 @@
 
 Renders a flagship frame through Renderer.render_frame: `--scene
 blinnphong` (default: 1920x1080, T = 102,402 triangles) or `--scene full`,
-the shadow-mapped PBR frame full_scene(ibl=False) (T = 97,346 at the
-default --tris; static scene, so the shadow map is reused; `--moving-sun`
-gives every frame a new sun direction and light matrix, so the shadow pass
-runs every frame). With `--csm` the full scene has four shadow cascades
+the shadow-mapped PBR frame full_scene() with its image-based lighting
+(T = 97,346 at the default --tris; the span `frame/ibl`, the merged
+specular/skybox fetch and the fast ambient, nests in `frame/shade`;
+`--no-ibl` renders full_scene(ibl=False) with the hemisphere ambient;
+static scene, so the shadow map is reused; `--moving-sun` gives every frame
+a new sun direction and light matrix, so the shadow pass runs every
+frame). `--scene full --textured` is bench.py's headline frame. With `--csm` the full scene has four shadow cascades
 (`frame/shadow` is then the cascade pass, one K6 launch; `--moving-sun`
 refits the cascades every frame). `--textured` binds the 5-slot texture set
 to the full scene; `--alpha-cutoff C` renders it under an alpha-cutoff
@@ -75,6 +78,8 @@ def main(argv=None) -> int:
     parser.add_argument("--scene", choices=["blinnphong", "full"], default="blinnphong")
     parser.add_argument("--tris", type=int, default=100_000,
                         help="triangle budget of the full scene")
+    parser.add_argument("--no-ibl", action="store_true",
+                        help="full scene without the IBL environment")
     parser.add_argument("--moving-sun", action="store_true",
                         help="full scene: move the sun every frame (shadow pass per frame)")
     parser.add_argument("--csm", action="store_true",
@@ -110,7 +115,7 @@ def main(argv=None) -> int:
     print(card)
     if args.scene == "full":
         scene, layout, kw, _ = full_scene(
-            args.width, args.height, tri_budget=args.tris, ibl=False, csm=args.csm,
+            args.width, args.height, tri_budget=args.tris, ibl=not args.no_ibl, csm=args.csm,
             textured=args.textured, device="cuda",
         )
     else:
@@ -185,6 +190,7 @@ def main(argv=None) -> int:
         "card": card,
         "scene": args.scene,
         "moving_sun": bool(args.moving_sun),
+        "ibl": args.scene == "full" and not args.no_ibl,
         "csm": bool(args.csm),
         "msaa": args.msaa,
         "textured": bool(args.textured),
@@ -212,7 +218,8 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     if args.trace:
         prof.export_chrome_trace(os.path.join(args.out, f"torch_frame_trace_{args.scene}.json"))
-    tag = (args.scene + ("_csm" if args.csm else "") + (f"_msaa{args.msaa}" if args.msaa > 1 else "")
+    tag = (args.scene + ("_noibl" if args.scene == "full" and args.no_ibl else "")
+           + ("_csm" if args.csm else "") + (f"_msaa{args.msaa}" if args.msaa > 1 else "")
            + ("_textured" if args.textured else "")
            + (f"_mask{args.alpha_cutoff}" if args.alpha_cutoff is not None else "")
            + ("_moving_sun" if args.moving_sun else ""))

@@ -5,19 +5,20 @@ write PNGs. Runs on the CUDA card; without one it raises.
 Usage:
     python -m renderer_rs_tpu_torch.app.main --scene blinnphong \
         --width 1920 --height 1080 --frames 8 --out /tmp/out
-    python -m renderer_rs_tpu_torch.app.main --scene full --no-ibl \
+    python -m renderer_rs_tpu_torch.app.main --scene full --textured \
         --tris 100000 --width 1920 --height 1080 --out /tmp/out
     python -m renderer_rs_tpu_torch.app.main --scene full --no-ibl --csm --out /tmp/out
-    python -m renderer_rs_tpu_torch.app.main --scene full --no-ibl --textured --out /tmp/out
     python -m renderer_rs_tpu_torch.app.main --scene gltf-pbr --out /tmp/out
 
-`--scene full` needs `--no-ibl` for now (`--csm` switches it to four shadow
-cascades, `--textured` binds the 5-slot PBR texture set): the IBL
-environment, `--hdr` and `--gltf` raise NotImplementedError until their
-slices are ported. As in the JAX app there is no alpha-cutoff flag: a MASK
-pipeline (`GraphicsPipelineBuilder().alpha_cutoff(0.5)`) reaches the
-Renderer as its `pipeline`. The X11 window, the scripted orbit/fly cameras and the
-other scenes wait for later slices (ROADMAP Queue 1 items 13-14)."""
+`--scene full --textured` is bench.py's headline frame: the IBL
+environment (the default; `--no-ibl` drops it for the hemisphere ambient),
+the 5-slot PBR texture set, a 1024² sun shadow map, ACES. `--csm` switches
+it to four shadow cascades. `--hdr` and `--gltf` raise NotImplementedError
+until their loaders are ported. As in the JAX app there is no alpha-cutoff
+flag: a MASK pipeline (`GraphicsPipelineBuilder().alpha_cutoff(0.5)`)
+reaches the Renderer as its `pipeline`. The X11 window, the scripted
+orbit/fly cameras and the other scenes wait for later slices (ROADMAP
+Queue 1 items 13-14)."""
 
 from __future__ import annotations
 
@@ -59,8 +60,8 @@ def main(argv=None, device="cuda") -> int:
     parser.add_argument("--tris", type=int, default=100_000,
                         help="triangle budget for the full scene")
     parser.add_argument("--no-ibl", action="store_true",
-                        help="full scene without the IBL environment: shadow-mapped PBR, "
-                             "skybox, ACES (the only ported form so far)")
+                        help="full scene without the IBL environment: the sky as skybox only "
+                             "and the hemisphere ambient")
     parser.add_argument("--csm", action="store_true",
                         help="cascaded shadow maps: four cascades instead of the single sun map "
                              "(full scene)")

@@ -1,8 +1,9 @@
 """Demo scene factories (≙ renderer_rs_tpu/app/scenes.py). Ported: config
 2, the Blinn-Phong sphere; config 3, the procedural PBR sphere grid; and
-config 4 without IBL, the shadow-mapped PBR frame with skybox and ACES,
-with a single sun map or four cascades, untextured or with the 5-slot
-procedural texture set. The others wait for later slices (ROADMAP Queue 1).
+config 4, the full scene: shadow-mapped PBR with skybox and ACES, with a
+single sun map or four cascades, untextured or with the 5-slot procedural
+texture set, with the image-based lighting environment (the default) or
+without it. The others wait for later slices (ROADMAP Queue 1).
 
 A factory returns (scene, layout, renderer_kwargs, animate_fn), where
 animate_fn(scene, t, dt) -> scene updates the dynamic state per frame."""
@@ -14,12 +15,19 @@ import math
 
 import numpy as np
 
+from renderer_rs_tpu_torch.core.device import resolve_device
 from renderer_rs_tpu_torch.ops.csm import fit_cascades
-from renderer_rs_tpu_torch.ops.ibl import procedural_sky_cubemap
+from renderer_rs_tpu_torch.ops.ibl import (
+    brdf_lut,
+    irradiance_map,
+    prefilter_map,
+    procedural_sky_cubemap,
+)
 from renderer_rs_tpu_torch.ops.shadow import ShadowParams, directional_light_matrix
 from renderer_rs_tpu_torch.renderer.passes import ShadingModel
 from renderer_rs_tpu_torch.renderer.scene_build import Environment, SceneBuilder
 from renderer_rs_tpu_torch.resources.material import Material
+from renderer_rs_tpu_torch.resources.texture import CubeMap
 from renderer_rs_tpu_torch.resources.ubo import CameraUbo, SceneUbo
 from renderer_rs_tpu_torch.rhi.command import CommandBuffer
 from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipelineBuilder
@@ -145,18 +153,20 @@ def gltf_pbr_scene(width: int, height: int, gltf_path: str | None = None, device
 def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = True,
                csm: bool = False, textured: bool = False, hdr: str | None = None,
                gltf: str | None = None, device="cuda"):
-    """Config 4 (scenes.py:203) with ibl=False: a 3x3 grid of PBR spheres
-    sized to tri_budget on a floor, a shadow-mapped sun (1024² map; with
-    csm=True four 1024² cascades fitted to the camera frustum), the
-    procedural sky as skybox, ACES tonemap. tri_budget=100_000 gives 97,346
-    triangles. textured=True binds the procedural 5-slot 256² PBR texture
-    set (base/normal/MR/AO/emissive, meshgen.procedural_pbr_textures) to
-    every material, the texture x factor semantics of model_pbr.hlsl. The
-    IBL precompute, a Radiance .hdr environment and glTF instancing are not
-    ported: each raises rather than render a lesser scene."""
-    if ibl:
-        raise _not_ported("the IBL environment of the full scene (pass ibl=False)",
-                          "items 7 and 9, IBL slice")
+    """Config 4 (scenes.py:203): a 3x3 grid of PBR spheres sized to
+    tri_budget on a floor, a shadow-mapped sun (1024² map; with csm=True
+    four 1024² cascades fitted to the camera frustum), the procedural sky,
+    ACES tonemap. tri_budget=100_000 gives 97,346 triangles. textured=True
+    binds the procedural 5-slot 256² PBR texture set
+    (base/normal/MR/AO/emissive, meshgen.procedural_pbr_textures) to every
+    material, the texture x factor semantics of model_pbr.hlsl. ibl=True
+    (the default, bench.py's headline frame) runs the IBL precompute on
+    `device` once (the sky's box mip chain, a 16² irradiance map, the GGX
+    prefilter of 32² x 5 levels x 32 samples, a 64² BRDF LUT of 256
+    samples), finalizes it into the fast-ambient form and shades PBR_IBL;
+    ibl=False keeps the sky as skybox only and shades PBR with the
+    hemisphere ambient. A Radiance .hdr environment and glTF instancing
+    are not ported: each raises rather than render a lesser scene."""
     if hdr is not None:
         raise _not_ported("a Radiance .hdr environment", "item 9, HDR loader")
     if gltf:
@@ -220,18 +230,36 @@ def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = T
         # raster bins
         builder.set_shadow_matrix(directional_light_matrix(sun_dir, [0.0, 0.0, 0.0], 3.5))
     sky = procedural_sky_cubemap(64, sun_direction=tuple(float(v) for v in sun_dir))
-    builder.set_environment(Environment(skybox_mips=(sky,)))
+    if ibl:
+        # the one-time precompute chain (≙ the reference's compute shader
+        # dispatches), eagerly on the scene's device
+        sky = sky.to(resolve_device(device))
+        builder.set_environment(_ibl_environment(sky))
+    else:
+        builder.set_environment(Environment(skybox_mips=(sky,)))
     scene, layout, pipeline = cb.build_scene(builder, device=device)
     # bias scaled to the shadow texel world size (ortho box 14 units / 1024)
     kwargs = dict(
         pipeline=pipeline,
-        shading=ShadingModel.PBR,
+        shading=ShadingModel.PBR_IBL if ibl else ShadingModel.PBR,
         camera=cam,
         tonemap="aces",
         shadow_map_size=1024,
         shadow_params=ShadowParams(shadow_bias=0.012, normal_bias=0.06),
     )
     return scene, layout, kwargs, None
+
+
+def _ibl_environment(sky) -> Environment:
+    """The full scene's IBL environment from its sky [6,64,64,3], with the
+    JAX scene's sizes and sample counts (scenes.py:414-421)."""
+    sky_mips = CubeMap.from_faces(sky, generate_mips=True).mips
+    return Environment(
+        skybox_mips=(sky,),
+        irradiance_mips=(irradiance_map(sky, size=16),),
+        prefiltered_mips=prefilter_map(sky_mips, base_size=32, levels=5, samples=32),
+        brdf_lut=brdf_lut(64, samples=256, chunk=64, device=sky.device),
+    )
 
 
 def _not_ported_scene(name: str, queue_item: str):

@@ -15,7 +15,10 @@ fields: {"positions", "normals", "uvs", "tangents", "colors", "tris",
          "scene_ubo": {ambient_color, time, delta_time},
          "light_space_matrix": [4,4] or None,
          "csm_matrices": [C,4,4] or None, "csm_splits": [C] or None,
-         "environment": {"skybox_mips": (faces [6,S,S,C], ...)} or None,
+         "environment": {"skybox_mips": (faces [6,S,S,C], ...),
+                         "irradiance_mips", "prefiltered_mips": tuples or None,
+                         "brdf_lut", "irradiance_sh", "atlas", "atlas_offsets",
+                         "atlas_sizes", "atlas_tri": arrays or None} or None,
          "textures": {"mips": ([N,h,w,4] f32, ...),
                       "mat_atlas_tri": [R,8C] uint16 (the bf16 BITS) or None,
                       "mat_set": [M] int or None} or None}
@@ -42,7 +45,8 @@ from renderer_rs_tpu_torch.resources.material import MaterialBank
 from renderer_rs_tpu_torch.resources.ubo import CameraUbo, SceneUbo
 from renderer_rs_tpu_torch.scene.light import LightBank
 
-_INT_FIELDS = ("tris", "tri_material", "tex_ids", "num_point", "num_spot")
+_INT_FIELDS = ("tris", "tri_material", "tex_ids", "num_point", "num_spot", "atlas_offsets",
+               "atlas_sizes")
 
 
 def _tensor(name: str, value, dev: torch.device) -> torch.Tensor:
@@ -72,6 +76,25 @@ def _textures(tex, dev: torch.device) -> TextureArrays | None:
     )
 
 
+def _environment(env, dev: torch.device) -> Environment | None:
+    """The whole Environment: the skybox, the IBL maps and their
+    fast-ambient form, each as the JAX scene holds it (absent fields None)."""
+    if env is None:
+        return None
+
+    def field(name):
+        value = env.get(name)
+        if value is None:
+            return None
+        if isinstance(value, (tuple, list)):
+            return tuple(_tensor(name, m, dev) for m in value)
+        return _tensor(name, value, dev)
+
+    return Environment(**{f: field(f) for f in (
+        "skybox_mips", "irradiance_mips", "prefiltered_mips", "brdf_lut", "irradiance_sh",
+        "atlas", "atlas_offsets", "atlas_sizes", "atlas_tri")})
+
+
 def scene_from_numpy(fields: dict, layout_fields: dict, device="cuda"):
     """(GpuScene, SceneLayout) on `device` from flattened numpy state."""
     dev = resolve_device(device)
@@ -84,7 +107,6 @@ def scene_from_numpy(fields: dict, layout_fields: dict, device="cuda"):
         for k in ("positions", "normals", "uvs", "tangents", "colors", "tris",
                   "tri_material", "models", "normal_mats")
     }
-    env = fields.get("environment")
 
     def optional(key):
         value = fields.get(key)
@@ -97,10 +119,7 @@ def scene_from_numpy(fields: dict, layout_fields: dict, device="cuda"):
         camera=group(CameraUbo, "camera"),
         scene_ubo=group(SceneUbo, "scene_ubo"),
         textures=_textures(fields.get("textures"), dev),
-        environment=(
-            None if env is None
-            else Environment(skybox_mips=tuple(_tensor("skybox", m, dev) for m in env["skybox_mips"]))
-        ),
+        environment=_environment(fields.get("environment"), dev),
         light_space_matrix=optional("light_space_matrix"),
         csm_matrices=optional("csm_matrices"),
         csm_splits=optional("csm_splits"),

@@ -35,6 +35,7 @@ SOURCES = {
     "raster_ids": _PKG / "csrc" / "raster_ids.cu",
     "raster_peel": _PKG / "csrc" / "raster_peel.cu",
     "raster_resolve": _PKG / "csrc" / "raster_resolve.cu",
+    "raster_vis": _PKG / "csrc" / "raster_vis.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -10,8 +10,12 @@ shaders/hlsl/pbr.hlsli). Vectorized over pixels; the reference's constants:
   (pbr.hlsli:279-329)
 - hemisphere ambient with the reference's sky/ground colors
   (pbr.hlsli:480-490)
+- the fast-ambient IBL of the headline frame (pbr.py:290-343): SH9
+  diffuse, the analytic split-sum environment BRDF and the specular
+  radiance the caller fetched from the cube atlas
 
-The split-sum IBL functions wait for ROADMAP Queue 1 item 7 (next slice).
+The exact map-sampling IBL (calculate_ibl, pbr.py:197) and the albedo-split
+forms of the y-half lighting knob (:130-195) wait (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -67,6 +71,13 @@ def fresnel_schlick(cos_theta, f0) -> torch.Tensor:
     return f0 + (1.0 - f0) * torch.pow(1.0 - ct, 5.0)
 
 
+def fresnel_schlick_roughness(cos_theta, f0, roughness) -> torch.Tensor:
+    """IBL Fresnel: F90 = max(1 - roughness, F0) (pbr.hlsli:138-151)."""
+    ct = saturate(cos_theta)
+    f90 = torch.maximum(1.0 - roughness, f0)
+    return f0 + (f90 - f0) * torch.pow(1.0 - ct, 5.0)
+
+
 def calculate_f0(albedo, metallic) -> torch.Tensor:
     """F0 = lerp(0.04, albedo, metallic) (pbr.hlsli:168-180)."""
     dielectric = torch.full_like(albedo, 0.04)
@@ -106,3 +117,63 @@ def hemisphere_ambient(n, albedo, ao) -> torch.Tensor:
     up = n[..., 1:2] * 0.5 + 0.5
     ambient = ground + (sky - ground) * up
     return ambient * albedo * ao[..., None]
+
+
+# Least-squares fit of the JAX package's brdf_lut(64, samples=2048) over
+# (NdotV, roughness) (pbr.py:271-288): a bivariate degree-5 polynomial plus
+# {exp2(-9.28 NdotV), its product with r, sqrt(NdotV), its product with r}.
+# Term order: NdotV^i r^j for i+j <= 5 (j-major), then the 4 extras.
+_ENV_BRDF_SCALE_C = (
+    -0.20467638, 0.40553972, 2.20926974, -2.35092346, -0.60635421, 0.48959697,
+    10.53988158, -16.00064446, 0.11307607, 7.34674485, -0.07783143,
+    -17.61123712, 32.42396798, -15.63481490, -4.38756696,
+    14.69254720, -21.28281969, 11.86844660, -5.80202789, 2.71048390,
+    1.03621796, 0.37388853, 0.16790994, -1.65275117, 2.09886709,
+)
+_ENV_BRDF_BIAS_C = (
+    1.65195669, -2.98117197, 0.95465251, 3.10094792, -3.35848621, 0.92791413,
+    -9.90206078, 18.91299216, -12.33896654, 2.14557775, 1.25509294,
+    16.97517378, -27.56190032, 16.23656581, -4.03276973,
+    -14.85912427, 16.55409020, -4.76333227, 6.40965134, -3.57892007,
+    -1.09046371, -0.83260557, 0.64060156, 0.83105539, -1.51038790,
+)
+
+
+def env_brdf_approx(ndotv, roughness):
+    """Analytic split-sum environment BRDF (scale, bias) (pbr.py:290): the
+    fitted polynomial above in place of the BRDF-LUT lookup."""
+    x = saturate(ndotv)
+    y = saturate(roughness)
+    terms = []
+    xi = torch.ones_like(x)
+    for i in range(6):
+        yj = xi
+        for _ in range(6 - i):
+            terms.append(yj)
+            yj = yj * y
+        xi = xi * x
+    e = torch.exp2(-9.28 * x)
+    sx = torch.sqrt(x)
+    terms += [e, e * y, sx, sx * y]
+    scale = sum(c * t for c, t in zip(_ENV_BRDF_SCALE_C, terms))
+    bias = sum(c * t for c, t in zip(_ENV_BRDF_BIAS_C, terms))
+    return saturate(scale), saturate(bias)
+
+
+def calculate_ibl_fast(n, v, mat: PBRMaterialParams, irradiance_sh, prefiltered) -> torch.Tensor:
+    """Gather-free CalculateIBL (pbr.py:317): SH9 diffuse and the analytic
+    BRDF, the kS/kD split-sum structure of pbr.hlsli:399-466. `prefiltered`
+    [...,3] is the specular radiance the caller fetched (the merged
+    specular/skybox atlas lookup)."""
+    from renderer_rs_tpu_torch.ops.ibl import sh9_eval
+
+    metallic = mat.metallic[..., None]
+    roughness = mat.roughness
+    f0 = calculate_f0(mat.albedo, metallic)
+    ndotv = torch.clamp(dot(n, v)[..., 0], min=0.0)
+    ks = fresnel_schlick_roughness(ndotv[..., None], f0, roughness[..., None])
+    kd = (1.0 - ks) * (1.0 - metallic)
+    diffuse = sh9_eval(irradiance_sh, n) * mat.albedo
+    scale, bias = env_brdf_approx(ndotv, roughness)
+    specular = prefiltered * (f0 * scale[..., None] + bias[..., None])
+    return (kd * diffuse + specular) * mat.ao[..., None]

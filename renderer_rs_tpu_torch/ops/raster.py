@@ -7,7 +7,8 @@ down, z in [0,1], framebuffer row 0 on top, pixel centers at (col+0.5,
 row+0.5), front-for-CCW <=> framebuffer cross2 < 0.
 
 The scan rasterizer of the JAX module waits for ROADMAP Queue 1 item 13;
-the fast path rasterizes through ops/raster_cuda.py.
+the fast path rasterizes through ops/raster_cuda.py. The band path's
+deferred attributes (perspective_bary, interpolate) are here.
 """
 
 from __future__ import annotations
@@ -172,11 +173,41 @@ def _biased_z(z, planes, area2, pipeline: GraphicsPipeline):
 class VisibilityBuffer:
     """Per-pixel rasterization result (≙ VisibilityBuffer, raster.py:444).
 
-    tri_id [H,W] int32 (-1 = miss), depth [H,W] f32."""
+    tri_id [H,W] int32 (-1 = miss), depth [H,W] f32, bary [H,W,2] f32 the
+    winner's screen-space barycentrics (b0, b1), b2 = 1 - b0 - b1, where the
+    rasterizer returns them (K3, the band path); None where the kernel
+    interpolates the varyings itself."""
 
     tri_id: torch.Tensor
     depth: torch.Tensor
+    bary: torch.Tensor | None = None
 
     @property
     def covered(self) -> torch.Tensor:
         return self.tri_id >= 0
+
+
+def perspective_bary(vis: VisibilityBuffer, setup: TriangleSetup) -> torch.Tensor:
+    """Perspective-correct barycentrics [H,W,3] from the visibility buffer
+    (raster.py:767): b_i' = (b_i / w_i) / sum_j (b_j / w_j). vis.tri_id
+    holds raster slots; misses get slot 0's weights (callers mask them)."""
+    tid = torch.clamp(vis.tri_id, min=0).long()
+    w = setup.w[tid]  # [H,W,3]
+    b0 = vis.bary[..., 0]
+    b1 = vis.bary[..., 1]
+    b = torch.stack([b0, b1, 1.0 - b0 - b1], dim=-1)
+    wb = b / torch.clamp(w, min=_W_EPS)
+    denom = torch.sum(wb, dim=-1, keepdim=True)
+    return wb / torch.where(denom == 0.0, torch.ones_like(denom), denom)
+
+
+def interpolate(vis: VisibilityBuffer, tris: torch.Tensor, attr: torch.Tensor,
+                bary3: torch.Tensor) -> torch.Tensor:
+    """Interpolate a per-vertex attribute over the framebuffer (raster.py:787):
+    tris [T,3] vertex ids, attr [V,K], bary3 [H,W,3] against vis.tri_id's
+    triangles. Returns [H,W,K]; misses get triangle 0's attribute (mask
+    with vis.covered). One per-pixel row gather of the triangle-major
+    [T,3,K] table."""
+    tid = torch.clamp(vis.tri_id, min=0).long()
+    vals = attr[tris][tid]  # [H,W,3,K]
+    return torch.einsum("hwv,hwvk->hwk", bary3, vals)

@@ -48,18 +48,45 @@ def _bin_index(v: torch.Tensor, size: int, n: int) -> torch.Tensor:
     return torch.clamp(torch.floor(v / size), 0, n - 1).to(torch.int32)
 
 
-def _tile_ranges(setup: TriangleSetup, height, width, tile_h, tile_w, nty, ntx):
-    """Per-triangle inclusive bin ranges + liveness (raster_binned.py:69),
-    full-frame addressing (band rows wait for ROADMAP Queue 1 item 15)."""
+def _is_banded(y_offset: int, y_stride: int) -> bool:
+    """Whether band addressing is active (raster_binned.py:64)."""
+    return y_stride != 1 or y_offset != 0
+
+
+def _tile_ranges(setup: TriangleSetup, height, width, tile_h, tile_w, nty, ntx,
+                 y_offset=0, y_stride=1, y_pair=False):
+    """Per-triangle inclusive bin ranges + liveness (raster_binned.py:69).
+
+    Band mode (y_offset / y_stride / y_pair, the row bands of
+    forward_frame(band=...)): `height` is the band height and bins live in
+    band-row space, band row k covering physical row y_offset + k*y_stride
+    (pair form: y_offset + (k//2)*2*y_stride + k%2). The mapping takes
+    conservative fractional bounds, so a band's candidate lists are
+    supersets of the covering triangles; coverage culls exactly. The
+    whole-frame path keeps the integer formula."""
     xs = setup.xy[..., 0]
     ys = setup.xy[..., 1]
     x_min, x_max = xs.amin(-1), xs.amax(-1)
     y_min, y_max = ys.amin(-1), ys.amax(-1)
     tx0 = _bin_index(x_min, tile_w, ntx)
     tx1 = _bin_index(x_max, tile_w, ntx)
-    ty0 = _bin_index(y_min, tile_h, nty)
-    ty1 = _bin_index(y_max, tile_h, nty)
-    onscreen = (x_max >= 0.0) & (x_min <= width) & (y_max >= 0.0) & (y_min <= height)
+    if _is_banded(y_offset, y_stride):
+        yo = torch.tensor(float(y_offset), dtype=torch.float32, device=ys.device)
+        ky0 = (y_min - 0.5 - yo) / y_stride  # fractional band rows
+        ky1 = (y_max - 0.5 - yo) / y_stride
+        if y_pair:
+            # global row g(j) >= yo + s*j - (s-1): the upper bound gains a
+            # conservative (s-1)/s, rounded to f32 as jnp's weak scalar is
+            ky1 = ky1 + torch.tensor((y_stride - 1.0) / y_stride, dtype=torch.float32,
+                                     device=ys.device)
+        ty0 = _bin_index(ky0, tile_h, nty)
+        ty1 = _bin_index(ky1, tile_h, nty)
+        y_on = (ky1 >= 0.0) & (ky0 <= height)
+    else:
+        ty0 = _bin_index(y_min, tile_h, nty)
+        ty1 = _bin_index(y_max, tile_h, nty)
+        y_on = (y_max >= 0.0) & (y_min <= height)
+    onscreen = (x_max >= 0.0) & (x_min <= width) & y_on
     alive = setup.valid & onscreen
     return tx0, tx1, ty0, ty1, alive
 
@@ -78,8 +105,12 @@ def bin_triangles_compact(
     bin_h: int,
     bin_w: int,
     small_limit: int | None = None,
+    y_offset: int = 0,
+    y_stride: int = 1,
+    y_pair: bool = False,
 ):
-    """Exact per-bin candidate segments (raster_binned.py:297). Returns
+    """Exact per-bin candidate segments (raster_binned.py:297); with band
+    arguments the bins cover the band's rows (see _tile_ranges). Returns
 
       (sorted_tris [n_keys] int32 — tri ids in bin order, pads decode to t,
        seg [n_bins+1] int32 — bin b's candidates are
@@ -100,7 +131,8 @@ def bin_triangles_compact(
             f"compact binning's fused int32 (bin, tri) key overflows at "
             f"{n_bins} bins x {t} triangles; use larger tiles"
         )
-    tx0, tx1, ty0, ty1, alive = _tile_ranges(setup, height, width, bin_h, bin_w, nby, nbx)
+    tx0, tx1, ty0, ty1, alive = _tile_ranges(setup, height, width, bin_h, bin_w, nby, nbx,
+                                             y_offset, y_stride, y_pair)
     small_ok = ((tx1 - tx0) < 2) & ((ty1 - ty0) < 2)
     big_ok = ((tx1 - tx0) < BIG_SPAN[1]) & ((ty1 - ty0) < BIG_SPAN[0])
     idx = torch.arange(t, dtype=torch.int32, device=dev)

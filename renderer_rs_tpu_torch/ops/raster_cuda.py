@@ -1,9 +1,11 @@
-"""K1, K2, K4 and K5 — the binned raster kernels on Hopper (≙ the
-depth-only, gather-mode, ids-only and masked-lane paths of
-renderer_rs_tpu/ops/raster_pallas.py). K4 (`raster_ids`) and K5
-(`raster_peel`, the alpha-cutoff peel's kernel: K2's walk under a strict
-per-pixel depth floor, an ids payload, the winner's lanes in the
-reference's masked-lane rounding) are described at their sections below.
+"""K1 to K5 — the binned raster kernels on Hopper (≙ the depth-only,
+gather-mode, full-visibility, ids-only and masked-lane paths of
+renderer_rs_tpu/ops/raster_pallas.py). K3 (`raster_visibility`, the row
+bands' kernel: the winner's slot, depth and screen-space barycentrics over
+a band's rows), K4 (`raster_ids`) and K5 (`raster_peel`, the alpha-cutoff
+peel's kernel: K2's walk under a strict per-pixel depth floor, an ids
+payload, the winner's lanes in the reference's masked-lane rounding) are
+described at their sections below.
 
 K2, visibility with in-kernel winner resolve:
 
@@ -177,13 +179,16 @@ def build_gather_table(
     return _with_pad_row(torch.cat(parts, dim=-1))
 
 
-def bin_compact(setup: TriangleSetup, height: int, width: int, small_limit=None):
+def bin_compact(setup: TriangleSetup, height: int, width: int, small_limit=None,
+                y_offset: int = 0, y_stride: int = 1, y_pair: bool = False):
     """Compact binning over the tile-padded extent at bin granularity
-    (raster_pallas.py:623 `_bin_compact`, tile 32x128, sub-bin 16x128).
+    (raster_pallas.py:623 `_bin_compact`, tile 32x128, sub-bin 16x128);
+    `height` is the band height when band arguments are given.
     Returns (sorted_tris, seg, nby, nbx, overflow)."""
     hp = _cdiv(height, TILE_H) * TILE_H
     wp = _cdiv(width, BIN_W) * BIN_W
-    return bin_triangles_compact(setup, hp, wp, BIN_H, BIN_W, small_limit=small_limit)
+    return bin_triangles_compact(setup, hp, wp, BIN_H, BIN_W, small_limit=small_limit,
+                                 y_offset=y_offset, y_stride=y_stride, y_pair=y_pair)
 
 
 # --- the kernel and its plain version ------------------------------------------
@@ -275,16 +280,31 @@ def raster_resolve(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat,
 raster_resolve.launches = 0  # kernel launches, read and reset by chip_smoke.py
 
 
-def _walk_plain(table, sorted_tris, seg, nbx, compare_op, depth_clear, z_floor=None):
-    """The candidate walk of K2, K4 and K5 as torch ops, in the kernels' f32
-    operation order. All bins advance together, _PLAIN_CHUNK candidates at
-    a time, over [bins, chunk, 16, 128]: the chunk's nearest covered
+def _band_py(rows_i: torch.Tensor, y_offset: int, y_stride: int, y_pair: bool) -> torch.Tensor:
+    """Pixel-centre y of band rows `rows_i` (integer tensor) in the Pallas
+    kernel's f32 op order (raster_pallas.py:180-190): j*stride + 0.5 + yo,
+    or in the pair form floor(j/2)*2*stride + (j - 2*floor(j/2)) + 0.5 + yo.
+    Every term is an integer below 2^24 (or a half), so each step is exact
+    and the result equals the integer row + 0.5, as the CUDA kernels take it."""
+    jloc = rows_i.to(_F32)
+    if y_pair:
+        half = torch.floor(jloc * 0.5)
+        return half * (2.0 * y_stride) + (jloc - 2.0 * half) + 0.5 + float(y_offset)
+    return jloc * y_stride + 0.5 + float(y_offset)
+
+
+def _walk_plain(table, sorted_tris, seg, nbx, compare_op, depth_clear, z_floor=None,
+                band=(0, 1, False)):
+    """The candidate walk of K2, K3, K4 and K5 as torch ops, in the kernels'
+    f32 operation order. All bins advance together, _PLAIN_CHUNK candidates
+    at a time, over [bins, chunk, 16, 128]: the chunk's nearest covered
     candidate (first for strict compares, last for LE/GE among equal
     depths) replaces the carry when it passes the depth test — the Pallas
     kernel's per-chunk reduction, equal to the kernels' sequential walk.
     z_floor [bins,16,128] (K5) admits only candidates with z strictly
-    above it. Returns (depth, winner table row or -1) as [bins,16,128] and
-    the pixel centers (py [bins,16,1], px [bins,1,128])."""
+    above it. band = (y_offset, y_stride, y_pair) maps the bins' rows to
+    framebuffer rows (K3). Returns (depth, winner table row or -1) as
+    [bins,16,128] and the pixel centers (py [bins,16,1], px [bins,1,128])."""
     chunk = _PLAIN_CHUNK
     dev = table.device
     greater = compare_op in (CompareOp.GREATER, CompareOp.GREATER_OR_EQUAL)
@@ -295,7 +315,7 @@ def _walk_plain(table, sorted_tris, seg, nbx, compare_op, depth_clear, z_floor=N
     b_ids = torch.arange(n_bins, device=dev)
     rows_i = (b_ids // nbx)[:, None, None] * BIN_H + torch.arange(BIN_H, device=dev)[None, :, None]
     cols_i = (b_ids % nbx)[:, None, None] * BIN_W + torch.arange(BIN_W, device=dev)[None, None, :]
-    py_all = rows_i.to(_F32) + 0.5  # [bins,16,1]
+    py_all = _band_py(rows_i, *band)  # [bins,16,1]
     px_all = cols_i.to(_F32) + 0.5  # [bins,1,128]
     depth = torch.full((n_bins, BIN_H, BIN_W), float(depth_clear), dtype=_F32, device=dev)
     win = torch.full((n_bins, BIN_H, BIN_W), -1, dtype=torch.long, device=dev)
@@ -914,3 +934,142 @@ def raster_peel_plain(table, sorted_tris, seg, nbx, height, width, n_vary, n_fla
     return (_stitch(depth, nbx, height, width).contiguous(),
             _stitch(tid, nbx, height, width).to(torch.int32).contiguous(),
             _stitch(lanes, nbx, height, width).contiguous())
+
+
+# --- K3: full visibility over band rows ----------------------------------------------
+
+@dataclasses.dataclass
+class VisibilityInputs:
+    """K3's inputs for one band: the 20-column table (the raster-slot index
+    in column 19), the segments of the band-space bins, the band's row map
+    and the binning overflow counters [big, huge]."""
+
+    table: torch.Tensor
+    sorted_tris: torch.Tensor
+    seg: torch.Tensor
+    nbx: int
+    y_offset: int
+    y_stride: int
+    y_pair: bool
+    bin_overflow: torch.Tensor
+
+    @property
+    def n_pairs(self) -> torch.Tensor:
+        """Binned (bin, triangle) pairs the kernel walks (device scalar)."""
+        return self.seg[-1]
+
+
+def prepare_visibility(setup: TriangleSetup, height: int, width: int, y_offset: int = 0,
+                       y_stride: int = 1, y_pair: bool = False,
+                       small_limit=None) -> VisibilityInputs:
+    """Bin the band and build K3's table (≙ rasterize_binned_pallas(setup,
+    out_h, width, pipeline, y_offset=, y_stride=, y_pair=, small_limit=) up
+    to the pallas_call, raster_pallas.py:1281): the binning runs in band
+    space, `height` rows of framebuffer row y_offset + j*y_stride (pair
+    form: y_offset + (j//2)*2*y_stride + j%2); the table is the 19 depth
+    columns and the slot index (ids=None, `_depth_coef_table`)."""
+    _check_band(height, y_offset, y_stride, y_pair)
+    sorted_tris, seg, _nby, nbx, overflow = bin_compact(
+        setup, height, width, small_limit, y_offset=y_offset, y_stride=y_stride, y_pair=y_pair)
+    t = setup.num_triangles
+    return VisibilityInputs(
+        table=_with_pad_row(_base_coef_table(setup, torch.arange(t, dtype=_F32,
+                                                                 device=setup.z.device))),
+        sorted_tris=sorted_tris,
+        seg=seg,
+        nbx=nbx,
+        y_offset=int(y_offset),
+        y_stride=int(y_stride),
+        y_pair=bool(y_pair),
+        bin_overflow=overflow,
+    )
+
+
+def _launch_visibility(table, sorted_tris, seg, nbx, height, width, y_offset, y_stride,
+                       y_pair, compare_op, depth_clear):
+    from renderer_rs_tpu_torch.kernels import load
+
+    lib = load("raster_vis")
+    fn = lib.raster_vis_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    dev = table.device
+    depth = torch.empty((height, width), dtype=_F32, device=dev)
+    tid = torch.empty((height, width), dtype=torch.int32, device=dev)
+    b0 = torch.empty((height, width), dtype=_F32, device=dev)
+    b1 = torch.empty((height, width), dtype=_F32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            table.data_ptr(), table.shape[1], sorted_tris.data_ptr(), seg.data_ptr(),
+            seg.numel() - 1, nbx, height, width, y_offset, y_stride, int(y_pair),
+            _OPS[compare_op], float(depth_clear), depth.data_ptr(), tid.data_ptr(),
+            b0.data_ptr(), b1.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"raster_visibility launch failed: cudaError {err}")
+    raster_visibility.launches += 1
+    return depth, tid, b0, b1
+
+
+def _check_band(height, y_offset, y_stride, y_pair):
+    if y_offset < 0 or y_stride < 1 or (y_pair and height % 2):
+        raise ValueError(f"bad band rows: height {height}, y_offset {y_offset}, "
+                         f"y_stride {y_stride}, y_pair {y_pair}")
+    if y_offset + (height - 1) * y_stride + 1 >= 1 << 24:
+        raise ValueError("band rows reach 2^24: pixel centres would round in f32")
+
+
+def raster_visibility(table, sorted_tris, seg, nbx, height, width, y_offset=0, y_stride=1,
+                      y_pair=False, compare_op=CompareOp.LESS, depth_clear=1.0):
+    """K3 over a band's binned candidates. table [t+1, >=20] f32
+    (prepare_visibility), sorted_tris/seg int32 over the band-space bins,
+    nbx bins per row; the band's `height` rows are framebuffer rows
+    y_offset + j*y_stride (pair form: y_offset + (j//2)*2*y_stride + j%2).
+    Returns (depth [H,W] f32, tid [H,W] int32: the winner's column 19, the
+    raster slot, or -1; b0, b1 [H,W] f32: the winner's screen-space
+    barycentrics e0*inv_area and e1*inv_area, 0 on misses). CUDA tensors
+    launch the kernel; CPU tensors run raster_visibility_plain."""
+    _check_inputs(table, sorted_tris, seg, nbx, height, width, VIS_COLS, compare_op)
+    _check_band(height, y_offset, y_stride, y_pair)
+    if table.device.type == "cuda":
+        return _launch_visibility(table, sorted_tris, seg, nbx, height, width, int(y_offset),
+                                  int(y_stride), bool(y_pair), compare_op, depth_clear)
+    if table.device.type != "cpu":
+        raise ValueError(f"raster_visibility: unsupported device {table.device}")
+    return raster_visibility_plain(table, sorted_tris, seg, nbx, height, width, y_offset,
+                                   y_stride, y_pair, compare_op, depth_clear)
+
+
+raster_visibility.launches = 0  # kernel launches, read and reset by chip_smoke.py
+
+
+def raster_visibility_plain(table, sorted_tris, seg, nbx, height, width, y_offset=0,
+                            y_stride=1, y_pair=False, compare_op=CompareOp.LESS,
+                            depth_clear=1.0):
+    """The same function as torch ops: the candidate walk over the band's
+    pixel centres (_walk_plain), then the winner's barycentrics from its
+    row, rounded as the walk rounds them (the same edge FMA, one multiply
+    by inv_area). The reference selects b0 and b1 as masked sums over the
+    chunk, which turns a winning -0.0 into +0.0: `+ 0.0` does the same."""
+    _check_inputs(table, sorted_tris, seg, nbx, height, width, VIS_COLS, compare_op)
+    _check_band(height, y_offset, y_stride, y_pair)
+    depth, win, py_all, px_all = _walk_plain(table, sorted_tris, seg, nbx, compare_op,
+                                             depth_clear, band=(y_offset, y_stride, y_pair))
+    g = table[torch.clamp(win, min=0)][..., :VIS_COLS]  # [bins,16,128,20]
+    e0 = _edge(g[..., 2], py_all - g[..., 1], g[..., 3], px_all - g[..., 0])
+    e1 = _edge(g[..., 7], py_all - g[..., 6], g[..., 8], px_all - g[..., 5])
+    hit = win >= 0
+    b0 = torch.where(hit, e0 * g[..., 18] + 0.0, 0.0)
+    b1 = torch.where(hit, e1 * g[..., 18] + 0.0, 0.0)
+    tid = torch.where(hit, g[..., 19].to(torch.int32), -1)
+    return (_stitch(depth, nbx, height, width).contiguous(),
+            _stitch(tid, nbx, height, width).to(torch.int32).contiguous(),
+            _stitch(b0, nbx, height, width).contiguous(),
+            _stitch(b1, nbx, height, width).contiguous())

@@ -10,10 +10,14 @@ fetched per pixel by sample_material_atlas_tri with the quad-uniform
 screen-space LOD and the default `select` mip plan. sample_array_bilinear
 is the alpha test's base-color tap.
 
+The specular/skybox cube atlas of the IBL shade (:860-1165): the window
+and trilinear atlases built once on the host, the single-gather trilinear
+fetch with static mip geometry, and the id-aware vertical upsample of the
+y-half fetch rate (:67-115).
+
 Not ported (ROADMAP Queue 1 item 7): the f32 per-material atlas
 (`mat_atlas`) and the per-texture window atlas the JAX shade path reads only
-when the single-gather atlas is absent, the cube-atlas fetches of the IBL
-path and the id-aware upsample."""
+when the single-gather atlas is absent."""
 
 from __future__ import annotations
 
@@ -135,12 +139,13 @@ def sample_array_bilinear(level: torch.Tensor, tid: torch.Tensor, uv: torch.Tens
     return top * (1 - fy) + bot * fy
 
 
-def screen_space_lod(uv: torch.Tensor, tex_h: int, tex_w: int) -> torch.Tensor:
+def screen_space_lod(uv: torch.Tensor, tex_h: int, tex_w: int, y_parity: int = 0) -> torch.Tensor:
     """Per-pixel LOD from QUAD-UNIFORM screen-space uv derivatives
     (sampling.py:249, the default): both pixels of a 2x2 quad's row share
-    ddx = uv[odd x] - uv[even x], both rows share ddy, rows paired from row
-    0 (the full-frame pairing; band shards wait for ROADMAP Queue 1 item
-    15). Images narrower or shorter than 2 take the forward difference.
+    ddx = uv[odd x] - uv[even x], both rows share ddy. y_parity is the
+    framebuffer parity of the image's first row: a contiguous band that
+    starts at an odd row passes 1, so its interior rows pair as in the full
+    frame. Images narrower or shorter than 2 take the forward difference.
     uv [H,W,2]."""
     fwd_x = torch.cat([uv[:, 1:] - uv[:, :-1], torch.zeros_like(uv[:, :1])], dim=1)
     fwd_y = torch.cat([uv[1:] - uv[:-1], torch.zeros_like(uv[:1])], dim=0)
@@ -150,7 +155,7 @@ def screen_space_lod(uv: torch.Tensor, tex_h: int, tex_w: int) -> torch.Tensor:
     else:
         dev = uv.device
         ex = (torch.arange(uv.shape[1], device=dev) % 2 == 0)[None, :, None]
-        ey = (torch.arange(uv.shape[0], device=dev) % 2 == 0)[:, None, None]
+        ey = ((torch.arange(uv.shape[0], device=dev) + y_parity) % 2 == 0)[:, None, None]
         prev_x = torch.cat([fwd_x[:, :1], fwd_x[:, :-1]], dim=1)
         prev_y = torch.cat([fwd_y[:1], fwd_y[:-1]], dim=0)
         du_dx = torch.where(ex, fwd_x, prev_x) * tex_w
@@ -197,17 +202,19 @@ def _weighted_lane_reduce(taps: torch.Tensor, ws: list, c: int) -> torch.Tensor:
 
 def sample_material_atlas_tri(atlas: torch.Tensor, offsets, sizes, n_levels: int,
                               base_hw: tuple, c: int, mid: torch.Tensor, uv: torch.Tensor,
-                              sampler: Sampler = Sampler()) -> torch.Tensor:
+                              sampler: Sampler = Sampler(), y_parity: int = 0) -> torch.Tensor:
     """Implicit-LOD trilinear fetch of all material slots in ONE gather from
     the build_material_atlas_tri layout (sampling.py:1266). atlas [R, 8c]
     bf16, offsets/sizes the static per-level row offsets and (h, w), mid
-    the per-pixel texture-set id, uv [H,W,2]. Returns [...,c] f32."""
+    the per-pixel texture-set id, uv [H,W,2], y_parity as in
+    screen_space_lod. Returns [...,c] f32."""
     t = torch.clamp(mid, min=0).long()
     if n_levels == 1:
         lo = torch.zeros(uv.shape[:-1], dtype=torch.long, device=uv.device)
         frac = torch.zeros(uv.shape[:-1], dtype=torch.float32, device=uv.device)
     else:
-        lod = torch.clamp(screen_space_lod(uv, base_hw[0], base_hw[1]), 0.0, n_levels - 1.0)
+        lod = torch.clamp(screen_space_lod(uv, base_hw[0], base_hw[1], y_parity), 0.0,
+                          n_levels - 1.0)
         lo = _floor_int(lod)
         frac = lod - lo.to(lod.dtype)
     idx = fx = fy = None
@@ -346,3 +353,173 @@ def build_material_atlas_tri(mips: tuple, tex_ids, slots: tuple, sampler: Sample
         off += lvl.shape[0] * lvl.shape[1] * lvl.shape[2]
     atlas = torch.from_numpy(np.concatenate(rows, axis=0).astype(np.float32)).to(torch.bfloat16)
     return atlas, offsets, sizes
+
+
+# --- the specular/skybox cube atlas (IBL) -------------------------------------------
+
+def _cube_window_flat(faces: torch.Tensor) -> torch.Tensor:
+    """Pack a [6,S,S,C] level into a flat [6*S*S, 4C] 2x2-window table
+    (sampling.py:460): each texel's row holds it, its right, down and
+    down-right neighbours, edge-clamped."""
+    right = torch.cat([faces[:, :, 1:], faces[:, :, -1:]], dim=2)
+    down = torch.cat([faces[:, 1:], faces[:, -1:]], dim=1)
+    downright = torch.cat([down[:, :, 1:], down[:, :, -1:]], dim=2)
+    s = faces.shape[1]
+    return torch.cat([faces, right, down, downright], dim=-1).reshape(6 * s * s, 4 * faces.shape[3])
+
+
+def _cube_parent_window(child_s: int, parent: np.ndarray) -> np.ndarray:
+    """For each child texel (f,y,x) of a [6,S,S,C] level's grid, the PARENT
+    level's 3x3 edge-clamped window anchored at (y//2 - 1, x//2 - 1) ->
+    [6*S*S, 9C] (sampling.py:866). Host numpy: a one-time build step."""
+    pad = np.pad(parent, ((0, 0), (1, 1), (1, 1), (0, 0)), mode="edge")
+    ky = np.arange(child_s) // 2  # anchor - 1 + pad == ky + r for r in 0..2
+    kx = np.arange(child_s) // 2
+    planes = [pad[:, ky + r][:, :, kx + c] for r in range(3) for c in range(3)]
+    return np.concatenate(planes, axis=-1).reshape(6 * child_s * child_s, 9 * parent.shape[3])
+
+
+def build_cube_trilinear_atlas(segments: list) -> torch.Tensor:
+    """The single-gather trilinear cube atlas [R, 13C] f32 (sampling.py:887):
+    row (level, face, y, x) = [child 2x2 window (4C) | the next level's 3x3
+    window (9C)]. `segments` = the prefiltered levels + [skybox] (the
+    merged specular/skybox layout of finalize_environment); the last
+    prefiltered level and the sky segment store zero parent lanes (their
+    lerp fraction is exactly 0). Built in host numpy, returned on the
+    segments' device."""
+    dev = segments[0].device
+    segs = [s.detach().cpu().numpy() for s in segments]
+    c = segs[0].shape[3]
+    n_pref = len(segs) - 1
+    rows = []
+    for li, seg in enumerate(segs):
+        right = np.concatenate([seg[:, :, 1:], seg[:, :, -1:]], axis=2)
+        down = np.concatenate([seg[:, 1:], seg[:, -1:]], axis=1)
+        downright = np.concatenate([down[:, :, 1:], down[:, :, -1:]], axis=2)
+        s_ = seg.shape[1]
+        child = np.concatenate([seg, right, down, downright], -1).reshape(6 * s_ * s_, 4 * c)
+        if li + 1 < n_pref:
+            parent = _cube_parent_window(s_, segs[li + 1])
+        else:
+            parent = np.zeros((child.shape[0], 9 * c), child.dtype)
+        rows.append(np.concatenate([child, parent], axis=-1))
+    return torch.from_numpy(np.concatenate(rows, axis=0)).to(dev)
+
+
+def _cube_footprint(si: int, uv: torch.Tensor):
+    """Edge-clamped bilinear footprint on a static si x si cube face
+    (sampling.py:471): clamped anchor texel and fractions [...,1]."""
+    x = uv[..., 0] * si - 0.5
+    y = uv[..., 1] * si - 0.5
+    x0 = _floor_int(x)
+    y0 = _floor_int(y)
+    fx = (x - x0.to(x.dtype))[..., None]
+    fy = (y - y0.to(y.dtype))[..., None]
+    fx = torch.where((x0 < 0)[..., None], torch.zeros_like(fx), fx)
+    fy = torch.where((y0 < 0)[..., None], torch.zeros_like(fy), fy)
+    return torch.clamp(x0, 0, si - 1), torch.clamp(y0, 0, si - 1), fx, fy
+
+
+def cube_trilinear_plan(offsets, sizes, lo_level: torch.Tensor, face: torch.Tensor,
+                        uv: torch.Tensor):
+    """Index side of cube_trilinear_fetch for static mip geometry
+    (sampling.py:929, the `select` plan): per-pixel atlas row and the blend
+    operands (fx, fy, fxh, fyh, jx, jy). The JAX module's `arith` plan is a
+    TPU layout knob with the same output and is not carried over."""
+    n = len(sizes)
+    acc = None
+    for lvl in range(n):
+        si = int(sizes[lvl])
+        x0c, y0c, fx, fy = _cube_footprint(si, uv)
+        idx = offsets[lvl] + (face * si + y0c) * si + x0c
+        sh = int(sizes[min(lvl + 1, n - 1)])
+        xh = uv[..., 0] * sh - 0.5
+        yh = uv[..., 1] * sh - 0.5
+        x0h = _floor_int(xh)
+        y0h = _floor_int(yh)
+        fxh = (xh - x0h.to(xh.dtype))[..., None]
+        fyh = (yh - y0h.to(yh.dtype))[..., None]
+        fxh = torch.where((x0h < 0)[..., None], torch.zeros_like(fxh), fxh)
+        fyh = torch.where((y0h < 0)[..., None], torch.zeros_like(fyh), fyh)
+        jx = torch.where(torch.clamp(x0h, 0, sh - 1) < x0c // 2, 0, 1)
+        jy = torch.where(torch.clamp(y0h, 0, sh - 1) < y0c // 2, 0, 1)
+        vals = (idx, fx, fy, fxh, fyh, jx, jy)
+        if acc is None:
+            acc = vals
+        else:
+            sel = lo_level == lvl
+            acc = tuple(
+                torch.where(sel[..., None] if v.dim() > sel.dim() else sel, vl, v)
+                for v, vl in zip(acc, vals)
+            )
+    return acc
+
+
+def cube_trilinear_blend(taps, fx, fy, fxh, fyh, jx, jy, frac, c: int) -> torch.Tensor:
+    """Blend side of cube_trilinear_fetch (sampling.py:1094, the default
+    weighted form): the child 2x2 bilinear weighted by 1 - frac and the
+    parent 3x3's separable bilinear weights by frac, summed over the 13
+    window blocks in order."""
+    taps = taps[..., :13 * c].to(torch.float32)
+    fr0 = frac[..., None] if frac.dim() < fx.dim() else frac
+    lo_w = 1.0 - fr0
+    fyh1 = fyh[..., 0] if fyh.dim() > jy.dim() else fyh
+    fxh1 = fxh[..., 0] if fxh.dim() > jx.dim() else fxh
+    zero = torch.zeros_like(fyh1)
+    wy = [torch.where(jy == r, 1.0 - fyh1, torch.where(jy + 1 == r, fyh1, zero))
+          for r in range(3)]
+    wx = [torch.where(jx == cc, 1.0 - fxh1, torch.where(jx + 1 == cc, fxh1, zero))
+          for cc in range(3)]
+    ws = [
+        (1.0 - fx) * (1.0 - fy) * lo_w,
+        fx * (1.0 - fy) * lo_w,
+        (1.0 - fx) * fy * lo_w,
+        fx * fy * lo_w,
+    ] + [(wy[r] * wx[cc])[..., None] * fr0 for r in range(3) for cc in range(3)]
+    return _weighted_lane_reduce(taps, ws, c)
+
+
+def cube_trilinear_fetch(atlas13: torch.Tensor, offsets, sizes, lo_level: torch.Tensor,
+                         frac: torch.Tensor, face: torch.Tensor, uv: torch.Tensor,
+                         c: int) -> torch.Tensor:
+    """Trilinear (or sky) fetch in ONE gather from the 13C-wide atlas
+    (sampling.py:1038), static offsets/sizes: level lo_level blended with
+    the next by frac; frac == 0 never reads the parent lanes. Returns
+    [...,C]."""
+    idx, fx, fy, fxh, fyh, jx, jy = cube_trilinear_plan(offsets, sizes, lo_level, face, uv)
+    return cube_trilinear_blend(atlas13[idx], fx, fy, fxh, fyh, jx, jy, frac, c)
+
+
+def upsample_y_idaware(s: torch.Tensor, tid: torch.Tensor, height: int,
+                       factor: int) -> torch.Tensor:
+    """Vertical `factor`x upsample of a field sampled at rows 0, factor, ...
+    ([ceil(H/f),W,C]), guided by the full-rate winner-id image [H,W]
+    (sampling.py:67). Sample rows copy s; an in-between row lerps its two
+    bracketing samples when both share its winner id, copies the one that
+    does when only one does (no ghosting across silhouettes), and lerps
+    when neither does. Sky pixels take part with id -1."""
+    h2, w = s.shape[0], s.shape[1]
+    up = s
+    dn = torch.cat([s[1:], s[-1:]], dim=0)
+    tid_s = tid[0::factor]
+    tid_dn = torch.cat([tid_s[1:], tid_s[-1:]], dim=0)
+    rows = [up]
+    for m in range(1, factor):
+        t = m / factor
+        tid_m = tid[m::factor]
+        n_m = tid_m.shape[0]
+        m_up = (tid_m == tid_s[:n_m])[..., None]
+        m_dn = (tid_m == tid_dn[:n_m])[..., None]
+        lerp = up * (1.0 - t) + dn * t
+        val = torch.where(m_up & m_dn, lerp[:n_m],
+                          torch.where(m_up, up[:n_m], torch.where(m_dn, dn[:n_m], lerp[:n_m])))
+        if n_m < h2:
+            val = torch.cat([val, up[n_m:]], dim=0)
+        rows.append(val)
+    full = torch.stack(rows, dim=1).reshape(factor * h2, w, s.shape[-1])
+    return full[:height]
+
+
+def upsample2x_y_idaware(s: torch.Tensor, tid: torch.Tensor, height: int) -> torch.Tensor:
+    """Vertical 2x id-aware upsample (see upsample_y_idaware)."""
+    return upsample_y_idaware(s, tid, height, 2)

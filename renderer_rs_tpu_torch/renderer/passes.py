@@ -3,18 +3,24 @@
 -> compact binning -> K2 visibility + resolve -> per-pixel shading with the
 PCF shadow term -> composite -> skybox -> tonemap, run eagerly on the
 scene's device. An MSAA pipeline adds a sample-rate ids-only pass (K4) and
-the id-matching resolve.
+the id-matching resolve; a band of rows (forward_frame(band=...)) bins in
+band space and runs K3, then the deferred attribute path.
 
 Ported: the fused fast path the JAX package takes for every non-FLAT scene
 on the TPU (`forward_frame`'s `fuse` branch with its defaults: in-kernel
 winner resolve, arithmetic slot->source ids, SoA table build, clip cap
 T/16, triangle setup), the single-map and the cascaded shadow pass with
 their default plane-form setup, the ids-only frame and the shade-once MSAA
-resolve, the Blinn-Phong and Cook-Torrance PBR shaders with the
-reduced-rate shadow ladder, the textured branch (the single-gather trilinear
-material atlas and TBN normal mapping), and the alpha-cutoff (MASK) frame:
-the bounded 4-layer depth peel on K5 (`_alpha_peeled_raster`). Every other
-branch raises NotImplementedError naming its ROADMAP queue item.
+resolve, the binned band branch on K3 with perspective_bary, the clip-frame
+composition, the slot -> source remap and one packed interpolate, the
+Blinn-Phong and Cook-Torrance PBR shaders with the reduced-rate shadow
+ladder, the fast-ambient image-based lighting (SH9 diffuse, analytic
+env-BRDF, one merged specular/skybox fetch from the trilinear cube atlas at
+the y-half rate with the id-aware upsample), the textured branch (the
+single-gather trilinear material atlas and TBN normal mapping), and the
+alpha-cutoff (MASK) frame: the bounded 4-layer depth peel on K5
+(`_alpha_peeled_raster`). Every other branch raises NotImplementedError
+naming its ROADMAP queue item.
 """
 
 from __future__ import annotations
@@ -28,13 +34,19 @@ from torch.profiler import record_function
 from renderer_rs_tpu_torch.mathx.vec import cross, normalize
 from renderer_rs_tpu_torch.ops import blinn_phong as bp
 from renderer_rs_tpu_torch.ops import pbr as pbr_ops
-from renderer_rs_tpu_torch.ops.clip import clip_triangles_near_planes, compact_secondary
+from renderer_rs_tpu_torch.ops.clip import (
+    bary_planes_to_array,
+    clip_triangles_near_planes,
+    compact_secondary,
+)
 from renderer_rs_tpu_torch.ops.csm import CASCADE_COUNT, CSMParams, calculate_shadow_csm_blended
 from renderer_rs_tpu_torch.ops.msaa import msaa_id_resolve
 from renderer_rs_tpu_torch.ops.raster import (
     VisibilityBuffer,
     gather_triangle_clip,
     gather_triangle_planes,
+    interpolate,
+    perspective_bary,
     setup_triangles,
     setup_triangles_planes,
 )
@@ -44,15 +56,21 @@ from renderer_rs_tpu_torch.ops.raster_cuda import (
     prepare_ids,
     prepare_peel,
     prepare_resolve,
+    prepare_visibility,
     raster_depth,
     raster_ids,
     raster_peel,
     raster_resolve,
+    raster_visibility,
 )
 from renderer_rs_tpu_torch.ops.sampling import (
     _SLOT_CHANNELS,
+    _floor_int,
+    cube_trilinear_fetch,
+    direction_to_cube_uv,
     sample_array_bilinear,
     sample_material_atlas_tri,
+    upsample2x_y_idaware,
 )
 from renderer_rs_tpu_torch.ops.shadow import (
     ShadowParams,
@@ -60,7 +78,7 @@ from renderer_rs_tpu_torch.ops.shadow import (
     upsample2x_y,
     upsample4x_y,
 )
-from renderer_rs_tpu_torch.ops.skybox import skybox_pass
+from renderer_rs_tpu_torch.ops.skybox import pixel_ray_directions, skybox_pass
 from renderer_rs_tpu_torch.ops.tonemap import TONEMAPPERS, apply_tonemap
 from renderer_rs_tpu_torch.renderer.scene_build import GpuScene, SceneLayout
 from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipeline, GraphicsPipelineBuilder
@@ -230,8 +248,6 @@ def _check_fused_path(layout: SceneLayout, pipeline: GraphicsPipeline,
                       shading: ShadingModel, tonemap: str, n_raster: int, peel: bool) -> None:
     if tonemap not in TONEMAPPERS:
         raise ValueError(f"unknown tonemap {tonemap!r}; one of {sorted(TONEMAPPERS)}")
-    if shading == ShadingModel.PBR_IBL:
-        raise _not_ported("image-based lighting (pbr_ibl shading)", "Queue 1 item 7")
     if shading == ShadingModel.FLAT:
         raise _not_ported("flat shading", "Queue 1 item 13")
     if pipeline.alpha_cutoff is not None and not peel:
@@ -363,10 +379,22 @@ def forward_frame(
     ordered sample grid, and ops/msaa.msaa_id_resolve. The supersampling
     branch the JAX frame takes for band, stencil or return_depth is not
     ported; `geometry` hands a pass the frame_geometry its caller already
-    computed for this extent."""
+    computed for this extent.
+
+    band=(y_offset, band_h[, y_stride[, y_pair]]) renders band_h rows of the
+    `height`-row framebuffer (passes.py:2106-2175; the unit of
+    parallel/tile_shard.py's row sharding): row j is framebuffer row
+    y_offset + j*y_stride, or y_offset + (j//2)*2*y_stride + j%2 when
+    y_pair. The band bins in band space, runs K3 (winner slot, depth and
+    screen-space barycentrics), then takes the deferred attribute path:
+    perspective_bary, the clip-frame composition, the slot -> source remap,
+    one packed interpolate and the material-bank gather. It shades at the
+    full per-pixel rate (full_rows=False), so a stitched band frame differs
+    from the whole frame by the reduced rates' own drift on frames of 128
+    rows or more; ids and depth are equal. Returns [band_h,W,4]."""
     msaa = pipeline.msaa_samples > 1
     for what, given, item in (
-        ("band rendering", band is not None, "15"),
+        ("band rendering", band is not None and msaa, "11"),
         ("the stencil state machine", stencil is not None, "13"),
         ("return_depth", return_depth, "11" if msaa else "12"),
     ):
@@ -375,6 +403,11 @@ def forward_frame(
             raise _not_ported(f"{what} under MSAA (the supersampling branch)", f"Queue 1 {items}")
         if given:
             raise _not_ported(what, f"Queue 1 item {item}")
+    y_offset, out_h, y_stride, y_pair = 0, height, 1, False
+    if band is not None:
+        y_offset, out_h = int(band[0]), int(band[1])
+        y_stride = int(band[2]) if len(band) > 2 else 1
+        y_pair = len(band) > 3 and bool(band[3])
     if msaa:
         if diagnostics:
             raise ValueError("forward_frame(diagnostics=True) does not compose with MSAA")
@@ -415,6 +448,7 @@ def forward_frame(
     peel = (
         pipeline.alpha_cutoff is not None
         and layout.has_textures
+        and band is None
         and not ids_only
         and shading != ShadingModel.FLAT
         and supports_binned(pipeline, n_raster, allow_alpha_cutoff=True)
@@ -426,7 +460,7 @@ def forward_frame(
     if geo is None:
         with record_function("frame/geometry"):
             geo = frame_geometry(scene, layout, pipeline, width, height)
-    if ids_only:
+    if ids_only and band is None:
         with record_function("frame/ids_bin_table"):
             k4 = prepare_ids(geo.setup, height, width, geo.clip_src, small_limit=t_prim,
                              id_bound=t_prim)
@@ -434,7 +468,7 @@ def forward_frame(
             _, source_ids = raster_ids(k4.table, k4.sorted_tris, k4.seg, k4.nbx, height,
                                        width, pipeline.depth_compare_op, depth_clear)
         return source_ids
-    if shadow_map is None and (layout.has_csm or layout.has_shadow):
+    if shadow_map is None and not ids_only and (layout.has_csm or layout.has_shadow):
         with record_function("frame/shadow"):
             if layout.has_csm:
                 # the cascades reuse the forward vertex stage's world
@@ -445,15 +479,63 @@ def forward_frame(
             else:
                 shadow_map = shadow_map_pass(scene, layout, shadow_map_size)
     peel_exhausted = None
-    if peel:
+    shade_kw = dict(shadow_map=shadow_map, shadow_params=shadow_params,
+                    full_rows=band is None)
+    if (shading == ShadingModel.PBR_IBL and layout.has_environment
+            and scene.environment.irradiance_mips is not None
+            and scene.environment.atlas is not None):
+        # fast-ambient environments: the per-pixel sky rays go to the shade,
+        # whose specular atlas fetch doubles as the skybox sample
+        # (passes.py:2181-2198)
+        with record_function("frame/inv_vp"):
+            inv_vp = torch.linalg.inv(scene.camera.view_projection)
+        shade_kw["sky_dirs"] = pixel_ray_directions(inv_vp, out_h, width, y_offset, height,
+                                                    y_stride, y_pair)
+    if band is not None:
+        with record_function("frame/band_bin_table"):
+            k3 = prepare_visibility(geo.setup, out_h, width, y_offset, y_stride, y_pair,
+                                    small_limit=t_prim)
+        bin_overflow = k3.bin_overflow
+        with record_function("frame/k3"):
+            depth, slot, b0, b1 = raster_visibility(
+                k3.table, k3.sorted_tris, k3.seg, k3.nbx, out_h, width, y_offset, y_stride,
+                y_pair, pipeline.depth_compare_op, depth_clear)
+        with record_function("frame/shade"):
+            # the deferred attribute path (passes.py:2162-2175): perspective
+            # weights of the raster slot, composed through the near clip's
+            # frame into source barycentrics, then the slot -> source remap
+            slot_vis = VisibilityBuffer(tri_id=slot, depth=depth,
+                                        bary=torch.stack([b0, b1], dim=-1))
+            bary3 = perspective_bary(slot_vis, geo.setup)
+            frames = bary_planes_to_array(geo.clip_planes)[torch.clamp(slot, min=0).long()]
+            bary3 = torch.einsum("hwv,hwvk->hwk", bary3, frames)
+            tri_id = torch.where(slot >= 0, geo.clip_src[torch.clamp(slot, min=0).long()]
+                                 .to(torch.int32), slot)
+            vis = VisibilityBuffer(tri_id=tri_id, depth=depth)
+        if ids_only:
+            return tri_id
+        with record_function("frame/shade"):
+            # one packed interpolate and the material-bank gather
+            # (passes.py:456-462, :548-556); the materials then ride the
+            # last 11 lanes, the peel's shade contract
+            varying = torch.cat([
+                interpolate(vis, scene.tris, geo.attr, bary3),
+                _material_bank(scene.materials)[scene.tri_material][torch.clamp(tri_id, min=0).long()],
+            ], dim=-1)
+            # a contiguous band from an odd framebuffer row keeps the full
+            # frame's quad row pairs for the texture LOD (passes.py:2209-2214)
+            color, sky_rgb = _shade_pixels(
+                scene, layout, shading, varying, None, depth=depth, tri_id=tri_id,
+                y_parity=y_offset % 2 if not y_pair else 0, **shade_kw)
+    elif peel:
         with record_function("frame/peel"):
             vis, varying, peel_exhausted, bin_overflow = _alpha_peeled_raster(
                 scene, layout, geo, height, width, pipeline)
         with record_function("frame/shade"):
             # the post-peel contract: materials ride the last 11 lanes, the
             # winner ids are source ids already (passes.py:545-550, :589)
-            color = _shade_pixels(scene, layout, shading, varying, None, shadow_map,
-                                  shadow_params, depth=vis.depth, tri_id=vis.tri_id)
+            color, sky_rgb = _shade_pixels(scene, layout, shading, varying, None,
+                                           depth=vis.depth, tri_id=vis.tri_id, **shade_kw)
     else:
         with record_function("frame/bin_table"):
             k2 = prepare_resolve(
@@ -478,18 +560,25 @@ def forward_frame(
                 mat_id_img = torch.where(hit, varying[..., -1].to(torch.int32), 0)
                 tri_id = torch.where(slot >= t_prim, slot - t_prim, slot)
             vis = VisibilityBuffer(tri_id=tri_id, depth=depth)
-            color = _shade_pixels(scene, layout, shading, varying, mat_id_img,
-                                  shadow_map, shadow_params, depth=depth)
+            color, sky_rgb = _shade_pixels(scene, layout, shading, varying, mat_id_img,
+                                           depth=depth, tri_id=tri_id, **shade_kw)
     with record_function("frame/shade"):
         bg = torch.tensor(clear_color, dtype=torch.float32, device=scene.device)
         out = torch.where(vis.covered[..., None], color, bg)
     if layout.has_environment or tonemap != "none":
         with record_function("frame/sky_tonemap"):
-            if layout.has_environment:
+            if sky_rgb is not None:
+                # the skybox composite with the sample the shade fetched
+                # (passes.py:2221-2228)
+                sky_rgba = torch.cat([sky_rgb, torch.ones_like(sky_rgb[..., :1])], dim=-1)
+                out = torch.where((vis.depth >= 1.0)[..., None], sky_rgba, out)
+            elif layout.has_environment:
                 # outside any kernel, as in the JAX frame (passes.py:2230)
                 with record_function("frame/inv_vp"):
                     inv_vp = torch.linalg.inv(scene.camera.view_projection)
-                out = skybox_pass(out, vis.depth, inv_vp, scene.environment.skybox_mips[0])
+                out = skybox_pass(out, vis.depth, inv_vp, scene.environment.skybox_mips[0],
+                                  y_offset=y_offset, full_height=height, y_stride=y_stride,
+                                  y_pair=y_pair)
             if tonemap != "none":
                 out = apply_tonemap(out, tonemap)
     outs = (out, vis.tri_id) if return_ids else (out,)
@@ -577,16 +666,17 @@ def _alpha_peeled_raster(scene: GpuScene, layout: SceneLayout, geo: FrameGeometr
 
 
 def _shadow_term(scene: GpuScene, layout: SceneLayout, world_pos, normal, sun_dir, depth,
-                 shadow_map, shadow_params: ShadowParams) -> torch.Tensor:
+                 shadow_map, shadow_params: ShadowParams, full_rows: bool = True) -> torch.Tensor:
     """The sun's lit factor [H,W,1] with the JAX frame's default rate
     ladder (passes.py:817-862 for cascades, :903-966 for the single map):
-    frames of >= 256 rows evaluate the PCF stack on every 4th row and
-    upsample linearly in y, 128-255 rows on every 2nd, smaller frames per
-    pixel. Under CSM shadow_map is the [C,S,S] cascade array and the
-    fragment's NDC depth (K2's depth, ≙ SV_Position.z) selects the cascade;
-    the cascade term has no strength parameter."""
+    full-row frames of >= 256 rows evaluate the PCF stack on every 4th row
+    and upsample linearly in y, 128-255 rows on every 2nd; smaller frames
+    and bands of rows (full_rows=False, whose rows need not be neighbours)
+    per pixel. Under CSM shadow_map is the [C,S,S] cascade array and the
+    fragment's NDC depth (the visibility depth, ≙ SV_Position.z) selects
+    the cascade; the cascade term has no strength parameter."""
     rows = world_pos.shape[0]
-    stride = 4 if rows >= 256 else 2 if rows >= 128 else 1
+    stride = (4 if rows >= 256 else 2 if rows >= 128 else 1) if full_rows else 1
     wp = world_pos[::stride]
     if layout.has_csm:
         lit = calculate_shadow_csm_blended(
@@ -612,7 +702,10 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
                   shadow_map: torch.Tensor | None = None,
                   shadow_params: ShadowParams = ShadowParams(),
                   depth: torch.Tensor | None = None,
-                  tri_id: torch.Tensor | None = None):
+                  tri_id: torch.Tensor | None = None,
+                  sky_dirs: torch.Tensor | None = None,
+                  full_rows: bool = True,
+                  y_parity: int = 0):
     """The fragment stage (passes.py:452-560, 779-1032, 1308-1313):
     Blinn-Phong (≙ pixel/model_full.hlsl) or Cook-Torrance PBR with the
     hemisphere ambient (≙ pixel/model_pbr.hlsl), each with the shadowed sun,
@@ -622,9 +715,22 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
     the exact gather bank[mat_id] (the JAX one-hot HIGHEST matmul computes
     the same values, the texture-set id too), or, with mat_id_img None
     (the peel contract, passes.py:545-550, :589), from the last 11 lanes,
-    with the set id gathered through tri_id (SOURCE ids). Returns linear
-    [H,W,4]; misses hold garbage (the caller composites). depth [H,W] is
-    the visibility pass's depth, which the cascaded shadow term reads."""
+    with the set id gathered through tri_id (SOURCE ids). depth [H,W] is
+    the visibility pass's depth, which the cascaded shadow term and the
+    IBL's far-plane test read.
+
+    PBR_IBL on a finalized environment with sky_dirs given is the fast
+    ambient (passes.py:1040-1296): SH9 diffuse, the analytic env-BRDF and
+    ONE trilinear fetch from the merged specular/skybox cube atlas, which
+    serves covered pixels (the prefiltered level pair at
+    roughness * max_lod) and far-plane pixels (the skybox segment) alike;
+    on full-row frames of >= 128 rows the fetch runs on even rows and odd
+    rows reconstruct id-awarely from tri_id. PBR_IBL without IBL maps falls
+    back to the hemisphere ambient, as in the JAX frame. full_rows=False
+    (a band) keeps every rate per pixel; y_parity is the band's first-row
+    parity for the texture LOD. Returns (linear [H,W,4], the fetched sky
+    radiance [H,W,3] or None); misses hold garbage (the caller
+    composites)."""
     world_pos = varying[..., 0:3]
     normal = normalize(varying[..., 3:6])
     if mat_id_img is not None:
@@ -657,7 +763,8 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
             offs.append(off)
             off += n_sets * h_ * w_
         samp = sample_material_atlas_tri(tex.mat_atlas_tri, tuple(offs), shapes, len(shapes),
-                                         shapes[0], c13, mid, varying[..., 6:8])
+                                         shapes[0], c13, mid, varying[..., 6:8],
+                                         y_parity=y_parity)
         if 0 in pos:
             base_color = base_color * samp[..., pos[0]:pos[0] + 4]
         if 1 in pos:
@@ -682,7 +789,7 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
     sun_dir = normalize(-lights.sun_direction)  # surface -> light
     if (layout.has_csm or layout.has_shadow) and shadow_map is not None:
         shadow = _shadow_term(scene, layout, world_pos, normal, sun_dir, depth, shadow_map,
-                              shadow_params)
+                              shadow_params, full_rows)
     else:
         shadow = 1.0
 
@@ -738,7 +845,53 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
             )
             radiance = lights.spot_color[i] * lights.spot_intensity[i] * att[..., None]
             lo = lo + mask * pbr_ops.pbr_direct(normal, view_dir, ldir, radiance, mat)
+        env = scene.environment
+        if (shading == ShadingModel.PBR_IBL and layout.has_environment
+                and env.irradiance_mips is not None):
+            if sky_dirs is None or env.atlas is None:
+                raise _not_ported("the exact map-sampling IBL (calculate_ibl: an environment "
+                                  "set with finalize=False)", "Queue 1 item 7")
+            with record_function("frame/ibl"):
+                spec_sky = _ibl_radiance(env, view_dir, normal, mat.roughness, depth,
+                                         sky_dirs, tri_id, full_rows)
+                ambient = pbr_ops.calculate_ibl_fast(normal, view_dir, mat, env.irradiance_sh,
+                                                     spec_sky)
+            rgb = ambient + lo + emissive
+            return torch.cat([rgb, base_color[..., 3:4]], dim=-1), spec_sky
         # hemisphere ambient (model_pbr.hlsl ambient, pbr.hlsli:480-490)
         ambient = pbr_ops.hemisphere_ambient(normal, albedo, ao)
     rgb = ambient + lo + emissive
-    return torch.cat([rgb, base_color[..., 3:4]], dim=-1)
+    return torch.cat([rgb, base_color[..., 3:4]], dim=-1), None
+
+
+def _ibl_radiance(env, view_dir, normal, roughness, depth, sky_dirs, tri_id,
+                  full_rows: bool) -> torch.Tensor:
+    """The merged specular/skybox radiance [H,W,3] (passes.py:1060-1275):
+    covered pixels fetch the prefiltered level pair along R = reflect(-V, N)
+    at mip roughness * max_lod, far-plane pixels the skybox segment (the
+    atlas's last, frac 0) along their ray; one trilinear atlas fetch, on
+    even rows with the id-aware upsample on full-row frames of >= 128 rows
+    (the JAX package's default cube rate), per pixel otherwise."""
+    r = -(view_dir - 2.0 * torch.sum(view_dir * normal, -1, keepdim=True) * normal)
+    n_pref = len(env.prefiltered_mips)
+    far = depth >= 1.0
+    dirs = torch.where(far[..., None], sky_dirs, r)
+    lod = torch.where(far, torch.full_like(roughness, float(n_pref)),
+                      roughness * float(n_pref - 1))
+    face, uv_c = direction_to_cube_uv(dirs)
+    lo_l = _floor_int(lod)  # clamped before the cast
+    frac = lod - lo_l.to(lod.dtype)
+    c = env.skybox_mips[0].shape[-1]
+    seg_sizes = tuple(int(m.shape[1]) for m in env.prefiltered_mips) + (
+        int(env.skybox_mips[0].shape[1]),)
+    seg_offs, off = [], 0
+    for s_ in seg_sizes:
+        seg_offs.append(off)
+        off += 6 * s_ * s_
+    rows = lo_l.shape[0]
+    if full_rows and rows >= 128:
+        spec = cube_trilinear_fetch(env.atlas_tri, tuple(seg_offs), seg_sizes, lo_l[::2],
+                                    frac[::2], face[::2], uv_c[::2], c)[..., :3]
+        return upsample2x_y_idaware(spec, tri_id, rows)
+    return cube_trilinear_fetch(env.atlas_tri, tuple(seg_offs), seg_sizes, lo_l, frac, face,
+                                uv_c, c)[..., :3]

@@ -6,8 +6,8 @@ time, with a static `SceneLayout` (per-object vertex ranges, which the
 vertex stage loops over) and per-triangle material ids resolved at shading
 time. Built so far: scenes with an optional texture array (and its
 single-gather trilinear material atlas), an optional sun shadow matrix or
-cascaded shadow matrices and a skybox-only environment; the IBL maps of an
-environment wait for the next slice (ROADMAP Queue 1)."""
+cascaded shadow matrices and an environment: a skybox, with or without the
+IBL maps and their fast-ambient form (finalize_environment)."""
 
 from __future__ import annotations
 
@@ -17,8 +17,11 @@ import numpy as np
 import torch
 
 from renderer_rs_tpu_torch.core.device import resolve_device
+from renderer_rs_tpu_torch.ops.ibl import sh9_project_cubemap
+from renderer_rs_tpu_torch.ops.sampling import _cube_window_flat, build_cube_trilinear_atlas
 from renderer_rs_tpu_torch.resources.material import Material, MaterialBank
 from renderer_rs_tpu_torch.resources.model import Mesh
+from renderer_rs_tpu_torch.resources.texture import _box_downsample
 from renderer_rs_tpu_torch.resources.ubo import CameraUbo, SceneUbo
 from renderer_rs_tpu_torch.scene.light import LightBank
 from renderer_rs_tpu_torch.scene.transform import Transform
@@ -52,15 +55,62 @@ class TextureArrays:
 
 @dataclasses.dataclass
 class Environment:
-    """Skybox maps (≙ Environment, scene_build.py:62). skybox_mips is a
-    tuple of [6,H,W,C] cubemap levels; the frame samples level 0. The IBL
-    fields of the JAX class (irradiance, prefiltered chain, BRDF LUT, SH9,
-    atlases) wait for ROADMAP Queue 1 item 7."""
+    """Skybox and IBL maps (≙ Environment, scene_build.py:62). skybox_mips
+    is a tuple of [6,H,W,C] cubemap levels; the frame samples level 0.
+
+    The IBL fields: irradiance_mips and prefiltered_mips (tuples of
+    [6,S,S,3]) and brdf_lut [S,S,2], the precompute's maps; then the
+    fast-ambient form finalize_environment builds from them: irradiance_sh
+    [9,3] SH9 coefficients, the window atlas [R,4C] of every prefiltered
+    level plus the skybox as its last segment with its row offsets and
+    face sizes, and atlas_tri [R,13C], the single-gather trilinear form the
+    shade reads."""
 
     skybox_mips: tuple
+    irradiance_mips: tuple | None = None
+    prefiltered_mips: tuple | None = None
+    brdf_lut: torch.Tensor | None = None
+    irradiance_sh: torch.Tensor | None = None
+    atlas: torch.Tensor | None = None
+    atlas_offsets: torch.Tensor | None = None
+    atlas_sizes: torch.Tensor | None = None
+    atlas_tri: torch.Tensor | None = None
 
     def to(self, device) -> "Environment":
-        return Environment(skybox_mips=tuple(m.to(device) for m in self.skybox_mips))
+        def move(x):
+            if x is None:
+                return None
+            if isinstance(x, tuple):
+                return tuple(m.to(device) for m in x)
+            return x.to(device)
+
+        return Environment(**{f.name: move(getattr(self, f.name))
+                              for f in dataclasses.fields(self)})
+
+
+def finalize_environment(env: Environment) -> Environment:
+    """The fast-ambient fields of an IBL-complete Environment
+    (scene_build.py:87): SH9 of the irradiance map, the window atlas and the
+    trilinear atlas over the prefiltered levels plus the skybox (its last
+    segment), with their row offsets and face sizes. A no-op without the
+    irradiance and prefiltered maps."""
+    if env.irradiance_mips is None or env.prefiltered_mips is None:
+        return env
+    segments = list(env.prefiltered_mips) + [env.skybox_mips[0]]
+    dev = segments[0].device
+    sizes, offsets, off = [], [], 0
+    for m in segments:
+        sizes.append(m.shape[1])
+        offsets.append(off)
+        off += 6 * m.shape[1] * m.shape[1]
+    return dataclasses.replace(
+        env,
+        irradiance_sh=sh9_project_cubemap(env.irradiance_mips[0]),
+        atlas=torch.cat([_cube_window_flat(m) for m in segments], dim=0),
+        atlas_offsets=torch.tensor(offsets, dtype=torch.int32, device=dev),
+        atlas_sizes=torch.tensor(sizes, dtype=torch.int32, device=dev),
+        atlas_tri=build_cube_trilinear_atlas(segments),
+    )
 
 
 @dataclasses.dataclass
@@ -172,21 +222,19 @@ class SceneBuilder:
             if img.shape[0] != size or img.shape[1] != size:
                 img = _resize_bilinear(img, size, size)
             arrs.append(img)
-        mips = [np.stack(arrs).astype(np.float32)]  # [N,S,S,4]
+        mips = [torch.from_numpy(np.stack(arrs).astype(np.float32))]  # [N,S,S,4]
         while mips[-1].shape[1] > 1:
-            lvl = mips[-1]
-            h, w = lvl.shape[1] & ~1, lvl.shape[2] & ~1
-            lvl = lvl[:, :h, :w]
-            mips.append(
-                (lvl[:, 0::2, 0::2] + lvl[:, 1::2, 0::2] + lvl[:, 0::2, 1::2] + lvl[:, 1::2, 1::2])
-                * 0.25
-            )
-        self._textures = TextureArrays(mips=tuple(torch.from_numpy(m) for m in mips))
+            mips.append(_box_downsample(mips[-1]))
+        self._textures = TextureArrays(mips=tuple(mips))
         return self
 
-    def set_environment(self, env: Environment) -> "SceneBuilder":
-        """Attach the skybox environment."""
-        self._environment = env
+    def set_environment(self, env: Environment, finalize: bool = True) -> "SceneBuilder":
+        """Attach the skybox/IBL environment (scene_build.py:334). By default
+        an IBL-complete environment is finalized into the fast-ambient form
+        (SH9 and the merged specular/skybox atlas); finalize=False keeps
+        only the maps, whose exact sampling path is not ported (the frame
+        then raises)."""
+        self._environment = finalize_environment(env) if finalize else env
         return self
 
     def set_shadow_matrix(self, light_space_matrix) -> "SceneBuilder":

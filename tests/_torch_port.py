@@ -9,10 +9,10 @@ import numpy as np
 
 def flatten_jax_scene(scene, layout):
     """(fields, layout_fields) of a JAX GpuScene/SceneLayout as numpy arrays
-    and Python values: of an environment only the skybox levels, of the
-    textures the mips, the single-gather material atlas (its bf16 bits as
-    uint16) and the material -> set map, which is what the port's frames
-    read."""
+    and Python values: the whole environment (skybox, IBL maps and their
+    fast-ambient form), of the textures the mips, the single-gather
+    material atlas (its bf16 bits as uint16) and the material -> set map,
+    which is what the port's frames read."""
 
     def group(obj):
         return {f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
@@ -28,9 +28,12 @@ def flatten_jax_scene(scene, layout):
         value = getattr(scene, k, None)
         fields[k] = None if value is None else np.asarray(value)
     env = getattr(scene, "environment", None)
-    fields["environment"] = (
-        None if env is None else {"skybox_mips": tuple(np.asarray(m) for m in env.skybox_mips)}
-    )
+    fields["environment"] = None if env is None else {
+        f.name: (None if getattr(env, f.name) is None
+                 else tuple(np.asarray(m) for m in getattr(env, f.name))
+                 if isinstance(getattr(env, f.name), tuple) else np.asarray(getattr(env, f.name)))
+        for f in dataclasses.fields(env)
+    }
     tex = getattr(scene, "textures", None)
     fields["textures"] = None if tex is None else {
         "mips": tuple(np.asarray(m) for m in tex.mips),

@@ -65,3 +65,29 @@ def test_bin_compact_exactly_equal(case):
     assert n_pairs > 0
     if case == "near_cross":
         assert int(ovf[1]) > 0  # the huge-class cap dropped triangles
+
+
+@pytest.mark.parametrize("case", ["blinnphong", "near_cross"])
+@pytest.mark.parametrize("form", ["band", "odd_band", "strided", "pair"])
+def test_band_bin_compact_exactly_equal(case, form):
+    """The band-space binning of K3 (_bin_compact with y_offset, y_stride,
+    y_pair, as rasterize_binned_pallas calls it for forward_frame(band=...)):
+    the same bins over band rows, sorted ids, segments and overflow
+    counters exactly equal."""
+    from renderer_rs_tpu.ops.raster_pallas import _bin_compact
+    from renderer_rs_tpu_torch.ops.raster_cuda import bin_compact
+
+    js, ps, w, h, t = _setups(case)
+    y0, bh, stride, pair = {
+        "band": (h // 4, h // 4, 1, False), "odd_band": (h // 4 + 1, h // 3, 1, False),
+        "strided": (1, h // 4, 4, False), "pair": (2, h // 4, 4, True),
+    }[form]
+    slab_ids, seg_j, nty, ntx, ovf_j = _bin_compact(
+        js, bh, w, 32, 128, 16, 32, small_limit=t, y_offset=y0, y_stride=stride, y_pair=pair)
+    sorted_tris, seg, nby, nbx, ovf = bin_compact(ps, bh, w, small_limit=t, y_offset=y0,
+                                                   y_stride=stride, y_pair=pair)
+    assert (nby, nbx) == (2 * nty, ntx)
+    np.testing.assert_array_equal(sorted_tris.numpy(), np.asarray(slab_ids)[: sorted_tris.shape[0]])
+    np.testing.assert_array_equal(seg.numpy(), np.asarray(seg_j))
+    np.testing.assert_array_equal(ovf.numpy(), np.asarray(ovf_j))
+    assert int(seg[-1]) > 0

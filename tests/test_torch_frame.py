@@ -149,13 +149,16 @@ def test_app_main_writes_pngs(tmp_path):
 
 
 @pytest.mark.parametrize("branch", ["pbr", "tonemap", "msaa", "scan", "msaa_band",
-                                    "msaa_stencil", "return_depth"])
+                                    "msaa_stencil", "return_depth", "band_return_depth",
+                                    "hdr", "equirect", "sharded_msaa"])
 def test_unported_branches_raise(branch):
-    """PBR shading, the tonemappers, the shade-once MSAA resolve and CSM are
-    ported (tests/test_torch_msaa.py, tests/test_torch_csm.py): of those
-    branches, what still raises is image-based lighting, an unknown
-    operator, and the MSAA combinations the JAX frame sends to its
-    supersampling branch (return_depth, band, stencil)."""
+    """PBR and IBL shading, the tonemappers, the shade-once MSAA resolve,
+    CSM and row bands are ported (tests/test_torch_msaa.py,
+    test_torch_csm.py, test_torch_band.py): of those branches, what still
+    raises is an unknown operator, return_depth (with or without a band),
+    the MSAA combinations the JAX frame sends to its supersampling branch
+    (return_depth, band, stencil, and render_frame_sharded with MSAA), a
+    Radiance .hdr environment and its equirect_to_cubemap."""
     from renderer_rs_tpu_torch.app.scenes import blinnphong_scene
     from renderer_rs_tpu_torch.renderer.passes import ShadingModel, forward_frame
     from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipelineBuilder
@@ -164,14 +167,31 @@ def test_unported_branches_raise(branch):
     pipe, shading, tonemap, extra = kw["pipeline"], kw["shading"], "none", {}
     error, match = NotImplementedError, "ROADMAP"
     msaa4 = GraphicsPipelineBuilder().msaa_samples(4).build()
+    if branch in ("hdr", "equirect", "sharded_msaa"):
+        import renderer_rs_tpu_torch.ops.ibl as ibl
+        from renderer_rs_tpu_torch.app.scenes import full_scene
+        from renderer_rs_tpu_torch.parallel import make_device_mesh, render_frame_sharded
+
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: item 9"):
+            full_scene(32, 32, tri_budget=600, hdr="sky.hdr", device="cpu")
+        # the equirect -> cube conversion serves only the .hdr loader
+        assert not hasattr(ibl, "equirect_to_cubemap")
+        mesh = make_device_mesh(2, frame_axis=1, devices=["cpu"] * 2)
+        with pytest.raises(NotImplementedError, match="supersampling.*ROADMAP Queue 1 item 11"):
+            render_frame_sharded([scene], layout, msaa4, shading, 32, 32, mesh)
+        return
     if branch == "pbr":
-        shading = ShadingModel.PBR_IBL
+        # image-based lighting without IBL maps: the hemisphere ambient, as
+        # in the JAX frame; under return_depth it still raises
+        shading, extra = ShadingModel.PBR_IBL, dict(return_depth=True)
+    elif branch == "band_return_depth":
+        extra = dict(band=(0, 16), return_depth=True)
     elif branch == "tonemap":
         tonemap, error, match = "filmic", ValueError, "unknown tonemap"
     elif branch == "msaa":
         pipe, extra, match = msaa4, dict(return_depth=True), "supersampling.*ROADMAP Queue 1 item 11"
     elif branch == "msaa_band":
-        pipe, extra, match = msaa4, dict(band=(0, 16)), "supersampling.*ROADMAP Queue 1 item 15"
+        pipe, extra, match = msaa4, dict(band=(0, 16)), "supersampling.*ROADMAP Queue 1 item 11"
     elif branch == "msaa_stencil":
         pipe, extra, match = msaa4, dict(stencil=object()), "supersampling.*ROADMAP Queue 1 item 13"
     elif branch == "return_depth":
@@ -187,6 +207,12 @@ def test_unported_branches_raise(branch):
         out = forward_frame(scene, layout, kw["pipeline"], ShadingModel.PBR, 32, 32,
                             tonemap="aces")
         assert out.shape == (32, 32, 4) and torch.isfinite(out).all()
+        ibl = forward_frame(scene, layout, kw["pipeline"], ShadingModel.PBR_IBL, 32, 32,
+                            tonemap="aces")
+        assert torch.equal(ibl, out)  # no environment: the hemisphere ambient
+    if branch == "msaa_band":  # the band itself renders without MSAA
+        out = forward_frame(scene, layout, kw["pipeline"], shading, 32, 32, band=(0, 16))
+        assert out.shape == (16, 32, 4) and torch.isfinite(out).all()
 
 
 # --- the shadow-mapped PBR frame: full_scene(ibl=False) -------------------------
@@ -381,14 +407,81 @@ def test_app_main_renders_the_pbr_scenes(tmp_path, scene_args):
 
 
 @pytest.mark.parametrize("extra", [
-    [], ["--csm"], ["--textured"], ["--no-ibl", "--hdr", "sky.hdr"],
-    ["--no-ibl", "--gltf", "model.gltf"],
+    ["--hdr", "sky.hdr"], ["--csm", "--hdr", "sky.hdr"], ["--textured", "--gltf", "model.gltf"],
+    ["--no-ibl", "--hdr", "sky.hdr"], ["--no-ibl", "--gltf", "model.gltf"],
 ])
 def test_app_main_full_scene_refuses_unported_options(extra):
-    """`--scene full` without --no-ibl (with or without --csm or --textured,
-    which are ported), and each unported option with it, raise naming their
+    """`--scene full` renders with or without IBL, --csm or --textured
+    (tests/test_torch_frame.py, test_torch_csm.py); each unported option
+    with it, a Radiance .hdr environment or a glTF model, raises naming its
     ROADMAP item: nothing renders a lesser scene."""
     from renderer_rs_tpu_torch.app.main import main
 
     with pytest.raises(NotImplementedError, match="not ported yet .ROADMAP Queue 1: item"):
         main(["--scene", "full", "--width", "64", "--height", "48", *extra], device="cpu")
+
+
+# --- the headline frame: full_scene(...) with image-based lighting -----------------
+
+@pytest.fixture(scope="module", params=["full", "full_textured"])
+def jax_ibl_frame(request):
+    """The JAX fused frame of full_scene(160, 120, tri_budget=2000[,
+    textured=True]) with its default IBL environment and a 256² shadow map:
+    the fast ambient (SH9, analytic env-BRDF, the merged specular/skybox
+    fetch; 120 rows: per-pixel rates)."""
+    from renderer_rs_tpu.app.scenes import full_scene
+    from renderer_rs_tpu.renderer.passes import forward_frame, shadow_map_pass
+
+    textured = request.param == "full_textured"
+    scene, layout, kw, _ = full_scene(W, H, tri_budget=2000, textured=textured)
+    shadow_map = shadow_map_pass(scene, layout, SHADOW_SIZE)
+    with pytest.MonkeyPatch.context() as mp:
+        interpret_pallas(mp)
+        frame, ids = forward_frame(
+            scene, layout, kw["pipeline"], kw["shading"], W, H, tonemap=kw["tonemap"],
+            shadow_params=kw["shadow_params"], shadow_map=shadow_map, return_ids=True,
+        )
+    port_kw = {**port_renderer_kwargs(kw), "shadow_map_size": SHADOW_SIZE}
+    return (request.param, np.asarray(frame), np.asarray(ids), flatten_jax_scene(scene, layout),
+            port_kw)
+
+
+@pytest.mark.parametrize("which", ["ported_scene", "bridged_scene"])
+def test_ibl_frame_matches_jax_fused_and_golden(jax_ibl_frame, which):
+    """The headline frame's shading (PBR_IBL) against the JAX fused frame:
+    the linear bar, winner ids exact (measured: max |d| 4.2e-6 untextured,
+    1.0e-5 textured, on the bridged and on the port's own environment), and
+    the uint8 frame against the `full` / `full_textured` golden under the
+    golden bar. Through the Renderer and through forward_frame; the app
+    renders the same scene without --no-ibl."""
+    from renderer_rs_tpu_torch.app.main import main
+    from renderer_rs_tpu_torch.app.scenes import full_scene
+    from renderer_rs_tpu_torch.bridge import scene_from_numpy
+    from renderer_rs_tpu_torch.renderer.passes import ShadingModel, forward_frame
+    from renderer_rs_tpu_torch.utils.image_io import read_png
+
+    name, ref, ref_ids, (fields, layout_fields), kw = jax_ibl_frame
+    textured = name == "full_textured"
+    if which == "bridged_scene":
+        scene, layout = scene_from_numpy(fields, layout_fields, device="cpu")
+    else:
+        scene, layout, own_kw, _ = full_scene(W, H, tri_budget=2000, textured=textured,
+                                              device="cpu")
+        assert {**own_kw, "shadow_map_size": SHADOW_SIZE, "camera": None} == {**kw, "camera": None}
+    assert kw["shading"] == ShadingModel.PBR_IBL and scene.environment.atlas_tri is not None
+    renderer = _port_renderer((scene, layout), kw)
+    out = renderer.render_frame_hdr().numpy()
+    _check_frame_bar(out, ref)
+    out2, ids = forward_frame(
+        scene, layout, kw["pipeline"], kw["shading"], W, H, tonemap=kw["tonemap"],
+        shadow_map_size=SHADOW_SIZE, shadow_params=kw["shadow_params"], return_ids=True,
+    )
+    np.testing.assert_array_equal(ids.numpy(), ref_ids)
+    assert np.array_equal(out2.numpy(), out)
+    golden = read_png(os.path.join(os.path.dirname(__file__), "goldens", f"{name}_{W}x{H}.png"))
+    diff = np.abs(golden.astype(np.int32) - renderer.render_frame().astype(np.int32))
+    assert diff.mean() < 1.0, f"mean diff {diff.mean():.3f}"
+    assert (diff.max(axis=-1) > 8).mean() < 0.005
+    if which == "ported_scene":
+        args = ["--scene", "full", "--tris", "600", "--width", "32", "--height", "24"]
+        assert main(args + (["--textured"] if textured else []), device="cpu") == 0

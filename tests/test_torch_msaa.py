@@ -186,7 +186,7 @@ def test_other_sample_counts_render(port_scene, jax_msaa, samples):
     (dict(diagnostics=True), ValueError, "does not compose with MSAA"),
     (dict(return_ids=True), ValueError, "supersampling MSAA"),
     (dict(return_depth=True), NotImplementedError, "supersampling branch.*ROADMAP Queue 1 item 11"),
-    (dict(band=(0, 16)), NotImplementedError, "supersampling branch.*ROADMAP Queue 1 item 15"),
+    (dict(band=(0, 16)), NotImplementedError, "supersampling branch.*ROADMAP Queue 1 item 11"),
     (dict(stencil=object()), NotImplementedError, "supersampling branch.*ROADMAP Queue 1 item 13"),
 ])
 def test_msaa_rejections(port_scene, jax_msaa, kwargs, error, match):

@@ -230,13 +230,13 @@ def test_msaa4_and_csm_flagship_counts():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(), dict(csm=True), dict(textured=True),
+    dict(hdr="sky.hdr"), dict(csm=True, gltf="model.gltf"), dict(textured=True, hdr="sky.hdr"),
     dict(ibl=False, hdr="sky.hdr"), dict(ibl=False, gltf="model.gltf"),
 ])
 def test_full_scene_refuses_unported_options(kwargs):
-    """Cascaded shadows and the texture set are ported
-    (tests/test_torch_csm.py, test_torch_frame.py); with the IBL environment
-    they still raise, for the environment."""
+    """The IBL environment, cascaded shadows and the texture set are ported
+    (tests/test_torch_frame.py, test_torch_csm.py); a Radiance .hdr
+    environment and glTF instancing still raise, with or without them."""
     from renderer_rs_tpu_torch.app.scenes import SCENES, full_scene, gltf_pbr_scene
 
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: item"):
@@ -246,3 +246,46 @@ def test_full_scene_refuses_unported_options(kwargs):
     for name in ("triangle", "cube"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: item"):
             SCENES[name](64, 48, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_ibl_scene():
+    from renderer_rs_tpu.app import scenes as jscenes
+
+    js, jl, jkw, _ = jscenes.full_scene(160, 120, tri_budget=2000)
+    return flatten_jax_scene(js, jl), jkw
+
+
+@pytest.mark.parametrize("which", ["ported", "bridged"])
+def test_ibl_scene_matches(jax_ibl_scene, which):
+    """full_scene(160, 120, tri_budget=2000) with its default IBL
+    environment: the bridged scene carries the JAX environment bit for bit
+    (skybox, irradiance, prefiltered chain, BRDF LUT, SH9, both atlases and
+    their offsets and sizes); the port's own precompute is within the sky's
+    pow tolerance (rtol 2e-3: the prefilter's mirror level and the atlases
+    carry the sun disk). The environment's sizes are the headline frame's:
+    sky 64², irradiance 16², prefilter 32² x 5 levels, LUT 64², a
+    [32,760, 39] trilinear atlas (13 windows x 3 channels)."""
+    from _torch_port import port_renderer_kwargs
+
+    from renderer_rs_tpu_torch.app import scenes as pscenes
+    from renderer_rs_tpu_torch.bridge import scene_from_numpy
+
+    (fields, layout_fields), jkw = jax_ibl_scene
+    ported = pscenes.full_scene(160, 120, tri_budget=2000, device="cpu")
+    if which == "bridged":
+        scene, layout = scene_from_numpy(fields, layout_fields, device="cpu")
+        tolerant = ()
+    else:
+        scene, layout = ported[:2]
+        tolerant = tuple(k for k in _flat_fields(fields)
+                         if k.startswith("environment.") and "atlas_offsets" not in k
+                         and "atlas_sizes" not in k)
+    _assert_scene_equal(scene, layout, fields, layout_fields, tolerant)
+    env = scene.environment
+    assert env.skybox_mips[0].shape == (6, 64, 64, 3)
+    assert env.irradiance_mips[0].shape == (6, 16, 16, 3) and env.brdf_lut.shape == (64, 64, 2)
+    assert [m.shape[1] for m in env.prefiltered_mips] == [32, 16, 8, 4, 2]
+    assert env.irradiance_sh.shape == (9, 3) and env.atlas_tri.shape == (32_760, 39)
+    assert env.atlas_sizes.tolist() == [32, 16, 8, 4, 2, 64]
+    assert port_renderer_kwargs(jkw) == {k: v for k, v in ported[2].items() if k != "camera"}

@@ -238,11 +238,13 @@ def test_pbr_shade_pixels_matches(lit_scene, rows, rate):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ppasses, "calculate_shadow",
                    lambda *a: calls.append(a[2].shape[0]) or orig(*a))
-        got = ppasses._shade_pixels(
+        got, sky = ppasses._shade_pixels(
             ps, pl, ppasses.ShadingModel.PBR, _t(varying), _t(mat_id), _t(smap),
             ShadowParams(**{k: getattr(jkw["shadow_params"], k)
                             for k in ("shadow_bias", "normal_bias", "shadow_strength", "pcf")}),
-        ).numpy()
+        )
+        got = got.numpy()
+    assert sky is None  # only the IBL shade fetches the sky
     assert calls == [{"y-quarter": rows // 4, "y-half": rows // 2, "exact": rows}[rate]]
     want = np.asarray(want)
     assert got.shape == want.shape == shape + (4,)
