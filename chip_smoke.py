@@ -19,6 +19,10 @@ Phases (any failure exits nonzero before the result lines):
          MSAA 4x;
        - the same scene with csm=True: K6, the four 1024x1024 cascades in
          one raster_depth launch (N = 4), also against four N = 1 launches;
+       - K7, raster_depth's z-plane form, on the same sun map and on the
+         four cascades, also against K1/K6 on the same setups (the same
+         covered texels, depth within 2e-4: the JAX contract);
+       - the gather probe, each of its five bodies at 64 iterations;
        - the headline scene, full_scene(1920, 1080, tri_budget=100_000,
          textured=True) with its default IBL environment (whose one-time
          precompute is timed here): K2 on the textured frame's 61-column
@@ -29,7 +33,8 @@ Phases (any failure exits nonzero before the result lines):
          (raster_visibility) in three band forms: the whole frame
          (band (0, 1080)), the contiguous band (270, 270) and the
          pair-interleaved band (2, 270, 4, True).
-     K1's and K6's depth must be bit-equal; K2 must give bit-equal
+     K1's, K6's and K7's depth and the probe's sums must be bit-equal; K2
+     must give bit-equal
      tid/depth and lanes within rtol 1e-5 / atol 1e-6; K4 bit-equal tid and
      depth; K5 bit-equal tid and depth, lanes within rtol 1e-5 / atol 1e-6;
      K3 bit-equal tid, depth and barycentrics. Prints binned pairs, densest
@@ -61,7 +66,20 @@ Phases (any failure exits nonzero before the result lines):
          one frame x 4 rows, all on cuda:0, contiguous and then
          pair-interleaved, with the scene's 1024² map, shadow parameters
          and ACES: four K3 and four K1 launches per frame (each band
-         renders its own sun map, as the JAX function does), no K2.
+         renders its own sun map, as the JAX function does), no K2;
+       - the Blinn-Phong scene under FLAT shading: one K3 launch per frame
+         (the whole frame), no K2;
+       - the Hello Triangle at 800x600 through app.main --scene triangle,
+         and the spinning cube (animate, 5 frames): no raster kernel (the
+         scan rasterizer); the triangle's PNG must cover exactly 60,000
+         pixels with red, green and blue corners;
+       - the headline scene with the sun map in the z-plane form under a
+         moving sun: one K7 and one K2 launch per frame; the CSM scene
+         refitted every frame in the z-plane form: one batched K7 and one
+         K2 launch per frame; each against the bary-form frame of the same
+         scene state (ids equal, colours within PLANE_DRIFT);
+       - the probe's own path: probes.kgather.run for the five bodies at
+         4,096 iterations (µs per iteration), 30 launches.
      The frames must be finite with covered pixels; the peel, clip and bin
      overflow counters are printed. The bands' ids (forward_frame(band=...)
      with render_frame_sharded's band specs, stitched by band_rows) must
@@ -71,7 +89,8 @@ Phases (any failure exits nonzero before the result lines):
      frame's by the reduced rates' drift only (bands shade at the full
      rate): p99 of |d| < 0.01.
   5. Correctness on small inputs by the repo's own means, on the card: the
-     160x120 Blinn-Phong and gltf-pbr frames against tests/goldens/*.png
+     160x120 triangle, cube, Blinn-Phong and gltf-pbr frames against
+     tests/goldens/*.png
      with tests/test_golden.py's bar, and full_scene(160, 120,
      tri_budget=2000, ibl=False) single-map, with csm=True, with MSAA 4x,
      textured, and textured under the MASK pipeline on cuda against the
@@ -112,8 +131,18 @@ PEEL_OPS_PER_PAIR = OPS_PER_PAIR + 1
 # weights (~16), a divide, 12 lanes x 4 (two fmas, a multiply, the zero
 # fold) and 12 flat folds
 PEEL_OPS_PER_PIXEL = 12 + 16 + 1 + 12 * 4 + 12
+# K7's walk: the same edges, no barycentrics, the depth plane as a multiply,
+# an FMA (2) and an add, then the z bound and the min
+ZPLANE_OPS_PER_PAIR = 3 * 6 + 4 + 1 + 1
 # the table columns the candidate walk reads: edges, z plane, 1/area
 WALK_COLS = 19
+# K7 reads no 1/area
+ZPLANE_COLS = 18
+# the JAX contract of the plane form against the bary form (raster.py:297,
+# tests/test_raster_pallas.py:861-900): the same texels, depth within 2e-4
+ZPLANE_VS_BARY = 2e-4
+PROBE_CHECK_ITERS = 64  # the probe against its plain version
+PROBE_ITERS = 4096  # the JAX probe's KG_ITERS (probes/probe_kgather.py:26)
 W, H = 1920, 1080
 MSAA = 4  # samples: a 2x2 ordered grid, 3840x2160 sample points
 SX, SY = 2, 2
@@ -128,6 +157,13 @@ N_BANDS = 4
 # the reference's own gate on its reduced-rate drift (passes.py:1206-1212):
 # a band shades at the full rate, the 1080p frame at y-quarter PCF and
 # y-half cube rate
+# the plane-form frame against the bary-form frame of the same scene: the
+# frame bar's share of values off 2e-3 + 2e-3|ref| (0.2%) and at most one
+# flipped PCF tap of the sun term after ACES (0.15). The depth forms differ
+# by <= 2e-4 against a shadow bias of 0.012, so a tap flips only where a
+# receiver lies within 2e-4 of the biased depth; the CPU tests measured no
+# changed pixel (full_scene at 160x120 and 480x270, sun map and cascades)
+PLANE_DRIFT = (0.002, 0.15)
 BAND_DRIFT_P99 = 0.01
 BP_FRAMES = 5
 PBR_FRAMES = 7
@@ -137,6 +173,10 @@ TEX_FRAMES = 5
 MASK_FRAMES = 5
 HEADLINE_FRAMES = 5
 BAND_FRAMES = 5
+CUBE_FRAMES = 5
+PLANE_FRAMES = 5
+FLAT_FRAMES = 5
+TRIANGLE_FRAMES = 3
 CUTOFF = 0.5
 KERNEL_TIMINGS = 25
 SUN = (-0.45, -1.0, -0.35)  # full_scene's sun
@@ -147,6 +187,42 @@ def _moved_sun(i: int) -> tuple:
     a = 0.15 * (i + 1)
     return (SUN[0] * math.cos(a) - SUN[2] * math.sin(a), SUN[1],
             SUN[2] * math.cos(a) + SUN[0] * math.sin(a))
+
+
+def _move_sun(renderer, i: int) -> None:
+    """Turn the renderer's sun to _moved_sun(i): a new direction and light
+    matrix, so the sun map renders anew."""
+    import dataclasses
+
+    import torch
+
+    from renderer_rs_tpu_torch.ops.shadow import directional_light_matrix
+
+    sun = _moved_sun(i)
+    cur = renderer._scene
+    lights = dataclasses.replace(
+        cur.lights, sun_direction=torch.tensor(sun, dtype=torch.float32, device="cuda"))
+    lsm = directional_light_matrix(sun, [0.0, 0.0, 0.0], 3.5).to("cuda")
+    renderer.update_scene(cur.replace(lights=lights, light_space_matrix=lsm))
+
+
+def _refit_cascades(renderer, camera, i: int) -> None:
+    """Turn the renderer's sun to _moved_sun(i) and refit the four cascades
+    to it, so they render anew."""
+    import dataclasses
+
+    import torch
+
+    from renderer_rs_tpu_torch.ops.csm import fit_cascades
+
+    sun = _moved_sun(i)
+    cur = renderer._scene
+    lights = dataclasses.replace(
+        cur.lights, sun_direction=torch.tensor(sun, dtype=torch.float32, device="cuda"))
+    mats, splits = fit_cascades(camera, sun)
+    renderer.update_scene(cur.replace(
+        lights=lights, csm_matrices=torch.from_numpy(mats).to("cuda"),
+        csm_splits=torch.from_numpy(splits).to("cuda")))
 
 
 def _log(msg: str) -> None:
@@ -468,7 +544,9 @@ def _check_depth_batch(scene, layout, size: int) -> dict:
         raise SystemExit("phase kernels: the batched raster_depth launch disagrees")
 
     ms = _median(_event_times_ms(lambda: raster_depth(*args), KERNEL_TIMINGS))
-    plain_ms = _median(_event_times_ms(lambda: raster_depth_plain(*args), 3, warmup=1))
+    # the plain walk of the cascades takes seconds: one timing, warmed up by
+    # the comparison above
+    plain_ms = _median(_event_times_ms(lambda: raster_depth_plain(*args), 1, warmup=0))
     walked, pixel_pairs, bins = _walked(k6.seg, k6.nbx, size, size)
     ops = pixel_pairs * DEPTH_OPS_PER_PAIR
     nbytes = k6.table.numel() * 4 + walked * 4 + (bins + 4) * 4 + 4 * size * size * 4
@@ -482,6 +560,132 @@ def _check_depth_batch(scene, layout, size: int) -> dict:
         "replaces": "renderer_rs_tpu/ops/raster_pallas.py:646",
         "max_abs_err": max_abs_err,
         "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes this function
+    }
+
+
+def _check_zplane(scene, layout, size: int, cascades: bool) -> dict:
+    """K7: the z-plane form of raster_depth on the sun map's inputs (one
+    set) or the four cascades' (one N = 4 launch), beside its plain version
+    (bit-equal) and beside K1/K6 on the same setups (the same covered
+    texels, depth within ZPLANE_VS_BARY: the JAX contract)."""
+    import torch
+
+    from renderer_rs_tpu_torch.ops.raster_cuda import (
+        prepare_depth,
+        raster_depth,
+        raster_depth_plain,
+    )
+    from renderer_rs_tpu_torch.renderer.passes import (
+        _SHADOW_PIPELINE,
+        _shadow_setup,
+        shadow_vertex_stage,
+    )
+
+    op = _SHADOW_PIPELINE.depth_compare_op
+    mats = list(scene.csm_matrices) if cascades else [scene.light_space_matrix]
+    label = "cascades" if cascades else "sun map"
+    setups = [_shadow_setup(shadow_vertex_stage(scene, layout, m), scene.tris, size)
+              for m in mats]
+    k7 = prepare_depth(setups, size, size, zplane=True)
+    args = (k7.table, k7.sorted_tris, k7.seg, k7.nbx, size, size, op)
+    n_pairs = int(k7.n_pairs)
+    densest = (k7.seg[:, 1:] - k7.seg[:, :-1]).amax(1).tolist()
+    _log(f"K7 {label} {len(mats)} x {size}x{size}: binned pairs={n_pairs} densest bin {densest} "
+         f"table={tuple(k7.table.shape)}")
+    before = raster_depth.zplane_launches
+    depth = raster_depth(*args, zplane=True)
+    torch.cuda.synchronize()
+    if raster_depth.zplane_launches != before + 1:
+        raise SystemExit("phase kernels: the z-plane launch was not counted as K7")
+    depth_p = raster_depth_plain(*args, zplane=True)
+    k1 = prepare_depth(setups, size, size)
+    bary = raster_depth(k1.table, k1.sorted_tris, k1.seg, k1.nbx, size, size, op)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(depth.view(torch.int32), depth_p.view(torch.int32)))
+    max_abs_err = float((depth - depth_p).abs().max())
+    covered = [int((d < 1.0).sum()) for d in depth]
+    same_cov = bool(torch.equal(depth < 1.0, bary < 1.0))
+    vs_bary = float((depth - bary).abs().max())
+    _log(f"K7 {label} vs plain: depth bit-equal {equal}, max |err| {max_abs_err:.3e}, covered "
+         f"texels {covered}; vs the bary form (K1/K6): same texels {same_cov}, max |d| "
+         f"{vs_bary:.3e}, texels differing {int((depth != bary).sum())}")
+    if not (equal and min(covered) > 0 and bool(torch.isfinite(depth).all())):
+        raise SystemExit(f"phase kernels: the z-plane raster_depth disagrees with its plain "
+                         f"version ({label})")
+    if not (same_cov and vs_bary <= ZPLANE_VS_BARY):
+        raise SystemExit(f"phase kernels: the z-plane depth breaks the JAX contract against "
+                         f"the bary form ({label})")
+    ms = _median(_event_times_ms(lambda: raster_depth(*args, zplane=True), KERNEL_TIMINGS))
+    # the plain walk of the cascades takes seconds: one timing, warmed up by
+    # the comparison above
+    plain_ms = _median(_event_times_ms(lambda: raster_depth_plain(*args, zplane=True),
+                                       1 if cascades else 3, warmup=0 if cascades else 1))
+    walked, pixel_pairs, bins = _walked(k7.seg, k7.nbx, size, size)
+    ops = pixel_pairs * ZPLANE_OPS_PER_PAIR
+    nbytes = (k7.table.shape[0] * k7.table.shape[1] * ZPLANE_COLS * 4 + walked * 4
+              + (bins + len(mats)) * 4 + len(mats) * size * size * 4)
+    bound_ms, bound_by = _bound(ops, nbytes)
+    _log(f"K7 {label}: {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, "
+         f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
+    return {
+        "name": "raster_depth_zplane",
+        "route": "cuda",
+        "source": "renderer_rs_tpu_torch/csrc/raster_depth.cu",
+        "replaces": "renderer_rs_tpu/ops/raster_pallas.py:234",
+        "max_abs_err": max_abs_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes this function
+        "n_pairs": n_pairs,
+        "vs_bary_max_abs": vs_bary,
+    }
+
+
+def _check_probe() -> dict:
+    """The gather probe: each body's kernel against its plain version at
+    PROBE_CHECK_ITERS iterations (bit-equal), then its plain time at
+    PROBE_ITERS iterations; the kernel times come from the probe's own path
+    (phase_main_paths)."""
+    import torch
+
+    from renderer_rs_tpu_torch.probes.kgather import BODIES, kgather, probe_inputs, run_plain
+
+    slab, p = probe_inputs("cuda")
+    equal, plain_ms = {}, 0.0
+    for body in BODIES:
+        out = kgather(body, slab, p, PROBE_CHECK_ITERS)
+        torch.cuda.synchronize()
+        ref = run_plain(body, slab, p, PROBE_CHECK_ITERS)
+        equal[body] = bool(torch.equal(out.view(torch.int32), ref.view(torch.int32)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_plain(body, slab, p, PROBE_ITERS)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+    _log(f"probe_kgather vs plain at {PROBE_CHECK_ITERS} iterations: bit-equal {equal}; plain, "
+         f"the five bodies at {PROBE_ITERS} iterations: {plain_ms:.2f} ms")
+    if not all(equal.values()):
+        raise SystemExit("phase kernels: probe_kgather disagrees with its plain version")
+    # least time of the five launches at PROBE_ITERS: the f32 ops per output
+    # and iteration (t_only, g_only: the offset and the sum; g8, g50: 2 per
+    # term; msum: 128 compares, multiplies and adds, and the sum) over the
+    # card, against the inputs read and the outputs written once
+    ops = 16 * 128 * PROBE_ITERS * (2 + 2 + 16 + 100 + 128 * 3 + 1)
+    nbytes = len(BODIES) * (128 * 128 * 4 + 16 * 128 * 4 * 2)
+    bound_ms, bound_by = _bound(ops, nbytes)
+    return {
+        "name": "probe_kgather",
+        "route": "cuda",
+        "source": "renderer_rs_tpu_torch/csrc/probe_kgather.cu",
+        "replaces": "probes/probe_kgather.py:38",
+        "max_abs_err": 0.0,
+        "ms": None,  # set from the probe's path
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -596,10 +800,17 @@ def phase_kernels() -> tuple[dict, tuple]:
     k2 = _check_resolve("blinnphong flagship", scene, layout, kw["pipeline"], timed=True)
     scene, layout, kw, _ = full_scene(W, H, device="cuda", **FULL)
     k1 = _check_depth(scene, layout, kw["shadow_map_size"])
+    k7 = _check_zplane(scene, layout, kw["shadow_map_size"], cascades=False)
     _check_resolve("pbr flagship", scene, layout, kw["pipeline"], timed=False)
     k4 = _check_ids(scene, layout, kw["pipeline"])
     scene, layout, kw, _ = full_scene(W, H, device="cuda", csm=True, **FULL)
     k6 = _check_depth_batch(scene, layout, kw["shadow_map_size"])
+    k7_csm = _check_zplane(scene, layout, kw["shadow_map_size"], cascades=True)
+    k7.update(ms_cascades=k7_csm["ms"], plain_ms_cascades=k7_csm["plain_ms"],
+              bound_ms_cascades=k7_csm["bound_ms"], n_pairs_cascades=k7_csm["n_pairs"],
+              max_abs_err=max(k7["max_abs_err"], k7_csm["max_abs_err"]),
+              vs_bary_max_abs=max(k7["vs_bary_max_abs"], k7_csm["vs_bary_max_abs"]))
+    probe = _check_probe()
     headline = scene, layout, kw = _headline_scene()[:3]
     k2_tex = _check_resolve("headline (textured, IBL)", scene, layout, kw["pipeline"], timed=True)
     k2["ms_textured"], k2["plain_ms_textured"] = k2_tex["ms"], k2_tex["plain_ms"]
@@ -608,7 +819,8 @@ def phase_kernels() -> tuple[dict, tuple]:
     k5 = _check_peel(scene, layout, _mask_pipeline())
     k3 = _check_visibility(scene, layout, kw["pipeline"])
     return {"raster_depth": k1, "raster_resolve": k2, "raster_ids": k4,
-            "raster_depth_batch": k6, "raster_peel": k5, "raster_visibility": k3}, headline
+            "raster_depth_batch": k6, "raster_peel": k5, "raster_visibility": k3,
+            "raster_depth_zplane": k7, "probe_kgather": probe}, headline
 
 
 def _headline_scene():
@@ -739,15 +951,17 @@ def _zero_launch_counts() -> None:
         raster_resolve,
         raster_visibility,
     )
+    from renderer_rs_tpu_torch.probes.kgather import kgather
 
-    raster_depth.launches = raster_depth.batched_launches = 0
+    raster_depth.launches = raster_depth.batched_launches = raster_depth.zplane_launches = 0
     raster_resolve.launches = raster_ids.launches = raster_peel.launches = 0
-    raster_visibility.launches = 0
+    raster_visibility.launches = kgather.launches = 0
 
 
 def _launch_counts() -> dict:
-    """Launches per kernel since the last zeroing: K1 counts raster_depth's
-    single-set launches, K6 its launches with N > 1."""
+    """Launches per kernel since the last zeroing: of raster_depth's
+    launches, K7 counts the z-plane form (one set or N), K6 the bary form
+    with N > 1 sets, K1 the rest."""
     from renderer_rs_tpu_torch.ops.raster_cuda import (
         raster_depth,
         raster_ids,
@@ -755,20 +969,25 @@ def _launch_counts() -> dict:
         raster_resolve,
         raster_visibility,
     )
+    from renderer_rs_tpu_torch.probes.kgather import kgather
 
     return {
-        "raster_depth": raster_depth.launches - raster_depth.batched_launches,
+        "raster_depth": (raster_depth.launches - raster_depth.batched_launches
+                         - raster_depth.zplane_launches),
         "raster_resolve": raster_resolve.launches,
         "raster_ids": raster_ids.launches,
         "raster_depth_batch": raster_depth.batched_launches,
         "raster_peel": raster_peel.launches,
         "raster_visibility": raster_visibility.launches,
+        "raster_depth_zplane": raster_depth.zplane_launches,
+        "probe_kgather": kgather.launches,
     }
 
 
 def _counts(**kw) -> dict:
     return {"raster_depth": 0, "raster_resolve": 0, "raster_ids": 0, "raster_depth_batch": 0,
-            "raster_peel": 0, "raster_visibility": 0, **kw}
+            "raster_peel": 0, "raster_visibility": 0, "raster_depth_zplane": 0,
+            "probe_kgather": 0, **kw}
 
 
 def _drive(label: str, renderer, frames: int, expect: dict, before_frame=None) -> dict:
@@ -822,8 +1041,7 @@ def phase_main_paths(headline: tuple) -> dict:
 
     from renderer_rs_tpu_torch.app.scenes import blinnphong_scene, full_scene
     from renderer_rs_tpu_torch.core.config import RendererConfig
-    from renderer_rs_tpu_torch.ops.csm import fit_cascades
-    from renderer_rs_tpu_torch.ops.shadow import directional_light_matrix
+    from renderer_rs_tpu_torch.renderer.passes import ShadingModel
     from renderer_rs_tpu_torch.renderer.renderer import Renderer
 
     def make(scene, layout, kw):
@@ -841,6 +1059,16 @@ def phase_main_paths(headline: tuple) -> dict:
     by_path["blinnphong"] = _drive(
         "blinnphong", renderer, BP_FRAMES, _counts(raster_resolve=BP_FRAMES))
     _check_frame("blinnphong", renderer)
+    # FLAT shading (the vertex colours): K3 over the whole frame, then the
+    # deferred attribute path, no K2
+    renderer = make(scene, layout, {**kw, "shading": ShadingModel.FLAT})
+    renderer.render_frame()  # warm-up
+    by_path["blinnphong_flat"] = _drive(
+        "blinnphong, FLAT shading", renderer, FLAT_FRAMES, _counts(raster_visibility=FLAT_FRAMES))
+    _check_frame("blinnphong, FLAT", renderer)
+    del renderer
+
+    by_path.update(_scan_paths(make))
 
     t0 = time.perf_counter()
     scene, layout, kw, _ = full_scene(W, H, device="cuda", **FULL)
@@ -857,17 +1085,10 @@ def phase_main_paths(headline: tuple) -> dict:
     hdr_1x = _check_frame("pbr", renderer)
 
     # loop B, moving sun: a new direction and light matrix every frame
-    def move_sun(i: int) -> None:
-        sun = _moved_sun(i)
-        cur = renderer._scene
-        lights = dataclasses.replace(
-            cur.lights, sun_direction=torch.tensor(sun, dtype=torch.float32, device="cuda"))
-        lsm = directional_light_matrix(sun, [0.0, 0.0, 0.0], 3.5).to("cuda")
-        renderer.update_scene(cur.replace(lights=lights, light_space_matrix=lsm))
-
     by_path["pbr_moving_sun"] = _drive(
         "pbr loop B (moving sun)", renderer, PBR_FRAMES,
-        _counts(raster_depth=PBR_FRAMES, raster_resolve=PBR_FRAMES), before_frame=move_sun)
+        _counts(raster_depth=PBR_FRAMES, raster_resolve=PBR_FRAMES),
+        before_frame=lambda i: _move_sun(renderer, i))
     _check_frame("pbr, sun moved", renderer)
 
     # MSAA 4x on the static PBR scene: the 1x frame, the ids-only sample
@@ -906,22 +1127,21 @@ def phase_main_paths(headline: tuple) -> dict:
 
     # CSM with the cascades refitted to a moving sun every frame
     camera = kw["camera"]
-
-    def refit_cascades(i: int) -> None:
-        sun = _moved_sun(i)
-        cur = renderer._scene
-        lights = dataclasses.replace(
-            cur.lights, sun_direction=torch.tensor(sun, dtype=torch.float32, device="cuda"))
-        mats, splits = fit_cascades(camera, sun)
-        renderer.update_scene(cur.replace(
-            lights=lights, csm_matrices=torch.from_numpy(mats).to("cuda"),
-            csm_splits=torch.from_numpy(splits).to("cuda")))
-
     by_path["csm_moving_sun"] = _drive(
         "csm (cascades refitted every frame)", renderer, CSM_FRAMES,
         _counts(raster_depth_batch=CSM_FRAMES, raster_resolve=CSM_FRAMES),
-        before_frame=refit_cascades)
+        before_frame=lambda i: _refit_cascades(renderer, camera, i))
     _check_frame("csm, sun moved", renderer)
+
+    # the same, the cascades in the z-plane form: one batched K7 a frame
+    plane = make(scene, layout, {**kw, "z_form": "plane"})
+    plane.render_frame()  # warm-up
+    by_path["csm_plane_moving_sun"] = _drive(
+        "csm, z-plane form (cascades refitted every frame)", plane, PLANE_FRAMES,
+        _counts(raster_depth_zplane=PLANE_FRAMES, raster_resolve=PLANE_FRAMES),
+        before_frame=lambda i: _refit_cascades(plane, camera, i))
+    _check_frame("csm, z-plane form", plane)
+    _check_plane_vs_bary("csm, z-plane form", plane)
 
     # the textured frame: K2 with the uv and tangent lanes, then the atlas
     # fetch and TBN mapping; the shadow map once
@@ -948,6 +1168,96 @@ def phase_main_paths(headline: tuple) -> dict:
     return by_path
 
 
+def _check_plane_vs_bary(label: str, renderer) -> None:
+    """The renderer's current frame with its shadow pass in the plane form
+    against the same frame in the bary form: winner ids exact, colours
+    within PLANE_DRIFT (see there)."""
+    import torch
+
+    from renderer_rs_tpu_torch.renderer.passes import forward_frame
+
+    args = (renderer._scene, renderer._layout, renderer.pipeline, renderer.shading, W, H)
+    kw = dict(tonemap=renderer.tonemap, shadow_map_size=renderer.shadow_map_size,
+              shadow_params=renderer.shadow_params, return_ids=True)
+    plane, plane_ids = forward_frame(*args, z_form="plane", **kw)
+    bary, bary_ids = forward_frame(*args, z_form="bary", **kw)
+    err = (plane - bary).abs()
+    off = float((err > 2e-3 + 2e-3 * bary.abs()).float().mean())
+    ids_equal = bool(torch.equal(plane_ids, bary_ids))
+    _log(f"{label} vs the bary form, same scene: winner ids equal {ids_equal}, max |d| "
+         f"{float(err.max()):.3e}, values off the frame bar {off:.4%}, pixels changed "
+         f"{int((err.amax(-1) > 0).sum())}")
+    if not (ids_equal and off < PLANE_DRIFT[0] and float(err.max()) < PLANE_DRIFT[1]):
+        raise SystemExit(f"phase main path, {label}: the plane-form frame drifts from the "
+                         "bary-form frame beyond the bar")
+
+
+def _scan_paths(make) -> dict:
+    """The scan rasterizer's scenes on the card: the Hello Triangle at
+    800x600 through app.main, and the spinning cube at 1920x1080 through
+    the Renderer; neither launches a raster kernel."""
+    import tempfile
+
+    import numpy as np
+
+    from renderer_rs_tpu_torch.app.main import main as app_main
+    from renderer_rs_tpu_torch.app.scenes import cube_scene
+    from renderer_rs_tpu_torch.utils.image_io import read_png
+
+    by_path = {}
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["--scene", "triangle", "--width", "800", "--height", "600", "--frames",
+                str(TRIANGLE_FRAMES), "--out", out]
+        app_main(argv[:6] + ["--frames", "1"], device="cuda")  # warm-up, no PNGs
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        rc = app_main(argv, device="cuda")
+        secs = time.perf_counter() - t0
+        launches = _launch_counts()
+        img = read_png(os.path.join(out, f"frame_{TRIANGLE_FRAMES - 1:05d}.png"))
+    bg = np.array([89, 89, 108, 255], np.uint8)  # sRGB of the clear (0.1, 0.1, 0.15)
+    covered = int((img != bg).any(-1).sum())
+    apex, left, right = img[160, 400, :3], img[445, 210, :3], img[445, 590, :3]
+    _log(f"main path, hello triangle 800x600 via app.main: {TRIANGLE_FRAMES} frames in "
+         f"{secs:.3f}s, rc {rc}, launches {launches}, covered {covered} (expected 60000), "
+         f"apex {apex.tolist()}, bottom-left {left.tolist()}, bottom-right {right.tolist()}")
+    if not (rc == 0 and launches == _counts() and img.shape == (600, 800, 4)
+            and covered == 60000 and apex.argmax() == 0 and left.argmax() == 1
+            and right.argmax() == 2):
+        raise SystemExit("phase main path, hello triangle: wrong launches or picture")
+    by_path["triangle"] = launches
+
+    scene, layout, kw, animate = cube_scene(W, H, device="cuda")
+    renderer = make(scene, layout, kw)
+    first = renderer.render_frame().copy()  # warm-up, t = 0
+    by_path["cube"] = _drive(
+        "spinning cube (animated)", renderer, CUBE_FRAMES, _counts(),
+        before_frame=lambda i: renderer.update_scene(
+            animate(renderer._scene, (i + 1) / 60.0, 1.0 / 60.0)))
+    _check_frame("cube", renderer)
+    moved = float((renderer.last_frame != first).any(-1).mean())
+    _log(f"cube: pixels changed since t = 0: {moved:.4%}")
+    if not 0.001 < moved < 0.5:
+        raise SystemExit("phase main path, cube: the animation did not turn the cube")
+    return by_path
+
+
+def phase_probe() -> tuple[dict, dict]:
+    """The gather probe's own path: probes.kgather.run for the five bodies
+    at PROBE_ITERS iterations; returns the launch counts and µs per
+    iteration."""
+    from renderer_rs_tpu_torch.probes.kgather import BODIES, run
+
+    _zero_launch_counts()
+    us = {body: run(body, PROBE_ITERS) for body in BODIES}
+    launches = _launch_counts()
+    _log(f"probe_kgather, us per iteration at {PROBE_ITERS} iterations (median of 5): "
+         f"{json.dumps(us)}; launches {launches}")
+    if launches != _counts(probe_kgather=6 * len(BODIES)):
+        raise SystemExit(f"phase probe: launches {launches}")
+    return launches, us
+
+
 def _headline_paths(make, scene, layout, kw) -> dict:
     """The headline frame through Renderer.render_frame, then the same
     scene as four row bands through render_frame_sharded, contiguous and
@@ -967,6 +1277,17 @@ def _headline_paths(make, scene, layout, kw) -> dict:
         "headline (textured, IBL; static scene)", renderer, HEADLINE_FRAMES,
         _counts(raster_depth=1, raster_resolve=HEADLINE_FRAMES))
     full = _check_frame("headline", renderer)
+    # the headline scene with its sun map in the z-plane form under a moving
+    # sun: one K7 and one K2 a frame
+    plane = make(scene, layout, {**kw, "z_form": "plane"})
+    plane.render_frame()  # warm-up
+    by_path["headline_plane_moving_sun"] = _drive(
+        "headline, z-plane form (moving sun)", plane, PLANE_FRAMES,
+        _counts(raster_depth_zplane=PLANE_FRAMES, raster_resolve=PLANE_FRAMES),
+        before_frame=lambda i: _move_sun(plane, i))
+    _check_frame("headline, z-plane form", plane)
+    _check_plane_vs_bary("headline, z-plane form", plane)
+    del plane
     mesh = make_device_mesh(N_BANDS, frame_axis=1, devices=["cuda:0"] * N_BANDS)
     for interleaved in (False, True):
         label = "banded, " + ("pair-interleaved" if interleaved else "contiguous")
@@ -1075,7 +1396,13 @@ def phase_small_reference() -> None:
 
     import numpy as np
 
-    from renderer_rs_tpu_torch.app.scenes import blinnphong_scene, full_scene, gltf_pbr_scene
+    from renderer_rs_tpu_torch.app.scenes import (
+        blinnphong_scene,
+        cube_scene,
+        full_scene,
+        gltf_pbr_scene,
+        triangle_scene,
+    )
     from renderer_rs_tpu_torch.core.config import RendererConfig
     from renderer_rs_tpu_torch.renderer.renderer import Renderer
 
@@ -1089,6 +1416,8 @@ def phase_small_reference() -> None:
         renderer.set_scene(scene, layout)
         return renderer.render_frame_hdr().cpu().numpy() if hdr else renderer.render_frame()
 
+    _golden_check("triangle", render(triangle_scene, "cuda"))
+    _golden_check("cube", render(cube_scene, "cuda"))
     _golden_check("blinnphong", render(blinnphong_scene, "cuda"))
     _golden_check("gltf-pbr", render(gltf_pbr_scene, "cuda"))
     # cuda vs cpu on the PBR frame, with the single map, with four cascades
@@ -1227,6 +1556,10 @@ def main() -> int:
     phase_build()
     kernels, headline = phase_kernels()
     by_path = phase_main_paths(headline)
+    by_path["probe"], us = phase_probe()
+    kernels["probe_kgather"]["us_per_iteration"] = us
+    # the probe's run: one launch of each body at PROBE_ITERS
+    kernels["probe_kgather"]["ms"] = sum(us.values()) * PROBE_ITERS / 1e3
     phase_small_reference()
     for name, k in kernels.items():
         k["launches"] = sum(path[name] for path in by_path.values())

@@ -9,16 +9,23 @@ Usage:
         --tris 100000 --width 1920 --height 1080 --out /tmp/out
     python -m renderer_rs_tpu_torch.app.main --scene full --no-ibl --csm --out /tmp/out
     python -m renderer_rs_tpu_torch.app.main --scene gltf-pbr --out /tmp/out
+    python -m renderer_rs_tpu_torch.app.main --scene triangle --width 800 \
+        --height 600 --out /tmp/out
+    python -m renderer_rs_tpu_torch.app.main --scene cube --frames 60 --out /tmp/out
 
-`--scene full --textured` is bench.py's headline frame: the IBL
-environment (the default; `--no-ibl` drops it for the hemisphere ambient),
-the 5-slot PBR texture set, a 1024² sun shadow map, ACES. `--csm` switches
-it to four shadow cascades. `--hdr` and `--gltf` raise NotImplementedError
-until their loaders are ported. As in the JAX app there is no alpha-cutoff
-flag: a MASK pipeline (`GraphicsPipelineBuilder().alpha_cutoff(0.5)`)
-reaches the Renderer as its `pipeline`. The X11 window, the scripted
-orbit/fly cameras and the other scenes wait for later slices (ROADMAP
-Queue 1 items 13-14)."""
+`--scene triangle` is the Hello Triangle and `--scene cube` the spinning
+textured cube, both on the scan rasterizer; the cube turns at 1 rad/s over
+`--frames` frames of 1/60 s. `--scene full --textured` is bench.py's
+headline frame: the IBL environment (the default; `--no-ibl` drops it for
+the hemisphere ambient), the 5-slot PBR texture set, a 1024² sun shadow
+map, ACES. `--csm` switches it to four shadow cascades. `--z-form plane`
+renders the shadow passes in the z-plane depth form (K7; the JAX
+package's z-form knob, raster.py:297). `--hdr` and `--gltf` raise
+NotImplementedError until their loaders are ported. As in the JAX app
+there is no alpha-cutoff flag: a MASK pipeline
+(`GraphicsPipelineBuilder().alpha_cutoff(0.5)`) reaches the Renderer as
+its `pipeline`. The X11 window and the scripted orbit/fly cameras wait for
+ROADMAP Queue 1 item 14."""
 
 from __future__ import annotations
 
@@ -70,12 +77,16 @@ def main(argv=None, device="cuda") -> int:
     parser.add_argument("--hdr", type=str, default=None,
                         help="Radiance .hdr environment (full scene; not ported yet)")
     parser.add_argument("--gltf", type=str, default=None, help="glTF path (not ported yet)")
+    parser.add_argument("--z-form", choices=["bary", "plane"], default="bary",
+                        help="depth form of the shadow passes: vertex depths blended by "
+                             "barycentrics, or the anchored depth plane")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
     scene, layout, kwargs, animate = build(args, device)
     renderer = Renderer(
-        RendererConfig(width=args.width, height=args.height), device=device, **kwargs
+        RendererConfig(width=args.width, height=args.height), device=device,
+        z_form=args.z_form, **kwargs
     )
     renderer.set_scene(scene, layout)
     if args.out:

@@ -1,9 +1,10 @@
-"""Demo scene factories (≙ renderer_rs_tpu/app/scenes.py). Ported: config
-2, the Blinn-Phong sphere; config 3, the procedural PBR sphere grid; and
-config 4, the full scene: shadow-mapped PBR with skybox and ACES, with a
-single sun map or four cascades, untextured or with the 5-slot procedural
-texture set, with the image-based lighting environment (the default) or
-without it. The others wait for later slices (ROADMAP Queue 1).
+"""Demo scene factories (≙ renderer_rs_tpu/app/scenes.py), all five of
+BASELINE.json's configs: 0, the Hello Triangle; 1, the spinning textured
+cube; 2, the Blinn-Phong sphere; 3, the procedural PBR sphere grid; and 4,
+the full scene: shadow-mapped PBR with skybox and ACES, with a single sun
+map or four cascades, untextured or with the 5-slot procedural texture
+set, with the image-based lighting environment (the default) or without
+it. The .hdr and glTF loaders wait for ROADMAP Queue 1 item 9.
 
 A factory returns (scene, layout, renderer_kwargs, animate_fn), where
 animate_fn(scene, t, dt) -> scene updates the dynamic state per frame."""
@@ -16,6 +17,7 @@ import math
 import numpy as np
 
 from renderer_rs_tpu_torch.core.device import resolve_device
+from renderer_rs_tpu_torch.mathx import quat_from_axis_angle
 from renderer_rs_tpu_torch.ops.csm import fit_cascades
 from renderer_rs_tpu_torch.ops.ibl import (
     brdf_lut,
@@ -30,7 +32,7 @@ from renderer_rs_tpu_torch.resources.material import Material
 from renderer_rs_tpu_torch.resources.texture import CubeMap
 from renderer_rs_tpu_torch.resources.ubo import CameraUbo, SceneUbo
 from renderer_rs_tpu_torch.rhi.command import CommandBuffer
-from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipelineBuilder
+from renderer_rs_tpu_torch.rhi.pipeline import CullMode, GraphicsPipelineBuilder
 from renderer_rs_tpu_torch.scene.camera import Camera, Projection
 from renderer_rs_tpu_torch.scene.light import DirectionalLight, LightBank, PointLight
 from renderer_rs_tpu_torch.scene.transform import Transform
@@ -48,6 +50,59 @@ def _orbit_camera(width, height, distance=3.0, height_y=1.5, fov=60.0) -> Camera
     cam.position = np.array([0.0, height_y, distance], np.float32)
     cam.look_at([0.0, 0.0, 0.0])
     return cam
+
+
+def triangle_scene(width: int, height: int, device="cuda"):
+    """Config 0 (scenes.py:46; ≙ renderer.rs:205-260): the Hello Triangle,
+    no culling, no depth attachment, the vertex colours interpolated (FLAT
+    shading) under the default identity camera. One triangle: the scan
+    rasterizer."""
+    pipeline = (
+        GraphicsPipelineBuilder()
+        .cull_mode(CullMode.NONE)
+        .depth_test_enable(False)
+        .depth_write_enable(False)
+        .depth_attachment_format(None)
+        .build()
+    )
+    cb = CommandBuffer().begin().bind_pipeline(pipeline).set_viewport(width, height)
+    cb.draw_mesh(meshgen.triangle_mesh())
+    cb.end()
+    scene, layout, pipeline = cb.build_scene(device=device)
+    return scene, layout, dict(pipeline=pipeline, shading=ShadingModel.FLAT), None
+
+
+def cube_scene(width: int, height: int, device="cuda"):
+    """Config 1 (scenes.py:68): the spinning textured cube, a 256² checker
+    on its base colour, Blinn-Phong under a sun. Twelve triangles: the scan
+    rasterizer. animate(scene, t, dt) turns it t radians about +Y and sets
+    the scene UBO's time."""
+    pipeline = GraphicsPipelineBuilder().build()
+    cb = CommandBuffer().begin().bind_pipeline(pipeline).set_viewport(width, height)
+    mat = Material(base_color=(1, 1, 1, 1), roughness=0.6, base_color_texture=0)
+    cb.draw_mesh(meshgen.cube_mesh(), Transform(), mat)
+    cb.end()
+    builder = SceneBuilder()
+    builder.set_textures([meshgen.checkerboard_image(256)])
+    cam = _orbit_camera(width, height, distance=2.2, height_y=1.4)
+    builder.set_camera(_camera_ubo(cam))
+    builder.set_lights(
+        LightBank.create(sun=DirectionalLight.create(direction=(-0.5, -1.0, -0.3)))
+    )
+    builder.set_scene_ubo(SceneUbo.create(ambient_color=(0.08, 0.08, 0.08)))
+    scene, layout, pipeline = cb.build_scene(builder, device=device)
+    kwargs = dict(pipeline=pipeline, shading=ShadingModel.BLINN_PHONG, camera=cam)
+
+    def animate(scene, t, dt):
+        tr = Transform().with_rotation(quat_from_axis_angle((0.0, 1.0, 0.0), t))
+        models = scene.models.clone()
+        nmats = scene.normal_mats.clone()
+        models[0] = tr.world_matrix().to(models.device)
+        nmats[0] = tr.normal_matrix().to(nmats.device)
+        return scene.replace(models=models, normal_mats=nmats,
+                             scene_ubo=scene.scene_ubo.update_time(t, dt))
+
+    return scene, layout, kwargs, animate
 
 
 def blinnphong_scene(width: int, height: int, rings=32, sectors=48, device="cuda"):
@@ -262,16 +317,9 @@ def _ibl_environment(sky) -> Environment:
     )
 
 
-def _not_ported_scene(name: str, queue_item: str):
-    def factory(*args, **kwargs):
-        raise _not_ported(f"the {name!r} scene", queue_item)
-
-    return factory
-
-
 SCENES = {
-    "triangle": _not_ported_scene("triangle", "item 13, scan rasterizer and FLAT shading"),
-    "cube": _not_ported_scene("cube", "item 7, textured scenes"),
+    "triangle": triangle_scene,
+    "cube": cube_scene,
     "blinnphong": blinnphong_scene,
     "gltf-pbr": gltf_pbr_scene,
     "full": full_scene,

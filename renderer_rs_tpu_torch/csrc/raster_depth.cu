@@ -1,16 +1,25 @@
-// K1: depth-only rasterization, written for Hopper (sm_90a).
+// K1, K6 and K7: depth-only rasterization, written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel renderer_rs_tpu/ops/raster_pallas.py:_make_kernel
 // with depth_only=True (body :203-297), launched by rasterize_binned_pallas
 // (pallas_call :1281) for the sun's shadow map, and its batched launch
-// rasterize_depth_only_batch (pallas_call :747) for N cascades. For every
-// pixel it reduces, from the clear depth, the min (max under GREATER
-// compares) of the interpolated z of the candidates of its 16x128 bin that
-// cover the pixel. No ids, no tie rule, no epilogue.
+// rasterize_depth_only_batch (pallas_call :747) for N cascades (K6). For
+// every pixel it reduces, from the clear depth, the min (max under GREATER
+// compares) of the depth of the candidates of its 16x128 bin that cover
+// the pixel. No ids, no tie rule, no epilogue. Two depth forms share the
+// walk and the launch (template flag ZPLANE), as the two share _make_kernel:
+//   - the bary form (K1, K6): zc = b0*z0 + b1*z1 + b2*z2 from the edge
+//     functions times 1/area;
+//   - the z-plane form (K7, zplane=True, body :234-245; the JAX package's
+//     z-form knob, raster.py:297): zc = (zdx*dx0 + zdy*dy0) + zA, the anchored
+//     depth plane, where dx0 = px - ax0 and dy0 = py - ay0 are edge 0's own
+//     differences (the plane is anchored at edge 0's canonical vertex,
+//     raster.py:322). No barycentrics: a multiply, an FMA and an add.
 //
 // Table row layout (one row per raster slot, row t = pad), n_cols >= 19:
 //   [0..14]  3 edges x (ax, ay, sdx, sdy, thresh)  sign-folded canonical form
-//   [15..17] z0, z1, z2      [18] inv_area
+//   [15..17] z0, z1, z2 (bary form) or zdx, zdy, zA (z-plane form)
+//   [18]     inv_area (read by the bary form only)
 // `table` holds n_batch such tables of n_rows rows each; `seg` holds n_batch
 // rows of n_bins+1 offsets into the one `sorted_tris` array.
 //
@@ -29,10 +38,15 @@
 // e = fma(sdx, py-ay, -(sdy*(px-ax))) and the depth
 // zc = fma(b2, z2, fma(b0, z0, b1*z1)). Measured: with both, depth is bit-equal
 // to the interpret-mode kernel on the parity tests; without either one,
-// about a fifth of the covered pixels differ. This file writes exactly those
-// FMAs with __fmaf_rn and is built with --fmad=false, so nvcc fuses nothing
-// else. fminf/fmaxf order -0.0 below +0.0, as XLA's min and max do, and a
-// -0.0 passes the bound zc >= 0 there as here.
+// about a fifth of the covered pixels differ. In the z-plane form it fuses
+// the x product into the sum and nothing else:
+// zc = fma(zdx, dx0, zdy*dy0) + zA. Measured against Pallas K7 in interpret
+// mode on the five depth cases of tests/test_torch_zplane.py (115,140
+// covered pixels): that form differs on 0 pixels; the unfused chain on
+// 13,226 and fma(zdy, dy0, zdx*dx0) + zA on 17,773 (up to 9.5e-7). This file
+// writes exactly those FMAs with __fmaf_rn and is built with --fmad=false,
+// so nvcc fuses nothing else. fminf/fmaxf order -0.0 below +0.0, as XLA's
+// min and max do, and a -0.0 passes the bound zc >= 0 there as here.
 
 #include <cuda_runtime.h>
 
@@ -58,7 +72,13 @@ __device__ __forceinline__ float depth_fn(float b0, float b1, float b2, float z0
     return __fmaf_rn(b2, z2, __fmaf_rn(b0, z0, b1 * z1));
 }
 
-template <bool GREATER>
+// zc = (zdx*dx0 + zdy*dy0) + zA in the reference's rounding (z-plane form)
+__device__ __forceinline__ float zplane_fn(float zdx, float zdy, float za, float dx0,
+                                          float dy0) {
+    return __fmaf_rn(zdx, dx0, zdy * dy0) + za;
+}
+
+template <bool GREATER, bool ZPLANE>
 __global__ void __launch_bounds__(THREADS)
 raster_depth_kernel(const float* __restrict__ table, int n_rows, int n_cols,
                     const int* __restrict__ sorted_tris,
@@ -85,35 +105,44 @@ raster_depth_kernel(const float* __restrict__ table, int n_rows, int n_cols,
         depth[i] = depth_clear;
     }
 
+    // the plane form reads no inv_area: it stages 18 of the 19 columns
+    constexpr int NC = ZPLANE ? COLS - 1 : COLS;
     const int s0 = seg[(size_t)set * (n_bins + 1) + b];
     const int s1 = seg[(size_t)set * (n_bins + 1) + b + 1];
     for (int base = s0; base < s1; base += STAGE) {
         const int n = min(STAGE, s1 - base);
         __syncthreads();  // previous stage fully consumed
-        for (int k = threadIdx.x; k < n * COLS; k += THREADS) {
-            const int r = k / COLS;
-            const int c = k - r * COLS;
+        for (int k = threadIdx.x; k < n * NC; k += THREADS) {
+            const int r = k / NC;
+            const int c = k - r * NC;
             s_coef[k] = tab[(size_t)sorted_tris[base + r] * n_cols + c];
         }
         __syncthreads();
         for (int j = 0; j < n; ++j) {
-            const float* c = s_coef + j * COLS;
+            const float* c = s_coef + j * NC;
             const float ay0 = c[1], sdx0 = c[2], sdy0 = c[3], th0 = c[4];
             const float ay1 = c[6], sdx1 = c[7], sdy1 = c[8], th1 = c[9];
             const float ay2 = c[11], sdx2 = c[12], sdy2 = c[13], th2 = c[14];
-            const float z0 = c[15], z1 = c[16], z2 = c[17], inv = c[18];
+            const float z0 = c[15], z1 = c[16], z2 = c[17];
+            const float inv = ZPLANE ? 0.0f : c[18];
             const float dx0 = px - c[0];
             const float dx1 = px - c[5];
             const float dx2 = px - c[10];
 #pragma unroll
             for (int i = 0; i < PX; ++i) {
-                const float e0 = edge_fn(sdx0, py[i] - ay0, sdy0, dx0);
+                const float dy0 = py[i] - ay0;
+                const float e0 = edge_fn(sdx0, dy0, sdy0, dx0);
                 const float e1 = edge_fn(sdx1, py[i] - ay1, sdy1, dx1);
                 const float e2 = edge_fn(sdx2, py[i] - ay2, sdy2, dx2);
-                const float b0 = e0 * inv;
-                const float b1 = e1 * inv;
-                const float b2 = 1.0f - b0 - b1;
-                const float zc = depth_fn(b0, b1, b2, z0, z1, z2);
+                float zc;
+                if constexpr (ZPLANE) {
+                    zc = zplane_fn(z0, z1, z2, dx0, dy0);  // (zdx, zdy, zA)
+                } else {
+                    const float b0 = e0 * inv;
+                    const float b1 = e1 * inv;
+                    const float b2 = 1.0f - b0 - b1;
+                    zc = depth_fn(b0, b1, b2, z0, z1, z2);
+                }
                 // one-sided viewport bound; the reduction against a clear
                 // in [0,1] implies the other side (raster_pallas.py:252-255)
                 const bool in_z = GREATER ? (zc <= 1.0f) : (zc >= 0.0f);
@@ -133,22 +162,34 @@ raster_depth_kernel(const float* __restrict__ table, int n_rows, int n_cols,
 
 }  // namespace
 
+template <bool GREATER, bool ZPLANE>
+static void launch(dim3 grid, cudaStream_t s, const float* table, int n_rows, int n_cols,
+                   const int* sorted_tris, const int* seg, int n_bins, int nbx, int height,
+                   int width, float depth_clear, float* depth_out) {
+    raster_depth_kernel<GREATER, ZPLANE><<<grid, THREADS, 0, s>>>(
+        table, n_rows, n_cols, sorted_tris, seg, n_bins, nbx, height, width, depth_clear,
+        depth_out);
+}
+
 // Launch on `stream` (PyTorch's current stream). Grid: one block per bin of
-// each of the n_batch sets. Returns cudaGetLastError() after the launch
-// (0 = launched).
+// each of the n_batch sets. zplane selects the z-plane form (K7). Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int raster_depth_launch(const float* table, int n_rows, int n_cols,
                                    const int* sorted_tris, const int* seg,
                                    int n_batch, int n_bins, int nbx, int height,
-                                   int width, int greater, float depth_clear,
+                                   int width, int greater, int zplane, float depth_clear,
                                    float* depth_out, void* stream) {
     if (n_bins <= 0 || n_batch <= 0) return 0;
     if (n_batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(n_bins, n_batch);
-    const dim3 block(THREADS);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (greater)
-        raster_depth_kernel<true><<<grid, block, 0, s>>>(table, n_rows, n_cols, sorted_tris, seg, n_bins, nbx, height, width, depth_clear, depth_out);
+    if (greater && zplane)
+        launch<true, true>(grid, s, table, n_rows, n_cols, sorted_tris, seg, n_bins, nbx, height, width, depth_clear, depth_out);
+    else if (greater)
+        launch<true, false>(grid, s, table, n_rows, n_cols, sorted_tris, seg, n_bins, nbx, height, width, depth_clear, depth_out);
+    else if (zplane)
+        launch<false, true>(grid, s, table, n_rows, n_cols, sorted_tris, seg, n_bins, nbx, height, width, depth_clear, depth_out);
     else
-        raster_depth_kernel<false><<<grid, block, 0, s>>>(table, n_rows, n_cols, sorted_tris, seg, n_bins, nbx, height, width, depth_clear, depth_out);
+        launch<false, false>(grid, s, table, n_rows, n_cols, sorted_tris, seg, n_bins, nbx, height, width, depth_clear, depth_out);
     return static_cast<int>(cudaGetLastError());
 }

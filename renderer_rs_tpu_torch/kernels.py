@@ -9,7 +9,8 @@ the source and flags; ``build()`` starts one nvcc per source at once.
 Flags: ``--fmad=false`` stops nvcc from contracting any ``a*b + c`` on its
 own. The JAX kernels are not free of FMAs: measured against the Pallas
 kernels in interpret mode, XLA fuses a fixed handful of products (the edge
-function and the depth sum in every body, plus b2 and the lane blends in
+function and the depth sum in every body, the x product of K7's depth
+plane, zc = fma(zdx, dx0, zdy*dy0) + zA, plus b2 and the lane blends in
 the winner epilogues of K2 and K5), and nothing else. Each ``.cu`` file writes exactly
 those with ``__fmaf_rn`` and lists them under "Exactness"; with the flag,
 every other product and sum rounds on its own. Either a missing or an extra
@@ -31,6 +32,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
 SOURCES = {
+    "probe_kgather": _PKG / "csrc" / "probe_kgather.cu",
     "raster_depth": _PKG / "csrc" / "raster_depth.cu",
     "raster_ids": _PKG / "csrc" / "raster_ids.cu",
     "raster_peel": _PKG / "csrc" / "raster_peel.cu",

@@ -10,6 +10,7 @@ from renderer_rs_tpu_torch.mathx.mat4 import (  # noqa: F401
     vulkan_y_flip,
 )
 from renderer_rs_tpu_torch.mathx.quat import (  # noqa: F401
+    quat_from_axis_angle,
     quat_from_rotation_arc,
     quat_identity,
     quat_normalize,

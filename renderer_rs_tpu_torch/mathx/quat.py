@@ -18,6 +18,17 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     return q / torch.clamp(torch.sqrt(torch.sum(q * q)), min=1e-12)
 
 
+def quat_from_axis_angle(axis, angle) -> torch.Tensor:
+    """Rotation by `angle` radians about the unit `axis` (quat.py:21):
+    (axis * sin(a/2), cos(a/2)) from the f32 half angle. sin and cos are
+    taken in f64 and rounded once, as jnp's correctly rounded f32 sin and
+    cos give them (torch's f32 cos is 1 ulp off at some angles)."""
+    axis = torch.as_tensor(axis, dtype=_F32)
+    half = (0.5 * torch.as_tensor(angle, dtype=_F32)).double()
+    s = torch.sin(half).float()
+    return torch.cat([axis * s, torch.cos(half).float()[None]])
+
+
 def quat_from_rotation_arc(from_v, to_v) -> torch.Tensor:
     """Shortest-arc rotation taking unit `from_v` to unit `to_v` (glam
     `Quat::from_rotation_arc`, camera.rs:160-166); the antiparallel case

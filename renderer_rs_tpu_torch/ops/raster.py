@@ -6,9 +6,23 @@ Conventions match Vulkan and the reference's Y-flipped projection: NDC y
 down, z in [0,1], framebuffer row 0 on top, pixel centers at (col+0.5,
 row+0.5), front-for-CCW <=> framebuffer cross2 < 0.
 
-The scan rasterizer of the JAX module waits for ROADMAP Queue 1 item 13;
-the fast path rasterizes through ops/raster_cuda.py. The band path's
-deferred attributes (perspective_bary, interpolate) are here.
+The fast path rasterizes through ops/raster_cuda.py. Here are the exact
+sequential scan rasterizer (`rasterize`, `rasterize_depth_only`: the JAX
+module's lax.scan over triangles in plain XLA, as plain PyTorch) for what
+the binned path does not take (scenes below 64 triangles, no depth test or
+write, EQUAL/NOT_EQUAL/NEVER/ALWAYS compares, wireframe, blending, an alpha
+cutoff without textures), the depth-plane form of K7's table
+(`z_plane_coeffs`), and the deferred attributes (perspective_bary,
+interpolate). The scan's stencil state machine, point and line primitives,
+`rasterize_ordered` and its coverage callback wait for ROADMAP Queue 1 item
+13, second part.
+
+Rounding: XLA:CPU fuses two products of the scan body into FMAs, the same
+two as in the Pallas kernels (the edge function and the depth sum;
+measured against the JAX `rasterize` on three random scenes: unfusing the
+edge moves 11,817 of 34,718 barycentric values, unfusing the depth sum
+3,950 of 17,359 depths, and no other fusion gives bit-equality). `_fma`
+emulates them in f64, on the CPU and on the card alike.
 """
 
 from __future__ import annotations
@@ -18,13 +32,24 @@ import dataclasses
 import torch
 
 from renderer_rs_tpu_torch.rhi.pipeline import (
+    CompareOp,
     CullMode,
     FrontFace,
     GraphicsPipeline,
+    PolygonMode,
     PrimitiveTopology,
 )
 
 _W_EPS = 1e-6
+_F32 = torch.float32
+
+
+def _fma(a, b, c):
+    """f32 fused multiply-add, a*b + c with one rounding: the product of two
+    f32 is exact in f64, so the f64 sum rounds once more only when the
+    operands' exponents differ widely (then the f32 result can differ from a
+    true fma only on an exact f32 tie, ~2^-29 of such cases)."""
+    return (a.double() * b.double() + c.double()).float()
 
 
 @dataclasses.dataclass
@@ -74,7 +99,7 @@ def _facing_valid(area2, ok_w, pipeline: GraphicsPipeline, tri_valid):
 def _require_triangle_list(pipeline: GraphicsPipeline) -> None:
     if pipeline.topology != PrimitiveTopology.TRIANGLE_LIST:
         raise NotImplementedError(
-            "point/line topologies wait for ROADMAP Queue 1 item 13 (scan rasterizer)"
+            "point/line topologies are not ported yet (ROADMAP Queue 1 item 13, second part)"
         )
 
 
@@ -150,6 +175,31 @@ def _z_gradient(x0, y0, x1, y1, x2, y2, z0, z1, z2, area2):
     return dzdx, dzdy
 
 
+def z_plane_coeffs(xy, z, area2):
+    """Screen-space depth plane per triangle (raster.py:322), anchored at
+    edge 0's canonical anchor: edge 0 = v1->v2, anchor = the lexicographic
+    (y, x) minimum of v1 and v2, so the depth-only walk reuses edge 0's
+    dx0, dy0. xy [...,3,2], z [...,3], area2 [...] (signed). Returns
+    (zdx, zdy, zA), each [...]; zA is the anchor vertex's z."""
+    x0, y0 = xy[..., 0, 0], xy[..., 0, 1]
+    x1, y1 = xy[..., 1, 0], xy[..., 1, 1]
+    x2, y2 = xy[..., 2, 0], xy[..., 2, 1]
+    z0, z1, z2 = z[..., 0], z[..., 1], z[..., 2]
+    zdx, zdy = _z_gradient(x0, y0, x1, y1, x2, y2, z0, z1, z2, area2)
+    swap = (y1 > y2) | ((y1 == y2) & (x1 > x2))
+    return zdx, zdy, torch.where(swap, z2, z1)
+
+
+def eval_z_plane(zdx, zdy, za, dxp, dyp):
+    """The per-pixel depth-plane evaluation (zdx*dx + zdy*dy) + zA
+    (raster.py:347) as Pallas K7 rounds it: the x product fused into the
+    sum, the add of zA on its own (measured, csrc/raster_depth.cu
+    "Exactness"). The JAX function's XLA form pins its rounding with
+    optimization barriers; the JAX contract between the forms is atol
+    1e-5."""
+    return _fma(zdx, dxp, zdy * dyp) + za
+
+
 def _biased_z(z, planes, area2, pipeline: GraphicsPipeline):
     """The pipeline's depth bias on the per-vertex NDC z (raster.py:255;
     Vulkan spec 27.7.3): o = m*slope + r*constant, m = max(|dz/dx|,
@@ -167,6 +217,162 @@ def _biased_z(z, planes, area2, pipeline: GraphicsPipeline):
     elif c < 0.0:
         o = torch.clamp(o, min=c)
     return z + o[..., None]
+
+
+def _pixel_centers(height: int, width: int, y_offset=0, x_offset=0, y_stride: int = 1,
+                   y_pair: bool = False, device=None):
+    """Framebuffer-space pixel centres (raster.py:361): py [H,1] and px
+    [1,W], broadcasting to [H,W]. Row j of a band is framebuffer row
+    y_offset + j*y_stride, or y_offset + (j//2)*2*y_stride + j%2 when
+    y_pair; every term is exact in f32 below 2^24."""
+    if y_pair:
+        j = torch.arange(height, dtype=torch.int32, device=device)[:, None]
+        py = ((j // 2) * (2 * y_stride) + (j % 2)).to(_F32) + 0.5 + y_offset
+    else:
+        py = torch.arange(height, dtype=_F32, device=device)[:, None] * y_stride + 0.5 + y_offset
+    px = torch.arange(width, dtype=_F32, device=device)[None, :] + 0.5 + x_offset
+    return px, py
+
+
+def _edge(ax, ay, bx, by, px, py):
+    """Edge function cross2(b-a, p-a) from the canonical anchor (the
+    lexicographic (y, x) minimum of the endpoints) with an exact sign flip
+    (raster.py:397), so two triangles sharing an edge compute the same
+    magnitude. The first product is fused, as XLA:CPU fuses it."""
+    swap = (ay > by) | ((ay == by) & (ax > bx))
+    cax = torch.where(swap, bx, ax)
+    cay = torch.where(swap, by, ay)
+    cbx = torch.where(swap, ax, bx)
+    cby = torch.where(swap, ay, by)
+    e = _fma(cbx - cax, py - cay, -((cby - cay) * (px - cax)))
+    return torch.where(swap, -e, e)
+
+
+def _top_left(ax, ay, bx, by):
+    """Top-left fill rule of a sign-normalized edge a->b, y down
+    (raster.py:414): a top edge (dy == 0, dx > 0) or a left edge (dy < 0)."""
+    dx = bx - ax
+    dy = by - ay
+    return (dy < 0.0) | ((dy == 0.0) & (dx > 0.0))
+
+
+def depth_compare(op: CompareOp, z_new: torch.Tensor, z_buf: torch.Tensor) -> torch.Tensor:
+    """VkCompareOp semantics (raster.py:424; pipeline.rs:375-409)."""
+    if op == CompareOp.NEVER:
+        return torch.zeros_like(z_new, dtype=torch.bool)
+    if op == CompareOp.LESS:
+        return z_new < z_buf
+    if op == CompareOp.EQUAL:
+        return z_new == z_buf
+    if op == CompareOp.LESS_OR_EQUAL:
+        return z_new <= z_buf
+    if op == CompareOp.GREATER:
+        return z_new > z_buf
+    if op == CompareOp.NOT_EQUAL:
+        return z_new != z_buf
+    if op == CompareOp.GREATER_OR_EQUAL:
+        return z_new >= z_buf
+    return torch.ones_like(z_new, dtype=torch.bool)  # ALWAYS
+
+
+def _hypot(x, y):
+    """jnp.hypot's formula: max * sqrt(1 + (min/max)^2), 0 for 0, inf for inf."""
+    x, y = torch.abs(x), torch.abs(y)
+    inf = torch.isposinf(x) | torch.isposinf(y)
+    hi, lo = torch.maximum(x, y), torch.minimum(x, y)
+    r = lo / torch.where(hi == 0.0, torch.ones_like(hi), hi)
+    out = torch.where(hi == 0.0, hi, hi * torch.sqrt(1.0 + r * r))
+    return torch.where(inf, torch.full_like(out, float("inf")), out)
+
+
+def _coverage_one(setup: TriangleSetup, t: int, px, py, pipeline: GraphicsPipeline | None = None):
+    """Coverage, depth and screen-space barycentrics of triangle t over all
+    pixels (raster.py:501): (inside [H,W] bool, z, b0, b1). Edge i is
+    opposite vertex i; the top-left rule decides e == 0; PolygonMode.LINE
+    keeps the fragments within line_width/2 of an edge. Depth interpolates
+    linearly in screen space, z0..2 being NDC depths, fused as XLA fuses it."""
+    if pipeline is not None:
+        _require_triangle_list(pipeline)
+    (x0, y0), (x1, y1), (x2, y2) = setup.xy[t]
+    a2 = setup.area2[t]
+    # jnp.sign keeps the sign of a zero; a zero area is never valid anyway
+    s = torch.where(a2 == 0.0, a2, torch.sign(a2))
+    area_abs = torch.abs(a2)
+    inv_area = torch.where(area_abs > 0.0, 1.0 / torch.clamp(area_abs, min=1e-30),
+                           torch.zeros_like(area_abs))
+    e0 = s * _edge(x1, y1, x2, y2, px, py)
+    e1 = s * _edge(x2, y2, x0, y0, px, py)
+    e2 = s * _edge(x0, y0, x1, y1, px, py)
+    flip = s < 0.0
+    tl0 = torch.where(flip, _top_left(x2, y2, x1, y1), _top_left(x1, y1, x2, y2))
+    tl1 = torch.where(flip, _top_left(x0, y0, x2, y2), _top_left(x2, y2, x0, y0))
+    tl2 = torch.where(flip, _top_left(x1, y1, x0, y0), _top_left(x0, y0, x1, y1))
+    inside = (((e0 > 0.0) | ((e0 == 0.0) & tl0)) & ((e1 > 0.0) | ((e1 == 0.0) & tl1))
+              & ((e2 > 0.0) | ((e2 == 0.0) & tl2)) & setup.valid[t])
+    if pipeline is not None and pipeline.polygon_mode == PolygonMode.LINE:
+        # wireframe (VK_POLYGON_MODE_LINE + wideLines, pipeline.rs:313-327):
+        # e/|edge| is the pixel's distance from the edge line
+        hw = 0.5 * pipeline.line_width
+        d0 = e0 / torch.clamp(_hypot(x2 - x1, y2 - y1), min=1e-12)
+        d1 = e1 / torch.clamp(_hypot(x0 - x2, y0 - y2), min=1e-12)
+        d2 = e2 / torch.clamp(_hypot(x1 - x0, y1 - y0), min=1e-12)
+        inside = inside & ((d0 <= hw) | (d1 <= hw) | (d2 <= hw))
+    b0 = e0 * inv_area
+    b1 = e1 * inv_area
+    b2 = 1.0 - b0 - b1
+    z = _fma(b2, setup.z[t, 2], _fma(b0, setup.z[t, 0], b1 * setup.z[t, 1]))
+    inside = inside & (z >= 0.0) & (z <= 1.0)
+    return inside, z, b0, b1
+
+
+def rasterize(setup: TriangleSetup, height: int, width: int, pipeline: GraphicsPipeline,
+              depth_init: torch.Tensor | None = None, coverage_fn=None, y_offset=0,
+              x_offset=0, y_stride: int = 1, y_pair: bool = False) -> "VisibilityBuffer":
+    """Rasterize every triangle into a visibility buffer by the exact
+    sequential scan in submission order (raster.py:566; ≙ the GPU's ROP
+    stage): per triangle, coverage, the depth test under the pipeline's
+    compare op when enabled, the depth write when enabled, and the winner's
+    id and barycentrics. depth_init is the [H,W] clear (default 1.0);
+    offsets, y_stride and y_pair place the rows of a band. The
+    per-fragment coverage callback (the alpha test of a textured MASK frame
+    on the scan) waits for ROADMAP Queue 1 item 13, second part."""
+    if coverage_fn is not None:
+        raise NotImplementedError("the scan rasterizer's coverage callback is not ported yet "
+                                  "(ROADMAP Queue 1 item 13, second part)")
+    _require_triangle_list(pipeline)
+    dev = setup.z.device
+    px, py = _pixel_centers(height, width, y_offset, x_offset, y_stride, y_pair, device=dev)
+    depth = (torch.ones((height, width), dtype=_F32, device=dev) if depth_init is None
+             else depth_init.to(_F32))
+    tri_id = torch.full((height, width), -1, dtype=torch.int32, device=dev)
+    bary = torch.zeros((height, width, 2), dtype=_F32, device=dev)
+    for t in range(setup.num_triangles):
+        inside, z, b0, b1 = _coverage_one(setup, t, px, py, pipeline)
+        accept = inside
+        if pipeline.depth_test_enable:
+            accept = inside & depth_compare(pipeline.depth_compare_op, z, depth)
+        if pipeline.depth_write_enable:
+            depth = torch.where(accept, z, depth)
+        tri_id = torch.where(accept, t, tri_id)
+        bary = torch.where(accept[..., None], torch.stack([b0, b1], dim=-1), bary)
+    return VisibilityBuffer(tri_id=tri_id, depth=depth, bary=bary)
+
+
+def rasterize_depth_only(setup: TriangleSetup, height: int, width: int,
+                         pipeline: GraphicsPipeline,
+                         depth_init: torch.Tensor | None = None) -> torch.Tensor:
+    """The depth-only scan (raster.py:737; ≙ the shadow pass's depth-only
+    render): per triangle, coverage and the pipeline's depth compare, then
+    the depth write. Returns depth [H,W]."""
+    _require_triangle_list(pipeline)
+    dev = setup.z.device
+    px, py = _pixel_centers(height, width, device=dev)
+    depth = (torch.ones((height, width), dtype=_F32, device=dev) if depth_init is None
+             else depth_init.to(_F32))
+    for t in range(setup.num_triangles):
+        inside, z, _, _ = _coverage_one(setup, t, px, py, pipeline)
+        depth = torch.where(inside & depth_compare(pipeline.depth_compare_op, z, depth), z, depth)
+    return depth
 
 
 @dataclasses.dataclass

@@ -43,7 +43,12 @@ depth. ``raster_depth`` launches ``csrc/raster_depth.cu`` on CUDA tensors
 CPU tensors. Its inputs carry a leading batch axis: N independent triangle
 sets (the cascades of a CSM pass, raster_pallas.py:646) are one launch
 with N > 1. The reduction is order-free, and signed zeros are ordered
--0.0 < +0.0 in both versions, as XLA's min/max order them.
+-0.0 < +0.0 in both versions, as XLA's min/max order them. K7 is the same
+kernel and launch in the z-plane form (``zplane=True``, the JAX package's
+z_plane_mode, raster.py:297, raster_pallas.py:234-245): table columns 15-17 hold
+the anchored depth plane (zdx, zdy, zA) and the walk evaluates
+(zdx*dx0 + zdy*dy0) + zA from edge 0's differences
+(``raster_depth.zplane_launches`` counts those launches).
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ import dataclasses
 
 import torch
 
-from renderer_rs_tpu_torch.ops.raster import TriangleSetup
+from renderer_rs_tpu_torch.ops.raster import TriangleSetup, _fma, eval_z_plane, z_plane_coeffs
 from renderer_rs_tpu_torch.ops.raster_binned import _cdiv, bin_triangles_compact
 from renderer_rs_tpu_torch.rhi.pipeline import CompareOp
 
@@ -111,9 +116,11 @@ def _canonical_edges_block(xy, s, valid=None):
     return torch.stack(cols, dim=-1).reshape(xy.shape[0], 15)
 
 
-def _depth_coef_table(setup: TriangleSetup) -> torch.Tensor:
+def _depth_coef_table(setup: TriangleSetup, zplane: bool = False) -> torch.Tensor:
     """The 19 depth columns per slot (raster_pallas.py:565, columns 0-18):
-    canonical edges, z0..2, inv_area (positive)."""
+    canonical edges, z0..2, inv_area (positive). zplane=True puts the
+    anchored depth plane (zdx, zdy, zA) in columns 15-17 instead of the
+    vertex depths (raster_pallas.py:583-592, raster.py:322)."""
     # jnp.sign keeps the sign of a zero, torch.sign returns +0.0; a signed
     # zero only reaches the deltas of invalid rows, but the table stays
     # bit-equal
@@ -123,7 +130,11 @@ def _depth_coef_table(setup: TriangleSetup) -> torch.Tensor:
         area_abs > 0.0, 1.0 / torch.clamp(area_abs, min=1e-30), torch.zeros_like(area_abs)
     )
     e15 = _canonical_edges_block(setup.xy, s, valid=setup.valid)
-    return torch.cat([e15, setup.z, inv_area[:, None]], dim=-1)
+    if zplane:
+        zcols = torch.stack(z_plane_coeffs(setup.xy, setup.z, setup.area2), dim=-1)
+    else:
+        zcols = setup.z
+    return torch.cat([e15, zcols, inv_area[:, None]], dim=-1)
 
 
 def _base_coef_table(setup: TriangleSetup, ids_col: torch.Tensor) -> torch.Tensor:
@@ -192,14 +203,6 @@ def bin_compact(setup: TriangleSetup, height: int, width: int, small_limit=None,
 
 
 # --- the kernel and its plain version ------------------------------------------
-
-def _fma(a, b, c):
-    """f32 fused multiply-add, a*b + c with one rounding: the product of two
-    f32 is exact in f64, so the f64 sum rounds once more only when the
-    operands' exponents differ widely (then the f32 result can differ from a
-    true fma only on an exact f32 tie, ~2^-29 of such cases)."""
-    return (a.double() * b.double() + c.double()).float()
-
 
 def _edge(sdx, dy, sdy, dx):
     """e = sdx*dy - sdy*dx as the reference rounds it (see csrc edge_fn)."""
@@ -586,13 +589,15 @@ def raster_ids_plain(table, sorted_tris, seg, nbx, height, width,
 class DepthInputs:
     """K1's inputs for N triangle sets rasterized in one launch: table
     [N, t+1, 19], the concatenated sorted ids, seg [N, bins+1] addressing
-    them, and the binning overflow counters [N, 2] (big, huge)."""
+    them, the binning overflow counters [N, 2] (big, huge), and the depth
+    form of the table's columns 15-17 (zplane: K7's anchored plane)."""
 
     table: torch.Tensor
     sorted_tris: torch.Tensor
     seg: torch.Tensor
     nbx: int
     bin_overflow: torch.Tensor
+    zplane: bool = False
 
     @property
     def n_pairs(self) -> torch.Tensor:
@@ -600,10 +605,11 @@ class DepthInputs:
         return (self.seg[:, -1] - self.seg[:, 0]).sum()
 
 
-def prepare_depth(setups, height: int, width: int) -> DepthInputs:
+def prepare_depth(setups, height: int, width: int, zplane: bool = False) -> DepthInputs:
     """Bin and build the depth table of each setup (≙ rasterize_binned_pallas
     with depth_only=True up to the pallas_call; several setups ≙
-    rasterize_depth_only_batch). All setups share one triangle count."""
+    rasterize_depth_only_batch). All setups share one triangle count.
+    zplane=True builds K7's z-plane table (≙ the JAX z_plane_mode, raster.py:297)."""
     t = setups[0].num_triangles
     if any(s.num_triangles != t for s in setups):
         raise ValueError("prepare_depth: all setups must share a triangle count")
@@ -611,7 +617,7 @@ def prepare_depth(setups, height: int, width: int) -> DepthInputs:
     offset = 0
     for setup in setups:
         sorted_tris, seg, _nby, nbx, ovf = bin_compact(setup, height, width)
-        tables.append(_with_pad_row(_depth_coef_table(setup)))
+        tables.append(_with_pad_row(_depth_coef_table(setup, zplane)))
         ids.append(sorted_tris)
         segs.append(seg + offset)
         overflow.append(ovf)
@@ -622,6 +628,7 @@ def prepare_depth(setups, height: int, width: int) -> DepthInputs:
         seg=torch.stack(segs),
         nbx=nbx,
         bin_overflow=torch.stack(overflow),
+        zplane=bool(zplane),
     )
 
 
@@ -659,7 +666,8 @@ def _check_depth_inputs(table, sorted_tris, seg, nbx, height, width, compare_op)
         raise ValueError(f"depth compare {compare_op} is not a binned compare op")
 
 
-def _launch_depth(table, sorted_tris, seg, nbx, height, width, compare_op, depth_clear):
+def _launch_depth(table, sorted_tris, seg, nbx, height, width, compare_op, depth_clear,
+                  zplane):
     from renderer_rs_tpu_torch.kernels import load
 
     lib = load("raster_depth")
@@ -668,7 +676,7 @@ def _launch_depth(table, sorted_tris, seg, nbx, height, width, compare_op, depth
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
     ]
     dev = table.device
     n_batch = table.shape[0]
@@ -678,42 +686,47 @@ def _launch_depth(table, sorted_tris, seg, nbx, height, width, compare_op, depth
         err = fn(
             table.data_ptr(), table.shape[1], table.shape[2], sorted_tris.data_ptr(),
             seg.data_ptr(), n_batch, seg.shape[1] - 1, nbx, height, width,
-            int(_OPS[compare_op] >= 2), float(depth_clear), depth.data_ptr(), stream,
+            int(_OPS[compare_op] >= 2), int(zplane), float(depth_clear), depth.data_ptr(),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"raster_depth launch failed: cudaError {err}")
     raster_depth.launches += 1
-    raster_depth.batched_launches += int(n_batch > 1)
+    raster_depth.batched_launches += int(n_batch > 1 and not zplane)
+    raster_depth.zplane_launches += int(zplane)
     return depth
 
 
 def raster_depth(table, sorted_tris, seg, nbx, height, width,
-                 compare_op=CompareOp.LESS, depth_clear=1.0):
+                 compare_op=CompareOp.LESS, depth_clear=1.0, zplane=False):
     """K1 over the binned candidates of N triangle sets. table [N, t+1, C]
     f32, sorted_tris int32, seg [N, bins+1] int32 (prepare_depth), nbx bins
     per row. Returns depth [N,H,W] f32: per pixel the min (max under
     GREATER compares) of the clear depth and the covering candidates' z.
-    CUDA tensors launch the kernel; CPU tensors run raster_depth_plain."""
+    zplane=True (K7) reads columns 15-17 as the anchored depth plane
+    (prepare_depth(zplane=True)). CUDA tensors launch the kernel; CPU
+    tensors run raster_depth_plain."""
     _check_depth_inputs(table, sorted_tris, seg, nbx, height, width, compare_op)
     if table.device.type == "cuda":
         return _launch_depth(table, sorted_tris, seg, nbx, height, width, compare_op,
-                             depth_clear)
+                             depth_clear, bool(zplane))
     if table.device.type != "cpu":
         raise ValueError(f"raster_depth: unsupported device {table.device}")
     return raster_depth_plain(table, sorted_tris, seg, nbx, height, width, compare_op,
-                              depth_clear)
+                              depth_clear, zplane)
 
 
 raster_depth.launches = 0  # kernel launches, read and reset by chip_smoke.py
-raster_depth.batched_launches = 0  # of those, the launches with N > 1 sets (K6)
+raster_depth.batched_launches = 0  # of those, the bary-form launches with N > 1 sets (K6)
+raster_depth.zplane_launches = 0  # of those, the z-plane launches, any N (K7)
 
 
 def raster_depth_plain(table, sorted_tris, seg, nbx, height, width,
-                       compare_op=CompareOp.LESS, depth_clear=1.0):
+                       compare_op=CompareOp.LESS, depth_clear=1.0, zplane=False):
     """The same function as torch ops, in the kernel's f32 operation order.
     All bins of all sets advance together, _PLAIN_CHUNK candidates at a
     time; the reduction runs on order keys (_to_key) so that signed zeros
-    come out as in the kernel."""
+    come out as in the kernel. zplane=True is K7's plain version."""
     _check_depth_inputs(table, sorted_tris, seg, nbx, height, width, compare_op)
     chunk = _PLAIN_CHUNK
     dev = table.device
@@ -754,10 +767,13 @@ def raster_depth_plain(table, sorted_tris, seg, nbx, height, width,
         ]
         cov = (e[0] >= col(4)) & (e[1] >= col(9)) & (e[2] >= col(14))
         cov = cov & in_seg[:, :, None, None]
-        b0 = e[0] * col(18)
-        b1 = e[1] * col(18)
-        b2 = 1.0 - b0 - b1
-        zc = _depth(b0, b1, b2, col(15), col(16), col(17))
+        if zplane:
+            zc = eval_z_plane(col(15), col(16), col(17), px - col(0), py - col(1))
+        else:
+            b0 = e[0] * col(18)
+            b1 = e[1] * col(18)
+            b2 = 1.0 - b0 - b1
+            zc = _depth(b0, b1, b2, col(15), col(16), col(17))
         cov = cov & ((zc <= 1.0) if greater else (zc >= 0.0))
         k = _to_key(torch.where(cov, zc, torch.full_like(zc, big)))
         if greater:

@@ -4,7 +4,13 @@
 PCF shadow term -> composite -> skybox -> tonemap, run eagerly on the
 scene's device. An MSAA pipeline adds a sample-rate ids-only pass (K4) and
 the id-matching resolve; a band of rows (forward_frame(band=...)) bins in
-band space and runs K3, then the deferred attribute path.
+band space and runs K3, then the deferred attribute path. What the binned
+path does not take (scenes below 64 raster slots, no depth test or write,
+non-binned compares, wireframe, blending, an alpha cutoff without
+textures) takes the exact scan rasterizer (ops/raster.py::rasterize), and
+FLAT shading takes K3 over the whole frame or the scan; both then take the
+deferred attribute path. The depth-only passes take K1/K6, or K7 under
+z_form="plane", or the depth-only scan below 64 triangles.
 
 Ported: the fused fast path the JAX package takes for every non-FLAT scene
 on the TPU (`forward_frame`'s `fuse` branch with its defaults: in-kernel
@@ -19,8 +25,12 @@ env-BRDF, one merged specular/skybox fetch from the trilinear cube atlas at
 the y-half rate with the id-aware upsample), the textured branch (the
 single-gather trilinear material atlas and TBN normal mapping), and the
 alpha-cutoff (MASK) frame: the bounded 4-layer depth peel on K5
-(`_alpha_peeled_raster`). Every other branch raises NotImplementedError
-naming its ROADMAP queue item.
+(`_alpha_peeled_raster`), the non-fused branch (≙ `_rasterize_dispatch`:
+K3 or the scan, then perspective_bary and one interpolate) with FLAT
+shading (the vertex colours), and the z-plane depth form of the shadow
+passes.
+Every other branch raises NotImplementedError naming its ROADMAP queue
+item.
 """
 
 from __future__ import annotations
@@ -47,6 +57,8 @@ from renderer_rs_tpu_torch.ops.raster import (
     gather_triangle_planes,
     interpolate,
     perspective_bary,
+    rasterize,
+    rasterize_depth_only,
     setup_triangles,
     setup_triangles_planes,
 )
@@ -89,6 +101,10 @@ CLIP_COMPACT_DEN = 16
 CLIP_COMPACT_MIN_TRIS = 1024
 # depth-peel layers of an alpha-cutoff frame (passes.py:1327)
 PEEL_LAYERS = 4
+# the depth forms of the depth-only passes (the JAX package's z-form
+# knob, raster.py:297 z_plane_mode): the barycentric blend of the vertex
+# depths (K1, K6), or the anchored depth plane (K7)
+Z_FORMS = ("bary", "plane")
 
 
 class ShadingModel(enum.Enum):
@@ -198,36 +214,41 @@ def _shadow_setup(clip: torch.Tensor, tris: torch.Tensor, size: int):
 
 
 def _depth_maps(scene: GpuScene, layout: SceneLayout, size: int, light_matrices,
-                world_pos) -> torch.Tensor:
+                world_pos, z_form: str = "bary") -> torch.Tensor:
     """[N,size,size] depth-only renders under N light matrices, in ONE
     raster_depth launch: light-space vertex stage -> plane-form setup ->
-    compact binning per matrix, then K1 over the N sets."""
-    if not supports_binned(_SHADOW_PIPELINE, layout.num_triangles):
-        raise _not_ported(
-            "the scan rasterizer's depth-only pass (scenes below 64 triangles)",
-            "Queue 1 item 13",
-        )
+    compact binning per matrix, then K1 over the N sets, or K7 when z_form
+    is "plane". Below 64 triangles each matrix takes the depth-only scan
+    (passes.py:383), which has one depth form, as in the JAX package."""
+    if z_form not in Z_FORMS:
+        raise ValueError(f"unknown z_form {z_form!r}; one of {Z_FORMS}")
     setups = [
         _shadow_setup(shadow_vertex_stage(scene, layout, m, world_pos), scene.tris, size)
         for m in light_matrices
     ]
-    k1 = prepare_depth(setups, size, size)
+    if not supports_binned(_SHADOW_PIPELINE, layout.num_triangles):
+        return torch.stack([rasterize_depth_only(s, size, size, _SHADOW_PIPELINE)
+                            for s in setups])
+    zplane = z_form == "plane"
+    k1 = prepare_depth(setups, size, size, zplane=zplane)
     return raster_depth(
         k1.table, k1.sorted_tris, k1.seg, k1.nbx, size, size,
-        _SHADOW_PIPELINE.depth_compare_op,
+        _SHADOW_PIPELINE.depth_compare_op, zplane=zplane,
     )
 
 
 def shadow_map_pass(scene: GpuScene, layout: SceneLayout, size: int, light_matrix=None,
-                    world_pos=None) -> torch.Tensor:
+                    world_pos=None, z_form: str = "bary") -> torch.Tensor:
     """Depth-only sun shadow render [size,size] (passes.py:366): light-space
-    vertex stage -> plane-form setup -> compact binning -> K1."""
+    vertex stage -> plane-form setup -> compact binning -> K1, or K7 under
+    z_form="plane" (≙ the JAX z_plane_mode); the depth-only scan below 64
+    triangles."""
     lsm = scene.light_space_matrix if light_matrix is None else light_matrix
-    return _depth_maps(scene, layout, size, [lsm], world_pos)[0]
+    return _depth_maps(scene, layout, size, [lsm], world_pos, z_form)[0]
 
 
 def csm_shadow_pass(scene: GpuScene, layout: SceneLayout, size: int,
-                    world_pos=None) -> torch.Tensor:
+                    world_pos=None, z_form: str = "bary") -> torch.Tensor:
     """The 4-cascade shadow array [C,size,size] (passes.py:386; ≙ the
     Texture2DArray the CSM shader samples, shadow_csm.hlsli:94-166): four
     plane-form setups, one binning and table build over them, and ONE
@@ -239,30 +260,24 @@ def csm_shadow_pass(scene: GpuScene, layout: SceneLayout, size: int,
     bit-identical there (tests/test_raster_pallas.py:194) and here
     (tests/test_torch_csm.py). The port has no such knob: blocks of
     different cascades run side by side on the card, so one launch is the
-    natural shape."""
+    natural shape. z_form="plane" makes it one K7 launch with N = 4."""
     mats = [scene.csm_matrices[c] for c in range(CASCADE_COUNT)]
-    return _depth_maps(scene, layout, size, mats, world_pos)
+    return _depth_maps(scene, layout, size, mats, world_pos, z_form)
 
 
-def _check_fused_path(layout: SceneLayout, pipeline: GraphicsPipeline,
-                      shading: ShadingModel, tonemap: str, n_raster: int, peel: bool) -> None:
+def _check_frame_path(layout: SceneLayout, pipeline: GraphicsPipeline, tonemap: str,
+                      peel: bool) -> None:
+    """What forward_frame still refuses: an unknown tonemapper, and the
+    textured alpha test of a frame that does not peel (a band, FLAT
+    shading or a non-binned pipeline), which the JAX frame runs as the
+    scan's per-fragment coverage callback (passes.py:1784-1813). An alpha
+    cutoff without textures has no alpha test and takes the scan
+    (passes.py:305-318)."""
     if tonemap not in TONEMAPPERS:
         raise ValueError(f"unknown tonemap {tonemap!r}; one of {sorted(TONEMAPPERS)}")
-    if shading == ShadingModel.FLAT:
-        raise _not_ported("flat shading", "Queue 1 item 13")
-    if pipeline.alpha_cutoff is not None and not peel:
-        if layout.has_textures:
-            # passes.py:1784-1813: the scan path's per-fragment coverage test
-            raise _not_ported("the alpha-cutoff coverage callback of the scan rasterizer",
-                              "Queue 1 item 13")
-        # passes.py:2092: no peel without textures, and MASK is no fused path
-        raise _not_ported("the non-fused binned rasterizer (an alpha cutoff without textures)",
-                          "Queue 1 item 4")
-    if not supports_binned(pipeline, n_raster, allow_alpha_cutoff=peel):
-        raise _not_ported(
-            "the scan rasterizer (blend, non-binned compares, small scenes, "
-            "points/lines)", "Queue 1 item 13",
-        )
+    if pipeline.alpha_cutoff is not None and layout.has_textures and not peel:
+        raise _not_ported("the alpha-cutoff coverage callback of the scan rasterizer",
+                          "Queue 1 item 13, second part")
 
 
 @dataclasses.dataclass
@@ -357,6 +372,7 @@ def forward_frame(
     return_depth: bool = False,
     stencil=None,
     geometry: FrameGeometry | None = None,
+    z_form: str = "bary",
 ):
     """The full frame (≙ passes.py:1442, fused branch). Returns linear
     [H,W,4] ready for sRGB encode. shadow_map may be rendered by the caller
@@ -391,7 +407,17 @@ def forward_frame(
     one packed interpolate and the material-bank gather. It shades at the
     full per-pixel rate (full_rows=False), so a stitched band frame differs
     from the whole frame by the reduced rates' own drift on frames of 128
-    rows or more; ids and depth are equal. Returns [band_h,W,4]."""
+    rows or more; ids and depth are equal. Returns [band_h,W,4].
+
+    A pipeline the binned path does not take (below 64 raster slots, no
+    depth test or write, a non-binned compare, wireframe, blending, an
+    alpha cutoff without textures) rasterizes the frame or band on the
+    exact scan (ops/raster.py::rasterize), and FLAT shading (the vertex
+    colours) the whole frame on K3 or the scan; both take the deferred
+    attribute path. z_form ("bary" or "plane") is the depth form of the
+    shadow pass this call renders (≙ the JAX package's z-form knob;
+    "plane" runs K7); the visibility kernels have one form
+    (raster.py:297-319)."""
     msaa = pipeline.msaa_samples > 1
     for what, given, item in (
         ("band rendering", band is not None and msaa, "11"),
@@ -419,11 +445,12 @@ def forward_frame(
             # the ids-only sample pass takes the scan path's coverage
             # callback under a MASK pipeline (passes.py:1784-1813)
             raise _not_ported("an alpha cutoff under MSAA (the sample pass's scan coverage "
-                              "callback)", "Queue 1 item 13")
+                              "callback)", "Queue 1 item 13, second part")
         sx, sy = {2: (2, 1), 4: (2, 2), 8: (4, 2)}[pipeline.msaa_samples]
         sub = dataclasses.replace(pipeline, msaa_samples=1)
         common = dict(clear_color=clear_color, tonemap=tonemap, shadow_map_size=shadow_map_size,
-                      shadow_params=shadow_params, shadow_map=shadow_map, depth_clear=depth_clear)
+                      shadow_params=shadow_params, shadow_map=shadow_map, depth_clear=depth_clear,
+                      z_form=z_form)
         # one vertex stage, near clip and compaction for both passes: they
         # are pure functions of the scene (the JAX frame traces them twice
         # and gets the same values)
@@ -453,14 +480,19 @@ def forward_frame(
         and shading != ShadingModel.FLAT
         and supports_binned(pipeline, n_raster, allow_alpha_cutoff=True)
     )
-    _check_fused_path(layout, pipeline, shading, tonemap, n_raster, peel)
+    _check_frame_path(layout, pipeline, tonemap, peel)
+    # the binned kernels take the frame, or the exact scan does
+    # (_rasterize_dispatch, passes.py:292-318); K2's fused resolve serves
+    # whole non-FLAT frames (passes.py:1815-1825)
+    binned = supports_binned(pipeline, n_raster)
+    fused = binned and band is None and not peel and shading != ShadingModel.FLAT
     # record_function spans name the frame's stages in torch.profiler traces
     # (profile_torch_frame.py); they cost ~1 us each when no profiler runs
     geo = geometry
     if geo is None:
         with record_function("frame/geometry"):
             geo = frame_geometry(scene, layout, pipeline, width, height)
-    if ids_only and band is None:
+    if ids_only and band is None and binned:
         with record_function("frame/ids_bin_table"):
             k4 = prepare_ids(geo.setup, height, width, geo.clip_src, small_limit=t_prim,
                              id_bound=t_prim)
@@ -475,9 +507,9 @@ def forward_frame(
                 # positions (passes.py:1623-1633); the single map keeps the
                 # pre-composed form
                 shadow_map = csm_shadow_pass(scene, layout, shadow_map_size,
-                                             world_pos=geo.attr[:, :3])
+                                             world_pos=geo.attr[:, :3], z_form=z_form)
             else:
-                shadow_map = shadow_map_pass(scene, layout, shadow_map_size)
+                shadow_map = shadow_map_pass(scene, layout, shadow_map_size, z_form=z_form)
     peel_exhausted = None
     shade_kw = dict(shadow_map=shadow_map, shadow_params=shadow_params,
                     full_rows=band is None)
@@ -491,42 +523,60 @@ def forward_frame(
             inv_vp = torch.linalg.inv(scene.camera.view_projection)
         shade_kw["sky_dirs"] = pixel_ray_directions(inv_vp, out_h, width, y_offset, height,
                                                     y_stride, y_pair)
-    if band is not None:
-        with record_function("frame/band_bin_table"):
-            k3 = prepare_visibility(geo.setup, out_h, width, y_offset, y_stride, y_pair,
-                                    small_limit=t_prim)
-        bin_overflow = k3.bin_overflow
-        with record_function("frame/k3"):
-            depth, slot, b0, b1 = raster_visibility(
-                k3.table, k3.sorted_tris, k3.seg, k3.nbx, out_h, width, y_offset, y_stride,
-                y_pair, pipeline.depth_compare_op, depth_clear)
+    if not fused and not peel:
+        # the non-fused branch (passes.py:2092-2175): the whole frame or a
+        # band on K3 where the binned path applies, else on the exact scan
+        if binned:
+            with record_function("frame/band_bin_table"):
+                k3 = prepare_visibility(geo.setup, out_h, width, y_offset, y_stride, y_pair,
+                                        small_limit=t_prim)
+            bin_overflow = k3.bin_overflow
+            with record_function("frame/k3"):
+                depth, slot, b0, b1 = raster_visibility(
+                    k3.table, k3.sorted_tris, k3.seg, k3.nbx, out_h, width, y_offset,
+                    y_stride, y_pair, pipeline.depth_compare_op, depth_clear)
+            bary = torch.stack([b0, b1], dim=-1)
+        else:
+            with record_function("frame/scan"):
+                scan = rasterize(
+                    geo.setup, out_h, width, pipeline, y_offset=y_offset, y_stride=y_stride,
+                    y_pair=y_pair,
+                    depth_init=(None if depth_clear == 1.0 else torch.full(
+                        (out_h, width), float(depth_clear), device=scene.device)))
+            depth, slot, bary = scan.depth, scan.tri_id, scan.bary
+            bin_overflow = torch.zeros(2, dtype=torch.long, device=scene.device)
         with record_function("frame/shade"):
-            # the deferred attribute path (passes.py:2162-2175): perspective
-            # weights of the raster slot, composed through the near clip's
-            # frame into source barycentrics, then the slot -> source remap
-            slot_vis = VisibilityBuffer(tri_id=slot, depth=depth,
-                                        bary=torch.stack([b0, b1], dim=-1))
-            bary3 = perspective_bary(slot_vis, geo.setup)
-            frames = bary_planes_to_array(geo.clip_planes)[torch.clamp(slot, min=0).long()]
-            bary3 = torch.einsum("hwv,hwvk->hwk", bary3, frames)
-            tri_id = torch.where(slot >= 0, geo.clip_src[torch.clamp(slot, min=0).long()]
-                                 .to(torch.int32), slot)
+            # the deferred attribute path (passes.py:2162-2175): the slot ->
+            # source remap, then the perspective weights of the raster slot,
+            # composed through the near clip's frame into source barycentrics
+            slot_c = torch.clamp(slot, min=0).long()
+            tri_id = torch.where(slot >= 0, geo.clip_src[slot_c].to(torch.int32), slot)
+            if ids_only:
+                return tri_id
+            bary3 = perspective_bary(VisibilityBuffer(tri_id=slot, depth=depth, bary=bary),
+                                     geo.setup)
+            bary3 = torch.einsum("hwv,hwvk->hwk", bary3,
+                                 bary_planes_to_array(geo.clip_planes)[slot_c])
             vis = VisibilityBuffer(tri_id=tri_id, depth=depth)
-        if ids_only:
-            return tri_id
-        with record_function("frame/shade"):
-            # one packed interpolate and the material-bank gather
-            # (passes.py:456-462, :548-556); the materials then ride the
-            # last 11 lanes, the peel's shade contract
-            varying = torch.cat([
-                interpolate(vis, scene.tris, geo.attr, bary3),
-                _material_bank(scene.materials)[scene.tri_material][torch.clamp(tri_id, min=0).long()],
-            ], dim=-1)
-            # a contiguous band from an odd framebuffer row keeps the full
-            # frame's quad row pairs for the texture LOD (passes.py:2209-2214)
-            color, sky_rgb = _shade_pixels(
-                scene, layout, shading, varying, None, depth=depth, tri_id=tri_id,
-                y_parity=y_offset % 2 if not y_pair else 0, **shade_kw)
+            if shading == ShadingModel.FLAT:
+                # the vertex colours, interpolated (passes.py:453-455)
+                rgb = interpolate(vis, scene.tris, scene.colors, bary3)
+                color, sky_rgb = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1), None
+            else:
+                # one packed interpolate and the material-bank gather
+                # (passes.py:456-462, :548-556); the materials then ride
+                # the last 11 lanes, the peel's shade contract
+                varying = torch.cat([
+                    interpolate(vis, scene.tris, geo.attr, bary3),
+                    _material_bank(scene.materials)[scene.tri_material][
+                        torch.clamp(tri_id, min=0).long()],
+                ], dim=-1)
+                # a contiguous band from an odd framebuffer row keeps the
+                # full frame's quad row pairs for the texture LOD
+                # (passes.py:2209-2214)
+                color, sky_rgb = _shade_pixels(
+                    scene, layout, shading, varying, None, depth=depth, tri_id=tri_id,
+                    y_parity=y_offset % 2 if not y_pair else 0, **shade_kw)
     elif peel:
         with record_function("frame/peel"):
             vis, varying, peel_exhausted, bin_overflow = _alpha_peeled_raster(

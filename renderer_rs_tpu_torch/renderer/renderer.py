@@ -11,9 +11,9 @@ The per-frame hot path (renderer.rs:367-449) is eager:
 The shadow pass is its own step (≙ the JAX Renderer's separate shadow jit):
 its map (the four cascade maps under CSM, one launch) is kept across frames
 and re-rendered only when the geometry, the object transforms, the light
-matrix or the cascade matrices are new tensors, so camera-only frames of a
-static scene reuse it. An MSAA pipeline renders through forward_frame's
-shade-once resolve.
+matrix or the cascade matrices are new tensors, or the depth form
+(z_form) changed, so camera-only frames of a static scene reuse it. An MSAA
+pipeline renders through forward_frame's shade-once resolve.
 
 Swapchain, resize, validation and descriptor layouts wait for ROADMAP
 Queue 1 item 14.
@@ -62,6 +62,7 @@ class Renderer:
         shadow_params: ShadowParams = ShadowParams(),
         camera=None,
         device="cuda",
+        z_form: str = "bary",
     ) -> None:
         self.device = resolve_device(device)
         self.config = config or RendererConfig()
@@ -71,7 +72,10 @@ class Renderer:
         self.tonemap = tonemap
         self.shadow_map_size = shadow_map_size
         self.shadow_params = shadow_params
-        self._shadow_cache = None  # (shadow-input tensors, shadow map)
+        # the shadow passes' depth form: "bary" (K1, K6) or "plane" (K7,
+        # ≙ the JAX package's z_plane_mode, raster.py:297)
+        self.z_form = z_form
+        self._shadow_cache = None  # (z_form, shadow-input tensors, shadow map)
         self.depth_clear = 1.0  # ≙ the DepthBuffer's clear value
         # host-side Camera the app's controllers mutate; update_camera()
         # refreshes the UBO from it
@@ -108,20 +112,24 @@ class Renderer:
         under CSM (renderer.py:185-188, :338-366). The cache key holds the
         tensors the shadow pass reads (geometry, transforms, light matrix,
         cascade matrices) and compares them with `is`: holding the
-        references keeps a freed tensor's identity from being reused.
-        Camera, material and light-color updates leave the map as it is."""
+        references keeps a freed tensor's identity from being reused. The
+        key also holds the depth form, so a map of one form never serves a
+        frame of the other. Camera, material and light-color updates leave
+        the map as it is."""
         layout = self._layout
         if not (layout.has_csm or layout.has_shadow):
             return None
         key = (scene.positions, scene.tris, scene.models, scene.light_space_matrix,
                scene.csm_matrices)
         cache = self._shadow_cache
-        if cache is None or not all(a is b for a, b in zip(cache[0], key)):
+        if (cache is None or cache[0] != self.z_form
+                or not all(a is b for a, b in zip(cache[1], key))):
             render = csm_shadow_pass if layout.has_csm else shadow_map_pass
             with record_function("frame/shadow"):
-                cache = (key, render(scene, layout, self.shadow_map_size))
+                cache = (self.z_form, key,
+                         render(scene, layout, self.shadow_map_size, z_form=self.z_form))
             self._shadow_cache = cache
-        return cache[1]
+        return cache[2]
 
     def _run_frame(self, scene: GpuScene, **extra):
         return forward_frame(

@@ -52,6 +52,16 @@ class SceneUbo:
             delta_time=torch.as_tensor(delta_time, dtype=_F32),
         )
 
+    def update_time(self, time, delta_time) -> "SceneUbo":
+        """The per-frame time update (ubo.py:108; ubo.rs:404-409), on the
+        UBO's device."""
+        dev = self.ambient_color.device
+        return SceneUbo(
+            ambient_color=self.ambient_color,
+            time=torch.as_tensor(time, dtype=_F32, device=dev),
+            delta_time=torch.as_tensor(delta_time, dtype=_F32, device=dev),
+        )
+
     def to(self, device) -> "SceneUbo":
         return SceneUbo(**{
             f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)

@@ -9,6 +9,20 @@ import numpy as np
 from renderer_rs_tpu_torch.resources.model import Mesh
 
 
+def triangle_mesh() -> Mesh:
+    """The Hello Triangle (meshgen.py:17; renderer.rs:242-246) with vertex
+    colours, top red, bottom-left green, bottom-right blue; its positions
+    are clip space already (an identity camera renders them 1:1)."""
+    return Mesh(
+        positions=np.array([[0.0, -0.5, 0.0], [-0.5, 0.5, 0.0], [0.5, 0.5, 0.0]], np.float32),
+        normals=np.tile(np.array([[0, 0, 1]], np.float32), (3, 1)),
+        tex_coords=np.zeros((3, 2), np.float32),
+        tangents=np.tile(np.array([[1, 0, 0, 1]], np.float32), (3, 1)),
+        indices=np.array([0, 1, 2], np.uint32),
+        colors=np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1]], np.float32),
+    )
+
+
 def cube_mesh(size: float = 1.0) -> Mesh:
     """Cube, 24 vertices (4 per face, per-face normals/UVs), CCW-front
     winding (meshgen.py:32)."""
@@ -90,6 +104,16 @@ def plane_mesh(size: float = 10.0, uv_scale: float = 4.0) -> Mesh:
         # winding so +Y side is front (CCW under Vulkan rule, viewed from above)
         indices=np.array([0, 2, 1, 0, 3, 2], np.uint32),
     )
+
+
+def checkerboard_image(size: int = 256, squares: int = 8) -> np.ndarray:
+    """RGBA checker texture [size,size,4] (meshgen.py:121): grey levels 0.2
+    and 0.8 in squares x squares cells, alpha 1."""
+    q = size // squares
+    y, x = np.mgrid[0:size, 0:size]
+    c = (((x // q) + (y // q)) % 2).astype(np.float32)
+    rgb = 0.2 + 0.6 * c
+    return np.stack([rgb, rgb, rgb, np.ones_like(rgb)], -1).astype(np.float32)
 
 
 def _value_noise(size: int, cells: int, seed: int) -> np.ndarray:

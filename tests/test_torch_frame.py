@@ -153,15 +153,16 @@ def test_app_main_writes_pngs(tmp_path):
                                     "hdr", "equirect", "sharded_msaa"])
 def test_unported_branches_raise(branch):
     """PBR and IBL shading, the tonemappers, the shade-once MSAA resolve,
-    CSM and row bands are ported (tests/test_torch_msaa.py,
-    test_torch_csm.py, test_torch_band.py): of those branches, what still
-    raises is an unknown operator, return_depth (with or without a band),
-    the MSAA combinations the JAX frame sends to its supersampling branch
-    (return_depth, band, stencil, and render_frame_sharded with MSAA), a
-    Radiance .hdr environment and its equirect_to_cubemap."""
+    CSM, row bands and the scan rasterizer are ported (tests/test_torch_msaa.py,
+    test_torch_csm.py, test_torch_band.py, test_torch_scan.py): of those
+    branches, what still raises is an unknown operator, return_depth (with
+    or without a band), the MSAA combinations the JAX frame sends to its
+    supersampling branch (return_depth, band, stencil, and
+    render_frame_sharded with MSAA), line and point primitives on the scan,
+    a Radiance .hdr environment and its equirect_to_cubemap."""
     from renderer_rs_tpu_torch.app.scenes import blinnphong_scene
     from renderer_rs_tpu_torch.renderer.passes import ShadingModel, forward_frame
-    from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipelineBuilder
+    from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipelineBuilder, PrimitiveTopology
 
     scene, layout, kw, _ = blinnphong_scene(32, 32, rings=4, sectors=6, device="cpu")
     pipe, shading, tonemap, extra = kw["pipeline"], kw["shading"], "none", {}
@@ -197,7 +198,9 @@ def test_unported_branches_raise(branch):
     elif branch == "return_depth":
         extra = dict(return_depth=True)
     else:
-        pipe = GraphicsPipelineBuilder().depth_write_enable(False).build()
+        # the scan: triangle pipelines render (below), line lists still raise
+        pipe, match = (GraphicsPipelineBuilder().topology(PrimitiveTopology.LINE_LIST).build(),
+                       "ROADMAP Queue 1 item 13, second part")
     with pytest.raises(error, match=match):
         forward_frame(scene, layout, pipe, shading, 32, 32, tonemap=tonemap, **extra)
     if branch == "msaa":  # the shade-once resolve itself renders
@@ -210,6 +213,10 @@ def test_unported_branches_raise(branch):
         ibl = forward_frame(scene, layout, kw["pipeline"], ShadingModel.PBR_IBL, 32, 32,
                             tonemap="aces")
         assert torch.equal(ibl, out)  # no environment: the hemisphere ambient
+    if branch == "scan":  # a pipeline without depth writes takes the scan and renders
+        out = forward_frame(scene, layout, GraphicsPipelineBuilder().depth_write_enable(False)
+                            .build(), shading, 32, 32)
+        assert out.shape == (32, 32, 4) and torch.isfinite(out).all()
     if branch == "msaa_band":  # the band itself renders without MSAA
         out = forward_frame(scene, layout, kw["pipeline"], shading, 32, 32, band=(0, 16))
         assert out.shape == (16, 32, 4) and torch.isfinite(out).all()

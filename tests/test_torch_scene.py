@@ -243,9 +243,10 @@ def test_full_scene_refuses_unported_options(kwargs):
         full_scene(64, 48, device="cpu", **kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: item"):
         gltf_pbr_scene(64, 48, "model.gltf", device="cpu")
-    for name in ("triangle", "cube"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: item"):
-            SCENES[name](64, 48, device="cpu")
+    # the Hello Triangle and the cube are ported (tests/test_torch_scan.py)
+    for name, tris in (("triangle", 1), ("cube", 12)):
+        scene, layout, _, _ = SCENES[name](64, 48, device="cpu")
+        assert layout.num_triangles == tris and scene.tris.shape == (tris, 3)
 
 
 @pytest.fixture(scope="module")
