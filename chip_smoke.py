@@ -37,10 +37,18 @@ Phases (any failure exits nonzero before the result lines):
      must give bit-equal
      tid/depth and lanes within rtol 1e-5 / atol 1e-6; K4 bit-equal tid and
      depth; K5 bit-equal tid and depth, lanes within rtol 1e-5 / atol 1e-6;
-     K3 bit-equal tid, depth and barycentrics. Prints binned pairs, densest
+     K3 bit-equal tid, depth and barycentrics. The split kernels (K1, K6,
+     K7, K5) are held so twice: with the main path's split plan and with
+     every bin cut into pieces of FORCED_CHUNK candidates; K5 also on an
+     all-+inf floor and, on the table with every raster slot twice, under
+     LESS_OR_EQUAL and GREATER_OR_EQUAL (every winner the later twin).
+     Prints binned pairs, densest
      bin, bin overflow, kernel ms (median of >= 20 CUDA-event timings after
      warm-up), plain ms and the kernel's roofline bound (the work of the
-     bins its blocks walk, over their pixels inside the frame or band).
+     bins its blocks walk, over their pixels inside the frame or band); for
+     the split kernels also the plan (chunk, work items, longest piece),
+     PR 6's committed-tree ms beside this run's, and a sweep of the chunk
+     over CHUNK_SWEEP.
   4. The main paths through Renderer.render_frame at 1920x1080 on cuda,
      every launch counter set to 0 just before each and read just after:
        - the Blinn-Phong frame: one K2 launch per frame, nothing else;
@@ -179,6 +187,17 @@ FLAT_FRAMES = 5
 TRIANGLE_FRAMES = 3
 CUTOFF = 0.5
 KERNEL_TIMINGS = 25
+# the split kernels (K1, K6, K7, K5) once more with bins cut into pieces of
+# at most this many candidates: every bin of more splits
+FORCED_CHUNK = 32
+# the chunk sweep of the split kernels; the wrappers' default,
+# ops/raster_cuda.py::SPLIT_CHUNK, is chosen from it
+CHUNK_SWEEP = (32, 64, 128, 256, 512, 1024)
+BREAKDOWN_CALLS = 10  # calls profiled for a split kernel's per-kernel device times
+# PR 6's committed-tree medians in ms (PERF.md §6), printed beside this
+# run's: constants of the log line, not measurements of this run
+PR6_MS = {"K1 sun map": 0.3457, "K6 cascades": 10.0942, "K7 sun map": 0.2739,
+          "K7 cascades": 7.5335, "K5 no floor": 0.8673, "K5 layer-0 floor": 0.9116}
 SUN = (-0.45, -1.0, -0.35)  # full_scene's sun
 
 
@@ -279,6 +298,118 @@ def _walked(seg, nbx: int, rows: int, width: int):
     return int(counts[walked].sum()), int(pixel_pairs), int(walked.sum()) * nbx
 
 
+def _timed_once(fn):
+    """(fn(), its ms by CUDA events): one call, for the plain walks that
+    take seconds, timed where their result is compared."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _syncs(fn) -> list:
+    """Where (file:line) fn() makes a synchronizing CUDA operation, by
+    torch.cuda's sync debug mode (a prototype: it may miss some)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in seen
+            if str(w.message).startswith("called a synchronizing CUDA operation")]
+
+
+def _plan_stats(plan) -> dict:
+    """The split plan's chunk, real work items, grid (the items' bound) and
+    longest piece."""
+    real = plan.items[plan.items[:, 0] >= 0]
+    longest = int((real[:, 3] - real[:, 2]).max()) if real.shape[0] else 0
+    return {"chunk": plan.chunk, "items": int(real.shape[0]), "grid": plan.items.shape[0],
+            "longest_piece": longest}
+
+
+def _chunk_sweep(label: str, launch, seg, n_keys: int) -> dict:
+    """The kernel's median ms at each chunk of CHUNK_SWEEP: launch(plan)
+    runs it on a plan built beforehand."""
+    from renderer_rs_tpu_torch.ops.raster_cuda import split_plan
+
+    out = {}
+    for chunk in CHUNK_SWEEP:
+        plan = split_plan(seg, n_keys, chunk)
+        out[chunk] = _median(_event_times_ms(lambda plan=plan: launch(plan), KERNEL_TIMINGS))
+    _log(f"{label}: chunk sweep, median ms of {KERNEL_TIMINGS} "
+         f"{ {c: round(ms, 4) for c, ms in out.items()} }")
+    return out
+
+
+# the split kernels' per-kernel device times, queued by the kernel checks
+# and taken by phase_breakdown after the main paths: a torch.profiler
+# session leaves the process's later launches slower, which would bias the
+# frame loops
+_BREAKDOWNS: list = []
+
+
+def _defer_breakdown(entry: dict, case: str, label: str, launch, ms_key="device_ms") -> None:
+    """Queue `launch` for phase_breakdown, which stores its device µs by
+    kernel in entry["device_us_by_kernel"][case] and, with ms_key, their
+    sum in ms in entry[ms_key]."""
+    _BREAKDOWNS.append((entry, case, label, launch, ms_key))
+
+
+def phase_breakdown() -> None:
+    for entry, case, label, launch, ms_key in _BREAKDOWNS:
+        us = _kernel_breakdown(label, launch)
+        entry.setdefault("device_us_by_kernel", {})[case] = us
+        if ms_key:
+            entry[ms_key] = sum(us.values()) / 1e3
+    _BREAKDOWNS.clear()
+
+
+def _kernel_breakdown(label: str, launch) -> dict:
+    """Device µs per call of each CUDA kernel that `launch()` runs (a split
+    kernel is three: the key pass, the walk, the finish or epilogue), from
+    torch.profiler over BREAKDOWN_CALLS calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(BREAKDOWN_CALLS):
+            launch()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+        out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / BREAKDOWN_CALLS
+    _log(f"{label}: device µs per call by kernel {({k: round(v, 2) for k, v in out.items()})}")
+    return out
+
+
+def _split_log(label: str, ms: float, bound_ms: float, bound_by: str, plan) -> None:
+    stats = _plan_stats(plan)
+    _log(f"{label}: {ms:.4f} ms (median of {KERNEL_TIMINGS}; PR 6 committed tree "
+         f"{PR6_MS[label]}), chunk {stats['chunk']}, work items {stats['items']} "
+         f"(grid {stats['grid']}), longest piece {stats['longest_piece']}, bound "
+         f"{bound_ms:.4f} ms by {bound_by}")
+
+
 def phase_versions() -> None:
     import torch
 
@@ -370,7 +501,8 @@ def _check_resolve(label, scene, layout, pipeline, timed: bool) -> dict:
 
 
 def _check_depth(scene, layout, size: int) -> dict:
-    """K1 beside its plain version on the sun shadow pass's real inputs."""
+    """K1 beside its plain version on the sun shadow pass's real inputs,
+    with the main path's split plan and with FORCED_CHUNK."""
     import torch
 
     from renderer_rs_tpu_torch.ops.raster_cuda import (
@@ -396,19 +528,23 @@ def _check_depth(scene, layout, size: int) -> dict:
          f"bins={k1.seg.shape[1] - 1} binned pairs={n_pairs} densest bin={densest} "
          f"bin_overflow big {big} huge {huge} table={tuple(k1.table.shape)}")
 
-    depth = raster_depth(*args)
+    depth = raster_depth(*args, plan=k1.plan)
+    forced = raster_depth(*args, chunk=FORCED_CHUNK)
     torch.cuda.synchronize()
     depth_p = raster_depth_plain(*args)
     torch.cuda.synchronize()
     equal = bool(torch.equal(depth.view(torch.int32), depth_p.view(torch.int32)))
+    equal_forced = bool(torch.equal(forced.view(torch.int32), depth_p.view(torch.int32)))
     max_abs_err = float((depth - depth_p).abs().max())
     covered = int((depth < 1.0).sum())
-    _log(f"raster_depth vs plain: depth bit-equal {equal}, max |err| {max_abs_err:.3e}, "
-         f"covered texels {covered}, depth range [{float(depth.min()):.4f}, {float(depth.max()):.4f}]")
-    if not (equal and covered > 0 and bool(torch.isfinite(depth).all())):
+    _log(f"raster_depth vs plain: depth bit-equal {equal}, with chunk {FORCED_CHUNK} "
+         f"{equal_forced} ({_plan_stats(_plan_at(k1, FORCED_CHUNK))}), max |err| "
+         f"{max_abs_err:.3e}, covered texels {covered}, depth range [{float(depth.min()):.4f}, "
+         f"{float(depth.max()):.4f}]")
+    if not (equal and equal_forced and covered > 0 and bool(torch.isfinite(depth).all())):
         raise SystemExit("phase kernels: raster_depth disagrees with its plain version")
 
-    ms = _median(_event_times_ms(lambda: raster_depth(*args), KERNEL_TIMINGS))
+    ms = _median(_event_times_ms(lambda: raster_depth(*args, plan=k1.plan), KERNEL_TIMINGS))
     plain_ms = _median(_event_times_ms(lambda: raster_depth_plain(*args), 3, warmup=1))
     walked, pixel_pairs, bins = _walked(k1.seg, k1.nbx, size, size)
     ops = pixel_pairs * DEPTH_OPS_PER_PAIR
@@ -416,7 +552,10 @@ def _check_depth(scene, layout, size: int) -> dict:
     bound_ms, bound_by = _bound(ops, nbytes)
     _log(f"raster_depth: {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, "
          f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
-    return {
+    _split_log("K1 sun map", ms, bound_ms, bound_by, k1.plan)
+    sweep = _chunk_sweep("K1 sun map", lambda plan: raster_depth(*args, plan=plan), k1.seg,
+                         k1.sorted_tris.numel())
+    out = {
         "name": "raster_depth",
         "route": "cuda",
         "source": "renderer_rs_tpu_torch/csrc/raster_depth.cu",
@@ -427,7 +566,19 @@ def _check_depth(scene, layout, size: int) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes this function
+        **_plan_stats(k1.plan),
+        "chunk_sweep_ms": sweep,
     }
+    _defer_breakdown(out, "sun map", "K1 sun map", lambda: raster_depth(*args, plan=k1.plan))
+    return out
+
+
+def _plan_at(inputs, chunk: int):
+    """The split plan of `inputs`' segments (DepthInputs, PeelInputs) at
+    `chunk`."""
+    from renderer_rs_tpu_torch.ops.raster_cuda import split_plan
+
+    return split_plan(inputs.seg, inputs.sorted_tris.numel(), chunk)
 
 
 def _check_ids(scene, layout, pipeline) -> dict:
@@ -491,8 +642,9 @@ def _check_ids(scene, layout, pipeline) -> dict:
 
 def _check_depth_batch(scene, layout, size: int) -> dict:
     """K6: the four cascades in ONE raster_depth launch, beside the plain
-    version and beside four single launches, on the cascade pass's inputs
-    as the Renderer's shadow step builds them."""
+    version (with the main path's split plan and with FORCED_CHUNK) and
+    beside four single launches, on the cascade pass's inputs as the
+    Renderer's shadow step builds them."""
     import torch
 
     from renderer_rs_tpu_torch.ops.raster_cuda import (
@@ -523,37 +675,51 @@ def _check_depth_batch(scene, layout, size: int) -> dict:
          f"bin_overflow [big, huge] per cascade {overflow} table={tuple(k6.table.shape)}")
 
     before = raster_depth.batched_launches
-    depth = raster_depth(*args)
+    depth = raster_depth(*args, plan=k6.plan)
     torch.cuda.synchronize()
     if raster_depth.batched_launches != before + 1:
         raise SystemExit("phase kernels: the N = 4 launch was not counted as batched")
-    depth_p = raster_depth_plain(*args)
+    forced = raster_depth(*args, chunk=FORCED_CHUNK)
+    # the plain walk of the cascades takes seconds: it runs once, timed
+    depth_p, plain_ms = _timed_once(lambda: raster_depth_plain(*args))
     singles = []
     for setup in setups:
         k1 = prepare_depth([setup], size, size)
         singles.append(raster_depth(k1.table, k1.sorted_tris, k1.seg, k1.nbx, size, size, op)[0])
     torch.cuda.synchronize()
     equal = bool(torch.equal(depth.view(torch.int32), depth_p.view(torch.int32)))
+    equal_forced = bool(torch.equal(forced.view(torch.int32), depth_p.view(torch.int32)))
     equal_singles = bool(torch.equal(depth.view(torch.int32),
                                      torch.stack(singles).view(torch.int32)))
     max_abs_err = float((depth - depth_p).abs().max())
     covered = [int((d < 1.0).sum()) for d in depth]
-    _log(f"raster_depth N=4 vs plain: depth bit-equal {equal}; vs four N=1 launches: bit-equal "
-         f"{equal_singles}; max |err| {max_abs_err:.3e}, covered texels per cascade {covered}")
-    if not (equal and equal_singles and min(covered) > 0 and bool(torch.isfinite(depth).all())):
+    _log(f"raster_depth N=4 vs plain: depth bit-equal {equal}, with chunk {FORCED_CHUNK} "
+         f"{equal_forced} ({_plan_stats(_plan_at(k6, FORCED_CHUNK))}); vs four N=1 launches: "
+         f"bit-equal {equal_singles}; max |err| {max_abs_err:.3e}, covered texels per cascade "
+         f"{covered}")
+    if not (equal and equal_forced and equal_singles and min(covered) > 0
+            and bool(torch.isfinite(depth).all())):
         raise SystemExit("phase kernels: the batched raster_depth launch disagrees")
+    # the binning, the tables, the plan and the launch must not wait for the
+    # device: the frames are host-bound
+    syncs = _syncs(lambda: raster_depth(*args, plan=prepare_depth(setups, size, size).plan))
+    _log(f"host syncs of prepare_depth (4 cascades: binning, tables, split plan) and the K6 "
+         f"launch: {syncs}")
+    if syncs:
+        raise SystemExit("phase kernels: the cascade pass's binning or K6 launch synchronizes "
+                         "the host")
 
-    ms = _median(_event_times_ms(lambda: raster_depth(*args), KERNEL_TIMINGS))
-    # the plain walk of the cascades takes seconds: one timing, warmed up by
-    # the comparison above
-    plain_ms = _median(_event_times_ms(lambda: raster_depth_plain(*args), 1, warmup=0))
+    ms = _median(_event_times_ms(lambda: raster_depth(*args, plan=k6.plan), KERNEL_TIMINGS))
     walked, pixel_pairs, bins = _walked(k6.seg, k6.nbx, size, size)
     ops = pixel_pairs * DEPTH_OPS_PER_PAIR
     nbytes = k6.table.numel() * 4 + walked * 4 + (bins + 4) * 4 + 4 * size * size * 4
     bound_ms, bound_by = _bound(ops, nbytes)
     _log(f"raster_depth N=4: {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, "
          f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
-    return {
+    _split_log("K6 cascades", ms, bound_ms, bound_by, k6.plan)
+    sweep = _chunk_sweep("K6 cascades", lambda plan: raster_depth(*args, plan=plan), k6.seg,
+                         k6.sorted_tris.numel())
+    out = {
         "name": "raster_depth_batch",
         "route": "cuda",
         "source": "renderer_rs_tpu_torch/csrc/raster_depth.cu",
@@ -564,14 +730,20 @@ def _check_depth_batch(scene, layout, size: int) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes this function
+        **_plan_stats(k6.plan),
+        "chunk_sweep_ms": sweep,
     }
+    _defer_breakdown(out, "cascades", "K6 cascades", lambda: raster_depth(*args, plan=k6.plan))
+    return out
 
 
-def _check_zplane(scene, layout, size: int, cascades: bool) -> dict:
+def _check_zplane(scene, layout, size: int, cascades: bool, sun_map: dict | None = None) -> dict:
     """K7: the z-plane form of raster_depth on the sun map's inputs (one
     set) or the four cascades' (one N = 4 launch), beside its plain version
-    (bit-equal) and beside K1/K6 on the same setups (the same covered
-    texels, depth within ZPLANE_VS_BARY: the JAX contract)."""
+    (bit-equal, with the main path's split plan and with FORCED_CHUNK) and
+    beside K1/K6 on the same setups (the same covered texels, depth within
+    ZPLANE_VS_BARY: the JAX contract). Given the sun map's entry
+    `sun_map`, which the kernels line carries, the device times go there."""
     import torch
 
     from renderer_rs_tpu_torch.ops.raster_cuda import (
@@ -597,33 +769,36 @@ def _check_zplane(scene, layout, size: int, cascades: bool) -> dict:
     _log(f"K7 {label} {len(mats)} x {size}x{size}: binned pairs={n_pairs} densest bin {densest} "
          f"table={tuple(k7.table.shape)}")
     before = raster_depth.zplane_launches
-    depth = raster_depth(*args, zplane=True)
+    depth = raster_depth(*args, zplane=True, plan=k7.plan)
     torch.cuda.synchronize()
     if raster_depth.zplane_launches != before + 1:
         raise SystemExit("phase kernels: the z-plane launch was not counted as K7")
-    depth_p = raster_depth_plain(*args, zplane=True)
+    forced = raster_depth(*args, zplane=True, chunk=FORCED_CHUNK)
+    # the plain walk of the cascades takes seconds: it runs once, timed
+    depth_p, plain_once_ms = _timed_once(lambda: raster_depth_plain(*args, zplane=True))
     k1 = prepare_depth(setups, size, size)
     bary = raster_depth(k1.table, k1.sorted_tris, k1.seg, k1.nbx, size, size, op)
     torch.cuda.synchronize()
     equal = bool(torch.equal(depth.view(torch.int32), depth_p.view(torch.int32)))
+    equal_forced = bool(torch.equal(forced.view(torch.int32), depth_p.view(torch.int32)))
     max_abs_err = float((depth - depth_p).abs().max())
     covered = [int((d < 1.0).sum()) for d in depth]
     same_cov = bool(torch.equal(depth < 1.0, bary < 1.0))
     vs_bary = float((depth - bary).abs().max())
-    _log(f"K7 {label} vs plain: depth bit-equal {equal}, max |err| {max_abs_err:.3e}, covered "
-         f"texels {covered}; vs the bary form (K1/K6): same texels {same_cov}, max |d| "
-         f"{vs_bary:.3e}, texels differing {int((depth != bary).sum())}")
-    if not (equal and min(covered) > 0 and bool(torch.isfinite(depth).all())):
+    _log(f"K7 {label} vs plain: depth bit-equal {equal}, with chunk {FORCED_CHUNK} "
+         f"{equal_forced} ({_plan_stats(_plan_at(k7, FORCED_CHUNK))}), max |err| "
+         f"{max_abs_err:.3e}, covered texels {covered}; vs the bary form (K1/K6): same texels "
+         f"{same_cov}, max |d| {vs_bary:.3e}, texels differing {int((depth != bary).sum())}")
+    if not (equal and equal_forced and min(covered) > 0 and bool(torch.isfinite(depth).all())):
         raise SystemExit(f"phase kernels: the z-plane raster_depth disagrees with its plain "
                          f"version ({label})")
     if not (same_cov and vs_bary <= ZPLANE_VS_BARY):
         raise SystemExit(f"phase kernels: the z-plane depth breaks the JAX contract against "
                          f"the bary form ({label})")
-    ms = _median(_event_times_ms(lambda: raster_depth(*args, zplane=True), KERNEL_TIMINGS))
-    # the plain walk of the cascades takes seconds: one timing, warmed up by
-    # the comparison above
-    plain_ms = _median(_event_times_ms(lambda: raster_depth_plain(*args, zplane=True),
-                                       1 if cascades else 3, warmup=0 if cascades else 1))
+    ms = _median(_event_times_ms(lambda: raster_depth(*args, zplane=True, plan=k7.plan),
+                                 KERNEL_TIMINGS))
+    plain_ms = plain_once_ms if cascades else _median(
+        _event_times_ms(lambda: raster_depth_plain(*args, zplane=True), 3, warmup=1))
     walked, pixel_pairs, bins = _walked(k7.seg, k7.nbx, size, size)
     ops = pixel_pairs * ZPLANE_OPS_PER_PAIR
     nbytes = (k7.table.shape[0] * k7.table.shape[1] * ZPLANE_COLS * 4 + walked * 4
@@ -631,7 +806,10 @@ def _check_zplane(scene, layout, size: int, cascades: bool) -> dict:
     bound_ms, bound_by = _bound(ops, nbytes)
     _log(f"K7 {label}: {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, "
          f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
-    return {
+    _split_log(f"K7 {label}", ms, bound_ms, bound_by, k7.plan)
+    sweep = _chunk_sweep(f"K7 {label}", lambda plan: raster_depth(*args, zplane=True, plan=plan),
+                         k7.seg, k7.sorted_tris.numel())
+    out = {
         "name": "raster_depth_zplane",
         "route": "cuda",
         "source": "renderer_rs_tpu_torch/csrc/raster_depth.cu",
@@ -644,7 +822,13 @@ def _check_zplane(scene, layout, size: int, cascades: bool) -> dict:
         "library_ms": None,  # no single PyTorch call computes this function
         "n_pairs": n_pairs,
         "vs_bary_max_abs": vs_bary,
+        **_plan_stats(k7.plan),
+        "chunk_sweep_ms": sweep,
     }
+    _defer_breakdown(out if sun_map is None else sun_map, label, f"K7 {label}",
+                     lambda: raster_depth(*args, zplane=True, plan=k7.plan),
+                     "device_ms" if sun_map is None else "device_ms_cascades")
+    return out
 
 
 def _check_probe() -> dict:
@@ -694,9 +878,12 @@ def _check_probe() -> dict:
 
 
 def _check_peel(scene, layout, pipeline) -> dict:
-    """K5 beside its plain version on the MASK frame's table: the layer-0
-    launch (no floor) and a launch with the layer-0 depth as every pixel's
-    floor (the whole frame peels to its next-nearest fragment)."""
+    """K5 beside its plain version on the MASK frame's table, with the main
+    path's split plan and with FORCED_CHUNK: the layer-0 launch (no floor),
+    a launch with the layer-0 depth as every pixel's floor (the whole frame
+    peels to its next-nearest fragment), an all-+inf floor (layers 1-3 of
+    an alpha-1.0 frame: nothing competes), and the LE and GE tie cases on
+    the table with every raster slot twice."""
     import torch
 
     from renderer_rs_tpu_torch.ops.raster_cuda import raster_peel, raster_peel_plain
@@ -710,34 +897,34 @@ def _check_peel(scene, layout, pipeline) -> dict:
     big, huge = (int(v) for v in k5.bin_overflow.tolist())
     _log(f"mask frame: T={layout.num_triangles} raster slots={geo.setup.num_triangles} "
          f"bins={k5.seg.numel() - 1} binned pairs={n_pairs} densest bin={densest} "
-         f"bin_overflow big {big} huge {huge} table={tuple(k5.table.shape)}")
-    depth0, tid0, _ = raster_peel(*base, None, pipeline.depth_compare_op)
-    floor = torch.where(tid0 >= 0, depth0, torch.full_like(depth0, float("inf")))
-    cases = {"no floor": None, "layer-0 floor": floor}
-    max_abs_err, timings, covered = 0.0, {}, {}
+         f"bin_overflow big {big} huge {huge} table={tuple(k5.table.shape)}; split plan "
+         f"{_plan_stats(k5.plan)}, with chunk {FORCED_CHUNK} {_plan_stats(_plan_at(k5, FORCED_CHUNK))}")
+    depth0, tid0, _ = raster_peel(*base, None, pipeline.depth_compare_op, plan=k5.plan)
+    syncs = _syncs(lambda: raster_peel(*base, None, pipeline.depth_compare_op,
+                                       plan=peel_inputs(scene, layout, geo, H, W).plan))
+    _log(f"host syncs of peel_inputs (binning, table, split plan) and the K5 launch: {syncs}")
+    if syncs:
+        raise SystemExit("phase kernels: the MASK frame's binning or K5 launch synchronizes "
+                         "the host")
+    inf = torch.full_like(depth0, float("inf"))
+    floor = torch.where(tid0 >= 0, depth0, inf)
+    cases = {"no floor": None, "layer-0 floor": floor, "all +inf floor": inf}
+    max_abs_err, timings, covered, launches = 0.0, {}, {}, {}
     for label, z_floor in cases.items():
         args = (*base, z_floor, pipeline.depth_compare_op)
-        depth, tid, lanes = raster_peel(*args)
-        torch.cuda.synchronize()
-        depth_p, tid_p, lanes_p = raster_peel_plain(*args)
-        torch.cuda.synchronize()
-        tid_equal = bool(torch.equal(tid, tid_p))
-        depth_equal = bool(torch.equal(depth.view(torch.int32), depth_p.view(torch.int32)))
-        lane_err = (lanes - lanes_p).abs()
-        lanes_ok = bool((lane_err <= 1e-6 + 1e-5 * lanes_p.abs()).all())
-        lane_bits = bool(torch.equal(lanes.view(torch.int32), lanes_p.view(torch.int32)))
-        err = float(lane_err.max())
-        max_abs_err = max(max_abs_err, err)
-        covered[label] = int((tid >= 0).sum())
-        above = bool((depth[tid >= 0] > floor[tid >= 0]).all()) if z_floor is not None else True
-        _log(f"raster_peel ({label}) vs plain: tid equal {tid_equal}, depth bit-equal "
-             f"{depth_equal}, lanes max |err| {err:.3e} (rtol 1e-5 atol 1e-6 ok {lanes_ok}, "
-             f"bit-equal {lane_bits}), covered {covered[label]}, strictly above the floor {above}")
-        if not (tid_equal and depth_equal and lanes_ok and above and covered[label] > 0):
-            raise SystemExit(f"phase kernels: raster_peel disagrees with its plain version ({label})")
-        del depth_p, tid_p, lanes_p, lane_err
-        ms = _median(_event_times_ms(lambda args=args: raster_peel(*args), KERNEL_TIMINGS))
-        plain_ms = _median(_event_times_ms(lambda args=args: raster_peel_plain(*args), 3, warmup=1))
+        err = _peel_against_plain(label, args, k5.plan)
+        max_abs_err = max(max_abs_err, err["max_abs_err"])
+        covered[label] = err["covered"]
+        above = (bool((err["depth"][err["hit"]] > floor[err["hit"]]).all())
+                 if z_floor is not None else True)
+        if not above or (covered[label] > 0) != (z_floor is not inf):
+            raise SystemExit(f"phase kernels: raster_peel ({label}) covers {covered[label]} "
+                             f"pixels, strictly above the floor {above}")
+        ms = _median(_event_times_ms(lambda args=args: raster_peel(*args, plan=k5.plan),
+                                     KERNEL_TIMINGS))
+        plain_ms = (_median(_event_times_ms(lambda args=args: raster_peel_plain(*args), 3,
+                                            warmup=1))
+                    if z_floor is not inf else None)
         # least time: the walk's ops (one more compare with a floor) and the
         # winner epilogue's, against the bytes the function must move once:
         # the 19 walk columns of every binned row and the rest of every
@@ -755,12 +942,21 @@ def _check_peel(scene, layout, pipeline) -> dict:
                   + H * W * (4 + 4 + 4 * (k5.n_vary + k5.n_flat)))
         bound_ms, bound_by = _bound(ops, nbytes)
         timings[label] = (ms, plain_ms, bound_ms, bound_by, ops, nbytes)
-        _log(f"raster_peel ({label}): {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain "
-             f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, "
-             f"{nbytes:.3e} bytes: {binned_rows} binned rows of {k5.table.shape[0]}, "
-             f"{winner_rows} winning rows)")
+        _log(f"raster_peel ({label}): {ms:.4f} ms (median of {KERNEL_TIMINGS})"
+             + ("" if plain_ms is None else f", plain {plain_ms:.2f} ms")
+             + f", bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes: "
+             f"{binned_rows} binned rows of {k5.table.shape[0]}, {winner_rows} winning rows)")
+        if label != "all +inf floor":
+            _split_log(f"K5 {label}", ms, bound_ms, bound_by, k5.plan)
+        launches[label] = lambda args=args: raster_peel(*args, plan=k5.plan)
+    sweep = _chunk_sweep("K5 layer-0 floor",
+                         lambda plan: raster_peel(*base, floor, pipeline.depth_compare_op,
+                                                  plan=plan),
+                         k5.seg, k5.sorted_tris.numel())
+    ties = _check_peel_ties(geo, k5, layout.num_triangles)
+    max_abs_err = max(max_abs_err, ties["max_abs_err"])
     ms, plain_ms, bound_ms, bound_by, _, _ = timings["layer-0 floor"]
-    return {
+    out = {
         "name": "raster_peel",
         "route": "cuda",
         "source": "renderer_rs_tpu_torch/csrc/raster_peel.cu",
@@ -773,7 +969,88 @@ def _check_peel(scene, layout, pipeline) -> dict:
         "library_ms": None,  # no single PyTorch call computes this function
         "ms_no_floor": timings["no floor"][0],
         "bound_ms_no_floor": timings["no floor"][2],
+        "ms_inf_floor": timings["all +inf floor"][0],
+        "bound_ms_inf_floor": timings["all +inf floor"][2],
+        **_plan_stats(k5.plan),
+        "chunk_sweep_ms": sweep,
+        "ms_ties": ties["ms"],
     }
+    for label, launch in launches.items():
+        _defer_breakdown(out, label, f"K5 {label}", launch,
+                         "device_ms" if label == "layer-0 floor" else None)
+    return out
+
+
+def _peel_against_plain(label: str, args, plan) -> dict:
+    """One K5 case on the card, with `plan` and with FORCED_CHUNK, against
+    the plain version: tid equal, depth bit-equal, lanes within rtol 1e-5 /
+    atol 1e-6 (bit-equality printed)."""
+    import torch
+
+    from renderer_rs_tpu_torch.ops.raster_cuda import raster_peel, raster_peel_plain
+
+    depth, tid, lanes = raster_peel(*args, plan=plan)
+    forced = raster_peel(*args, chunk=FORCED_CHUNK)
+    torch.cuda.synchronize()
+    ref = raster_peel_plain(*args)
+    torch.cuda.synchronize()
+    ok, max_abs_err = True, 0.0
+    for name, (d, t, ln) in (("plan", (depth, tid, lanes)), (f"chunk {FORCED_CHUNK}", forced)):
+        tid_equal = bool(torch.equal(t, ref[1]))
+        depth_equal = bool(torch.equal(d.view(torch.int32), ref[0].view(torch.int32)))
+        lane_err = (ln - ref[2]).abs()
+        lanes_ok = bool((lane_err <= 1e-6 + 1e-5 * ref[2].abs()).all())
+        lane_bits = bool(torch.equal(ln.view(torch.int32), ref[2].view(torch.int32)))
+        err = float(lane_err.max()) if lane_err.numel() else 0.0
+        max_abs_err = max(max_abs_err, err)
+        ok = ok and tid_equal and depth_equal and lanes_ok
+        _log(f"raster_peel ({label}, {name}) vs plain: tid equal {tid_equal}, depth bit-equal "
+             f"{depth_equal}, lanes max |err| {err:.3e} (rtol 1e-5 atol 1e-6 ok {lanes_ok}, "
+             f"bit-equal {lane_bits}), covered {int((t >= 0).sum())}")
+    if not ok:
+        raise SystemExit(f"phase kernels: raster_peel disagrees with its plain version ({label})")
+    hit = tid >= 0
+    return {"max_abs_err": max_abs_err, "covered": int(hit.sum()), "depth": depth, "hit": hit,
+            "tid": tid}
+
+
+def _check_peel_ties(geo, k5, n_source: int) -> dict:
+    """K5's tie rules at full size: the MASK frame's table with every raster
+    slot twice (the twin's payload id + n_source), binned anew, under
+    LESS_OR_EQUAL (clear 1) and GREATER_OR_EQUAL (clear 0), no floor. Every
+    winner ties its twin, and LE/GE keep the last submitted: the twin."""
+    import torch
+
+    from renderer_rs_tpu_torch.ops.raster import TriangleSetup
+    from renderer_rs_tpu_torch.ops.raster_cuda import bin_compact, raster_peel, split_plan
+    from renderer_rs_tpu_torch.rhi.pipeline import CompareOp
+
+    rows = k5.table[:-1]
+    twins = rows.clone()
+    twins[:, 19] += n_source
+    table = torch.cat([rows, twins, k5.table[-1:]]).contiguous()
+    setup = TriangleSetup(*(torch.cat([getattr(geo.setup, f)] * 2)
+                            for f in ("xy", "z", "w", "area2", "valid")))
+    sorted_tris, seg, _nby, nbx, overflow = bin_compact(setup, H, W)
+    plan = split_plan(seg, sorted_tris.numel())
+    _log(f"mask frame, every slot twice: binned pairs={int(seg[-1])} densest bin="
+         f"{int((seg[1:] - seg[:-1]).max())} bin_overflow {overflow.tolist()} split plan "
+         f"{_plan_stats(plan)}")
+    out = {"max_abs_err": 0.0, "ms": {}}
+    for op, clear in ((CompareOp.LESS_OR_EQUAL, 1.0), (CompareOp.GREATER_OR_EQUAL, 0.0)):
+        label = f"twins, {op.name}"
+        args = (table, sorted_tris, seg, nbx, H, W, k5.n_vary, k5.n_flat, None, op, clear)
+        res = _peel_against_plain(label, args, plan)
+        twin_won = bool((res["tid"][res["hit"]] >= n_source).all())
+        _log(f"raster_peel ({label}): covered {res['covered']}, every winner the later twin "
+             f"{twin_won}")
+        if not (twin_won and res["covered"] > 0):
+            raise SystemExit(f"phase kernels: raster_peel ({label}) broke the tie rule")
+        out["max_abs_err"] = max(out["max_abs_err"], res["max_abs_err"])
+        out["ms"][op.name] = _median(_event_times_ms(
+            lambda args=args: raster_peel(*args, plan=plan), KERNEL_TIMINGS))
+        _log(f"raster_peel ({label}): {out['ms'][op.name]:.4f} ms (median of {KERNEL_TIMINGS})")
+    return out
 
 
 def _peel_winner_rows(k5, z_floor, compare_op) -> int:
@@ -805,9 +1082,11 @@ def phase_kernels() -> tuple[dict, tuple]:
     k4 = _check_ids(scene, layout, kw["pipeline"])
     scene, layout, kw, _ = full_scene(W, H, device="cuda", csm=True, **FULL)
     k6 = _check_depth_batch(scene, layout, kw["shadow_map_size"])
-    k7_csm = _check_zplane(scene, layout, kw["shadow_map_size"], cascades=True)
+    k7_csm = _check_zplane(scene, layout, kw["shadow_map_size"], cascades=True, sun_map=k7)
     k7.update(ms_cascades=k7_csm["ms"], plain_ms_cascades=k7_csm["plain_ms"],
               bound_ms_cascades=k7_csm["bound_ms"], n_pairs_cascades=k7_csm["n_pairs"],
+              items_cascades=k7_csm["items"], longest_piece_cascades=k7_csm["longest_piece"],
+              chunk_sweep_ms_cascades=k7_csm["chunk_sweep_ms"],
               max_abs_err=max(k7["max_abs_err"], k7_csm["max_abs_err"]),
               vs_bary_max_abs=max(k7["vs_bary_max_abs"], k7_csm["vs_bary_max_abs"]))
     probe = _check_probe()
@@ -1561,6 +1840,7 @@ def main() -> int:
     # the probe's run: one launch of each body at PROBE_ITERS
     kernels["probe_kgather"]["ms"] = sum(us.values()) * PROBE_ITERS / 1e3
     phase_small_reference()
+    phase_breakdown()
     for name, k in kernels.items():
         k["launches"] = sum(path[name] for path in by_path.values())
         k["launches_by_path"] = {label: path[name] for label, path in by_path.items()}

@@ -49,6 +49,15 @@ z_plane_mode, raster.py:297, raster_pallas.py:234-245): table columns 15-17 hold
 the anchored depth plane (zdx, zdy, zA) and the walk evaluates
 (zdx*dx0 + zdy*dy0) + zA from edge 0's differences
 (``raster_depth.zplane_launches`` counts those launches).
+
+Split dense bins (K1, K6, K7 and K5): ``split_plan`` cuts every bin's
+candidate segment into pieces of at most ``chunk`` candidates, on the
+device and without a host sync, once per binning (it rides DepthInputs and
+PeelInputs). The kernels walk one piece per block and merge the pieces of
+a split bin exactly and in any order: K1 by atomic min/max on the depths'
+int32 order keys, K5 by atomic min/max on a 64-bit (depth, position) key
+(csrc/raster_depth.cu, csrc/raster_peel.cu). The plan changes no bit of
+the result, and the plain versions ignore it.
 """
 
 from __future__ import annotations
@@ -79,6 +88,84 @@ _OPS = {
     CompareOp.GREATER: 2,
     CompareOp.GREATER_OR_EQUAL: 3,
 }
+# candidates per work item of the split kernels (K1, K6, K7, K5): the chunk
+# sweep of chip_smoke.py on the H100 (PERF.md §6)
+SPLIT_CHUNK = 64
+
+
+# --- the split plan: dense bins cut into pieces over blocks --------------------
+
+@dataclasses.dataclass
+class SplitPlan:
+    """The work list of the split kernels over one binning (split_plan).
+
+    items [M, 4] int32: one row (set, bin, start, end) per piece of a bin's
+    segment, in bin order and within a bin in segment order; rows past the
+    real pieces are (-1, 0, 0, 0), because M is a bound known on the host.
+    pieces [sets, bins] int32: each bin's piece count (0 for an empty bin).
+    chunk: the most candidates a piece holds."""
+
+    items: torch.Tensor
+    pieces: torch.Tensor
+    chunk: int
+
+    @property
+    def n_items(self) -> torch.Tensor:
+        """The real pieces (device scalar)."""
+        return self.pieces.sum()
+
+
+def split_plan(seg: torch.Tensor, n_keys: int, chunk: int = SPLIT_CHUNK) -> SplitPlan:
+    """Cut each bin's segment [seg[b], seg[b+1]) of each set (seg [sets,
+    bins+1] or [bins+1]) into pieces of at most `chunk` candidates, with
+    tensor ops on seg's device and no host sync. n_keys is the length of
+    the sorted_tris array the segments index: a bin of c candidates has
+    ceil(c/chunk) <= c//chunk + 1 pieces, so sets*bins + ceil(n_keys/chunk)
+    rows hold every piece, and the kernels launch that many blocks."""
+    if isinstance(chunk, bool) or not isinstance(chunk, int) or chunk < 1:
+        raise ValueError(f"chunk must be a positive int, got {chunk!r}")
+    seg2 = seg.reshape(-1, seg.shape[-1]).long()
+    n_sets, n_bins = seg2.shape[0], seg2.shape[1] - 1
+    n_groups = n_sets * n_bins
+    starts = seg2[:, :-1].reshape(-1)
+    ends = seg2[:, 1:].reshape(-1)
+    pieces = (ends - starts + (chunk - 1)) // chunk
+    m = n_groups + _cdiv(n_keys, chunk)
+    # row r belongs to bin owner[r]; the rows past the real pieces to an
+    # extra owner, n_groups
+    owner = torch.repeat_interleave(torch.cat([pieces, (m - pieces.sum()).reshape(1)]),
+                                    output_size=m)
+    first = torch.cumsum(pieces, 0) - pieces  # each bin's first row
+    group = torch.arange(n_groups + 1, device=seg.device)
+
+    def pad(x):  # the extra owner's entry: 0
+        return torch.nn.functional.pad(x, (0, 1))
+
+    per_bin = torch.stack([torch.where(group < n_groups, group // n_bins, -1), group % n_bins,
+                           pad(starts), pad(ends), pad(first)], dim=1)
+    bins = per_bin[owner]  # [m, 5]: set (-1 past the real pieces), bin, start, end, first row
+    # a piece starts chunk candidates after the previous one; past the real
+    # pieces start = end = 0
+    start = torch.minimum(bins[:, 2] + (torch.arange(m, device=seg.device) - bins[:, 4]) * chunk,
+                          bins[:, 3])
+    end = torch.minimum(start + chunk, bins[:, 3])
+    items = torch.stack([bins[:, 0], bins[:, 1], start, end], dim=1).to(torch.int32)
+    return SplitPlan(items=items, pieces=pieces.to(torch.int32).reshape(n_sets, n_bins),
+                     chunk=chunk)
+
+
+def _plan_for(seg, sorted_tris, plan, chunk) -> SplitPlan:
+    """The wrapper's plan: `plan` as given, or one built with `chunk`
+    (default SPLIT_CHUNK). Refuses a plan of other bins or another device,
+    or a chunk the given plan was not built with."""
+    if plan is None:
+        return split_plan(seg, sorted_tris.numel(), SPLIT_CHUNK if chunk is None else chunk)
+    n_sets = seg.shape[0] if seg.dim() == 2 else 1
+    if plan.pieces.shape != (n_sets, seg.shape[-1] - 1) or plan.items.device != seg.device:
+        raise ValueError("plan was not built from these segments (split_plan(seg, ...))")
+    if chunk is not None and chunk != plan.chunk:
+        raise ValueError(f"chunk {chunk} given with a plan of chunk {plan.chunk}")
+    return plan
 
 
 # --- table build ------------------------------------------------------------
@@ -146,7 +233,10 @@ def _base_coef_table(setup: TriangleSetup, ids_col: torch.Tensor) -> torch.Tenso
 def _with_pad_row(table: torch.Tensor) -> torch.Tensor:
     """Append the pad row t, whose +inf thresholds never cover."""
     pad = torch.zeros((1, table.shape[1]), dtype=_F32, device=table.device)
-    pad[0, list(_THRESH_COLS)] = float("inf")
+    for c in _THRESH_COLS:
+        # a fill kernel each: a list index or an assigned float is copied
+        # from the host, which waits for the device
+        pad[0, c].fill_(float("inf"))
     return torch.cat([table, pad]).contiguous()
 
 
@@ -302,8 +392,11 @@ def _walk_plain(table, sorted_tris, seg, nbx, compare_op, depth_clear, z_floor=N
     f32 operation order. All bins advance together, _PLAIN_CHUNK candidates
     at a time, over [bins, chunk, 16, 128]: the chunk's nearest covered
     candidate (first for strict compares, last for LE/GE among equal
-    depths) replaces the carry when it passes the depth test — the Pallas
-    kernel's per-chunk reduction, equal to the kernels' sequential walk.
+    depths) replaces the carry, with its own depth, when it passes the
+    depth test — the Pallas kernel's per-chunk reduction, equal to the
+    kernels' sequential walk. Equal depths compare in IEEE, so a +0.0 and
+    a -0.0 tie, and the winner keeps its own signed zero, as in the
+    kernels (the Pallas kernel stores its chunk's XLA min, -0.0, there).
     z_floor [bins,16,128] (K5) admits only candidates with z strictly
     above it. band = (y_offset, y_stride, y_pair) maps the bins' rows to
     framebuffer rows (K3). Returns (depth, winner table row or -1) as
@@ -365,8 +458,10 @@ def _walk_plain(table, sorted_tris, seg, nbx, compare_op, depth_clear, z_floor=N
             CompareOp.GREATER_OR_EQUAL: z_best >= d,
         }[compare_op]
         accept = winners.any(1) & pass_d
-        w_row = torch.gather(rows, 1, torch.clamp(slot, 0, chunk - 1).reshape(len(act), -1))
-        depth[act] = torch.where(accept, z_best, d)
+        slot_c = torch.clamp(slot, 0, chunk - 1)
+        w_row = torch.gather(rows, 1, slot_c.reshape(len(act), -1))
+        z_win = torch.gather(zc, 1, slot_c[:, None]).squeeze(1)  # the winner's own depth
+        depth[act] = torch.where(accept, z_win, d)
         win[act] = torch.where(accept, w_row.reshape(slot.shape), win[act])
     return depth, win, py_all, px_all
 
@@ -589,8 +684,9 @@ def raster_ids_plain(table, sorted_tris, seg, nbx, height, width,
 class DepthInputs:
     """K1's inputs for N triangle sets rasterized in one launch: table
     [N, t+1, 19], the concatenated sorted ids, seg [N, bins+1] addressing
-    them, the binning overflow counters [N, 2] (big, huge), and the depth
-    form of the table's columns 15-17 (zplane: K7's anchored plane)."""
+    them, the binning overflow counters [N, 2] (big, huge), the depth form
+    of the table's columns 15-17 (zplane: K7's anchored plane), and the
+    split plan of seg (split_plan, SPLIT_CHUNK)."""
 
     table: torch.Tensor
     sorted_tris: torch.Tensor
@@ -598,6 +694,7 @@ class DepthInputs:
     nbx: int
     bin_overflow: torch.Tensor
     zplane: bool = False
+    plan: SplitPlan | None = None
 
     @property
     def n_pairs(self) -> torch.Tensor:
@@ -622,13 +719,15 @@ def prepare_depth(setups, height: int, width: int, zplane: bool = False) -> Dept
         segs.append(seg + offset)
         overflow.append(ovf)
         offset += sorted_tris.numel()
+    seg = torch.stack(segs)
     return DepthInputs(
         table=torch.stack(tables),
         sorted_tris=torch.cat(ids),
-        seg=torch.stack(segs),
+        seg=seg,
         nbx=nbx,
         bin_overflow=torch.stack(overflow),
         zplane=bool(zplane),
+        plan=split_plan(seg, offset),
     )
 
 
@@ -667,7 +766,7 @@ def _check_depth_inputs(table, sorted_tris, seg, nbx, height, width, compare_op)
 
 
 def _launch_depth(table, sorted_tris, seg, nbx, height, width, compare_op, depth_clear,
-                  zplane):
+                  zplane, plan):
     from renderer_rs_tpu_torch.kernels import load
 
     lib = load("raster_depth")
@@ -675,8 +774,9 @@ def _launch_depth(table, sorted_tris, seg, nbx, height, width, compare_op, depth
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     dev = table.device
     n_batch = table.shape[0]
@@ -685,9 +785,9 @@ def _launch_depth(table, sorted_tris, seg, nbx, height, width, compare_op, depth
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             table.data_ptr(), table.shape[1], table.shape[2], sorted_tris.data_ptr(),
-            seg.data_ptr(), n_batch, seg.shape[1] - 1, nbx, height, width,
-            int(_OPS[compare_op] >= 2), int(zplane), float(depth_clear), depth.data_ptr(),
-            stream,
+            plan.items.data_ptr(), plan.items.shape[0], plan.pieces.data_ptr(), n_batch,
+            seg.shape[1] - 1, nbx, height, width, int(_OPS[compare_op] >= 2), int(zplane),
+            float(depth_clear), depth.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"raster_depth launch failed: cudaError {err}")
@@ -698,18 +798,23 @@ def _launch_depth(table, sorted_tris, seg, nbx, height, width, compare_op, depth
 
 
 def raster_depth(table, sorted_tris, seg, nbx, height, width,
-                 compare_op=CompareOp.LESS, depth_clear=1.0, zplane=False):
+                 compare_op=CompareOp.LESS, depth_clear=1.0, zplane=False, plan=None,
+                 chunk=None):
     """K1 over the binned candidates of N triangle sets. table [N, t+1, C]
     f32, sorted_tris int32, seg [N, bins+1] int32 (prepare_depth), nbx bins
     per row. Returns depth [N,H,W] f32: per pixel the min (max under
     GREATER compares) of the clear depth and the covering candidates' z.
     zplane=True (K7) reads columns 15-17 as the anchored depth plane
-    (prepare_depth(zplane=True)). CUDA tensors launch the kernel; CPU
-    tensors run raster_depth_plain."""
+    (prepare_depth(zplane=True)). plan (DepthInputs.plan), or else one
+    built with pieces of at most `chunk` candidates (default SPLIT_CHUNK),
+    is how the kernel cuts dense bins over blocks; neither changes a bit of
+    the result. CUDA tensors launch the kernel; CPU tensors run
+    raster_depth_plain."""
     _check_depth_inputs(table, sorted_tris, seg, nbx, height, width, compare_op)
+    plan = _plan_for(seg, sorted_tris, plan, chunk)
     if table.device.type == "cuda":
         return _launch_depth(table, sorted_tris, seg, nbx, height, width, compare_op,
-                             depth_clear, bool(zplane))
+                             depth_clear, bool(zplane), plan)
     if table.device.type != "cpu":
         raise ValueError(f"raster_depth: unsupported device {table.device}")
     return raster_depth_plain(table, sorted_tris, seg, nbx, height, width, compare_op,
@@ -790,7 +895,8 @@ def raster_depth_plain(table, sorted_tris, seg, nbx, height, width,
 class PeelInputs:
     """K5's inputs for one frame, shared by its peel layers: the table
     (payload id in column 19, channel-major attributes, flats), the binned
-    segments, the lane counts, and the binning overflow counters [big, huge]."""
+    segments, the lane counts, the binning overflow counters [big, huge],
+    and the split plan of seg (split_plan, SPLIT_CHUNK)."""
 
     table: torch.Tensor
     sorted_tris: torch.Tensor
@@ -799,6 +905,7 @@ class PeelInputs:
     n_vary: int
     n_flat: int
     bin_overflow: torch.Tensor
+    plan: SplitPlan | None = None
 
     @property
     def n_pairs(self) -> torch.Tensor:
@@ -843,6 +950,7 @@ def prepare_peel(setup: TriangleSetup, height: int, width: int, attr, vtx, vary_
         n_vary=attr.shape[-1],
         n_flat=flat.shape[-1],
         bin_overflow=overflow,
+        plan=split_plan(seg, sorted_tris.numel()),
     )
 
 
@@ -856,29 +964,31 @@ def _check_floor(z_floor, table, height, width):
 
 
 def _launch_peel(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat, z_floor,
-                 compare_op, depth_clear):
+                 compare_op, depth_clear, plan):
     from renderer_rs_tpu_torch.kernels import load
 
     lib = load("raster_peel")
     fn = lib.raster_peel_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     dev = table.device
     depth = torch.empty((height, width), dtype=_F32, device=dev)
     tid = torch.empty((height, width), dtype=torch.int32, device=dev)
     lanes = torch.empty((height, width, n_vary + n_flat), dtype=_F32, device=dev)
+    keys = torch.empty((height, width), dtype=torch.int64, device=dev)  # the merged winners
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            table.data_ptr(), table.shape[1], sorted_tris.data_ptr(), seg.data_ptr(),
-            seg.numel() - 1, nbx, height, width, n_vary, n_flat,
-            None if z_floor is None else z_floor.data_ptr(), _OPS[compare_op],
-            float(depth_clear), depth.data_ptr(), tid.data_ptr(), lanes.data_ptr(), stream,
+            table.data_ptr(), table.shape[1], sorted_tris.data_ptr(), plan.items.data_ptr(),
+            plan.items.shape[0], plan.pieces.data_ptr(), seg.numel() - 1, nbx, height, width,
+            n_vary, n_flat, None if z_floor is None else z_floor.data_ptr(), _OPS[compare_op],
+            float(depth_clear), keys.data_ptr(), depth.data_ptr(), tid.data_ptr(),
+            lanes.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"raster_peel launch failed: cudaError {err}")
@@ -887,20 +997,24 @@ def _launch_peel(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat, z_
 
 
 def raster_peel(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat, z_floor=None,
-                compare_op=CompareOp.LESS, depth_clear=1.0):
+                compare_op=CompareOp.LESS, depth_clear=1.0, plan=None, chunk=None):
     """K5 over the binned candidates. table [t+1, 23+3K+Kf] f32
     (prepare_peel), sorted_tris/seg int32 (bin_compact), nbx bins per row,
     z_floor [H,W] f32 or None: only candidates with z strictly above the
     pixel's floor compete. Returns (depth [H,W] f32, tid [H,W] int32: the
     winner's payload id from column 19, or -1; lanes [H,W,K+Kf] f32: the
-    winner's perspective-correct varyings, then its flat lanes). CUDA
-    tensors launch the kernel; CPU tensors run raster_peel_plain."""
+    winner's perspective-correct varyings, then its flat lanes). plan
+    (PeelInputs.plan), or else one built with pieces of at most `chunk`
+    candidates (default SPLIT_CHUNK), is how the kernel cuts dense bins
+    over blocks; neither changes a bit of the result. CUDA tensors launch
+    the kernel; CPU tensors run raster_peel_plain."""
     _check_inputs(table, sorted_tris, seg, nbx, height, width, 23 + 3 * n_vary + n_flat,
                   compare_op)
     _check_floor(z_floor, table, height, width)
+    plan = _plan_for(seg, sorted_tris, plan, chunk)
     if table.device.type == "cuda":
         return _launch_peel(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat,
-                            z_floor, compare_op, depth_clear)
+                            z_floor, compare_op, depth_clear, plan)
     if table.device.type != "cpu":
         raise ValueError(f"raster_peel: unsupported device {table.device}")
     return raster_peel_plain(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat,
@@ -923,6 +1037,16 @@ def raster_peel_plain(table, sorted_tris, seg, nbx, height, width, n_vary, n_fla
     floor_bins = None if z_floor is None else _unstitch(z_floor, seg.numel() - 1, nbx, float("inf"))
     depth, win, py_all, px_all = _walk_plain(table, sorted_tris, seg, nbx, compare_op,
                                              depth_clear, floor_bins)
+    tid, lanes = _peel_lanes_plain(table, win, py_all, px_all, n_vary, n_flat)
+    return (_stitch(depth, nbx, height, width).contiguous(),
+            _stitch(tid, nbx, height, width).to(torch.int32).contiguous(),
+            _stitch(lanes, nbx, height, width).contiguous())
+
+
+def _peel_lanes_plain(table, win, py_all, px_all, n_vary, n_flat):
+    """K5's epilogue on the walk's winner rows `win` [bins,16,128] (-1: no
+    winner): (tid, lanes [bins,16,128,K+Kf]), the winner's payload id and
+    lanes rounded as the kernel rounds them, -1 and zeros elsewhere."""
     g = table[torch.clamp(win, min=0)]  # [bins,16,128,C]
 
     def gc(k):
@@ -946,10 +1070,7 @@ def raster_peel_plain(table, sorted_tris, seg, nbx, height, width, n_vary, n_fla
     lanes = torch.cat([vary, g[..., 23 + 3 * k:23 + 3 * k + n_flat] + 0.0], dim=-1)
     hit = win >= 0
     tid = torch.where(hit, gc(19).to(torch.int32), -1)
-    lanes = torch.where(hit[..., None], lanes, 0.0)
-    return (_stitch(depth, nbx, height, width).contiguous(),
-            _stitch(tid, nbx, height, width).to(torch.int32).contiguous(),
-            _stitch(lanes, nbx, height, width).contiguous())
+    return tid, torch.where(hit[..., None], lanes, 0.0)
 
 
 # --- K3: full visibility over band rows ----------------------------------------------

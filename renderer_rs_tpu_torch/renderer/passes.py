@@ -233,7 +233,7 @@ def _depth_maps(scene: GpuScene, layout: SceneLayout, size: int, light_matrices,
     k1 = prepare_depth(setups, size, size, zplane=zplane)
     return raster_depth(
         k1.table, k1.sorted_tris, k1.seg, k1.nbx, size, size,
-        _SHADOW_PIPELINE.depth_compare_op, zplane=zplane,
+        _SHADOW_PIPELINE.depth_compare_op, zplane=zplane, plan=k1.plan,
     )
 
 
@@ -687,7 +687,8 @@ def _alpha_peeled_raster(scene: GpuScene, layout: SceneLayout, geo: FrameGeometr
         # the JAX peel passes no depth_init: every layer clears to 1.0
         with record_function("frame/k5"):
             return raster_peel(k5.table, k5.sorted_tris, k5.seg, k5.nbx, height, width,
-                               k5.n_vary, k5.n_flat, z_floor, pipeline.depth_compare_op)
+                               k5.n_vary, k5.n_flat, z_floor, pipeline.depth_compare_op,
+                               plan=k5.plan)
 
     def alpha_ok(lanes):
         uv = lanes[..., 6:8]
