@@ -37,18 +37,21 @@ Phases (any failure exits nonzero before the result lines):
      must give bit-equal
      tid/depth and lanes within rtol 1e-5 / atol 1e-6; K4 bit-equal tid and
      depth; K5 bit-equal tid and depth, lanes within rtol 1e-5 / atol 1e-6;
-     K3 bit-equal tid, depth and barycentrics. The split kernels (K1, K6,
-     K7, K5) are held so twice: with the main path's split plan and with
+     K3 bit-equal tid, depth and barycentrics. The split kernels (all but
+     K4) are held so twice: with the main path's split plan and with
      every bin cut into pieces of FORCED_CHUNK candidates; K5 also on an
-     all-+inf floor and, on the table with every raster slot twice, under
-     LESS_OR_EQUAL and GREATER_OR_EQUAL (every winner the later twin).
-     Prints binned pairs, densest
+     all-+inf floor; K5, K2 (Blinn-Phong, headline) and K3 (the
+     pair-interleaved band) also, on the table with every raster slot
+     twice, under LESS_OR_EQUAL and GREATER_OR_EQUAL (every winner the
+     later twin). Prints binned pairs, densest
      bin, bin overflow, kernel ms (median of >= 20 CUDA-event timings after
      warm-up), plain ms and the kernel's roofline bound (the work of the
      bins its blocks walk, over their pixels inside the frame or band); for
      the split kernels also the plan (chunk, work items, longest piece),
-     PR 6's committed-tree ms beside this run's, and a sweep of the chunk
-     over CHUNK_SWEEP.
+     the one-block-per-bin design's committed-tree ms beside this run's, a
+     sweep of the chunk over CHUNK_SWEEP, the host syncs of each binning
+     and launch (none allowed), and, after the main paths, each kernel's
+     device µs by torch.profiler (key init, walk, resolve or finish).
   4. The main paths through Renderer.render_frame at 1920x1080 on cuda,
      every launch counter set to 0 just before each and read just after:
        - the Blinn-Phong frame: one K2 launch per frame, nothing else;
@@ -109,6 +112,10 @@ Phases (any failure exits nonzero before the result lines):
      textured=True])) against their goldens and cuda against cpu; and the
      small full_textured frame as 4 bands, contiguous and interleaved, on
      cuda: stitched ids equal to the frame's, colours within the bar.
+  6. After the main paths, so that the frame loops follow the same kernel
+     checks as before: the chunk sweeps and tie tables of K2 and K3 queued
+     by phase 3, then each split kernel's device µs by torch.profiler (a
+     profiler session slows the process's later launches).
 Then a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the JAX package.
 """
@@ -187,17 +194,23 @@ FLAT_FRAMES = 5
 TRIANGLE_FRAMES = 3
 CUTOFF = 0.5
 KERNEL_TIMINGS = 25
-# the split kernels (K1, K6, K7, K5) once more with bins cut into pieces of
-# at most this many candidates: every bin of more splits
+# the split kernels (all but K4) once more with bins cut into pieces of at
+# most this many candidates: every bin of more splits
 FORCED_CHUNK = 32
 # the chunk sweep of the split kernels; the wrappers' default,
 # ops/raster_cuda.py::SPLIT_CHUNK, is chosen from it
 CHUNK_SWEEP = (32, 64, 128, 256, 512, 1024)
 BREAKDOWN_CALLS = 10  # calls profiled for a split kernel's per-kernel device times
-# PR 6's committed-tree medians in ms (PERF.md §6), printed beside this
-# run's: constants of the log line, not measurements of this run
-PR6_MS = {"K1 sun map": 0.3457, "K6 cascades": 10.0942, "K7 sun map": 0.2739,
-          "K7 cascades": 7.5335, "K5 no floor": 0.8673, "K5 layer-0 floor": 0.9116}
+# the committed-tree medians in ms of the one-block-per-bin designs
+# (PERF.md §6), printed beside this run's: constants of the log line, not
+# measurements of this run
+EARLIER_MS = {"K1 sun map": ("PR 6", 0.3457), "K6 cascades": ("PR 6", 10.0942),
+              "K7 sun map": ("PR 6", 0.2739), "K7 cascades": ("PR 6", 7.5335),
+              "K5 no floor": ("PR 6", 0.8673), "K5 layer-0 floor": ("PR 6", 0.9116),
+              "K2 blinnphong flagship": ("PR 7", 1.2292), "K2 pbr flagship": ("PR 6", 0.4896),
+              "K2 headline (textured, IBL)": ("PR 6", 0.5276),
+              "K3 whole frame": ("PR 7", 0.4810), "K3 contiguous band": ("PR 7", 0.4509),
+              "K3 pair-interleaved band": ("PR 7", 0.6586)}
 SUN = (-0.45, -1.0, -0.35)  # full_scene's sun
 
 
@@ -370,6 +383,19 @@ def _defer_breakdown(entry: dict, case: str, label: str, launch, ms_key="device_
     _BREAKDOWNS.append((entry, case, label, launch, ms_key))
 
 
+# checks that launch a kernel hundreds of times (the K2 and K3 chunk sweeps
+# and tie tables), queued by the kernel checks and run by phase_after
+# after the main paths, so that the frame loops follow the same phase 3 as
+# before them
+_AFTER: list = []
+
+
+def phase_after() -> None:
+    for check in _AFTER:
+        check()
+    _AFTER.clear()
+
+
 def phase_breakdown() -> None:
     for entry, case, label, launch, ms_key in _BREAKDOWNS:
         us = _kernel_breakdown(label, launch)
@@ -404,8 +430,9 @@ def _kernel_breakdown(label: str, launch) -> dict:
 
 def _split_log(label: str, ms: float, bound_ms: float, bound_by: str, plan) -> None:
     stats = _plan_stats(plan)
-    _log(f"{label}: {ms:.4f} ms (median of {KERNEL_TIMINGS}; PR 6 committed tree "
-         f"{PR6_MS[label]}), chunk {stats['chunk']}, work items {stats['items']} "
+    pr, earlier = EARLIER_MS[label]
+    _log(f"{label}: {ms:.4f} ms (median of {KERNEL_TIMINGS}; {pr} committed tree "
+         f"{earlier}), chunk {stats['chunk']}, work items {stats['items']} "
          f"(grid {stats['grid']}), longest piece {stats['longest_piece']}, bound "
          f"{bound_ms:.4f} ms by {bound_by}")
 
@@ -434,45 +461,124 @@ def phase_build() -> None:
     _log(f"kernel build: {time.perf_counter() - t0:.2f}s")
 
 
+def _against_plain(name: str, label: str, launch, plain, args, plan, lanes: bool) -> dict:
+    """One case of a split winner kernel on the card, K2 or K5 (lanes=True)
+    or K3, with `plan` and with FORCED_CHUNK, against the plain version:
+    every output bit-equal, except the lanes, held within rtol 1e-5 /
+    atol 1e-6 (bit-equality printed)."""
+    import torch
+
+    out = launch(*args, plan=plan)
+    forced = launch(*args, chunk=FORCED_CHUNK)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    ok, max_abs_err = True, 0.0
+    for form, got in (("plan", out), (f"chunk {FORCED_CHUNK}", forced)):
+        equal = [bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+                 for a, b in zip(got, ref)]
+        errs = [float((a - b).abs().max()) if a.numel() else 0.0
+                for a, b in zip(got, ref) if a.dtype == torch.float32]
+        max_abs_err = max([max_abs_err, *errs])
+        if lanes:
+            lanes_ok = bool(((got[2] - ref[2]).abs() <= 1e-6 + 1e-5 * ref[2].abs()).all())
+            ok = ok and equal[0] and equal[1] and lanes_ok
+            what = (f"tid equal {equal[1]}, depth bit-equal {equal[0]}, lanes max |err| "
+                    f"{errs[-1]:.3e} (rtol 1e-5 atol 1e-6 ok {lanes_ok}, bit-equal {equal[2]})")
+        else:
+            ok = ok and all(equal)
+            what = f"depth, tid, b0, b1 bit-equal {equal}"
+        _log(f"{name} ({label}, {form}) vs plain: {what}, covered {int((got[1] >= 0).sum())}")
+    if not ok:
+        raise SystemExit(f"phase kernels: {name} disagrees with its plain version ({label})")
+    return {"max_abs_err": max_abs_err, "tid": out[1], "depth": out[0]}
+
+
+def _twice(table, setup):
+    """The table with every raster slot twice (the twin's id, column 19, + t,
+    the raster slot count: above every id of the table) and the setup to
+    bin it: each winner ties its twin."""
+    import torch
+
+    from renderer_rs_tpu_torch.ops.raster import TriangleSetup
+
+    rows = table[:-1]
+    twins = rows.clone()
+    twins[:, 19] += rows.shape[0]
+    return (torch.cat([rows, twins, table[-1:]]).contiguous(),
+            TriangleSetup(*(torch.cat([getattr(setup, f)] * 2)
+                            for f in ("xy", "z", "w", "area2", "valid"))))
+
+
+def _check_ties(name: str, label: str, launch, plain, args_for, n_slots: int) -> dict:
+    """A split winner kernel's tie rules at full size, on a table with
+    every raster slot twice (_twice, ids of twins from n_slots on):
+    args_for(op, clear) are its arguments and plan under
+    LESS_OR_EQUAL (clear 1) and GREATER_OR_EQUAL (clear 0). Every winner
+    ties its twin, and LE/GE keep the last submitted: the twin."""
+    from renderer_rs_tpu_torch.rhi.pipeline import CompareOp
+
+    out = {"max_abs_err": 0.0, "ms": {}}
+    for op, clear in ((CompareOp.LESS_OR_EQUAL, 1.0), (CompareOp.GREATER_OR_EQUAL, 0.0)):
+        args, plan = args_for(op, clear)
+        case = f"{label}, twins, {op.name}"
+        res = _against_plain(name, case, launch, plain, args, plan, name != "raster_visibility")
+        hit = res["tid"] >= 0
+        twin_won = bool((res["tid"][hit] >= n_slots).all())
+        _log(f"{name} ({case}): covered {int(hit.sum())}, every winner the later twin "
+             f"{twin_won}")
+        if not (twin_won and bool(hit.any())):
+            raise SystemExit(f"phase kernels: {name} ({case}) broke the tie rule")
+        out["max_abs_err"] = max(out["max_abs_err"], res["max_abs_err"])
+        out["ms"][op.name] = _median(_event_times_ms(
+            lambda args=args, plan=plan: launch(*args, plan=plan), KERNEL_TIMINGS))
+        _log(f"{name} ({case}): {out['ms'][op.name]:.4f} ms (median of {KERNEL_TIMINGS})")
+    return out
+
+
 def _check_resolve(label, scene, layout, pipeline, timed: bool) -> dict:
-    """K2 beside its plain version on one frame's real inputs."""
+    """K2 beside its plain version on one frame's real inputs, with the main
+    path's split plan and with FORCED_CHUNK; timed=True also times the plain
+    version, sweeps the chunk and checks the tie rules on the table with
+    every raster slot twice."""
     import torch
 
     from renderer_rs_tpu_torch.ops.raster_cuda import (
+        bin_compact,
         prepare_resolve,
         raster_resolve,
         raster_resolve_plain,
+        split_plan,
     )
     from renderer_rs_tpu_torch.renderer.passes import frame_geometry
 
     geo = frame_geometry(scene, layout, pipeline, W, H)
-    k2 = prepare_resolve(geo.setup, H, W, geo.attr, scene.tris, geo.clip_src,
-                         geo.clip_planes, geo.mat_flat, small_limit=layout.num_triangles)
+
+    def prepare():
+        return prepare_resolve(geo.setup, H, W, geo.attr, scene.tris, geo.clip_src,
+                               geo.clip_planes, geo.mat_flat, small_limit=layout.num_triangles)
+
+    k2 = prepare()
     args = (k2.table, k2.sorted_tris, k2.seg, k2.nbx, H, W, k2.n_vary, k2.n_flat,
             pipeline.depth_compare_op)
     n_pairs = int(k2.n_pairs)
     densest = int((k2.seg[1:] - k2.seg[:-1]).max())
     _log(f"{label}: T={layout.num_triangles} raster slots={geo.setup.num_triangles} "
          f"bins={k2.seg.numel() - 1} binned pairs={n_pairs} densest bin={densest} "
-         f"table={tuple(k2.table.shape)}")
+         f"table={tuple(k2.table.shape)}; split plan {_plan_stats(k2.plan)}, with chunk "
+         f"{FORCED_CHUNK} {_plan_stats(_plan_at(k2, FORCED_CHUNK))}")
+    syncs = _syncs(lambda: raster_resolve(*args, plan=prepare().plan))
+    _log(f"{label}: host syncs of prepare_resolve (binning, table, split plan) and the K2 "
+         f"launch: {len(syncs)} {syncs}")
+    if syncs:
+        raise SystemExit(f"phase kernels: the K2 binning or launch synchronizes the host ({label})")
+    res = _against_plain("raster_resolve", label, raster_resolve, raster_resolve_plain, args,
+                         k2.plan, lanes=True)
+    if not bool((res["tid"] >= 0).any()):
+        raise SystemExit(f"phase kernels: raster_resolve covers no pixel ({label})")
+    max_abs_err = res["max_abs_err"]
 
-    depth, tid, lanes = raster_resolve(*args)
-    torch.cuda.synchronize()
-    depth_p, tid_p, lanes_p = raster_resolve_plain(*args)
-    torch.cuda.synchronize()
-    tid_equal = bool(torch.equal(tid, tid_p))
-    depth_equal = bool(torch.equal(depth.view(torch.int32), depth_p.view(torch.int32)))
-    lane_err = (lanes - lanes_p).abs()
-    lanes_ok = bool((lane_err <= 1e-6 + 1e-5 * lanes_p.abs()).all())
-    max_abs_err = float(lane_err.max())
-    covered = int((tid >= 0).sum())
-    _log(f"{label}: raster_resolve vs plain: tid equal {tid_equal}, depth bit-equal "
-         f"{depth_equal}, lanes max |err| {max_abs_err:.3e} (rtol 1e-5 atol 1e-6 ok "
-         f"{lanes_ok}), covered {covered}")
-    if not (tid_equal and depth_equal and lanes_ok and covered > 0):
-        raise SystemExit(f"phase kernels: raster_resolve disagrees with its plain version ({label})")
-
-    ms = _median(_event_times_ms(lambda: raster_resolve(*args), KERNEL_TIMINGS))
+    ms = _median(_event_times_ms(lambda: raster_resolve(*args, plan=k2.plan), KERNEL_TIMINGS))
     plain_ms = _median(_event_times_ms(lambda: raster_resolve_plain(*args), 3, warmup=1)) if timed else None
     # least time for the same work: the walk's f32 ops over the frame's
     # pixels vs the bytes moved (table, the walked bins' sorted ids and
@@ -486,7 +592,8 @@ def _check_resolve(label, scene, layout, pipeline, timed: bool) -> dict:
     _log(f"{label}: raster_resolve {ms:.4f} ms (median of {KERNEL_TIMINGS})"
          + (f", plain {plain_ms:.2f} ms" if timed else "")
          + f", bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
-    return {
+    _split_log(f"K2 {label}", ms, bound_ms, bound_by, k2.plan)
+    out = {
         "name": "raster_resolve",
         "route": "cuda",
         "source": "renderer_rs_tpu_torch/csrc/raster_resolve.cu",
@@ -497,7 +604,29 @@ def _check_resolve(label, scene, layout, pipeline, timed: bool) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes this function
+        "host_syncs": len(syncs),
+        **_plan_stats(k2.plan),
     }
+    if timed:
+        def after():
+            out["chunk_sweep_ms"] = _chunk_sweep(
+                f"K2 {label}", lambda plan: raster_resolve(*args, plan=plan), k2.seg,
+                k2.sorted_tris.numel())
+            table2, setup2 = _twice(k2.table, geo.setup)
+
+            def twins(op, clear):
+                sorted_tris, seg, _nby, nbx, _ = bin_compact(setup2, H, W)
+                return ((table2, sorted_tris, seg, nbx, H, W, k2.n_vary, k2.n_flat, op, clear),
+                        split_plan(seg, sorted_tris.numel()))
+
+            ties = _check_ties("raster_resolve", label, raster_resolve, raster_resolve_plain,
+                               twins, geo.setup.num_triangles)
+            out["max_abs_err"] = max(out["max_abs_err"], ties["max_abs_err"])
+            out["ms_ties"] = ties["ms"]
+
+        _AFTER.append(after)
+    _defer_breakdown(out, label, f"K2 {label}", lambda: raster_resolve(*args, plan=k2.plan))
+    return out
 
 
 def _check_depth(scene, layout, size: int) -> dict:
@@ -574,8 +703,8 @@ def _check_depth(scene, layout, size: int) -> dict:
 
 
 def _plan_at(inputs, chunk: int):
-    """The split plan of `inputs`' segments (DepthInputs, PeelInputs) at
-    `chunk`."""
+    """The split plan of `inputs`' segments (DepthInputs, PeelInputs,
+    ResolveInputs, VisibilityInputs) at `chunk`."""
     from renderer_rs_tpu_torch.ops.raster_cuda import split_plan
 
     return split_plan(inputs.seg, inputs.sorted_tris.numel(), chunk)
@@ -886,7 +1015,12 @@ def _check_peel(scene, layout, pipeline) -> dict:
     the table with every raster slot twice."""
     import torch
 
-    from renderer_rs_tpu_torch.ops.raster_cuda import raster_peel, raster_peel_plain
+    from renderer_rs_tpu_torch.ops.raster_cuda import (
+        bin_compact,
+        raster_peel,
+        raster_peel_plain,
+        split_plan,
+    )
     from renderer_rs_tpu_torch.renderer.passes import frame_geometry, peel_inputs
 
     geo = frame_geometry(scene, layout, pipeline, W, H)
@@ -912,11 +1046,12 @@ def _check_peel(scene, layout, pipeline) -> dict:
     max_abs_err, timings, covered, launches = 0.0, {}, {}, {}
     for label, z_floor in cases.items():
         args = (*base, z_floor, pipeline.depth_compare_op)
-        err = _peel_against_plain(label, args, k5.plan)
+        err = _against_plain("raster_peel", label, raster_peel, raster_peel_plain, args,
+                             k5.plan, lanes=True)
         max_abs_err = max(max_abs_err, err["max_abs_err"])
-        covered[label] = err["covered"]
-        above = (bool((err["depth"][err["hit"]] > floor[err["hit"]]).all())
-                 if z_floor is not None else True)
+        hit = err["tid"] >= 0
+        covered[label] = int(hit.sum())
+        above = bool((err["depth"][hit] > floor[hit]).all()) if z_floor is not None else True
         if not above or (covered[label] > 0) != (z_floor is not inf):
             raise SystemExit(f"phase kernels: raster_peel ({label}) covers {covered[label]} "
                              f"pixels, strictly above the floor {above}")
@@ -953,7 +1088,15 @@ def _check_peel(scene, layout, pipeline) -> dict:
                          lambda plan: raster_peel(*base, floor, pipeline.depth_compare_op,
                                                   plan=plan),
                          k5.seg, k5.sorted_tris.numel())
-    ties = _check_peel_ties(geo, k5, layout.num_triangles)
+    table2, setup2 = _twice(k5.table, geo.setup)
+
+    def twins(op, clear):
+        sorted_tris, seg, _nby, nbx, _ = bin_compact(setup2, H, W)
+        return ((table2, sorted_tris, seg, nbx, H, W, k5.n_vary, k5.n_flat, None, op, clear),
+                split_plan(seg, sorted_tris.numel()))
+
+    ties = _check_ties("raster_peel", "mask frame", raster_peel, raster_peel_plain, twins,
+                       geo.setup.num_triangles)
     max_abs_err = max(max_abs_err, ties["max_abs_err"])
     ms, plain_ms, bound_ms, bound_by, _, _ = timings["layer-0 floor"]
     out = {
@@ -978,78 +1121,6 @@ def _check_peel(scene, layout, pipeline) -> dict:
     for label, launch in launches.items():
         _defer_breakdown(out, label, f"K5 {label}", launch,
                          "device_ms" if label == "layer-0 floor" else None)
-    return out
-
-
-def _peel_against_plain(label: str, args, plan) -> dict:
-    """One K5 case on the card, with `plan` and with FORCED_CHUNK, against
-    the plain version: tid equal, depth bit-equal, lanes within rtol 1e-5 /
-    atol 1e-6 (bit-equality printed)."""
-    import torch
-
-    from renderer_rs_tpu_torch.ops.raster_cuda import raster_peel, raster_peel_plain
-
-    depth, tid, lanes = raster_peel(*args, plan=plan)
-    forced = raster_peel(*args, chunk=FORCED_CHUNK)
-    torch.cuda.synchronize()
-    ref = raster_peel_plain(*args)
-    torch.cuda.synchronize()
-    ok, max_abs_err = True, 0.0
-    for name, (d, t, ln) in (("plan", (depth, tid, lanes)), (f"chunk {FORCED_CHUNK}", forced)):
-        tid_equal = bool(torch.equal(t, ref[1]))
-        depth_equal = bool(torch.equal(d.view(torch.int32), ref[0].view(torch.int32)))
-        lane_err = (ln - ref[2]).abs()
-        lanes_ok = bool((lane_err <= 1e-6 + 1e-5 * ref[2].abs()).all())
-        lane_bits = bool(torch.equal(ln.view(torch.int32), ref[2].view(torch.int32)))
-        err = float(lane_err.max()) if lane_err.numel() else 0.0
-        max_abs_err = max(max_abs_err, err)
-        ok = ok and tid_equal and depth_equal and lanes_ok
-        _log(f"raster_peel ({label}, {name}) vs plain: tid equal {tid_equal}, depth bit-equal "
-             f"{depth_equal}, lanes max |err| {err:.3e} (rtol 1e-5 atol 1e-6 ok {lanes_ok}, "
-             f"bit-equal {lane_bits}), covered {int((t >= 0).sum())}")
-    if not ok:
-        raise SystemExit(f"phase kernels: raster_peel disagrees with its plain version ({label})")
-    hit = tid >= 0
-    return {"max_abs_err": max_abs_err, "covered": int(hit.sum()), "depth": depth, "hit": hit,
-            "tid": tid}
-
-
-def _check_peel_ties(geo, k5, n_source: int) -> dict:
-    """K5's tie rules at full size: the MASK frame's table with every raster
-    slot twice (the twin's payload id + n_source), binned anew, under
-    LESS_OR_EQUAL (clear 1) and GREATER_OR_EQUAL (clear 0), no floor. Every
-    winner ties its twin, and LE/GE keep the last submitted: the twin."""
-    import torch
-
-    from renderer_rs_tpu_torch.ops.raster import TriangleSetup
-    from renderer_rs_tpu_torch.ops.raster_cuda import bin_compact, raster_peel, split_plan
-    from renderer_rs_tpu_torch.rhi.pipeline import CompareOp
-
-    rows = k5.table[:-1]
-    twins = rows.clone()
-    twins[:, 19] += n_source
-    table = torch.cat([rows, twins, k5.table[-1:]]).contiguous()
-    setup = TriangleSetup(*(torch.cat([getattr(geo.setup, f)] * 2)
-                            for f in ("xy", "z", "w", "area2", "valid")))
-    sorted_tris, seg, _nby, nbx, overflow = bin_compact(setup, H, W)
-    plan = split_plan(seg, sorted_tris.numel())
-    _log(f"mask frame, every slot twice: binned pairs={int(seg[-1])} densest bin="
-         f"{int((seg[1:] - seg[:-1]).max())} bin_overflow {overflow.tolist()} split plan "
-         f"{_plan_stats(plan)}")
-    out = {"max_abs_err": 0.0, "ms": {}}
-    for op, clear in ((CompareOp.LESS_OR_EQUAL, 1.0), (CompareOp.GREATER_OR_EQUAL, 0.0)):
-        label = f"twins, {op.name}"
-        args = (table, sorted_tris, seg, nbx, H, W, k5.n_vary, k5.n_flat, None, op, clear)
-        res = _peel_against_plain(label, args, plan)
-        twin_won = bool((res["tid"][res["hit"]] >= n_source).all())
-        _log(f"raster_peel ({label}): covered {res['covered']}, every winner the later twin "
-             f"{twin_won}")
-        if not (twin_won and res["covered"] > 0):
-            raise SystemExit(f"phase kernels: raster_peel ({label}) broke the tie rule")
-        out["max_abs_err"] = max(out["max_abs_err"], res["max_abs_err"])
-        out["ms"][op.name] = _median(_event_times_ms(
-            lambda args=args: raster_peel(*args, plan=plan), KERNEL_TIMINGS))
-        _log(f"raster_peel ({label}): {out['ms'][op.name]:.4f} ms (median of {KERNEL_TIMINGS})")
     return out
 
 
@@ -1078,7 +1149,7 @@ def phase_kernels() -> tuple[dict, tuple]:
     scene, layout, kw, _ = full_scene(W, H, device="cuda", **FULL)
     k1 = _check_depth(scene, layout, kw["shadow_map_size"])
     k7 = _check_zplane(scene, layout, kw["shadow_map_size"], cascades=False)
-    _check_resolve("pbr flagship", scene, layout, kw["pipeline"], timed=False)
+    k2_pbr = _check_resolve("pbr flagship", scene, layout, kw["pipeline"], timed=False)
     k4 = _check_ids(scene, layout, kw["pipeline"])
     scene, layout, kw, _ = full_scene(W, H, device="cuda", csm=True, **FULL)
     k6 = _check_depth_batch(scene, layout, kw["shadow_map_size"])
@@ -1094,7 +1165,8 @@ def phase_kernels() -> tuple[dict, tuple]:
     k2_tex = _check_resolve("headline (textured, IBL)", scene, layout, kw["pipeline"], timed=True)
     k2["ms_textured"], k2["plain_ms_textured"] = k2_tex["ms"], k2_tex["plain_ms"]
     k2["bound_ms_textured"] = k2_tex["bound_ms"]
-    k2["max_abs_err"] = max(k2["max_abs_err"], k2_tex["max_abs_err"])
+    k2["host_syncs"] = k2["host_syncs"] + k2_pbr["host_syncs"] + k2_tex["host_syncs"]
+    k2["cases"] = {"pbr flagship": k2_pbr, "headline (textured, IBL)": k2_tex}
     k5 = _check_peel(scene, layout, _mask_pipeline())
     k3 = _check_visibility(scene, layout, kw["pipeline"])
     return {"raster_depth": k1, "raster_resolve": k2, "raster_ids": k4,
@@ -1138,47 +1210,58 @@ def _headline_scene():
 def _check_visibility(scene, layout, pipeline) -> dict:
     """K3 beside its plain version on the headline frame's setup, in three
     band forms (K3_BANDS): the whole frame, a contiguous band of 270 rows
-    and a pair-interleaved band of 270 rows."""
+    and a pair-interleaved band of 270 rows, each with the main path's split
+    plan and with FORCED_CHUNK; on the pair-interleaved band also the tie
+    rules on the table with every raster slot twice."""
     import torch
 
     from renderer_rs_tpu_torch.ops.raster_cuda import (
         VIS_COLS,
+        bin_compact,
         prepare_visibility,
         raster_visibility,
         raster_visibility_plain,
+        split_plan,
     )
     from renderer_rs_tpu_torch.renderer.passes import frame_geometry
 
     geo = frame_geometry(scene, layout, pipeline, W, H)
     t = layout.num_triangles
-    cases, max_abs_err = {}, 0.0
+    cases, max_abs_err, n_syncs = {}, 0.0, 0
     for label, band in K3_BANDS.items():
         y0, rows = band[0], band[1]
         stride = band[2] if len(band) > 2 else 1
         pair = len(band) > 3 and band[3]
-        k3 = prepare_visibility(geo.setup, rows, W, y0, stride, pair, small_limit=t)
+
+        def prepare(y0=y0, rows=rows, stride=stride, pair=pair):
+            return prepare_visibility(geo.setup, rows, W, y0, stride, pair, small_limit=t)
+
+        k3 = prepare()
         args = (k3.table, k3.sorted_tris, k3.seg, k3.nbx, rows, W, y0, stride, pair,
                 pipeline.depth_compare_op)
         n_pairs = int(k3.n_pairs)
         densest = int((k3.seg[1:] - k3.seg[:-1]).max())
         big, huge = (int(v) for v in k3.bin_overflow.tolist())
-        out = raster_visibility(*args)
-        torch.cuda.synchronize()
-        ref = raster_visibility_plain(*args)
-        torch.cuda.synchronize()
-        equal = [bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
-                 for a, b in zip(out, ref)]
-        err = max(float((out[i] - ref[i]).abs().max()) for i in (0, 2, 3))
-        max_abs_err = max(max_abs_err, err)
-        covered = int((out[1] >= 0).sum())
         _log(f"K3 {label} {band}: bins={k3.seg.numel() - 1} binned pairs={n_pairs} densest "
-             f"bin={densest} bin_overflow big {big} huge {huge}; vs plain: depth, tid, b0, b1 "
-             f"bit-equal {equal}, max |err| {err:.3e}, covered {covered}")
-        if not (all(equal) and covered > 0):
-            raise SystemExit(f"phase kernels: raster_visibility disagrees with its plain "
-                             f"version ({label})")
-        del ref
-        ms = _median(_event_times_ms(lambda args=args: raster_visibility(*args), KERNEL_TIMINGS))
+             f"bin={densest} bin_overflow big {big} huge {huge}; split plan "
+             f"{_plan_stats(k3.plan)}, with chunk {FORCED_CHUNK} "
+             f"{_plan_stats(_plan_at(k3, FORCED_CHUNK))}")
+        syncs = _syncs(lambda args=args, prepare=prepare: raster_visibility(
+            *args, plan=prepare().plan))
+        _log(f"K3 {label}: host syncs of prepare_visibility (binning, table, split plan) and "
+             f"the K3 launch: {len(syncs)} {syncs}")
+        if syncs:
+            raise SystemExit(f"phase kernels: the K3 binning or launch synchronizes the host "
+                             f"({label})")
+        n_syncs += len(syncs)
+        res = _against_plain("raster_visibility", label, raster_visibility,
+                             raster_visibility_plain, args, k3.plan, lanes=False)
+        max_abs_err = max(max_abs_err, res["max_abs_err"])
+        covered = int((res["tid"] >= 0).sum())
+        if not covered:
+            raise SystemExit(f"phase kernels: raster_visibility covers no pixel ({label})")
+        ms = _median(_event_times_ms(lambda args=args, plan=k3.plan: raster_visibility(
+            *args, plan=plan), KERNEL_TIMINGS))
         plain_ms = _median(_event_times_ms(lambda args=args: raster_visibility_plain(*args), 3,
                                            warmup=1))
         # least time: the walk's f32 ops over the band's pixels (a bin row
@@ -1192,15 +1275,35 @@ def _check_visibility(scene, layout, pipeline) -> dict:
         nbytes = (binned_rows * VIS_COLS * 4 + walked * 4 + (bins + 1) * 4
                   + rows * W * 4 * 4)
         bound_ms, bound_by = _bound(ops, nbytes)
-        cases[label] = dict(band=list(band), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, n_pairs=n_pairs, walked_pairs=walked,
-                            densest=densest, bin_overflow=[big, huge], covered=covered)
         _log(f"K3 {label}: {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, "
              f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes: "
              f"{walked} walked pairs of {n_pairs}, {binned_rows} walked rows of "
              f"{k3.table.shape[0]})")
+        _split_log(f"K3 {label}", ms, bound_ms, bound_by, k3.plan)
+        cases[label] = dict(band=list(band), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, n_pairs=n_pairs, walked_pairs=walked,
+                            densest=densest, bin_overflow=[big, huge], covered=covered,
+                            host_syncs=len(syncs), **_plan_stats(k3.plan))
+
+        def sweep(case=cases[label], label=label, args=args, k3=k3):
+            case["chunk_sweep_ms"] = _chunk_sweep(
+                f"K3 {label}", lambda plan: raster_visibility(*args, plan=plan), k3.seg,
+                k3.sorted_tris.numel())
+
+        _AFTER.append(sweep)
+        _defer_breakdown(cases[label], label, f"K3 {label}",
+                         lambda args=args, plan=k3.plan: raster_visibility(*args, plan=plan))
+    y0, rows, stride, pair = K3_BANDS["pair-interleaved band"]
+    table2, setup2 = _twice(k3.table, geo.setup)
+
+    def twins(op, clear):
+        sorted_tris, seg, _nby, nbx, _ = bin_compact(setup2, rows, W, y_offset=y0,
+                                                     y_stride=stride, y_pair=pair)
+        return ((table2, sorted_tris, seg, nbx, rows, W, y0, stride, pair, op, clear),
+                split_plan(seg, sorted_tris.numel()))
+
     band = cases["contiguous band"]
-    return {
+    out = {
         "name": "raster_visibility",
         "route": "cuda",
         "source": "renderer_rs_tpu_torch/csrc/raster_vis.cu",
@@ -1211,8 +1314,18 @@ def _check_visibility(scene, layout, pipeline) -> dict:
         "bound_ms": band["bound_ms"],
         "bound_by": band["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
+        "host_syncs": n_syncs,
         "cases": cases,
     }
+
+    def ties():
+        res = _check_ties("raster_visibility", "pair-interleaved band", raster_visibility,
+                          raster_visibility_plain, twins, geo.setup.num_triangles)
+        out["max_abs_err"] = max(out["max_abs_err"], res["max_abs_err"])
+        out["ms_ties"] = res["ms"]
+
+    _AFTER.append(ties)
+    return out
 
 
 def _mask_pipeline():
@@ -1840,6 +1953,9 @@ def main() -> int:
     # the probe's run: one launch of each body at PROBE_ITERS
     kernels["probe_kgather"]["ms"] = sum(us.values()) * PROBE_ITERS / 1e3
     phase_small_reference()
+    phase_after()
+    k2 = kernels["raster_resolve"]
+    k2["max_abs_err"] = max([k2["max_abs_err"], *(c["max_abs_err"] for c in k2["cases"].values())])
     phase_breakdown()
     for name, k in kernels.items():
         k["launches"] = sum(path[name] for path in by_path.values())

@@ -1,4 +1,4 @@
-// K2: visibility + in-kernel winner resolve, written for Hopper (sm_90a).
+// K2: visibility + winner resolve, written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel renderer_rs_tpu/ops/raster_pallas.py:_make_kernel
 // in gather mode (defer_varyings="kernel", gather_vary, :298-395), launched by
@@ -11,208 +11,151 @@
 // Table row layout (one row per raster slot, row t = pad):
 //   [0..14]  3 edges x (ax, ay, sdx, sdy, thresh)  sign-folded canonical form
 //   [15..17] z0, z1, z2      [18] inv_area      [19] slot id (f32, exact)
-//   [20..22] inv_w0..2       [23 + i*K + k] vertex i, attribute k
+//   [20..22] inv_w0..2       [23 + i*K + k] vertex i, attribute k (VERTEX-major)
 //   [23 + 3K + f] flat lane f (winner-selected, exact)
 //
 // What bounds it on this card: operations. Each (candidate, pixel) pair
 // costs ~30 f32 ops, and a bin's segment is walked for all 2048 of its
 // pixels, while the bytes are a table read plus the [H,W] outputs. The
-// design keeps the walk compute-only: a block owns one bin, stages 128 rows
-// of the 20 visibility columns at a time in shared memory (every thread
-// reads the same row: a broadcast, no bank conflicts), keeps per-pixel
-// (depth, winner row) in registers, hoists px - ax per thread (a thread's 8
-// pixels share one column), and fetches only the winner's full row once at
-// the end. No atomics: each pixel's walk is sequential in submission
-// order, which reproduces the tie rules exactly. Dense bins serialize on
-// one block; splitting them is later work.
+// first design (one block per bin, the winner's lanes resolved by the
+// block that walked it) waited on the block of the densest bin (4,197
+// candidates in the Blinn-Phong frame, 26x the bound) and stored each
+// thread's lanes n_lanes floats from its neighbour's. The design, three
+// kernels per launch: the key init and the walk of the split plan
+// (csrc/split_walk.cuh: one block per piece of at most 64 candidates, a
+// 64-bit (depth, position) key merged by atomics in a split bin), then
+// raster_resolve_pass, one thread per pixel of a 128-pixel run of one row:
+// it reads the merged key, fetches the winner's row sorted_tris[position]
+// by a gather (the table, ~103k x 61 x 4 B, stays in the 50 MB L2; the
+// gather probe, PERF.md §6: never select by masked sums), recomputes its
+// depth and lanes, writes depth and tid coalesced and the run's
+// 128 x (K+Kf) lanes, one contiguous span of the output, through shared
+// memory, so that neighbouring threads store neighbouring 16 bytes.
 //
 // Exactness: the JAX kernel, as XLA compiles it, fuses a few products into
 // FMAs: the edge function e = fma(sdx, py-ay, -(sdy*(px-ax))), the depth
-// zc = fma(b2, z2, fma(b0, z0, b1*z1)), and in the winner epilogue
-// b2 = fma(-e1, inv, fma(-e0, inv, 1)) and each lane fma(aw2, a2, fma(aw0,
-// a0, aw1*a1)). Measured: these forms reproduce the interpret-mode kernel's
-// depth and lanes bit for bit on the parity tests. This file writes exactly
-// those FMAs with __fmaf_rn and is built with --fmad=false, so nvcc fuses
-// nothing else: tid and depth are bit-equal to the JAX kernel and to
-// raster_resolve_plain, and coverage is the same one compare e >= thresh.
+// zc = fma(b2, z2, fma(b0, z0, b1*z1)) with the walk's b2 = 1 - b0 - b1,
+// and in the winner epilogue b2 = fma(-e1, inv, fma(-e0, inv, 1)) for the
+// third weight and each lane fma(aw2, a2, fma(aw0, a0, aw1*a1)). The
+// weight denominator wb0 + wb1 + wb2 is NOT fused (each wb one product),
+// and nothing is zero-folded: the gather mode reads the winner's row, it
+// takes no masked sum. These differ from K5's epilogue (csrc/raster_peel.cu)
+// in all four respects, and each moves bits. Measured: these forms
+// reproduce the interpret-mode kernel's depth and lanes bit for bit on the
+// parity tests. This file writes exactly those FMAs with __fmaf_rn and is
+// built with --fmad=false, so nvcc fuses nothing else: tid and depth are
+// bit-equal to the JAX kernel and to raster_resolve_plain, and coverage is
+// the same one compare e >= thresh.
 
-#include <cuda_runtime.h>
+#include "split_walk.cuh"
 
 namespace {
 
-constexpr int BIN_H = 16;
-constexpr int BIN_W = 128;
-constexpr int THREADS = 256;
-constexpr int ROW_STEP = THREADS / BIN_W;         // 2 rows per pass of the block
-constexpr int PX = BIN_H * BIN_W / THREADS;       // 8 pixels per thread
-constexpr int STAGE = 128;                        // candidate rows per shared stage
-constexpr int VIS_COLS = 20;                      // edges, z, inv_area, id
-
-// e = sdx*(py-ay) - sdy*(px-ax), with the reference's single rounding of
-// the first product (sign-symmetric: the canonical edge shared by two
-// triangles still evaluates to exact negatives)
-__device__ __forceinline__ float edge_fn(float sdx, float dy, float sdy, float dx) {
-    return __fmaf_rn(sdx, dy, -(sdy * dx));
-}
-
-// zc = b0*z0 + b1*z1 + b2*z2 in the reference's rounding order
-__device__ __forceinline__ float depth_fn(float b0, float b1, float b2, float z0,
-                                          float z1, float z2) {
-    return __fmaf_rn(b2, z2, __fmaf_rn(b0, z0, b1 * z1));
-}
-
-// OP: 0 LESS, 1 LESS_OR_EQUAL, 2 GREATER, 3 GREATER_OR_EQUAL
+// The resolve pass: one thread per pixel of a RUN-pixel run of one row.
+// Grid: run_blocks(height, width); dynamic shared memory
+// run_smem_bytes(n_vary + n_flat).
 template <int OP>
-__device__ __forceinline__ bool depth_pass(float z, float d) {
-    if (OP == 0) return z < d;
-    if (OP == 1) return z <= d;
-    if (OP == 2) return z > d;
-    return z >= d;
-}
-
-template <int OP>
-__global__ void __launch_bounds__(THREADS)
-raster_resolve_kernel(const float* __restrict__ table, int n_cols,
-                      const int* __restrict__ sorted_tris,
-                      const int* __restrict__ seg, int nbx, int height,
-                      int width, int n_vary, int n_flat, float depth_clear,
-                      float* __restrict__ depth_out, int* __restrict__ tid_out,
-                      float* __restrict__ lanes_out) {
-    __shared__ float s_coef[STAGE * VIS_COLS];
-    __shared__ int s_row[STAGE];
-
-    const int b = blockIdx.x;
-    const int by = b / nbx;
-    const int bx = b - by * nbx;
-    const int y0 = by * BIN_H;
-    if (y0 >= height) return;  // bin in the tile padding below the frame
-    const int x = bx * BIN_W + (threadIdx.x % BIN_W);
-    const int r0 = threadIdx.x / BIN_W;
-    // pixel centers: integers + 0.5, exact in f32 (frame < 2^24)
-    const float px = (float)x + 0.5f;
-    float py[PX], depth[PX];
-    int win[PX];
-#pragma unroll
-    for (int i = 0; i < PX; ++i) {
-        py[i] = (float)(y0 + r0 + ROW_STEP * i) + 0.5f;
-        depth[i] = depth_clear;
-        win[i] = -1;
-    }
-
-    const int s0 = seg[b];
-    const int s1 = seg[b + 1];
-    for (int base = s0; base < s1; base += STAGE) {
-        const int n = min(STAGE, s1 - base);
-        __syncthreads();  // previous stage fully consumed
-        for (int k = threadIdx.x; k < n * VIS_COLS; k += THREADS) {
-            const int r = k / VIS_COLS;
-            const int c = k - r * VIS_COLS;
-            s_coef[k] = table[(size_t)sorted_tris[base + r] * n_cols + c];
-        }
-        for (int k = threadIdx.x; k < n; k += THREADS) s_row[k] = sorted_tris[base + k];
-        __syncthreads();
-        for (int j = 0; j < n; ++j) {
-            const float* c = s_coef + j * VIS_COLS;
-            const float ay0 = c[1], sdx0 = c[2], sdy0 = c[3], th0 = c[4];
-            const float ay1 = c[6], sdx1 = c[7], sdy1 = c[8], th1 = c[9];
-            const float ay2 = c[11], sdx2 = c[12], sdy2 = c[13], th2 = c[14];
-            const float z0 = c[15], z1 = c[16], z2 = c[17], inv = c[18];
-            const float dx0 = px - c[0];
-            const float dx1 = px - c[5];
-            const float dx2 = px - c[10];
-            const int row = s_row[j];
-#pragma unroll
-            for (int i = 0; i < PX; ++i) {
-                const float e0 = edge_fn(sdx0, py[i] - ay0, sdy0, dx0);
-                const float e1 = edge_fn(sdx1, py[i] - ay1, sdy1, dx1);
-                const float e2 = edge_fn(sdx2, py[i] - ay2, sdy2, dx2);
-                const float b0 = e0 * inv;
-                const float b1 = e1 * inv;
-                const float b2 = 1.0f - b0 - b1;
-                const float zc = depth_fn(b0, b1, b2, z0, z1, z2);
-                // one-sided viewport bound; the depth test vs a clear in
-                // [0,1] implies the other side (raster_pallas.py:252-255)
-                const bool in_z = (OP >= 2) ? (zc <= 1.0f) : (zc >= 0.0f);
-                if ((e0 >= th0) & (e1 >= th1) & (e2 >= th2) & in_z &
-                    depth_pass<OP>(zc, depth[i])) {
-                    depth[i] = zc;
-                    win[i] = row;
-                }
-            }
-        }
-    }
-
+__global__ void __launch_bounds__(RUN)
+raster_resolve_pass(const float* __restrict__ table, int n_cols,
+                    const int* __restrict__ sorted_tris,
+                    const unsigned long long* __restrict__ keys, int width, int n_vary,
+                    int n_flat, float depth_clear, float* __restrict__ depth_out,
+                    int* __restrict__ tid_out, float* __restrict__ lanes_out) {
+    extern __shared__ float s_lanes[];
     const int n_lanes = n_vary + n_flat;
-#pragma unroll
-    for (int i = 0; i < PX; ++i) {
-        const int y = y0 + r0 + ROW_STEP * i;
-        if (y >= height || x >= width) continue;
+    int y, x0;
+    block_run(width, y, x0);
+    const int x = x0 + threadIdx.x;
+    const int l0 = threadIdx.x * n_lanes;  // this pixel's first lane in the run
+    if (x < width) {
         const size_t p = (size_t)y * width + x;
-        float* lanes = lanes_out + p * n_lanes;
-        if (win[i] < 0) {
+        const int pos = winner_pos<OP>(keys[p], depth_clear);
+        if (pos < 0) {
             depth_out[p] = depth_clear;
             tid_out[p] = -1;
-            for (int k = 0; k < n_lanes; ++k) lanes[k] = 0.0f;
-            continue;
+            for (int k = 0; k < n_lanes; ++k) s_lanes[skew(l0 + k)] = 0.0f;
+        } else {
+            const float* g = table + (size_t)sorted_tris[pos] * n_cols;
+            // winner-only edge re-evaluation: the walk's formulas (the same
+            // depth bits), then the perspective weights and the lane blend
+            // as the reference rounds them (see "Exactness")
+            const float px = (float)x + 0.5f;
+            const float py = (float)y + 0.5f;
+            const float e0 = edge_fn(g[2], py - g[1], g[3], px - g[0]);
+            const float e1 = edge_fn(g[7], py - g[6], g[8], px - g[5]);
+            const float inv = g[18];
+            const float b0 = e0 * inv;
+            const float b1 = e1 * inv;
+            const float b2f = __fmaf_rn(-e1, inv, __fmaf_rn(-e0, inv, 1.0f));
+            depth_out[p] = depth_fn(b0, b1, 1.0f - b0 - b1, g[15], g[16], g[17]);
+            tid_out[p] = (int)g[19];  // slot ids are whole numbers below 2^24
+            const float wb0 = b0 * g[20];
+            const float wb1 = b1 * g[21];
+            const float wb2 = b2f * g[22];
+            const float denom = wb0 + wb1 + wb2;
+            const float inv_d = 1.0f / (denom == 0.0f ? 1.0f : denom);
+            const float aw0 = wb0 * inv_d;
+            const float aw1 = wb1 * inv_d;
+            const float aw2 = wb2 * inv_d;
+            const float* a0 = g + 23;
+            const float* a1 = a0 + n_vary;
+            const float* a2 = a1 + n_vary;
+            for (int k = 0; k < n_vary; ++k)
+                s_lanes[skew(l0 + k)] = __fmaf_rn(aw2, a2[k], __fmaf_rn(aw0, a0[k], aw1 * a1[k]));
+            const float* fl = a2 + n_vary;
+            for (int f = 0; f < n_flat; ++f) s_lanes[skew(l0 + n_vary + f)] = fl[f];
         }
-        // winner-only edge re-evaluation: same edge formula as the candidate
-        // loop, then the perspective weights and the lane blend
-        const float* g = table + (size_t)win[i] * n_cols;
-        const float e0w = edge_fn(g[2], py[i] - g[1], g[3], px - g[0]);
-        const float e1w = edge_fn(g[7], py[i] - g[6], g[8], px - g[5]);
-        const float b0w = e0w * g[18];
-        const float b1w = e1w * g[18];
-        const float b2w = __fmaf_rn(-e1w, g[18], __fmaf_rn(-e0w, g[18], 1.0f));
-        depth_out[p] = depth[i];
-        tid_out[p] = (int)g[19];
-        const float wb0 = b0w * g[20];
-        const float wb1 = b1w * g[21];
-        const float wb2 = b2w * g[22];
-        const float denom = wb0 + wb1 + wb2;
-        const float inv_d = 1.0f / (denom == 0.0f ? 1.0f : denom);
-        const float aw0 = wb0 * inv_d;
-        const float aw1 = wb1 * inv_d;
-        const float aw2 = wb2 * inv_d;
-        const float* a0 = g + 23;
-        const float* a1 = a0 + n_vary;
-        const float* a2 = a1 + n_vary;
-        for (int k = 0; k < n_vary; ++k)
-            lanes[k] = __fmaf_rn(aw2, a2[k], __fmaf_rn(aw0, a0[k], aw1 * a1[k]));
-        const float* fl = a2 + n_vary;
-        for (int f = 0; f < n_flat; ++f) lanes[n_vary + f] = fl[f];
     }
+    __syncthreads();
+    store_run(s_lanes, lanes_out + ((size_t)y * width + x0) * n_lanes,
+              min(RUN, width - x0) * n_lanes, (width * n_lanes) % 4 == 0);
+}
+
+template <int OP>
+int launch(cudaStream_t s, const float* table, int n_cols, const int* sorted_tris,
+           const int4* items, int n_items, const int* pieces, int n_bins, int nbx, int height,
+           int width, int n_vary, int n_flat, float depth_clear, unsigned long long* keys,
+           float* depth_out, int* tid_out, float* lanes_out) {
+    int err = launch_split_walk<OP>(s, table, n_cols, sorted_tris, items, n_items, pieces,
+                                    n_bins, nbx, height, width, 0, 1, 0, nullptr, depth_clear,
+                                    keys);
+    if (err != 0) return err;
+    const size_t smem = run_smem_bytes(n_vary + n_flat);
+    err = allow_smem(raster_resolve_pass<OP>, smem);
+    if (err != 0) return err;
+    raster_resolve_pass<OP><<<run_blocks(height, width), RUN, smem, s>>>(
+        table, n_cols, sorted_tris, keys, width, n_vary, n_flat, depth_clear, depth_out,
+        tid_out, lanes_out);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launch on `stream` (PyTorch's current stream). Grid: one block per bin.
-// Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int raster_resolve_launch(const float* table, int n_cols,
-                                     const int* sorted_tris, const int* seg,
-                                     int n_bins, int nbx, int height, int width,
-                                     int n_vary, int n_flat, int op,
-                                     float depth_clear, float* depth_out,
-                                     int* tid_out, float* lanes_out,
+// Launch on `stream` (PyTorch's current stream): split_keys_init, the walk
+// over the n_items work items of `items` ([n_items, 4] int32: set, bin,
+// start, end; set -1 past the real items; pieces [n_bins] each bin's piece
+// count) and the resolve pass. keys is scratch of height*width u64.
+// Returns the first cudaGetLastError() that is not 0 (0 = launched).
+extern "C" int raster_resolve_launch(const float* table, int n_cols, const int* sorted_tris,
+                                     const int* items, int n_items, const int* pieces,
+                                     int n_bins, int nbx, int height, int width, int n_vary,
+                                     int n_flat, int op, float depth_clear, void* keys,
+                                     float* depth_out, int* tid_out, float* lanes_out,
                                      void* stream) {
-    if (n_bins <= 0) return 0;
-    const dim3 grid(n_bins);
-    const dim3 block(THREADS);
+    if (n_bins <= 0 || height <= 0 || width <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int4* it = reinterpret_cast<const int4*>(items);
+    unsigned long long* k = static_cast<unsigned long long*>(keys);
     switch (op) {
         case 0:
-            raster_resolve_kernel<0><<<grid, block, 0, s>>>(table, n_cols, sorted_tris, seg, nbx, height, width, n_vary, n_flat, depth_clear, depth_out, tid_out, lanes_out);
-            break;
+            return launch<0>(s, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, n_vary, n_flat, depth_clear, k, depth_out, tid_out, lanes_out);
         case 1:
-            raster_resolve_kernel<1><<<grid, block, 0, s>>>(table, n_cols, sorted_tris, seg, nbx, height, width, n_vary, n_flat, depth_clear, depth_out, tid_out, lanes_out);
-            break;
+            return launch<1>(s, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, n_vary, n_flat, depth_clear, k, depth_out, tid_out, lanes_out);
         case 2:
-            raster_resolve_kernel<2><<<grid, block, 0, s>>>(table, n_cols, sorted_tris, seg, nbx, height, width, n_vary, n_flat, depth_clear, depth_out, tid_out, lanes_out);
-            break;
+            return launch<2>(s, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, n_vary, n_flat, depth_clear, k, depth_out, tid_out, lanes_out);
         case 3:
-            raster_resolve_kernel<3><<<grid, block, 0, s>>>(table, n_cols, sorted_tris, seg, nbx, height, width, n_vary, n_flat, depth_clear, depth_out, tid_out, lanes_out);
-            break;
+            return launch<3>(s, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, n_vary, n_flat, depth_clear, k, depth_out, tid_out, lanes_out);
         default:
             return static_cast<int>(cudaErrorInvalidValue);
     }
-    return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled by
-nvcc into its own shared library and loaded with ctypes (route (b): no
-PyTorch headers, so a build takes seconds). Builds happen at first use, into
+Each kernel is one ``csrc/*.cu`` file with a plain C interface (K2, K3 and
+K5 include the shared walk, ``csrc/split_walk.cuh``), compiled by nvcc into
+its own shared library and loaded with ctypes (route (b): no PyTorch
+headers, so a build takes seconds). Builds happen at first use, into
 ``renderer_rs_tpu_torch/_build/`` (listed in .gitignore), keyed by a hash of
-the source and flags; ``build()`` starts one nvcc per source at once.
+the source, the headers it includes and the flags; ``build()`` starts one
+nvcc per source at once.
 
 Flags: ``--fmad=false`` stops nvcc from contracting any ``a*b + c`` on its
 own. The JAX kernels are not free of FMAs: measured against the Pallas
@@ -24,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -56,10 +59,31 @@ def _nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> list[Path]:
+    """The kernel's source and every local header it includes ("...", found
+    beside the including file), each once, in the order first reached."""
+    files: list[Path] = []
+    todo = [SOURCES[name]]
+    while todo:
+        path = todo.pop(0).resolve()
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / inc.decode() for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The built library's path, keyed by the bytes of every file of the
+    source (source_files) and the flags: an edit to a shared header
+    rebuilds every kernel that includes it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict[str, float]:

@@ -71,14 +71,16 @@ def _tile_ranges(setup: TriangleSetup, height, width, tile_h, tile_w, nty, ntx,
     tx0 = _bin_index(x_min, tile_w, ntx)
     tx1 = _bin_index(x_max, tile_w, ntx)
     if _is_banded(y_offset, y_stride):
-        yo = torch.tensor(float(y_offset), dtype=torch.float32, device=ys.device)
+        # f32 scalars made by a fill kernel on the device: a tensor built
+        # from a host value is a copy that waits for the device
+        yo = torch.full((), float(y_offset), dtype=torch.float32, device=ys.device)
         ky0 = (y_min - 0.5 - yo) / y_stride  # fractional band rows
         ky1 = (y_max - 0.5 - yo) / y_stride
         if y_pair:
             # global row g(j) >= yo + s*j - (s-1): the upper bound gains a
             # conservative (s-1)/s, rounded to f32 as jnp's weak scalar is
-            ky1 = ky1 + torch.tensor((y_stride - 1.0) / y_stride, dtype=torch.float32,
-                                     device=ys.device)
+            ky1 = ky1 + torch.full((), (y_stride - 1.0) / y_stride, dtype=torch.float32,
+                                   device=ys.device)
         ty0 = _bin_index(ky0, tile_h, nty)
         ty1 = _bin_index(ky1, tile_h, nty)
         y_on = (ky1 >= 0.0) & (ky0 <= height)

@@ -10,7 +10,7 @@ described at their sections below.
 K2, visibility with in-kernel winner resolve:
 
 The frame's fast raster path: compact binning -> one per-slot coefficient
-table -> ONE kernel launch that, per pixel, walks its 16x128 bin's exact
+table -> ONE wrapper call that, per pixel, walks its 16x128 bin's exact
 candidate segment, keeps the nearest covered candidate under the depth
 compare, and resolves the winner's attribute lanes (perspective-correct
 varyings + winner-selected flat lanes) from its table row.
@@ -50,14 +50,16 @@ the anchored depth plane (zdx, zdy, zA) and the walk evaluates
 (zdx*dx0 + zdy*dy0) + zA from edge 0's differences
 (``raster_depth.zplane_launches`` counts those launches).
 
-Split dense bins (K1, K6, K7 and K5): ``split_plan`` cuts every bin's
+Split dense bins (every kernel but K4): ``split_plan`` cuts every bin's
 candidate segment into pieces of at most ``chunk`` candidates, on the
-device and without a host sync, once per binning (it rides DepthInputs and
-PeelInputs). The kernels walk one piece per block and merge the pieces of
-a split bin exactly and in any order: K1 by atomic min/max on the depths'
-int32 order keys, K5 by atomic min/max on a 64-bit (depth, position) key
-(csrc/raster_depth.cu, csrc/raster_peel.cu). The plan changes no bit of
-the result, and the plain versions ignore it.
+device and without a host sync, once per binning (it rides DepthInputs,
+PeelInputs, ResolveInputs and VisibilityInputs). The kernels walk one
+piece per block and merge the pieces of a split bin exactly and in any
+order: K1 by atomic min/max on the depths' int32 order keys
+(csrc/raster_depth.cu); K2, K3 and K5 by atomic min/max on a 64-bit
+(depth, position) key (the shared walk, csrc/split_walk.cuh), after which a
+pixel-parallel pass resolves each winner from its table row. The plan
+changes no bit of the result, and the plain versions ignore it.
 """
 
 from __future__ import annotations
@@ -88,8 +90,8 @@ _OPS = {
     CompareOp.GREATER: 2,
     CompareOp.GREATER_OR_EQUAL: 3,
 }
-# candidates per work item of the split kernels (K1, K6, K7, K5): the chunk
-# sweep of chip_smoke.py on the H100 (PERF.md §6)
+# candidates per work item of the split kernels (K1, K2, K3, K5, K6, K7): the
+# chunk sweep of chip_smoke.py on the H100 (PERF.md §6)
 SPLIT_CHUNK = 64
 
 
@@ -324,28 +326,30 @@ def _check_inputs(table, sorted_tris, seg, nbx, height, width, min_cols, compare
 
 
 def _launch(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat, compare_op,
-            depth_clear):
+            depth_clear, plan):
     from renderer_rs_tpu_torch.kernels import load
 
     lib = load("raster_resolve")
     fn = lib.raster_resolve_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     dev = table.device
     depth = torch.empty((height, width), dtype=_F32, device=dev)
     tid = torch.empty((height, width), dtype=torch.int32, device=dev)
     lanes = torch.empty((height, width, n_vary + n_flat), dtype=_F32, device=dev)
+    keys = torch.empty((height, width), dtype=torch.int64, device=dev)  # the merged winners
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            table.data_ptr(), table.shape[1], sorted_tris.data_ptr(), seg.data_ptr(),
-            seg.numel() - 1, nbx, height, width, n_vary, n_flat, _OPS[compare_op],
-            float(depth_clear), depth.data_ptr(), tid.data_ptr(), lanes.data_ptr(), stream,
+            table.data_ptr(), table.shape[1], sorted_tris.data_ptr(), plan.items.data_ptr(),
+            plan.items.shape[0], plan.pieces.data_ptr(), seg.numel() - 1, nbx, height, width,
+            n_vary, n_flat, _OPS[compare_op], float(depth_clear), keys.data_ptr(),
+            depth.data_ptr(), tid.data_ptr(), lanes.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"raster_resolve launch failed: cudaError {err}")
@@ -354,16 +358,20 @@ def _launch(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat, compare
 
 
 def raster_resolve(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat,
-                   compare_op=CompareOp.LESS, depth_clear=1.0):
+                   compare_op=CompareOp.LESS, depth_clear=1.0, plan=None, chunk=None):
     """K2 over the binned candidates. table [t+1, C] f32 (build_gather_table),
     sorted_tris/seg int32 (bin_compact), nbx bins per row. Returns
     (depth [H,W] f32, tid [H,W] int32 slot id or -1, lanes [H,W,K+Kf] f32).
-    CUDA tensors launch the kernel; CPU tensors run raster_resolve_plain."""
+    plan (ResolveInputs.plan), or else one built with pieces of at most
+    `chunk` candidates (default SPLIT_CHUNK), is how the kernel cuts dense
+    bins over blocks; neither changes a bit of the result. CUDA tensors
+    launch the kernel; CPU tensors run raster_resolve_plain."""
     _check_inputs(table, sorted_tris, seg, nbx, height, width, 23 + 3 * n_vary + n_flat,
                   compare_op)
+    plan = _plan_for(seg, sorted_tris, plan, chunk)
     if table.device.type == "cuda":
         return _launch(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat,
-                       compare_op, depth_clear)
+                       compare_op, depth_clear, plan)
     if table.device.type != "cpu":
         raise ValueError(f"raster_resolve: unsupported device {table.device}")
     return raster_resolve_plain(table, sorted_tris, seg, nbx, height, width, n_vary,
@@ -529,7 +537,8 @@ def raster_resolve_plain(table, sorted_tris, seg, nbx, height, width, n_vary, n_
 @dataclasses.dataclass
 class ResolveInputs:
     """K2's inputs for one frame: the table, the binned segments and the
-    lane counts, plus the binning overflow counters [big, huge]."""
+    lane counts, the binning overflow counters [big, huge], and the split
+    plan of seg (split_plan, SPLIT_CHUNK)."""
 
     table: torch.Tensor
     sorted_tris: torch.Tensor
@@ -538,6 +547,7 @@ class ResolveInputs:
     n_vary: int
     n_flat: int
     bin_overflow: torch.Tensor
+    plan: SplitPlan | None = None
 
     @property
     def n_pairs(self) -> torch.Tensor:
@@ -548,7 +558,8 @@ class ResolveInputs:
 def prepare_resolve(setup: TriangleSetup, height: int, width: int, attr, vtx,
                     vary_src, bary_planes, flat, small_limit=None) -> ResolveInputs:
     """Bin and build the table (≙ rasterize_binned_pallas up to the
-    pallas_call, defer_varyings="kernel" with varyings_soa)."""
+    pallas_call, defer_varyings="kernel" with varyings_soa), and the split
+    plan of the segments."""
     sorted_tris, seg, _nby, nbx, overflow = bin_compact(setup, height, width, small_limit)
     return ResolveInputs(
         table=build_gather_table(setup, attr, vtx, vary_src, bary_planes, flat),
@@ -558,6 +569,7 @@ def prepare_resolve(setup: TriangleSetup, height: int, width: int, attr, vtx,
         n_vary=attr.shape[-1],
         n_flat=0 if flat is None else flat.shape[-1],
         bin_overflow=overflow,
+        plan=split_plan(seg, sorted_tris.numel()),
     )
 
 
@@ -1078,8 +1090,9 @@ def _peel_lanes_plain(table, win, py_all, px_all, n_vary, n_flat):
 @dataclasses.dataclass
 class VisibilityInputs:
     """K3's inputs for one band: the 20-column table (the raster-slot index
-    in column 19), the segments of the band-space bins, the band's row map
-    and the binning overflow counters [big, huge]."""
+    in column 19), the segments of the band-space bins, the band's row map,
+    the binning overflow counters [big, huge], and the split plan of seg
+    (split_plan, SPLIT_CHUNK)."""
 
     table: torch.Tensor
     sorted_tris: torch.Tensor
@@ -1089,6 +1102,7 @@ class VisibilityInputs:
     y_stride: int
     y_pair: bool
     bin_overflow: torch.Tensor
+    plan: SplitPlan | None = None
 
     @property
     def n_pairs(self) -> torch.Tensor:
@@ -1104,7 +1118,8 @@ def prepare_visibility(setup: TriangleSetup, height: int, width: int, y_offset: 
     to the pallas_call, raster_pallas.py:1281): the binning runs in band
     space, `height` rows of framebuffer row y_offset + j*y_stride (pair
     form: y_offset + (j//2)*2*y_stride + j%2); the table is the 19 depth
-    columns and the slot index (ids=None, `_depth_coef_table`)."""
+    columns and the slot index (ids=None, `_depth_coef_table`); the split
+    plan cuts the band-space segments."""
     _check_band(height, y_offset, y_stride, y_pair)
     sorted_tris, seg, _nby, nbx, overflow = bin_compact(
         setup, height, width, small_limit, y_offset=y_offset, y_stride=y_stride, y_pair=y_pair)
@@ -1119,35 +1134,38 @@ def prepare_visibility(setup: TriangleSetup, height: int, width: int, y_offset: 
         y_stride=int(y_stride),
         y_pair=bool(y_pair),
         bin_overflow=overflow,
+        plan=split_plan(seg, sorted_tris.numel()),
     )
 
 
 def _launch_visibility(table, sorted_tris, seg, nbx, height, width, y_offset, y_stride,
-                       y_pair, compare_op, depth_clear):
+                       y_pair, compare_op, depth_clear, plan):
     from renderer_rs_tpu_torch.kernels import load
 
     lib = load("raster_vis")
     fn = lib.raster_vis_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
     ]
     dev = table.device
     depth = torch.empty((height, width), dtype=_F32, device=dev)
     tid = torch.empty((height, width), dtype=torch.int32, device=dev)
     b0 = torch.empty((height, width), dtype=_F32, device=dev)
     b1 = torch.empty((height, width), dtype=_F32, device=dev)
+    keys = torch.empty((height, width), dtype=torch.int64, device=dev)  # the merged winners
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            table.data_ptr(), table.shape[1], sorted_tris.data_ptr(), seg.data_ptr(),
-            seg.numel() - 1, nbx, height, width, y_offset, y_stride, int(y_pair),
-            _OPS[compare_op], float(depth_clear), depth.data_ptr(), tid.data_ptr(),
-            b0.data_ptr(), b1.data_ptr(), stream,
+            table.data_ptr(), table.shape[1], sorted_tris.data_ptr(), plan.items.data_ptr(),
+            plan.items.shape[0], plan.pieces.data_ptr(), seg.numel() - 1, nbx, height, width,
+            y_offset, y_stride, int(y_pair), _OPS[compare_op], float(depth_clear),
+            keys.data_ptr(), depth.data_ptr(), tid.data_ptr(), b0.data_ptr(), b1.data_ptr(),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"raster_visibility launch failed: cudaError {err}")
@@ -1164,20 +1182,25 @@ def _check_band(height, y_offset, y_stride, y_pair):
 
 
 def raster_visibility(table, sorted_tris, seg, nbx, height, width, y_offset=0, y_stride=1,
-                      y_pair=False, compare_op=CompareOp.LESS, depth_clear=1.0):
+                      y_pair=False, compare_op=CompareOp.LESS, depth_clear=1.0, plan=None,
+                      chunk=None):
     """K3 over a band's binned candidates. table [t+1, >=20] f32
     (prepare_visibility), sorted_tris/seg int32 over the band-space bins,
     nbx bins per row; the band's `height` rows are framebuffer rows
     y_offset + j*y_stride (pair form: y_offset + (j//2)*2*y_stride + j%2).
     Returns (depth [H,W] f32, tid [H,W] int32: the winner's column 19, the
     raster slot, or -1; b0, b1 [H,W] f32: the winner's screen-space
-    barycentrics e0*inv_area and e1*inv_area, 0 on misses). CUDA tensors
+    barycentrics e0*inv_area and e1*inv_area, 0 on misses). plan
+    (VisibilityInputs.plan), or else one built with pieces of at most
+    `chunk` candidates (default SPLIT_CHUNK), is how the kernel cuts dense
+    bins over blocks; neither changes a bit of the result. CUDA tensors
     launch the kernel; CPU tensors run raster_visibility_plain."""
     _check_inputs(table, sorted_tris, seg, nbx, height, width, VIS_COLS, compare_op)
     _check_band(height, y_offset, y_stride, y_pair)
+    plan = _plan_for(seg, sorted_tris, plan, chunk)
     if table.device.type == "cuda":
         return _launch_visibility(table, sorted_tris, seg, nbx, height, width, int(y_offset),
-                                  int(y_stride), bool(y_pair), compare_op, depth_clear)
+                                  int(y_stride), bool(y_pair), compare_op, depth_clear, plan)
     if table.device.type != "cpu":
         raise ValueError(f"raster_visibility: unsupported device {table.device}")
     return raster_visibility_plain(table, sorted_tris, seg, nbx, height, width, y_offset,

@@ -534,7 +534,7 @@ def forward_frame(
             with record_function("frame/k3"):
                 depth, slot, b0, b1 = raster_visibility(
                     k3.table, k3.sorted_tris, k3.seg, k3.nbx, out_h, width, y_offset,
-                    y_stride, y_pair, pipeline.depth_compare_op, depth_clear)
+                    y_stride, y_pair, pipeline.depth_compare_op, depth_clear, plan=k3.plan)
             bary = torch.stack([b0, b1], dim=-1)
         else:
             with record_function("frame/scan"):
@@ -596,7 +596,7 @@ def forward_frame(
         with record_function("frame/k2"):
             depth, slot, varying = raster_resolve(
                 k2.table, k2.sorted_tris, k2.seg, k2.nbx, height, width, k2.n_vary,
-                k2.n_flat, pipeline.depth_compare_op, depth_clear,
+                k2.n_flat, pipeline.depth_compare_op, depth_clear, plan=k2.plan,
             )
         with record_function("frame/shade"):
             # winner slot -> (source triangle, material id), passes.py:2035-2060
