@@ -16,7 +16,7 @@ Phases (any failure exits nonzero before the result lines):
        - full_scene(1920, 1080, tri_budget=100_000, ibl=False), T = 97,346:
          K1 (raster_depth) on the 1024x1024 sun shadow pass, K2 on the
          forward pass, and K4 (raster_ids) on the 3840x2160 sample pass of
-         MSAA 4x;
+         MSAA 4x and the 7680x2160 sample pass of MSAA 8x;
        - the same scene with csm=True: K6, the four 1024x1024 cascades in
          one raster_depth launch (N = 4), also against four N = 1 launches;
        - K7, raster_depth's z-plane form, on the same sun map and on the
@@ -37,13 +37,18 @@ Phases (any failure exits nonzero before the result lines):
      must give bit-equal
      tid/depth and lanes within rtol 1e-5 / atol 1e-6; K4 bit-equal tid and
      depth; K5 bit-equal tid and depth, lanes within rtol 1e-5 / atol 1e-6;
-     K3 bit-equal tid, depth and barycentrics. The split kernels (all but
-     K4) are held so twice: with the main path's split plan and with
-     every bin cut into pieces of FORCED_CHUNK candidates; K5 also on an
-     all-+inf floor; K5, K2 (Blinn-Phong, headline) and K3 (the
-     pair-interleaved band) also, on the table with every raster slot
-     twice, under LESS_OR_EQUAL and GREATER_OR_EQUAL (every winner the
-     later twin). Prints binned pairs, densest
+     K3 bit-equal tid, depth and barycentrics. Every split kernel is held
+     so with the main path's split plan and with every bin cut into pieces
+     of FORCED_CHUNK candidates; the kernels on the shared walk (K2, K3,
+     K4, K5) also with the walk's warp skip off
+     (raster_cuda._without_skip); K5 also on an all-+inf floor; K5, K2
+     (Blinn-Phong,
+     headline), K3 (the pair-interleaved band) and K4 (MSAA 4x) also, on
+     the table with every raster slot twice, under LESS_OR_EQUAL and
+     GREATER_OR_EQUAL (every winner the later twin). For the shared walk
+     it prints the share of (warp, candidate) pairs the warp skip removes
+     (torch ops on the binning, warp_skip_counts) and the median ms with
+     the skip on and off, taking turns. Prints binned pairs, densest
      bin, bin overflow, kernel ms (median of >= 20 CUDA-event timings after
      warm-up), plain ms and the kernel's roofline bound (the work of the
      bins its blocks walk, over their pixels inside the frame or band); for
@@ -66,6 +71,8 @@ Phases (any failure exits nonzero before the result lines):
          frame: one K6 and one K2 launch per frame;
        - the PBR frame with MSAA 4x (shade-once resolve): one K2 and one K4
          launch per frame, one K1 launch in all;
+       - bench.py's MSAA 4x frame (the headline scene: textured, IBL): one
+         K2 and one K4 launch per frame, one K1 in all;
        - the textured frame (full_scene(textured=True, ibl=False)), static
          scene: one K2 launch per frame, one K1 launch in all;
        - the textured frame under an alpha-cutoff (MASK) pipeline,
@@ -113,9 +120,10 @@ Phases (any failure exits nonzero before the result lines):
      small full_textured frame as 4 bands, contiguous and interleaved, on
      cuda: stitched ids equal to the frame's, colours within the bar.
   6. After the main paths, so that the frame loops follow the same kernel
-     checks as before: the chunk sweeps and tie tables of K2 and K3 queued
-     by phase 3, then each split kernel's device µs by torch.profiler (a
-     profiler session slows the process's later launches).
+     checks as before: the chunk sweeps and tie tables of K2, K3 and K4
+     queued by phase 3, then each split kernel's device µs by
+     torch.profiler (a profiler session slows the process's later
+     launches), the shared walk's also for each skip form.
 Then a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the JAX package.
 """
@@ -140,6 +148,9 @@ OPS_PER_PAIR = 3 * 6 + 4 + 5 + 2 + 1
 DEPTH_OPS_PER_PAIR = 3 * 6 + 4 + 5 + 1 + 1
 # K4's walk is K2's (the payload id takes the place of the winner row)
 IDS_OPS_PER_PAIR = OPS_PER_PAIR
+# one corner test of the shared walk's warp skip, per (warp, candidate) pair:
+# per edge 2 selects, 2 subtracts, 1 multiply, 1 fma (2), 1 compare; 2 ors
+SKIP_TEST_OPS = 3 * 8 + 2
 # K5's walk is K2's with one more compare (the floor) when a floor is given
 PEEL_OPS_PER_PAIR = OPS_PER_PAIR + 1
 # K5's winner epilogue per covered pixel: two edges (12), barycentrics and
@@ -187,6 +198,7 @@ MSAA_FRAMES = 5
 TEX_FRAMES = 5
 MASK_FRAMES = 5
 HEADLINE_FRAMES = 5
+HEADLINE_MSAA_FRAMES = 5
 BAND_FRAMES = 5
 CUBE_FRAMES = 5
 PLANE_FRAMES = 5
@@ -194,8 +206,8 @@ FLAT_FRAMES = 5
 TRIANGLE_FRAMES = 3
 CUTOFF = 0.5
 KERNEL_TIMINGS = 25
-# the split kernels (all but K4) once more with bins cut into pieces of at
-# most this many candidates: every bin of more splits
+# the split kernels once more with bins cut into pieces of at most this
+# many candidates: every bin of more splits
 FORCED_CHUNK = 32
 # the chunk sweep of the split kernels; the wrappers' default,
 # ops/raster_cuda.py::SPLIT_CHUNK, is chosen from it
@@ -369,6 +381,159 @@ def _chunk_sweep(label: str, launch, seg, n_keys: int) -> dict:
     return out
 
 
+def _interleaved_ms(launches: dict, n: int) -> dict:
+    """Median ms of each of `launches` (label -> fn), by CUDA events, the
+    labels taking turns call by call after a warm-up of each."""
+    import torch
+
+    for fn in launches.values():
+        fn()
+    torch.cuda.synchronize()
+    times: dict = {label: [] for label in launches}
+    for _ in range(n):
+        for label, fn in launches.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[label].append(start.elapsed_time(end))
+    return {label: _median(t) for label, t in times.items()}
+
+
+# the shared walk's warp skip off (a context of ops/raster_cuda.py), held
+# bit-equal to the plain version beside the main path's walk (_against_plain)
+def _skip_off():
+    from renderer_rs_tpu_torch.ops.raster_cuda import _without_skip
+
+    return _without_skip()
+
+
+SKIP_OFF = {"skip off": _skip_off}
+
+# a thread, and so a warp, of the shared walk holds 8 consecutive band rows:
+# half a bin (csrc/split_walk.cuh, "The skip")
+PX_ROWS = 8
+
+
+def corner_pick(sdx, sdy):
+    """The corner of a pixel rectangle where an edge's rounded e is largest
+    (csrc/split_walk.cuh, "The skip"): (the last column where sdy is not
+    > 0, the last row where sdx > 0)."""
+    return ~(sdy > 0.0), sdx > 0.0
+
+
+def warp_misses(cols, px_lo, px_hi, py_lo, py_hi, pick=corner_pick):
+    """csrc/split_walk.cuh's warp_misses as torch ops: True where a
+    candidate (cols [..., >=15], the three edges' (ax, ay, sdx, sdy,
+    thresh)) fails coverage at every pixel centre of [px_lo, px_hi] x
+    [py_lo, py_hi] (f32, broadcast against cols[..., 0]), by one edge
+    evaluation at the corner `pick` chooses. A NaN there skips nothing."""
+    import torch
+
+    from renderer_rs_tpu_torch.ops.raster_cuda import _edge
+
+    out = None
+    for k0 in (0, 5, 10):
+        ax, ay, sdx, sdy, th = (cols[..., k0 + k] for k in range(5))
+        hi_x, hi_y = pick(sdx, sdy)
+        e = _edge(sdx, torch.where(hi_y, py_hi, py_lo) - ay, sdy,
+                  torch.where(hi_x, px_hi, px_lo) - ax)
+        out = e < th if out is None else out | (e < th)
+    return out
+
+
+def warp_skip_counts(table, sorted_tris, seg, nbx, height, width, band=(0, 1, False)):
+    """The (warp, candidate) pairs of the shared walk on one binning and
+    what the warp skip leaves of them: (the pairs the skip removes, the
+    pairs walked, the (candidate, pixel) pairs of the kept ones inside the
+    `height` x `width` frame or band), as device scalars. A block of the
+    walk has 8 warps of 32 columns x 8 consecutive band rows (j0 + 8h ..
+    j0 + 8h + 7, h = warp // 4); bins wholly below `height` are not walked.
+    band = (y_offset, y_stride, y_pair)."""
+    import torch
+
+    from renderer_rs_tpu_torch.ops.raster_cuda import BIN_H, BIN_W, _band_py
+
+    dev = table.device
+    seg_l = seg.reshape(-1).long()
+    n_bins = seg_l.numel() - 1
+    counts = seg_l[1:] - seg_l[:-1]
+    bins = torch.repeat_interleave(torch.arange(n_bins, device=dev), counts)  # [P]
+    cols = table[sorted_tris[seg_l[0]:seg_l[0] + bins.numel()].long()][:, None, :15]
+    warp = torch.arange(8, device=dev)
+    j_lo = (bins // nbx)[:, None] * BIN_H + PX_ROWS * (warp // 4)  # [P, 8]
+    x_lo = (bins % nbx)[:, None] * BIN_W + 32 * (warp % 4)
+    f32 = torch.float32
+    misses = warp_misses(cols, x_lo.to(f32) + 0.5, x_lo.to(f32) + 31.5, _band_py(j_lo, *band),
+                         _band_py(j_lo + PX_ROWS - 1, *band))
+    walked = ((bins // nbx) * BIN_H < height)[:, None].expand_as(misses)
+    # a warp's pixels inside the frame: its rows below height x its columns below width
+    pixels = (height - j_lo).clamp(0, PX_ROWS) * (width - x_lo).clamp(0, 32)
+    kept = walked & ~misses
+    return (misses & walked).sum(), walked.sum(), (pixels * kept).sum()
+
+
+def _skip_counts(inputs, rows: int, width: int, band=(0, 1, False)) -> dict:
+    """The shared walk's (warp, candidate) pairs on one binning (inputs:
+    IdsInputs, PeelInputs, ResolveInputs, VisibilityInputs) and what the
+    warp skip leaves of them (warp_skip_counts: torch ops on the binning,
+    not a count inside the timed kernel)."""
+    skipped, walked, kept = (int(v) for v in warp_skip_counts(
+        inputs.table, inputs.sorted_tris, inputs.seg, inputs.nbx, rows, width, band))
+    return {"skipped_pairs": skipped, "walked_pairs": walked, "kept_pixel_pairs": kept,
+            "share": skipped / max(walked, 1)}
+
+
+def _walk_ops(counts: dict, pixel_pairs: int, ops_per_pair: int) -> int:
+    """The shared walk's f32 ops that this run's data needs: the skipped
+    (warp, candidate) pairs are work the data provably does not need, so
+    the kept pairs' (candidate, pixel) pairs at ops_per_pair, and one
+    corner test per walked (warp, candidate) pair. The bound of every pixel
+    pair of the walked bins (pixel_pairs) is printed beside it as all
+    pairs."""
+    return counts["kept_pixel_pairs"] * ops_per_pair + counts["walked_pairs"] * SKIP_TEST_OPS
+
+
+def _walked_rows(inputs, walked: int) -> int:
+    """The table rows the walked bins' segments name (inputs: IdsInputs,
+    PeelInputs, ResolveInputs, VisibilityInputs; walked: their pairs, a
+    prefix of sorted_tris): the rows a walk reads. A raster slot no bin
+    holds (back-facing, off-screen) and the pad row are never read."""
+    import torch
+
+    return int(torch.unique(inputs.sorted_tris[:walked]).numel())
+
+
+def _skip_forms(entry: dict, label: str, launch, counts: dict,
+                breakdown: bool = False) -> None:
+    """The shared walk's warp skip on one case: the share of the walk's
+    (warp, candidate) pairs that it removes (_skip_counts), and the median
+    ms with the skip on and off, taking turns; with breakdown=True each
+    one's device µs by kernel is queued for phase_breakdown. launch() runs
+    the case with the main path's plan. Stored in entry["skip"][label]."""
+    import contextlib
+
+    forms = {"on": contextlib.nullcontext, "off": _skip_off}
+
+    def run(form):
+        with forms[form]():
+            launch()
+
+    ms = _interleaved_ms({form: (lambda form=form: run(form)) for form in forms},
+                         KERNEL_TIMINGS)
+    res = entry.setdefault("skip", {})[label] = {**counts, "ms": ms}
+    _log(f"{label}: the warp skip removes {counts['skipped_pairs']} of "
+         f"{counts['walked_pairs']} (warp, candidate) pairs ({counts['share']:.2%}), keeps "
+         f"{counts['kept_pixel_pairs']} (candidate, pixel) pairs; median ms of {KERNEL_TIMINGS} "
+         f"with the skip on and off, in turns { {form: round(t, 4) for form, t in ms.items()} }")
+    if breakdown:
+        for form in forms:
+            _defer_breakdown(res, form, f"{label}, skip {form}", lambda form=form: run(form),
+                             None)
+
+
 # the split kernels' per-kernel device times, queued by the kernel checks
 # and taken by phase_breakdown after the main paths: a torch.profiler
 # session leaves the process's later launches slower, which would bias the
@@ -430,9 +595,10 @@ def _kernel_breakdown(label: str, launch) -> dict:
 
 def _split_log(label: str, ms: float, bound_ms: float, bound_by: str, plan) -> None:
     stats = _plan_stats(plan)
-    pr, earlier = EARLIER_MS[label]
-    _log(f"{label}: {ms:.4f} ms (median of {KERNEL_TIMINGS}; {pr} committed tree "
-         f"{earlier}), chunk {stats['chunk']}, work items {stats['items']} "
+    pr, earlier = EARLIER_MS.get(label, (None, None))
+    before = f"; {pr} committed tree {earlier}" if pr else ""
+    _log(f"{label}: {ms:.4f} ms (median of {KERNEL_TIMINGS}{before}), chunk {stats['chunk']}, "
+         f"work items {stats['items']} "
          f"(grid {stats['grid']}), longest piece {stats['longest_piece']}, bound "
          f"{bound_ms:.4f} ms by {bound_by}")
 
@@ -461,20 +627,25 @@ def phase_build() -> None:
     _log(f"kernel build: {time.perf_counter() - t0:.2f}s")
 
 
-def _against_plain(name: str, label: str, launch, plain, args, plan, lanes: bool) -> dict:
+def _against_plain(name: str, label: str, launch, plain, args, plan, lanes: bool,
+                   extra: dict | None = None) -> dict:
     """One case of a split winner kernel on the card, K2 or K5 (lanes=True)
-    or K3, with `plan` and with FORCED_CHUNK, against the plain version:
-    every output bit-equal, except the lanes, held within rtol 1e-5 /
-    atol 1e-6 (bit-equality printed)."""
+    or K3 or K4, with `plan` and with FORCED_CHUNK, and with the plan inside
+    each of `extra`'s contexts (form label -> context factory: the walk's
+    skip off), against the plain version: every output bit-equal, except
+    the lanes, held within rtol 1e-5 / atol 1e-6 (bit-equality printed)."""
     import torch
 
     out = launch(*args, plan=plan)
-    forced = launch(*args, chunk=FORCED_CHUNK)
+    runs = [("plan", out), (f"chunk {FORCED_CHUNK}", launch(*args, chunk=FORCED_CHUNK))]
+    for form, context in (extra or {}).items():
+        with context():
+            runs.append((form, launch(*args, plan=plan)))
     torch.cuda.synchronize()
     ref = plain(*args)
     torch.cuda.synchronize()
     ok, max_abs_err = True, 0.0
-    for form, got in (("plan", out), (f"chunk {FORCED_CHUNK}", forced)):
+    for form, got in runs:
         equal = [bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
                  for a, b in zip(got, ref)]
         errs = [float((a - b).abs().max()) if a.numel() else 0.0
@@ -487,7 +658,7 @@ def _against_plain(name: str, label: str, launch, plain, args, plan, lanes: bool
                     f"{errs[-1]:.3e} (rtol 1e-5 atol 1e-6 ok {lanes_ok}, bit-equal {equal[2]})")
         else:
             ok = ok and all(equal)
-            what = f"depth, tid, b0, b1 bit-equal {equal}"
+            what = f"{', '.join(('depth', 'tid', 'b0', 'b1')[:len(equal)])} bit-equal {equal}"
         _log(f"{name} ({label}, {form}) vs plain: {what}, covered {int((got[1] >= 0).sum())}")
     if not ok:
         raise SystemExit(f"phase kernels: {name} disagrees with its plain version ({label})")
@@ -510,23 +681,52 @@ def _twice(table, setup):
                             for f in ("xy", "z", "w", "area2", "valid"))))
 
 
-def _check_ties(name: str, label: str, launch, plain, args_for, n_slots: int) -> dict:
+def _dropped_twins(args, tid, n_slots: int):
+    """Where a pixel's winner (tid, a raster slot below n_slots) has a twin
+    (slot tid + n_slots) that the binning did not put in the pixel's bin:
+    the class caps drop triangles (bin_overflow), and a dropped twin cannot
+    win. args are a kernel's (table, sorted_tris, seg, nbx, height, width,
+    ...) over [height, width] rows."""
+    import torch
+
+    sorted_tris, seg, nbx, height, width = args[1:6]
+    seg_l = seg.long()
+    n_bins = seg_l.numel() - 1
+    stride = 2 * n_slots + 1
+    bins = torch.repeat_interleave(torch.arange(n_bins, device=seg.device), seg_l[1:] - seg_l[:-1])
+    binned = bins * stride + sorted_tris[seg_l[0]:seg_l[0] + bins.numel()].long()
+    y = torch.arange(height, device=seg.device)[:, None] // 16
+    x = torch.arange(width, device=seg.device)[None, :] // 128
+    want = (y * nbx + x) * stride + tid.long() + n_slots
+    return ~torch.isin(want, binned)
+
+
+def _check_ties(name: str, label: str, launch, plain, args_for, n_slots: int,
+                dropped_ok: bool = False) -> dict:
     """A split winner kernel's tie rules at full size, on a table with
     every raster slot twice (_twice, ids of twins from n_slots on):
     args_for(op, clear) are its arguments and plan under
     LESS_OR_EQUAL (clear 1) and GREATER_OR_EQUAL (clear 0). Every winner
-    ties its twin, and LE/GE keep the last submitted: the twin."""
+    ties its twin, and LE/GE keep the last submitted: the twin. With
+    dropped_ok (the table's ids are its raster slots), a winner may be the
+    earlier twin where the binning's caps dropped the later one
+    (_dropped_twins), as at the MSAA sample extent."""
     from renderer_rs_tpu_torch.rhi.pipeline import CompareOp
 
     out = {"max_abs_err": 0.0, "ms": {}}
     for op, clear in ((CompareOp.LESS_OR_EQUAL, 1.0), (CompareOp.GREATER_OR_EQUAL, 0.0)):
         args, plan = args_for(op, clear)
         case = f"{label}, twins, {op.name}"
-        res = _against_plain(name, case, launch, plain, args, plan, name != "raster_visibility")
+        res = _against_plain(name, case, launch, plain, args, plan,
+                             name in ("raster_resolve", "raster_peel"))
         hit = res["tid"] >= 0
-        twin_won = bool((res["tid"][hit] >= n_slots).all())
+        earlier = hit & (res["tid"] < n_slots)
+        dropped = int((earlier & _dropped_twins(args, res["tid"], n_slots)).sum()) if dropped_ok else 0
+        twin_won = int(earlier.sum()) == dropped
         _log(f"{name} ({case}): covered {int(hit.sum())}, every winner the later twin "
-             f"{twin_won}")
+             f"{twin_won}" + (f" (where the binning kept it; the earlier twin won {dropped} "
+                              "pixels whose later twin the binning's caps dropped)"
+                              if dropped_ok else ""))
         if not (twin_won and bool(hit.any())):
             raise SystemExit(f"phase kernels: {name} ({case}) broke the tie rule")
         out["max_abs_err"] = max(out["max_abs_err"], res["max_abs_err"])
@@ -573,7 +773,7 @@ def _check_resolve(label, scene, layout, pipeline, timed: bool) -> dict:
     if syncs:
         raise SystemExit(f"phase kernels: the K2 binning or launch synchronizes the host ({label})")
     res = _against_plain("raster_resolve", label, raster_resolve, raster_resolve_plain, args,
-                         k2.plan, lanes=True)
+                         k2.plan, lanes=True, extra=SKIP_OFF)
     if not bool((res["tid"] >= 0).any()):
         raise SystemExit(f"phase kernels: raster_resolve covers no pixel ({label})")
     max_abs_err = res["max_abs_err"]
@@ -581,17 +781,24 @@ def _check_resolve(label, scene, layout, pipeline, timed: bool) -> dict:
     ms = _median(_event_times_ms(lambda: raster_resolve(*args, plan=k2.plan), KERNEL_TIMINGS))
     plain_ms = _median(_event_times_ms(lambda: raster_resolve_plain(*args), 3, warmup=1)) if timed else None
     # least time for the same work: the walk's f32 ops over the frame's
-    # pixels vs the bytes moved (table, the walked bins' sorted ids and
-    # segments read once, outputs written once)
+    # pixels vs the bytes moved once: the 19 walk columns of every walked
+    # row and the rest of every winning row (tid is the raster slot: the
+    # row), the walked bins' sorted ids and segments read, outputs written
     walked, pixel_pairs, bins = _walked(k2.seg, k2.nbx, H, W)
-    ops = pixel_pairs * OPS_PER_PAIR
+    counts = _skip_counts(k2, H, W)
+    ops = _walk_ops(counts, pixel_pairs, OPS_PER_PAIR)
     n_lanes = k2.n_vary + k2.n_flat
-    nbytes = (k2.table.numel() * 4 + walked * 4 + (bins + 1) * 4
-              + H * W * (4 + 4 + 4 * n_lanes))
+    walked_rows = _walked_rows(k2, walked)
+    winner_rows = int(torch.unique(res["tid"][res["tid"] >= 0]).numel())
+    nbytes = (walked_rows * WALK_COLS * 4 + winner_rows * (k2.table.shape[1] - WALK_COLS) * 4
+              + walked * 4 + (bins + 1) * 4 + H * W * (4 + 4 + 4 * n_lanes))
     bound_ms, bound_by = _bound(ops, nbytes)
+    bound_all = _bound(pixel_pairs * OPS_PER_PAIR, nbytes)[0]
     _log(f"{label}: raster_resolve {ms:.4f} ms (median of {KERNEL_TIMINGS})"
          + (f", plain {plain_ms:.2f} ms" if timed else "")
-         + f", bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
+         + f", bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes: "
+         f"{walked_rows} walked rows of {k2.table.shape[0]}, {winner_rows} winning rows; all "
+         f"pairs {bound_all:.4f} ms)")
     _split_log(f"K2 {label}", ms, bound_ms, bound_by, k2.plan)
     out = {
         "name": "raster_resolve",
@@ -604,9 +811,12 @@ def _check_resolve(label, scene, layout, pipeline, timed: bool) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes this function
+        "bound_ms_all_pairs": bound_all,
         "host_syncs": len(syncs),
         **_plan_stats(k2.plan),
     }
+    _skip_forms(out, f"K2 {label}", lambda: raster_resolve(*args, plan=k2.plan), counts,
+                breakdown=timed)
     if timed:
         def after():
             out["chunk_sweep_ms"] = _chunk_sweep(
@@ -711,62 +921,138 @@ def _plan_at(inputs, chunk: int):
 
 
 def _check_ids(scene, layout, pipeline) -> dict:
-    """K4 beside its plain version on the MSAA 4x sample pass of one frame."""
-    import torch
-
-    from renderer_rs_tpu_torch.ops.raster_cuda import prepare_ids, raster_ids, raster_ids_plain
-    from renderer_rs_tpu_torch.renderer.passes import frame_geometry
-
-    hs, ws = H * SY, W * SX
-    geo = frame_geometry(scene, layout, pipeline, W, H).at_extent(pipeline, ws, hs)
-    t = layout.num_triangles
-    k4 = prepare_ids(geo.setup, hs, ws, geo.clip_src, small_limit=t, id_bound=t)
-    args = (k4.table, k4.sorted_tris, k4.seg, k4.nbx, hs, ws, pipeline.depth_compare_op)
-    n_pairs = int(k4.n_pairs)
-    densest = int((k4.seg[1:] - k4.seg[:-1]).max())
-    big, huge = (int(v) for v in k4.bin_overflow.tolist())
-    _log(f"msaa{MSAA} sample pass {ws}x{hs}: T={t} raster slots={geo.setup.num_triangles} "
-         f"bins={k4.seg.numel() - 1} binned pairs={n_pairs} densest bin={densest} "
-         f"bin_overflow big {big} huge {huge} table={tuple(k4.table.shape)}")
-
-    depth, tid = raster_ids(*args)
-    torch.cuda.synchronize()
-    depth_p, tid_p = raster_ids_plain(*args)
-    torch.cuda.synchronize()
-    tid_equal = bool(torch.equal(tid, tid_p))
-    depth_equal = bool(torch.equal(depth.view(torch.int32), depth_p.view(torch.int32)))
-    max_abs_err = float((depth - depth_p).abs().max())
-    covered = int((tid >= 0).sum())
-    in_range = bool((tid < t).all())
-    _log(f"raster_ids vs plain: tid equal {tid_equal}, depth bit-equal {depth_equal}, "
-         f"max |err| {max_abs_err:.3e}, covered samples {covered}, ids below T {in_range}")
-    # bin_overflow is printed, not held to 0: the binning's class caps are
-    # the reference's own (max(1024, T/96) big triangles), and at the sample
-    # extent more triangles span three bins than the cap keeps
-    if not (tid_equal and depth_equal and in_range and covered > 0):
-        raise SystemExit("phase kernels: raster_ids disagrees with its plain version")
-    del depth_p, tid_p
-
-    ms = _median(_event_times_ms(lambda: raster_ids(*args), KERNEL_TIMINGS))
-    plain_ms = _median(_event_times_ms(lambda: raster_ids_plain(*args), 3, warmup=1))
-    walked, pixel_pairs, bins = _walked(k4.seg, k4.nbx, hs, ws)
-    ops = pixel_pairs * IDS_OPS_PER_PAIR
-    nbytes = k4.table.numel() * 4 + walked * 4 + (bins + 1) * 4 + hs * ws * (4 + 4)
-    bound_ms, bound_by = _bound(ops, nbytes)
-    _log(f"raster_ids: {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, "
-         f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
-    return {
+    """K4 beside its plain version on the sample passes of MSAA 4x
+    (3840x2160) and MSAA 8x (7680x2160, K4's largest launch) of one frame
+    (_check_ids_pass); the 4x entry is the kernel's row."""
+    cases = {f"msaa{n}": _check_ids_pass(scene, layout, pipeline, n, sx, sy, timed=n == MSAA)
+             for n, (sx, sy) in ((MSAA, (SX, SY)), (8, (4, 2)))}
+    main = cases[f"msaa{MSAA}"]
+    out = {
         "name": "raster_ids",
         "route": "cuda",
         "source": "renderer_rs_tpu_torch/csrc/raster_ids.cu",
         "replaces": "renderer_rs_tpu/ops/raster_pallas.py:397",
-        "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
+        "host_syncs": sum(c["host_syncs"] for c in cases.values()),
+        "cases": cases,
     }
+
+    def after():
+        # the ties' maximum error joins the row's once they have run
+        out["max_abs_err"] = max(c["max_abs_err"] for c in cases.values())
+
+    _AFTER.append(after)
+    return out
+
+
+def _check_ids_pass(scene, layout, pipeline, samples: int, sx: int, sy: int,
+                    timed: bool) -> dict:
+    """K4 beside its plain version on one MSAA sample pass (the frame's
+    geometry at sx*W x sy*H), with the main path's split plan, with
+    FORCED_CHUNK and with the walk's skip off: tid and depth bit-equal.
+    Times the kernel, its plain version and the skip on and off; queues its
+    device µs by kernel; timed=True also queues the chunk sweep and the
+    LE/GE tie tables."""
+    import torch
+
+    from renderer_rs_tpu_torch.ops.raster_cuda import (
+        VIS_COLS,
+        bin_compact,
+        prepare_ids,
+        raster_ids,
+        raster_ids_plain,
+        split_plan,
+    )
+    from renderer_rs_tpu_torch.renderer.passes import frame_geometry
+
+    label = f"msaa{samples} sample pass"
+    hs, ws = H * sy, W * sx
+    geo = frame_geometry(scene, layout, pipeline, W, H).at_extent(pipeline, ws, hs)
+    t = layout.num_triangles
+
+    def prepare():
+        return prepare_ids(geo.setup, hs, ws, geo.clip_src, small_limit=t, id_bound=t)
+
+    k4 = prepare()
+    args = (k4.table, k4.sorted_tris, k4.seg, k4.nbx, hs, ws, pipeline.depth_compare_op)
+    n_pairs = int(k4.n_pairs)
+    densest = int((k4.seg[1:] - k4.seg[:-1]).max())
+    big, huge = (int(v) for v in k4.bin_overflow.tolist())
+    one_piece = int((k4.plan.pieces == 1).sum())
+    _log(f"{label} {ws}x{hs}: T={t} raster slots={geo.setup.num_triangles} "
+         f"bins={k4.seg.numel() - 1} binned pairs={n_pairs} densest bin={densest} "
+         f"bin_overflow big {big} huge {huge} table={tuple(k4.table.shape)}; split plan "
+         f"{_plan_stats(k4.plan)} ({one_piece} bins of one piece), with chunk {FORCED_CHUNK} "
+         f"{_plan_stats(_plan_at(k4, FORCED_CHUNK))}")
+    syncs = _syncs(lambda: raster_ids(*args, plan=prepare().plan))
+    _log(f"{label}: host syncs of prepare_ids (binning, table, split plan) and the K4 launch: "
+         f"{len(syncs)} {syncs}")
+    if syncs:
+        raise SystemExit(f"phase kernels: the K4 binning or launch synchronizes the host ({label})")
+    # bin_overflow is printed, not held to 0: the binning's class caps are
+    # the reference's own (max(1024, T/96) big triangles), and at the sample
+    # extent more triangles span three bins than the cap keeps
+    res = _against_plain("raster_ids", label, raster_ids, raster_ids_plain, args, k4.plan,
+                         lanes=False, extra=SKIP_OFF)
+    covered = int((res["tid"] >= 0).sum())
+    in_range = bool((res["tid"] < t).all())
+    _log(f"{label}: covered samples {covered}, ids below T {in_range}")
+    if not (in_range and covered > 0):
+        raise SystemExit(f"phase kernels: raster_ids covers nothing or writes no source id ({label})")
+    max_abs_err = res["max_abs_err"]
+    del res
+
+    ms = _median(_event_times_ms(lambda: raster_ids(*args, plan=k4.plan), KERNEL_TIMINGS))
+    plain_ms = _median(_event_times_ms(lambda: raster_ids_plain(*args), 3, warmup=1))
+    walked, pixel_pairs, bins = _walked(k4.seg, k4.nbx, hs, ws)
+    counts = _skip_counts(k4, hs, ws)
+    ops = _walk_ops(counts, pixel_pairs, IDS_OPS_PER_PAIR)
+    # least time: the walk's f32 ops over the sample grid, against the bytes
+    # the function must move once: the 20 columns of every walked row (no
+    # more of the table), the walked bins' sorted ids and segments read,
+    # depth and tid written
+    walked_rows = _walked_rows(k4, walked)
+    nbytes = walked_rows * VIS_COLS * 4 + walked * 4 + (bins + 1) * 4 + hs * ws * (4 + 4)
+    bound_ms, bound_by = _bound(ops, nbytes)
+    bound_all = _bound(pixel_pairs * IDS_OPS_PER_PAIR, nbytes)[0]
+    _log(f"{label}: raster_ids {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} "
+         f"ms, bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes: "
+         f"{walked_rows} walked rows of {k4.table.shape[0]}; all pairs {bound_all:.4f} ms)")
+    _split_log(f"K4 {label}", ms, bound_ms, bound_by, k4.plan)
+    out = dict(samples=samples, extent=[ws, hs], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, bound_ms_all_pairs=bound_all, max_abs_err=max_abs_err,
+               n_pairs=n_pairs, densest=densest, bin_overflow=[big, huge], covered=covered,
+               host_syncs=len(syncs), one_piece_bins=one_piece, **_plan_stats(k4.plan))
+    _skip_forms(out, f"K4 {label}", lambda: raster_ids(*args, plan=k4.plan), counts,
+                breakdown=True)
+    _defer_breakdown(out, "main path", f"K4 {label}", lambda: raster_ids(*args, plan=k4.plan))
+    if timed:
+        table2, setup2 = _twice(k4.table, geo.setup)
+        # the raster slot as payload: the tie check finds each winner's twin
+        table2[:-1, 19] = torch.arange(table2.shape[0] - 1, dtype=torch.float32,
+                                       device=table2.device)
+
+        def twins(op, clear):
+            sorted_tris, seg, _nby, nbx, _ = bin_compact(setup2, hs, ws)
+            return ((table2, sorted_tris, seg, nbx, hs, ws, op, clear),
+                    split_plan(seg, sorted_tris.numel()))
+
+        def after():
+            out["chunk_sweep_ms"] = _chunk_sweep(
+                f"K4 {label}", lambda plan: raster_ids(*args, plan=plan), k4.seg,
+                k4.sorted_tris.numel())
+            ties = _check_ties("raster_ids", label, raster_ids, raster_ids_plain, twins,
+                               geo.setup.num_triangles, dropped_ok=True)
+            out["max_abs_err"] = max(out["max_abs_err"], ties["max_abs_err"])
+            out["ms_ties"] = ties["ms"]
+
+        _AFTER.append(after)
+    return out
 
 
 def _check_depth_batch(scene, layout, size: int) -> dict:
@@ -1043,11 +1329,12 @@ def _check_peel(scene, layout, pipeline) -> dict:
     inf = torch.full_like(depth0, float("inf"))
     floor = torch.where(tid0 >= 0, depth0, inf)
     cases = {"no floor": None, "layer-0 floor": floor, "all +inf floor": inf}
-    max_abs_err, timings, covered, launches = 0.0, {}, {}, {}
+    counts = _skip_counts(k5, H, W)
+    max_abs_err, timings, covered, launches, skip = 0.0, {}, {}, {}, {}
     for label, z_floor in cases.items():
         args = (*base, z_floor, pipeline.depth_compare_op)
         err = _against_plain("raster_peel", label, raster_peel, raster_peel_plain, args,
-                             k5.plan, lanes=True)
+                             k5.plan, lanes=True, extra=SKIP_OFF)
         max_abs_err = max(max_abs_err, err["max_abs_err"])
         hit = err["tid"] >= 0
         covered[label] = int(hit.sum())
@@ -1066,24 +1353,30 @@ def _check_peel(scene, layout, pipeline) -> dict:
         # winning row (no more of the table), the sorted ids, segments, the
         # floor, and depth, tid and lanes written
         walked, pixel_pairs, bins = _walked(k5.seg, k5.nbx, H, W)
-        ops = (pixel_pairs * (PEEL_OPS_PER_PAIR if z_floor is not None else OPS_PER_PAIR)
+        per_pair = PEEL_OPS_PER_PAIR if z_floor is not None else OPS_PER_PAIR
+        ops = (_walk_ops(counts, pixel_pairs, per_pair)
                + covered[label] * PEEL_OPS_PER_PIXEL)
+        ops_all = pixel_pairs * per_pair + covered[label] * PEEL_OPS_PER_PIXEL
         n_cols = k5.table.shape[1]
-        binned_rows = int(torch.unique(k5.sorted_tris[:walked]).numel())
+        binned_rows = _walked_rows(k5, walked)
         winner_rows = _peel_winner_rows(k5, z_floor, pipeline.depth_compare_op)
         nbytes = (binned_rows * WALK_COLS * 4 + winner_rows * (n_cols - WALK_COLS) * 4
                   + walked * 4 + (bins + 1) * 4
                   + (H * W * 4 if z_floor is not None else 0)
                   + H * W * (4 + 4 + 4 * (k5.n_vary + k5.n_flat)))
         bound_ms, bound_by = _bound(ops, nbytes)
-        timings[label] = (ms, plain_ms, bound_ms, bound_by, ops, nbytes)
+        bound_all = _bound(ops_all, nbytes)[0]
+        timings[label] = (ms, plain_ms, bound_ms, bound_by, ops, nbytes, bound_all)
         _log(f"raster_peel ({label}): {ms:.4f} ms (median of {KERNEL_TIMINGS})"
              + ("" if plain_ms is None else f", plain {plain_ms:.2f} ms")
              + f", bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes: "
-             f"{binned_rows} binned rows of {k5.table.shape[0]}, {winner_rows} winning rows)")
+             f"{binned_rows} binned rows of {k5.table.shape[0]}, {winner_rows} winning rows; "
+             f"all pairs {bound_all:.4f} ms)")
         if label != "all +inf floor":
             _split_log(f"K5 {label}", ms, bound_ms, bound_by, k5.plan)
         launches[label] = lambda args=args: raster_peel(*args, plan=k5.plan)
+        _skip_forms(skip, f"K5 {label}", launches[label], counts,
+                    breakdown=label != "no floor")
     sweep = _chunk_sweep("K5 layer-0 floor",
                          lambda plan: raster_peel(*base, floor, pipeline.depth_compare_op,
                                                   plan=plan),
@@ -1098,7 +1391,7 @@ def _check_peel(scene, layout, pipeline) -> dict:
     ties = _check_ties("raster_peel", "mask frame", raster_peel, raster_peel_plain, twins,
                        geo.setup.num_triangles)
     max_abs_err = max(max_abs_err, ties["max_abs_err"])
-    ms, plain_ms, bound_ms, bound_by, _, _ = timings["layer-0 floor"]
+    ms, plain_ms, bound_ms, bound_by, _, _, bound_all = timings["layer-0 floor"]
     out = {
         "name": "raster_peel",
         "route": "cuda",
@@ -1110,6 +1403,7 @@ def _check_peel(scene, layout, pipeline) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes this function
+        "bound_ms_all_pairs": bound_all,
         "ms_no_floor": timings["no floor"][0],
         "bound_ms_no_floor": timings["no floor"][2],
         "ms_inf_floor": timings["all +inf floor"][0],
@@ -1117,6 +1411,7 @@ def _check_peel(scene, layout, pipeline) -> dict:
         **_plan_stats(k5.plan),
         "chunk_sweep_ms": sweep,
         "ms_ties": ties["ms"],
+        "skip": skip["skip"],
     }
     for label, launch in launches.items():
         _defer_breakdown(out, label, f"K5 {label}", launch,
@@ -1255,7 +1550,8 @@ def _check_visibility(scene, layout, pipeline) -> dict:
                              f"({label})")
         n_syncs += len(syncs)
         res = _against_plain("raster_visibility", label, raster_visibility,
-                             raster_visibility_plain, args, k3.plan, lanes=False)
+                             raster_visibility_plain, args, k3.plan, lanes=False,
+                             extra=SKIP_OFF)
         max_abs_err = max(max_abs_err, res["max_abs_err"])
         covered = int((res["tid"] >= 0).sum())
         if not covered:
@@ -1270,20 +1566,25 @@ def _check_visibility(scene, layout, pipeline) -> dict:
         # columns of every walked row (no more of the table), the walked
         # bins' sorted ids and segments, and depth, tid, b0, b1 written
         walked, pixel_pairs, bins = _walked(k3.seg, k3.nbx, rows, W)
-        ops = pixel_pairs * OPS_PER_PAIR
-        binned_rows = int(torch.unique(k3.sorted_tris[:walked]).numel())
+        counts = _skip_counts(k3, rows, W, (y0, stride, pair))
+        ops = _walk_ops(counts, pixel_pairs, OPS_PER_PAIR)
+        binned_rows = _walked_rows(k3, walked)
         nbytes = (binned_rows * VIS_COLS * 4 + walked * 4 + (bins + 1) * 4
                   + rows * W * 4 * 4)
         bound_ms, bound_by = _bound(ops, nbytes)
+        bound_all = _bound(pixel_pairs * OPS_PER_PAIR, nbytes)[0]
         _log(f"K3 {label}: {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, "
              f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes: "
              f"{walked} walked pairs of {n_pairs}, {binned_rows} walked rows of "
-             f"{k3.table.shape[0]})")
+             f"{k3.table.shape[0]}; all pairs {bound_all:.4f} ms)")
         _split_log(f"K3 {label}", ms, bound_ms, bound_by, k3.plan)
         cases[label] = dict(band=list(band), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, n_pairs=n_pairs, walked_pairs=walked,
+                            bound_by=bound_by, bound_ms_all_pairs=bound_all, n_pairs=n_pairs, walked_pairs=walked,
                             densest=densest, bin_overflow=[big, huge], covered=covered,
                             host_syncs=len(syncs), **_plan_stats(k3.plan))
+        _skip_forms(cases[label], f"K3 {label}",
+                    lambda args=args, plan=k3.plan: raster_visibility(*args, plan=plan), counts,
+                    breakdown=label == "pair-interleaved band")
 
         def sweep(case=cases[label], label=label, args=args, k3=k3):
             case["chunk_sweep_ms"] = _chunk_sweep(
@@ -1651,10 +1952,13 @@ def phase_probe() -> tuple[dict, dict]:
 
 
 def _headline_paths(make, scene, layout, kw) -> dict:
-    """The headline frame through Renderer.render_frame, then the same
-    scene as four row bands through render_frame_sharded, contiguous and
+    """The headline frame through Renderer.render_frame, and through the
+    MSAA 4x resolve (bench.py's msaa4 frame), then the same scene as four
+    row bands through render_frame_sharded, contiguous and
     pair-interleaved; then the bands' stitched ids and depth against the
     frame's, and their colours."""
+    import dataclasses
+
     import torch
 
     from renderer_rs_tpu_torch.parallel import make_device_mesh, render_frame_sharded, unshard_rows
@@ -1669,6 +1973,26 @@ def _headline_paths(make, scene, layout, kw) -> dict:
         "headline (textured, IBL; static scene)", renderer, HEADLINE_FRAMES,
         _counts(raster_depth=1, raster_resolve=HEADLINE_FRAMES))
     full = _check_frame("headline", renderer)
+    # bench.py's MSAA 4x frame (bench.py:236-248): the headline scene
+    # through the shade-once resolve, K4 on the 3840x2160 sample pass
+    msaa_kw = {**kw, "pipeline": dataclasses.replace(kw["pipeline"], msaa_samples=MSAA)}
+    warm = make(scene, layout, msaa_kw)
+    for _ in range(2):
+        warm.render_frame()
+    msaa = make(scene, layout, msaa_kw)
+    label = f"headline msaa{MSAA} (textured, IBL; static scene)"
+    by_path["headline_msaa4"] = _drive(
+        label, msaa, HEADLINE_MSAA_FRAMES,
+        _counts(raster_depth=1, raster_resolve=HEADLINE_MSAA_FRAMES,
+                raster_ids=HEADLINE_MSAA_FRAMES))
+    hdr = msaa.render_frame_hdr()
+    changed = float(((hdr - full).abs().amax(-1) > 1e-5).float().mean())
+    _log(f"{label}: frame {tuple(hdr.shape)} finite {bool(torch.isfinite(hdr).all())}, pixels "
+         f"differing from the 1x frame {changed:.4%}, max |d| {float((hdr - full).abs().max()):.4f}")
+    if not (bool(torch.isfinite(hdr).all()) and 0.001 < changed < 0.2):
+        raise SystemExit(f"phase main path, {label}: the resolved frame is not finite, or does "
+                         "not differ from the 1x frame on edges only")
+    del msaa, warm
     # the headline scene with its sun map in the z-plane form under a moving
     # sun: one K7 and one K2 a frame
     plane = make(scene, layout, {**kw, "z_form": "plane"})

@@ -112,11 +112,11 @@ raster_resolve_pass(const float* __restrict__ table, int n_cols,
 }
 
 template <int OP>
-int launch(cudaStream_t s, const float* table, int n_cols, const int* sorted_tris,
+int launch(cudaStream_t s, bool skip, const float* table, int n_cols, const int* sorted_tris,
            const int4* items, int n_items, const int* pieces, int n_bins, int nbx, int height,
            int width, int n_vary, int n_flat, float depth_clear, unsigned long long* keys,
            float* depth_out, int* tid_out, float* lanes_out) {
-    int err = launch_split_walk<OP>(s, table, n_cols, sorted_tris, items, n_items, pieces,
+    int err = launch_split_walk<OP>(s, skip, table, n_cols, sorted_tris, items, n_items, pieces,
                                     n_bins, nbx, height, width, 0, 1, 0, nullptr, depth_clear,
                                     keys);
     if (err != 0) return err;
@@ -134,27 +134,28 @@ int launch(cudaStream_t s, const float* table, int n_cols, const int* sorted_tri
 // Launch on `stream` (PyTorch's current stream): split_keys_init, the walk
 // over the n_items work items of `items` ([n_items, 4] int32: set, bin,
 // start, end; set -1 past the real items; pieces [n_bins] each bin's piece
-// count) and the resolve pass. keys is scratch of height*width u64.
-// Returns the first cudaGetLastError() that is not 0 (0 = launched).
+// count; skip 0 turns the warp skip off, only to measure it) and the
+// resolve pass. keys is scratch of height*width u64. Returns the first
+// cudaGetLastError() that is not 0 (0 = launched).
 extern "C" int raster_resolve_launch(const float* table, int n_cols, const int* sorted_tris,
                                      const int* items, int n_items, const int* pieces,
                                      int n_bins, int nbx, int height, int width, int n_vary,
-                                     int n_flat, int op, float depth_clear, void* keys,
-                                     float* depth_out, int* tid_out, float* lanes_out,
-                                     void* stream) {
+                                     int n_flat, int op, float depth_clear, int skip,
+                                     void* keys, float* depth_out, int* tid_out,
+                                     float* lanes_out, void* stream) {
     if (n_bins <= 0 || height <= 0 || width <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int4* it = reinterpret_cast<const int4*>(items);
     unsigned long long* k = static_cast<unsigned long long*>(keys);
     switch (op) {
         case 0:
-            return launch<0>(s, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, n_vary, n_flat, depth_clear, k, depth_out, tid_out, lanes_out);
+            return launch<0>(s, skip != 0, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, n_vary, n_flat, depth_clear, k, depth_out, tid_out, lanes_out);
         case 1:
-            return launch<1>(s, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, n_vary, n_flat, depth_clear, k, depth_out, tid_out, lanes_out);
+            return launch<1>(s, skip != 0, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, n_vary, n_flat, depth_clear, k, depth_out, tid_out, lanes_out);
         case 2:
-            return launch<2>(s, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, n_vary, n_flat, depth_clear, k, depth_out, tid_out, lanes_out);
+            return launch<2>(s, skip != 0, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, n_vary, n_flat, depth_clear, k, depth_out, tid_out, lanes_out);
         case 3:
-            return launch<3>(s, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, n_vary, n_flat, depth_clear, k, depth_out, tid_out, lanes_out);
+            return launch<3>(s, skip != 0, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, n_vary, n_flat, depth_clear, k, depth_out, tid_out, lanes_out);
         default:
             return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -93,12 +93,12 @@ raster_vis_resolve(const float* __restrict__ table, int n_cols,
 }
 
 template <int OP>
-int launch(cudaStream_t s, const float* table, int n_cols, const int* sorted_tris,
+int launch(cudaStream_t s, bool skip, const float* table, int n_cols, const int* sorted_tris,
            const int4* items, int n_items, const int* pieces, int n_bins, int nbx, int height,
            int width, int y_offset, int y_stride, int y_pair, float depth_clear,
            unsigned long long* keys, float* depth_out, int* tid_out, float* b0_out,
            float* b1_out) {
-    const int err = launch_split_walk<OP>(s, table, n_cols, sorted_tris, items, n_items,
+    const int err = launch_split_walk<OP>(s, skip, table, n_cols, sorted_tris, items, n_items,
                                           pieces, n_bins, nbx, height, width, y_offset,
                                           y_stride, y_pair, nullptr, depth_clear, keys);
     if (err != 0) return err;
@@ -113,13 +113,14 @@ int launch(cudaStream_t s, const float* table, int n_cols, const int* sorted_tri
 // Launch on `stream` (PyTorch's current stream): split_keys_init, the walk
 // over the n_items work items of `items` ([n_items, 4] int32: set, bin,
 // start, end; set -1 past the real items; pieces [n_bins] each bin's piece
-// count) and the resolve pass. keys is scratch of height*width u64; keys
-// and the outputs are [height, width] in band rows. Returns the first
-// cudaGetLastError() that is not 0 (0 = launched).
+// count; skip 0 turns the warp skip off, only to measure it) and the
+// resolve pass. keys is scratch of height*width u64; keys and the outputs
+// are [height, width] in band rows. Returns the first cudaGetLastError()
+// that is not 0 (0 = launched).
 extern "C" int raster_vis_launch(const float* table, int n_cols, const int* sorted_tris,
                                  const int* items, int n_items, const int* pieces, int n_bins,
                                  int nbx, int height, int width, int y_offset, int y_stride,
-                                 int y_pair, int op, float depth_clear, void* keys,
+                                 int y_pair, int op, float depth_clear, int skip, void* keys,
                                  float* depth_out, int* tid_out, float* b0_out,
                                  float* b1_out, void* stream) {
     if (n_bins <= 0 || height <= 0 || width <= 0) return 0;
@@ -128,13 +129,13 @@ extern "C" int raster_vis_launch(const float* table, int n_cols, const int* sort
     unsigned long long* k = static_cast<unsigned long long*>(keys);
     switch (op) {
         case 0:
-            return launch<0>(s, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, y_offset, y_stride, y_pair, depth_clear, k, depth_out, tid_out, b0_out, b1_out);
+            return launch<0>(s, skip != 0, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, y_offset, y_stride, y_pair, depth_clear, k, depth_out, tid_out, b0_out, b1_out);
         case 1:
-            return launch<1>(s, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, y_offset, y_stride, y_pair, depth_clear, k, depth_out, tid_out, b0_out, b1_out);
+            return launch<1>(s, skip != 0, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, y_offset, y_stride, y_pair, depth_clear, k, depth_out, tid_out, b0_out, b1_out);
         case 2:
-            return launch<2>(s, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, y_offset, y_stride, y_pair, depth_clear, k, depth_out, tid_out, b0_out, b1_out);
+            return launch<2>(s, skip != 0, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, y_offset, y_stride, y_pair, depth_clear, k, depth_out, tid_out, b0_out, b1_out);
         case 3:
-            return launch<3>(s, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, y_offset, y_stride, y_pair, depth_clear, k, depth_out, tid_out, b0_out, b1_out);
+            return launch<3>(s, skip != 0, table, n_cols, sorted_tris, it, n_items, pieces, n_bins, nbx, height, width, y_offset, y_stride, y_pair, depth_clear, k, depth_out, tid_out, b0_out, b1_out);
         default:
             return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface (K2, K3 and
-K5 include the shared walk, ``csrc/split_walk.cuh``), compiled by nvcc into
+Each kernel is one ``csrc/*.cu`` file with a plain C interface (K2, K3, K4
+and K5 include the shared walk, ``csrc/split_walk.cuh``), compiled by nvcc into
 its own shared library and loaded with ctypes (route (b): no PyTorch
 headers, so a build takes seconds). Builds happen at first use, into
 ``renderer_rs_tpu_torch/_build/`` (listed in .gitignore), keyed by a hash of

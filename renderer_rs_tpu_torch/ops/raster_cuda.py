@@ -50,20 +50,27 @@ the anchored depth plane (zdx, zdy, zA) and the walk evaluates
 (zdx*dx0 + zdy*dy0) + zA from edge 0's differences
 (``raster_depth.zplane_launches`` counts those launches).
 
-Split dense bins (every kernel but K4): ``split_plan`` cuts every bin's
+Split dense bins (every kernel): ``split_plan`` cuts every bin's
 candidate segment into pieces of at most ``chunk`` candidates, on the
 device and without a host sync, once per binning (it rides DepthInputs,
-PeelInputs, ResolveInputs and VisibilityInputs). The kernels walk one
-piece per block and merge the pieces of a split bin exactly and in any
-order: K1 by atomic min/max on the depths' int32 order keys
-(csrc/raster_depth.cu); K2, K3 and K5 by atomic min/max on a 64-bit
+IdsInputs, PeelInputs, ResolveInputs and VisibilityInputs). The kernels
+walk one piece per block and merge the pieces of a split bin exactly and
+in any order: K1 by atomic min/max on the depths' int32 order keys
+(csrc/raster_depth.cu); K2, K3, K4 and K5 by atomic min/max on a 64-bit
 (depth, position) key (the shared walk, csrc/split_walk.cuh), after which a
 pixel-parallel pass resolves each winner from its table row. The plan
 changes no bit of the result, and the plain versions ignore it.
+
+The warp skip (K2, K3, K4, K5): in the shared walk a warp passes over the
+candidates that cover none of its 32x8 pixels, found exactly by one edge
+evaluation at the corner of the warp's pixel rectangle where the rounded
+edge function is largest (csrc/split_walk.cuh, "The skip"). It changes no
+bit of the result; ``_without_skip`` turns it off to measure it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 
@@ -90,9 +97,12 @@ _OPS = {
     CompareOp.GREATER: 2,
     CompareOp.GREATER_OR_EQUAL: 3,
 }
-# candidates per work item of the split kernels (K1, K2, K3, K5, K6, K7): the
-# chunk sweep of chip_smoke.py on the H100 (PERF.md §6)
+# candidates per work item of the split kernels (K1 to K7): the chunk sweep
+# of chip_smoke.py on the H100 (PERF.md §6)
 SPLIT_CHUNK = 64
+# the shared walk's warp skip (csrc/split_walk.cuh), on except inside
+# _without_skip
+_walk_skip = True
 
 
 # --- the split plan: dense bins cut into pieces over blocks --------------------
@@ -168,6 +178,19 @@ def _plan_for(seg, sorted_tris, plan, chunk) -> SplitPlan:
     if chunk is not None and chunk != plan.chunk:
         raise ValueError(f"chunk {chunk} given with a plan of chunk {plan.chunk}")
     return plan
+
+
+@contextlib.contextmanager
+def _without_skip():
+    """Inside this block the shared walk (K2, K3, K4, K5) walks every staged
+    candidate with every warp: the comparison that measures the warp skip
+    (chip_smoke.py, the card tests), never the frame path. Not thread-safe."""
+    global _walk_skip
+    _walk_skip = False
+    try:
+        yield
+    finally:
+        _walk_skip = True
 
 
 # --- table build ------------------------------------------------------------
@@ -335,7 +358,7 @@ def _launch(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat, compare
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     dev = table.device
@@ -348,7 +371,7 @@ def _launch(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat, compare
         err = fn(
             table.data_ptr(), table.shape[1], sorted_tris.data_ptr(), plan.items.data_ptr(),
             plan.items.shape[0], plan.pieces.data_ptr(), seg.numel() - 1, nbx, height, width,
-            n_vary, n_flat, _OPS[compare_op], float(depth_clear), keys.data_ptr(),
+            n_vary, n_flat, _OPS[compare_op], float(depth_clear), int(_walk_skip), keys.data_ptr(),
             depth.data_ptr(), tid.data_ptr(), lanes.data_ptr(), stream,
         )
     if err != 0:
@@ -581,13 +604,15 @@ MAX_PAYLOAD_ID = 1 << 24  # ids ride an f32 column: whole numbers stay exact bel
 @dataclasses.dataclass
 class IdsInputs:
     """K4's inputs for one pass: the 20-column table (payload id in column
-    19), the binned segments, and the binning overflow counters [big, huge]."""
+    19), the binned segments, the binning overflow counters [big, huge],
+    and the split plan of seg (split_plan, SPLIT_CHUNK)."""
 
     table: torch.Tensor
     sorted_tris: torch.Tensor
     seg: torch.Tensor
     nbx: int
     bin_overflow: torch.Tensor
+    plan: SplitPlan | None = None
 
     @property
     def n_pairs(self) -> torch.Tensor:
@@ -617,10 +642,10 @@ def prepare_ids(setup: TriangleSetup, height: int, width: int, ids: torch.Tensor
     """Bin and build K4's table (≙ rasterize_binned_pallas(skip_bary=True,
     ids=...) up to the pallas_call, raster_pallas.py:909-915): the 19 depth
     columns, then `ids` [t] (one payload id per raster slot) as f32 in
-    column 19. id_bound is an exclusive upper bound of the ids known to the
-    caller (the source triangle count); without it the ids are read back to
-    check them. Ids of 2^24 or more would round in the f32 column and are
-    rejected."""
+    column 19; and the split plan of the segments. id_bound is an exclusive
+    upper bound of the ids known to the caller (the source triangle count);
+    without it the ids are read back to check them. Ids of 2^24 or more
+    would round in the f32 column and are rejected."""
     _check_payload_ids(ids, setup.num_triangles, id_bound)
     sorted_tris, seg, _nby, nbx, overflow = bin_compact(setup, height, width, small_limit)
     return IdsInputs(
@@ -629,28 +654,32 @@ def prepare_ids(setup: TriangleSetup, height: int, width: int, ids: torch.Tensor
         seg=seg,
         nbx=nbx,
         bin_overflow=overflow,
+        plan=split_plan(seg, sorted_tris.numel()),
     )
 
 
-def _launch_ids(table, sorted_tris, seg, nbx, height, width, compare_op, depth_clear):
+def _launch_ids(table, sorted_tris, seg, nbx, height, width, compare_op, depth_clear, plan):
     from renderer_rs_tpu_torch.kernels import load
 
     lib = load("raster_ids")
     fn = lib.raster_ids_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     dev = table.device
     depth = torch.empty((height, width), dtype=_F32, device=dev)
     tid = torch.empty((height, width), dtype=torch.int32, device=dev)
+    keys = torch.empty((height, width), dtype=torch.int64, device=dev)  # the merged winners
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            table.data_ptr(), table.shape[1], sorted_tris.data_ptr(), seg.data_ptr(),
-            seg.numel() - 1, nbx, height, width, _OPS[compare_op], float(depth_clear),
+            table.data_ptr(), table.shape[1], sorted_tris.data_ptr(), plan.items.data_ptr(),
+            plan.items.shape[0], plan.pieces.data_ptr(), seg.numel() - 1, nbx, height, width,
+            _OPS[compare_op], float(depth_clear), int(_walk_skip), keys.data_ptr(),
             depth.data_ptr(), tid.data_ptr(), stream,
         )
     if err != 0:
@@ -660,15 +689,19 @@ def _launch_ids(table, sorted_tris, seg, nbx, height, width, compare_op, depth_c
 
 
 def raster_ids(table, sorted_tris, seg, nbx, height, width,
-               compare_op=CompareOp.LESS, depth_clear=1.0):
+               compare_op=CompareOp.LESS, depth_clear=1.0, plan=None, chunk=None):
     """K4 over the binned candidates. table [t+1, >=20] f32 (prepare_ids),
     sorted_tris/seg int32 (bin_compact), nbx bins per row. Returns (depth
     [H,W] f32, tid [H,W] int32: the winner's payload id from column 19, or
-    -1). CUDA tensors launch the kernel; CPU tensors run raster_ids_plain."""
+    -1). plan (IdsInputs.plan), or else one built with pieces of at most
+    `chunk` candidates (default SPLIT_CHUNK), is how the kernel cuts dense
+    bins over blocks; neither changes a bit of the result. CUDA tensors
+    launch the kernel; CPU tensors run raster_ids_plain."""
     _check_inputs(table, sorted_tris, seg, nbx, height, width, VIS_COLS, compare_op)
+    plan = _plan_for(seg, sorted_tris, plan, chunk)
     if table.device.type == "cuda":
         return _launch_ids(table, sorted_tris, seg, nbx, height, width, compare_op,
-                           depth_clear)
+                           depth_clear, plan)
     if table.device.type != "cpu":
         raise ValueError(f"raster_ids: unsupported device {table.device}")
     return raster_ids_plain(table, sorted_tris, seg, nbx, height, width, compare_op,
@@ -985,7 +1018,7 @@ def _launch_peel(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat, z_
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     dev = table.device
@@ -999,7 +1032,7 @@ def _launch_peel(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat, z_
             table.data_ptr(), table.shape[1], sorted_tris.data_ptr(), plan.items.data_ptr(),
             plan.items.shape[0], plan.pieces.data_ptr(), seg.numel() - 1, nbx, height, width,
             n_vary, n_flat, None if z_floor is None else z_floor.data_ptr(), _OPS[compare_op],
-            float(depth_clear), keys.data_ptr(), depth.data_ptr(), tid.data_ptr(),
+            float(depth_clear), int(_walk_skip), keys.data_ptr(), depth.data_ptr(), tid.data_ptr(),
             lanes.data_ptr(), stream,
         )
     if err != 0:
@@ -1148,7 +1181,7 @@ def _launch_visibility(table, sorted_tris, seg, nbx, height, width, y_offset, y_
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p,
     ]
@@ -1163,7 +1196,7 @@ def _launch_visibility(table, sorted_tris, seg, nbx, height, width, y_offset, y_
         err = fn(
             table.data_ptr(), table.shape[1], sorted_tris.data_ptr(), plan.items.data_ptr(),
             plan.items.shape[0], plan.pieces.data_ptr(), seg.numel() - 1, nbx, height, width,
-            y_offset, y_stride, int(y_pair), _OPS[compare_op], float(depth_clear),
+            y_offset, y_stride, int(y_pair), _OPS[compare_op], float(depth_clear), int(_walk_skip),
             keys.data_ptr(), depth.data_ptr(), tid.data_ptr(), b0.data_ptr(), b1.data_ptr(),
             stream,
         )

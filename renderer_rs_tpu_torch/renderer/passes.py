@@ -498,7 +498,8 @@ def forward_frame(
                              id_bound=t_prim)
         with record_function("frame/k4"):
             _, source_ids = raster_ids(k4.table, k4.sorted_tris, k4.seg, k4.nbx, height,
-                                       width, pipeline.depth_compare_op, depth_clear)
+                                       width, pipeline.depth_compare_op, depth_clear,
+                                       plan=k4.plan)
         return source_ids
     if shadow_map is None and not ids_only and (layout.has_csm or layout.has_shadow):
         with record_function("frame/shadow"):

@@ -8,6 +8,8 @@ depth BIT-equal.
 The CUDA kernel itself is held against the plain version on the card by
 the `cuda`-marked test below and by chip_smoke.py at full size."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -60,39 +62,51 @@ def _port_args(case, device):
             _depth_clear(op)), setup
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_plain_k4_matches_pallas_interpret(case, monkeypatch):
+@functools.lru_cache(maxsize=None)
+def jax_k4(case):
+    """The JAX package's K4 on the case (rasterize_binned_pallas(skip_bary=
+    True, ids=payload), the Pallas kernel in interpret mode), as numpy:
+    (the setup's xy, z and area2, tid, depth, payload). Cached: the merge
+    model of tests/test_torch_split_winner.py holds itself to it too."""
     import jax.numpy as jnp
 
     import renderer_rs_tpu.ops.raster_pallas as rp
     from renderer_rs_tpu.ops.clip import clip_triangles_near_planes
     from renderer_rs_tpu.ops.raster import setup_triangles
     from renderer_rs_tpu.rhi.pipeline import CompareOp, CullMode, GraphicsPipelineBuilder
-    from renderer_rs_tpu_torch.ops.raster_cuda import raster_ids
 
-    interpret_pallas(monkeypatch)
     clip, tris, h, w, op = _case(case)
     pipe = GraphicsPipelineBuilder().cull_mode(CullMode.NONE).depth_compare_op(CompareOp(op)).build()
-    tri_clip2, valid, _, _ = clip_triangles_near_planes(jnp.asarray(clip)[jnp.asarray(tris)])
-    jsetup = setup_triangles(tri_clip2, w, h, pipe, tri_valid=valid)
-    payload = _payload(jsetup.num_triangles)
-    vis = rp.rasterize_binned_pallas(
-        jsetup, h, w, pipe, skip_bary=True, ids=jnp.asarray(payload), chunk=16,
-        depth_init=jnp.full((h, w), _depth_clear(op), jnp.float32),
-    )
+    with pytest.MonkeyPatch.context() as mp:
+        interpret_pallas(mp)
+        tri_clip2, valid, _, _ = clip_triangles_near_planes(jnp.asarray(clip)[jnp.asarray(tris)])
+        jsetup = setup_triangles(tri_clip2, w, h, pipe, tri_valid=valid)
+        payload = _payload(jsetup.num_triangles)
+        vis = rp.rasterize_binned_pallas(
+            jsetup, h, w, pipe, skip_bary=True, ids=jnp.asarray(payload), chunk=16,
+            depth_init=jnp.full((h, w), _depth_clear(op), jnp.float32),
+        )
+    fields = {name: np.asarray(getattr(jsetup, name)) for name in ("xy", "z", "area2")}
+    return fields, np.asarray(vis.tri_id), np.asarray(vis.depth), payload
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_k4_matches_pallas_interpret(case):
+    from renderer_rs_tpu_torch.ops.raster_cuda import raster_ids
+
+    fields, tid_j, depth_j, payload = jax_k4(case)
     args, setup = _port_args(case, "cpu")
     # the port's own clip + setup give the JAX setup bit for bit, so both
     # kernels see the same table
-    for name in ("xy", "z", "area2"):
+    for name, want in fields.items():
         assert np.array_equal(getattr(setup, name).numpy().view(np.uint32),
-                              np.asarray(getattr(jsetup, name)).view(np.uint32)), name
+                              want.view(np.uint32)), name
     before = raster_ids.launches
     depth, tid = raster_ids(*args)
     assert raster_ids.launches == before  # CPU tensors: plain version, no launch
-    tid_j = np.asarray(vis.tri_id)
     np.testing.assert_array_equal(tid.numpy(), tid_j)
     assert tid.dtype == torch.int32 and depth.dtype == torch.float32
-    assert np.array_equal(depth.numpy().view(np.uint32), np.asarray(vis.depth).view(np.uint32))
+    assert np.array_equal(depth.numpy().view(np.uint32), depth_j.view(np.uint32))
     cov = tid_j >= 0
     assert cov.mean() > 0.05
     # the winners are payload ids, not slot ids

@@ -9,7 +9,10 @@ Bars, as measured on the CPU:
   K4 runs in interpret mode.
 - the msaa4 frame: the frame bar of tests/test_torch_frame.py (|d| <= 2e-3
   + 2e-3*|ref| on >= 99.8% of pixels, max |d| < 0.05); measured max |d|
-  4.1e-6, no pixel off the bar."""
+  4.1e-6, no pixel off the bar.
+- the msaa4 frame as bench.py renders it (bench.py:236-248): the textured
+  scene with its IBL environment, full_scene(96, 64, tri_budget=600,
+  textured=True), on the port's own scene, under the same bar."""
 
 import dataclasses
 
@@ -163,6 +166,57 @@ def test_msaa4_frame_matches_jax(jax_msaa, port_scene):
     out2 = forward_frame(scene, layout, pipe4, kw["shading"], W, H, **_frame_kwargs(kw))
     assert np.array_equal(out2.numpy(), out)
     assert renderer.render_frame().shape == (H, W, 4)
+
+
+IBL_W, IBL_H, IBL_TRIS = 96, 64, 600
+
+
+@pytest.fixture(scope="module")
+def jax_msaa_ibl():
+    """The JAX msaa4 frame of bench.py's loop (the textured scene with its
+    default IBL environment) at 96x64 with a 256² shadow map, the Pallas
+    kernels in interpret mode; and the scene's renderer kwargs."""
+    from renderer_rs_tpu.app.scenes import full_scene
+    from renderer_rs_tpu.renderer.passes import forward_frame, shadow_map_pass
+
+    scene, layout, kw, _ = full_scene(IBL_W, IBL_H, tri_budget=IBL_TRIS, textured=True)
+    shadow_map = shadow_map_pass(scene, layout, SHADOW_SIZE)
+    pipe4 = dataclasses.replace(kw["pipeline"], msaa_samples=4)
+    with pytest.MonkeyPatch.context() as mp:
+        interpret_pallas(mp)
+        frame = forward_frame(scene, layout, pipe4, kw["shading"], IBL_W, IBL_H,
+                              tonemap=kw["tonemap"], shadow_params=kw["shadow_params"],
+                              shadow_map=shadow_map)
+    return np.asarray(frame), {**port_renderer_kwargs(kw), "shadow_map_size": SHADOW_SIZE}
+
+
+def test_msaa4_ibl_textured_frame_matches_jax(jax_msaa_ibl):
+    """bench.py's MSAA 4x frame on the port's own textured IBL scene, through
+    the Renderer (the 1x frame on K2, the sample pass on K4 and the id
+    resolve), against the JAX frame: the frame bar."""
+    from renderer_rs_tpu_torch.app.scenes import full_scene
+    from renderer_rs_tpu_torch.core.config import RendererConfig
+    from renderer_rs_tpu_torch.renderer.passes import ShadingModel, forward_frame
+    from renderer_rs_tpu_torch.renderer.renderer import Renderer
+
+    ref, kw = jax_msaa_ibl
+    scene, layout, own_kw, _ = full_scene(IBL_W, IBL_H, tri_budget=IBL_TRIS, textured=True,
+                                          device="cpu")
+    assert own_kw["shading"] == ShadingModel.PBR_IBL and layout.has_textures
+    pipe4 = dataclasses.replace(own_kw["pipeline"], msaa_samples=4)
+    renderer = Renderer(RendererConfig(width=IBL_W, height=IBL_H), device="cpu",
+                        **{**own_kw, "pipeline": pipe4, "shadow_map_size": SHADOW_SIZE})
+    renderer.set_scene(scene, layout)
+    out = renderer.render_frame_hdr().numpy()
+    assert out.shape == ref.shape == (IBL_H, IBL_W, 4) and np.isfinite(out).all()
+    err = np.abs(out - ref)
+    off = err > 2e-3 + 2e-3 * np.abs(ref)
+    assert off.mean() < 2e-3, f"{off.mean():.4%} pixels off"
+    assert err.max() < 0.05, f"max err {err.max()}"
+    # the resolve blends edge pixels only
+    one = forward_frame(scene, layout, own_kw["pipeline"], own_kw["shading"], IBL_W, IBL_H,
+                        **_frame_kwargs(kw)).numpy()
+    assert 0.01 < (np.abs(out - one).max(-1) > 1e-6).mean() < 0.3
 
 
 @pytest.mark.parametrize("samples", [2, 8])

@@ -22,7 +22,8 @@ On the CPU, where the kernels cannot run:
   boundary.
 
 The `cuda`-marked twins run the kernels with chunk 1 and 32 against the
-plain versions on the card: `python -m pytest --noconftest -m cuda
+plain versions on the card (K5 also with the shared walk's warp skip
+off): `python -m pytest --noconftest -m cuda
 tests/test_torch_split_walk.py`."""
 
 import numpy as np
@@ -399,6 +400,32 @@ def test_cuda_peel_split_matches_plain(case, chunk):
     assert raster_peel.launches == before + 1
     for a, b in zip(out, raster_peel_plain(*args)):
         assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip", ["on", "off"])
+@pytest.mark.parametrize("case", [c for c in PEEL_CASES if c[1] in ("none", "random")],
+                         ids=[i for i, c in zip(PEEL_IDS, PEEL_CASES) if c[1] in ("none", "random")])
+def test_cuda_peel_skip_forms_match_plain(case, skip):
+    """The shared walk with its warp skip on and off, with and without a
+    floor, bit-equal to the plain version."""
+    _need_card()
+    import contextlib
+
+    from renderer_rs_tpu_torch.ops.raster_cuda import (
+        _without_skip,
+        raster_peel,
+        raster_peel_plain,
+    )
+
+    args, _, _, _ = _port_args(case, "cuda")
+    ref = raster_peel_plain(*args)
+    for chunk in (1, 32):
+        with _without_skip() if skip == "off" else contextlib.nullcontext():
+            out = raster_peel(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            assert torch.equal(_bits(a), _bits(b))
 
 
 @pytest.mark.cuda

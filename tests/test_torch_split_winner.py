@@ -1,30 +1,45 @@
-"""The split walk of K3 (band visibility) and K2 (visibility + winner
-resolve): the kernels walk one piece of ops/raster_cuda.py::split_plan per
-block, merge a split bin's pieces by the 64-bit (depth, position) key of
-csrc/split_walk.cuh, and write their outputs from a pixel-parallel resolve
-pass over the merged keys (csrc/raster_vis.cu, csrc/raster_resolve.cu).
+"""The split walk of K3 (band visibility), K2 (visibility + winner
+resolve) and K4 (ids only, the MSAA sample pass): the kernels walk one
+piece of ops/raster_cuda.py::split_plan per block, merge a split bin's
+pieces by the 64-bit (depth, position) key of csrc/split_walk.cuh, and
+write their outputs from a pixel-parallel resolve pass over the merged keys
+(csrc/raster_vis.cu, csrc/raster_resolve.cu, csrc/raster_ids.cu).
 
 On the CPU, where the kernels cannot run, a plain model of each merge is
 held bit-equal to the sequential plain version (raster_visibility_plain,
-raster_resolve_plain) at chunk 1, 3 and 32. The model walks the r-th piece
-of every bin with the plain walk over the table re-indexed by segment
-position (so the winner it returns is the position), combines the pieces
-with the key rules (test_torch_split_walk._peel_keys: the depth with -0.0
-folded onto +0.0, then q = position + 1 or ~q, min or max by compare op),
-and resolves each pixel with the kernel's resolve formulas, written here
-line for line as in the CUDA sources: the winner's row is
-sorted_tris[position], its depth recomputed with the walk's formula, and
-K3's barycentrics or K2's lanes (vertex-major attributes, the unfused
-weight denominator, the fused third weight, no zero fold). The cases are
-the ten of tests/test_torch_vis_kernel.py (whole frame, band, odd band,
-strided, pair, near-plane crossing, LE and GE ties) and the four of
-tests/test_torch_raster_kernel.py (LESS, near-plane crossing, LE and GE
-ties, lanes included), plus +0.0 and -0.0 coplanar twins whose equal
-depths straddle a piece boundary, under LESS and LESS_OR_EQUAL, for both
-kernels.
+raster_resolve_plain, raster_ids_plain) at chunk 1, 3 and 32. The model
+walks the r-th piece of every bin with the plain walk over the table
+re-indexed by segment position (so the winner it returns is the position),
+combines the pieces with the key rules (test_torch_split_walk._peel_keys:
+the depth with -0.0 folded onto +0.0, then q = position + 1 or ~q, min or
+max by compare op), and resolves each pixel with the kernel's resolve
+formulas, written here line for line as in the CUDA sources: the winner's
+row is sorted_tris[position], its depth recomputed with the walk's formula,
+and K3's barycentrics, K2's lanes (vertex-major attributes, the unfused
+weight denominator, the fused third weight, no zero fold) or K4's payload
+id (column 19). The cases are the ten of tests/test_torch_vis_kernel.py
+(whole frame, band, odd band, strided, pair, near-plane crossing, LE and GE
+ties) and the four of tests/test_torch_raster_kernel.py (LESS, near-plane
+crossing, LE and GE ties, lanes included), plus +0.0 and -0.0 coplanar
+twins whose equal depths straddle a piece boundary, under LESS and
+LESS_OR_EQUAL, for K3 and K2; K4's are the four of
+tests/test_torch_ids_kernel.py (LESS, near-plane crossing, LE and GE
+twins), held also to the JAX package's Pallas K4 in interpret mode.
+
+The warp skip of the shared walk (csrc/split_walk.cuh, "The skip") is
+held here by its corner bound: for random and adversarial candidates
+(slivers, near-collinear vertices, edges through pixel centres, huge and
+infinite coordinates, the +inf-threshold pad row, and raw edge columns with
+signed zeros, subnormals and NaN), the rounded edge function, by the f64
+FMA emulation ops/raster.py::_fma, is evaluated at every pixel of a 32x16
+rectangle: no pixel exceeds the corner that chip_smoke.py::warp_misses
+(the kernel's test as torch ops) chooses, and a candidate it skips covers
+none of them. Choosing any wrong corner fails the same check (the mutation
+test).
 
 The `cuda`-marked twins run the kernels with chunk 1 and 32 against the
-plain versions on the card: `python -m pytest --noconftest -m cuda
+plain versions on the card, also with the warp skip off:
+`python -m pytest --noconftest -m cuda tests/test_torch_ids_kernel.py
 tests/test_torch_split_winner.py`."""
 
 import numpy as np
@@ -32,6 +47,9 @@ import pytest
 import torch
 
 from test_torch_depth_kernel import _signed_zero_scene
+from test_torch_ids_kernel import CASES as IDS_CASES
+from test_torch_ids_kernel import _port_args as _k4_port_args
+from test_torch_ids_kernel import jax_k4
 from test_torch_raster_kernel import _port_inputs as _k2_port_inputs
 from test_torch_split_walk import U32, _bits, _peel_keys, _rounds
 from test_torch_vis_kernel import CASES as VIS_CASES
@@ -139,14 +157,36 @@ def _resolve_merge_model(args, chunk):
     return tuple(_stitch(x, nbx, h, w) for x in out), n_rounds
 
 
+def _ids_merge_model(args, chunk):
+    """K4 through the merge model: raster_ids_resolve's formulas (the
+    depth by the walk's formula, no zero fold, the payload id)."""
+    from renderer_rs_tpu_torch.ops.raster_cuda import _stitch
+
+    table, sorted_tris, seg, nbx, h, w, op, clear = args
+    row, py_all, px_all, n_rounds = _merged_rows(table, sorted_tris, seg, nbx, op, clear,
+                                                 (0, 1, False), chunk)
+    g, _, _, _, _, depth = _winner_geometry(table, row, py_all, px_all)
+    hit = row >= 0
+    out = (torch.where(hit, depth, float(clear)),
+           torch.where(hit, g[..., 19].to(torch.int32), -1))
+    return tuple(_stitch(x, nbx, h, w) for x in out), n_rounds
+
+
 def _check_model(kernel, args, chunk):
     """The model against the sequential plain version, every output bit for
     bit. Returns the plain version's outputs."""
-    from renderer_rs_tpu_torch.ops.raster_cuda import raster_resolve_plain, raster_visibility_plain
+    from renderer_rs_tpu_torch.ops.raster_cuda import (
+        raster_ids_plain,
+        raster_resolve_plain,
+        raster_visibility_plain,
+    )
 
     if kernel == "k3":
         ref = raster_visibility_plain(*args)
         got, n_rounds = _vis_merge_model(args, chunk)
+    elif kernel == "k4":
+        ref = raster_ids_plain(*args)
+        got, n_rounds = _ids_merge_model(args, chunk)
     else:
         ref = raster_resolve_plain(*args)
         got, n_rounds = _resolve_merge_model(args, chunk)
@@ -180,6 +220,24 @@ def test_resolve_merge_model_is_bit_equal(case, chunk):
     if case.endswith("_ties"):
         # every covered pixel's winner is a second-copy twin (slot >= 24)
         assert bool((ref[1][cov] >= 24).all())
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("case", IDS_CASES)
+def test_ids_merge_model_is_bit_equal(case, chunk):
+    """K4's merge and resolve: bit-equal to raster_ids_plain and to the JAX
+    package's Pallas K4 in interpret mode; under LE/GE every winner is the
+    later twin."""
+    args, _ = _k4_port_args(case, "cpu")
+    depth, tid = _check_model("k4", args, chunk)
+    _, tid_j, depth_j, payload = jax_k4(case)
+    np.testing.assert_array_equal(tid.numpy(), tid_j)
+    assert np.array_equal(depth.numpy().view(np.uint32), depth_j.view(np.uint32))
+    cov = tid_j >= 0
+    assert cov.mean() > 0.05
+    if case.endswith("_ties"):
+        slot_of = {int(p): i for i, p in enumerate(payload)}
+        assert all(slot_of[int(p)] >= 24 for p in np.unique(tid_j[cov]))
 
 
 def _zero_twin_args(kernel, first_negative, op, device="cpu"):
@@ -245,14 +303,17 @@ def _prepared(monkeypatch, name, build):
     return out, seen[-1]
 
 
-@pytest.mark.parametrize("kernel", ["k3", "k2"])
+@pytest.mark.parametrize("kernel", ["k3", "k2", "k4"])
 def test_split_plan_rides_the_binning(kernel, monkeypatch):
-    """prepare_visibility and prepare_resolve build the plan of their
-    segments (SPLIT_CHUNK) once per binning; the wrappers take it, or a
-    chunk, without a bit of difference, and refuse a plan of other
-    segments, a chunk that is not the plan's, and a chunk below 1."""
+    """prepare_visibility, prepare_resolve and prepare_ids build the plan of
+    their segments (SPLIT_CHUNK) once per binning; the wrappers take it or a
+    chunk, also with the warp skip off, without a bit of difference, and
+    refuse a plan of other segments, a chunk that is not the plan's and a
+    chunk below 1."""
     from renderer_rs_tpu_torch.ops.raster_cuda import (
         SPLIT_CHUNK,
+        _without_skip,
+        raster_ids,
         raster_resolve,
         raster_visibility,
         split_plan,
@@ -262,6 +323,10 @@ def test_split_plan_rides_the_binning(kernel, monkeypatch):
         (args, _), inputs = _prepared(monkeypatch, "prepare_visibility",
                                       lambda: _k3_port_args("less", "pair", "cpu"))
         fn = raster_visibility
+    elif kernel == "k4":
+        (args, _), inputs = _prepared(monkeypatch, "prepare_ids",
+                                      lambda: _k4_port_args("less_ties", "cpu"))
+        fn = raster_ids
     else:
         args, inputs = _prepared(monkeypatch, "prepare_resolve",
                                  lambda: _k2_port_inputs("less", "cpu"))
@@ -272,9 +337,13 @@ def test_split_plan_rides_the_binning(kernel, monkeypatch):
     assert torch.equal(inputs.plan.items, ref.items) and torch.equal(inputs.plan.pieces, ref.pieces)
     assert inputs.plan.chunk == SPLIT_CHUNK and inputs.plan.pieces.shape == (1, seg.numel() - 1)
     base = fn(*args)
-    for kw in ({"plan": inputs.plan}, {"chunk": 5},
-               {"plan": split_plan(seg, 10**4, 7), "chunk": 7}):
+    forms = [{"plan": inputs.plan}, {"chunk": 5},
+             {"plan": split_plan(seg, 10**4, 7), "chunk": 7}]
+    for kw in forms:
         for got, want in zip(fn(*args, **kw), base):
+            assert torch.equal(_bits(got), _bits(want))
+    with _without_skip():
+        for got, want in zip(fn(*args, plan=inputs.plan), base):
             assert torch.equal(_bits(got), _bits(want))
     with pytest.raises(ValueError, match="plan was not built"):
         fn(*args, plan=split_plan(seg[:-1], 10**4))
@@ -282,6 +351,176 @@ def test_split_plan_rides_the_binning(kernel, monkeypatch):
         fn(*args, plan=inputs.plan, chunk=8)
     with pytest.raises(ValueError, match="positive int"):
         fn(*args, chunk=0)
+
+
+# --- the warp skip: the corner bound ----------------------------------------------
+
+# the pixel rectangles of the property test: 32 columns x 16 rows at (x0, y0)
+RECTS = [(0, 0), (96, 48), (7648, 2144), (1 << 20, 1 << 19)]
+
+
+def _rect_centres(x0, y0):
+    """Pixel centres of the 32x16 rectangle at (x0, y0): px [32], py [16]."""
+    return (torch.arange(x0, x0 + 32, dtype=torch.float32) + 0.5,
+            torch.arange(y0, y0 + 16, dtype=torch.float32) + 0.5)
+
+
+def _triangle_edges(kind, rng, x0, y0, n=600):
+    """Canonical edge columns [n, 15] (ops/raster_cuda.py::_canonical_edges_block,
+    top-left thresholds) of triangles of one family around the rectangle
+    at (x0, y0)."""
+    from renderer_rs_tpu_torch.ops.raster_cuda import _canonical_edges_block
+
+    c = np.array([x0 + 16.0, y0 + 8.0])
+    if kind == "random":
+        xy = c + rng.uniform(-60, 60, (n, 3, 2))
+    elif kind == "sliver":  # two vertices within a hundredth of a pixel
+        xy = c + rng.uniform(-60, 60, (n, 3, 2))
+        xy[:, 1] = xy[:, 0] + rng.uniform(-0.01, 0.01, (n, 2))
+    elif kind == "collinear":  # the third vertex a hair off the first edge
+        a, b = c + rng.uniform(-80, 80, (2, n, 2))
+        t = rng.uniform(-0.5, 1.5, (n, 1))
+        perp = np.stack([a[:, 1] - b[:, 1], b[:, 0] - a[:, 0]], -1)
+        eps = rng.choice([0.0, 1e-7, -1e-7, 1e-4], (n, 1))
+        xy = np.stack([a, b, a + t * (b - a) + eps * perp], 1)
+    elif kind == "centres":  # vertices on pixel centres: edges through centres
+        xy = np.floor(c + rng.uniform(-40, 40, (n, 3, 2))) + 0.5
+        xy[::3, 1, 1] = xy[::3, 0, 1]  # horizontal edges
+        xy[1::3, 1, 0] = xy[1::3, 0, 0]  # vertical edges
+    elif kind == "huge":  # far vertices: products round, overflow, inf
+        xy = c + rng.uniform(-60, 60, (n, 3, 2))
+        far = rng.choice([1e8, 3e19, 1e30, 3.4e38, np.inf], (n, 2)) * rng.choice([-1, 1], (n, 2))
+        xy[:, 2] = np.where(rng.uniform(size=(n, 1)) < 0.5, far, c + far * 1e-30)
+    else:
+        raise ValueError(kind)
+    xy = torch.from_numpy(xy.astype(np.float32))
+    v0, v1, v2 = xy.unbind(1)
+    area2 = ((v1[:, 0] - v0[:, 0]) * (v2[:, 1] - v0[:, 1])
+             - (v2[:, 0] - v0[:, 0]) * (v1[:, 1] - v0[:, 1]))
+    s = torch.where(area2 == 0.0, area2, torch.sign(area2))
+    return _canonical_edges_block(xy, s, valid=torch.isfinite(area2))
+
+
+def _raw_edges(rng, n=2000):
+    """Edge columns drawn at random from values the proof must survive:
+    signed zeros, subnormals, the normal threshold, huge values, inf, NaN."""
+    special = np.array([0.0, -0.0, 1e-45, -1e-45, 1.1754944e-38, 0.5, -0.5, 1.0, 31.5, 1e20,
+                        -1e20, 3.4e38, -3.4e38, np.inf, -np.inf, np.nan], np.float32)
+    cols = rng.uniform(-100, 100, (n, 15)).astype(np.float32)
+    pick = rng.uniform(size=cols.shape) < 0.3
+    cols[pick] = rng.choice(special, int(pick.sum()))
+    return torch.from_numpy(cols)
+
+
+def _pad_row():
+    from renderer_rs_tpu_torch.ops.raster_cuda import _with_pad_row
+
+    return _with_pad_row(torch.zeros((0, 20)))[:, :15]
+
+
+def _corner_violations(cols, x0, y0, pick):
+    """(pixels above their edge's chosen corner, skipped candidates that
+    cover a pixel, candidates skipped, candidates covering a pixel) over
+    the 32x16 rectangle at (x0, y0), with `pick` choosing the corner."""
+    from chip_smoke import warp_misses
+    from renderer_rs_tpu_torch.ops.raster_cuda import _edge
+
+    px, py = _rect_centres(x0, y0)
+    px_lo, px_hi, py_lo, py_hi = px[0], px[-1], py[0], py[-1]
+    above, covers = 0, torch.ones((cols.shape[0], 16, 32), dtype=torch.bool)
+    for k0 in (0, 5, 10):
+        ax, ay, sdx, sdy, th = (cols[:, k0 + k, None, None] for k in range(5))
+        e = _edge(sdx, py[None, :, None] - ay, sdy, px[None, None, :] - ax)  # [n, 16, 32]
+        hi_x, hi_y = pick(sdx, sdy)
+        e_c = _edge(sdx, torch.where(hi_y, py_hi, py_lo) - ay, sdy,
+                    torch.where(hi_x, px_hi, px_lo) - ax)
+        above += int((~torch.isnan(e_c) & ~torch.isnan(e) & (e > e_c)).sum())
+        covers &= e >= th
+    covers = covers.flatten(1).any(1)
+    skipped = warp_misses(cols, px_lo, px_hi, py_lo, py_hi, pick)
+    return above, int((skipped & covers).sum()), int(skipped.sum()), int(covers.sum())
+
+
+def _all_candidates(seed, x0, y0):
+    rng = np.random.default_rng(seed)
+    kinds = ("random", "sliver", "collinear", "centres", "huge")
+    return torch.cat([_triangle_edges(k, rng, x0, y0) for k in kinds]
+                     + [_raw_edges(rng), _pad_row()])
+
+
+@pytest.mark.parametrize("x0,y0", RECTS)
+def test_warp_skip_corner_bound(x0, y0):
+    """No pixel's rounded e exceeds the chosen corner's, and no skipped
+    candidate covers a pixel; the skip fires on most candidates, and the
+    pad row (+inf thresholds) is always skipped."""
+    from chip_smoke import corner_pick, warp_misses
+
+    cols = _all_candidates(11 + x0, x0, y0)
+    above, wrong_skips, n_skipped, n_covering = _corner_violations(cols, x0, y0, corner_pick)
+    assert above == 0 and wrong_skips == 0
+    assert n_covering > 100 and n_skipped > cols.shape[0] // 4
+    px, py = _rect_centres(x0, y0)
+    assert bool(warp_misses(_pad_row(), px[0], px[-1], py[0], py[-1]).all())
+
+
+@pytest.mark.parametrize("flip", ["x", "y", "both"])
+def test_warp_skip_wrong_corner_fails(flip):
+    """The mutation check: a corner chosen with either sign test inverted
+    fails the bound, both by a pixel above the corner and by a skipped
+    candidate that covers a pixel."""
+    from chip_smoke import corner_pick
+
+    def wrong(sdx, sdy):
+        hi_x, hi_y = corner_pick(sdx, sdy)
+        return (~hi_x if flip in ("x", "both") else hi_x), (~hi_y if flip in ("y", "both") else hi_y)
+
+    x0, y0 = RECTS[1]
+    above, wrong_skips, _, _ = _corner_violations(_all_candidates(11 + x0, x0, y0), x0, y0, wrong)
+    assert above > 0 and wrong_skips > 0
+
+
+@pytest.mark.parametrize("case", ["k4-near_cross", "k3-pair"])
+def test_warp_skip_counts_are_exact(case):
+    """chip_smoke.py::warp_skip_counts, the share chip_smoke.py reports: on
+    a binning's real (warp, candidate) pairs, every pair it skips covers
+    none of the warp's 256 pixels (by the plain walk's edges), it skips a
+    good share of them, and it counts the kept pairs' pixels inside the
+    frame."""
+    from chip_smoke import warp_misses, warp_skip_counts
+    from renderer_rs_tpu_torch.ops.raster_cuda import BIN_H, BIN_W, _band_py, _edge
+
+    if case.startswith("k4"):
+        table, sorted_tris, seg, nbx, h, w, _, _ = _k4_port_args("near_cross", "cpu")[0]
+        band = (0, 1, False)
+    else:
+        table, sorted_tris, seg, nbx, h, w, y0, stride, pair, _, _ = _k3_port_args(
+            "less", "pair", "cpu")[0]
+        band = (y0, stride, pair)
+    skipped, walked, kept_pixels = warp_skip_counts(table, sorted_tris, seg, nbx, h, w, band)
+    seg_l = seg.long()
+    n_bins = seg_l.numel() - 1
+    bins = torch.repeat_interleave(torch.arange(n_bins), seg_l[1:] - seg_l[:-1])
+    cols = table[sorted_tris[:bins.numel()].long()][:, :15]
+    by, bx = bins // nbx, bins % nbx
+    got_skips, got_walked, got_pixels = 0, 0, 0
+    for warp in range(8):
+        rows = by[:, None] * BIN_H + 8 * (warp // 4) + torch.arange(8)  # [P, 8] band rows
+        xs = bx[:, None] * BIN_W + 32 * (warp % 4) + torch.arange(32)  # [P, 32]
+        py = _band_py(rows, *band)[:, :, None]
+        px = xs.to(torch.float32)[:, None, :] + 0.5
+        cover = torch.ones(py.shape[0], 8, 32, dtype=torch.bool)
+        for k0 in (0, 5, 10):
+            c = cols[:, k0:k0 + 5, None, None]
+            cover &= _edge(c[:, 2], py - c[:, 1], c[:, 3], px - c[:, 0]) >= c[:, 4]
+        skip = warp_misses(cols, px[:, 0, 0], px[:, 0, -1], py[:, 0, 0], py[:, -1, 0])
+        walked_w = by * BIN_H < h
+        assert not bool((skip & cover.flatten(1).any(1) & walked_w).any())
+        got_skips += int((skip & walked_w).sum())
+        got_walked += int(walked_w.sum())
+        inside = (rows < h).sum(1) * (xs < w).sum(1)
+        got_pixels += int((inside * (walked_w & ~skip)).sum())
+    assert (int(skipped), int(walked), int(kept_pixels)) == (got_skips, got_walked, got_pixels)
+    assert 0.3 < got_skips / got_walked < 1.0
 
 
 # --- on the card ------------------------------------------------------------------
@@ -292,18 +531,25 @@ def _need_card():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
 
 
-def _card_matches_plain(kernel, args, chunk):
+def _card_matches_plain(kernel, args, chunk, skip_off=False):
+    import contextlib
+
     from renderer_rs_tpu_torch.ops.raster_cuda import (
+        _without_skip,
+        raster_ids,
+        raster_ids_plain,
         raster_resolve,
         raster_resolve_plain,
         raster_visibility,
         raster_visibility_plain,
     )
 
-    fn, plain = ((raster_visibility, raster_visibility_plain) if kernel == "k3"
-                 else (raster_resolve, raster_resolve_plain))
+    fn, plain = {"k3": (raster_visibility, raster_visibility_plain),
+                 "k4": (raster_ids, raster_ids_plain),
+                 "k2": (raster_resolve, raster_resolve_plain)}[kernel]
     before = fn.launches
-    out = fn(*args, chunk=chunk)
+    with _without_skip() if skip_off else contextlib.nullcontext():
+        out = fn(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     for a, b in zip(out, plain(*args)):
@@ -325,6 +571,28 @@ def test_cuda_vis_split_matches_plain(kind, band, chunk):
 def test_cuda_resolve_split_matches_plain(case, chunk):
     _need_card()
     _card_matches_plain("k2", _k2_port_inputs(case, "cuda"), chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 32])
+@pytest.mark.parametrize("case", IDS_CASES)
+def test_cuda_ids_split_matches_plain(case, chunk):
+    _need_card()
+    _card_matches_plain("k4", _k4_port_args(case, "cuda")[0], chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip", ["on", "off"])
+@pytest.mark.parametrize("kernel", ["k2", "k3", "k4"])
+def test_cuda_walk_skip_forms_match_plain(kernel, skip):
+    """The walk with its warp skip on and off, bit-equal to the plain
+    version."""
+    _need_card()
+    args = {"k2": lambda: _k2_port_inputs("near_cross", "cuda"),
+            "k3": lambda: _k3_port_args("less", "pair", "cuda")[0],
+            "k4": lambda: _k4_port_args("near_cross", "cuda")[0]}[kernel]()
+    for chunk in (1, 32):
+        _card_matches_plain(kernel, args, chunk, skip_off=skip == "off")
 
 
 @pytest.mark.cuda
