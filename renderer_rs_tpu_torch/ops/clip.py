@@ -120,6 +120,15 @@ def bary_planes_to_array(planes: tuple) -> torch.Tensor:
     return torch.stack([torch.stack(list(row), dim=-1) for row in planes], dim=-2)
 
 
+def clip_triangles_near(tri_clip: torch.Tensor, eps: float = NEAR_EPS):
+    """The array form of the near clip (clip.py:63): (clipped [2T,3,4],
+    valid [2T], src [2T], bary_src [2T,3,3]), bary_src[t, i] being output
+    vertex i's barycentrics over the source triangle (identity where
+    unclipped). The transparent pass takes this form."""
+    clipped, valid, src, planes = clip_triangles_near_planes(tri_clip, eps)
+    return clipped, valid, src, bary_planes_to_array(planes)
+
+
 def compact_secondary(tri_clip2, valid2, src2, planes2, cap: int):
     """Compact the secondary clip half [T, 2T) into a static `cap` block
     (clip.py:82): slots [0,T) unchanged, the valid secondaries gathered in

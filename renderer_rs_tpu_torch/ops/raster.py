@@ -7,22 +7,24 @@ down, z in [0,1], framebuffer row 0 on top, pixel centers at (col+0.5,
 row+0.5), front-for-CCW <=> framebuffer cross2 < 0.
 
 The fast path rasterizes through ops/raster_cuda.py. Here are the exact
-sequential scan rasterizer (`rasterize`, `rasterize_depth_only`: the JAX
-module's lax.scan over triangles in plain XLA, as plain PyTorch) for what
-the binned path does not take (scenes below 64 triangles, no depth test or
-write, EQUAL/NOT_EQUAL/NEVER/ALWAYS compares, wireframe, blending, an alpha
-cutoff without textures), the depth-plane form of K7's table
-(`z_plane_coeffs`), and the deferred attributes (perspective_bary,
-interpolate). The scan's stencil state machine, point and line primitives,
-`rasterize_ordered` and its coverage callback wait for ROADMAP Queue 1 item
-13, second part.
+sequential scan rasterizers (the JAX module's lax.scan over primitives in
+plain XLA, as plain PyTorch): `rasterize` with its per-fragment coverage
+callback, for what the binned path does not take (scenes below 64
+triangles, no depth test or write, EQUAL/NOT_EQUAL/NEVER/ALWAYS compares,
+wireframe, point and line primitives, an alpha test off the peel);
+`rasterize_depth_only`; `rasterize_stencil`, the stencil state machine with
+two-sided face state; and `rasterize_ordered`, which shades and blends in
+submission order for translucent pipelines. Then the depth-plane form of
+K7's table (`z_plane_coeffs`) and the deferred attributes
+(perspective_bary, interpolate, shade_visibility).
 
-Rounding: XLA:CPU fuses two products of the scan body into FMAs, the same
-two as in the Pallas kernels (the edge function and the depth sum;
+Rounding: XLA:CPU fuses two products of the triangle coverage into FMAs,
+the same two as in the Pallas kernels (the edge function and the depth sum;
 measured against the JAX `rasterize` on three random scenes: unfusing the
 edge moves 11,817 of 34,718 barycentric values, unfusing the depth sum
 3,950 of 17,359 depths, and no other fusion gives bit-equality). `_fma`
-emulates them in f64, on the CPU and on the card alike.
+emulates them in f64, on the CPU and on the card alike. The line coverage's
+products are measured the same way (`_coverage_line`).
 """
 
 from __future__ import annotations
@@ -81,26 +83,36 @@ def gather_triangle_planes(clip: torch.Tensor, tris: torch.Tensor):
     return clip[tris[:, 0]], clip[tris[:, 1]], clip[tris[:, 2]]
 
 
+# primitives that ride as degenerate index triples (point: v,v,v; line:
+# a,b,b; rhi/vertex.py::expand_topology)
+_POINT_LINE = (PrimitiveTopology.POINT_LIST, PrimitiveTopology.LINE_LIST,
+               PrimitiveTopology.LINE_STRIP)
+
+
+def _front_facing(area2, pipeline: GraphicsPipeline):
+    """The facing rule: front-for-CCW <=> framebuffer cross2 < 0."""
+    return (area2 < 0.0) if pipeline.front_face == FrontFace.COUNTER_CLOCKWISE else (area2 > 0.0)
+
+
 def _facing_valid(area2, ok_w, pipeline: GraphicsPipeline, tri_valid):
-    """Facing/cull and validity of triangle-list primitives."""
-    front = (area2 < 0.0) if pipeline.front_face == FrontFace.COUNTER_CLOCKWISE else (area2 > 0.0)
-    if pipeline.cull_mode == CullMode.NONE:
-        cull_ok = torch.ones_like(front)
-    elif pipeline.cull_mode == CullMode.BACK:
-        cull_ok = front
-    elif pipeline.cull_mode == CullMode.FRONT:
-        cull_ok = ~front
-    else:  # FRONT_AND_BACK (pipeline.rs:349: rasterize nothing)
-        cull_ok = torch.zeros_like(front)
-    valid = ok_w & cull_ok & (area2 != 0.0)
+    """Validity of the primitives (raster.py:141-166): triangles need w in
+    front of the near plane, to survive the cull mode and a nonzero area;
+    points and lines only the w test (culling and the zero-area test are
+    polygon-only, Vulkan spec; pipeline.rs:330-350)."""
+    if pipeline.topology in _POINT_LINE:
+        valid = ok_w
+    else:
+        front = _front_facing(area2, pipeline)
+        if pipeline.cull_mode == CullMode.NONE:
+            cull_ok = torch.ones_like(front)
+        elif pipeline.cull_mode == CullMode.BACK:
+            cull_ok = front
+        elif pipeline.cull_mode == CullMode.FRONT:
+            cull_ok = ~front
+        else:  # FRONT_AND_BACK (pipeline.rs:349: rasterize nothing)
+            cull_ok = torch.zeros_like(front)
+        valid = ok_w & cull_ok & (area2 != 0.0)
     return valid if tri_valid is None else valid & tri_valid
-
-
-def _require_triangle_list(pipeline: GraphicsPipeline) -> None:
-    if pipeline.topology != PrimitiveTopology.TRIANGLE_LIST:
-        raise NotImplementedError(
-            "point/line topologies are not ported yet (ROADMAP Queue 1 item 13, second part)"
-        )
 
 
 def setup_triangles(
@@ -111,7 +123,6 @@ def setup_triangles(
     tri_valid: torch.Tensor | None = None,
 ) -> TriangleSetup:
     """Divide, viewport transform, facing/cull, validity (raster.py:99)."""
-    _require_triangle_list(pipeline)
     w_clip = tri_clip[..., 3]
     ok_w = torch.all(w_clip > _W_EPS, dim=-1)
     inv_w = 1.0 / torch.clamp(w_clip, min=_W_EPS)
@@ -145,7 +156,6 @@ def setup_triangles_planes(
     clip rows. Every formula is setup_triangles' op on the same floats,
     evaluated per vertex plane, so the result is bit-identical to
     setup_triangles(stack(verts, 1), ...). The shadow pass uses this form."""
-    _require_triangle_list(pipeline)
     sxy, zs, ws = [], [], []
     ok_w = None
     for v in verts:
@@ -285,14 +295,65 @@ def _hypot(x, y):
     return torch.where(inf, torch.full_like(out, float("inf")), out)
 
 
-def _coverage_one(setup: TriangleSetup, t: int, px, py, pipeline: GraphicsPipeline | None = None):
-    """Coverage, depth and screen-space barycentrics of triangle t over all
-    pixels (raster.py:501): (inside [H,W] bool, z, b0, b1). Edge i is
-    opposite vertex i; the top-left rule decides e == 0; PolygonMode.LINE
-    keeps the fragments within line_width/2 of an edge. Depth interpolates
-    linearly in screen space, z0..2 being NDC depths, fused as XLA fuses it."""
-    if pipeline is not None:
-        _require_triangle_list(pipeline)
+def _coverage_point(setup: TriangleSetup, t: int, px, py):
+    """POINT_LIST coverage (raster.py:462): a size-1 point covers the
+    fragment whose centre lies in the half-open unit square around the
+    vertex (Vulkan "Basic Point Rasterization"; the reference never writes
+    PointSize). Barycentrics (1, 0); depth the vertex's."""
+    x0, y0 = setup.xy[t, 0, 0], setup.xy[t, 0, 1]
+    inside = ((px >= x0 - 0.5) & (px < x0 + 0.5) & (py >= y0 - 0.5) & (py < y0 + 0.5)
+              & setup.valid[t])
+    z = setup.z[t, 0].expand(inside.shape)
+    inside = inside & (z >= 0.0) & (z <= 1.0)
+    return inside, z, torch.ones_like(z), torch.zeros_like(z)
+
+
+def _coverage_line(setup: TriangleSetup, t: int, px, py, pipeline: GraphicsPipeline):
+    """LINE_LIST/LINE_STRIP coverage (raster.py:477): the fragments whose
+    centre lies within line_width/2 of the segment, half-open at the end
+    vertex so that a strip's joints are hit once; barycentrics (1-s, s)
+    with s the parametric position. Rounded as XLA:CPU rounds the JAX scan
+    body: len2, the parametric position's numerator and the perpendicular
+    cross product each fuse their first product, the depth its product
+    (measured on twelve random LINE_LIST/LINE_STRIP frames: each other
+    form of len2, the numerator or the depth moves 855-2,927 of 36,864
+    depths or 4,239-9,233 of 73,728 barycentrics, and unfusing the cross
+    product moves 85,322 of 368,640 distances read from a JAX scan)."""
+    x0, y0 = setup.xy[t, 0, 0], setup.xy[t, 0, 1]
+    x1, y1 = setup.xy[t, 1, 0], setup.xy[t, 1, 1]
+    dx = x1 - x0
+    dy = y1 - y0
+    len2 = _fma(dx, dx, dy * dy)
+    inv_len2 = torch.where(len2 > 0.0, 1.0 / torch.clamp(len2, min=1e-30),
+                           torch.zeros_like(len2))
+    ex, ey = px - x0, py - y0
+    sp = _fma(ex, dx, ey * dy) * inv_len2  # parametric [0,1)
+    perp = torch.abs(_fma(ex, dy, -(ey * dx))) * torch.sqrt(inv_len2)
+    hw = 0.5 * pipeline.line_width
+    inside = (sp >= 0.0) & (sp < 1.0) & (perp <= hw) & (len2 > 0.0) & setup.valid[t]
+    z = _fma(setup.z[t, 1] - setup.z[t, 0], sp, setup.z[t, 0].expand(sp.shape))
+    inside = inside & (z >= 0.0) & (z <= 1.0)
+    return inside, z, 1.0 - sp, sp
+
+
+def _coverage_one(setup: TriangleSetup, t: int, px, py, pipeline: GraphicsPipeline | None = None,
+                  callback_b2: bool = False):
+    """Coverage, depth and screen-space barycentrics of primitive t over all
+    pixels (raster.py:501): (inside [H,W] bool, z, b0, b1). Points and lines
+    take their own rules. For triangles, edge i is opposite vertex i; the
+    top-left rule decides e == 0; PolygonMode.LINE keeps the fragments
+    within line_width/2 of an edge. Depth interpolates linearly in screen
+    space, z0..2 being NDC depths, fused as XLA fuses it.
+
+    callback_b2 appends b2 = 1 - b0 - b1 as XLA:CPU computes it where the
+    scan feeds a coverage callback: both products of b0 and b1 recomputed
+    and fused, 1 - e0*ia - e1*ia with two roundings (measured inside the
+    JAX `rasterize` with the frame's alpha callback: the unfused b2 moves
+    7,578 of 14,854 perspective weights, this form none)."""
+    if pipeline is not None and pipeline.topology in _POINT_LINE:
+        cov = (_coverage_point(setup, t, px, py) if pipeline.topology == PrimitiveTopology.POINT_LIST
+               else _coverage_line(setup, t, px, py, pipeline))
+        return cov + (1.0 - cov[2] - cov[3],) if callback_b2 else cov
     (x0, y0), (x1, y1), (x2, y2) = setup.xy[t]
     a2 = setup.area2[t]
     # jnp.sign keeps the sign of a zero; a zero area is never valid anyway
@@ -322,32 +383,51 @@ def _coverage_one(setup: TriangleSetup, t: int, px, py, pipeline: GraphicsPipeli
     b2 = 1.0 - b0 - b1
     z = _fma(b2, setup.z[t, 2], _fma(b0, setup.z[t, 0], b1 * setup.z[t, 1]))
     inside = inside & (z >= 0.0) & (z <= 1.0)
+    if callback_b2:
+        return inside, z, b0, b1, _fma(-e1, inv_area, _fma(-e0, inv_area, torch.ones_like(e0)))
     return inside, z, b0, b1
+
+
+def _valid_slots(setup: TriangleSetup) -> list[int]:
+    """The slots the scan walks, in submission order: an invalid slot
+    (culled, degenerate, or a near clip's unused secondary) covers no pixel,
+    so leaving it out changes no output (one host read of the flags)."""
+    return torch.nonzero(setup.valid).flatten().tolist()
+
+
+def _scan_state(setup: TriangleSetup, height: int, width: int, depth_init, y_offset=0,
+                x_offset=0, y_stride: int = 1, y_pair: bool = False):
+    """The scan's pixel centres and initial depth (1.0, or depth_init)."""
+    dev = setup.z.device
+    px, py = _pixel_centers(height, width, y_offset, x_offset, y_stride, y_pair, device=dev)
+    depth = (torch.ones((height, width), dtype=_F32, device=dev) if depth_init is None
+             else depth_init.to(_F32))
+    return px, py, depth
 
 
 def rasterize(setup: TriangleSetup, height: int, width: int, pipeline: GraphicsPipeline,
               depth_init: torch.Tensor | None = None, coverage_fn=None, y_offset=0,
               x_offset=0, y_stride: int = 1, y_pair: bool = False) -> "VisibilityBuffer":
-    """Rasterize every triangle into a visibility buffer by the exact
+    """Rasterize every primitive into a visibility buffer by the exact
     sequential scan in submission order (raster.py:566; ≙ the GPU's ROP
-    stage): per triangle, coverage, the depth test under the pipeline's
-    compare op when enabled, the depth write when enabled, and the winner's
-    id and barycentrics. depth_init is the [H,W] clear (default 1.0);
-    offsets, y_stride and y_pair place the rows of a band. The
-    per-fragment coverage callback (the alpha test of a textured MASK frame
-    on the scan) waits for ROADMAP Queue 1 item 13, second part."""
-    if coverage_fn is not None:
-        raise NotImplementedError("the scan rasterizer's coverage callback is not ported yet "
-                                  "(ROADMAP Queue 1 item 13, second part)")
-    _require_triangle_list(pipeline)
-    dev = setup.z.device
-    px, py = _pixel_centers(height, width, y_offset, x_offset, y_stride, y_pair, device=dev)
-    depth = (torch.ones((height, width), dtype=_F32, device=dev) if depth_init is None
-             else depth_init.to(_F32))
-    tri_id = torch.full((height, width), -1, dtype=torch.int32, device=dev)
-    bary = torch.zeros((height, width, 2), dtype=_F32, device=dev)
-    for t in range(setup.num_triangles):
-        inside, z, b0, b1 = _coverage_one(setup, t, px, py, pipeline)
+    stage): per primitive, coverage, the optional per-fragment mask
+    coverage_fn(t, b0, b1, b2) (the alpha test, applied before the depth
+    test and write; the JAX callback takes (t, b0, b1), and b2 here is its
+    1 - b0 - b1 in the rounding XLA gives it there, _coverage_one), the
+    depth test under the pipeline's compare op when enabled, the depth
+    write when enabled, and the winner's id and barycentrics. depth_init is
+    the [H,W] clear (default 1.0); offsets, y_stride and y_pair place the
+    rows of a band."""
+    px, py, depth = _scan_state(setup, height, width, depth_init, y_offset, x_offset,
+                                y_stride, y_pair)
+    tri_id = torch.full((height, width), -1, dtype=torch.int32, device=depth.device)
+    bary = torch.zeros((height, width, 2), dtype=_F32, device=depth.device)
+    for t in _valid_slots(setup):
+        if coverage_fn is not None:
+            inside, z, b0, b1, b2 = _coverage_one(setup, t, px, py, pipeline, callback_b2=True)
+            inside = inside & coverage_fn(t, b0, b1, b2)
+        else:
+            inside, z, b0, b1 = _coverage_one(setup, t, px, py, pipeline)
         accept = inside
         if pipeline.depth_test_enable:
             accept = inside & depth_compare(pipeline.depth_compare_op, z, depth)
@@ -358,21 +438,124 @@ def rasterize(setup: TriangleSetup, height: int, width: int, pipeline: GraphicsP
     return VisibilityBuffer(tri_id=tri_id, depth=depth, bary=bary)
 
 
+def _stencil_apply(op, buf: torch.Tensor, ref: int) -> torch.Tensor:
+    """One VkStencilOp on the int32 stencil plane, values in 0..255
+    (raster.py:623)."""
+    from renderer_rs_tpu_torch.rhi.rendering import StencilOp
+
+    if op == StencilOp.KEEP:
+        return buf
+    if op == StencilOp.ZERO:
+        return torch.zeros_like(buf)
+    if op == StencilOp.REPLACE:
+        return torch.full_like(buf, ref)
+    if op == StencilOp.INCREMENT_AND_CLAMP:
+        return torch.clamp(buf + 1, max=255)
+    if op == StencilOp.DECREMENT_AND_CLAMP:
+        return torch.clamp(buf - 1, min=0)
+    return (~buf) & 0xFF  # INVERT
+
+
+def rasterize_stencil(setup: TriangleSetup, height: int, width: int,
+                      pipeline: GraphicsPipeline, stencil,
+                      depth_init: torch.Tensor | None = None,
+                      stencil_init: torch.Tensor | None = None):
+    """The scan with the stencil test and update state machine (raster.py:640;
+    ≙ the StencilAttachment path, rendering.rs:537-648). stencil is an
+    rhi.rendering.StencilAttachment (or one StencilFaceState). Per
+    fragment: the stencil test, (ref & read_mask) OP (stored & read_mask),
+    then the depth test; fail_op on a stencil fail, depth_fail_op on a
+    stencil pass and depth fail, pass_op when both pass, each masked by
+    write_mask. With stencil.back set, back-facing primitives (the facing
+    rule of setup) take that state. Integer math on int32, exact.
+    Returns (VisibilityBuffer, stencil [H,W] int32)."""
+    px, py, depth = _scan_state(setup, height, width, depth_init)
+    dev = depth.device
+    sbuf = (stencil.initial_array(height, width, dev) if stencil_init is None
+            else stencil_init.to(torch.int32))
+    front_fs = stencil.front_state if hasattr(stencil, "front_state") else stencil
+    back_fs = getattr(stencil, "back", None)
+    tri_front = _front_facing(setup.area2, pipeline)
+
+    def face_step(fs, sbuf, inside, z, depth):
+        """One face state's tests and masked updates -> (accept, new sbuf)."""
+        ref, rm, wm = fs.reference, fs.read_mask, fs.write_mask
+        s_pass = depth_compare(CompareOp(fs.compare), torch.full_like(sbuf, ref & rm).to(_F32),
+                               (sbuf & rm).to(_F32))
+        covered_fail = inside & ~s_pass
+        after_stencil = inside & s_pass
+        if pipeline.depth_test_enable:
+            d_pass = depth_compare(pipeline.depth_compare_op, z, depth)
+        else:
+            d_pass = torch.ones_like(inside)
+        depth_fail = after_stencil & ~d_pass
+        accept = after_stencil & d_pass
+
+        def masked_write(cond, op, buf):
+            merged = (buf & ~wm) | (_stencil_apply(op, buf, ref) & wm)
+            return torch.where(cond, merged, buf)
+
+        sbuf = masked_write(covered_fail, fs.fail_op, sbuf)
+        sbuf = masked_write(depth_fail, fs.depth_fail_op, sbuf)
+        sbuf = masked_write(accept, fs.pass_op, sbuf)
+        return accept, sbuf
+
+    tri_id = torch.full((height, width), -1, dtype=torch.int32, device=dev)
+    bary = torch.zeros((height, width, 2), dtype=_F32, device=dev)
+    for t in _valid_slots(setup):
+        inside, z, b0, b1 = _coverage_one(setup, t, px, py, pipeline)
+        accept, sbuf_new = face_step(front_fs, sbuf, inside, z, depth)
+        if back_fs is not None:
+            accept_b, sbuf_b = face_step(back_fs, sbuf, inside, z, depth)
+            accept = torch.where(tri_front[t], accept, accept_b)
+            sbuf_new = torch.where(tri_front[t], sbuf_new, sbuf_b)
+        sbuf = sbuf_new
+        if pipeline.depth_write_enable:
+            depth = torch.where(accept, z, depth)
+        tri_id = torch.where(accept, t, tri_id)
+        bary = torch.where(accept[..., None], torch.stack([b0, b1], dim=-1), bary)
+    return VisibilityBuffer(tri_id=tri_id, depth=depth, bary=bary), sbuf
+
+
 def rasterize_depth_only(setup: TriangleSetup, height: int, width: int,
                          pipeline: GraphicsPipeline,
                          depth_init: torch.Tensor | None = None) -> torch.Tensor:
     """The depth-only scan (raster.py:737; ≙ the shadow pass's depth-only
-    render): per triangle, coverage and the pipeline's depth compare, then
+    render): per primitive, coverage and the pipeline's depth compare, then
     the depth write. Returns depth [H,W]."""
-    _require_triangle_list(pipeline)
-    dev = setup.z.device
-    px, py = _pixel_centers(height, width, device=dev)
-    depth = (torch.ones((height, width), dtype=_F32, device=dev) if depth_init is None
-             else depth_init.to(_F32))
-    for t in range(setup.num_triangles):
+    px, py, depth = _scan_state(setup, height, width, depth_init)
+    for t in _valid_slots(setup):
         inside, z, _, _ = _coverage_one(setup, t, px, py, pipeline)
         depth = torch.where(inside & depth_compare(pipeline.depth_compare_op, z, depth), z, depth)
     return depth
+
+
+def rasterize_ordered(setup: TriangleSetup, height: int, width: int,
+                      pipeline: GraphicsPipeline, fragment_fn, color_init: torch.Tensor,
+                      depth_init: torch.Tensor | None = None):
+    """Order-preserving rasterize, shade and blend for translucent pipelines
+    (raster.py:823): per primitive in submission order, coverage and the
+    depth test, fragment_fn(t, bary3 [H,W,3], mask [H,W]) -> rgba [H,W,4]
+    (screen-space barycentrics), the pipeline's alpha cutoff on the
+    fragment's alpha, the blend equation of its ColorBlendAttachment over
+    the colour so far (exact Vulkan blend semantics, pipeline.rs:479-544),
+    and the depth write when enabled. Returns (color [H,W,4], depth [H,W])."""
+    from renderer_rs_tpu_torch.ops.blend import apply_blend
+
+    px, py, depth = _scan_state(setup, height, width, depth_init)
+    color = color_init
+    for t in _valid_slots(setup):
+        inside, z, b0, b1 = _coverage_one(setup, t, px, py, pipeline)
+        accept = inside
+        if pipeline.depth_test_enable:
+            accept = inside & depth_compare(pipeline.depth_compare_op, z, depth)
+        src = fragment_fn(t, torch.stack([b0, b1, 1.0 - b0 - b1], dim=-1), accept)
+        if pipeline.alpha_cutoff is not None:
+            accept = accept & (src[..., 3] >= pipeline.alpha_cutoff)
+        color = torch.where(accept[..., None], apply_blend(pipeline.blend, src, color), color)
+        if pipeline.depth_write_enable:
+            depth = torch.where(accept, z, depth)
+    return color, depth
 
 
 @dataclasses.dataclass
@@ -417,3 +600,11 @@ def interpolate(vis: VisibilityBuffer, tris: torch.Tensor, attr: torch.Tensor,
     tid = torch.clamp(vis.tri_id, min=0).long()
     vals = attr[tris][tid]  # [H,W,3,K]
     return torch.einsum("hwv,hwvk->hwk", bary3, vals)
+
+
+def shade_visibility(vis: VisibilityBuffer, color: torch.Tensor,
+                     background: torch.Tensor) -> torch.Tensor:
+    """Composite shaded colours over the background by coverage
+    (raster.py:810; ≙ the attachment write of an opaque pipeline): color and
+    background [H,W,4]."""
+    return torch.where(vis.covered[..., None], color, background)

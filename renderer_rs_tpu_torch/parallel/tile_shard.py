@@ -8,9 +8,12 @@ its rows at the full per-pixel rate. Contiguous shards take rows
 [k*band_h, (k+1)*band_h); interleaved shards take the row PAIRS (2k, 2k+1),
 (2k+2n, 2k+2n+1), ... (load-balanced, and each 2x2 quad's rows stay on one
 shard so the texture LOD matches the whole frame). Every shard renders its
-own sun shadow map, as the JAX function does. The shards run one after
-another on their devices (eager PyTorch has no SPMD program); the output
-is stitched on the first device of each frame group."""
+own sun shadow map, as the JAX function does. Under an MSAA pipeline the
+shards split the SUPERSAMPLED frame and return its rows unresolved
+(forward_frame's MSAA band); unshard_rows, then resolve_msaa, give the
+resolved frame. The shards run one after another on their devices (eager
+PyTorch has no SPMD program); the output is stitched on the first device
+of each frame group."""
 
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import dataclasses
 import torch
 
 from renderer_rs_tpu_torch.ops.shadow import ShadowParams
-from renderer_rs_tpu_torch.renderer.passes import ShadingModel, forward_frame
+from renderer_rs_tpu_torch.renderer.passes import MSAA_GRIDS, ShadingModel, forward_frame
 from renderer_rs_tpu_torch.renderer.scene_build import GpuScene, SceneLayout
 from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipeline
 
@@ -80,22 +83,21 @@ def render_frame_sharded(
     axis. Band shards shade at the exact per-pixel rate, so on frames of
     128 rows or more the stitch differs from the single-device frame by
     the reduced rates' drift (y-quarter PCF, y-half cube fetch); ids and
-    depth are equal. MSAA pipelines raise: the JAX function shards the
-    supersampled frame, whose branch is not ported."""
-    if pipeline.msaa_samples > 1:
-        raise NotImplementedError(
-            "render_frame_sharded with MSAA (the supersampling branch) is not ported yet "
-            "(ROADMAP Queue 1 item 11)")
+    depth are equal. With an MSAA pipeline (tile_shard.py:74-100) the
+    shards split the supersampled frame's H*sy rows and the result is
+    [F, H*sy, W*sx, 4], unresolved: unshard_rows, then resolve_msaa."""
     n_frames, n_rows = mesh.shape["frame"], mesh.shape["rows"]
     if len(stacked_scene) != n_frames:
         raise ValueError(f"scene batch {len(stacked_scene)} != mesh frame axis {n_frames}")
-    if height % n_rows != 0:
-        raise ValueError(f"height {height} not divisible by rows axis {n_rows}")
-    band_h = height // n_rows
+    _, s_y = MSAA_GRIDS.get(pipeline.msaa_samples, (1, 1))
+    shard_h = height * s_y
+    if shard_h % n_rows != 0:
+        raise ValueError(f"height {shard_h} not divisible by rows axis {n_rows}")
+    band_h = shard_h // n_rows
     if interleaved and band_h % 2 != 0:
         raise ValueError(
             f"interleaved sharding is pair-granular: band height {band_h} must be even "
-            f"(height {height} over {n_rows} rows)")
+            f"(height {shard_h} over {n_rows} rows)")
     frames = []
     for f, scene in enumerate(stacked_scene):
         bands = []
@@ -112,12 +114,14 @@ def render_frame_sharded(
 
 
 def resolve_msaa(frames: torch.Tensor, msaa_samples: int) -> torch.Tensor:
-    """Box-resolve un-sharded supersampled frames [F, H*sy, W*sx, 4]
-    (tile_shard.py:188). The sharded supersampling render it follows is not
-    ported (render_frame_sharded raises under MSAA); kept for the API."""
+    """Box-resolve un-sharded supersampled frames [F, H*sy, W*sx, 4] from a
+    render_frame_sharded run with an MSAA pipeline (tile_shard.py:145; ≙
+    vkCmdResolveImage after the sharded draws): the mean over each sample
+    footprint, as forward_frame's supersampling branch resolves. Apply
+    after unshard_rows."""
     if msaa_samples <= 1:
         return frames
-    sx, sy = {2: (2, 1), 4: (2, 2), 8: (4, 2)}[msaa_samples]
+    sx, sy = MSAA_GRIDS[msaa_samples]
     f, hs, ws, c = frames.shape
     return frames.reshape(f, hs // sy, sy, ws // sx, sx, c).mean(dim=(2, 4))
 

@@ -3,34 +3,39 @@
 -> compact binning -> K2 visibility + resolve -> per-pixel shading with the
 PCF shadow term -> composite -> skybox -> tonemap, run eagerly on the
 scene's device. An MSAA pipeline adds a sample-rate ids-only pass (K4) and
-the id-matching resolve; a band of rows (forward_frame(band=...)) bins in
+the id-matching resolve, or under a band, a stencil or return_depth
+supersamples the frame; a band of rows (forward_frame(band=...)) bins in
 band space and runs K3, then the deferred attribute path. What the binned
 path does not take (scenes below 64 raster slots, no depth test or write,
-non-binned compares, wireframe, blending, an alpha cutoff without
-textures) takes the exact scan rasterizer (ops/raster.py::rasterize), and
-FLAT shading takes K3 over the whole frame or the scan; both then take the
-deferred attribute path. The depth-only passes take K1/K6, or K7 under
-z_form="plane", or the depth-only scan below 64 triangles.
+non-binned compares, wireframe, points and lines, blending, an alpha
+cutoff off the peel) takes the exact scan rasterizer
+(ops/raster.py::rasterize, with the alpha test as its coverage callback),
+a stencil the scan's state machine (rasterize_stencil), and FLAT shading
+K3 over the whole frame or the scan; all then take the deferred attribute
+path. The depth-only passes take K1/K6, or K7 under z_form="plane", or the
+depth-only scan below 64 triangles. transparent_pass composites sorted
+translucent surfaces over an opaque frame through rasterize_ordered.
 
 Ported: the fused fast path the JAX package takes for every non-FLAT scene
 on the TPU (`forward_frame`'s `fuse` branch with its defaults: in-kernel
 winner resolve, arithmetic slot->source ids, SoA table build, clip cap
 T/16, triangle setup), the single-map and the cascaded shadow pass with
-their default plane-form setup, the ids-only frame and the shade-once MSAA
-resolve, the binned band branch on K3 with perspective_bary, the clip-frame
-composition, the slot -> source remap and one packed interpolate, the
-Blinn-Phong and Cook-Torrance PBR shaders with the reduced-rate shadow
-ladder, the fast-ambient image-based lighting (SH9 diffuse, analytic
-env-BRDF, one merged specular/skybox fetch from the trilinear cube atlas at
-the y-half rate with the id-aware upsample), the textured branch (the
-single-gather trilinear material atlas and TBN normal mapping), and the
-alpha-cutoff (MASK) frame: the bounded 4-layer depth peel on K5
-(`_alpha_peeled_raster`), the non-fused branch (≙ `_rasterize_dispatch`:
-K3 or the scan, then perspective_bary and one interpolate) with FLAT
-shading (the vertex colours), and the z-plane depth form of the shadow
-passes.
-Every other branch raises NotImplementedError naming its ROADMAP queue
-item.
+their default plane-form setup, the ids-only frame, the shade-once MSAA
+resolve and the supersampling MSAA branch, the binned band branch on K3
+with perspective_bary, the clip-frame composition, the slot -> source
+remap and one packed interpolate, the Blinn-Phong and Cook-Torrance PBR
+shaders with the reduced-rate shadow ladder, the fast-ambient image-based
+lighting (SH9 diffuse, analytic env-BRDF, one merged specular/skybox fetch
+from the trilinear cube atlas at the y-half rate with the id-aware
+upsample), the textured branch (the single-gather trilinear material atlas
+and TBN normal mapping), the alpha-cutoff (MASK) frame: the bounded
+4-layer depth peel on K5 (`_alpha_peeled_raster`) and the scan's alpha
+test elsewhere, the non-fused branch (≙ `_rasterize_dispatch`: K3 or the
+scan, then perspective_bary and one interpolate) with FLAT shading (the
+vertex colours), the stencil state machine, point and line primitives,
+return_depth and the RenderingConfig attachments, the transparent pass,
+and the z-plane depth form of the shadow passes. The fallbacks of ROADMAP
+Queue 1 item 7 raise NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -46,19 +51,25 @@ from renderer_rs_tpu_torch.ops import blinn_phong as bp
 from renderer_rs_tpu_torch.ops import pbr as pbr_ops
 from renderer_rs_tpu_torch.ops.clip import (
     bary_planes_to_array,
+    clip_triangles_near,
     clip_triangles_near_planes,
     compact_secondary,
 )
 from renderer_rs_tpu_torch.ops.csm import CASCADE_COUNT, CSMParams, calculate_shadow_csm_blended
 from renderer_rs_tpu_torch.ops.msaa import msaa_id_resolve
 from renderer_rs_tpu_torch.ops.raster import (
+    _POINT_LINE,
+    TriangleSetup,
     VisibilityBuffer,
+    _fma,
     gather_triangle_clip,
     gather_triangle_planes,
     interpolate,
     perspective_bary,
     rasterize,
     rasterize_depth_only,
+    rasterize_ordered,
+    rasterize_stencil,
     setup_triangles,
     setup_triangles_planes,
 )
@@ -93,7 +104,13 @@ from renderer_rs_tpu_torch.ops.shadow import (
 from renderer_rs_tpu_torch.ops.skybox import pixel_ray_directions, skybox_pass
 from renderer_rs_tpu_torch.ops.tonemap import TONEMAPPERS, apply_tonemap
 from renderer_rs_tpu_torch.renderer.scene_build import GpuScene, SceneLayout
-from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipeline, GraphicsPipelineBuilder
+from renderer_rs_tpu_torch.rhi.pipeline import (
+    ColorBlendAttachment,
+    CompareOp,
+    GraphicsPipeline,
+    GraphicsPipelineBuilder,
+)
+from renderer_rs_tpu_torch.rhi.rendering import AttachmentLoadOp
 
 # near-clip secondary compaction (passes.py:1689): cap max(128, T/16),
 # engaged from 1024 triangles
@@ -265,21 +282,6 @@ def csm_shadow_pass(scene: GpuScene, layout: SceneLayout, size: int,
     return _depth_maps(scene, layout, size, mats, world_pos, z_form)
 
 
-def _check_frame_path(layout: SceneLayout, pipeline: GraphicsPipeline, tonemap: str,
-                      peel: bool) -> None:
-    """What forward_frame still refuses: an unknown tonemapper, and the
-    textured alpha test of a frame that does not peel (a band, FLAT
-    shading or a non-binned pipeline), which the JAX frame runs as the
-    scan's per-fragment coverage callback (passes.py:1784-1813). An alpha
-    cutoff without textures has no alpha test and takes the scan
-    (passes.py:305-318)."""
-    if tonemap not in TONEMAPPERS:
-        raise ValueError(f"unknown tonemap {tonemap!r}; one of {sorted(TONEMAPPERS)}")
-    if pipeline.alpha_cutoff is not None and layout.has_textures and not peel:
-        raise _not_ported("the alpha-cutoff coverage callback of the scan rasterizer",
-                          "Queue 1 item 13, second part")
-
-
 @dataclasses.dataclass
 class FrameGeometry:
     """The frame's raster inputs after the vertex stage, near clip,
@@ -309,16 +311,27 @@ def frame_geometry(scene: GpuScene, layout: SceneLayout, pipeline: GraphicsPipel
     """Vertex stage -> near clip -> T/16 secondary compaction -> setup, and
     the raster payload: attributes (world_pos, world_normal; on a textured
     scene the uv and, with a normal map bound, the world tangent,
-    passes.py:1926-1932) and K2's arithmetic-source flat lanes."""
+    passes.py:1926-1932) and K2's arithmetic-source flat lanes. Point and
+    line primitives take no near clip: their slots are the primitives,
+    with identity source ids and clip frames."""
     t_prim = layout.num_triangles
-    compact = t_prim >= CLIP_COMPACT_MIN_TRIS
     dev = scene.device
     vs = vertex_stage(scene, layout)
-    # near-plane clipping (T -> 2T slots), then secondary-slot compaction
-    tri_clip, clip_valid, clip_src, clip_planes = clip_triangles_near_planes(
-        gather_triangle_clip(vs.clip, scene.tris)
-    )
+    tri_clip = gather_triangle_clip(vs.clip, scene.tris)
     clip_overflow = torch.zeros((), dtype=torch.long, device=dev)
+    point_line = pipeline.topology in _POINT_LINE
+    compact = t_prim >= CLIP_COMPACT_MIN_TRIS and not point_line
+    if point_line:
+        # points and lines (degenerate triples, rhi/vertex.py::expand_topology)
+        # skip the triangle near clip: a primitive touching w <= eps drops
+        # whole; the slots are the primitives (passes.py:1641-1663)
+        clip_valid = None
+        clip_src = torch.arange(t_prim, device=dev)
+        clip_planes = tuple(tuple(torch.full((t_prim,), float(i == j), device=dev)
+                                  for j in range(3)) for i in range(3))
+    else:
+        # near-plane clipping (T -> 2T slots), then secondary-slot compaction
+        tri_clip, clip_valid, clip_src, clip_planes = clip_triangles_near_planes(tri_clip)
     if compact:
         tri_clip, clip_valid, clip_src, clip_planes, clip_overflow = compact_secondary(
             tri_clip, clip_valid, clip_src, clip_planes,
@@ -352,6 +365,120 @@ def frame_geometry(scene: GpuScene, layout: SceneLayout, pipeline: GraphicsPipel
     )
 
 
+# MSAA sample grids: samples -> (sx, sy), ≙ pipeline.rs:796-799
+MSAA_GRIDS = {2: (2, 1), 4: (2, 2), 8: (4, 2)}
+
+
+def _attachments(rendering, width: int, height: int, clear_color, depth_clear, stencil):
+    """The frame's attachment state from a RenderingConfig (passes.py:1490-1506;
+    ≙ the dynamic-rendering begin info, rendering.rs:679-911): a CLEAR
+    colour attachment gives the clear colour, a CLEAR depth attachment the
+    depth clear, a stencil attachment the stencil state. LOAD keeps the
+    caller's values (a software framebuffer that renders every pixel has
+    the background as its previous contents)."""
+    if (rendering.width, rendering.height) != (width, height):
+        raise ValueError(f"rendering area {rendering.width}x{rendering.height} != "
+                         f"framebuffer {width}x{height}")
+    if rendering.stencil is not None:
+        if stencil is not None:
+            raise ValueError("stencil given both directly and via rendering")
+        stencil = rendering.stencil
+    if rendering.color.load_op == AttachmentLoadOp.CLEAR:
+        clear_color = tuple(rendering.color.clear_color)
+    if rendering.depth is not None and rendering.depth.load_op == AttachmentLoadOp.CLEAR:
+        depth_clear = float(rendering.depth.clear_depth)
+    return clear_color, depth_clear, stencil
+
+
+def _msaa_frame(scene, layout, pipeline, shading, width, height, common: dict, band,
+                return_depth: bool, stencil, return_ids: bool):
+    """MSAA (passes.py:1507-1607). Without a band, a stencil, return_depth or
+    return_ids: the shade-once resolve (passes.py:1518-1548), the 1x frame
+    with its ids, an ids-only pass on the 2x1 / 2x2 / 4x2 ordered sample
+    grid and ops/msaa.msaa_id_resolve; one vertex stage, near clip and
+    compaction serve both passes (they are functions of the scene alone).
+    Otherwise the supersampling branch: the frame at the sample extent,
+    box-resolved by the mean over each sample footprint, its depth by the
+    min (LESS-family compares) or the max (GREATER-family); a band is read
+    in supersampled rows and returned unresolved, for the caller to
+    stitch and resolve (parallel/tile_shard.py::resolve_msaa). As in the
+    JAX frame, the supersampled call gets no return_stencil, so no stencil
+    buffer comes back under MSAA."""
+    sx, sy = MSAA_GRIDS[pipeline.msaa_samples]
+    sub = dataclasses.replace(pipeline, msaa_samples=1)
+    if band is None and stencil is None and not return_depth and not return_ids:
+        with record_function("frame/geometry"):
+            geo = frame_geometry(scene, layout, sub, width, height)
+        lo, lo_ids = forward_frame(scene, layout, sub, shading, width, height,
+                                   return_ids=True, geometry=geo, **common)
+        with record_function("frame/msaa_ids"):
+            sample_ids = forward_frame(
+                scene, layout, sub, shading, width * sx, height * sy, ids_only=True,
+                geometry=geo.at_extent(sub, width * sx, height * sy), **common,
+            )
+        with record_function("frame/msaa_resolve"):
+            return msaa_id_resolve(lo, lo_ids, sample_ids, sx, sy)
+    if return_ids:
+        # the supersampling branch has no 1x id map to return
+        raise ValueError("return_ids does not compose with the supersampling MSAA path "
+                         "(band / stencil / return_depth)")
+    hi = forward_frame(scene, layout, sub, shading, width * sx, height * sy, band=band,
+                       return_depth=return_depth, stencil=stencil, **common)
+    if band is not None:
+        return hi
+    hi, hi_depth = hi if return_depth else (hi, None)
+    with record_function("frame/msaa_resolve"):
+        # box resolve (≙ vkCmdResolveImage)
+        out = hi.reshape(height, sy, width, sx, 4).mean(dim=(1, 3))
+        if not return_depth:
+            return out
+        # the depth-test winner over the footprint
+        d = hi_depth.reshape(height, sy, width, sx)
+        if pipeline.depth_compare_op in (CompareOp.GREATER, CompareOp.GREATER_OR_EQUAL):
+            return out, d.amax(dim=(1, 3))
+        return out, d.amin(dim=(1, 3))
+
+
+def _dot3(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """a [...,3] @ m [3,K], each column a0*m0 + a1*m1 + a2*m2 with the last
+    two products fused in turn (XLA:CPU's small dot)."""
+    return torch.stack([_fma(a[..., 2], m[2, k], _fma(a[..., 1], m[1, k], a[..., 0] * m[0, k]))
+                        for k in range(m.shape[1])], dim=-1)
+
+
+def _alpha_coverage(scene: GpuScene, geo: "FrameGeometry", cutoff: float):
+    """The scan's per-fragment alpha test of a textured alpha-cutoff frame
+    that does not peel (passes.py:1784-1813; model_pbr.hlsl:218-221
+    `discard` before the depth write): the slot's perspective weights
+    composed through the near clip's frame into source barycentrics, the
+    source uv, base-colour mip 0 sampled bilinearly, times the material's
+    base_color.a, against the cutoff; a texture id < 0 passes. Rounded as
+    XLA:CPU rounds the JAX callback in its scan (measured there: the
+    denominator fuses b0's and then b2's weight product onto b1's, b2
+    coming as 1 - b0 - b1 unfused, while the weight of b2 itself takes the
+    fused b2 that rasterize hands over; the weights, source barycentrics,
+    uv and alpha of 14,854 covered fragments bit-equal)."""
+    tri_uv = scene.uvs[scene.tris]  # [T,3,2]
+    tri_alpha_tex = scene.materials.tex_ids[scene.tri_material][:, 0]
+    tri_alpha_factor = scene.materials.base_color[scene.tri_material][:, 3]
+    base_mip = scene.textures.mips[0]
+    clip_bary = bary_planes_to_array(geo.clip_planes)
+    w = geo.setup.w
+
+    def coverage_fn(t, b0, b1, b2):
+        src = geo.clip_src[t]
+        inv_w = 1.0 / torch.clamp(w[t], min=1e-12)
+        wb = torch.stack([b0 * inv_w[0], b1 * inv_w[1], b2 * inv_w[2]], dim=-1)
+        denom = _fma(1.0 - b0 - b1, inv_w[2], _fma(b0, inv_w[0], b1 * inv_w[1]))[..., None]
+        bp = wb / torch.where(denom == 0.0, torch.ones_like(denom), denom)
+        uv = _dot3(_dot3(bp, clip_bary[t]), tri_uv[src])
+        tex = tri_alpha_tex[src]
+        a = sample_array_bilinear(base_mip, tex.expand(uv.shape[:-1]), uv)[..., 3]
+        return (a * tri_alpha_factor[src] >= cutoff) | (tex < 0)
+
+    return coverage_fn
+
+
 def forward_frame(
     scene: GpuScene,
     layout: SceneLayout,
@@ -363,39 +490,47 @@ def forward_frame(
     tonemap: str = "none",
     shadow_map_size: int = 1024,
     shadow_params: ShadowParams = ShadowParams(),
+    band: tuple | None = None,
+    return_depth: bool = False,
     shadow_map: torch.Tensor | None = None,
+    stencil=None,
+    return_stencil: bool = False,
+    rendering=None,
     depth_clear: float = 1.0,
     diagnostics: bool = False,
     ids_only: bool = False,
     return_ids: bool = False,
-    band: tuple | None = None,
-    return_depth: bool = False,
-    stencil=None,
     geometry: FrameGeometry | None = None,
     z_form: str = "bary",
 ):
-    """The full frame (≙ passes.py:1442, fused branch). Returns linear
-    [H,W,4] ready for sRGB encode. shadow_map may be rendered by the caller
-    (the Renderer keeps it across frames whose shadow inputs did not
-    change); otherwise a scene with a shadow matrix or cascade matrices
-    renders it here. return_ids=True appends the [H,W] int32 winner SOURCE
-    triangle ids (-1 = miss); diagnostics=True then appends a dict of device
-    scalars: clip_overflow (near-clip secondary halves beyond the compaction
-    cap, dropped), bin_overflow ([big, huge] triangles beyond the binning
-    caps, dropped) and covered_pixels.
+    """The full frame (≙ passes.py:1442). Returns linear [H,W,4] ready for
+    sRGB encode, then in this order the outputs asked for: the [H,W] f32
+    depth (return_depth: the rasterizer's own, K2's, K3's, the peeled
+    winner's or the scan's), the [H,W] int32 stencil buffer
+    (return_stencil), the [H,W] int32 winner SOURCE triangle ids
+    (return_ids, -1 = miss) and a dict of device scalars (diagnostics):
+    clip_overflow (near-clip secondary halves beyond the compaction cap,
+    dropped), bin_overflow ([big, huge] triangles beyond the binning caps,
+    dropped), covered_pixels and peel_exhausted. shadow_map may be rendered
+    by the caller (the Renderer keeps it across frames whose shadow inputs
+    did not change); otherwise a scene with a shadow matrix or cascade
+    matrices renders it here.
+
+    rendering (an rhi.rendering.RenderingConfig) gives the clear colour,
+    the depth clear and the stencil state from its attachments
+    (passes.py:1490-1506). stencil (an rhi.rendering.StencilAttachment,
+    two-sided through stencil.back) routes the raster through the scan's
+    stencil state machine; as in the JAX frame its depth clears to 1.0.
 
     ids_only=True is the visibility-only frame (passes.py:1613, :2092-2105,
     :2176-2179): no shadow pass, no lanes, no shading; the same geometry,
-    then K4 with the near clip's slot -> source map as payload. It returns
-    just the [H,W] int32 source ids.
+    then K4 with the near clip's slot -> source map as payload (or the
+    scan, under an alpha cutoff). It returns just the source ids.
 
-    MSAA (pipeline.msaa_samples in {2,4,8}, ≙ rasterization samples,
-    pipeline.rs:796-799) is the shade-once resolve (passes.py:1518-1548):
-    the 1x frame with its ids, an ids-only pass on the 2x1 / 2x2 / 4x2
-    ordered sample grid, and ops/msaa.msaa_id_resolve. The supersampling
-    branch the JAX frame takes for band, stencil or return_depth is not
-    ported; `geometry` hands a pass the frame_geometry its caller already
-    computed for this extent.
+    MSAA (pipeline.msaa_samples in {2,4,8}) is _msaa_frame: the shade-once
+    resolve, or the supersampling branch under a band, a stencil or
+    return_depth. `geometry` hands a pass the frame_geometry its caller
+    already computed for this extent.
 
     band=(y_offset, band_h[, y_stride[, y_pair]]) renders band_h rows of the
     `height`-row framebuffer (passes.py:2106-2175; the unit of
@@ -410,88 +545,69 @@ def forward_frame(
     rows or more; ids and depth are equal. Returns [band_h,W,4].
 
     A pipeline the binned path does not take (below 64 raster slots, no
-    depth test or write, a non-binned compare, wireframe, blending, an
-    alpha cutoff without textures) rasterizes the frame or band on the
-    exact scan (ops/raster.py::rasterize), and FLAT shading (the vertex
-    colours) the whole frame on K3 or the scan; both take the deferred
-    attribute path. z_form ("bary" or "plane") is the depth form of the
-    shadow pass this call renders (≙ the JAX package's z-form knob;
-    "plane" runs K7); the visibility kernels have one form
-    (raster.py:297-319)."""
-    msaa = pipeline.msaa_samples > 1
-    for what, given, item in (
-        ("band rendering", band is not None and msaa, "11"),
-        ("the stencil state machine", stencil is not None, "13"),
-        ("return_depth", return_depth, "11" if msaa else "12"),
-    ):
-        if given and msaa:
-            items = "item 11" if item == "11" else f"item {item} and item 11"
-            raise _not_ported(f"{what} under MSAA (the supersampling branch)", f"Queue 1 {items}")
-        if given:
-            raise _not_ported(what, f"Queue 1 item {item}")
+    depth test or write, a non-binned compare, wireframe, points and
+    lines, blending, an alpha cutoff off the peel) rasterizes the frame or
+    band on the exact scan (ops/raster.py::rasterize), a textured alpha
+    cutoff with the scan's per-fragment alpha test (_alpha_coverage); FLAT
+    shading (the vertex colours) takes K3 over the whole frame or the
+    scan; all of these take the deferred attribute path. A textured alpha
+    cutoff on a whole non-FLAT frame is the 4-layer depth peel on K5.
+    z_form ("bary" or "plane") is the depth form of the shadow pass this
+    call renders (≙ the JAX package's z-form knob; "plane" runs K7); the
+    visibility kernels have one form (raster.py:297-319)."""
+    if rendering is not None:
+        clear_color, depth_clear, stencil = _attachments(rendering, width, height, clear_color,
+                                                         depth_clear, stencil)
+    if tonemap not in TONEMAPPERS:
+        raise ValueError(f"unknown tonemap {tonemap!r}; one of {sorted(TONEMAPPERS)}")
+    if stencil is not None and band is not None:
+        raise ValueError("forward_frame: stencil and band sharding cannot combine (the stencil "
+                         "state machine runs on the full-frame scan path)")
+    if return_stencil and stencil is None:
+        raise ValueError("return_stencil needs a stencil attachment")
+    if pipeline.msaa_samples > 1:
+        if diagnostics:
+            raise ValueError("forward_frame(diagnostics=True) does not compose with MSAA")
+        common = dict(clear_color=clear_color, tonemap=tonemap, shadow_map_size=shadow_map_size,
+                      shadow_params=shadow_params, shadow_map=shadow_map,
+                      depth_clear=depth_clear, z_form=z_form)
+        return _msaa_frame(scene, layout, pipeline, shading, width, height, common, band,
+                           return_depth, stencil, return_ids)
     y_offset, out_h, y_stride, y_pair = 0, height, 1, False
     if band is not None:
         y_offset, out_h = int(band[0]), int(band[1])
         y_stride = int(band[2]) if len(band) > 2 else 1
         y_pair = len(band) > 3 and bool(band[3])
-    if msaa:
-        if diagnostics:
-            raise ValueError("forward_frame(diagnostics=True) does not compose with MSAA")
-        if return_ids:
-            # as in the JAX frame: return_ids routes to its supersampling
-            # branch, which has no 1x id map to return
-            raise ValueError("return_ids does not compose with the supersampling MSAA path")
-        if pipeline.alpha_cutoff is not None and layout.has_textures:
-            # the ids-only sample pass takes the scan path's coverage
-            # callback under a MASK pipeline (passes.py:1784-1813)
-            raise _not_ported("an alpha cutoff under MSAA (the sample pass's scan coverage "
-                              "callback)", "Queue 1 item 13, second part")
-        sx, sy = {2: (2, 1), 4: (2, 2), 8: (4, 2)}[pipeline.msaa_samples]
-        sub = dataclasses.replace(pipeline, msaa_samples=1)
-        common = dict(clear_color=clear_color, tonemap=tonemap, shadow_map_size=shadow_map_size,
-                      shadow_params=shadow_params, shadow_map=shadow_map, depth_clear=depth_clear,
-                      z_form=z_form)
-        # one vertex stage, near clip and compaction for both passes: they
-        # are pure functions of the scene (the JAX frame traces them twice
-        # and gets the same values)
-        with record_function("frame/geometry"):
-            geo = frame_geometry(scene, layout, sub, width, height)
-        lo, lo_ids = forward_frame(scene, layout, sub, shading, width, height,
-                                   return_ids=True, geometry=geo, **common)
-        with record_function("frame/msaa_ids"):
-            sample_ids = forward_frame(
-                scene, layout, sub, shading, width * sx, height * sy, ids_only=True,
-                geometry=geo.at_extent(sub, width * sx, height * sy), **common,
-            )
-        with record_function("frame/msaa_resolve"):
-            return msaa_id_resolve(lo, lo_ids, sample_ids, sx, sy)
     t_prim = layout.num_triangles
-    n_raster = (
-        t_prim + min(max(128, t_prim // CLIP_COMPACT_DEN), t_prim)
-        if t_prim >= CLIP_COMPACT_MIN_TRIS else 2 * t_prim
-    )
-    # alpha-cutoff (MASK) materials: the bounded depth peel over the binned
-    # rasterizer (passes.py:1775-1783)
-    peel = (
-        pipeline.alpha_cutoff is not None
-        and layout.has_textures
-        and band is None
-        and not ids_only
-        and shading != ShadingModel.FLAT
-        and supports_binned(pipeline, n_raster, allow_alpha_cutoff=True)
-    )
-    _check_frame_path(layout, pipeline, tonemap, peel)
-    # the binned kernels take the frame, or the exact scan does
-    # (_rasterize_dispatch, passes.py:292-318); K2's fused resolve serves
-    # whole non-FLAT frames (passes.py:1815-1825)
-    binned = supports_binned(pipeline, n_raster)
-    fused = binned and band is None and not peel and shading != ShadingModel.FLAT
+    dev = scene.device
     # record_function spans name the frame's stages in torch.profiler traces
     # (profile_torch_frame.py); they cost ~1 us each when no profiler runs
     geo = geometry
     if geo is None:
         with record_function("frame/geometry"):
             geo = frame_geometry(scene, layout, pipeline, width, height)
+    n_raster = geo.setup.num_triangles
+    # alpha-cutoff (MASK) materials: the bounded depth peel over the binned
+    # rasterizer (passes.py:1775-1783), else the scan's alpha test
+    peel = (
+        pipeline.alpha_cutoff is not None
+        and layout.has_textures
+        and band is None
+        and stencil is None
+        and not ids_only
+        and shading != ShadingModel.FLAT
+        and supports_binned(pipeline, n_raster, allow_alpha_cutoff=True)
+    )
+    coverage_fn = (_alpha_coverage(scene, geo, pipeline.alpha_cutoff)
+                   if pipeline.alpha_cutoff is not None and layout.has_textures and not peel
+                   else None)
+    # the binned kernels take the frame, or the exact scan does
+    # (_rasterize_dispatch, passes.py:292-318); supports_binned refuses any
+    # alpha cutoff, so an alpha test off the peel is always the scan. K2's
+    # fused resolve serves whole non-FLAT frames (passes.py:1815-1825)
+    binned = supports_binned(pipeline, n_raster)
+    fused = (binned and band is None and stencil is None and not peel
+             and shading != ShadingModel.FLAT)
     if ids_only and band is None and binned:
         with record_function("frame/ids_bin_table"):
             k4 = prepare_ids(geo.setup, height, width, geo.clip_src, small_limit=t_prim,
@@ -512,6 +628,7 @@ def forward_frame(
             else:
                 shadow_map = shadow_map_pass(scene, layout, shadow_map_size, z_form=z_form)
     peel_exhausted = None
+    stencil_buf = None
     shade_kw = dict(shadow_map=shadow_map, shadow_params=shadow_params,
                     full_rows=band is None)
     if (shading == ShadingModel.PBR_IBL and layout.has_environment
@@ -524,10 +641,20 @@ def forward_frame(
             inv_vp = torch.linalg.inv(scene.camera.view_projection)
         shade_kw["sky_dirs"] = pixel_ray_directions(inv_vp, out_h, width, y_offset, height,
                                                     y_stride, y_pair)
+    depth_init = (None if depth_clear == 1.0
+                  else torch.full((out_h, width), float(depth_clear), device=dev))
     if not fused and not peel:
-        # the non-fused branch (passes.py:2092-2175): the whole frame or a
-        # band on K3 where the binned path applies, else on the exact scan
-        if binned:
+        # the non-fused branch (passes.py:2082-2175): the stencil state
+        # machine, the whole frame or a band on K3 where the binned path
+        # applies, else the exact scan (with the alpha test when one is due)
+        bin_overflow = torch.zeros(2, dtype=torch.long, device=dev)
+        if stencil is not None:
+            with record_function("frame/stencil_scan"):
+                # no depth_init, as the JAX frame calls it (passes.py:2087)
+                scan, stencil_buf = rasterize_stencil(geo.setup, height, width, pipeline,
+                                                      stencil)
+            depth, slot, bary = scan.depth, scan.tri_id, scan.bary
+        elif binned:
             with record_function("frame/band_bin_table"):
                 k3 = prepare_visibility(geo.setup, out_h, width, y_offset, y_stride, y_pair,
                                         small_limit=t_prim)
@@ -539,13 +666,10 @@ def forward_frame(
             bary = torch.stack([b0, b1], dim=-1)
         else:
             with record_function("frame/scan"):
-                scan = rasterize(
-                    geo.setup, out_h, width, pipeline, y_offset=y_offset, y_stride=y_stride,
-                    y_pair=y_pair,
-                    depth_init=(None if depth_clear == 1.0 else torch.full(
-                        (out_h, width), float(depth_clear), device=scene.device)))
+                scan = rasterize(geo.setup, out_h, width, pipeline, depth_init=depth_init,
+                                 coverage_fn=coverage_fn, y_offset=y_offset, y_stride=y_stride,
+                                 y_pair=y_pair)
             depth, slot, bary = scan.depth, scan.tri_id, scan.bary
-            bin_overflow = torch.zeros(2, dtype=torch.long, device=scene.device)
         with record_function("frame/shade"):
             # the deferred attribute path (passes.py:2162-2175): the slot ->
             # source remap, then the perspective weights of the raster slot,
@@ -614,7 +738,7 @@ def forward_frame(
             color, sky_rgb = _shade_pixels(scene, layout, shading, varying, mat_id_img,
                                            depth=depth, tri_id=tri_id, **shade_kw)
     with record_function("frame/shade"):
-        bg = torch.tensor(clear_color, dtype=torch.float32, device=scene.device)
+        bg = torch.tensor(clear_color, dtype=torch.float32, device=dev)
         out = torch.where(vis.covered[..., None], color, bg)
     if layout.has_environment or tonemap != "none":
         with record_function("frame/sky_tonemap"):
@@ -632,14 +756,20 @@ def forward_frame(
                                   y_pair=y_pair)
             if tonemap != "none":
                 out = apply_tonemap(out, tonemap)
-    outs = (out, vis.tri_id) if return_ids else (out,)
+    outs = (out,)
+    if return_depth:
+        outs += (vis.depth,)
+    if return_stencil:
+        outs += (stencil_buf,)
+    if return_ids:
+        outs += (vis.tri_id,)
     if diagnostics:
         outs += ({
             "clip_overflow": geo.clip_overflow,
             "bin_overflow": bin_overflow,
             "covered_pixels": vis.covered.sum(),
             "peel_exhausted": (peel_exhausted if peel_exhausted is not None
-                               else torch.zeros((), dtype=torch.long, device=scene.device)),
+                               else torch.zeros((), dtype=torch.long, device=dev)),
         },)
     return outs if len(outs) > 1 else out
 
@@ -947,3 +1077,161 @@ def _ibl_radiance(env, view_dir, normal, roughness, depth, sky_dirs, tri_id,
         return upsample2x_y_idaware(spec, tri_id, rows)
     return cube_trilinear_fetch(env.atlas_tri, tuple(seg_offs), seg_sizes, lo_l, frac, face,
                                 uv_c, c)[..., :3]
+
+
+def transparent_pass(
+    color: torch.Tensor,
+    depth: torch.Tensor,
+    scene: GpuScene,
+    layout: SceneLayout,
+    pipeline: GraphicsPipeline,
+    width: int,
+    height: int,
+    shading: ShadingModel = ShadingModel.BLINN_PHONG,
+    rendering=None,
+    shadow_map: torch.Tensor | None = None,
+    shadow_params: ShadowParams = ShadowParams(),
+    light_space_matrix: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Sorted back-to-front alpha blending over an opaque frame (≙
+    passes.py:2274; the classic transparent pass the reference's
+    alpha_blend preset is built for, pipeline.rs:524-544): depth-TEST
+    against the opaque depth, no depth write, src-over composition in view
+    depth order. color/depth [H,W,4]/[H,W] come from the opaque pass
+    (forward_frame(return_depth=True)); returns the blended colour.
+
+    rendering (an rhi.rendering.RenderingConfig): the pass's own attachment
+    state is LOAD/LOAD; a CLEAR colour or depth attachment starts from its
+    clear value instead. The vertex stage and the array-form near clip
+    feed the setup under `pipeline` with the alpha_blend preset and depth
+    writes off; the slots sort by centroid NDC depth, farthest first
+    (stable, as jnp.argsort is; invalid slots last). Each slot shades its
+    fragments through rasterize_ordered: perspective-correct varyings (the
+    slot's 1/w weights composed with the clip frame into source-vertex
+    barycentrics), the slot's material from per-slot banks, on a textured
+    scene every bound slot (base, normal with TBN mapping, metal-roughness,
+    occlusion, emissive) sampled bilinearly from mip 0, the sun's PCF
+    shadow term when shadow_map (the opaque pass's single map, [S,S]) is
+    given with light_space_matrix or the scene's, and Blinn-Phong (sun +
+    ambient) or Cook-Torrance PBR direct + the hemisphere ambient
+    (model_pbr.hlsl under alpha_blend; PBR_IBL shades as PBR here)."""
+    dev = scene.device
+    if rendering is not None:
+        if rendering.color.load_op == AttachmentLoadOp.CLEAR:
+            color = rendering.color.initial_array(height, width, dev)
+        if rendering.depth is not None and rendering.depth.load_op == AttachmentLoadOp.CLEAR:
+            depth = rendering.depth.initial_array(height, width, dev)
+    vs = vertex_stage(scene, layout)
+    tri_clip, clip_valid, clip_src, clip_bary = clip_triangles_near(
+        gather_triangle_clip(vs.clip, scene.tris))
+    blend_pipe = dataclasses.replace(pipeline, blend=ColorBlendAttachment.alpha_blend(),
+                                     depth_write_enable=False)
+    setup = setup_triangles(tri_clip, width, height, blend_pipe, tri_valid=clip_valid)
+    # back to front by centroid NDC depth, the painter's sort (jnp.mean as
+    # XLA:CPU rounds it: the sum, times the f32 reciprocal of 3)
+    centroid_z = setup.z.sum(dim=-1) * torch.tensor(1.0 / 3.0, dtype=torch.float32)
+    order = torch.argsort(-torch.where(setup.valid, centroid_z, float("-inf")), stable=True)
+    setup = TriangleSetup(xy=setup.xy[order], z=setup.z[order], w=setup.w[order],
+                          area2=setup.area2[order], valid=setup.valid[order])
+    src_sorted = clip_src[order]
+    cb_sorted = clip_bary[order]  # [2T,3,3] clipped vertex -> source frame
+    # per-slot shading tables
+    tri_n = vs.world_normal[scene.tris]  # [T,3,3]
+    tri_p = vs.world_pos[scene.tris]
+    mats = scene.materials
+    bank_rgba = mats.base_color[scene.tri_material]  # [T,4]
+    bank_rough = mats.roughness[scene.tri_material]
+    bank_metal = mats.metallic[scene.tri_material]
+    bank_ao = mats.ao[scene.tri_material]
+    bank_emis = mats.emissive[scene.tri_material][:, :3]
+    bank_nscale = mats.normal_scale[scene.tri_material]
+    lights = scene.lights
+    sun_dir = normalize(-lights.sun_direction)  # surface -> light
+    lsm = light_space_matrix if light_space_matrix is not None else scene.light_space_matrix
+    shadowed = shadow_map is not None and lsm is not None and shadow_map.ndim == 2
+    textured = layout.has_textures and scene.textures is not None
+    slot_on = [textured and layout.texture_slots[i] for i in range(5)]
+    if textured:
+        tri_uv = scene.uvs[scene.tris]  # [T,3,2]
+        tex_slot = mats.tex_ids[scene.tri_material]  # [T,5]
+        base_mip0 = scene.textures.mips[0]
+    if slot_on[1]:
+        tri_t = vs.world_tangent[scene.tris]  # [T,3,4]
+
+    def interp(bsrc, table):
+        return torch.einsum("hwv,vk->hwk", bsrc, table)
+
+    def fragment_fn(t, bary3, mask):
+        s = src_sorted[t]
+        # perspective-correct weights of the slot, then the clip frame, so
+        # that a clipped sub-triangle interpolates its SOURCE vertices
+        wb = bary3 * (1.0 / torch.clamp(setup.w[t], min=1e-12))
+        denom = wb.sum(dim=-1, keepdim=True)
+        bsrc = interp(wb / torch.where(denom == 0.0, torch.ones_like(denom), denom), cb_sorted[t])
+        n = normalize(interp(bsrc, tri_n[s]))
+        p = interp(bsrc, tri_p[s])
+        view = normalize(scene.camera.camera_position - p)
+        albedo, alpha_f = bank_rgba[s][:3], bank_rgba[s][3]
+        metallic, roughness, ao, emissive = bank_metal[s], bank_rough[s], bank_ao[s], bank_emis[s]
+        if textured:
+            uv = interp(bsrc, tri_uv[s])
+            tids = tex_slot[s]  # [5]
+
+            def smp(slot):
+                return sample_array_bilinear(base_mip0, tids[slot].expand(uv.shape[:-1]), uv)
+
+            if slot_on[0]:
+                bc = smp(0)
+                has = tids[0] >= 0
+                albedo = torch.where(has, albedo * bc[..., :3], albedo)
+                alpha_f = torch.where(has, alpha_f * bc[..., 3], alpha_f)
+            if slot_on[1]:
+                # TBN normal mapping (model_pbr.hlsl:168-197)
+                t4 = interp(bsrc, tri_t[s])
+                t3 = normalize(t4[..., :3])
+                b3 = cross(n, t3) * t4[..., 3:4]
+                n_ts = smp(1)[..., :3] * 2.0 - 1.0
+                n_ts = torch.cat([n_ts[..., :2] * bank_nscale[s], n_ts[..., 2:3]], dim=-1)
+                mapped = normalize(t3 * n_ts[..., 0:1] + b3 * n_ts[..., 1:2] + n * n_ts[..., 2:3])
+                n = torch.where(tids[1] >= 0, mapped, n)
+            if slot_on[2]:
+                # glTF metal-roughness texture: G = roughness, B = metallic
+                mr = smp(2)
+                has = tids[2] >= 0
+                metallic = torch.where(has, metallic * mr[..., 2], metallic)
+                roughness = torch.where(has, roughness * mr[..., 1], roughness)
+            if slot_on[3]:
+                ao = torch.where(tids[3] >= 0, ao * smp(3)[..., 0], ao)
+            if slot_on[4]:
+                emissive = torch.where(tids[4] >= 0, emissive * smp(4)[..., :3], emissive)
+        if shadowed:
+            shadow = calculate_shadow(shadow_map, lsm, p, n, sun_dir.expand(p.shape),
+                                      shadow_params)[..., None]
+        else:
+            shadow = 1.0
+        if shading in (ShadingModel.PBR, ShadingModel.PBR_IBL):
+            # Cook-Torrance direct with the PCF factor on the sun term
+            # (model_pbr.hlsl:278-297) + the hemisphere ambient
+            mat = pbr_ops.PBRMaterialParams(
+                albedo=albedo.expand(p.shape),
+                metallic=metallic.expand(p.shape[:-1]),
+                roughness=pbr_ops.clamp_roughness(roughness.expand(p.shape[:-1])),
+                ao=ao.expand(p.shape[:-1]),
+                emissive=emissive.expand(p.shape),
+            )
+            rgb = shadow * pbr_ops.pbr_direct(n, view, sun_dir.expand(p.shape),
+                                              lights.sun_color * lights.sun_intensity, mat)
+            rgb = rgb + pbr_ops.hemisphere_ambient(n, mat.albedo, mat.ao)
+            rgb = rgb + mat.emissive
+        else:
+            rgb = shadow * bp.directional_light(
+                lights.sun_direction, lights.sun_color, lights.sun_intensity,
+                n, view, albedo, roughness,
+            ) + scene.scene_ubo.ambient_color * albedo
+        a = alpha_f.expand(rgb.shape[:-1])[..., None]
+        return torch.cat([rgb, a], dim=-1)
+
+    with record_function("frame/transparent"):
+        blended, _ = rasterize_ordered(setup, height, width, blend_pipe, fragment_fn, color,
+                                       depth_init=depth)
+    return blended

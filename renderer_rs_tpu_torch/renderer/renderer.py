@@ -13,7 +13,9 @@ its map (the four cascade maps under CSM, one launch) is kept across frames
 and re-rendered only when the geometry, the object transforms, the light
 matrix or the cascade matrices are new tensors, or the depth form
 (z_form) changed, so camera-only frames of a static scene reuse it. An MSAA
-pipeline renders through forward_frame's shade-once resolve.
+pipeline renders through forward_frame's shade-once resolve. Each frame
+hands forward_frame a RenderingConfig built from the renderer's clear
+colour and depth clear.
 
 Swapchain, resize, validation and descriptor layouts wait for ROADMAP
 Queue 1 item 14.
@@ -40,6 +42,7 @@ from renderer_rs_tpu_torch.renderer.passes import (
 from renderer_rs_tpu_torch.renderer.scene_build import GpuScene, SceneLayout
 from renderer_rs_tpu_torch.resources.ubo import CameraUbo
 from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipeline, GraphicsPipelineBuilder
+from renderer_rs_tpu_torch.rhi.rendering import ColorAttachment, DepthAttachment, RenderingConfig
 from renderer_rs_tpu_torch.utils.image_io import framebuffer_to_u8
 
 log = logging.getLogger("renderer_rs_tpu_torch.renderer")
@@ -132,13 +135,20 @@ class Renderer:
         return cache[2]
 
     def _run_frame(self, scene: GpuScene, **extra):
+        # the frame's attachment state (≙ cmd_begin_rendering's RenderingInfo,
+        # renderer.rs:479-501; renderer.py:252-287): the clear colour and the
+        # depth clear flow from the attachment configs
+        width, height = self.config.width, self.config.height
+        rendering = RenderingConfig(
+            width=width, height=height,
+            color=ColorAttachment(clear_color=self.clear_color),
+            depth=DepthAttachment(clear_depth=self.depth_clear),
+        )
         return forward_frame(
-            scene, self._layout, self.pipeline, self.shading,
-            self.config.width, self.config.height,
-            clear_color=self.clear_color, tonemap=self.tonemap,
+            scene, self._layout, self.pipeline, self.shading, width, height,
+            rendering=rendering, tonemap=self.tonemap,
             shadow_map_size=self.shadow_map_size, shadow_params=self.shadow_params,
-            shadow_map=self._shadow_map(scene),
-            depth_clear=self.depth_clear, **extra,
+            shadow_map=self._shadow_map(scene), **extra,
         )
 
     def render_frame(self, present: bool = True) -> np.ndarray | None:

@@ -159,3 +159,60 @@ def alpha_cutout_scene(width: int, height: int, layers: int = 3, dx: float = 0.1
     b.set_lights(LightBank.create(sun=DirectionalLight.create(direction=(-0.3, -1.0, -0.4))))
     b.set_scene_ubo(SceneUbo.create(ambient_color=(0.1, 0.1, 0.1)))
     return b.build(device=device)
+
+
+# clip = (x, y, z - 0.5, z) for a world point (x, y, z): view = I and this
+# projection make every vertex-stage product exact, so the JAX package and
+# the port set up the same triangles bit for bit (their matmuls round
+# apart otherwise), and the frames' depths can be held bit-equal
+EXACT_PROJECTION = np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, -0.5], [0, 0, 1, 0]],
+                            np.float32)
+
+
+def exact_scene(pkg: str, masked: bool = False, textured: bool = False, device=None):
+    """A SceneBuilder of `pkg` ("renderer_rs_tpu" or "renderer_rs_tpu_torch")
+    whose vertex stage is exact (EXACT_PROJECTION, translations only):
+    two uv spheres and a back wall, 388 triangles; `textured` puts the
+    cutout texture on the wall, `masked` adds three cutout-textured quads
+    in front at depths 1.4-1.8 (the alpha-cutoff stack) and makes the
+    spheres coarser (64 triangles each). Returns the built (scene,
+    layout); `device` goes to the port's build."""
+    import importlib
+
+    mod = {k: importlib.import_module(f"{pkg}.{k}") for k in (
+        "renderer.scene_build", "resources.material", "resources.model", "resources.ubo",
+        "scene.light", "scene.transform", "utils.meshgen")}
+    Material = mod["resources.material"].Material
+    Transform = mod["scene.transform"].Transform
+
+    def quad(x0, y0, x1, y1, z):
+        return mod["resources.model"].Mesh(
+            positions=np.array([[x0, y0, z], [x1, y0, z], [x1, y1, z], [x0, y1, z]], np.float32),
+            normals=np.tile(np.array([[0, 0, -1]], np.float32), (4, 1)),
+            tex_coords=np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32),
+            tangents=np.tile(np.array([[1, 0, 0, 1]], np.float32), (4, 1)),
+            indices=np.array([0, 1, 2, 0, 2, 3], np.uint32))
+
+    b = mod["renderer.scene_build"].SceneBuilder()
+    sphere = mod["utils.meshgen"].uv_sphere_mesh(0.6, rings=4 if masked else 8,
+                                                 sectors=8 if masked else 12)
+    b.add_mesh(sphere, Transform().with_position([-0.5, 0.25, 2.5]),
+               Material(base_color=(0.8, 0.3, 0.2, 1.0), roughness=0.4))
+    b.add_mesh(sphere, Transform().with_position([0.625, -0.125, 2.0]),
+               Material(base_color=(0.2, 0.5, 0.9, 1.0), roughness=0.6, metallic=0.5))
+    cutout = Material(base_color=(1.0, 1.0, 1.0, 1.0), roughness=0.7, base_color_texture=0)
+    wall = cutout if textured else Material(base_color=(0.6, 0.6, 0.5, 1.0))
+    b.add_mesh(quad(-2.5, -1.5, 2.5, 1.5, 3.5), None, wall)
+    if masked:
+        for i in range(3):
+            b.add_mesh(quad(-0.75 + 0.125 * i, -0.5, 0.75 + 0.125 * i, 0.625, 1.4 + 0.2 * i),
+                       None, cutout)
+    if masked or textured:
+        b.set_textures([_cutout_texture()], size=64)
+    b.set_camera(mod["resources.ubo"].CameraUbo.create(np.eye(4, dtype=np.float32),
+                                                       EXACT_PROJECTION, np.zeros(3, np.float32)))
+    light = mod["scene.light"]
+    b.set_lights(light.LightBank.create(sun=light.DirectionalLight.create(
+        direction=(-0.3, -1.0, 0.4))))
+    b.set_scene_ubo(mod["resources.ubo"].SceneUbo.create(ambient_color=(0.2, 0.2, 0.2)))
+    return b.build() if device is None else b.build(device=device)

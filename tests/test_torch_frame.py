@@ -148,78 +148,127 @@ def test_app_main_writes_pngs(tmp_path):
     assert all(img.shape == (48, 64, 4) for img in imgs)
 
 
+@pytest.fixture(scope="module")
+def small_scenes():
+    """blinnphong_scene(32, 32, rings=4, sectors=6): the JAX scene and the
+    port's, bridged from it."""
+    from renderer_rs_tpu.app.scenes import blinnphong_scene
+    from renderer_rs_tpu_torch.bridge import scene_from_numpy
+
+    scene, layout, kw, _ = blinnphong_scene(32, 32, rings=4, sectors=6)
+    return (scene, layout), scene_from_numpy(*flatten_jax_scene(scene, layout), device="cpu")
+
+
 @pytest.mark.parametrize("branch", ["pbr", "tonemap", "msaa", "scan", "msaa_band",
                                     "msaa_stencil", "return_depth", "band_return_depth",
                                     "hdr", "equirect", "sharded_msaa"])
-def test_unported_branches_raise(branch):
-    """PBR and IBL shading, the tonemappers, the shade-once MSAA resolve,
-    CSM, row bands and the scan rasterizer are ported (tests/test_torch_msaa.py,
-    test_torch_csm.py, test_torch_band.py, test_torch_scan.py): of those
-    branches, what still raises is an unknown operator, return_depth (with
-    or without a band), the MSAA combinations the JAX frame sends to its
-    supersampling branch (return_depth, band, stencil, and
-    render_frame_sharded with MSAA), line and point primitives on the scan,
-    a Radiance .hdr environment and its equirect_to_cubemap."""
-    from renderer_rs_tpu_torch.app.scenes import blinnphong_scene
+def test_unported_branches_raise(small_scenes, branch):
+    """What still raises: an unknown tonemapper, a Radiance .hdr environment
+    and its equirect_to_cubemap (ROADMAP Queue 1 item 9). The branches that
+    raised until the supersampling MSAA branch, return_depth, the stencil
+    and point/line primitives were ported now render and match the JAX
+    frame on the same scene: return_depth (whole frame, band, with
+    PBR_IBL's hemisphere fallback), MSAA 4x with return_depth, a band (the
+    unresolved supersampled rows) or a stencil (no stencil buffer comes
+    back, as in JAX), a LINE_LIST pipeline on the scan, and
+    render_frame_sharded with MSAA (resolved after unshard_rows, against
+    the JAX whole-frame supersample). Bars: the frame bar of this file, ids
+    exact, depth within 1e-6 (the two vertex stages round apart by an ulp;
+    tests/test_torch_depth_paths.py holds the depths bit-equal on a scene
+    whose vertex stage is exact)."""
+    import renderer_rs_tpu.renderer.passes as jpasses
+    import renderer_rs_tpu.rhi.pipeline as jp
+    import renderer_rs_tpu.rhi.rendering as jrend
     from renderer_rs_tpu_torch.renderer.passes import ShadingModel, forward_frame
-    from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipelineBuilder, PrimitiveTopology
+    import renderer_rs_tpu_torch.rhi.pipeline as pp
+    import renderer_rs_tpu_torch.rhi.rendering as prend
 
-    scene, layout, kw, _ = blinnphong_scene(32, 32, rings=4, sectors=6, device="cpu")
-    pipe, shading, tonemap, extra = kw["pipeline"], kw["shading"], "none", {}
-    error, match = NotImplementedError, "ROADMAP"
-    msaa4 = GraphicsPipelineBuilder().msaa_samples(4).build()
-    if branch in ("hdr", "equirect", "sharded_msaa"):
+    (jscene, jlayout), (scene, layout) = small_scenes
+    if branch in ("hdr", "equirect"):
         import renderer_rs_tpu_torch.ops.ibl as ibl
         from renderer_rs_tpu_torch.app.scenes import full_scene
-        from renderer_rs_tpu_torch.parallel import make_device_mesh, render_frame_sharded
 
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: item 9"):
-            full_scene(32, 32, tri_budget=600, hdr="sky.hdr", device="cpu")
-        # the equirect -> cube conversion serves only the .hdr loader
-        assert not hasattr(ibl, "equirect_to_cubemap")
-        mesh = make_device_mesh(2, frame_axis=1, devices=["cpu"] * 2)
-        with pytest.raises(NotImplementedError, match="supersampling.*ROADMAP Queue 1 item 11"):
-            render_frame_sharded([scene], layout, msaa4, shading, 32, 32, mesh)
+        if branch == "hdr":
+            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: item 9"):
+                full_scene(32, 32, tri_budget=600, hdr="sky.hdr", device="cpu")
+        else:  # the equirect -> cube conversion serves only the .hdr loader
+            assert not hasattr(ibl, "equirect_to_cubemap")
         return
-    if branch == "pbr":
-        # image-based lighting without IBL maps: the hemisphere ambient, as
-        # in the JAX frame; under return_depth it still raises
-        shading, extra = ShadingModel.PBR_IBL, dict(return_depth=True)
+    if branch == "tonemap":
+        with pytest.raises(ValueError, match="unknown tonemap"):
+            forward_frame(scene, layout, pp.GraphicsPipelineBuilder().build(),
+                          ShadingModel.BLINN_PHONG, 32, 32, tonemap="filmic")
+        out = forward_frame(scene, layout, pp.GraphicsPipelineBuilder().build(),
+                            ShadingModel.PBR, 32, 32, tonemap="aces")
+        assert out.shape == (32, 32, 4) and torch.isfinite(out).all()
+        return
+    if branch == "sharded_msaa":
+        from renderer_rs_tpu_torch.parallel import (
+            make_device_mesh,
+            render_frame_sharded,
+            resolve_msaa,
+            unshard_rows,
+        )
+
+        mesh = make_device_mesh(2, frame_axis=1, devices=["cpu"] * 2)
+        out = render_frame_sharded([scene], layout, pp.GraphicsPipelineBuilder().msaa_samples(4)
+                                   .build(), ShadingModel.BLINN_PHONG, 32, 32, mesh,
+                                   interleaved=True)
+        assert out.shape == (1, 64, 64, 4)
+        got = resolve_msaa(unshard_rows(out, 2, True), 4)[0].numpy()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("RENDERER_MSAA", "super")  # the JAX whole-frame supersample
+            ref = np.asarray(jpasses.forward_frame(
+                jscene, jlayout, jp.GraphicsPipelineBuilder().msaa_samples(4).build(),
+                jpasses.ShadingModel.BLINN_PHONG, 32, 32))
+        _check_frame_bar(got, ref)
+        return
+    # (pipeline calls, shading, forward_frame kwargs built per package)
+    calls, shading = {}, "BLINN_PHONG"
+    kwargs = dict(return_depth=True)
+    if branch == "pbr":  # image-based lighting without IBL maps: the hemisphere ambient
+        shading = "PBR_IBL"
     elif branch == "band_return_depth":
-        extra = dict(band=(0, 16), return_depth=True)
-    elif branch == "tonemap":
-        tonemap, error, match = "filmic", ValueError, "unknown tonemap"
+        kwargs["band"] = (3, 16)
     elif branch == "msaa":
-        pipe, extra, match = msaa4, dict(return_depth=True), "supersampling.*ROADMAP Queue 1 item 11"
+        calls = dict(msaa_samples=4)
     elif branch == "msaa_band":
-        pipe, extra, match = msaa4, dict(band=(0, 16)), "supersampling.*ROADMAP Queue 1 item 11"
+        calls, kwargs = dict(msaa_samples=4), dict(band=(2, 16, 2, True))
     elif branch == "msaa_stencil":
-        pipe, extra, match = msaa4, dict(stencil=object()), "supersampling.*ROADMAP Queue 1 item 13"
-    elif branch == "return_depth":
-        extra = dict(return_depth=True)
+        calls, kwargs = dict(msaa_samples=4, cull_mode="NONE"), dict(stencil=True)
+    elif branch == "scan":  # a LINE_LIST pipeline: the scan's line coverage
+        calls, kwargs = dict(topology="LINE_LIST", line_width=1.5), dict(return_ids=True)
     else:
-        # the scan: triangle pipelines render (below), line lists still raise
-        pipe, match = (GraphicsPipelineBuilder().topology(PrimitiveTopology.LINE_LIST).build(),
-                       "ROADMAP Queue 1 item 13, second part")
-    with pytest.raises(error, match=match):
-        forward_frame(scene, layout, pipe, shading, 32, 32, tonemap=tonemap, **extra)
-    if branch == "msaa":  # the shade-once resolve itself renders
-        out = forward_frame(scene, layout, msaa4, shading, 32, 32)
-        assert out.shape == (32, 32, 4) and torch.isfinite(out).all()
-    if branch in ("pbr", "tonemap"):  # the ported halves of these branches render
-        out = forward_frame(scene, layout, kw["pipeline"], ShadingModel.PBR, 32, 32,
-                            tonemap="aces")
-        assert out.shape == (32, 32, 4) and torch.isfinite(out).all()
-        ibl = forward_frame(scene, layout, kw["pipeline"], ShadingModel.PBR_IBL, 32, 32,
-                            tonemap="aces")
-        assert torch.equal(ibl, out)  # no environment: the hemisphere ambient
-    if branch == "scan":  # a pipeline without depth writes takes the scan and renders
-        out = forward_frame(scene, layout, GraphicsPipelineBuilder().depth_write_enable(False)
-                            .build(), shading, 32, 32)
-        assert out.shape == (32, 32, 4) and torch.isfinite(out).all()
-    if branch == "msaa_band":  # the band itself renders without MSAA
-        out = forward_frame(scene, layout, kw["pipeline"], shading, 32, 32, band=(0, 16))
-        assert out.shape == (16, 32, 4) and torch.isfinite(out).all()
+        kwargs["return_ids"] = True
+
+    def run(passes, pipe_mod, rend, scn, lay):
+        b = pipe_mod.GraphicsPipelineBuilder()
+        for name, arg in calls.items():
+            enum = {"topology": pipe_mod.PrimitiveTopology, "cull_mode": pipe_mod.CullMode}
+            b = getattr(b, name)(getattr(enum[name], arg) if name in enum else arg)
+        kw = dict(kwargs)
+        if kw.get("stencil"):
+            kw["stencil"] = rend.StencilAttachment(pass_op=rend.StencilOp.INCREMENT_AND_CLAMP)
+        outs = passes.forward_frame(scn, lay, b.build(), getattr(passes.ShadingModel, shading),
+                                    32, 32, **kw)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        return [np.asarray(o) for o in outs]
+
+    ref = run(jpasses, jp, jrend, jscene, jlayout)
+    import renderer_rs_tpu_torch.renderer.passes as ppasses
+
+    got = run(ppasses, pp, prend, scene, layout)
+    assert len(got) == len(ref)
+    _check_frame_bar(got[0], ref[0])
+    rows = 16 if "band" in kwargs else 32
+    scale = 2 if branch == "msaa_band" else 1
+    assert got[0].shape == (rows, 32 * scale, 4)
+    if kwargs.get("return_depth"):
+        assert got[1].shape == (rows, 32 * scale)
+        np.testing.assert_allclose(got[1], ref[1], rtol=0, atol=1e-6)
+    if kwargs.get("return_ids"):
+        np.testing.assert_array_equal(got[-1], ref[-1])
+        assert (ref[-1] >= 0).any()
 
 
 # --- the shadow-mapped PBR frame: full_scene(ibl=False) -------------------------

@@ -239,21 +239,77 @@ def test_other_sample_counts_render(port_scene, jax_msaa, samples):
 @pytest.mark.parametrize("kwargs,error,match", [
     (dict(diagnostics=True), ValueError, "does not compose with MSAA"),
     (dict(return_ids=True), ValueError, "supersampling MSAA"),
-    (dict(return_depth=True), NotImplementedError, "supersampling branch.*ROADMAP Queue 1 item 11"),
-    (dict(band=(0, 16)), NotImplementedError, "supersampling branch.*ROADMAP Queue 1 item 11"),
-    (dict(stencil=object()), NotImplementedError, "supersampling branch.*ROADMAP Queue 1 item 13"),
+    (dict(return_ids=True, return_depth=True), ValueError, "supersampling MSAA"),
+    (dict(band=(0, 16), stencil="front"), ValueError, "stencil and band"),
+    (dict(return_stencil=True), ValueError, "return_stencil needs"),
 ])
 def test_msaa_rejections(port_scene, jax_msaa, kwargs, error, match):
     """diagnostics and return_ids are refused as in the JAX frame
-    (passes.py:1508-1511, :1549-1555); the combinations the JAX frame sends
-    to its supersampling branch name their ROADMAP item."""
+    (passes.py:1508-1511, :1549-1555), a stencil on a band as in its inner
+    band call (:1832-1836), and return_stencil without a stencil."""
     from renderer_rs_tpu_torch.renderer.passes import forward_frame
+    from renderer_rs_tpu_torch.rhi.rendering import StencilAttachment
 
     kw = jax_msaa[4]
     scene, layout = port_scene
     pipe4 = dataclasses.replace(kw["pipeline"], msaa_samples=4)
+    if "stencil" in kwargs:
+        kwargs = dict(kwargs, stencil=StencilAttachment())
     with pytest.raises(error, match=match):
         forward_frame(scene, layout, pipe4, kw["shading"], W, H, **kwargs)
+
+
+@pytest.mark.parametrize("case", ["return_depth", "band", "stencil"])
+def test_supersampling_branch_matches_jax(port_scene, jax_msaa, case):
+    """The MSAA 4x combinations the JAX frame sends to its supersampling
+    branch (passes.py:1549-1607), on the bridged PBR scene with the JAX
+    package's 256² shadow map, at 80x60: the frame at 160x120,
+    box-resolved, with the depth
+    resolved by the min (return_depth); a pair-interleaved band of the
+    supersampled rows, returned unresolved; a stencil (the scan, whose
+    buffer the supersampled call does not return). Bars: the frame bar of
+    tests/test_torch_frame.py; the depth within 1e-6 (the vertex stages
+    round apart by an ulp; tests/test_torch_depth_paths.py holds it
+    bit-equal where they do not)."""
+    import renderer_rs_tpu.renderer.passes as jpasses
+    import renderer_rs_tpu.rhi.pipeline as jp
+    import renderer_rs_tpu.rhi.rendering as jrend
+    from renderer_rs_tpu.app.scenes import full_scene
+    from renderer_rs_tpu_torch.renderer.passes import forward_frame
+    import renderer_rs_tpu_torch.rhi.rendering as prend
+
+    kw = jax_msaa[4]
+    scene, layout = port_scene
+    jscene, jlayout, jkw, _ = full_scene(W, H, **FULL)
+    # one sun map for both (the port's own differs by an ulp on some
+    # texels, and a flipped PCF tap would hide what this test reads)
+    shadow_map = jpasses.shadow_map_pass(jscene, jlayout, SHADOW_SIZE)
+    w, h = W // 2, H // 2
+    extra = {"return_depth": dict(return_depth=True), "band": dict(band=(2, 60, 4, True)),
+             "stencil": dict(stencil=True)}[case]
+
+    def kwargs_for(rend):
+        out = dict(extra)
+        if out.get("stencil"):
+            out["stencil"] = rend.StencilAttachment(pass_op=rend.StencilOp.INVERT)
+        return out
+
+    ref = jpasses.forward_frame(jscene, jlayout, jp.GraphicsPipelineBuilder().msaa_samples(4)
+                                .build(), jkw["shading"], w, h, tonemap=jkw["tonemap"],
+                                shadow_params=jkw["shadow_params"], shadow_map=shadow_map,
+                                **kwargs_for(jrend))
+    got = forward_frame(scene, layout, dataclasses.replace(kw["pipeline"], msaa_samples=4),
+                        kw["shading"], w, h, tonemap=kw["tonemap"],
+                        shadow_params=kw["shadow_params"],
+                        shadow_map=torch.from_numpy(np.array(shadow_map)), **kwargs_for(prend))
+    if case == "return_depth":
+        (ref, ref_depth), (got, depth) = ref, got
+        assert depth.shape == (h, w)
+        np.testing.assert_allclose(depth.numpy(), np.asarray(ref_depth), rtol=0, atol=1e-6)
+    assert isinstance(got, torch.Tensor)
+    assert got.shape == ((60, 2 * w, 4) if case == "band" else (h, w, 4))
+    err = np.abs(got.numpy() - np.asarray(ref))
+    assert (err > 2e-3 + 2e-3 * np.abs(np.asarray(ref))).mean() < 2e-3 and err.max() < 0.05
 
 
 def test_jax_refuses_msaa_diagnostics_too():

@@ -170,17 +170,57 @@ def test_scan_equals_binned_plain_versions():
 
 
 def test_scan_refuses_unported_forms():
+    """The forms the scan refused until the stencil, point/line and
+    coverage-callback slice now run and match the JAX `rasterize` bit for
+    bit: a per-fragment coverage callback (applied before the depth test;
+    the port's takes b2 as a fourth argument, ops/raster.py::rasterize) and
+    a LINE_LIST pipeline."""
+    import jax.numpy as jnp
+
+    import renderer_rs_tpu.ops.raster as jr
+    import renderer_rs_tpu.rhi.pipeline as jp
     from renderer_rs_tpu_torch.ops import raster as pr
     from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipelineBuilder, PrimitiveTopology
 
-    clip, tris = random_clip_scene(8, seed=1)
-    pipe = GraphicsPipelineBuilder().build()
-    setup = pr.setup_triangles(torch.from_numpy(clip)[torch.from_numpy(tris).long()], W, H, pipe)
-    with pytest.raises(NotImplementedError, match="item 13, second part"):
-        pr.rasterize(setup, H, W, pipe, coverage_fn=lambda t, b0, b1: b0 > 0)
-    lines = GraphicsPipelineBuilder().topology(PrimitiveTopology.LINE_LIST).build()
-    with pytest.raises(NotImplementedError, match="item 13, second part"):
-        pr.rasterize(setup, H, W, lines)
+    clip, tris = random_clip_scene(24, seed=1, spread=0.5)
+    for topo in ("TRIANGLE_LIST", "LINE_LIST"):
+        ppipe = GraphicsPipelineBuilder().topology(getattr(PrimitiveTopology, topo)).build()
+        jpipe = jp.GraphicsPipelineBuilder().topology(getattr(jp.PrimitiveTopology, topo)).build()
+        ps = pr.setup_triangles(torch.from_numpy(clip)[torch.from_numpy(tris).long()], W, H, ppipe)
+        js = jr.setup_triangles(jr.gather_triangle_clip(jnp.asarray(clip), jnp.asarray(tris)),
+                                W, H, jpipe)
+        # a callback that keeps the fragments near vertex 0, and odd primitives
+        ref = jr.rasterize(js, H, W, jpipe,
+                           coverage_fn=lambda t, b0, b1: (b0 > 0.3) | (t % 2 == 1))
+        got = pr.rasterize(ps, H, W, ppipe,
+                           coverage_fn=lambda t, b0, b1, b2: (b0 > 0.3) | (t % 2 == 1))
+        ref_tid = np.asarray(ref.tri_id)
+        assert np.array_equal(got.tri_id.numpy(), ref_tid)
+        assert np.array_equal(_bits(got.depth.numpy()), _bits(np.asarray(ref.depth)))
+        assert np.array_equal(_bits(got.bary.numpy()), _bits(np.asarray(ref.bary)))
+        plain = pr.rasterize(ps, H, W, ppipe)
+        assert (ref_tid >= 0).sum() > 40 and not torch.equal(plain.tri_id, got.tri_id)
+
+
+def test_shade_visibility_matches_jax():
+    """The coverage composite over a clear colour (raster.py:810), on the
+    scan's visibility of a random scene: bit-equal to JAX."""
+    import jax.numpy as jnp
+
+    import renderer_rs_tpu.ops.raster as jr
+    import renderer_rs_tpu_torch.ops.raster as pr
+
+    clip, tris = random_clip_scene(60, seed=11, spread=0.5)
+    (js, jpipe), (ps, ppipe) = _setups(clip, tris, [])
+    rng = np.random.default_rng(5)
+    color = rng.random((H, W, 4), dtype=np.float32)
+    bg = np.broadcast_to(np.float32([0.1, 0.1, 0.15, 1.0]), (H, W, 4)).copy()
+    ref = np.asarray(jr.shade_visibility(jr.rasterize(js, H, W, jpipe), jnp.asarray(color),
+                                         jnp.asarray(bg)))
+    got = pr.shade_visibility(pr.rasterize(ps, H, W, ppipe), torch.from_numpy(color),
+                              torch.from_numpy(bg)).numpy()
+    assert np.array_equal(_bits(got), _bits(ref))
+    assert 0.02 < (ref == color).all(-1).mean() < 0.98
 
 
 def test_quat_from_axis_angle_bit_equal():
