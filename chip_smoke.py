@@ -32,7 +32,18 @@ Phases (any failure exits nonzero before the result lines):
          (the whole frame peels to its next-nearest fragment), and K3
          (raster_visibility) in three band forms: the whole frame
          (band (0, 1080)), the contiguous band (270, 270) and the
-         pair-interleaved band (2, 270, 4, True).
+         pair-interleaved band (2, 270, 4, True);
+       - the glTF headline scene (bench.py's gltf_dancer_fps frame):
+         full_scene(1920, 1080, tri_budget=100_000, textured=True,
+         gltf=<a dancer-class model>, hdr=tests/assets/sky_equirect_64x32.hdr),
+         T = 103,682: six instances of a 17,280-triangle UV sphere under a
+         turned, non-uniformly scaled node, no TANGENT accessor, 1x1 base
+         colour and metallic-roughness images (replaced by the textured
+         override) and a 1024² normal map (resized to 256²), written into
+         a temporary directory from a seed by write_dancer_class_gltf; its
+         build is timed whole and by stage (parse, image decode, tangents,
+         resize, material atlas, the IBL chain from the .hdr); K1 on its
+         sun map and K2 on its forward pass (12 lanes).
      K1's, K6's and K7's depth and the probe's sums must be bit-equal; K2
      must give bit-equal
      tid/depth and lanes within rtol 1e-5 / atol 1e-6; K4 bit-equal tid and
@@ -119,6 +130,8 @@ Phases (any failure exits nonzero before the result lines):
          buffer bit-equal to the port's cpu run of the same call;
        - a LINE_STRIP of 47 segments and a POINT_LIST of 48 points,
          FLAT: no raster kernel, covered and finite;
+       - (f) the glTF headline frame: one K1 launch in all and one K2
+         launch per frame;
        - the probe's own path: probes.kgather.run for the five bodies at
          4,096 iterations (µs per iteration), 30 launches.
      The frames must be finite with covered pixels; the peel, clip and bin
@@ -147,7 +160,11 @@ Phases (any failure exits nonzero before the result lines):
      (bit-equal), the LINE_STRIP and POINT_LIST frames (ids exact), the
      alpha-cutout stack on the scan's coverage callback under FLAT, as a
      band and in MSAA 4x's sample pass (ids exact), and the small PBR
-     frame's supersampled MSAA 4x with return_depth.
+     frame's supersampled MSAA 4x with return_depth. Then the full_hdr
+     golden (full_scene(160, 120, tri_budget=2000, hdr=<the sky asset>))
+     on the card, and the small glTF frame (full_scene(160, 120,
+     tri_budget=8, textured=True, gltf=tests/assets/textured_quad.glb,
+     hdr=...)) on cuda against cpu within the frame bar.
   6. After the main paths, so that the frame loops follow the same kernel
      checks as before: the chunk sweeps and tie tables of K2, K3 and K4
      queued by phase 3, then each split kernel's device µs by
@@ -164,6 +181,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores (NVIDIA data sheet, SXM)
@@ -205,6 +223,16 @@ BLINNPHONG = dict(rings=160, sectors=320)
 FULL = dict(tri_budget=100_000, ibl=False)
 HEADLINE = dict(tri_budget=100_000, textured=True)  # bench.py's frame: IBL on
 SMALL_FULL = dict(tri_budget=2000, ibl=False)
+# the glTF headline frame: bench.py's gltf_dancer_fps field (bench.py:185-210)
+# on a dancer-class model written from a seed (write_dancer_class_gltf), its
+# IBL environment from the repo's Radiance .hdr sky
+ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "assets")
+HDR_SKY = os.path.join(ASSETS, "sky_equirect_64x32.hdr")
+GLTF_HEADLINE = dict(tri_budget=100_000, textured=True)
+# one UV sphere of 17,280 triangles and 8,845 vertices (the dancer's 17.2k),
+# a 1024² normal map; 6 instances + the floor = 103,682 triangles
+DANCER = dict(rings=60, sectors=144, normal_size=1024)
+GLTF_FRAMES = 5
 # K3's band forms on the headline frame: (y_offset, rows[, stride, pair])
 K3_BANDS = {"whole frame": (0, H), "contiguous band": (270, 270),
             "pair-interleaved band": (2, 270, 4, True)}
@@ -307,6 +335,88 @@ def _refit_cascades(renderer, camera, i: int) -> None:
     renderer.update_scene(cur.replace(
         lights=lights, csm_matrices=torch.from_numpy(mats).to("cuda"),
         csm_splits=torch.from_numpy(splits).to("cuda")))
+
+
+def write_dancer_class_gltf(directory: str, seed: int = 0, rings: int = 60, sectors: int = 144,
+                            normal_size: int = 1024) -> str:
+    """Write a dancer-class glTF into `directory` from `seed`, with numpy
+    and the port's PNG writer; returns the .gltf path. The reference's
+    dancer asset (17.2k triangles, no TANGENT accessor, a real normal map,
+    base colour and metallic-roughness images stripped to 1x1 white) is
+    not in the repo; this model has its shape: one mesh, a UV sphere of
+    2·rings·sectors triangles with u32 indices, POSITION, NORMAL and
+    TEXCOORD_0 but no TANGENT (so the loader generates tangents), under
+    one node with a rotation and a non-uniform scale (so the loader bakes
+    a world transform), a 1x1 white base-colour and metallic-roughness
+    PNG and a normal_size² tangent-space normal map of a seeded bump
+    field, all in external files (.bin and .png)."""
+    import numpy as np
+
+    from renderer_rs_tpu_torch.utils.image_io import write_png
+    from renderer_rs_tpu_torch.utils.meshgen import uv_sphere_mesh
+
+    rng = np.random.default_rng(seed)
+    mesh = uv_sphere_mesh(1.0, rings, sectors)
+    t = (np.arange(normal_size) + 0.5) / normal_size
+    yy, xx = np.meshgrid(t, t, indexing="ij")
+    bump = np.zeros((normal_size, normal_size))
+    for _ in range(8):  # tileable waves of seeded frequency, phase and height
+        fx, fy = rng.integers(1, 24, 2)
+        bump += rng.uniform(0.002, 0.01) * np.sin(2 * np.pi * (fx * xx + fy * yy)
+                                                  + rng.uniform(0.0, 2 * np.pi))
+    n = np.stack([-np.gradient(bump, axis=1) * normal_size,
+                  -np.gradient(bump, axis=0) * normal_size, np.ones_like(bump)], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    write_png(os.path.join(directory, "normal.png"),
+              np.round((n * 0.5 + 0.5) * 255.0).astype(np.uint8))
+    white = np.full((1, 1, 3), 255, np.uint8)
+    write_png(os.path.join(directory, "base_color.png"), white)
+    write_png(os.path.join(directory, "metallic_roughness.png"), white)
+
+    blobs = [mesh.positions, mesh.normals, mesh.tex_coords, mesh.indices.astype(np.uint32)]
+    views, offset = [], 0
+    for b in blobs:
+        views.append({"buffer": 0, "byteOffset": offset, "byteLength": b.nbytes})
+        offset += b.nbytes  # every blob is a multiple of 4 bytes
+    with open(os.path.join(directory, "dancer.bin"), "wb") as f:
+        f.write(b"".join(b.tobytes() for b in blobs))
+    axis = np.array([0.3, 1.0, 0.2]) / np.linalg.norm([0.3, 1.0, 0.2])
+    half = 0.35  # a 0.7 rad turn
+    n_vert = mesh.positions.shape[0]
+    doc = {
+        "asset": {"version": "2.0", "generator": "chip_smoke.write_dancer_class_gltf"},
+        "scene": 0,
+        "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0, "translation": [0.0, 0.4, 0.0],
+                   "rotation": [*(axis * math.sin(half)).tolist(), math.cos(half)],
+                   "scale": [0.45, 1.3, 0.35]}],
+        "meshes": [{"primitives": [{
+            "attributes": {"POSITION": 0, "NORMAL": 1, "TEXCOORD_0": 2},
+            "indices": 3, "material": 0}]}],
+        "materials": [{
+            "pbrMetallicRoughness": {"baseColorTexture": {"index": 0},
+                                     "metallicRoughnessTexture": {"index": 1},
+                                     "baseColorFactor": [0.85, 0.7, 0.6, 1.0],
+                                     "metallicFactor": 0.2, "roughnessFactor": 0.7},
+            "normalTexture": {"index": 2, "scale": 1.0}}],
+        "textures": [{"source": 0}, {"source": 1}, {"source": 2}],
+        "images": [{"uri": "base_color.png"}, {"uri": "metallic_roughness.png"},
+                   {"uri": "normal.png"}],
+        "buffers": [{"uri": "dancer.bin", "byteLength": offset}],
+        "bufferViews": views,
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": n_vert, "type": "VEC3",
+             "min": mesh.positions.min(0).tolist(), "max": mesh.positions.max(0).tolist()},
+            {"bufferView": 1, "componentType": 5126, "count": n_vert, "type": "VEC3"},
+            {"bufferView": 2, "componentType": 5126, "count": n_vert, "type": "VEC2"},
+            {"bufferView": 3, "componentType": 5125, "count": mesh.indices.size,
+             "type": "SCALAR"},
+        ],
+    }
+    path = os.path.join(directory, "dancer.gltf")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
 
 
 def _log(msg: str) -> None:
@@ -885,7 +995,7 @@ def _check_resolve(label, scene, layout, pipeline, timed: bool) -> dict:
     return out
 
 
-def _check_depth(scene, layout, size: int) -> dict:
+def _check_depth(scene, layout, size: int, label: str = "sun map") -> dict:
     """K1 beside its plain version on the sun shadow pass's real inputs,
     with the main path's split plan and with FORCED_CHUNK."""
     import torch
@@ -909,7 +1019,8 @@ def _check_depth(scene, layout, size: int) -> dict:
     n_pairs = int(k1.n_pairs)
     densest = int((k1.seg[:, 1:] - k1.seg[:, :-1]).max())
     big, huge = (int(v) for v in k1.bin_overflow[0].tolist())
-    _log(f"shadow pass {size}x{size}: T={layout.num_triangles} valid={int(setup.valid.sum())} "
+    _log(f"shadow pass ({label}) {size}x{size}: T={layout.num_triangles} "
+         f"valid={int(setup.valid.sum())} "
          f"bins={k1.seg.shape[1] - 1} binned pairs={n_pairs} densest bin={densest} "
          f"bin_overflow big {big} huge {huge} table={tuple(k1.table.shape)}")
 
@@ -922,12 +1033,12 @@ def _check_depth(scene, layout, size: int) -> dict:
     equal_forced = bool(torch.equal(forced.view(torch.int32), depth_p.view(torch.int32)))
     max_abs_err = float((depth - depth_p).abs().max())
     covered = int((depth < 1.0).sum())
-    _log(f"raster_depth vs plain: depth bit-equal {equal}, with chunk {FORCED_CHUNK} "
+    _log(f"raster_depth ({label}) vs plain: depth bit-equal {equal}, with chunk {FORCED_CHUNK} "
          f"{equal_forced} ({_plan_stats(_plan_at(k1, FORCED_CHUNK))}), max |err| "
          f"{max_abs_err:.3e}, covered texels {covered}, depth range [{float(depth.min()):.4f}, "
          f"{float(depth.max()):.4f}]")
     if not (equal and equal_forced and covered > 0 and bool(torch.isfinite(depth).all())):
-        raise SystemExit("phase kernels: raster_depth disagrees with its plain version")
+        raise SystemExit(f"phase kernels: raster_depth disagrees with its plain version ({label})")
 
     ms = _median(_event_times_ms(lambda: raster_depth(*args, plan=k1.plan), KERNEL_TIMINGS))
     plain_ms = _median(_event_times_ms(lambda: raster_depth_plain(*args), 3, warmup=1))
@@ -935,11 +1046,10 @@ def _check_depth(scene, layout, size: int) -> dict:
     ops = pixel_pairs * DEPTH_OPS_PER_PAIR
     nbytes = k1.table.numel() * 4 + walked * 4 + (bins + 1) * 4 + size * size * 4
     bound_ms, bound_by = _bound(ops, nbytes)
-    _log(f"raster_depth: {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, "
-         f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
-    _split_log("K1 sun map", ms, bound_ms, bound_by, k1.plan)
-    sweep = _chunk_sweep("K1 sun map", lambda plan: raster_depth(*args, plan=plan), k1.seg,
-                         k1.sorted_tris.numel())
+    _log(f"raster_depth ({label}): {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain "
+         f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, "
+         f"{nbytes:.3e} bytes)")
+    _split_log(f"K1 {label}", ms, bound_ms, bound_by, k1.plan)
     out = {
         "name": "raster_depth",
         "route": "cuda",
@@ -952,9 +1062,10 @@ def _check_depth(scene, layout, size: int) -> dict:
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes this function
         **_plan_stats(k1.plan),
-        "chunk_sweep_ms": sweep,
+        "chunk_sweep_ms": _chunk_sweep(f"K1 {label}", lambda plan: raster_depth(*args, plan=plan),
+                                       k1.seg, k1.sorted_tris.numel()),
     }
-    _defer_breakdown(out, "sun map", "K1 sun map", lambda: raster_depth(*args, plan=k1.plan))
+    _defer_breakdown(out, label, f"K1 {label}", lambda: raster_depth(*args, plan=k1.plan))
     return out
 
 
@@ -1479,10 +1590,11 @@ def _peel_winner_rows(k5, z_floor, compare_op) -> int:
     return int(torch.unique(win[win >= 0]).numel())
 
 
-def phase_kernels() -> tuple[dict, tuple]:
-    """Every kernel beside its plain version; returns the kernels' entries
-    and the headline scene (scene, layout, kw), built once for this phase
-    and the main paths."""
+def phase_kernels(directory: str) -> tuple[dict, tuple, tuple]:
+    """Every kernel beside its plain version; returns the kernels' entries,
+    the headline scene and the glTF headline scene (each (scene, layout,
+    kw)), built once for this phase and the main paths; the dancer-class
+    model is written into `directory`."""
     from renderer_rs_tpu_torch.app.scenes import blinnphong_scene, full_scene
 
     scene, layout, kw, _ = blinnphong_scene(W, H, device="cuda", **BLINNPHONG)
@@ -1510,9 +1622,96 @@ def phase_kernels() -> tuple[dict, tuple]:
     k2["cases"] = {"pbr flagship": k2_pbr, "headline (textured, IBL)": k2_tex}
     k5 = _check_peel(scene, layout, _mask_pipeline())
     k3 = _check_visibility(scene, layout, kw["pipeline"])
+    # the glTF headline frame's own inputs: K1 on its sun map, K2 on its
+    # forward pass (12 lanes), each in the plan form and at FORCED_CHUNK
+    gltf = scene, layout, kw = _gltf_headline_scene(directory)
+    k1_gltf = _check_depth(scene, layout, kw["shadow_map_size"], label="glTF sun map")
+    k2_gltf = _check_resolve("glTF headline (dancer-class, textured, .hdr IBL)", scene, layout,
+                             kw["pipeline"], timed=True)
+    for k, case in ((k1, k1_gltf), (k2, k2_gltf)):
+        k.update(ms_gltf=case["ms"], plain_ms_gltf=case["plain_ms"],
+                 bound_ms_gltf=case["bound_ms"], max_abs_err=max(k["max_abs_err"],
+                                                                 case["max_abs_err"]))
+    k2["host_syncs"] += k2_gltf["host_syncs"]
+    k2["cases"]["glTF headline"] = k2_gltf
     return {"raster_depth": k1, "raster_resolve": k2, "raster_ids": k4,
             "raster_depth_batch": k6, "raster_peel": k5, "raster_visibility": k3,
-            "raster_depth_zplane": k7, "probe_kgather": probe}, headline
+            "raster_depth_zplane": k7, "probe_kgather": probe}, headline, gltf
+
+
+def _gltf_headline_scene(directory: str) -> tuple:
+    """bench.py's gltf_dancer_fps scene on the card: the dancer-class model
+    (write_dancer_class_gltf, DANCER) instanced to 100k triangles through
+    full_scene(textured=True, gltf=..., hdr=HDR_SKY), timed whole; then
+    the stages of its build, each timed once more on its own: the parse
+    (GltfDocument.load and every accessor), the image decode
+    (_load_textures: PNG decode, the colour slot's sRGB decode), the
+    tangent generation (compute_tangents), the resize (the 1024² normal
+    map to 256², and set_textures: every model image resized, the mip
+    chain), the material atlas, and the IBL chain from the .hdr
+    (load_hdr, equirect_to_cubemap, the precompute, finalize)."""
+    import torch
+
+    from renderer_rs_tpu_torch.app import scenes
+    from renderer_rs_tpu_torch.ops.ibl import equirect_to_cubemap
+    from renderer_rs_tpu_torch.renderer.scene_build import (
+        _TEXTURE_SLOTS,
+        SceneBuilder,
+        _resize_bilinear,
+        finalize_environment,
+    )
+    from renderer_rs_tpu_torch.resources.geometry import compute_tangents
+    from renderer_rs_tpu_torch.resources.gltf import GltfDocument
+    from renderer_rs_tpu_torch.resources.hdr import load_hdr
+    from renderer_rs_tpu_torch.resources.model import Model, _load_textures, extract_materials
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    path, write_ms = timed(lambda: write_dancer_class_gltf(directory, **DANCER))
+    out, build_ms = timed(lambda: scenes.full_scene(W, H, device="cuda", gltf=path, hdr=HDR_SKY,
+                                                    **GLTF_HEADLINE))
+    stages = {}
+
+    def parse():
+        doc = GltfDocument.load(path)
+        return doc, [doc.read_accessor(i) for i in range(len(doc.doc["accessors"]))]
+
+    (doc, (pos, nrm, uv, idx)), stages["parse"] = timed(parse)
+    materials = extract_materials(doc)
+    images, stages["image decode"] = timed(lambda: _load_textures(doc, materials))
+    _, stages["tangents"] = timed(lambda: compute_tangents(pos, nrm, uv, idx.reshape(-1)))
+    _, stages["resize 1024² -> 256²"] = timed(lambda: _resize_bilinear(images[2], 256, 256))
+    model = Model.load(path)
+    scenes._override_degenerate_textures(model)
+    builder = SceneBuilder().add_model(model)
+    _, stages["set_textures (5 images resized, mips)"] = timed(
+        lambda: builder.set_textures(builder._images))
+    slots = tuple(any(getattr(m, a) >= 0 for m in builder._materials) for a in _TEXTURE_SLOTS)
+    _, stages["material atlas"] = timed(
+        lambda: builder._material_atlas(slots, torch.device("cuda")))
+
+    def ibl():
+        equirect = torch.from_numpy(load_hdr(HDR_SKY)[::-1].copy()).to("cuda")
+        return finalize_environment(scenes._ibl_environment(equirect_to_cubemap(equirect, 64)))
+
+    ibl_ms = [timed(ibl)[1] for _ in range(2)]
+    scene, layout, kw, _ = out
+    _log(f"glTF headline scene: dancer-class model ({DANCER}) written in {write_ms:.1f} ms; "
+         f"full_scene(W, H, {GLTF_HEADLINE}, gltf=, hdr=) built in {build_ms:.1f} ms: "
+         f"T={layout.num_triangles}, {layout.num_objects} draws, texture array "
+         f"{tuple(scene.textures.mips[0].shape)}, slots {layout.texture_slots}, material atlas "
+         f"{tuple(scene.textures.mat_atlas_tri.shape)}; its stages alone (ms): "
+         f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}; the IBL chain from the "
+         f".hdr (load, equirect_to_cubemap 64², precompute, finalize) "
+         f"{[round(x, 3) for x in ibl_ms]} ms")
+    if layout.num_triangles != 103_682:
+        raise SystemExit(f"phase kernels: the glTF headline scene has {layout.num_triangles} "
+                         "triangles, not 103,682")
+    return scene, layout, kw
 
 
 def _headline_scene():
@@ -1772,9 +1971,10 @@ def _check_frame(label: str, renderer):
     return hdr
 
 
-def phase_main_paths(headline: tuple) -> dict:
+def phase_main_paths(headline: tuple, gltf: tuple) -> dict:
     """Renderer.render_frame at full size on the flagship frames; the
-    headline scene (scene, layout, kw) comes built from the kernel phase."""
+    headline and glTF headline scenes (scene, layout, kw) come built from
+    the kernel phase."""
     import dataclasses
 
     import torch
@@ -1906,6 +2106,16 @@ def phase_main_paths(headline: tuple) -> dict:
     del scene, renderer, warm
     by_path.update(_headline_paths(make, *headline))
     by_path.update(_blend_stencil_msaa_paths(*headline))
+    # (f) the glTF headline frame: one K1 in all, one K2 a frame
+    scene, layout, kw = gltf
+    warm = make(scene, layout, kw)
+    for _ in range(2):
+        warm.render_frame()
+    renderer = make(scene, layout, kw)
+    by_path["gltf_headline"] = _drive(
+        "(f) glTF headline (dancer-class x6, textured, .hdr IBL; static scene)", renderer,
+        GLTF_FRAMES, _counts(raster_depth=1, raster_resolve=GLTF_FRAMES))
+    _check_frame("glTF headline", renderer)
     return by_path
 
 
@@ -2609,6 +2819,40 @@ def phase_small_reference() -> None:
     _cutout_check()
     _ibl_small_check()
     _blend_stencil_msaa_small_checks()
+    _gltf_small_checks()
+
+
+def _gltf_small_checks() -> None:
+    """The full_hdr golden on the card (tests/test_golden.py's recipe:
+    full_scene(160, 120, tri_budget=2000, hdr=<the sky asset>), a 256² sun
+    map, ACES) under the golden bar; then the small glTF frame,
+    full_scene(160, 120, tri_budget=8, textured=True, gltf=textured_quad.glb,
+    hdr=...) (4 quads + the floor: the scan), on cuda against the same frame
+    on the cpu, within the frame bar (tests/test_torch_frame.py: <= 0.2% of
+    values off 2e-3 + 2e-3|ref|, max < 0.05)."""
+    import numpy as np
+
+    from renderer_rs_tpu_torch.app.scenes import full_scene
+    from renderer_rs_tpu_torch.renderer.passes import forward_frame
+    from renderer_rs_tpu_torch.utils.image_io import framebuffer_to_u8
+
+    def frame(device, **scene_kw):
+        scene, layout, kw, _ = full_scene(160, 120, hdr=HDR_SKY, device=device, **scene_kw)
+        return forward_frame(scene, layout, kw["pipeline"], kw["shading"], 160, 120,
+                             tonemap=kw["tonemap"], shadow_map_size=256,
+                             shadow_params=kw["shadow_params"], return_ids=True)
+
+    _golden_check("full_hdr", framebuffer_to_u8(frame("cuda", tri_budget=2000)[0]))
+    small = dict(tri_budget=8, textured=True, gltf=os.path.join(ASSETS, "textured_quad.glb"))
+    (got, got_ids), (ref, ref_ids) = frame("cuda", **small), frame("cpu", **small)
+    got, ref = got.cpu().numpy(), ref.numpy()
+    err = np.abs(got - ref)
+    off = float((err > 2e-3 + 2e-3 * np.abs(ref)).mean())
+    _log(f"glTF frame full_scene(160, 120, tri_budget=8, textured=True, gltf=textured_quad.glb, "
+         f"hdr=) cuda vs cpu: max |d| {err.max():.3e}, values off the bar {off:.4%}, winner ids "
+         f"differing {int((got_ids.cpu() != ref_ids).sum())}, covered {int((ref_ids >= 0).sum())}")
+    if not (np.isfinite(got).all() and off < 0.002 and err.max() < 0.05):
+        raise SystemExit("phase small reference: the glTF frame on cuda differs from the cpu frame")
 
 
 def _blend_stencil_msaa_small_checks() -> None:
@@ -2805,8 +3049,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_versions()
     phase_build()
-    kernels, headline = phase_kernels()
-    by_path = phase_main_paths(headline)
+    with tempfile.TemporaryDirectory() as directory:  # the dancer-class model
+        kernels, headline, gltf = phase_kernels(directory)
+    by_path = phase_main_paths(headline, gltf)
     by_path["probe"], us = phase_probe()
     kernels["probe_kgather"]["us_per_iteration"] = us
     # the probe's run: one launch of each body at PROBE_ITERS

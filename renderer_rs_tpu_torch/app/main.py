@@ -12,6 +12,10 @@ Usage:
     python -m renderer_rs_tpu_torch.app.main --scene triangle --width 800 \
         --height 600 --out /tmp/out
     python -m renderer_rs_tpu_torch.app.main --scene cube --frames 60 --out /tmp/out
+    python -m renderer_rs_tpu_torch.app.main --scene full --gltf model.glb \
+        --hdr tests/assets/sky_equirect_64x32.hdr --textured --width 1920 \
+        --height 1080 --frames 3 --out /tmp/out
+    python -m renderer_rs_tpu_torch.app.main --scene gltf-pbr --gltf model.glb --out /tmp/out
 
 `--scene triangle` is the Hello Triangle and `--scene cube` the spinning
 textured cube, both on the scan rasterizer; the cube turns at 1 rad/s over
@@ -20,8 +24,12 @@ headline frame: the IBL environment (the default; `--no-ibl` drops it for
 the hemisphere ambient), the 5-slot PBR texture set, a 1024² sun shadow
 map, ACES. `--csm` switches it to four shadow cascades. `--z-form plane`
 renders the shadow passes in the z-plane depth form (K7; the JAX
-package's z-form knob, raster.py:297). `--hdr` and `--gltf` raise
-NotImplementedError until their loaders are ported. As in the JAX app
+package's z-form knob, raster.py:297). `--hdr file.hdr` takes the IBL
+environment from a Radiance .hdr equirect instead of the procedural sky;
+`--gltf file` instances a glTF model to `--tris` triangles in place of
+the sphere grid (with `--textured`, the procedural maps replace the
+model's degenerate images), or with `--scene gltf-pbr` renders the model
+alone. As in the JAX app
 there is no alpha-cutoff flag: a MASK pipeline
 (`GraphicsPipelineBuilder().alpha_cutoff(0.5)`) reaches the Renderer as
 its `pipeline`. The X11 window and the scripted orbit/fly cameras wait for
@@ -75,8 +83,9 @@ def main(argv=None, device="cuda") -> int:
     parser.add_argument("--textured", action="store_true",
                         help="the 5-slot procedural PBR texture set (full scene)")
     parser.add_argument("--hdr", type=str, default=None,
-                        help="Radiance .hdr environment (full scene; not ported yet)")
-    parser.add_argument("--gltf", type=str, default=None, help="glTF path (not ported yet)")
+                        help="Radiance .hdr equirect environment for the full scene's IBL")
+    parser.add_argument("--gltf", type=str, default=None,
+                        help="glTF path (gltf-pbr scene, or instanced into the full scene)")
     parser.add_argument("--z-form", choices=["bary", "plane"], default="bary",
                         help="depth form of the shadow passes: vertex depths blended by "
                              "barycentrics, or the anchored depth plane")

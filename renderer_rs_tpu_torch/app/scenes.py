@@ -1,10 +1,12 @@
 """Demo scene factories (≙ renderer_rs_tpu/app/scenes.py), all five of
 BASELINE.json's configs: 0, the Hello Triangle; 1, the spinning textured
-cube; 2, the Blinn-Phong sphere; 3, the procedural PBR sphere grid; and 4,
-the full scene: shadow-mapped PBR with skybox and ACES, with a single sun
-map or four cascades, untextured or with the 5-slot procedural texture
-set, with the image-based lighting environment (the default) or without
-it. The .hdr and glTF loaders wait for ROADMAP Queue 1 item 9.
+cube; 2, the Blinn-Phong sphere; 3, the PBR scene: a glTF model, or the
+procedural sphere grid; and 4, the full scene: shadow-mapped PBR with
+skybox and ACES, with a single sun map or four cascades, untextured or
+with the 5-slot procedural texture set, the sphere grid or a glTF model
+instanced to the triangle budget, with the image-based lighting
+environment (the default; from the procedural sky or a Radiance .hdr
+file) or without it.
 
 A factory returns (scene, layout, renderer_kwargs, animate_fn), where
 animate_fn(scene, t, dt) -> scene updates the dynamic state per frame."""
@@ -15,20 +17,24 @@ import dataclasses
 import math
 
 import numpy as np
+import torch
 
 from renderer_rs_tpu_torch.core.device import resolve_device
 from renderer_rs_tpu_torch.mathx import quat_from_axis_angle
 from renderer_rs_tpu_torch.ops.csm import fit_cascades
 from renderer_rs_tpu_torch.ops.ibl import (
     brdf_lut,
+    equirect_to_cubemap,
     irradiance_map,
     prefilter_map,
     procedural_sky_cubemap,
 )
 from renderer_rs_tpu_torch.ops.shadow import ShadowParams, directional_light_matrix
 from renderer_rs_tpu_torch.renderer.passes import ShadingModel
-from renderer_rs_tpu_torch.renderer.scene_build import Environment, SceneBuilder
+from renderer_rs_tpu_torch.renderer.scene_build import _TEXTURE_SLOTS, Environment, SceneBuilder
+from renderer_rs_tpu_torch.resources.hdr import load_hdr
 from renderer_rs_tpu_torch.resources.material import Material
+from renderer_rs_tpu_torch.resources.model import Model
 from renderer_rs_tpu_torch.resources.texture import CubeMap
 from renderer_rs_tpu_torch.resources.ubo import CameraUbo, SceneUbo
 from renderer_rs_tpu_torch.rhi.command import CommandBuffer
@@ -158,39 +164,40 @@ def blinnphong_scene(width: int, height: int, rings=32, sectors=48, device="cuda
     return scene, layout, kwargs, animate
 
 
-def _not_ported(what: str, queue_item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1: {queue_item})")
-
-
 def gltf_pbr_scene(width: int, height: int, gltf_path: str | None = None, device="cuda"):
-    """Config 3 (scenes.py:148): the procedural PBR scene, a 4x4 grid of
-    metal/rough spheres on parented transforms over a floor (12,290
-    triangles), lit by a sun. No shadow, no environment."""
-    if gltf_path:
-        raise _not_ported("loading a .gltf model", "item 9, glTF loader")
+    """Config 3 (scenes.py:148), lit by a sun, no shadow, no environment:
+    a glTF model (Model.load) scaled to a diagonal of 2 about the origin,
+    or without one the procedural PBR scene, a 4x4 grid of metal/rough
+    spheres on parented transforms over a floor (12,290 triangles)."""
     pipeline = GraphicsPipelineBuilder().build()
     cb = CommandBuffer().begin().bind_pipeline(pipeline).set_viewport(width, height)
-    n = 4
-    for i in range(n):
-        for j in range(n):
-            mat = Material(
-                base_color=(0.9, 0.2, 0.15, 1.0),
-                metallic=i / (n - 1),
-                roughness=max(j / (n - 1), 0.05),
-            )
-            root = Transform().with_position([0.0, 0.0, 0.0])
-            child = (
-                Transform()
-                .with_position([(i - (n - 1) / 2) * 1.2, 0.4, (j - (n - 1) / 2) * 1.2])
-                .with_scale([0.45, 0.45, 0.45])
-                .with_parent(root)
-            )
-            cb.draw_mesh(meshgen.uv_sphere_mesh(1.0, 16, 24), child, mat)
-    cb.draw_mesh(
-        meshgen.plane_mesh(10.0),
-        Transform().with_position([0.0, 0.0, 0.0]),
-        Material(base_color=(0.5, 0.5, 0.55, 1.0), roughness=0.9),
-    )
+    if gltf_path:
+        model = Model.load(gltf_path)
+        scale = 2.0 / max(model.diagonal(), 1e-6)
+        root = Transform().with_scale([scale] * 3).with_position((-model.center() * scale).tolist())
+        cb.draw_model(model, root)
+    else:
+        n = 4
+        for i in range(n):
+            for j in range(n):
+                mat = Material(
+                    base_color=(0.9, 0.2, 0.15, 1.0),
+                    metallic=i / (n - 1),
+                    roughness=max(j / (n - 1), 0.05),
+                )
+                root = Transform().with_position([0.0, 0.0, 0.0])
+                child = (
+                    Transform()
+                    .with_position([(i - (n - 1) / 2) * 1.2, 0.4, (j - (n - 1) / 2) * 1.2])
+                    .with_scale([0.45, 0.45, 0.45])
+                    .with_parent(root)
+                )
+                cb.draw_mesh(meshgen.uv_sphere_mesh(1.0, 16, 24), child, mat)
+        cb.draw_mesh(
+            meshgen.plane_mesh(10.0),
+            Transform().with_position([0.0, 0.0, 0.0]),
+            Material(base_color=(0.5, 0.5, 0.55, 1.0), roughness=0.9),
+        )
     cb.end()
     builder = SceneBuilder()
     cam = _orbit_camera(width, height, distance=4.2, height_y=2.8, fov=50.0)
@@ -220,12 +227,22 @@ def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = T
     prefilter of 32² x 5 levels x 32 samples, a 64² BRDF LUT of 256
     samples), finalizes it into the fast-ambient form and shades PBR_IBL;
     ibl=False keeps the sky as skybox only and shades PBR with the
-    hemisphere ambient. A Radiance .hdr environment and glTF instancing
-    are not ported: each raises rather than render a lesser scene."""
-    if hdr is not None:
-        raise _not_ported("a Radiance .hdr environment", "item 9, HDR loader")
-    if gltf:
-        raise _not_ported("glTF instancing", "item 9, glTF loader")
+    hemisphere ambient.
+
+    hdr: with ibl=True, a Radiance .hdr equirect (resources/hdr.load_hdr,
+    rows flipped to the convention equirect_to_cubemap samples) becomes
+    the 64² sky the IBL chain and the skybox use, instead of the
+    procedural sky (scenes.py:397-423).
+
+    gltf: the sphere grid gives way to a glTF model (one Model.load)
+    instanced to ~tri_budget triangles in a grid of 1.6-unit cells, each
+    turned 0.7 rad more about +Y, scaled to a 2.4 diagonal with its feet
+    (AABB min y) on the floor; the instances share one decoded texture
+    set and material table (SceneBuilder.add_model). The model's own
+    textures bind; textured=True then replaces each DEGENERATE (<= 2 px)
+    model image with the procedural 256² map of its slot, real images
+    untouched (scenes.py:250-344). The floor keeps its own material and
+    no texture set."""
     # sphere subdivision hitting ~tri_budget across the grid + floor:
     # tris/sphere = 2*rings*sectors = 4*rings^2 (sectors = 2*rings)
     n = 3
@@ -237,6 +254,12 @@ def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = T
     cb = CommandBuffer().begin().bind_pipeline(pipeline).set_viewport(width, height)
     builder = SceneBuilder()
     tex_kw = {}
+    # with a model, its own texture table binds through add_model (an
+    # explicit set_textures would shadow it); textured=True becomes the
+    # override of its degenerate images
+    gltf_textured = bool(gltf) and textured
+    if gltf:
+        textured = False
     if textured:
         # one shared 5-slot set; per-material FACTORS still vary across the grid
         maps = meshgen.procedural_pbr_textures(256)
@@ -250,20 +273,26 @@ def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = T
             emissive_texture=4,
             emissive=(1.0, 1.0, 1.0, 0.0),  # emissive factor gates the map
         )
-    for i in range(n):
-        for j in range(n):
-            mat = Material(
-                base_color=(0.85, 0.3, 0.2, 1.0),
-                metallic=i / max(n - 1, 1),
-                roughness=max(j / max(n - 1, 1), 0.08),
-                **tex_kw,
-            )
-            tr = (
-                Transform()
-                .with_position([(i - (n - 1) / 2) * 1.6, 0.6, (j - (n - 1) / 2) * 1.6])
-                .with_scale([0.6, 0.6, 0.6])
-            )
-            cb.draw_mesh(meshgen.uv_sphere_mesh(1.0, rings, sectors), tr, mat)
+    if gltf:
+        model = Model.load(gltf)
+        if gltf_textured:
+            _override_degenerate_textures(model)
+        _draw_instances(cb, model, tri_budget)
+    else:
+        for i in range(n):
+            for j in range(n):
+                mat = Material(
+                    base_color=(0.85, 0.3, 0.2, 1.0),
+                    metallic=i / max(n - 1, 1),
+                    roughness=max(j / max(n - 1, 1), 0.08),
+                    **tex_kw,
+                )
+                tr = (
+                    Transform()
+                    .with_position([(i - (n - 1) / 2) * 1.6, 0.6, (j - (n - 1) / 2) * 1.6])
+                    .with_scale([0.6, 0.6, 0.6])
+                )
+                cb.draw_mesh(meshgen.uv_sphere_mesh(1.0, rings, sectors), tr, mat)
     cb.draw_mesh(
         meshgen.plane_mesh(12.0),
         Transform(),
@@ -284,7 +313,13 @@ def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = T
         # radius margin): a loose box wastes map resolution and concentrates
         # raster bins
         builder.set_shadow_matrix(directional_light_matrix(sun_dir, [0.0, 0.0, 0.0], 3.5))
-    sky = procedural_sky_cubemap(64, sun_direction=tuple(float(v) for v in sun_dir))
+    if ibl and hdr is not None:
+        # load_hdr gives row 0 = zenith; equirect_to_cubemap keeps the
+        # reference's uv math (up -> v = 1 -> the LAST row), so flip the rows
+        equirect = torch.from_numpy(np.ascontiguousarray(load_hdr(hdr)[::-1]))
+        sky = equirect_to_cubemap(equirect.to(resolve_device(device)), 64)
+    else:
+        sky = procedural_sky_cubemap(64, sun_direction=tuple(float(v) for v in sun_dir))
     if ibl:
         # the one-time precompute chain (≙ the reference's compute shader
         # dispatches), eagerly on the scene's device
@@ -303,6 +338,49 @@ def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = T
         shadow_params=ShadowParams(shadow_bias=0.012, normal_bias=0.06),
     )
     return scene, layout, kwargs, None
+
+
+def _override_degenerate_textures(model: Model) -> None:
+    """The textured override of a glTF model (scenes.py:262-299): per
+    (material, slot), a texture of at most 2x2 texels (a stripped image)
+    is replaced by the procedural 256² map of THAT slot. Each slot gets one
+    replacement, appended to the model's table and the materials
+    repointed, so a stripped image shared by two slots never feeds one
+    slot the other's map; real images stay."""
+    maps = meshgen.procedural_pbr_textures(256)
+    repl: dict = {}  # slot name -> texture index of its replacement
+    for m in model.materials or []:
+        for attr in _TEXTURE_SLOTS:
+            name = attr.removesuffix("_texture")  # the procedural set's key
+            ti = getattr(m, attr)
+            if ti is None or ti < 0 or ti >= len(model.textures) \
+                    or max(model.textures[ti].shape[:2]) > 2:
+                continue
+            if name not in repl:
+                model.textures.append(np.asarray(maps[name], np.float32))
+                repl[name] = len(model.textures) - 1
+            setattr(m, attr, repl[name])
+
+
+def _draw_instances(cb: CommandBuffer, model: Model, tri_budget: int) -> None:
+    """round(tri_budget / the model's triangles) draws of `model`, at least
+    one, in a grid of 1.6-unit cells centred on the origin, instance k
+    turned 0.7·k rad about +Y, scaled to a 2.4 diagonal with the AABB's
+    min y on the floor (scenes.py:318-344)."""
+    n_inst = max(1, round(tri_budget / max(model.total_triangle_count(), 1)))
+    scale = 2.4 / max(model.diagonal(), 1e-6)
+    foot_y = -float(model.aabb_min[1]) * scale
+    cols = max(1, int(math.ceil(math.sqrt(n_inst))))
+    rows_n = (n_inst + cols - 1) // cols
+    for k in range(n_inst):
+        i, j = k % cols, k // cols
+        tr = (
+            Transform()
+            .with_position([(i - (cols - 1) / 2) * 1.6, foot_y, (j - (rows_n - 1) / 2) * 1.6])
+            .with_rotation(quat_from_axis_angle((0.0, 1.0, 0.0), 0.7 * k))
+            .with_scale([scale] * 3)
+        )
+        cb.draw_model(model, tr)
 
 
 def _ibl_environment(sky) -> Environment:

@@ -18,8 +18,15 @@ scene's device:
 
 The sums run in another order than XLA's on the CPU, so irradiance,
 prefilter, LUT and SH9 agree with the JAX package to a stated relative
-tolerance (tests/test_torch_ibl.py). equirect_to_cubemap serves only the
-.hdr loader and waits with it (ROADMAP Queue 1 item 9)."""
+tolerance (tests/test_torch_ibl.py).
+
+- equirect_to_cubemap: face texel -> direction -> equirect uv (atan2,
+  asin) -> bilinear sample with clamp to edge, the environment of a
+  Radiance .hdr file (equirect_to_cubemap.hlsl:22-105). asin is written as
+  XLA lowers it, 2·atan2(y, 1 + sqrt((1-y)(1+y))), and each division by a
+  constant as XLA:CPU compiles it, a product with the reciprocal; the
+  faces' agreement with the JAX function is measured in
+  tests/test_torch_hdr.py."""
 
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import math
 import numpy as np
 import torch
 
+from renderer_rs_tpu_torch.core.device import resolve_device
 from renderer_rs_tpu_torch.mathx.vec import cross
 
 PI = math.pi
@@ -61,6 +69,24 @@ def cubemap_solid_angles(size: int) -> torch.Tensor:
     v, u = np.meshgrid(t, t, indexing="ij")
     da = (2.0 / size) ** 2
     return torch.from_numpy(da / np.power(u * u + v * v + 1.0, 1.5))
+
+
+def equirect_to_cubemap(equirect: torch.Tensor, size: int) -> torch.Tensor:
+    """[6,S,S,C] cube faces from an equirect image [H,W,C] on its device
+    (ibl.py:65; ≙ equirect_to_cubemap.hlsl main). uv = ((atan2(z,x)+π)/2π,
+    (asin(y)+π/2)/π) (DirectionToEquirectUV, equirect_to_cubemap.hlsl:59-76),
+    then a bilinear sample with clamp to edge."""
+    from renderer_rs_tpu_torch.ops.sampling import sample_bilinear
+    from renderer_rs_tpu_torch.resources.texture import Sampler
+
+    d = cubemap_directions(size).to(equirect.device)
+    phi = torch.atan2(d[..., 2], d[..., 0])
+    y = torch.clamp(d[..., 1], -1.0, 1.0)
+    root = torch.sqrt((1.0 - y) * (1.0 + y)) + 1.0
+    half = torch.atan2(y, root)
+    theta = half + half
+    uv = torch.stack([(phi + PI) * (1.0 / (2.0 * PI)), (theta + PI * 0.5) * (1.0 / PI)], dim=-1)
+    return sample_bilinear(equirect, uv, Sampler.linear_clamp())
 
 
 def irradiance_map(env_faces: torch.Tensor, size: int = 32) -> torch.Tensor:
@@ -170,12 +196,12 @@ def _geometry_smith_ibl(ndotv, ndotl, roughness):
 
 
 def brdf_lut(size: int = 256, samples: int = 1024, chunk: int = 64,
-             device="cpu") -> torch.Tensor:
+             device="cuda") -> torch.Tensor:
     """Split-sum BRDF integration LUT [S,S,2]: (scale A, bias B), U axis =
     NdotV (clamped >= 0.001), V axis = roughness (ibl.py:228, ≙
     IntegrateBRDF + main, brdf_lut.hlsl:119-206). The samples are summed
     `chunk` at a time, as in the JAX scan."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     t = (torch.arange(size, dtype=torch.float32, device=dev) + 0.5) / size
     ndotv = torch.clamp(t[None, :], min=0.001).expand(size, size)  # u axis
     roughness = t[:, None].expand(size, size)  # v axis

@@ -96,6 +96,11 @@ def sample_cubemap(faces: torch.Tensor, d: torch.Tensor, bilinear: bool = True) 
 
 # --- 2-D texture taps -------------------------------------------------------------
 
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 a*b + c with one rounding (ops/raster.py::_fma, emulated in f64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def _floor_int(x: torch.Tensor) -> torch.Tensor:
     """floor(x) as int64, saturating like XLA's f32->s32 convert (NaN -> 0):
     torch's cast of an out-of-range or NaN float is undefined, so the
@@ -112,6 +117,29 @@ def _wrap_coord(x: torch.Tensor, size: int, mode: WrapMode) -> torch.Tensor:
     # MIRRORED_REPEAT: period 2*size, reflect the second half
     m = torch.remainder(x, 2 * size)
     return torch.where(m < size, m, 2 * size - 1 - m)
+
+
+def sample_bilinear(tex: torch.Tensor, uv: torch.Tensor, sampler: Sampler = Sampler()) -> torch.Tensor:
+    """Bilinear filtering of a texture [H,W,C] at uv [...,2] in [0,1], the
+    half-texel centre convention, each axis wrapped per the sampler
+    (sampling.py:190). The products XLA:CPU fuses are fused: the texel
+    coordinate u·w - 0.5 and each lerp p·(1-f) + q·f as fma(p, 1-f, q·f)
+    (each other form moved 364-1,432 of 3,600 values on random uvs)."""
+    h, w = tex.shape[0], tex.shape[1]
+    half = torch.tensor(-0.5, dtype=uv.dtype, device=uv.device)
+    x = _fma(uv[..., 0], torch.tensor(float(w), device=uv.device), half)
+    y = _fma(uv[..., 1], torch.tensor(float(h), device=uv.device), half)
+    x0 = _floor_int(x)
+    y0 = _floor_int(y)
+    fx = (x - x0.to(x.dtype))[..., None]
+    fy = (y - y0.to(y.dtype))[..., None]
+    x0w = _wrap_coord(x0, w, sampler.wrap_u)
+    x1w = _wrap_coord(x0 + 1, w, sampler.wrap_u)
+    y0w = _wrap_coord(y0, h, sampler.wrap_v)
+    y1w = _wrap_coord(y0 + 1, h, sampler.wrap_v)
+    top = _fma(tex[y0w, x0w], 1 - fx, tex[y0w, x1w] * fx)
+    bot = _fma(tex[y1w, x0w], 1 - fx, tex[y1w, x1w] * fx)
+    return _fma(top, 1 - fy, bot * fy)
 
 
 def sample_array_bilinear(level: torch.Tensor, tid: torch.Tensor, uv: torch.Tensor,

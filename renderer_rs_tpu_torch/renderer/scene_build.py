@@ -4,10 +4,12 @@ assembly of the device scene.
 All meshes are concatenated into single SoA vertex/index tensors at build
 time, with a static `SceneLayout` (per-object vertex ranges, which the
 vertex stage loops over) and per-triangle material ids resolved at shading
-time. Built so far: scenes with an optional texture array (and its
-single-gather trilinear material atlas), an optional sun shadow matrix or
-cascaded shadow matrices and an environment: a skybox, with or without the
-IBL maps and their fast-ambient form (finalize_environment)."""
+time. Built so far: meshes and glTF models (add_model, with instancing
+reuse), an optional texture array (images of another size resized
+bilinearly, and the single-gather trilinear material atlas), an optional
+sun shadow matrix or cascaded shadow matrices and an environment: a
+skybox, with or without the IBL maps and their fast-ambient form
+(finalize_environment)."""
 
 from __future__ import annotations
 
@@ -20,11 +22,16 @@ from renderer_rs_tpu_torch.core.device import resolve_device
 from renderer_rs_tpu_torch.ops.ibl import sh9_project_cubemap
 from renderer_rs_tpu_torch.ops.sampling import _cube_window_flat, build_cube_trilinear_atlas
 from renderer_rs_tpu_torch.resources.material import Material, MaterialBank
-from renderer_rs_tpu_torch.resources.model import Mesh
+from renderer_rs_tpu_torch.resources.model import Mesh, Model
 from renderer_rs_tpu_torch.resources.texture import _box_downsample
 from renderer_rs_tpu_torch.resources.ubo import CameraUbo, SceneUbo
 from renderer_rs_tpu_torch.scene.light import LightBank
 from renderer_rs_tpu_torch.scene.transform import Transform
+
+
+# the five texture slots of a Material, in the order of MaterialBank.tex_ids
+_TEXTURE_SLOTS = ("base_color_texture", "normal_texture", "metallic_roughness_texture",
+                  "occlusion_texture", "emissive_texture")
 
 
 @dataclasses.dataclass
@@ -175,6 +182,8 @@ class SceneBuilder:
     def __init__(self) -> None:
         self._meshes: list[tuple[Mesh, Transform, int]] = []
         self._materials: list[Material] = []
+        self._images: list[np.ndarray] = []  # accumulated by add_model
+        self._model_bases: dict[int, tuple[int, Model]] = {}
         self._lights: LightBank | None = None
         self._camera: CameraUbo | None = None
         self._scene_ubo: SceneUbo | None = None
@@ -192,6 +201,37 @@ class SceneBuilder:
         else:
             mat_idx = material
         self._meshes.append((mesh, transform or Transform(), mat_idx))
+        return self
+
+    def add_model(self, model: Model, transform: Transform | None = None) -> "SceneBuilder":
+        """Add every mesh of a glTF model, keeping its material table and
+        texture images (scene_build.py:227): the materials' texture indices
+        are shifted into the scene-wide texture array, which build()
+        assembles unless set_textures was called.
+
+        Re-adding the SAME Model object (instancing) reuses its material
+        and texture entries: only the mesh draws are appended, so N
+        instances share one decoded texture set and one material table.
+        The keying dict holds the model, so its id() stays valid for the
+        SceneBuilder's life."""
+        prior = self._model_bases.get(id(model))
+        if prior is None:
+            base, base_img = len(self._materials), len(self._images)
+            self._model_bases[id(model)] = (base, model)
+            mats = model.materials or [Material()]
+            if model.textures:
+                self._images.extend(model.textures)
+                mats = [
+                    dataclasses.replace(m, **{s: getattr(m, s) + base_img for s in _TEXTURE_SLOTS
+                                              if getattr(m, s) >= 0})
+                    for m in mats
+                ]
+            self._materials.extend(mats)
+        else:
+            base = prior[0]
+        for mesh in model.meshes:
+            mi = mesh.material_index
+            self._meshes.append((mesh, transform or Transform(), base + (mi if mi is not None else 0)))
         return self
 
     def set_lights(self, lights: LightBank) -> "SceneBuilder":
@@ -254,6 +294,9 @@ class SceneBuilder:
         dev = resolve_device(device)
         if not self._meshes:
             raise ValueError("scene has no meshes")
+        if self._images and self._textures is None:
+            # texture images accumulated by add_model -> the scene's texture array
+            self.set_textures(self._images)
         pos_l, nrm_l, uv_l, tan_l, col_l, tri_l, tmat_l = [], [], [], [], [], [], []
         models, normal_mats, ranges = [], [], []
         v_off = t_off = 0
@@ -318,11 +361,8 @@ class SceneBuilder:
         mat_consts = tuple(
             float(col[0]) if np.all(col == col[0]) else None for col in bank_rows.T
         )
-        slot_used = tuple(
-            any(getattr(m, attr) >= 0 for m in self._materials)
-            for attr in ("base_color_texture", "normal_texture", "metallic_roughness_texture",
-                         "occlusion_texture", "emissive_texture")
-        )
+        slot_used = tuple(any(getattr(m, attr) >= 0 for m in self._materials)
+                          for attr in _TEXTURE_SLOTS)
         if self._textures is not None and any(slot_used):
             scene.textures = self._material_atlas(slot_used, dev)
         layout = SceneLayout(
@@ -364,9 +404,14 @@ class SceneBuilder:
 
 
 def _resize_bilinear(img: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Host-side bilinear resize (scene_build.py:499, jax.image.resize):
-    images whose size differs from the array's. Not ported yet."""
-    raise NotImplementedError(
-        f"resizing a {img.shape[0]}x{img.shape[1]} texture to {h}x{w} is not ported yet "
-        "(ROADMAP Queue 1 item 9, texture resize)"
-    )
+    """Host-side bilinear resize of an [H,W,C] image (texture array
+    normalization; scene_build.py:499). jax.image.resize's "bilinear" is a
+    triangle filter that widens with the scale when it downsamples
+    (antialiasing) and is plain bilinear when it upsamples, with half-pixel
+    centres: torch's interpolate with align_corners=False and
+    antialias=True computes the same filter (tests/test_torch_gltf.py
+    measures the difference)."""
+    x = torch.from_numpy(np.ascontiguousarray(img, np.float32)).permute(2, 0, 1)[None]
+    out = torch.nn.functional.interpolate(x, size=(h, w), mode="bilinear", align_corners=False,
+                                          antialias=True)
+    return out[0].permute(1, 2, 0).contiguous().numpy()

@@ -1,1 +1,2 @@
-"""Resources: meshes, materials, uniform buffers."""
+"""Resources: meshes and glTF models, materials, textures, Radiance .hdr
+images, uniform buffers."""

@@ -1,15 +1,20 @@
-"""Sampler state and cubemaps (≙ renderer_rs_tpu/resources/texture.py:
-Filter, MipmapMode, WrapMode, Sampler, CubeMap with its 2x2 box mip chain;
-sampler.rs:5 "Task 3.2"). Texture mips are host numpy arrays built by
-SceneBuilder.set_textures; the Texture class with its file loader waits for
-ROADMAP Queue 1 item 9."""
+"""Textures, samplers and cubemaps (≙ renderer_rs_tpu/resources/texture.py:
+Filter, MipmapMode, WrapMode, Sampler with its nearest and linear_clamp
+presets, Texture with its file loader, CubeMap; the 2x2 box mip chain;
+texture.rs:5 "Task 3.1", sampler.rs:5 "Task 3.2"). A Texture is a tuple
+of [H,W,C] f32 mip tensors on its device; the scene's texture array is
+built by SceneBuilder.set_textures."""
 
 from __future__ import annotations
 
 import dataclasses
 import enum
 
+import numpy as np
 import torch
+
+from renderer_rs_tpu_torch.core.device import resolve_device
+from renderer_rs_tpu_torch.ops.srgb import srgb_to_linear
 
 
 class Filter(enum.Enum):
@@ -38,6 +43,18 @@ class Sampler:
     wrap_u: WrapMode = WrapMode.REPEAT
     wrap_v: WrapMode = WrapMode.REPEAT
 
+    @staticmethod
+    def nearest() -> "Sampler":
+        return Sampler(
+            mag_filter=Filter.NEAREST,
+            min_filter=Filter.NEAREST,
+            mipmap_mode=MipmapMode.NEAREST,
+        )
+
+    @staticmethod
+    def linear_clamp() -> "Sampler":
+        return Sampler(wrap_u=WrapMode.CLAMP_TO_EDGE, wrap_v=WrapMode.CLAMP_TO_EDGE)
+
 
 def _box_downsample(img: torch.Tensor) -> torch.Tensor:
     """2x2 box filter over the [...,H,W,C] image axes (a leading face axis
@@ -58,6 +75,44 @@ def build_mip_pyramid(base, max_levels: int | None = None) -> tuple:
             break
         mips.append(_box_downsample(mips[-1]))
     return tuple(mips)
+
+
+@dataclasses.dataclass
+class Texture:
+    """2D texture with its mip pyramid (≙ Texture, texture.py:88): a tuple of
+    [H,W,C] f32 tensors."""
+
+    mips: tuple
+
+    @staticmethod
+    def from_array(data, generate_mips: bool = True, srgb: bool = False,
+                   device="cuda") -> "Texture":
+        """An [H,W] or [H,W,C] image on `device`; srgb=True decodes the
+        first three channels to linear (alpha untouched)."""
+        arr = torch.as_tensor(np.asarray(data, np.float32)).to(resolve_device(device))
+        if arr.ndim == 2:
+            arr = arr[..., None]
+        if srgb:
+            rgb = srgb_to_linear(arr[..., :3])
+            arr = torch.cat([rgb, arr[..., 3:]], dim=-1) if arr.shape[-1] > 3 else rgb
+        mips = build_mip_pyramid(arr) if generate_mips else (arr,)
+        return Texture(mips=mips)
+
+    @staticmethod
+    def from_file(path: str, generate_mips: bool = True, srgb: bool = False,
+                  device="cuda") -> "Texture":
+        """An image file (utils/image_io.read_image) as a Texture."""
+        from renderer_rs_tpu_torch.utils.image_io import read_image
+
+        return Texture.from_array(read_image(path), generate_mips, srgb, device=device)
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.mips)
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.mips[0].shape)
 
 
 @dataclasses.dataclass

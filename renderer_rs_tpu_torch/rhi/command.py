@@ -1,6 +1,7 @@
 """Command recording: the draw-list layer (≙ renderer_rs_tpu/rhi/command.py,
 crates/rhi/src/command.rs), the subset the demo scenes record:
-begin -> bind pipeline -> set viewport -> draw meshes -> end -> build_scene.
+begin -> bind pipeline -> set viewport -> draw meshes and glTF models ->
+end -> build_scene.
 The recorded draws lower into SceneBuilder in recorded order; the state
 machine is validated eagerly."""
 
@@ -30,12 +31,22 @@ class DrawCmd:
     material: Any
 
 
+@dataclasses.dataclass
+class ModelDrawCmd:
+    """One recorded multi-mesh model draw (≙ the per-primitive draw loop a
+    glTF model expands into, renderer.rs:535-538)."""
+
+    pipeline: GraphicsPipeline
+    model: Any  # resources.Model
+    transform: Any
+
+
 class CommandBuffer:
     """Recording state machine (≙ rhi::CommandBuffer)."""
 
     def __init__(self) -> None:
         self._state = _State.INITIAL
-        self.draws: list[DrawCmd] = []
+        self.draws: list[DrawCmd | ModelDrawCmd] = []
         self._pipeline: GraphicsPipeline | None = None
         self._viewport: tuple | None = None
 
@@ -70,6 +81,15 @@ class CommandBuffer:
         self.draws.append(DrawCmd(self._pipeline, mesh, transform, material))
         return self
 
+    def draw_model(self, model, transform=None) -> "CommandBuffer":
+        """Record every mesh of a glTF model with its material table
+        (≙ the app iterating model primitives into draw calls)."""
+        self._require_recording()
+        if self._pipeline is None:
+            raise RhiError("draw recorded with no pipeline bound")
+        self.draws.append(ModelDrawCmd(self._pipeline, model, transform))
+        return self
+
     def build_scene(self, builder=None, device="cuda"):
         """Lower the recorded draws into (GpuScene, SceneLayout, pipeline)
         on `device`. All draws must share one pipeline."""
@@ -83,7 +103,10 @@ class CommandBuffer:
             raise RhiError("mixed pipelines in one draw list; split passes")
         builder = builder if builder is not None else SceneBuilder()
         for d in self.draws:
-            builder.add_mesh(d.mesh, d.transform, d.material)
+            if isinstance(d, ModelDrawCmd):
+                builder.add_model(d.model, d.transform)
+            else:
+                builder.add_mesh(d.mesh, d.transform, d.material)
         scene, layout = builder.build(device=device)
         return scene, layout, self.draws[0].pipeline
 

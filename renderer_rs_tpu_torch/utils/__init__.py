@@ -1,1 +1,1 @@
-"""Host utilities: procedural meshes, image output."""
+"""Host utilities: procedural meshes, image reading and writing."""

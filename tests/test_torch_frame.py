@@ -24,6 +24,8 @@ torch.set_num_threads(1)
 
 W, H = 160, 120
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", f"blinnphong_{W}x{H}.png")
+SKY_HDR = os.path.join(os.path.dirname(__file__), "assets", "sky_equirect_64x32.hdr")
+QUAD_GLB = os.path.join(os.path.dirname(__file__), "assets", "textured_quad.glb")
 
 
 def _jax_fused_frame(w, h, **scene_kw):
@@ -163,8 +165,12 @@ def small_scenes():
                                     "msaa_stencil", "return_depth", "band_return_depth",
                                     "hdr", "equirect", "sharded_msaa"])
 def test_unported_branches_raise(small_scenes, branch):
-    """What still raises: an unknown tonemapper, a Radiance .hdr environment
-    and its equirect_to_cubemap (ROADMAP Queue 1 item 9). The branches that
+    """What still raises: an unknown tonemapper. A Radiance .hdr environment
+    (`hdr`) and its equirect_to_cubemap (`equirect`) raised until the .hdr
+    loader was ported: now the small full scene takes its sky from the
+    asset (the JAX cube within tests/test_torch_hdr.py's bar) and renders,
+    and equirect_to_cubemap matches the jitted JAX one on a seeded
+    equirect within that bar. The branches that
     raised until the supersampling MSAA branch, return_depth, the stencil
     and point/line primitives were ported now render and match the JAX
     frame on the same scene: return_depth (whole frame, band, with
@@ -185,14 +191,28 @@ def test_unported_branches_raise(small_scenes, branch):
 
     (jscene, jlayout), (scene, layout) = small_scenes
     if branch in ("hdr", "equirect"):
+        import jax
+
+        import renderer_rs_tpu.ops.ibl as jibl
         import renderer_rs_tpu_torch.ops.ibl as ibl
+        from renderer_rs_tpu.resources.hdr import load_hdr
         from renderer_rs_tpu_torch.app.scenes import full_scene
 
+        bar = 1e-5  # of the largest value (tests/test_torch_hdr.py)
         if branch == "hdr":
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: item 9"):
-                full_scene(32, 32, tri_budget=600, hdr="sky.hdr", device="cpu")
-        else:  # the equirect -> cube conversion serves only the .hdr loader
-            assert not hasattr(ibl, "equirect_to_cubemap")
+            scene, layout, kw, _ = full_scene(32, 32, tri_budget=600, hdr=SKY_HDR, device="cpu")
+            equirect = np.ascontiguousarray(load_hdr(SKY_HDR)[::-1])
+            want = np.asarray(jax.jit(lambda e: jibl.equirect_to_cubemap(e, 64))(equirect))
+            out = forward_frame(scene, layout, kw["pipeline"], kw["shading"], 32, 32,
+                                tonemap=kw["tonemap"], shadow_map_size=64,
+                                shadow_params=kw["shadow_params"])
+            got = scene.environment.skybox_mips[0].numpy()
+            assert np.isfinite(out.numpy()).all() and float(out[..., :3].std()) > 0.01
+        else:
+            equirect = np.random.default_rng(4).uniform(0.0, 3.0, (16, 32, 3)).astype(np.float32)
+            want = np.asarray(jax.jit(lambda e: jibl.equirect_to_cubemap(e, 8))(equirect))
+            got = ibl.equirect_to_cubemap(torch.from_numpy(equirect), 8).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=bar * float(np.abs(want).max()))
         return
     if branch == "tonemap":
         with pytest.raises(ValueError, match="unknown tonemap"):
@@ -463,18 +483,25 @@ def test_app_main_renders_the_pbr_scenes(tmp_path, scene_args):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--hdr", "sky.hdr"], ["--csm", "--hdr", "sky.hdr"], ["--textured", "--gltf", "model.gltf"],
-    ["--no-ibl", "--hdr", "sky.hdr"], ["--no-ibl", "--gltf", "model.gltf"],
+    ["--hdr", SKY_HDR], ["--csm", "--hdr", SKY_HDR], ["--textured", "--gltf", QUAD_GLB],
+    ["--no-ibl", "--hdr", SKY_HDR], ["--no-ibl", "--gltf", QUAD_GLB],
 ])
-def test_app_main_full_scene_refuses_unported_options(extra):
-    """`--scene full` renders with or without IBL, --csm or --textured
-    (tests/test_torch_frame.py, test_torch_csm.py); each unported option
-    with it, a Radiance .hdr environment or a glTF model, raises naming its
-    ROADMAP item: nothing renders a lesser scene."""
+def test_app_main_full_scene_refuses_unported_options(tmp_path, extra):
+    """`--scene full` with a Radiance .hdr environment or a glTF model
+    raised until their loaders were ported; each of these five option
+    sets now renders a 64x48 PNG from the repo's assets (the sky at
+    tests/assets/sky_equirect_64x32.hdr, textured_quad.glb instanced to 8
+    triangles; --no-ibl ignores --hdr, as the JAX scene does). The frames
+    themselves are held to JAX in tests/test_torch_gltf.py and
+    test_torch_hdr.py."""
     from renderer_rs_tpu_torch.app.main import main
+    from renderer_rs_tpu_torch.utils.image_io import read_png
 
-    with pytest.raises(NotImplementedError, match="not ported yet .ROADMAP Queue 1: item"):
-        main(["--scene", "full", "--width", "64", "--height", "48", *extra], device="cpu")
+    tris = ["--tris", "8" if "--gltf" in extra else "600"]
+    assert main(["--scene", "full", "--width", "64", "--height", "48", *tris, *extra,
+                 "--out", str(tmp_path)], device="cpu") == 0
+    img = read_png(str(tmp_path / "frame_00000.png"))
+    assert img.shape == (48, 64, 4) and img[..., :3].std() > 5.0
 
 
 # --- the headline frame: full_scene(...) with image-based lighting -----------------

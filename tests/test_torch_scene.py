@@ -7,6 +7,7 @@ measured 1.5e-3 absolute at a texel value of 24)."""
 
 import dataclasses
 import enum
+import os
 
 import numpy as np
 import pytest
@@ -229,20 +230,41 @@ def test_msaa4_and_csm_flagship_counts():
     assert kw["shadow_map_size"] == 1024
 
 
+_ASSETS = os.path.join(os.path.dirname(__file__), "assets")
+_SKY_HDR = os.path.join(_ASSETS, "sky_equirect_64x32.hdr")
+_QUAD_GLB = os.path.join(_ASSETS, "textured_quad.glb")
+
+
 @pytest.mark.parametrize("kwargs", [
-    dict(hdr="sky.hdr"), dict(csm=True, gltf="model.gltf"), dict(textured=True, hdr="sky.hdr"),
-    dict(ibl=False, hdr="sky.hdr"), dict(ibl=False, gltf="model.gltf"),
+    dict(hdr=_SKY_HDR, tri_budget=600), dict(csm=True, gltf=_QUAD_GLB, tri_budget=8),
+    dict(textured=True, hdr=_SKY_HDR, tri_budget=600), dict(ibl=False, hdr=_SKY_HDR, tri_budget=600),
+    dict(ibl=False, gltf=_QUAD_GLB, tri_budget=8),
 ])
 def test_full_scene_refuses_unported_options(kwargs):
-    """The IBL environment, cascaded shadows and the texture set are ported
-    (tests/test_torch_frame.py, test_torch_csm.py); a Radiance .hdr
-    environment and glTF instancing still raise, with or without them."""
+    """A Radiance .hdr environment and glTF instancing raised until their
+    loaders were ported; each of these five option sets now builds, from
+    the repo's assets: the .hdr sky becomes the skybox under IBL (a JAX
+    cube within tests/test_torch_hdr.py's bar; --no-ibl keeps the
+    procedural sky, as the JAX scene does), the glTF quad is instanced to
+    the budget (4 instances of 2 triangles + the floor) with its own
+    texture table. gltf_pbr_scene loads the model alone. The scenes are
+    held to JAX field by field in tests/test_torch_gltf.py."""
     from renderer_rs_tpu_torch.app.scenes import SCENES, full_scene, gltf_pbr_scene
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: item"):
-        full_scene(64, 48, device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: item"):
-        gltf_pbr_scene(64, 48, "model.gltf", device="cpu")
+    scene, layout, kw, _ = full_scene(64, 48, device="cpu", **kwargs)
+    assert layout.has_environment and layout.has_csm == bool(kwargs.get("csm"))
+    if "gltf" in kwargs:
+        assert layout.num_triangles == 10 and layout.num_objects == 5
+        assert layout.has_textures and layout.texture_slots == (True, False, False, False, False)
+    else:
+        assert layout.num_triangles > 500
+    sky = scene.environment.skybox_mips[0]
+    if "hdr" in kwargs and kwargs.get("ibl", True):
+        up, down = sky[2].mean((0, 1)), sky[3].mean((0, 1))  # the asset's zenith and nadir
+        assert bool(up[2] > up[0] * 1.02) and bool(down.mean() < up.mean())
+    assert (scene.environment.irradiance_mips is None) == (not kwargs.get("ibl", True))
+    scene, layout, _, _ = gltf_pbr_scene(64, 48, _QUAD_GLB, device="cpu")
+    assert layout.num_triangles == 2 and scene.textures.mips[0].shape == (1, 256, 256, 4)
     # the Hello Triangle and the cube are ported (tests/test_torch_scan.py)
     for name, tris in (("triangle", 1), ("cube", 12)):
         scene, layout, _, _ = SCENES[name](64, 48, device="cpu")

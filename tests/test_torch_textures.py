@@ -47,8 +47,16 @@ def test_procedural_textures_and_mips_bit_equal():
     assert [m.shape for m in got] == [m.shape for m in want] == [(7, 32 >> i, 32 >> i, 4) for i in range(6)]
     for g, w in zip(got, want):
         assert np.array_equal(g.view(np.uint32), w.view(np.uint32))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        SceneBuilder().set_textures([maps["normal"]], size=16)  # a resize
+    # a resize (it raised until _resize_bilinear was ported): 32 -> 16, then
+    # the box chain, within tests/test_torch_gltf.py's resize bar of JAX's
+    b = SceneBuilder()
+    b.set_textures([maps["normal"], maps["base_color"][:24]], size=16)
+    got = [m.numpy() for m in b._textures.mips]
+    want = _jax_builder_mips([maps["normal"], maps["base_color"][:24]], 16)
+    assert [m.shape for m in got] == [m.shape for m in want] == [(2, 16 >> i, 16 >> i, 4)
+                                                                  for i in range(5)]
+    for g, w in zip(got, want):
+        assert np.abs(g - w).max() <= 4.0e-7
 
 
 def _random_mips(n_tex=3, size=16, seed=1):
