@@ -42,8 +42,15 @@ Phases (any failure exits nonzero before the result lines):
          override) and a 1024² normal map (resized to 256²), written into
          a temporary directory from a seed by write_dancer_class_gltf; its
          build is timed whole and by stage (parse, image decode, tangents,
-         resize, material atlas, the IBL chain from the .hdr); K1 on its
-         sun map and K2 on its forward pass (12 lanes).
+         resize, material atlases, the IBL chain from the .hdr); K1 on its
+         sun map and K2 on its forward pass (12 lanes);
+       - the many-material scene (many_material_scene(1920, 1080, **MANY)),
+         T = 102,402: a 16x16 grid of UV spheres, each with its own
+         material and seeded 256² base-colour image, one shared normal
+         map and metallic-roughness image, 256 texture sets, over the
+         material atlases' 16M-row budget (the per-slot fetch); its build
+         timed, the per-texture window atlas's size and host build time
+         printed; K1 on its sun map and K2 on its forward pass.
      K1's, K6's and K7's depth and the probe's sums must be bit-equal; K2
      must give bit-equal
      tid/depth and lanes within rtol 1e-5 / atol 1e-6; K4 bit-equal tid and
@@ -132,6 +139,17 @@ Phases (any failure exits nonzero before the result lines):
          FLAT: no raster kernel, covered and finite;
        - (f) the glTF headline frame: one K1 launch in all and one K2
          launch per frame;
+       - (g) the headline scene with its environment set without finalize
+         (the exact map-sampling IBL), (h) the many-material scene (the
+         per-slot fetch), (i) the headline frame under ShadeRates
+         light="yhalf", merge_gather=True and the exact reference
+         pcf="full", cube="full": one K1 launch in all and one K2 launch
+         per frame each; (j) the headline frame under MSAA 4x with
+         msaa_mode="super": one K1 in all, one K2 at 3840x2160 per frame,
+         no K4; then the drift table: each ShadeRates variant of
+         RATE_VARIANTS against the exact reference, mean and p99 of |d|
+         of the tonemapped frame; the default rates must meet the JAX
+         gate (p99 < 0.01, mean < 0.002);
        - the probe's own path: probes.kgather.run for the five bodies at
          4,096 iterations (µs per iteration), 30 launches.
      The frames must be finite with covered pixels; the peel, clip and bin
@@ -164,7 +182,10 @@ Phases (any failure exits nonzero before the result lines):
      golden (full_scene(160, 120, tri_budget=2000, hdr=<the sky asset>))
      on the card, and the small glTF frame (full_scene(160, 120,
      tri_budget=8, textured=True, gltf=tests/assets/textured_quad.glb,
-     hdr=...)) on cuda against cpu within the frame bar.
+     hdr=...)) on cuda against cpu within the frame bar. Then each path of
+     (g)-(j) at 160x128 on cuda against cpu: the exact IBL, the small
+     many-material scene with the budget lowered, every rate variant and
+     the exact reference, and msaa_mode="super" at 64x48.
   6. After the main paths, so that the frame loops follow the same kernel
      checks as before: the chunk sweeps and tie tables of K2, K3 and K4
      queued by phase 3, then each split kernel's device µs by
@@ -233,6 +254,27 @@ GLTF_HEADLINE = dict(tri_budget=100_000, textured=True)
 # a 1024² normal map; 6 instances + the floor = 103,682 triangles
 DANCER = dict(rings=60, sectors=144, normal_size=1024)
 GLTF_FRAMES = 5
+# (h) the many-material scene: a 16x16 grid of UV spheres of 400 triangles
+# (10 rings x 20 sectors) on the floor, T = 102,402, each sphere with its own
+# material and seeded 256² base-colour image, one shared normal map and one
+# metallic-roughness image: 256 texture sets x 256² = 16,777,216 level-0
+# rows, over the material atlases' 16,000,000-row budget (the per-slot fetch)
+MANY = dict(grid=16, tex_size=256, rings=10, sectors=20)
+MANY_FRAMES = 5
+# (g) the headline scene with its environment set without finalize (the
+# exact map-sampling IBL); (i) the headline frame's rate variants
+EXACT_IBL_FRAMES = 5
+RATE_FRAMES = 5
+# (i) the shade rates of the drift table (renderer.passes.ShadeRates
+# arguments), held against the exact reference pcf="full", cube="full"
+RATE_VARIANTS = {"default": {}, "light yhalf": dict(light="yhalf"),
+                 "merge_gather": dict(merge_gather=True), "pcf half": dict(pcf="half"),
+                 "cube yquarter": dict(cube="yquarter")}
+EXACT_RATES = dict(pcf="full", cube="full")
+# the JAX package's own gate on the reduced rates' drift of the tonemapped
+# frame from the exact reference (probes/probe_quality.py:6, :114): p99 and
+# mean of |d| over the [H,W,4] frame
+DRIFT_GATE = (0.01, 0.002)
 # K3's band forms on the headline frame: (y_offset, rows[, stride, pair])
 K3_BANDS = {"whole frame": (0, H), "contiguous band": (270, 270),
             "pair-interleaved band": (2, 270, 4, True)}
@@ -417,6 +459,83 @@ def write_dancer_class_gltf(directory: str, seed: int = 0, rings: int = 60, sect
     with open(path, "w") as f:
         json.dump(doc, f)
     return path
+
+
+def many_material_scene(width: int, height: int, grid: int = 16, tex_size: int = 256,
+                        rings: int = 10, sectors: int = 20, seed: int = 0,
+                        shadow_map_size: int = 1024, device="cuda"):
+    """The many-material scene of loop (h): a grid x grid grid of UV spheres
+    (rings x sectors) on the floor, sphere k with its own Material and its
+    own seeded tex_size² base-colour image (a tinted product of two seeded
+    waves), all spheres sharing one tangent-space normal map and one
+    metallic-roughness image (meshgen.procedural_pbr_textures); the floor
+    binds sphere 0's three images. That makes grid² texture sets. A
+    shadow-mapped sun (a shadow_map_size² map), the procedural-sky IBL
+    (full_scene's precompute, finalized), PBR_IBL and ACES, as in the
+    headline frame. Returns (scene, layout, kwargs, the SceneBuilder's
+    atlas build times in ms)."""
+    import numpy as np
+
+    from renderer_rs_tpu_torch.app.scenes import _camera_ubo, _ibl_environment, _orbit_camera
+    from renderer_rs_tpu_torch.core.device import resolve_device
+    from renderer_rs_tpu_torch.ops.ibl import procedural_sky_cubemap
+    from renderer_rs_tpu_torch.ops.shadow import ShadowParams, directional_light_matrix
+    from renderer_rs_tpu_torch.renderer.passes import ShadingModel
+    from renderer_rs_tpu_torch.renderer.scene_build import SceneBuilder
+    from renderer_rs_tpu_torch.resources.material import Material
+    from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipelineBuilder
+    from renderer_rs_tpu_torch.scene.light import DirectionalLight, LightBank
+    from renderer_rs_tpu_torch.scene.transform import Transform
+    from renderer_rs_tpu_torch.utils import meshgen
+
+    rng = np.random.default_rng(seed)
+    n = grid * grid
+    t = (np.arange(tex_size, dtype=np.float32) + 0.5) / tex_size
+    yy, xx = np.meshgrid(t, t, indexing="ij")
+    images = []
+    for _ in range(n):
+        f, ph = rng.uniform(1.0, 12.0, 2), rng.uniform(0.0, 2 * np.pi, 2)
+        wave = 0.65 + 0.35 * np.sin(2 * np.pi * f[0] * xx + ph[0]) * np.sin(
+            2 * np.pi * f[1] * yy + ph[1])
+        tint = rng.uniform(0.25, 0.95, 3).astype(np.float32)
+        images.append((wave[..., None] * tint).astype(np.float32))
+    maps = meshgen.procedural_pbr_textures(tex_size)
+    images += [maps["normal"], maps["metallic_roughness"]]
+    builder = SceneBuilder()
+    builder.set_textures(images, size=tex_size)
+    sphere = meshgen.uv_sphere_mesh(1.0, rings, sectors)
+    spacing, radius = 0.7, 0.3
+    shared = dict(normal_texture=n, metallic_roughness_texture=n + 1)
+    for k in range(n):
+        i, j = k % grid, k // grid
+        mat = Material(base_color=(1.0, 1.0, 1.0, 1.0), metallic=float(rng.uniform(0.0, 1.0)),
+                       roughness=float(rng.uniform(0.15, 0.9)), base_color_texture=k, **shared)
+        tr = (Transform()
+              .with_position([(i - (grid - 1) / 2) * spacing, radius,
+                              (j - (grid - 1) / 2) * spacing])
+              .with_scale([radius] * 3))
+        builder.add_mesh(sphere, tr, mat)
+    builder.add_mesh(meshgen.plane_mesh(12.0), Transform(),
+                     Material(base_color=(0.55, 0.55, 0.6, 1.0), roughness=0.85,
+                              base_color_texture=0, **shared))
+    cam = _orbit_camera(width, height, distance=7.5, height_y=5.0, fov=50.0)
+    builder.set_camera(_camera_ubo(cam))
+    sun_dir = np.array(SUN, np.float32)
+    builder.set_lights(LightBank.create(sun=DirectionalLight.create(direction=sun_dir,
+                                                                    intensity=3.5)))
+    extent = grid * spacing / 2 * math.sqrt(2) + radius
+    builder.set_shadow_matrix(directional_light_matrix(sun_dir, [0.0, 0.0, 0.0], extent))
+    sky = procedural_sky_cubemap(64, sun_direction=tuple(float(v) for v in sun_dir))
+    builder.set_environment(_ibl_environment(sky.to(resolve_device(device))))
+    scene, layout = builder.build(device=device)
+    # full_scene's biases (a 3.5 light box) scaled to this light box
+    kwargs = dict(
+        pipeline=GraphicsPipelineBuilder().build(), shading=ShadingModel.PBR_IBL, camera=cam,
+        tonemap="aces", shadow_map_size=shadow_map_size,
+        shadow_params=ShadowParams(shadow_bias=0.012 * extent / 3.5,
+                                   normal_bias=0.06 * extent / 3.5),
+    )
+    return scene, layout, kwargs, dict(builder.build_ms)
 
 
 def _log(msg: str) -> None:
@@ -1590,11 +1709,11 @@ def _peel_winner_rows(k5, z_floor, compare_op) -> int:
     return int(torch.unique(win[win >= 0]).numel())
 
 
-def phase_kernels(directory: str) -> tuple[dict, tuple, tuple]:
+def phase_kernels(directory: str) -> tuple[dict, tuple, tuple, tuple]:
     """Every kernel beside its plain version; returns the kernels' entries,
-    the headline scene and the glTF headline scene (each (scene, layout,
-    kw)), built once for this phase and the main paths; the dancer-class
-    model is written into `directory`."""
+    the headline scene, the glTF headline scene and the many-material scene
+    (each (scene, layout, kw)), built once for this phase and the main
+    paths; the dancer-class model is written into `directory`."""
     from renderer_rs_tpu_torch.app.scenes import blinnphong_scene, full_scene
 
     scene, layout, kw, _ = blinnphong_scene(W, H, device="cuda", **BLINNPHONG)
@@ -1634,9 +1753,52 @@ def phase_kernels(directory: str) -> tuple[dict, tuple, tuple]:
                                                                  case["max_abs_err"]))
     k2["host_syncs"] += k2_gltf["host_syncs"]
     k2["cases"]["glTF headline"] = k2_gltf
+    # (h) the many-material scene's own inputs: K1 on its sun map, K2 on its
+    # forward pass (12 lanes), each in the plan form and at FORCED_CHUNK
+    many = scene, layout, kw = _many_material_scene()
+    k1_many = _check_depth(scene, layout, kw["shadow_map_size"], label="many-material sun map")
+    k2_many = _check_resolve("many materials (per-slot fetch)", scene, layout, kw["pipeline"],
+                             timed=False)
+    for k, case in ((k1, k1_many), (k2, k2_many)):
+        k.update(ms_many=case["ms"], bound_ms_many=case["bound_ms"],
+                 max_abs_err=max(k["max_abs_err"], case["max_abs_err"]))
+    k1["plain_ms_many"] = k1_many["plain_ms"]
+    k2["host_syncs"] += k2_many["host_syncs"]
+    k2["cases"]["many materials"] = k2_many
     return {"raster_depth": k1, "raster_resolve": k2, "raster_ids": k4,
             "raster_depth_batch": k6, "raster_peel": k5, "raster_visibility": k3,
-            "raster_depth_zplane": k7, "probe_kgather": probe}, headline, gltf
+            "raster_depth_zplane": k7, "probe_kgather": probe}, headline, gltf, many
+
+
+def _many_material_scene() -> tuple:
+    """Loop (h)'s scene at 1920x1080 (many_material_scene(**MANY)), its
+    build timed whole; prints T, the per-texture window atlas's size and
+    each atlas's host build time, and fails unless T is within 5% of
+    100,000 and the build kept no material atlas (the per-slot path)."""
+    import torch
+
+    from renderer_rs_tpu_torch.renderer.scene_build import MATERIAL_ATLAS_BUDGET
+
+    t0 = time.perf_counter()
+    scene, layout, kw, build_ms = many_material_scene(W, H, device="cuda", **MANY)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    tex = scene.textures
+    n_sets = MANY["grid"] ** 2
+    rows = n_sets * MANY["tex_size"] ** 2
+    _log(f"(h) many-material scene many_material_scene(W, H, {MANY}): T={layout.num_triangles}, "
+         f"{layout.num_objects} draws, texture array {tuple(tex.mips[0].shape)}, {n_sets} "
+         f"texture sets x {MANY['tex_size']}² = {rows} level-0 rows against the budget "
+         f"{MATERIAL_ATLAS_BUDGET}; per-texture window atlas {tuple(tex.atlas.shape)} "
+         f"({tex.atlas.numel() * 4 / 2**30:.3f} GiB); atlas host build ms "
+         f"{json.dumps({k: round(v, 1) for k, v in build_ms.items()})}; whole build "
+         f"{total_ms:.1f} ms")
+    if abs(layout.num_triangles - 100_000) > 5_000:
+        raise SystemExit(f"phase kernels: the many-material scene has {layout.num_triangles} "
+                         "triangles, not within 5% of 100,000")
+    if tex.mat_atlas is not None or tex.mat_atlas_tri is not None or rows <= MATERIAL_ATLAS_BUDGET:
+        raise SystemExit("phase kernels: the many-material scene built a material atlas")
+    return scene, layout, kw
 
 
 def _gltf_headline_scene(directory: str) -> tuple:
@@ -1691,8 +1853,8 @@ def _gltf_headline_scene(directory: str) -> tuple:
     _, stages["set_textures (5 images resized, mips)"] = timed(
         lambda: builder.set_textures(builder._images))
     slots = tuple(any(getattr(m, a) >= 0 for m in builder._materials) for a in _TEXTURE_SLOTS)
-    _, stages["material atlas"] = timed(
-        lambda: builder._material_atlas(slots, torch.device("cuda")))
+    _, stages["material atlases (f32, bf16 trilinear)"] = timed(
+        lambda: builder._material_atlases(slots))
 
     def ibl():
         equirect = torch.from_numpy(load_hdr(HDR_SKY)[::-1].copy()).to("cuda")
@@ -1705,8 +1867,9 @@ def _gltf_headline_scene(directory: str) -> tuple:
          f"T={layout.num_triangles}, {layout.num_objects} draws, texture array "
          f"{tuple(scene.textures.mips[0].shape)}, slots {layout.texture_slots}, material atlas "
          f"{tuple(scene.textures.mat_atlas_tri.shape)}; its stages alone (ms): "
-         f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}; the IBL chain from the "
-         f".hdr (load, equirect_to_cubemap 64², precompute, finalize) "
+         f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}, each atlas's host "
+         f"build {json.dumps({k: round(v, 3) for k, v in builder.build_ms.items()})}; the IBL "
+         f"chain from the .hdr (load, equirect_to_cubemap 64², precompute, finalize) "
          f"{[round(x, 3) for x in ibl_ms]} ms")
     if layout.num_triangles != 103_682:
         raise SystemExit(f"phase kernels: the glTF headline scene has {layout.num_triangles} "
@@ -1971,10 +2134,10 @@ def _check_frame(label: str, renderer):
     return hdr
 
 
-def phase_main_paths(headline: tuple, gltf: tuple) -> dict:
+def phase_main_paths(headline: tuple, gltf: tuple, many: tuple) -> dict:
     """Renderer.render_frame at full size on the flagship frames; the
-    headline and glTF headline scenes (scene, layout, kw) come built from
-    the kernel phase."""
+    headline, glTF headline and many-material scenes (scene, layout, kw)
+    come built from the kernel phase."""
     import dataclasses
 
     import torch
@@ -2116,7 +2279,106 @@ def phase_main_paths(headline: tuple, gltf: tuple) -> dict:
         "(f) glTF headline (dancer-class x6, textured, .hdr IBL; static scene)", renderer,
         GLTF_FRAMES, _counts(raster_depth=1, raster_resolve=GLTF_FRAMES))
     _check_frame("glTF headline", renderer)
+    del scene, renderer, warm
+    by_path.update(_shade_paths(make, headline, many))
     return by_path
+
+
+def _shade_paths(make, headline: tuple, many: tuple) -> dict:
+    """Loops (g)-(j) at 1920x1080 through Renderer.render_frame, each with
+    one K1 in all: (g) the headline scene with its environment set without
+    finalize, the exact map-sampling IBL, one K2 a frame; (h) the
+    many-material scene, the per-slot fetch, one K2 a frame; (i) the
+    headline frame's rate variants light="yhalf", merge_gather=True and the
+    exact reference pcf="full", cube="full", one K2 a frame; (j) the
+    headline frame supersampled, MSAA 4x with msaa_mode="super", one K2 at
+    3840x2160 a frame and no K4. Then the drift table."""
+    import dataclasses
+
+    import torch
+
+    from renderer_rs_tpu_torch.app.scenes import full_scene
+    from renderer_rs_tpu_torch.renderer.passes import ShadeRates
+
+    by_path = {}
+
+    def loop(key, label, scene, layout, kw, frames, warmups=2):
+        warm = make(scene, layout, kw)
+        for _ in range(warmups):
+            warm.render_frame()
+        renderer = make(scene, layout, kw)
+        by_path[key] = _drive(label, renderer, frames,
+                              _counts(raster_depth=1, raster_resolve=frames))
+        if kw["pipeline"].msaa_samples == 1:
+            _check_frame(label.split(" (")[0], renderer)
+        return renderer
+
+    t0 = time.perf_counter()
+    g_scene, g_layout, g_kw, _ = full_scene(W, H, device="cuda", finalize=False, **HEADLINE)
+    env = g_scene.environment
+    _log(f"(g) headline scene with the environment set without finalize: built in "
+         f"{time.perf_counter() - t0:.2f}s; irradiance_sh {env.irradiance_sh}, atlas "
+         f"{env.atlas}, atlas_tri {env.atlas_tri}")
+    if env.atlas is not None or env.irradiance_mips is None:
+        raise SystemExit("phase main path, (g): the environment was finalized")
+    loop("exact_ibl", "(g) headline, exact map-sampling IBL (environment not finalized; "
+         "static scene)", g_scene, g_layout, g_kw, EXACT_IBL_FRAMES)
+    del g_scene, env
+    loop("many_materials", "(h) many materials, per-slot fetch (256 texture sets; static "
+         "scene)", *many, MANY_FRAMES)
+    scene, layout, kw = headline
+    for key, rates in (("rates_light_yhalf", dict(light="yhalf")),
+                       ("rates_merge_gather", dict(merge_gather=True)),
+                       ("rates_exact", EXACT_RATES)):
+        loop(key, f"(i) headline, ShadeRates({rates}) (static scene)", scene, layout,
+             {**kw, "shade_rates": ShadeRates(**rates)}, RATE_FRAMES)
+    super_kw = {**kw, "pipeline": dataclasses.replace(kw["pipeline"], msaa_samples=MSAA),
+                "msaa_mode": "super"}
+    label = f"(j) headline msaa{MSAA}, msaa_mode='super' (K2 at {W * 2}x{H * 2}; static scene)"
+    hdr = loop("msaa_super", label, scene, layout, super_kw, SUPERSAMPLE_FRAMES,
+               warmups=1).render_frame_hdr()
+    # the supersampled frame has no diagnostics (as in the reference): it
+    # must be finite and covered
+    _log(f"{label}: frame {tuple(hdr.shape)} finite {bool(torch.isfinite(hdr).all())}, mean rgb "
+         f"{[round(float(v), 4) for v in hdr[..., :3].mean((0, 1))]}")
+    if not (bool(torch.isfinite(hdr).all()) and tuple(hdr.shape) == (H, W, 4)):
+        raise SystemExit(f"phase main path, {label}: the frame is not finite")
+    _drift_table(make, scene, layout, kw)
+    return by_path
+
+
+def _drift_table(make, scene, layout, kw) -> None:
+    """Each shade-rate variant of RATE_VARIANTS against the exact reference
+    (EXACT_RATES) on the headline frame at 1920x1080 on the card: mean, p99
+    and max of |d| over the tonemapped [H,W,4] frame (probe_quality.py's
+    measure). The default rates must meet the JAX package's gate
+    (DRIFT_GATE); the others are printed."""
+    import numpy as np
+
+    from renderer_rs_tpu_torch.renderer.passes import ShadeRates
+
+    def frame(rates):
+        return make(scene, layout, {**kw, "shade_rates": ShadeRates(**rates)}) \
+            .render_frame_hdr().cpu().numpy()
+
+    ref = frame(EXACT_RATES)
+    rows = {}
+    for name, rates in RATE_VARIANTS.items():
+        err = np.abs(frame(rates) - ref)
+        rows[name] = {"mean": float(err.mean()), "p99": float(np.quantile(err, 0.99)),
+                      "max": float(err.max()),
+                      "rgb_p99": float(np.quantile(err[..., :3], 0.99))}
+        rows[name]["accept"] = rows[name]["p99"] < DRIFT_GATE[0] and \
+            rows[name]["mean"] < DRIFT_GATE[1]
+    _log("drift table, headline frame 1920x1080 on the card, each variant against the exact "
+         f"reference ShadeRates({EXACT_RATES}); |d| of the tonemapped [H,W,4] frame; gate p99 < "
+         f"{DRIFT_GATE[0]}, mean < {DRIFT_GATE[1]}:")
+    for name, r in rows.items():
+        _log(f"  {name:14s} mean {r['mean']:.6f}  p99 {r['p99']:.6f}  max {r['max']:.4f}  "
+             f"rgb p99 {r['rgb_p99']:.6f}  accept {r['accept']}")
+    _log("drift table JSON " + json.dumps(rows))
+    if not rows["default"]["accept"]:
+        raise SystemExit("phase main path, drift table: the default rates miss the gate")
 
 
 def _transparent_layer(scene, device: str):
@@ -2820,6 +3082,79 @@ def phase_small_reference() -> None:
     _ibl_small_check()
     _blend_stencil_msaa_small_checks()
     _gltf_small_checks()
+    _shade_paths_small_checks()
+
+
+def _shade_paths_small_checks() -> None:
+    """Phase 5's checks of loops (g)-(j): each new shade path on the card
+    against the port's own frame on the cpu at 160x128 (a 256² sun map),
+    within the PBR frame bar of the IBL checks (<= 0.5% of values off
+    2e-3 + 2e-3|ref|, max < 0.15: single PCF taps may flip between the
+    devices), winner ids compared: (g) the headline scene with its
+    environment not finalized (the exact IBL), (h) the many-material scene
+    (4x4 spheres, 32² images) with the material atlases' budget lowered
+    below its 16 sets (the per-slot fetch), every ShadeRates variant of the
+    drift table and the exact reference on the headline scene (128 rows:
+    the y-half rates engage, y-quarter falls back to y-half), and
+    msaa_mode="super" (MSAA 4x) at 64x48."""
+    import dataclasses
+
+    import numpy as np
+
+    import renderer_rs_tpu_torch.renderer.scene_build as scene_build
+    from renderer_rs_tpu_torch.app.scenes import full_scene
+    from renderer_rs_tpu_torch.renderer.passes import ShadeRates, forward_frame
+
+    w, h = 160, 128
+
+    def frame(made, width=w, height=h, rates=None, msaa=1, msaa_mode="resolve"):
+        scene, layout, kw = made[:3]
+        out = forward_frame(scene, layout, dataclasses.replace(kw["pipeline"], msaa_samples=msaa),
+                            kw["shading"], width, height, tonemap=kw["tonemap"],
+                            shadow_map_size=256, shadow_params=kw["shadow_params"],
+                            shade_rates=ShadeRates(**(rates or {})), msaa_mode=msaa_mode,
+                            return_ids=msaa == 1)
+        out, ids = out if msaa == 1 else (out, None)
+        return out.cpu().numpy(), None if ids is None else ids.cpu()
+
+    def check(label, got, ref):
+        (got, got_ids), (ref, ref_ids) = got, ref
+        err = np.abs(got - ref)
+        off = float((err > 2e-3 + 2e-3 * np.abs(ref)).mean())
+        ids = "" if ref_ids is None else (
+            f", winner ids differing {int((got_ids != ref_ids).sum())} of "
+            f"{int((ref_ids >= 0).sum())} covered")
+        _log(f"{label} cuda vs cpu: max |d| {err.max():.3e}, values off the bar {off:.4%}{ids}")
+        if not (np.isfinite(got).all() and off < 0.005 and err.max() < 0.15):
+            raise SystemExit(f"phase small reference: {label} on cuda differs from the cpu frame")
+
+    def scenes(factory, **kw):
+        return {dev: factory(w, h, device=dev, **kw) for dev in ("cuda", "cpu")}
+
+    made = scenes(full_scene, tri_budget=2000, textured=True, finalize=False)
+    check("(g) full_scene(160, 128, tri_budget=2000, textured=True, finalize=False)",
+          frame(made["cuda"]), frame(made["cpu"]))
+    budget = scene_build.MATERIAL_ATLAS_BUDGET
+    small_many = dict(grid=4, tex_size=32, shadow_map_size=256)
+    scene_build.MATERIAL_ATLAS_BUDGET = small_many["grid"] ** 2 * small_many["tex_size"] ** 2 - 1
+    try:
+        made = scenes(many_material_scene, **small_many)
+    finally:
+        scene_build.MATERIAL_ATLAS_BUDGET = budget
+    if made["cuda"][0].textures.mat_atlas is not None:
+        raise SystemExit("phase small reference: the small many-material scene built a "
+                         "material atlas under the lowered budget")
+    check(f"(h) many_material_scene(160, 128, {small_many}), budget lowered (per-slot)",
+          frame(made["cuda"]), frame(made["cpu"]))
+    made = scenes(full_scene, tri_budget=2000, textured=True)
+    for name, rates in {**RATE_VARIANTS, "exact reference": EXACT_RATES}.items():
+        check(f"(i) full_scene(160, 128, tri_budget=2000, textured=True), ShadeRates({rates}) "
+              f"[{name}]", frame(made["cuda"], rates=rates), frame(made["cpu"], rates=rates))
+    made = {dev: full_scene(64, 48, tri_budget=2000, textured=True, device=dev)
+            for dev in ("cuda", "cpu")}
+    check(f"(j) full_scene(64, 48, tri_budget=2000, textured=True), msaa{MSAA} "
+          "msaa_mode='super'", frame(made["cuda"], 64, 48, msaa=MSAA, msaa_mode="super"),
+          frame(made["cpu"], 64, 48, msaa=MSAA, msaa_mode="super"))
 
 
 def _gltf_small_checks() -> None:
@@ -3050,8 +3385,8 @@ def main() -> int:
     phase_versions()
     phase_build()
     with tempfile.TemporaryDirectory() as directory:  # the dancer-class model
-        kernels, headline, gltf = phase_kernels(directory)
-    by_path = phase_main_paths(headline, gltf)
+        kernels, headline, gltf, many = phase_kernels(directory)
+    by_path = phase_main_paths(headline, gltf, many)
     by_path["probe"], us = phase_probe()
     kernels["probe_kgather"]["us_per_iteration"] = us
     # the probe's run: one launch of each body at PROBE_ITERS

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where a frame's time goes in the PyTorch/CUDA port, on one NVIDIA GPU.
 
-    python3 profile_torch_frame.py [--scene blinnphong|full --no-ibl
+    python3 profile_torch_frame.py [--scene blinnphong|full|many --no-ibl
                                     --moving-sun --csm --msaa 4 --textured
-                                    --alpha-cutoff 0.5
+                                    --alpha-cutoff 0.5 --no-finalize
+                                    --pcf-res R --cube-res R --light-res R
+                                    --merge-gather --msaa-mode super
                                     --width 1920 --height 1080 --rings 160
                                     --sectors 320 --tris 100000 --frames 5
                                     --out out/profile]
@@ -20,7 +22,13 @@ frame). `--scene full --textured` is bench.py's headline frame. With `--csm` the
 (`frame/shadow` is then the cascade pass, one K6 launch; `--moving-sun`
 refits the cascades every frame). `--textured` binds the 5-slot texture set
 to the full scene; `--alpha-cutoff C` renders it under an alpha-cutoff
-(MASK) pipeline: the span `frame/peel` then takes the place of
+(MASK) pipeline; `--no-finalize` sets the full scene's IBL environment
+without its fast-ambient form (the exact map-sampling IBL, in `frame/ibl`,
+and the sky through `frame/sky_tonemap`). `--scene many` is
+chip_smoke.py's many-material scene (a 16x16 sphere grid of 256 texture
+sets, the per-slot fetch). `--pcf-res`, `--cube-res`, `--light-res`,
+`--merge-gather` and `--msaa-mode` are the Renderer's shade_rates and
+msaa_mode (app.main's flags). Under the MASK pipeline the span `frame/peel` then takes the place of
 `frame/bin_table` and `frame/k2` (the binning and table,
 `frame/peel_bin_table`, and the four K5 launches, `frame/k5`, nested in
 it, with the alpha tests between them). `--msaa N` (2, 4 or 8) renders through
@@ -75,7 +83,7 @@ def main(argv=None) -> int:
     parser.add_argument("--height", type=int, default=1080)
     parser.add_argument("--rings", type=int, default=160)
     parser.add_argument("--sectors", type=int, default=320)
-    parser.add_argument("--scene", choices=["blinnphong", "full"], default="blinnphong")
+    parser.add_argument("--scene", choices=["blinnphong", "full", "many"], default="blinnphong")
     parser.add_argument("--tris", type=int, default=100_000,
                         help="triangle budget of the full scene")
     parser.add_argument("--no-ibl", action="store_true",
@@ -91,6 +99,14 @@ def main(argv=None) -> int:
     parser.add_argument("--alpha-cutoff", type=float, default=None,
                         help="full scene: an alpha-cutoff (MASK) pipeline with this cutoff "
                              "(needs --textured)")
+    parser.add_argument("--no-finalize", action="store_true",
+                        help="full scene: the IBL environment without its fast-ambient form")
+    parser.add_argument("--pcf-res", choices=["yquarter", "yhalf", "half", "full"],
+                        default="yquarter")
+    parser.add_argument("--cube-res", choices=["yhalf", "yquarter", "full"], default="yhalf")
+    parser.add_argument("--light-res", choices=["full", "yhalf"], default="full")
+    parser.add_argument("--merge-gather", action="store_true")
+    parser.add_argument("--msaa-mode", choices=["resolve", "super"], default="resolve")
     parser.add_argument("--frames", type=int, default=5)
     parser.add_argument("--out", default=os.path.join("out", "profile"),
                         help="directory for the JSON summary (and the trace)")
@@ -106,6 +122,7 @@ def main(argv=None) -> int:
     from renderer_rs_tpu_torch.core.config import RendererConfig
     from renderer_rs_tpu_torch.ops.csm import fit_cascades
     from renderer_rs_tpu_torch.ops.shadow import directional_light_matrix
+    from renderer_rs_tpu_torch.renderer.passes import ShadeRates
     from renderer_rs_tpu_torch.renderer.renderer import Renderer
 
     card = subprocess.run(
@@ -116,15 +133,23 @@ def main(argv=None) -> int:
     if args.scene == "full":
         scene, layout, kw, _ = full_scene(
             args.width, args.height, tri_budget=args.tris, ibl=not args.no_ibl, csm=args.csm,
-            textured=args.textured, device="cuda",
+            textured=args.textured, finalize=not args.no_finalize, device="cuda",
         )
+    elif args.scene == "many":
+        from chip_smoke import MANY, many_material_scene
+
+        scene, layout, kw, _ = many_material_scene(args.width, args.height, device="cuda",
+                                                   **MANY)
     else:
         scene, layout, kw, _ = blinnphong_scene(
             args.width, args.height, rings=args.rings, sectors=args.sectors, device="cuda"
         )
     kw["pipeline"] = dataclasses.replace(kw["pipeline"], msaa_samples=args.msaa,
                                          alpha_cutoff=args.alpha_cutoff)
-    renderer = Renderer(RendererConfig(width=args.width, height=args.height), device="cuda", **kw)
+    rates = ShadeRates(pcf=args.pcf_res, cube=args.cube_res, light=args.light_res,
+                       merge_gather=args.merge_gather)
+    renderer = Renderer(RendererConfig(width=args.width, height=args.height), device="cuda",
+                        shade_rates=rates, msaa_mode=args.msaa_mode, **kw)
     renderer.set_scene(scene, layout)
     steps = iter(range(1, 1000))
 
@@ -195,6 +220,9 @@ def main(argv=None) -> int:
         "msaa": args.msaa,
         "textured": bool(args.textured),
         "alpha_cutoff": args.alpha_cutoff,
+        "finalized": not args.no_finalize,
+        "shade_rates": dataclasses.asdict(rates),
+        "msaa_mode": args.msaa_mode,
         "shape": [args.width, args.height],
         "triangles": layout.num_triangles,
         "frames": args.frames,
@@ -222,6 +250,11 @@ def main(argv=None) -> int:
            + ("_csm" if args.csm else "") + (f"_msaa{args.msaa}" if args.msaa > 1 else "")
            + ("_textured" if args.textured else "")
            + (f"_mask{args.alpha_cutoff}" if args.alpha_cutoff is not None else "")
+           + ("_exact_ibl" if args.no_finalize else "")
+           + ("" if rates == ShadeRates() else "_rates_" + "_".join(
+               f"{k}{v}" for k, v in dataclasses.asdict(rates).items()
+               if v != getattr(ShadeRates(), k)))
+           + ("_super" if args.msaa_mode == "super" else "")
            + ("_moving_sun" if args.moving_sun else ""))
     with open(os.path.join(args.out, f"torch_frame_profile_{tag}.json"), "w") as f:
         json.dump(summary, f, indent=1)

@@ -24,7 +24,11 @@ headline frame: the IBL environment (the default; `--no-ibl` drops it for
 the hemisphere ambient), the 5-slot PBR texture set, a 1024² sun shadow
 map, ACES. `--csm` switches it to four shadow cascades. `--z-form plane`
 renders the shadow passes in the z-plane depth form (K7; the JAX
-package's z-form knob, raster.py:297). `--hdr file.hdr` takes the IBL
+package's z-form knob, raster.py:297). `--pcf-res`, `--cube-res`,
+`--light-res` and `--merge-gather` set the shade stage's reduced rates
+(passes.ShadeRates; the JAX package's rate knobs, JAX defaults), and
+`--msaa-mode super` makes an MSAA pipeline supersample the whole frame
+(the Renderer's msaa_mode). `--hdr file.hdr` takes the IBL
 environment from a Radiance .hdr equirect instead of the procedural sky;
 `--gltf file` instances a glTF model to `--tris` triangles in place of
 the sphere grid (with `--textured`, the procedural maps replace the
@@ -63,6 +67,7 @@ def build(args, device):
 def main(argv=None, device="cuda") -> int:
     from renderer_rs_tpu_torch.app.scenes import SCENES
     from renderer_rs_tpu_torch.core.config import RendererConfig
+    from renderer_rs_tpu_torch.renderer.passes import ShadeRates
     from renderer_rs_tpu_torch.renderer.renderer import Renderer
     from renderer_rs_tpu_torch.utils.image_io import write_png
 
@@ -89,13 +94,27 @@ def main(argv=None, device="cuda") -> int:
     parser.add_argument("--z-form", choices=["bary", "plane"], default="bary",
                         help="depth form of the shadow passes: vertex depths blended by "
                              "barycentrics, or the anchored depth plane")
+    parser.add_argument("--pcf-res", choices=["yquarter", "yhalf", "half", "full"],
+                        default="yquarter", help="rate of the sun's PCF term")
+    parser.add_argument("--cube-res", choices=["yhalf", "yquarter", "full"], default="yhalf",
+                        help="rate of the IBL specular/skybox fetch")
+    parser.add_argument("--light-res", choices=["full", "yhalf"], default="full",
+                        help="yhalf: the sun and IBL terms on even rows, albedo-split")
+    parser.add_argument("--merge-gather", action="store_true",
+                        help="the merged PCF/cube gather (both per pixel)")
+    parser.add_argument("--msaa-mode", choices=["resolve", "super"], default="resolve",
+                        help="an MSAA pipeline's form: shade once and id-resolve, or "
+                             "supersample the whole frame")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
     scene, layout, kwargs, animate = build(args, device)
     renderer = Renderer(
         RendererConfig(width=args.width, height=args.height), device=device,
-        z_form=args.z_form, **kwargs
+        z_form=args.z_form, msaa_mode=args.msaa_mode,
+        shade_rates=ShadeRates(pcf=args.pcf_res, cube=args.cube_res, light=args.light_res,
+                               merge_gather=args.merge_gather),
+        **kwargs
     )
     renderer.set_scene(scene, layout)
     if args.out:

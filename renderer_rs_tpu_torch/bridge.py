@@ -20,8 +20,16 @@ fields: {"positions", "normals", "uvs", "tangents", "colors", "tris",
                          "brdf_lut", "irradiance_sh", "atlas", "atlas_offsets",
                          "atlas_sizes", "atlas_tri": arrays or None} or None,
          "textures": {"mips": ([N,h,w,4] f32, ...),
+                      "atlas", "mat_atlas": [R,4C] f32 or None,
+                      "atlas_offsets", "mat_offsets": [L] int or None,
+                      "atlas_sizes", "mat_sizes": [L,2] int or None,
                       "mat_atlas_tri": [R,8C] uint16 (the bf16 BITS) or None,
                       "mat_set": [M] int or None} or None}
+
+A key left out of "textures" or "environment" is None: an environment
+without its fast-ambient fields (one set without finalize) takes the
+exact map-sampling IBL, textures without the material atlases the
+per-slot fetch.
 
 A JAX bf16 array reaches numpy as an ml_dtypes.bfloat16 array, which
 torch.from_numpy rejects: the caller passes its bits (`.view(np.uint16)`),
@@ -46,7 +54,7 @@ from renderer_rs_tpu_torch.resources.ubo import CameraUbo, SceneUbo
 from renderer_rs_tpu_torch.scene.light import LightBank
 
 _INT_FIELDS = ("tris", "tri_material", "tex_ids", "num_point", "num_spot", "atlas_offsets",
-               "atlas_sizes")
+               "atlas_sizes", "mat_offsets", "mat_sizes")
 
 
 def _tensor(name: str, value, dev: torch.device) -> torch.Tensor:
@@ -68,10 +76,16 @@ def _bf16_from_bits(bits, dev: torch.device) -> torch.Tensor:
 def _textures(tex, dev: torch.device) -> TextureArrays | None:
     if tex is None:
         return None
-    atlas, mat_set = tex.get("mat_atlas_tri"), tex.get("mat_set")
+    def field(name):
+        value = tex.get(name)
+        return None if value is None else _tensor(name, value, dev)
+
+    tri, mat_set = tex.get("mat_atlas_tri"), tex.get("mat_set")
     return TextureArrays(
         mips=tuple(_tensor("mip", m, dev) for m in tex["mips"]),
-        mat_atlas_tri=None if atlas is None else _bf16_from_bits(atlas, dev),
+        **{name: field(name) for name in ("atlas", "atlas_offsets", "atlas_sizes", "mat_atlas",
+                                          "mat_offsets", "mat_sizes")},
+        mat_atlas_tri=None if tri is None else _bf16_from_bits(tri, dev),
         mat_set=None if mat_set is None else torch.from_numpy(np.array(mat_set, np.int64)).to(dev),
     )
 

@@ -16,5 +16,8 @@ class RendererConfig:
     # host waits on the oldest frame's CUDA event
     frames_in_flight: int = 2
 
+    def aspect_ratio(self) -> float:
+        return self.width / self.height
+
     def with_size(self, width: int, height: int) -> "RendererConfig":
         return dataclasses.replace(self, width=width, height=height)

@@ -37,6 +37,60 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ])
 
 
+def mat4_identity() -> torch.Tensor:
+    return torch.eye(4, dtype=_F32)
+
+
+def translate_mat4(t) -> torch.Tensor:
+    """Translation matrix from a [3] vector (mat4.py:19)."""
+    m = torch.eye(4, dtype=_F32)
+    m[:3, 3] = _f32(t)
+    return m
+
+
+def scale_mat4(s) -> torch.Tensor:
+    """Scale matrix from a [3] vector (mat4.py:26)."""
+    return torch.diag(torch.cat([_f32(s), torch.ones(1, dtype=_F32)]))
+
+
+def rotate_mat4(rot3) -> torch.Tensor:
+    """A [3,3] rotation embedded in a [4,4] homogeneous matrix (mat4.py:32)."""
+    m = torch.eye(4, dtype=_F32)
+    m[:3, :3] = _f32(rot3)
+    return m
+
+
+def _matvec3(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """m [3,3] @ v [...,3] with each row's sum m0*v0 + m1*v1 + m2*v2 formed
+    as XLA:CPU's dot forms it: the last two products fused in turn."""
+    return torch.stack([_fma(m[k, 2], v[..., 2], _fma(m[k, 1], v[..., 1], m[k, 0] * v[..., 0]))
+                        for k in range(3)], dim=-1)
+
+
+def transform_point(m: torch.Tensor, p) -> torch.Tensor:
+    """A [3] point through a [4,4] matrix, w = 1 (mat4.py:158)."""
+    return _matvec3(m[:3, :3], _f32(p)) + m[:3, 3]
+
+
+def transform_vector(m: torch.Tensor, v) -> torch.Tensor:
+    """A [3] direction through a [4,4] matrix, w = 0 (mat4.py:164)."""
+    return _matvec3(m[:3, :3], _f32(v))
+
+
+def transform_points(m: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """[N,3] points -> [N,4] homogeneous, homo @ M^T (mat4.py:169), each
+    entry's four products summed pairwise, (p0 + p1) + (p2 + p3), as XLA:CPU's
+    dot of this shape sums them."""
+    homo = torch.cat([pts, torch.ones_like(pts[:, :1])], dim=-1)
+    p = homo[:, None, :] * m[None, :, :]  # [N,4,4]
+    return (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])
+
+
+def transform_vectors(m: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """[N,3] directions, no translation (mat4.py:180)."""
+    return vecs @ m[:3, :3].T
+
+
 def compose_srt(scale, rot3: torch.Tensor, translation) -> torch.Tensor:
     """T * R * S (glam from_scale_rotation_translation, transform.rs:119-121)."""
     m = torch.eye(4, dtype=_F32)

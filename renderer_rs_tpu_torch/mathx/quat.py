@@ -29,6 +29,27 @@ def quat_from_axis_angle(axis, angle) -> torch.Tensor:
     return torch.cat([axis * s, torch.cos(half).float()[None]])
 
 
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a*b: b's rotation, then a's (quat.py:28)."""
+    ax, ay, az, aw = a[0], a[1], a[2], a[3]
+    bx, by, bz, bw = b[0], b[1], b[2], b[3]
+    return torch.stack([
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+        aw * bw - ax * bx - ay * by - az * bz,
+    ])
+
+
+def quat_from_euler_yxz(yaw, pitch, roll) -> torch.Tensor:
+    """glam `Quat::from_euler(EulerRot::YXZ, yaw, pitch, roll)` (quat.py:42;
+    camera.rs:179): yaw about Y, then pitch about X, then roll about Z."""
+    qy = quat_from_axis_angle([0.0, 1.0, 0.0], yaw)
+    qx = quat_from_axis_angle([1.0, 0.0, 0.0], pitch)
+    qz = quat_from_axis_angle([0.0, 0.0, 1.0], roll)
+    return quat_mul(quat_mul(qy, qx), qz)
+
+
 def quat_from_rotation_arc(from_v, to_v) -> torch.Tensor:
     """Shortest-arc rotation taking unit `from_v` to unit `to_v` (glam
     `Quat::from_rotation_arc`, camera.rs:160-166); the antiparallel case
@@ -69,3 +90,9 @@ def quat_to_mat3(q: torch.Tensor) -> torch.Tensor:
             torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)]),
         ]
     )
+
+
+def quat_to_mat4(q: torch.Tensor) -> torch.Tensor:
+    m = torch.eye(4, dtype=_F32)
+    m[:3, :3] = quat_to_mat3(q)
+    return m

@@ -13,9 +13,11 @@ shaders/hlsl/pbr.hlsli). Vectorized over pixels; the reference's constants:
 - the fast-ambient IBL of the headline frame (pbr.py:290-343): SH9
   diffuse, the analytic split-sum environment BRDF and the specular
   radiance the caller fetched from the cube atlas
-
-The exact map-sampling IBL (calculate_ibl, pbr.py:197) and the albedo-split
-forms of the y-half lighting knob (:130-195) wait (ROADMAP Queue 1 item 7).
+- the exact map-sampling IBL (calculate_ibl, pbr.py:197): the irradiance
+  cubemap along N, the prefiltered chain at mip roughness * max_lod and
+  the BRDF LUT, the split sum of pbr.hlsli:399-466
+- the albedo-split forms of the half-rate lighting block
+  (pbr_direct_split, calculate_ibl_fast_split, pbr.py:130-195)
 """
 
 from __future__ import annotations
@@ -107,6 +109,95 @@ def pbr_direct(n, v, l, radiance, mat: PBRMaterialParams) -> torch.Tensor:
     denominator = 4.0 * ndotv * ndotl + EPSILON
     specular = numerator / denominator[..., None]
     return (kd * mat.albedo / PI + specular) * radiance * ndotl[..., None]
+
+
+def pbr_direct_split(n, v, l, radiance, albedo, metallic, roughness):
+    """pbr_direct factored albedo-linear (pbr.py:130): (diff_coef, spec) with
+    pbr_direct == albedo * diff_coef + spec, diff_coef = kd/pi * radiance *
+    NdotL and spec = DGF/(4 NdotV NdotL) * radiance * NdotL. The half-rate
+    lighting block evaluates both at the reduced rate and multiplies the
+    full-rate albedo in at composite time; spec still sees albedo through
+    F0. metallic and roughness are [...] per pixel."""
+    m = metallic[..., None]
+    h = normalize(v + l)
+    f0 = calculate_f0(albedo, m)
+    ndf = distribution_ggx(n, h, roughness)
+    g = geometry_smith(n, v, l, roughness)
+    f = fresnel_schlick(dot(h, v), f0)
+    kd = (1.0 - f) * (1.0 - m)
+    ndotv = torch.clamp(dot(n, v)[..., 0], min=0.0)
+    ndotl = torch.clamp(dot(n, l)[..., 0], min=0.0)
+    numerator = (ndf * g)[..., None] * f
+    denominator = 4.0 * ndotv * ndotl + EPSILON
+    specular = numerator / denominator[..., None]
+    rl = radiance * ndotl[..., None]
+    return kd / PI * rl, specular * rl
+
+
+def calculate_ibl_fast_split(n, v, albedo, metallic, roughness, irradiance_sh, prefiltered):
+    """calculate_ibl_fast factored before albedo and AO (pbr.py:172):
+    (diff_coef, spec) with calculate_ibl_fast == (albedo * diff_coef +
+    spec) * ao."""
+    from renderer_rs_tpu_torch.ops.ibl import sh9_eval
+
+    m = metallic[..., None]
+    f0 = calculate_f0(albedo, m)
+    ndotv = torch.clamp(dot(n, v)[..., 0], min=0.0)
+    f = fresnel_schlick_roughness(ndotv[..., None], f0, roughness[..., None])
+    kd = (1.0 - f) * (1.0 - m)
+    diff_coef = kd * sh9_eval(irradiance_sh, n)
+    scale, bias = env_brdf_approx(ndotv, roughness)
+    spec = prefiltered * (f0 * scale[..., None] + bias[..., None])
+    return diff_coef, spec
+
+
+def calculate_ibl(n, v, r, mat: PBRMaterialParams, irradiance_mips: tuple,
+                  prefiltered_mips: tuple, brdf_lut: torch.Tensor,
+                  prefiltered_atlas: torch.Tensor | None = None,
+                  prefiltered_atlas_offsets=None, prefiltered_atlas_sizes=None) -> torch.Tensor:
+    """≙ CalculateIBL, the split sum with map sampling (pbr.hlsli:399-466;
+    pbr.py:197): diffuse = the irradiance cubemap along N times albedo,
+    specular = the prefiltered chain along r at mip roughness * max_lod
+    (sample_cubemap_lod, from a prebuilt window atlas when given) times
+    (F0 * scale + bias) from the BRDF LUT [L,L,2] at (NdotV, roughness),
+    bilinear with the edge clamp (a below-edge tap zeroes its fraction, as
+    sample_cubemap does). Returns (kd * diffuse + specular) * ao."""
+    from renderer_rs_tpu_torch.ops.sampling import (
+        _blend_window,
+        _floor_index,
+        sample_cubemap,
+        sample_cubemap_lod,
+    )
+
+    metallic = mat.metallic[..., None]
+    roughness = mat.roughness
+    f0 = calculate_f0(mat.albedo, metallic)
+    ndotv = torch.clamp(dot(n, v)[..., 0], min=0.0)
+    f = fresnel_schlick_roughness(ndotv[..., None], f0, roughness[..., None])
+    kd = (1.0 - f) * (1.0 - metallic)
+    diffuse = sample_cubemap(irradiance_mips[0], n)[..., :3] * mat.albedo
+    max_lod = float(len(prefiltered_mips) - 1)
+    prefiltered = sample_cubemap_lod(
+        prefiltered_mips, r, roughness * max_lod, atlas=prefiltered_atlas,
+        offsets=prefiltered_atlas_offsets, sizes=prefiltered_atlas_sizes,
+    )[..., :3]
+    # the LUT's 2x2 windows packed into channels: one gather a pixel
+    lut = brdf_lut
+    right = torch.cat([lut[:, 1:], lut[:, -1:]], dim=1)
+    down = torch.cat([lut[1:], lut[-1:]], dim=0)
+    downright = torch.cat([down[:, 1:], down[:, -1:]], dim=1)
+    window = torch.cat([lut, right, down, downright], dim=-1)  # [L,L,4C]
+    lh, lw = lut.shape[0], lut.shape[1]
+    x = ndotv * lw - 0.5
+    y = roughness * lh - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = torch.where((x0 < 0)[..., None], torch.zeros_like(x)[..., None], (x - x0)[..., None])
+    fy = torch.where((y0 < 0)[..., None], torch.zeros_like(y)[..., None], (y - y0)[..., None])
+    taps = window[_floor_index(y, 0, lh - 1), _floor_index(x, 0, lw - 1)]
+    brdf = _blend_window(taps, fx, fy, lut.shape[-1])
+    specular = prefiltered * (f0 * brdf[..., 0:1] + brdf[..., 1:2])
+    return (kd * diffuse + specular) * mat.ao[..., None]
 
 
 def hemisphere_ambient(n, albedo, ao) -> torch.Tensor:

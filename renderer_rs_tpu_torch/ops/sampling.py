@@ -15,16 +15,23 @@ and trilinear atlases built once on the host, the single-gather trilinear
 fetch with static mip geometry, and the id-aware vertical upsample of the
 y-half fetch rate (:67-115).
 
-Not ported (ROADMAP Queue 1 item 7): the f32 per-material atlas
-(`mat_atlas`) and the per-texture window atlas the JAX shade path reads only
-when the single-gather atlas is absent."""
+The 2-D samplers (:178-308: nearest, bilinear, explicit and implicit
+LOD), the texture-array paths (:318-367, :589-798): the per-texture and
+the f32 per-material 2x2-window atlases (build_array_atlas,
+build_material_atlas), their two-gather trilinear fetch and its
+every-level oracle; and the cube window atlas's explicit-LOD lookup of
+the exact IBL (:483-557). A fetch takes static mip geometry (Python
+sequences: per-level selects) or tensor offsets and sizes (per-pixel
+gathers), as the JAX functions do. Only the default `select` mip plan is
+carried over: the `arith` plan is a TPU layout knob with the same
+output."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from renderer_rs_tpu_torch.resources.texture import Sampler, WrapMode
+from renderer_rs_tpu_torch.resources.texture import Filter, MipmapMode, Sampler, WrapMode
 
 
 def direction_to_cube_uv(d: torch.Tensor):
@@ -165,6 +172,79 @@ def sample_array_bilinear(level: torch.Tensor, tid: torch.Tensor, uv: torch.Tens
     top = t00 * (1 - fx) + t10 * fx
     bot = t01 * (1 - fx) + t11 * fx
     return top * (1 - fy) + bot * fy
+
+
+def sample_nearest(tex: torch.Tensor, uv: torch.Tensor,
+                   sampler: Sampler = Sampler.nearest()) -> torch.Tensor:
+    """Nearest-texel sampling of a texture [H,W,C] at uv [...,2] in [0,1]
+    (sampling.py:178): texel floor(u*w), wrapped per the sampler."""
+    h, w = tex.shape[0], tex.shape[1]
+    ix = _wrap_coord(_floor_int(uv[..., 0] * w), w, sampler.wrap_u)
+    iy = _wrap_coord(_floor_int(uv[..., 1] * h), h, sampler.wrap_v)
+    return tex[iy, ix]
+
+
+def _sample_level(mips: tuple, level: int, uv: torch.Tensor, sampler: Sampler) -> torch.Tensor:
+    """One mip level of a chain (sampling.py:214): level 0 is the
+    magnification regime (mag_filter), every deeper level minification
+    (min_filter), as VkSamplerCreateInfo selects them."""
+    f = sampler.mag_filter if level == 0 else sampler.min_filter
+    if f == Filter.NEAREST:
+        return sample_nearest(mips[level], uv, sampler)
+    return sample_bilinear(mips[level], uv, sampler)
+
+
+def sample_lod(mips: tuple, uv: torch.Tensor, lod: torch.Tensor,
+               sampler: Sampler = Sampler()) -> torch.Tensor:
+    """SampleLevel at an explicit, per-pixel fractional LOD (sampling.py:224):
+    every level evaluated, the pair around the LOD selected, then lerped
+    (or the nearer one under MipmapMode.NEAREST)."""
+    n = len(mips)
+    lod = torch.clamp(lod, 0.0, n - 1.0)
+    lo = _floor_int(lod)
+    frac = (lod - lo.to(lod.dtype))[..., None]
+    out_lo = _sample_level(mips, 0, uv, sampler)
+    out_hi = out_lo
+    for lvl in range(1, n):
+        s = _sample_level(mips, lvl, uv, sampler)
+        out_lo = torch.where((lo == lvl)[..., None], s, out_lo)
+        out_hi = torch.where((lo + 1 == lvl)[..., None], s, out_hi)
+    if sampler.mipmap_mode == MipmapMode.NEAREST:
+        return torch.where(frac < 0.5, out_lo, out_hi)
+    return out_lo * (1 - frac) + out_hi * frac
+
+
+def sample_textured(mips: tuple, uv: torch.Tensor, sampler: Sampler = Sampler(),
+                    y_parity: int = 0) -> torch.Tensor:
+    """Texture2D.Sample for the deferred pass (sampling.py:299): the implicit
+    LOD from screen-space uv derivatives (uv [H,W,2]), then sample_lod; one
+    level, or MipmapMode.NEAREST, samples level 0."""
+    if len(mips) == 1 or sampler.mipmap_mode == MipmapMode.NEAREST:
+        return _sample_level(mips, 0, uv, sampler)
+    lod = screen_space_lod(uv, mips[0].shape[0], mips[0].shape[1], y_parity)
+    return sample_lod(mips, uv, lod, sampler)
+
+
+def sample_array_textured(mips: tuple, tid: torch.Tensor, uv: torch.Tensor,
+                          sampler: Sampler = Sampler(), y_parity: int = 0) -> torch.Tensor:
+    """Trilinear texture-array sampling with the implicit screen-derivative
+    LOD (sampling.py:343): tid/uv [H,W]/[H,W,2], every level of the array's
+    chain sampled bilinearly, the pair around the LOD selected and lerped.
+    The oracle of sample_array_textured_atlas."""
+    n = len(mips)
+    if n == 1:
+        return sample_array_bilinear(mips[0], tid, uv, sampler)
+    lod = torch.clamp(screen_space_lod(uv, mips[0].shape[1], mips[0].shape[2], y_parity),
+                      0.0, n - 1.0)
+    lo = _floor_int(lod)
+    frac = (lod - lo.to(lod.dtype))[..., None]
+    out_lo = sample_array_bilinear(mips[0], tid, uv, sampler)
+    out_hi = out_lo
+    for lvl in range(1, n):
+        s = sample_array_bilinear(mips[lvl], tid, uv, sampler)
+        out_lo = torch.where((lo == lvl)[..., None], s, out_lo)
+        out_hi = torch.where((lo + 1 == lvl)[..., None], s, out_hi)
+    return out_lo * (1 - frac) + out_hi * frac
 
 
 def screen_space_lod(uv: torch.Tensor, tex_h: int, tex_w: int, y_parity: int = 0) -> torch.Tensor:
@@ -383,6 +463,119 @@ def build_material_atlas_tri(mips: tuple, tex_ids, slots: tuple, sampler: Sample
     return atlas, offsets, sizes
 
 
+# --- the 2x2-window atlases: per texture and per material (f32, two gathers) --------
+
+def build_array_atlas(mips: tuple, sampler: Sampler = Sampler()):
+    """(atlas [R,4C] f32, offsets [L] int32, sizes [L,2] int32) over a mip
+    chain of texture-array levels [N,h,w,C] (sampling.py:589): each level's
+    2x2-window table (_array_window_flat) stacked, with each level's first
+    row and (h, w). Built once on the host in numpy; CPU tensors."""
+    tables = [_array_window_flat(m, sampler.wrap_u, sampler.wrap_v) for m in mips]
+    sizes, offsets, off = [], [], 0
+    for m in mips:
+        sizes.append((m.shape[1], m.shape[2]))
+        offsets.append(off)
+        off += m.shape[0] * m.shape[1] * m.shape[2]
+    return (torch.from_numpy(np.concatenate(tables, axis=0)),
+            torch.tensor(offsets, dtype=torch.int32),
+            torch.tensor(sizes, dtype=torch.int32))
+
+
+def build_material_atlas(mips: tuple, tex_ids, slots: tuple, sampler: Sampler = Sampler()):
+    """The f32 per-material window atlas (sampling.py:816): for each texture
+    set (a row of tex_ids [sets,5], -1 = unbound) every slot of `slots`
+    rides the same row, 4 channels each, an unbound slot filled with its
+    _NEUTRAL_SLOT texels so every slot applies unconditionally. Returns
+    build_array_atlas's (atlas [R, 4*4*len(slots)], offsets, sizes) over the
+    sets' chain: sample_array_textured_atlas with the set id as texture id."""
+    tex_ids = np.asarray(tex_ids)
+    mat_mips = []
+    for lvl in mips:
+        lvl = np.asarray(lvl)  # [N,h,w,4]
+        s_h, s_w = lvl.shape[1], lvl.shape[2]
+        chans = []
+        for slot in slots:
+            ids = tex_ids[:, slot]
+            neutral = np.broadcast_to(np.asarray(_NEUTRAL_SLOT[slot], np.float32),
+                                      (1, s_h, s_w, 4))
+            chans.append(np.where((ids >= 0)[:, None, None, None], lvl[np.maximum(ids, 0)],
+                                  neutral))
+        mat_mips.append(np.concatenate(chans, axis=-1))  # [sets,h,w,4*len(slots)]
+    return build_array_atlas(tuple(mat_mips), sampler)
+
+
+def _blend_window(taps: torch.Tensor, fx, fy, c: int) -> torch.Tensor:
+    """Bilinear blend of a gathered 2x2-window row [...,4c] (sampling.py:635)."""
+    top = taps[..., 0:c] * (1 - fx) + taps[..., c:2 * c] * fx
+    bot = taps[..., 2 * c:3 * c] * (1 - fx) + taps[..., 3 * c:4 * c] * fx
+    return top * (1 - fy) + bot * fy
+
+
+def _array_atlas_fetch(atlas: torch.Tensor, offsets, sizes, level: torch.Tensor,
+                       tid: torch.Tensor, uv: torch.Tensor, c: int,
+                       sampler: Sampler = Sampler()) -> torch.Tensor:
+    """Bilinear fetch of one per-pixel mip level from a window atlas, ONE
+    gather a pixel (sampling.py:727). Static geometry (offsets and sizes as
+    Python sequences) unrolls the per-level index math into selects; tensor
+    offsets [L] and sizes [L,2] take the dynamic form, which gathers each
+    pixel's level size and offset. Ids below 0 read texture 0."""
+    t = torch.clamp(tid, min=0).long()
+    if isinstance(offsets, (list, tuple)):
+        idx = fx = fy = None
+        for lvl, ((h, w), off) in enumerate(zip(sizes, offsets)):
+            x0w, y0w, fx_l, fy_l = _window_footprint(int(h), int(w), uv, sampler)
+            idx_l = int(off) + (t * int(h) + y0w) * int(w) + x0w
+            if idx is None:
+                idx, fx, fy = idx_l, fx_l, fy_l
+            else:
+                sel = level == lvl
+                idx = torch.where(sel, idx_l, idx)
+                fx = torch.where(sel[..., None], fx_l, fx)
+                fy = torch.where(sel[..., None], fy_l, fy)
+        return _blend_window(atlas[idx], fx, fy, c)
+    level = level.long()
+    h = sizes[level, 0].long()
+    w = sizes[level, 1].long()
+    x = uv[..., 0] * w.to(uv.dtype) - 0.5
+    y = uv[..., 1] * h.to(uv.dtype) - 0.5
+    x0 = _floor_int(x)
+    y0 = _floor_int(y)
+    fx = (x - x0.to(x.dtype))[..., None]
+    fy = (y - y0.to(y.dtype))[..., None]
+    if sampler.wrap_u == WrapMode.REPEAT:
+        x0w = torch.remainder(x0, w)
+    else:
+        fx = torch.where((x0 < 0)[..., None], torch.zeros_like(fx), fx)
+        x0w = torch.minimum(torch.clamp(x0, min=0), w - 1)
+    if sampler.wrap_v == WrapMode.REPEAT:
+        y0w = torch.remainder(y0, h)
+    else:
+        fy = torch.where((y0 < 0)[..., None], torch.zeros_like(fy), fy)
+        y0w = torch.minimum(torch.clamp(y0, min=0), h - 1)
+    idx = offsets[level].long() + (t * h + y0w) * w + x0w
+    return _blend_window(atlas[idx], fx, fy, c)
+
+
+def sample_array_textured_atlas(atlas: torch.Tensor, offsets, sizes, n_levels: int,
+                                base_hw: tuple, c: int, tid: torch.Tensor, uv: torch.Tensor,
+                                sampler: Sampler = Sampler(), y_parity: int = 0) -> torch.Tensor:
+    """Trilinear texture-array sampling with the implicit screen-derivative
+    LOD in TWO gathers, the levels below and above the LOD (sampling.py:772),
+    from a build_array_atlas / build_material_atlas layout. tid [H,W] (a
+    texture or texture-set id), uv [H,W,2]; returns [...,c]."""
+    if n_levels == 1:
+        return _array_atlas_fetch(atlas, offsets, sizes, torch.zeros_like(tid), tid, uv, c,
+                                  sampler)
+    lod = torch.clamp(screen_space_lod(uv, base_hw[0], base_hw[1], y_parity), 0.0,
+                      n_levels - 1.0)
+    lo = _floor_int(lod)
+    hi = torch.clamp(lo + 1, max=n_levels - 1)
+    frac = (lod - lo.to(lod.dtype))[..., None]
+    out_lo = _array_atlas_fetch(atlas, offsets, sizes, lo, tid, uv, c, sampler)
+    out_hi = _array_atlas_fetch(atlas, offsets, sizes, hi, tid, uv, c, sampler)
+    return out_lo * (1 - frac) + out_hi * frac
+
+
 # --- the specular/skybox cube atlas (IBL) -------------------------------------------
 
 def _cube_window_flat(faces: torch.Tensor) -> torch.Tensor:
@@ -446,6 +639,76 @@ def _cube_footprint(si: int, uv: torch.Tensor):
     fx = torch.where((x0 < 0)[..., None], torch.zeros_like(fx), fx)
     fy = torch.where((y0 < 0)[..., None], torch.zeros_like(fy), fy)
     return torch.clamp(x0, 0, si - 1), torch.clamp(y0, 0, si - 1), fx, fy
+
+
+def _cube_atlas_fetch(atlas: torch.Tensor, offsets, sizes, level: torch.Tensor,
+                      face: torch.Tensor, uv: torch.Tensor, c: int) -> torch.Tensor:
+    """Bilinear, edge-clamped fetch of one per-pixel mip level from the cube
+    window atlas [R,4C], ONE gather a pixel (sampling.py:483). Static
+    offsets and face sizes (Python sequences) unroll into selects; tensor
+    offsets [L] and sizes [L] take the dynamic form, which gathers each
+    pixel's face size and row offset."""
+    if isinstance(offsets, (list, tuple)):
+        idx = fx = fy = None
+        for lvl, (si, off) in enumerate(zip(sizes, offsets)):
+            si = int(si)
+            x0c, y0c, fx_l, fy_l = _cube_footprint(si, uv)
+            idx_l = int(off) + (face * si + y0c) * si + x0c
+            if idx is None:
+                idx, fx, fy = idx_l, fx_l, fy_l
+            else:
+                sel = level == lvl
+                idx = torch.where(sel, idx_l, idx)
+                fx = torch.where(sel[..., None], fx_l, fx)
+                fy = torch.where(sel[..., None], fy_l, fy)
+        return _blend_window(atlas[idx], fx, fy, c)
+    level = level.long()
+    si = sizes[level].long()
+    s = si.to(uv.dtype)
+    x = uv[..., 0] * s - 0.5
+    y = uv[..., 1] * s - 0.5
+    x0 = _floor_int(x)
+    y0 = _floor_int(y)
+    fx = (x - x0.to(x.dtype))[..., None]
+    fy = (y - y0.to(y.dtype))[..., None]
+    fx = torch.where((x0 < 0)[..., None], torch.zeros_like(fx), fx)  # edge clamp
+    fy = torch.where((y0 < 0)[..., None], torch.zeros_like(fy), fy)
+    x0c = torch.minimum(torch.clamp(x0, min=0), si - 1)
+    y0c = torch.minimum(torch.clamp(y0, min=0), si - 1)
+    idx = offsets[level].long() + (face * si + y0c) * si + x0c
+    return _blend_window(atlas[idx], fx, fy, c)
+
+
+def sample_cubemap_lod(mips: tuple, d: torch.Tensor, lod: torch.Tensor,
+                       atlas: torch.Tensor | None = None, offsets=None,
+                       sizes=None) -> torch.Tensor:
+    """Trilinear cubemap sampling at an explicit per-pixel LOD along
+    directions d [...,3] (sampling.py:518; the prefiltered IBL lookup): the
+    levels below and above the LOD, two window-atlas fetches, lerped.
+    Without a prebuilt (atlas, offsets, sizes) the window atlas of `mips`
+    is built in the call, with tensor offsets and sizes (the dynamic
+    fetch), as the JAX function builds it; a prebuilt atlas's trailing
+    segments (the skybox) are never reached, the LOD clamping to
+    len(mips) - 1."""
+    n = len(mips)
+    c = mips[0].shape[3]
+    if atlas is None:
+        atlas = torch.cat([_cube_window_flat(m) for m in mips], dim=0)
+        sizes_l, offsets_l, off = [], [], 0
+        for m in mips:
+            sizes_l.append(m.shape[1])
+            offsets_l.append(off)
+            off += 6 * m.shape[1] * m.shape[1]
+        sizes = torch.tensor(sizes_l, dtype=torch.int32, device=d.device)
+        offsets = torch.tensor(offsets_l, dtype=torch.int32, device=d.device)
+    face, uv = direction_to_cube_uv(d)
+    lod = torch.clamp(lod, 0.0, n - 1.0)
+    lo = _floor_int(lod)
+    hi = torch.clamp(lo + 1, max=n - 1)
+    frac = (lod - lo.to(lod.dtype))[..., None]
+    out_lo = _cube_atlas_fetch(atlas, offsets, sizes, lo, face, uv, c)
+    out_hi = _cube_atlas_fetch(atlas, offsets, sizes, hi, face, uv, c)
+    return out_lo * (1 - frac) + out_hi * frac
 
 
 def cube_trilinear_plan(offsets, sizes, lo_level: torch.Tensor, face: torch.Tensor,

@@ -145,3 +145,15 @@ def directional_light_matrix(direction, scene_center, scene_radius: float) -> to
     r = scene_radius
     proj = vulkan_y_flip(orthographic_rh(-r, r, -r, r, 0.1, 4.0 * r))
     return proj @ view
+
+
+def upsample2x_bilinear(s: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Bilinear 2x upsample of a scalar field sampled on the even-pixel grid
+    (s[i, j] is the value at pixel (2i, 2j)); edge-clamped (shadow.py:225,
+    the half-rate PCF term): odd columns average their x neighbours, then
+    odd rows their y neighbours."""
+    right = torch.cat([s[:, 1:], s[:, -1:]], dim=1)
+    rows = torch.stack([s, 0.5 * (s + right)], dim=-1).reshape(s.shape[0], -1)[:, :width]
+    down = torch.cat([rows[1:], rows[-1:]], dim=0)
+    full = torch.stack([rows, 0.5 * (rows + down)], dim=1)
+    return full.reshape(-1, width)[:height]

@@ -2,8 +2,8 @@
 61966-2-1 curve, encode and decode. The encode is what a B8G8R8A8_SRGB
 store applies (rhi/src/swapchain.rs:561-588), used at present; the decode
 is what sampling an _SRGB texture does, used when a glTF colour texture
-or an sRGB Texture loads. The pow-2.2 shader helpers wait for ROADMAP
-Queue 1 item 19.
+or an sRGB Texture loads. The pow-2.2 shader helpers of common.hlsli
+(srgb.py:16-23) are here too.
 
 torch's pow and XLA:CPU's round apart: on the 256 values u8/255 of an
 8-bit image, the decode differs on 6 by one ulp (at most 6.0e-8;
@@ -12,6 +12,16 @@ tests/test_torch_gltf.py)."""
 from __future__ import annotations
 
 import torch
+
+
+def linear_to_srgb_pow22(c: torch.Tensor) -> torch.Tensor:
+    """≙ common.hlsli LinearToSRGB: pow(c, 1/2.2)."""
+    return torch.pow(torch.clamp(c, min=0.0), 1.0 / 2.2)
+
+
+def srgb_to_linear_pow22(c: torch.Tensor) -> torch.Tensor:
+    """≙ common.hlsli SRGBToLinear: pow(c, 2.2)."""
+    return torch.pow(torch.clamp(c, min=0.0), 2.2)
 
 
 def linear_to_srgb(c: torch.Tensor) -> torch.Tensor:

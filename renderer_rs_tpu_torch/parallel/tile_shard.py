@@ -22,7 +22,12 @@ import dataclasses
 import torch
 
 from renderer_rs_tpu_torch.ops.shadow import ShadowParams
-from renderer_rs_tpu_torch.renderer.passes import MSAA_GRIDS, ShadingModel, forward_frame
+from renderer_rs_tpu_torch.renderer.passes import (
+    MSAA_GRIDS,
+    ShadeRates,
+    ShadingModel,
+    forward_frame,
+)
 from renderer_rs_tpu_torch.renderer.scene_build import GpuScene, SceneLayout
 from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipeline
 
@@ -76,6 +81,7 @@ def render_frame_sharded(
     shadow_map_size: int = 256,
     shadow_params: ShadowParams = ShadowParams(),
     interleaved: bool = False,
+    shade_rates: ShadeRates = ShadeRates(),
 ) -> torch.Tensor:
     """Render a batch of frames over the mesh (tile_shard.py:32). Returns
     [F, H, W, 4] in shard order: contiguous bands are already the frame;
@@ -85,7 +91,10 @@ def render_frame_sharded(
     the reduced rates' drift (y-quarter PCF, y-half cube fetch); ids and
     depth are equal. With an MSAA pipeline (tile_shard.py:74-100) the
     shards split the supersampled frame's H*sy rows and the result is
-    [F, H*sy, W*sx, 4], unresolved: unshard_rows, then resolve_msaa."""
+    [F, H*sy, W*sx, 4], unresolved: unshard_rows, then resolve_msaa.
+    shade_rates goes to every band: a band's rows are not neighbours, so
+    only the rates that engage on any frame take effect there (pcf="half";
+    the merged gather, whose output is per pixel)."""
     n_frames, n_rows = mesh.shape["frame"], mesh.shape["rows"]
     if len(stacked_scene) != n_frames:
         raise ValueError(f"scene batch {len(stacked_scene)} != mesh frame axis {n_frames}")
@@ -106,7 +115,7 @@ def render_frame_sharded(
             band = forward_frame(
                 _to_device(scene, device), layout, pipeline, shading, width, height,
                 clear_color=clear_color, tonemap=tonemap, shadow_map_size=shadow_map_size,
-                shadow_params=shadow_params, band=spec,
+                shadow_params=shadow_params, band=spec, shade_rates=shade_rates,
             )
             bands.append(band.to(mesh.devices[f][0]))
         frames.append(torch.cat(bands, dim=0))

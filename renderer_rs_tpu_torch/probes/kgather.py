@@ -20,19 +20,23 @@ import ctypes
 import numpy as np
 import torch
 
+from renderer_rs_tpu_torch.core.device import resolve_device
+
 BODIES = ("t_only", "g_only", "g8", "g50", "msum")
 ROWS, LANES, CH = 16, 128, 128
 ITERS = 4096  # KG_ITERS, probe_kgather.py:26
 _OFFSET = np.float32(1e-12)  # the per-iteration offset that defeats hoisting
 
 
-def probe_inputs(device="cpu", seed: int = 0):
+def probe_inputs(device="cuda", seed: int = 0):
     """The probe's inputs (probe_kgather.py:45-47): slab [128,128] standard
-    normal f32 and p [16,128] int32 in [0,128), from numpy's generator."""
+    normal f32 and p [16,128] int32 in [0,128), from numpy's generator, on
+    `device` (the card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     slab = torch.from_numpy(rng.standard_normal((CH, LANES)).astype(np.float32))
     p = torch.from_numpy(rng.integers(0, CH, (ROWS, LANES)).astype(np.int32))
-    return slab.to(device), p.to(device)
+    return slab.to(dev), p.to(dev)
 
 
 def _check(body, slab, p, iters):

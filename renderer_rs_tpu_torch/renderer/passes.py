@@ -27,21 +27,26 @@ remap and one packed interpolate, the Blinn-Phong and Cook-Torrance PBR
 shaders with the reduced-rate shadow ladder, the fast-ambient image-based
 lighting (SH9 diffuse, analytic env-BRDF, one merged specular/skybox fetch
 from the trilinear cube atlas at the y-half rate with the id-aware
-upsample), the textured branch (the single-gather trilinear material atlas
-and TBN normal mapping), the alpha-cutoff (MASK) frame: the bounded
+upsample, or two window-atlas fetches without that atlas), the exact
+map-sampling IBL of an environment set without finalize, the shade rates
+as arguments (ShadeRates: the PCF, cube and half-rate lighting modes and
+the merged gather), the textured branch (the single-gather trilinear
+material atlas, the f32 per-material atlas, the per-slot fetch above the
+atlases' row budget; TBN normal mapping), the alpha-cutoff (MASK) frame: the bounded
 4-layer depth peel on K5 (`_alpha_peeled_raster`) and the scan's alpha
 test elsewhere, the non-fused branch (≙ `_rasterize_dispatch`: K3 or the
 scan, then perspective_bary and one interpolate) with FLAT shading (the
 vertex colours), the stencil state machine, point and line primitives,
 return_depth and the RenderingConfig attachments, the transparent pass,
-and the z-plane depth form of the shadow passes. The fallbacks of ROADMAP
-Queue 1 item 7 raise NotImplementedError naming it.
+the z-plane depth form of the shadow passes and whole-frame supersampled
+MSAA (msaa_mode="super").
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import logging
 
 import torch
 from torch.profiler import record_function
@@ -88,16 +93,21 @@ from renderer_rs_tpu_torch.ops.raster_cuda import (
 )
 from renderer_rs_tpu_torch.ops.sampling import (
     _SLOT_CHANNELS,
+    _cube_atlas_fetch,
     _floor_int,
     cube_trilinear_fetch,
     direction_to_cube_uv,
     sample_array_bilinear,
+    sample_array_textured,
+    sample_array_textured_atlas,
     sample_material_atlas_tri,
     upsample2x_y_idaware,
+    upsample_y_idaware,
 )
 from renderer_rs_tpu_torch.ops.shadow import (
     ShadowParams,
     calculate_shadow,
+    upsample2x_bilinear,
     upsample2x_y,
     upsample4x_y,
 )
@@ -112,6 +122,8 @@ from renderer_rs_tpu_torch.rhi.pipeline import (
 )
 from renderer_rs_tpu_torch.rhi.rendering import AttachmentLoadOp
 
+log = logging.getLogger("renderer_rs_tpu_torch.renderer.passes")
+
 # near-clip secondary compaction (passes.py:1689): cap max(128, T/16),
 # engaged from 1024 triangles
 CLIP_COMPACT_DEN = 16
@@ -122,6 +134,48 @@ PEEL_LAYERS = 4
 # knob, raster.py:297 z_plane_mode): the barycentric blend of the vertex
 # depths (K1, K6), or the anchored depth plane (K7)
 Z_FORMS = ("bary", "plane")
+# the MSAA forms of a multisampled pipeline (the JAX package's MSAA knob,
+# passes.py:1518): shade once per pixel and id-resolve, or supersample the
+# whole frame
+MSAA_MODES = ("resolve", "super")
+# the PCF table's x-group of the JAX merged gather (shadow.py:38): the merge
+# engages only on maps whose width it divides
+PCF_GROUP = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class ShadeRates:
+    """The shade stage's rates (≙ the JAX package's PCF, cube and lighting
+    rate knobs and its merged-gather knob, passes.py:785-1256, read there
+    from the environment). The defaults are the JAX defaults.
+
+    pcf: the sun's PCF term on a single map or the cascades: "yquarter"
+    (every 4th row on full-row frames of >= 256 rows, every 2nd from 128),
+    "yhalf" (every 2nd row from 128 rows), "half" (the even-pixel grid with
+    a bilinear upsample, any frame; a single map only, cascades take it per
+    pixel) or "full". cube: the specular/skybox fetch, "yhalf" (every 2nd
+    row from 128 rows), "yquarter" (every 4th from 256, every 2nd from
+    128) or "full", each reduced rate reconstructed id-awarely. light:
+    "full" or "yhalf", the albedo-split half-rate lighting block (the sun
+    and IBL terms on even rows) on full-row frames of >= 128 rows with a
+    single sun map, the fast ambient's atlas_tri and no point or spot
+    light. merge_gather: the JAX merged PCF/cube gather, which evaluates
+    both per pixel on a PBR_IBL frame with a single PCF map (its width a
+    multiple of PCF_GROUP) and a finalized environment; it comes before
+    the other three. Bands (full_rows=False) shade the y-strided rates per
+    pixel."""
+
+    pcf: str = "yquarter"
+    cube: str = "yhalf"
+    light: str = "full"
+    merge_gather: bool = False
+
+    def __post_init__(self):
+        for name, allowed in (("pcf", ("yquarter", "yhalf", "half", "full")),
+                              ("cube", ("yhalf", "yquarter", "full")),
+                              ("light", ("full", "yhalf"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"ShadeRates.{name} = {getattr(self, name)!r}; one of {allowed}")
 
 
 class ShadingModel(enum.Enum):
@@ -185,10 +239,6 @@ def vertex_stage(scene: GpuScene, layout: SceneLayout) -> VertexStageOut:
         world_normal=torch.cat(normals),
         world_tangent=torch.cat(tangents),
     )
-
-
-def _not_ported(what: str, queue: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {queue})")
 
 
 def shadow_vertex_stage(scene: GpuScene, layout: SceneLayout, light_matrix=None,
@@ -391,13 +441,15 @@ def _attachments(rendering, width: int, height: int, clear_color, depth_clear, s
 
 
 def _msaa_frame(scene, layout, pipeline, shading, width, height, common: dict, band,
-                return_depth: bool, stencil, return_ids: bool):
-    """MSAA (passes.py:1507-1607). Without a band, a stencil, return_depth or
-    return_ids: the shade-once resolve (passes.py:1518-1548), the 1x frame
+                return_depth: bool, stencil, return_ids: bool, msaa_mode: str = "resolve"):
+    """MSAA (passes.py:1507-1607). In msaa_mode "resolve" without a band, a
+    stencil, return_depth or return_ids: the shade-once resolve
+    (passes.py:1518-1548), the 1x frame
     with its ids, an ids-only pass on the 2x1 / 2x2 / 4x2 ordered sample
     grid and ops/msaa.msaa_id_resolve; one vertex stage, near clip and
     compaction serve both passes (they are functions of the scene alone).
-    Otherwise the supersampling branch: the frame at the sample extent,
+    Otherwise (msaa_mode "super" included) the supersampling branch: the
+    frame at the sample extent, which logs a warning above 4 MP samples,
     box-resolved by the mean over each sample footprint, its depth by the
     min (LESS-family compares) or the max (GREATER-family); a band is read
     in supersampled rows and returned unresolved, for the caller to
@@ -406,7 +458,8 @@ def _msaa_frame(scene, layout, pipeline, shading, width, height, common: dict, b
     buffer comes back under MSAA."""
     sx, sy = MSAA_GRIDS[pipeline.msaa_samples]
     sub = dataclasses.replace(pipeline, msaa_samples=1)
-    if band is None and stencil is None and not return_depth and not return_ids:
+    if (msaa_mode == "resolve" and band is None and stencil is None and not return_depth
+            and not return_ids):
         with record_function("frame/geometry"):
             geo = frame_geometry(scene, layout, sub, width, height)
         lo, lo_ids = forward_frame(scene, layout, sub, shading, width, height,
@@ -421,7 +474,15 @@ def _msaa_frame(scene, layout, pipeline, shading, width, height, common: dict, b
     if return_ids:
         # the supersampling branch has no 1x id map to return
         raise ValueError("return_ids does not compose with the supersampling MSAA path "
-                         "(band / stencil / return_depth)")
+                         "(msaa_mode='super' / band / stencil / return_depth)")
+    if width * height * sx * sy > 4_000_000:
+        # supersampling scales the whole frame's cost by the sample count
+        # (passes.py:1556-1570); the resolve mode pays sample-rate
+        # visibility only
+        log.warning("MSAA %dx supersamples to %dx%d (%.1f MP): expect ~%dx the 1-sample "
+                    "frame cost (msaa_mode='resolve' for the shade-once path)",
+                    pipeline.msaa_samples, width * sx, height * sy,
+                    width * height * sx * sy / 1e6, sx * sy)
     hi = forward_frame(scene, layout, sub, shading, width * sx, height * sy, band=band,
                        return_depth=return_depth, stencil=stencil, **common)
     if band is not None:
@@ -502,6 +563,8 @@ def forward_frame(
     return_ids: bool = False,
     geometry: FrameGeometry | None = None,
     z_form: str = "bary",
+    shade_rates: ShadeRates = ShadeRates(),
+    msaa_mode: str = "resolve",
 ):
     """The full frame (≙ passes.py:1442). Returns linear [H,W,4] ready for
     sRGB encode, then in this order the outputs asked for: the [H,W] f32
@@ -528,9 +591,12 @@ def forward_frame(
     scan, under an alpha cutoff). It returns just the source ids.
 
     MSAA (pipeline.msaa_samples in {2,4,8}) is _msaa_frame: the shade-once
-    resolve, or the supersampling branch under a band, a stencil or
-    return_depth. `geometry` hands a pass the frame_geometry its caller
-    already computed for this extent.
+    resolve (msaa_mode "resolve", the default), or the supersampling branch
+    under msaa_mode "super", a band, a stencil or return_depth (≙ the JAX
+    package's MSAA knob). `geometry` hands a pass the frame_geometry its
+    caller already computed for this extent. shade_rates (ShadeRates) sets
+    the shade stage's reduced rates (the JAX package's rate knobs); the
+    defaults are the JAX defaults.
 
     band=(y_offset, band_h[, y_stride[, y_pair]]) renders band_h rows of the
     `height`-row framebuffer (passes.py:2106-2175; the unit of
@@ -560,6 +626,8 @@ def forward_frame(
                                                          depth_clear, stencil)
     if tonemap not in TONEMAPPERS:
         raise ValueError(f"unknown tonemap {tonemap!r}; one of {sorted(TONEMAPPERS)}")
+    if msaa_mode not in MSAA_MODES:
+        raise ValueError(f"unknown msaa_mode {msaa_mode!r}; one of {MSAA_MODES}")
     if stencil is not None and band is not None:
         raise ValueError("forward_frame: stencil and band sharding cannot combine (the stencil "
                          "state machine runs on the full-frame scan path)")
@@ -570,9 +638,9 @@ def forward_frame(
             raise ValueError("forward_frame(diagnostics=True) does not compose with MSAA")
         common = dict(clear_color=clear_color, tonemap=tonemap, shadow_map_size=shadow_map_size,
                       shadow_params=shadow_params, shadow_map=shadow_map,
-                      depth_clear=depth_clear, z_form=z_form)
+                      depth_clear=depth_clear, z_form=z_form, shade_rates=shade_rates)
         return _msaa_frame(scene, layout, pipeline, shading, width, height, common, band,
-                           return_depth, stencil, return_ids)
+                           return_depth, stencil, return_ids, msaa_mode)
     y_offset, out_h, y_stride, y_pair = 0, height, 1, False
     if band is not None:
         y_offset, out_h = int(band[0]), int(band[1])
@@ -630,7 +698,7 @@ def forward_frame(
     peel_exhausted = None
     stencil_buf = None
     shade_kw = dict(shadow_map=shadow_map, shadow_params=shadow_params,
-                    full_rows=band is None)
+                    full_rows=band is None, rates=shade_rates)
     if (shading == ShadingModel.PBR_IBL and layout.has_environment
             and scene.environment.irradiance_mips is not None
             and scene.environment.atlas is not None):
@@ -847,27 +915,45 @@ def _alpha_peeled_raster(scene: GpuScene, layout: SceneLayout, geo: FrameGeometr
     return vis, lanes, fail.sum(), k5.bin_overflow
 
 
+def _pcf_stride(rows: int, full_rows: bool, mode: str) -> int:
+    """The row stride of the PCF term under a rate mode (passes.py:817-966):
+    "yquarter" strides 4 on full-row frames of >= 256 rows and 2 on 128-255,
+    "yhalf" 2 from 128 rows; "full", bands of rows (full_rows=False) and
+    smaller frames evaluate every row."""
+    if mode not in ("yquarter", "yhalf") or not full_rows or rows < 128:
+        return 1
+    return 4 if mode == "yquarter" and rows >= 256 else 2
+
+
 def _shadow_term(scene: GpuScene, layout: SceneLayout, world_pos, normal, sun_dir, depth,
-                 shadow_map, shadow_params: ShadowParams, full_rows: bool = True) -> torch.Tensor:
-    """The sun's lit factor [H,W,1] with the JAX frame's default rate
-    ladder (passes.py:817-862 for cascades, :903-966 for the single map):
-    full-row frames of >= 256 rows evaluate the PCF stack on every 4th row
-    and upsample linearly in y, 128-255 rows on every 2nd; smaller frames
-    and bands of rows (full_rows=False, whose rows need not be neighbours)
-    per pixel. Under CSM shadow_map is the [C,S,S] cascade array and the
-    fragment's NDC depth (the visibility depth, ≙ SV_Position.z) selects
-    the cascade; the cascade term has no strength parameter."""
+                 shadow_map, shadow_params: ShadowParams, full_rows: bool = True,
+                 pcf: str = "yquarter") -> torch.Tensor:
+    """The sun's lit factor [H,W,1] under the PCF rate mode `pcf` (passes.py:
+    817-862 for cascades, :876-966 for the single map): the PCF stack on
+    every 4th or 2nd row with a linear upsample in y (_pcf_stride), or on
+    the even-pixel grid with the bilinear upsample ("half", a single map
+    only, on any frame or band). Under CSM shadow_map is the [C,S,S] cascade
+    array and the fragment's NDC depth (the visibility depth, ≙
+    SV_Position.z) selects the cascade; the cascade term has no strength
+    parameter."""
     rows = world_pos.shape[0]
-    stride = (4 if rows >= 256 else 2 if rows >= 128 else 1) if full_rows else 1
-    wp = world_pos[::stride]
     if layout.has_csm:
+        stride = _pcf_stride(rows, full_rows, pcf)
+        wp = world_pos[::stride]
         lit = calculate_shadow_csm_blended(
             shadow_map, scene.csm_matrices, scene.csm_splits, wp, normal[::stride],
             sun_dir.expand(wp.shape), depth[::stride],
             CSMParams(shadow_bias=shadow_params.shadow_bias,
                       normal_bias=shadow_params.normal_bias, pcf=shadow_params.pcf),
         )
+    elif pcf == "half":
+        wp = world_pos[::2, ::2]
+        lit = calculate_shadow(shadow_map, scene.light_space_matrix, wp, normal[::2, ::2],
+                               sun_dir.expand(wp.shape), shadow_params)
+        return upsample2x_bilinear(lit, rows, world_pos.shape[1])[..., None]
     else:
+        stride = _pcf_stride(rows, full_rows, pcf)
+        wp = world_pos[::stride]
         lit = calculate_shadow(
             shadow_map, scene.light_space_matrix, wp, normal[::stride],
             sun_dir.expand(wp.shape), shadow_params,
@@ -879,6 +965,119 @@ def _shadow_term(scene: GpuScene, layout: SceneLayout, world_pos, normal, sun_di
     return lit[..., None]
 
 
+def _tbn(normal, t4, rgb, scale):
+    """TBN normal mapping (model_pbr.hlsl:168-197): the sampled tangent-space
+    normal rgb * 2 - 1, its xy scaled by the material's normal scale, into
+    the frame of the interpolated tangent t4 (w: handedness)."""
+    t3 = normalize(t4[..., :3])
+    b3 = cross(normal, t3) * t4[..., 3:4]
+    n_ts = rgb * 2.0 - 1.0
+    n_ts = torch.cat([n_ts[..., :2] * scale, n_ts[..., 2:3]], dim=-1)
+    return normalize(t3 * n_ts[..., 0:1] + b3 * n_ts[..., 1:2] + normal * n_ts[..., 2:3])
+
+
+def _level_offsets(mips, atlas_rows: int) -> tuple:
+    """The static per-level (h, w) of a mip chain and each level's first row
+    in an atlas of `atlas_rows` rows that stacks the chain's levels, each
+    level holding every texture (or texture set) in turn."""
+    shapes = tuple((int(m.shape[1]), int(m.shape[2])) for m in mips)
+    n = atlas_rows // sum(h * w for h, w in shapes)
+    offs, off = [], 0
+    for h_, w_ in shapes:
+        offs.append(off)
+        off += n * h_ * w_
+    return shapes, tuple(offs)
+
+
+def _textured(scene: GpuScene, layout: SceneLayout, varying, mat_px, mat_id_img, tri_id,
+              y_parity: int, normal, base_color, metallic, roughness, ao, emissive):
+    """The five material slots of a textured scene (passes.py:562-778),
+    each a texture times its material factor: from the single-gather bf16
+    trilinear material atlas when built (mat_atlas_tri); else the f32
+    per-material atlas (mat_atlas, two gathers, unbound slots neutral);
+    else per slot (above the atlases' row budget): each bound slot from the
+    per-texture window atlas in two gathers (or, without one, every level of
+    the texture array), applied where the slot's texture id is >= 0. Normal
+    maps go through the TBN frame. Returns (normal, base_color, metallic,
+    roughness, ao, emissive)."""
+    tex = scene.textures
+    uv = varying[..., 6:8]
+    t4 = varying[..., 8:12]
+    scale = mat_px[..., 10:11]
+    slots = layout.texture_slots
+    used = [i for i, u in enumerate(slots) if u]
+    if tex.mat_atlas_tri is not None or tex.mat_atlas is not None:
+        if mat_id_img is not None:
+            mid = tex.mat_set[mat_id_img.long()]
+        else:
+            mid = tex.mat_set[scene.tri_material][torch.clamp(tri_id, min=0).long()]
+        if tex.mat_atlas_tri is not None:
+            pos, c = {}, 0
+            for slot in used:
+                pos[slot] = c
+                c += len(_SLOT_CHANNELS[slot])
+            # packed MR channels are (G, B) = (roughness, metallic)
+            mr = (0, 1)
+            atlas = tex.mat_atlas_tri
+            fetch = sample_material_atlas_tri
+        else:
+            # 4 channels a slot; MR's roughness in G, metallic in B
+            pos = {slot: 4 * k for k, slot in enumerate(used)}
+            c, mr = 4 * len(used), (1, 2)
+            atlas = tex.mat_atlas
+            fetch = sample_array_textured_atlas
+        shapes, offs = _level_offsets(tex.mips, atlas.shape[0])
+        samp = fetch(atlas, offs, shapes, len(shapes), shapes[0], c, mid, uv,
+                     y_parity=y_parity)
+        if 0 in pos:
+            base_color = base_color * samp[..., pos[0]:pos[0] + 4]
+        if 1 in pos:
+            normal = _tbn(normal, t4, samp[..., pos[1]:pos[1] + 3], scale)
+        if 2 in pos:
+            roughness = roughness * samp[..., pos[2] + mr[0]]
+            metallic = metallic * samp[..., pos[2] + mr[1]]
+        if 3 in pos:
+            ao = ao * samp[..., pos[3]]
+        if 4 in pos:
+            emissive = emissive * samp[..., pos[4]:pos[4] + 3]
+        return normal, base_color, metallic, roughness, ao, emissive
+    # per slot: the texture ids through the winner's material
+    if mat_id_img is not None:
+        tex_ids = scene.materials.tex_ids[mat_id_img.long()]
+    else:
+        tex_ids = scene.materials.tex_ids[scene.tri_material][torch.clamp(tri_id, min=0).long()]
+    if tex.atlas is not None:
+        shapes, offs = _level_offsets(tex.mips, tex.atlas.shape[0])
+
+    def fetch(slot):
+        t = tex_ids[..., slot]
+        if tex.atlas is not None:
+            s = sample_array_textured_atlas(tex.atlas, offs, shapes, len(shapes), shapes[0],
+                                            tex.mips[0].shape[-1], t, uv, y_parity=y_parity)
+        else:
+            s = sample_array_textured(tex.mips, t, uv, y_parity=y_parity)
+        return s, (t >= 0)[..., None]
+
+    if slots[0]:
+        s, has = fetch(0)
+        base_color = torch.where(has, base_color * s, base_color)
+    if slots[1]:
+        s, has = fetch(1)
+        normal = torch.where(has, _tbn(normal, t4, s[..., :3], scale), normal)
+    if slots[2]:
+        # glTF metal-roughness: G = roughness, B = metallic
+        s, has = fetch(2)
+        metallic = torch.where(has[..., 0], metallic * s[..., 2], metallic)
+        roughness = torch.where(has[..., 0], roughness * s[..., 1], roughness)
+    if slots[3]:
+        s, has = fetch(3)
+        ao = torch.where(has[..., 0], ao * s[..., 0], ao)
+    if slots[4]:
+        s, has = fetch(4)
+        emissive = torch.where(has, emissive * s[..., :3], emissive)
+    return normal, base_color, metallic, roughness, ao, emissive
+
+
 def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
                   varying: torch.Tensor, mat_id_img: torch.Tensor | None,
                   shadow_map: torch.Tensor | None = None,
@@ -887,32 +1086,40 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
                   tri_id: torch.Tensor | None = None,
                   sky_dirs: torch.Tensor | None = None,
                   full_rows: bool = True,
-                  y_parity: int = 0):
-    """The fragment stage (passes.py:452-560, 779-1032, 1308-1313):
-    Blinn-Phong (≙ pixel/model_full.hlsl) or Cook-Torrance PBR with the
-    hemisphere ambient (≙ pixel/model_pbr.hlsl), each with the shadowed sun,
-    the masked point/spot loops, ambient and emissive; on a textured scene
-    the five material slots from the single-gather trilinear atlas, with
-    TBN normal mapping (passes.py:562-646). Material parameters come from
-    the exact gather bank[mat_id] (the JAX one-hot HIGHEST matmul computes
-    the same values, the texture-set id too), or, with mat_id_img None
-    (the peel contract, passes.py:545-550, :589), from the last 11 lanes,
-    with the set id gathered through tri_id (SOURCE ids). depth [H,W] is
-    the visibility pass's depth, which the cascaded shadow term and the
-    IBL's far-plane test read.
+                  y_parity: int = 0,
+                  rates: ShadeRates = ShadeRates()):
+    """The fragment stage (passes.py:429-1313): Blinn-Phong (≙
+    pixel/model_full.hlsl) or Cook-Torrance PBR (≙ pixel/model_pbr.hlsl),
+    each with the shadowed sun, the masked point/spot loops, ambient and
+    emissive; on a textured scene the five material slots (_textured).
+    Material parameters come from the exact gather bank[mat_id] (the JAX
+    one-hot HIGHEST matmul computes the same values, the texture-set id
+    too), or, with mat_id_img None (the peel contract, passes.py:545-550,
+    :589), from the last 11 lanes, with the set and texture ids gathered
+    through tri_id (SOURCE ids). depth [H,W] is the visibility pass's depth,
+    which the cascaded shadow term and the IBL's far-plane test read.
 
-    PBR_IBL on a finalized environment with sky_dirs given is the fast
-    ambient (passes.py:1040-1296): SH9 diffuse, the analytic env-BRDF and
-    ONE trilinear fetch from the merged specular/skybox cube atlas, which
-    serves covered pixels (the prefiltered level pair at
-    roughness * max_lod) and far-plane pixels (the skybox segment) alike;
-    on full-row frames of >= 128 rows the fetch runs on even rows and odd
-    rows reconstruct id-awarely from tri_id. PBR_IBL without IBL maps falls
-    back to the hemisphere ambient, as in the JAX frame. full_rows=False
-    (a band) keeps every rate per pixel; y_parity is the band's first-row
-    parity for the texture LOD. Returns (linear [H,W,4], the fetched sky
-    radiance [H,W,3] or None); misses hold garbage (the caller
-    composites)."""
+    PBR_IBL with IBL maps: on a finalized environment with sky_dirs given,
+    the fast ambient (passes.py:1040-1295): SH9 diffuse, the analytic
+    env-BRDF and the merged specular/skybox radiance, which serves covered
+    pixels (the prefiltered level pair at roughness * max_lod) and
+    far-plane pixels (the skybox segment) alike, from ONE trilinear fetch
+    (atlas_tri) at the rate rates.cube with the id-aware upsample, or from
+    two window-atlas fetches when the environment has no atlas_tri; on an
+    environment set without finalize, the exact map sampling
+    (pbr.calculate_ibl; the caller composites the sky). Without IBL maps,
+    the hemisphere ambient.
+
+    rates (ShadeRates) selects the reduced rates: the PCF term's
+    (_shadow_term), the cube fetch's, the half-rate lighting block
+    (rates.light == "yhalf", passes.py:1082-1152: the sun and IBL terms
+    albedo-split on even rows, the full-rate albedo and AO multiplied in,
+    odd rows reconstructed id-awarely) and the merged gather, which
+    evaluates the PCF term and the cube fetch per pixel. Each engages under
+    the JAX conditions; full_rows=False (a band) keeps every y-strided rate
+    per pixel. y_parity is the band's first-row parity for the texture LOD.
+    Returns (linear [H,W,4], the fetched sky radiance [H,W,3] or None);
+    misses hold garbage (the caller composites)."""
     world_pos = varying[..., 0:3]
     normal = normalize(varying[..., 3:6])
     if mat_id_img is not None:
@@ -924,54 +1131,34 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
     roughness = mat_px[..., 5]
     ao = mat_px[..., 6]
     emissive = mat_px[..., 7:10]
-    if layout.has_textures and any(layout.texture_slots):
-        tex = scene.textures
-        if tex is None or tex.mat_atlas_tri is None:
-            raise _not_ported("the per-slot texture fetch (no single-gather material atlas)",
-                              "Queue 1 item 7")
-        if mat_id_img is not None:
-            mid = tex.mat_set[mat_id_img.long()]
-        else:
-            mid = tex.mat_set[scene.tri_material][torch.clamp(tri_id, min=0).long()]
-        used = [i for i, u in enumerate(layout.texture_slots) if u]
-        pos, c13 = {}, 0
-        for slot in used:
-            pos[slot] = c13
-            c13 += len(_SLOT_CHANNELS[slot])
-        shapes = tuple((int(m.shape[1]), int(m.shape[2])) for m in tex.mips)
-        n_sets = tex.mat_atlas_tri.shape[0] // sum(h * w for h, w in shapes)
-        offs, off = [], 0
-        for h_, w_ in shapes:
-            offs.append(off)
-            off += n_sets * h_ * w_
-        samp = sample_material_atlas_tri(tex.mat_atlas_tri, tuple(offs), shapes, len(shapes),
-                                         shapes[0], c13, mid, varying[..., 6:8],
-                                         y_parity=y_parity)
-        if 0 in pos:
-            base_color = base_color * samp[..., pos[0]:pos[0] + 4]
-        if 1 in pos:
-            # TBN normal mapping (model_pbr.hlsl:168-197); packed XYZ only
-            t4 = varying[..., 8:12]
-            t3 = normalize(t4[..., :3])
-            b3 = cross(normal, t3) * t4[..., 3:4]
-            n_ts = samp[..., pos[1]:pos[1] + 3] * 2.0 - 1.0
-            n_ts = torch.cat([n_ts[..., :2] * mat_px[..., 10:11], n_ts[..., 2:3]], dim=-1)
-            normal = normalize(t3 * n_ts[..., 0:1] + b3 * n_ts[..., 1:2] + normal * n_ts[..., 2:3])
-        if 2 in pos:
-            # packed MR channels are (G, B) = (roughness, metallic)
-            roughness = roughness * samp[..., pos[2]]
-            metallic = metallic * samp[..., pos[2] + 1]
-        if 3 in pos:
-            ao = ao * samp[..., pos[3]]
-        if 4 in pos:
-            emissive = emissive * samp[..., pos[4]:pos[4] + 3]
+    if layout.has_textures and scene.textures is not None and any(layout.texture_slots):
+        normal, base_color, metallic, roughness, ao, emissive = _textured(
+            scene, layout, varying, mat_px, mat_id_img, tri_id, y_parity, normal,
+            base_color, metallic, roughness, ao, emissive)
     albedo = base_color[..., :3]
     view_dir = normalize(scene.camera.camera_position - world_pos)
     lights = scene.lights
     sun_dir = normalize(-lights.sun_direction)  # surface -> light
-    if (layout.has_csm or layout.has_shadow) and shadow_map is not None:
+    env = scene.environment
+    rows = world_pos.shape[0]
+    shadowed = (layout.has_csm or layout.has_shadow) and shadow_map is not None
+    fast = (shading == ShadingModel.PBR_IBL and layout.has_environment and env is not None
+            and env.irradiance_mips is not None and sky_dirs is not None
+            and env.atlas is not None)
+    # the merged PCF/cube gather (passes.py:785-816): both fetches per pixel
+    merged = (fast and rates.merge_gather and layout.has_shadow and not layout.has_csm
+              and shadow_map is not None and shadow_params.pcf and env.atlas_tri is not None
+              and env.atlas_tri.dtype == torch.float32
+              and shadow_map.shape[1] % PCF_GROUP == 0)
+    # the half-rate lighting block (passes.py:1082-1095)
+    light_half = (fast and rates.light == "yhalf" and full_rows and rows >= 128
+                  and not merged and layout.has_shadow and not layout.has_csm
+                  and shadow_map is not None and env.atlas_tri is not None
+                  and lights.point_position.shape[0] == 0
+                  and lights.spot_position.shape[0] == 0)
+    if shadowed and not merged and not light_half:
         shadow = _shadow_term(scene, layout, world_pos, normal, sun_dir, depth, shadow_map,
-                              shadow_params, full_rows)
+                              shadow_params, full_rows, rates.pcf)
     else:
         shadow = 1.0
 
@@ -996,87 +1183,162 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
                 world_pos, normal, view_dir, albedo, roughness,
             )
         ambient = scene.scene_ubo.ambient_color * albedo * ao[..., None]
-    else:
-        # Cook-Torrance direct (pixel/model_pbr.hlsl:278-345)
-        mat = pbr_ops.PBRMaterialParams(
-            albedo=albedo, metallic=metallic,
-            roughness=pbr_ops.clamp_roughness(roughness), ao=ao, emissive=emissive,
-        )
-        lo = shadow * pbr_ops.pbr_direct(
-            normal, view_dir, sun_dir.expand(world_pos.shape),
-            lights.sun_color * lights.sun_intensity, mat,
-        )
+        rgb = ambient + lo + emissive
+        return torch.cat([rgb, base_color[..., 3:4]], dim=-1), None
+    # Cook-Torrance direct (pixel/model_pbr.hlsl:278-345)
+    mat = pbr_ops.PBRMaterialParams(
+        albedo=albedo, metallic=metallic,
+        roughness=pbr_ops.clamp_roughness(roughness), ao=ao, emissive=emissive,
+    )
+    sun_radiance = lights.sun_color * lights.sun_intensity
+    if light_half:
+        with record_function("frame/ibl"):
+            return _half_rate_lighting(scene, env, normal, view_dir, world_pos, albedo,
+                                       metallic, mat, base_color, sun_dir, sun_radiance,
+                                       depth, sky_dirs, tri_id, shadow_map, shadow_params)
+    sun_lo = pbr_ops.pbr_direct(normal, view_dir, sun_dir.expand(world_pos.shape),
+                                sun_radiance, mat)
+    # the merged gather defers the sun term to the cube fetch; its light
+    # sum then starts at zero and takes the sun last (passes.py:1007-1012)
+    lo = torch.zeros_like(sun_lo) if merged else shadow * sun_lo
 
-        def punctual(position):
-            lvec = position - world_pos
-            dist = torch.sqrt(torch.clamp(torch.sum(lvec * lvec, -1, keepdim=True), min=1e-12))
-            return lvec / dist, dist[..., 0]
+    def punctual(position):
+        lvec = position - world_pos
+        dist = torch.sqrt(torch.clamp(torch.sum(lvec * lvec, -1, keepdim=True), min=1e-12))
+        return lvec / dist, dist[..., 0]
 
-        for i in range(lights.point_position.shape[0]):
-            mask = (i < lights.num_point).to(torch.float32)
-            ldir, dist = punctual(lights.point_position[i])
-            att = bp.calculate_attenuation(dist, lights.point_radius[i])
-            radiance = lights.point_color[i] * lights.point_intensity[i] * att[..., None]
-            lo = lo + mask * pbr_ops.pbr_direct(normal, view_dir, ldir, radiance, mat)
-        for i in range(lights.spot_position.shape[0]):
-            mask = (i < lights.num_spot).to(torch.float32)
-            ldir, dist = punctual(lights.spot_position[i])
-            att = bp.calculate_attenuation(dist, 50.0) * bp.calculate_spot_attenuation(
-                ldir, normalize(lights.spot_direction[i]),
-                lights.spot_inner[i], lights.spot_outer[i],
+    for i in range(lights.point_position.shape[0]):
+        mask = (i < lights.num_point).to(torch.float32)
+        ldir, dist = punctual(lights.point_position[i])
+        att = bp.calculate_attenuation(dist, lights.point_radius[i])
+        radiance = lights.point_color[i] * lights.point_intensity[i] * att[..., None]
+        lo = lo + mask * pbr_ops.pbr_direct(normal, view_dir, ldir, radiance, mat)
+    for i in range(lights.spot_position.shape[0]):
+        mask = (i < lights.num_spot).to(torch.float32)
+        ldir, dist = punctual(lights.spot_position[i])
+        att = bp.calculate_attenuation(dist, 50.0) * bp.calculate_spot_attenuation(
+            ldir, normalize(lights.spot_direction[i]),
+            lights.spot_inner[i], lights.spot_outer[i],
+        )
+        radiance = lights.spot_color[i] * lights.spot_intensity[i] * att[..., None]
+        lo = lo + mask * pbr_ops.pbr_direct(normal, view_dir, ldir, radiance, mat)
+    if fast:
+        with record_function("frame/ibl"):
+            if merged:
+                shadow = calculate_shadow(shadow_map, scene.light_space_matrix, world_pos,
+                                          normal, sun_dir.expand(world_pos.shape),
+                                          shadow_params)[..., None]
+                lo = lo + shadow * sun_lo
+            spec_sky = _ibl_radiance(env, view_dir, normal, mat.roughness, depth, sky_dirs,
+                                     tri_id, full_rows, "full" if merged else rates.cube)
+            ambient = pbr_ops.calculate_ibl_fast(normal, view_dir, mat, env.irradiance_sh,
+                                                 spec_sky)
+        rgb = ambient + lo + emissive
+        return torch.cat([rgb, base_color[..., 3:4]], dim=-1), spec_sky
+    if (shading == ShadingModel.PBR_IBL and layout.has_environment and env is not None
+            and env.irradiance_mips is not None):
+        # the exact map sampling (passes.py:1296-1307), reusing a prebuilt
+        # window atlas when the environment carries one
+        with record_function("frame/ibl"):
+            ambient = pbr_ops.calculate_ibl(
+                normal, view_dir, _reflect_view(view_dir, normal), mat, env.irradiance_mips,
+                env.prefiltered_mips, env.brdf_lut, prefiltered_atlas=env.atlas,
+                prefiltered_atlas_offsets=env.atlas_offsets,
+                prefiltered_atlas_sizes=env.atlas_sizes,
             )
-            radiance = lights.spot_color[i] * lights.spot_intensity[i] * att[..., None]
-            lo = lo + mask * pbr_ops.pbr_direct(normal, view_dir, ldir, radiance, mat)
-        env = scene.environment
-        if (shading == ShadingModel.PBR_IBL and layout.has_environment
-                and env.irradiance_mips is not None):
-            if sky_dirs is None or env.atlas is None:
-                raise _not_ported("the exact map-sampling IBL (calculate_ibl: an environment "
-                                  "set with finalize=False)", "Queue 1 item 7")
-            with record_function("frame/ibl"):
-                spec_sky = _ibl_radiance(env, view_dir, normal, mat.roughness, depth,
-                                         sky_dirs, tri_id, full_rows)
-                ambient = pbr_ops.calculate_ibl_fast(normal, view_dir, mat, env.irradiance_sh,
-                                                     spec_sky)
-            rgb = ambient + lo + emissive
-            return torch.cat([rgb, base_color[..., 3:4]], dim=-1), spec_sky
+    else:
         # hemisphere ambient (model_pbr.hlsl ambient, pbr.hlsli:480-490)
         ambient = pbr_ops.hemisphere_ambient(normal, albedo, ao)
     rgb = ambient + lo + emissive
     return torch.cat([rgb, base_color[..., 3:4]], dim=-1), None
 
 
-def _ibl_radiance(env, view_dir, normal, roughness, depth, sky_dirs, tri_id,
-                  full_rows: bool) -> torch.Tensor:
-    """The merged specular/skybox radiance [H,W,3] (passes.py:1060-1275):
-    covered pixels fetch the prefiltered level pair along R = reflect(-V, N)
-    at mip roughness * max_lod, far-plane pixels the skybox segment (the
-    atlas's last, frac 0) along their ray; one trilinear atlas fetch, on
-    even rows with the id-aware upsample on full-row frames of >= 128 rows
-    (the JAX package's default cube rate), per pixel otherwise."""
-    r = -(view_dir - 2.0 * torch.sum(view_dir * normal, -1, keepdim=True) * normal)
+def _reflect_view(view_dir, normal) -> torch.Tensor:
+    """R = reflect(-V, N), as the JAX shade forms it (passes.py:1040-1043)."""
+    return -(view_dir - 2.0 * torch.sum(view_dir * normal, -1, keepdim=True) * normal)
+
+
+def _cube_lookup(env, view_dir, normal, roughness, depth, sky_dirs):
+    """The fast ambient's per-pixel cube lookup (passes.py:1056-1081):
+    covered pixels along R at mip roughness * max_lod, far-plane pixels
+    along their sky ray in the skybox segment (level n_pref, frac 0).
+    Returns (level, frac, face, uv, the static segment offsets and face
+    sizes, channels)."""
     n_pref = len(env.prefiltered_mips)
     far = depth >= 1.0
-    dirs = torch.where(far[..., None], sky_dirs, r)
+    dirs = torch.where(far[..., None], sky_dirs, _reflect_view(view_dir, normal))
     lod = torch.where(far, torch.full_like(roughness, float(n_pref)),
                       roughness * float(n_pref - 1))
     face, uv_c = direction_to_cube_uv(dirs)
     lo_l = _floor_int(lod)  # clamped before the cast
     frac = lod - lo_l.to(lod.dtype)
-    c = env.skybox_mips[0].shape[-1]
     seg_sizes = tuple(int(m.shape[1]) for m in env.prefiltered_mips) + (
         int(env.skybox_mips[0].shape[1]),)
     seg_offs, off = [], 0
     for s_ in seg_sizes:
         seg_offs.append(off)
         off += 6 * s_ * s_
+    return lo_l, frac, face, uv_c, tuple(seg_offs), seg_sizes, env.skybox_mips[0].shape[-1]
+
+
+def _ibl_radiance(env, view_dir, normal, roughness, depth, sky_dirs, tri_id,
+                  full_rows: bool, cube: str = "yhalf") -> torch.Tensor:
+    """The merged specular/skybox radiance [H,W,3] (passes.py:1195-1289):
+    one trilinear atlas_tri fetch, on every 4th ("yquarter", full-row
+    frames of >= 256 rows) or 2nd row ("yhalf" or "yquarter", >= 128 rows)
+    with the id-aware upsample, per pixel otherwise; an environment with
+    the window atlas but no atlas_tri takes two per-pixel atlas fetches,
+    the levels below and above the LOD (the sky's both the skybox
+    segment), lerped by frac."""
+    lo_l, frac, face, uv_c, offs, sizes, c = _cube_lookup(env, view_dir, normal, roughness,
+                                                          depth, sky_dirs)
     rows = lo_l.shape[0]
-    if full_rows and rows >= 128:
-        spec = cube_trilinear_fetch(env.atlas_tri, tuple(seg_offs), seg_sizes, lo_l[::2],
-                                    frac[::2], face[::2], uv_c[::2], c)[..., :3]
-        return upsample2x_y_idaware(spec, tri_id, rows)
-    return cube_trilinear_fetch(env.atlas_tri, tuple(seg_offs), seg_sizes, lo_l, frac, face,
-                                uv_c, c)[..., :3]
+    if env.atlas_tri is None:
+        n_pref = len(env.prefiltered_mips)
+        hi_l = torch.where(depth >= 1.0, n_pref, torch.clamp(lo_l + 1, max=n_pref - 1))
+        f_lo = _cube_atlas_fetch(env.atlas, offs, sizes, lo_l, face, uv_c, c)
+        f_hi = _cube_atlas_fetch(env.atlas, offs, sizes, hi_l, face, uv_c, c)
+        return (f_lo * (1.0 - frac[..., None]) + f_hi * frac[..., None])[..., :3]
+    step = 1
+    if cube == "yquarter" and full_rows and rows >= 256:
+        step = 4
+    elif cube in ("yhalf", "yquarter") and full_rows and rows >= 128:
+        step = 2
+    spec = cube_trilinear_fetch(env.atlas_tri, offs, sizes, lo_l[::step], frac[::step],
+                                face[::step], uv_c[::step], c)[..., :3]
+    return spec if step == 1 else upsample_y_idaware(spec, tri_id, rows, step)
+
+
+def _half_rate_lighting(scene, env, normal, view_dir, world_pos, albedo, metallic, mat,
+                        base_color, sun_dir, sun_radiance, depth, sky_dirs, tri_id,
+                        shadow_map, shadow_params):
+    """The half-rate lighting block (passes.py:1096-1152): the sun's PCF x
+    Cook-Torrance term and the fast IBL ambient on even rows, albedo-split
+    (pbr_direct_split, calculate_ibl_fast_split) so the full-rate albedo
+    and AO multiply in at composite time; odd rows reconstruct id-awarely
+    from the winner ids, the sky radiance too. Returns (linear [H,W,4],
+    sky radiance [H,W,3])."""
+    rows = world_pos.shape[0]
+    lo_l, frac, face, uv_c, offs, sizes, c = _cube_lookup(env, view_dir, normal,
+                                                          mat.roughness, depth, sky_dirs)
+    n_h, v_h, wp_h = normal[::2], view_dir[::2], world_pos[::2]
+    alb_h, met_h, rgh_h = albedo[::2], metallic[::2], mat.roughness[::2]
+    spec_sky_h = cube_trilinear_fetch(env.atlas_tri, offs, sizes, lo_l[::2], frac[::2],
+                                      face[::2], uv_c[::2], c)[..., :3]
+    sun_b = sun_dir.expand(wp_h.shape)
+    sh_h = calculate_shadow(shadow_map, scene.light_space_matrix, wp_h, n_h, sun_b,
+                            shadow_params)[..., None]
+    d_sun, s_sun = pbr_ops.pbr_direct_split(n_h, v_h, sun_b, sun_radiance, alb_h, met_h, rgh_h)
+    d_ibl, s_ibl = pbr_ops.calculate_ibl_fast_split(n_h, v_h, alb_h, met_h, rgh_h,
+                                                    env.irradiance_sh, spec_sky_h)
+
+    def up(x):
+        return upsample2x_y_idaware(x, tri_id, rows)
+
+    aof = mat.ao[..., None]
+    rgb = (albedo * (up(sh_h * d_sun) + up(d_ibl) * aof) + up(sh_h * s_sun) + up(s_ibl) * aof
+           + mat.emissive)
+    return torch.cat([rgb, base_color[..., 3:4]], dim=-1), up(spec_sky_h)
 
 
 def transparent_pass(

@@ -13,7 +13,9 @@ its map (the four cascade maps under CSM, one launch) is kept across frames
 and re-rendered only when the geometry, the object transforms, the light
 matrix or the cascade matrices are new tensors, or the depth form
 (z_form) changed, so camera-only frames of a static scene reuse it. An MSAA
-pipeline renders through forward_frame's shade-once resolve. Each frame
+pipeline renders through forward_frame's shade-once resolve, or with
+msaa_mode="super" supersamples the whole frame; shade_rates sets the shade
+stage's reduced rates (passes.ShadeRates). Each frame
 hands forward_frame a RenderingConfig built from the renderer's clear
 colour and depth clear.
 
@@ -34,6 +36,7 @@ from renderer_rs_tpu_torch.core.device import resolve_device
 from renderer_rs_tpu_torch.renderer.frame_manager import FrameManager
 from renderer_rs_tpu_torch.ops.shadow import ShadowParams
 from renderer_rs_tpu_torch.renderer.passes import (
+    ShadeRates,
     ShadingModel,
     csm_shadow_pass,
     forward_frame,
@@ -66,6 +69,8 @@ class Renderer:
         camera=None,
         device="cuda",
         z_form: str = "bary",
+        shade_rates: ShadeRates = ShadeRates(),
+        msaa_mode: str = "resolve",
     ) -> None:
         self.device = resolve_device(device)
         self.config = config or RendererConfig()
@@ -78,6 +83,10 @@ class Renderer:
         # the shadow passes' depth form: "bary" (K1, K6) or "plane" (K7,
         # ≙ the JAX package's z_plane_mode, raster.py:297)
         self.z_form = z_form
+        # the shade stage's reduced rates and the MSAA form (the JAX
+        # package's rate and MSAA knobs), handed to every frame
+        self.shade_rates = shade_rates
+        self.msaa_mode = msaa_mode
         self._shadow_cache = None  # (z_form, shadow-input tensors, shadow map)
         self.depth_clear = 1.0  # ≙ the DepthBuffer's clear value
         # host-side Camera the app's controllers mutate; update_camera()
@@ -148,7 +157,8 @@ class Renderer:
             scene, self._layout, self.pipeline, self.shading, width, height,
             rendering=rendering, tonemap=self.tonemap,
             shadow_map_size=self.shadow_map_size, shadow_params=self.shadow_params,
-            shadow_map=self._shadow_map(scene), **extra,
+            shadow_map=self._shadow_map(scene), shade_rates=self.shade_rates,
+            msaa_mode=self.msaa_mode, **extra,
         )
 
     def render_frame(self, present: bool = True) -> np.ndarray | None:

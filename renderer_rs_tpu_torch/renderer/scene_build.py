@@ -6,7 +6,8 @@ time, with a static `SceneLayout` (per-object vertex ranges, which the
 vertex stage loops over) and per-triangle material ids resolved at shading
 time. Built so far: meshes and glTF models (add_model, with instancing
 reuse), an optional texture array (images of another size resized
-bilinearly, and the single-gather trilinear material atlas), an optional
+bilinearly; its per-texture window atlas, and within the row budget the
+f32 per-material and the single-gather trilinear material atlases), an optional
 sun shadow matrix or cascaded shadow matrices and an environment: a
 skybox, with or without the IBL maps and their fast-ambient form
 (finalize_environment)."""
@@ -14,13 +15,19 @@ skybox, with or without the IBL maps and their fast-ambient form
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
 
 import numpy as np
 import torch
 
 from renderer_rs_tpu_torch.core.device import resolve_device
 from renderer_rs_tpu_torch.ops.ibl import sh9_project_cubemap
-from renderer_rs_tpu_torch.ops.sampling import _cube_window_flat, build_cube_trilinear_atlas
+from renderer_rs_tpu_torch.ops.sampling import (
+    _cube_window_flat,
+    build_array_atlas,
+    build_cube_trilinear_atlas,
+)
 from renderer_rs_tpu_torch.resources.material import Material, MaterialBank
 from renderer_rs_tpu_torch.resources.model import Mesh, Model
 from renderer_rs_tpu_torch.resources.texture import _box_downsample
@@ -28,6 +35,13 @@ from renderer_rs_tpu_torch.resources.ubo import CameraUbo, SceneUbo
 from renderer_rs_tpu_torch.scene.light import LightBank
 from renderer_rs_tpu_torch.scene.transform import Transform
 
+
+log = logging.getLogger("renderer_rs_tpu_torch.scene_build")
+
+# the material atlases' level-0 row budget (scene_build.py:459): texture
+# sets x S^2 above it build neither material atlas, and the shade fetches
+# each slot from the per-texture atlas
+MATERIAL_ATLAS_BUDGET = 16_000_000
 
 # the five texture slots of a Material, in the order of MaterialBank.tex_ids
 _TEXTURE_SLOTS = ("base_color_texture", "normal_texture", "metallic_roughness_texture",
@@ -40,24 +54,39 @@ class TextureArrays:
     TextureArrays, scene_build.py:31): a per-pixel texture id gathers without
     dynamic shapes; tex id -1 = none.
 
-    mat_atlas_tri: the single-gather trilinear material atlas
-    (ops/sampling.build_material_atlas_tri), [R, 8*C] bf16, indexed by
-    texture-SET id: materials with the same 5-slot binding share rows, and
-    mat_set [M] maps a material to its set. The JAX class also carries the
-    f32 per-material atlas and the per-texture window atlas, which its shade
-    path reads only when mat_atlas_tri is absent; the port builds neither
-    (ROADMAP Queue 1 item 7)."""
+    atlas [R,16] f32 with atlas_offsets [L] and atlas_sizes [L,2]: the
+    per-texture 2x2-window mip atlas (ops/sampling.build_array_atlas), built
+    by set_textures; the per-slot shade path fetches each bound slot from it
+    in two gathers. mat_atlas [R, 4*4*slots] f32 with mat_offsets and
+    mat_sizes: the per-material window atlas (build_material_atlas), every
+    used slot of a texture SET on one row; mat_atlas_tri [R, 8*C] bf16: the
+    single-gather trilinear material atlas (build_material_atlas_tri) the
+    shade prefers. Both material atlases are indexed by texture-set id
+    (materials with the same 5-slot binding share rows; mat_set [M] maps a
+    material to its set) and are built only within the row budget
+    (scene_build.MATERIAL_ATLAS_BUDGET); above it the shade fetches per
+    slot."""
 
     mips: tuple  # [N,h,w,4] f32 per level
-    mat_atlas_tri: torch.Tensor | None = None  # [R, 8*C] bf16
+    atlas: torch.Tensor | None = None  # [R, 16] f32
+    atlas_offsets: torch.Tensor | None = None  # [L] int32
+    atlas_sizes: torch.Tensor | None = None  # [L,2] int32
+    mat_atlas: torch.Tensor | None = None  # [R, 4*C] f32
+    mat_offsets: torch.Tensor | None = None  # [L] int32
+    mat_sizes: torch.Tensor | None = None  # [L,2] int32
     mat_set: torch.Tensor | None = None  # [M] int64
+    mat_atlas_tri: torch.Tensor | None = None  # [R, 8*C] bf16
 
     def to(self, device) -> "TextureArrays":
         def opt(x):
             return None if x is None else x.to(device)
 
         return TextureArrays(mips=tuple(m.to(device) for m in self.mips),
-                             mat_atlas_tri=opt(self.mat_atlas_tri), mat_set=opt(self.mat_set))
+                             **{f.name: opt(getattr(self, f.name))
+                                for f in dataclasses.fields(self) if f.name != "mips"})
+
+    def replace(self, **kw) -> "TextureArrays":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass
@@ -192,6 +221,9 @@ class SceneBuilder:
         self._light_space_matrix: torch.Tensor | None = None
         self._csm_matrices: torch.Tensor | None = None
         self._csm_splits: torch.Tensor | None = None
+        # host build time in ms of each atlas built so far: texture_atlas,
+        # material_atlas (f32), material_atlas_tri
+        self.build_ms: dict[str, float] = {}
 
     def add_mesh(self, mesh: Mesh, transform: Transform | None = None,
                  material: Material | int | None = None) -> "SceneBuilder":
@@ -265,15 +297,27 @@ class SceneBuilder:
         mips = [torch.from_numpy(np.stack(arrs).astype(np.float32))]  # [N,S,S,4]
         while mips[-1].shape[1] > 1:
             mips.append(_box_downsample(mips[-1]))
-        self._textures = TextureArrays(mips=tuple(mips))
+        # the per-texture window atlas (scene_build.py:320-326)
+        t0 = time.perf_counter()
+        atlas, offsets, sizes = build_array_atlas(tuple(mips))
+        self._timed("texture_atlas", t0, atlas)
+        self._textures = TextureArrays(mips=tuple(mips), atlas=atlas, atlas_offsets=offsets,
+                                       atlas_sizes=sizes)
         return self
+
+    def _timed(self, name: str, t0: float, atlas: torch.Tensor) -> None:
+        """Record an atlas's host build time in build_ms and log it."""
+        ms = (time.perf_counter() - t0) * 1e3
+        self.build_ms[name] = ms
+        log.info("%s %s built in %.1f ms", name, tuple(atlas.shape), ms)
 
     def set_environment(self, env: Environment, finalize: bool = True) -> "SceneBuilder":
         """Attach the skybox/IBL environment (scene_build.py:334). By default
         an IBL-complete environment is finalized into the fast-ambient form
         (SH9 and the merged specular/skybox atlas); finalize=False keeps
-        only the maps, whose exact sampling path is not ported (the frame
-        then raises)."""
+        only the maps, which the shade samples exactly (ops/pbr.
+        calculate_ibl) and the frame composites the sky through
+        skybox_pass."""
         self._environment = finalize_environment(env) if finalize else env
         return self
 
@@ -323,6 +367,11 @@ class SceneBuilder:
         def optional(x):
             return None if x is None else x.to(dev)
 
+        slot_used = tuple(any(getattr(m, attr) >= 0 for m in self._materials)
+                          for attr in _TEXTURE_SLOTS)
+        textures = self._textures
+        if textures is not None and any(slot_used):
+            textures = self._material_atlases(slot_used)
         scene = GpuScene(
             positions=put(pos_l),
             normals=put(nrm_l),
@@ -340,7 +389,7 @@ class SceneBuilder:
                 or CameraUbo.create(torch.eye(4), torch.eye(4), torch.zeros(3))
             ).to(dev),
             scene_ubo=(self._scene_ubo or SceneUbo.create()).to(dev),
-            textures=None if self._textures is None else self._textures.to(dev),
+            textures=optional(textures),
             environment=None if self._environment is None else self._environment.to(dev),
             light_space_matrix=optional(self._light_space_matrix),
             csm_matrices=optional(self._csm_matrices),
@@ -361,10 +410,6 @@ class SceneBuilder:
         mat_consts = tuple(
             float(col[0]) if np.all(col == col[0]) else None for col in bank_rows.T
         )
-        slot_used = tuple(any(getattr(m, attr) >= 0 for m in self._materials)
-                          for attr in _TEXTURE_SLOTS)
-        if self._textures is not None and any(slot_used):
-            scene.textures = self._material_atlas(slot_used, dev)
         layout = SceneLayout(
             object_ranges=tuple(ranges),
             num_vertices=v_off,
@@ -378,29 +423,38 @@ class SceneBuilder:
         )
         return scene, layout
 
-    def _material_atlas(self, slot_used, dev) -> TextureArrays:
+    def _material_atlases(self, slot_used) -> TextureArrays:
         """The material-atlas step of build (scene_build.py:447-484): dedupe
-        the materials' 5-slot bindings into texture sets (np.unique), then the
-        single-gather trilinear atlas over the used slots."""
-        from renderer_rs_tpu_torch.ops.sampling import build_material_atlas_tri
+        the materials' 5-slot bindings into texture sets (np.unique); within
+        MATERIAL_ATLAS_BUDGET level-0 rows (sets x S^2) the f32
+        per-material atlas and the single-gather trilinear atlas over the
+        used slots, above it neither (the shade then fetches per slot). On
+        the host; build() moves the result to the scene's device."""
+        from renderer_rs_tpu_torch.ops.sampling import (
+            build_material_atlas,
+            build_material_atlas_tri,
+        )
 
-        mips = tuple(m.numpy() for m in self._textures.mips)
+        tex = self._textures
+        mips = tuple(m.numpy() for m in tex.mips)
         s0 = mips[0].shape[1]
         used = tuple(i for i, u in enumerate(slot_used) if u)
         id_rows = MaterialBank.create(self._materials).tex_ids.numpy()
         uniq, mat_set = np.unique(id_rows, axis=0, return_inverse=True)
-        if uniq.shape[0] * s0 * s0 > 16_000_000:
-            raise NotImplementedError(
-                f"{uniq.shape[0]} texture sets of {s0}x{s0} exceed the packed material "
-                "atlas's 16M-row budget; the per-slot atlas path is not ported yet "
-                "(ROADMAP Queue 1 item 7)"
-            )
-        atlas, _, _ = build_material_atlas_tri(mips, uniq, used)
-        return TextureArrays(
-            mips=self._textures.mips,
-            mat_atlas_tri=atlas,
-            mat_set=torch.from_numpy(mat_set.reshape(-1).astype(np.int64)),
-        ).to(dev)
+        if uniq.shape[0] * s0 * s0 > MATERIAL_ATLAS_BUDGET:
+            log.info("%d texture sets of %dx%d exceed the material atlases' %d-row budget: "
+                     "the shade fetches per slot", uniq.shape[0], s0, s0, MATERIAL_ATLAS_BUDGET)
+            return tex
+        t0 = time.perf_counter()
+        mat_atlas, mat_offsets, mat_sizes = build_material_atlas(mips, uniq, used)
+        self._timed("material_atlas", t0, mat_atlas)
+        t0 = time.perf_counter()
+        tri, _, _ = build_material_atlas_tri(mips, uniq, used)
+        self._timed("material_atlas_tri", t0, tri)
+        return tex.replace(
+            mat_atlas=mat_atlas, mat_offsets=mat_offsets, mat_sizes=mat_sizes,
+            mat_set=torch.from_numpy(mat_set.reshape(-1).astype(np.int64)), mat_atlas_tri=tri,
+        )
 
 
 def _resize_bilinear(img: np.ndarray, h: int, w: int) -> np.ndarray:

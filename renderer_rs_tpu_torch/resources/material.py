@@ -67,6 +67,10 @@ class MaterialBank:
             ),
         )
 
+    @property
+    def num_materials(self) -> int:
+        return self.base_color.shape[0]
+
     def to(self, device) -> "MaterialBank":
         return MaterialBank(**{
             f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)

@@ -7,6 +7,8 @@ import dataclasses
 
 import torch
 
+from renderer_rs_tpu_torch.mathx import inverse_transpose_3x3, normalize_or_zero
+
 _F32 = torch.float32
 
 
@@ -30,10 +32,58 @@ class CameraUbo:
             camera_position=torch.as_tensor(camera_position, dtype=_F32),
         )
 
+    def update_view(self, view, camera_position) -> "CameraUbo":
+        """A new view and eye position; view_projection recomputed (ubo.rs:126-135)."""
+        return CameraUbo.create(view, self.projection, camera_position)
+
+    def update_projection(self, projection) -> "CameraUbo":
+        """A new projection; view_projection recomputed (ubo.rs:138-147)."""
+        return CameraUbo.create(self.view, projection, self.camera_position)
+
     def to(self, device) -> "CameraUbo":
         return CameraUbo(**{
             f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
         })
+
+
+@dataclasses.dataclass
+class ObjectUbo:
+    """≙ resources::ObjectUbo (ubo.rs:172-268)."""
+
+    model: torch.Tensor  # [4,4]
+    normal_matrix: torch.Tensor  # [4,4], the upper-left 3x3 the inverse-transpose
+
+    @staticmethod
+    def create(model) -> "ObjectUbo":
+        model = torch.as_tensor(model, dtype=_F32)
+        return ObjectUbo(model=model, normal_matrix=ObjectUbo.compute_normal_matrix(model))
+
+    def update_model(self, model) -> "ObjectUbo":
+        return ObjectUbo.create(model)
+
+    @staticmethod
+    def compute_normal_matrix(model) -> torch.Tensor:
+        """Inverse-transpose with the identity fallback at |det| <= 1e-6
+        (ubo.rs:242-268)."""
+        return inverse_transpose_3x3(torch.as_tensor(model, dtype=_F32), eps=1e-6)
+
+
+@dataclasses.dataclass
+class DirectionalLightUbo:
+    """≙ resources::DirectionalLightUbo (ubo.rs:285-337): the direction
+    stored normalized, or zero."""
+
+    direction: torch.Tensor  # [3]
+    color: torch.Tensor  # [3]
+    intensity: torch.Tensor  # scalar
+
+    @staticmethod
+    def create(direction, color, intensity) -> "DirectionalLightUbo":
+        return DirectionalLightUbo(
+            direction=normalize_or_zero(torch.as_tensor(direction, dtype=_F32)),
+            color=torch.as_tensor(color, dtype=_F32),
+            intensity=torch.as_tensor(intensity, dtype=_F32),
+        )
 
 
 @dataclasses.dataclass

@@ -12,6 +12,7 @@ from renderer_rs_tpu_torch.mathx import (
     compose_srt,
     inverse_transpose_3x3,
     quat_identity,
+    quat_rotate,
     quat_to_mat3,
 )
 
@@ -40,8 +41,22 @@ class Transform:
         return self
 
     def with_parent(self, parent: "Transform") -> "Transform":
-        self._parent = copy.deepcopy(parent)
+        self.set_parent(parent)
         return self
+
+    # parenting keeps an owned clone of the parent (transform.rs:33-42, 88-105)
+    def set_parent(self, parent: "Transform") -> None:
+        self._parent = copy.deepcopy(parent)
+
+    def clear_parent(self) -> None:
+        self._parent = None
+
+    def has_parent(self) -> bool:
+        return self._parent is not None
+
+    @property
+    def parent(self) -> "Transform | None":
+        return self._parent
 
     def local_matrix(self) -> torch.Tensor:
         """SRT compose (≙ transform.rs:119-121)."""
@@ -57,3 +72,13 @@ class Transform:
     def normal_matrix(self) -> torch.Tensor:
         """Inverse-transpose with identity fallback (≙ transform.rs:164-179)."""
         return inverse_transpose_3x3(self.world_matrix())
+
+    # the rotation applied to -Z, +X and +Y (transform.rs:181-196)
+    def forward(self) -> torch.Tensor:
+        return quat_rotate(self.rotation, [0.0, 0.0, -1.0])
+
+    def right(self) -> torch.Tensor:
+        return quat_rotate(self.rotation, [1.0, 0.0, 0.0])
+
+    def up(self) -> torch.Tensor:
+        return quat_rotate(self.rotation, [0.0, 1.0, 0.0])

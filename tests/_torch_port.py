@@ -10,9 +10,10 @@ import numpy as np
 def flatten_jax_scene(scene, layout):
     """(fields, layout_fields) of a JAX GpuScene/SceneLayout as numpy arrays
     and Python values: the whole environment (skybox, IBL maps and their
-    fast-ambient form), of the textures the mips, the single-gather
-    material atlas (its bf16 bits as uint16) and the material -> set map,
-    which is what the port's frames read."""
+    fast-ambient form), of the textures the mips, the per-texture and the
+    f32 per-material window atlases with their offsets and sizes, the
+    single-gather material atlas (its bf16 bits as uint16) and the material
+    -> set map, which is what the port's frames read."""
 
     def group(obj):
         return {f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
@@ -37,6 +38,9 @@ def flatten_jax_scene(scene, layout):
     tex = getattr(scene, "textures", None)
     fields["textures"] = None if tex is None else {
         "mips": tuple(np.asarray(m) for m in tex.mips),
+        **{k: None if getattr(tex, k) is None else np.asarray(getattr(tex, k))
+           for k in ("atlas", "atlas_offsets", "atlas_sizes", "mat_atlas", "mat_offsets",
+                     "mat_sizes")},
         "mat_atlas_tri": (None if tex.mat_atlas_tri is None
                           else np.asarray(tex.mat_atlas_tri).view(np.uint16)),
         "mat_set": None if tex.mat_set is None else np.asarray(tex.mat_set),
@@ -216,3 +220,34 @@ def exact_scene(pkg: str, masked: bool = False, textured: bool = False, device=N
         direction=(-0.3, -1.0, 0.4))))
     b.set_scene_ubo(mod["resources.ubo"].SceneUbo.create(ambient_color=(0.2, 0.2, 0.2)))
     return b.build() if device is None else b.build(device=device)
+
+
+def memoize_jax_raster(monkeypatch):
+    """Run the JAX package's binned Pallas rasterizer once per distinct input
+    (its launcher rasterize_binned_pallas memoized on the bytes of every
+    array argument and the other arguments' values): the shade-path tests
+    render many frames of one geometry, whose rasterization, in interpret
+    mode, costs seconds each time and gives the same outputs."""
+    import hashlib
+
+    import jax
+
+    import renderer_rs_tpu.ops.raster_pallas as rp
+
+    orig = rp.rasterize_binned_pallas
+    cache = {}
+
+    def key_of(x):
+        if hasattr(x, "shape") and hasattr(x, "dtype"):
+            a = np.asarray(x)
+            return ("a", a.shape, str(a.dtype), hashlib.sha1(a.tobytes()).hexdigest())
+        return ("v", repr(x))
+
+    def memo(*args, **kwargs):
+        leaves, tree = jax.tree_util.tree_flatten((args, sorted(kwargs.items())))
+        key = (str(tree), tuple(key_of(x) for x in leaves))
+        if key not in cache:
+            cache[key] = orig(*args, **kwargs)
+        return cache[key]
+
+    monkeypatch.setattr(rp, "rasterize_binned_pallas", memo)
