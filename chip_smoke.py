@@ -150,6 +150,26 @@ Phases (any failure exits nonzero before the result lines):
          RATE_VARIANTS against the exact reference, mean and p99 of |d|
          of the tonemapped frame; the default rates must meet the JAX
          gate (p99 < 0.01, mean < 0.002);
+       - (k) python -m renderer_rs_tpu_torch.app.main in-process on the
+         headline scene, APP_FRAMES frames under --orbit and under --fly
+         (--log, a callable sink): one K1 in all, one K2 a frame, every
+         frame distinct, the app's FrameStats summary printed; K2 held to
+         its plain version on an orbit frame's inputs; (l) the headline
+         frame, then resize(1280, 720), then resize(1920, 1080): each
+         frame bit-equal to a fresh Renderer's at its extent, no K1; (m)
+         validation mode: the bind-time sweep timed, frames beside normal
+         mode's, no finding; one NaN normal gives exactly one; (n) two
+         render_frame(present=False) and one render_frame(): the acquired
+         slots follow the MAILBOX queue, frames_dropped printed (every
+         other loop presents each frame and must drop none); (o) the
+         geometry forms: vstage="batch" against "loop" on the headline and
+         (h) frames, taking turns (frame ms, peak device memory, the share
+         of equal ids, the frame bar between them); clip_compact=0 on the
+         headline frame (bit-equal to the default where clip_overflow is
+         0); cap_big=T at the 3840x2160 sample extent: K4 and K2 held to
+         their plain versions under the raised cap with no big-class
+         overflow, the shade-once and supersampled MSAA 4x loops, and the
+         stitched bands' footprint share;
        - the probe's own path: probes.kgather.run for the five bodies at
          4,096 iterations (µs per iteration), 30 launches.
      The frames must be finite with covered pixels; the peel, clip and bin
@@ -185,7 +205,10 @@ Phases (any failure exits nonzero before the result lines):
      hdr=...)) on cuda against cpu within the frame bar. Then each path of
      (g)-(j) at 160x128 on cuda against cpu: the exact IBL, the small
      many-material scene with the budget lowered, every rate variant and
-     the exact reference, and msaa_mode="super" at 64x48.
+     the exact reference, and msaa_mode="super" at 64x48. Then (k)-(o)
+     at 160x128 on cuda against cpu: the orbit app's three frames (golden
+     bar), a frame after resize(96, 64), validation findings on one NaN
+     normal, and the frame under every geometry form at once.
   6. After the main paths, so that the frame loops follow the same kernel
      checks as before: the chunk sweeps and tie tables of K2, K3 and K4
      queued by phase 3, then each split kernel's device µs by
@@ -197,7 +220,9 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import hashlib
 import json
+import logging
 import math
 import os
 import subprocess
@@ -315,6 +340,17 @@ STENCIL_FRAMES = 3
 TOPOLOGY_FRAMES = 3
 TOPOLOGY_VERTICES = 48  # a few dozen points or line segments
 CUTOFF = 0.5
+# (k) the app loop: app.main on the headline scene, frames a scripted camera
+APP_FRAMES = 30
+# (l) the resize loop's extents, one frame each
+RESIZE_EXTENTS = ((W, H), (1280, 720), (W, H))
+VALIDATION_FRAMES = 5
+# (o) frames of each geometry form
+FORMS_FRAMES = 5
+# (o) the share of equal winner ids between the batched and the loop vertex
+# stage (they may round an ulp apart on some vertices); their frames are
+# held to the frame bar besides
+VSTAGE_IDS_ALIKE = 0.999
 KERNEL_TIMINGS = 25
 # the split kernels once more with bins cut into pieces of at most this
 # many candidates: every bin of more splits
@@ -2091,6 +2127,10 @@ def _counts(**kw) -> dict:
             "probe_kgather": 0, **kw}
 
 
+# each _drive loop's median frame ms, by label
+_FRAME_MS: dict[str, float] = {}
+
+
 def _drive(label: str, renderer, frames: int, expect: dict, before_frame=None) -> dict:
     """Render `frames` frames with every launch counter zeroed just before
     and read just after; fail unless the counts are `expect`. `renderer` is
@@ -2098,6 +2138,8 @@ def _drive(label: str, renderer, frames: int, expect: dict, before_frame=None) -
     image or a frame tensor, [H,W,4])."""
     _zero_launch_counts()
     render = renderer if callable(renderer) else renderer.render_frame
+    # the loops present every frame with one frame in flight: MAILBOX drops none
+    dropped = None if callable(renderer) else renderer.frame_manager.frames_dropped
     frame_ms = []
     img = None
     for i in range(frames):
@@ -2107,10 +2149,14 @@ def _drive(label: str, renderer, frames: int, expect: dict, before_frame=None) -
         img = render()
         frame_ms.append((time.perf_counter() - t1) * 1e3)
     launches = _launch_counts()
+    _FRAME_MS[label] = _median(frame_ms)
     _log(f"main path, {label}: {frames} frames, launches {launches}, "
          f"frame ms median {_median(frame_ms):.3f} (all {[round(x, 3) for x in frame_ms]})")
     if launches != expect:
         raise SystemExit(f"phase main path, {label}: launches {launches}, expected {expect}")
+    if dropped is not None and renderer.frame_manager.frames_dropped != dropped:
+        raise SystemExit(f"phase main path, {label}: MAILBOX dropped a frame of a loop that "
+                         "presents every frame")
     if img is None or img.shape != (H, W, 4):
         raise SystemExit(f"phase main path, {label}: no frame")
     return launches
@@ -2281,6 +2327,7 @@ def phase_main_paths(headline: tuple, gltf: tuple, many: tuple) -> dict:
     _check_frame("glTF headline", renderer)
     del scene, renderer, warm
     by_path.update(_shade_paths(make, headline, many))
+    by_path.update(_frame_loop_paths(make, headline, many))
     return by_path
 
 
@@ -2379,6 +2426,387 @@ def _drift_table(make, scene, layout, kw) -> None:
     _log("drift table JSON " + json.dumps(rows))
     if not rows["default"]["accept"]:
         raise SystemExit("phase main path, drift table: the default rates miss the gate")
+
+
+class _Records(logging.Handler):
+    """The messages logged to a logger while attached."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _frame_loop_paths(make, headline: tuple, many: tuple) -> dict:
+    """Loops (k)-(o) at 1920x1080: the app loop with the scripted orbit and
+    fly cameras, the resize, validation mode, the MAILBOX present and the
+    geometry forms."""
+    by_path = _app_loop_paths(headline)
+    by_path["resize"] = _resize_path(headline)
+    by_path.update(_validation_path(make, headline))
+    by_path["mailbox"] = _mailbox_path(make, headline)
+    by_path.update(_geometry_form_paths(make, headline, many))
+    return by_path
+
+
+def _hold_k2(label: str, scene, layout, pipeline, width: int, height: int, forms=None) -> dict:
+    """K2 beside its plain version on one frame's inputs (the main path's
+    split plan, FORCED_CHUNK and the skip off), under the geometry forms
+    `forms`; returns _against_plain's result and the binning's overflow."""
+    from renderer_rs_tpu_torch.ops.raster_cuda import (
+        prepare_resolve,
+        raster_resolve,
+        raster_resolve_plain,
+    )
+    from renderer_rs_tpu_torch.renderer.passes import GeometryForms, frame_geometry
+
+    forms = forms or GeometryForms()
+    geo = frame_geometry(scene, layout, pipeline, width, height, forms)
+    k2 = prepare_resolve(geo.setup, height, width, geo.attr, scene.tris, geo.clip_src,
+                         geo.clip_planes, geo.mat_flat, small_limit=layout.num_triangles,
+                         cap_big=forms.cap_big)
+    res = _against_plain(
+        "raster_resolve", label, raster_resolve, raster_resolve_plain,
+        (k2.table, k2.sorted_tris, k2.seg, k2.nbx, height, width, k2.n_vary, k2.n_flat,
+         pipeline.depth_compare_op), k2.plan, lanes=True, extra=SKIP_OFF)
+    res["bin_overflow"] = k2.bin_overflow.tolist()
+    if not bool((res["tid"] >= 0).any()):
+        raise SystemExit(f"phase main path, {label}: raster_resolve covers no pixel")
+    return res
+
+
+def _app_loop_paths(headline: tuple) -> dict:
+    """(k) python -m renderer_rs_tpu_torch.app.main in-process on the
+    headline scene at 1920x1080, APP_FRAMES frames under --orbit and then
+    --fly, --log given and a callable sink: one K1 in all and one K2 a
+    frame, every frame distinct; the app's FrameStats summary line printed.
+    Then K2 held to its plain version on an orbit frame's inputs."""
+    import copy
+
+    import torch
+
+    from renderer_rs_tpu_torch.app.main import apply_camera_input, inject_scripted_events
+    from renderer_rs_tpu_torch.app.main import main as app_main
+    from renderer_rs_tpu_torch.platform.input import InputState
+    from renderer_rs_tpu_torch.resources.ubo import CameraUbo
+    from renderer_rs_tpu_torch.scene.camera import OrbitController
+
+    by_path = {}
+    argv = ["--scene", "full", "--textured", "--width", str(W), "--height", str(H),
+            "--frames", str(APP_FRAMES), "--log", "info,renderer_rs_tpu_torch=info"]
+    app_log = logging.getLogger("renderer_rs_tpu_torch.app")
+    for mode in ("orbit", "fly"):
+        hashes, presented = [], []
+
+        def sink(frame, n, hashes=hashes, presented=presented):
+            presented.append(time.perf_counter())
+            hashes.append(hashlib.sha1(frame.tobytes()).hexdigest())
+
+        records = _Records()
+        app_log.addHandler(records)
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            rc = app_main(argv + [f"--{mode}"], device="cuda", sink=sink)
+        finally:
+            app_log.removeHandler(records)
+        secs = time.perf_counter() - t0
+        launches = _launch_counts()
+        frame_ms = [(b - a) * 1e3 for a, b in zip(presented, presented[1:])]
+        summary = [m for m in records.messages if "steady-state" in m]
+        label = f"(k) app.main --{mode}, headline scene, {APP_FRAMES} frames"
+        _FRAME_MS[label] = _median(frame_ms)
+        _log(f"main path, {label}: rc {rc} in {secs:.2f}s (the scene build included), launches "
+             f"{launches}, frame ms between presents median {_median(frame_ms):.3f} (all "
+             f"{[round(x, 3) for x in frame_ms]}), distinct frames {len(set(hashes))} of "
+             f"{len(hashes)}; the app's stats: {summary}")
+        if rc != 0 or launches != _counts(raster_depth=1, raster_resolve=APP_FRAMES):
+            raise SystemExit(f"phase main path, {label}: rc {rc}, launches {launches}")
+        if len(hashes) != APP_FRAMES or len(set(hashes)) != APP_FRAMES or not summary:
+            raise SystemExit(f"phase main path, {label}: the frames are not {APP_FRAMES} "
+                             "distinct ones, or the app logged no frame statistics")
+        by_path[f"app_{mode}"] = launches
+    # an orbit frame's inputs: the headline scene under the app's scripted
+    # orbit camera after 12 frames
+    scene, layout, kw = headline
+    camera = copy.deepcopy(kw["camera"])
+    ctl = OrbitController()
+    ctl.sync_with_camera(camera, (0.0, 0.0, 0.0))
+    inp = InputState()
+    for f in range(12):
+        inp.begin_frame()
+        inject_scripted_events(inp, "orbit", f)
+        apply_camera_input(inp, "orbit", ctl, camera, 1.0 / 60.0)
+    orbit = scene.replace(camera=CameraUbo.create(
+        camera.view_matrix(), camera.projection_matrix(), camera.position).to(scene.device))
+    _hold_k2("(k) orbit frame 12", orbit, layout, kw["pipeline"], W, H)
+    torch.cuda.synchronize()
+    return by_path
+
+
+def _resize_path(headline: tuple) -> dict:
+    """(l) The headline frame at 1920x1080, then resize(1280, 720), then
+    resize(1920, 1080), one presented frame at each: each bit-equal (the
+    uint8 frame and the linear one) to a fresh Renderer's at that extent in
+    this process; the sun map is kept across the resizes (no K1)."""
+    import numpy as np
+    import torch
+
+    from renderer_rs_tpu_torch.core.config import RendererConfig
+    from renderer_rs_tpu_torch.renderer.renderer import Renderer
+
+    scene, layout, kw = headline
+
+    def fresh(w, h):
+        r = Renderer(RendererConfig(width=w, height=h), device="cuda", **kw)
+        r.set_scene(scene, layout)
+        return r
+
+    renderer = fresh(W, H)
+    renderer.render_frame()  # warm-up: the sun map
+    _zero_launch_counts()
+    got, frame_ms = [], []
+    for i, (w, h) in enumerate(RESIZE_EXTENTS):
+        if i:
+            renderer.resize(w, h)
+        t1 = time.perf_counter()
+        img = renderer.render_frame().copy()
+        frame_ms.append((time.perf_counter() - t1) * 1e3)
+        got.append((w, h, img, renderer.render_frame_hdr()))
+    launches = _launch_counts()
+    equal = []
+    for w, h, img, hdr in got:
+        ref = fresh(w, h)
+        equal.append((bool(np.array_equal(img, ref.render_frame())),
+                      bool(torch.equal(hdr.view(torch.int32),
+                                       ref.render_frame_hdr().view(torch.int32)))))
+    label = "(l) headline, resize 1920x1080 -> 1280x720 -> 1920x1080"
+    _log(f"main path, {label}: frame ms after each resize {[round(x, 3) for x in frame_ms]}, "
+         f"launches {launches}, shapes {[g[2].shape for g in got]}, (uint8, linear) bit-equal "
+         f"to a fresh Renderer's {equal}; swapchain {renderer.swapchain.extent}, depth buffer "
+         f"{renderer.depth_buffer.extent}")
+    if launches != _counts(raster_resolve=2 * len(RESIZE_EXTENTS)):
+        raise SystemExit(f"phase main path, {label}: launches {launches} (the sun map must be "
+                         "kept across resizes)")
+    if not all(a and b for a, b in equal) or any(g[2].shape != (g[1], g[0], 4) for g in got):
+        raise SystemExit(f"phase main path, {label}: a resized frame differs from a fresh "
+                         "Renderer's")
+    return launches
+
+
+def _validation_path(make, headline: tuple) -> dict:
+    """(m) The headline frame under RendererConfig(enable_validation=True):
+    the bind-time sweep timed, then VALIDATION_FRAMES frames beside as many
+    of a normal-mode Renderer; no finding. Then one NaN normal: exactly one
+    bind-time ERROR finding."""
+    import torch
+
+    import renderer_rs_tpu_torch.core.validation as validation
+    from renderer_rs_tpu_torch.core.config import RendererConfig
+    from renderer_rs_tpu_torch.renderer.renderer import Renderer
+
+    scene, layout, kw = headline
+    validation.reset_findings()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checked = Renderer(RendererConfig(width=W, height=H, enable_validation=True), device="cuda",
+                       **kw)
+    checked.set_scene(scene, layout)
+    bind_ms = (time.perf_counter() - t0) * 1e3
+    normal = make(scene, layout, kw)
+    for r in (checked, normal):
+        r.render_frame()  # warm-up: the sun map
+    by_path = {
+        "validation": _drive("(m) headline, validation mode", checked, VALIDATION_FRAMES,
+                             _counts(raster_resolve=VALIDATION_FRAMES)),
+        "validation_normal": _drive("(m) headline, normal mode", normal, VALIDATION_FRAMES,
+                                    _counts(raster_resolve=VALIDATION_FRAMES)),
+    }
+    clean = (validation.findings(validation.SEVERITY_ERROR),
+             validation.findings(validation.SEVERITY_VERBOSE))
+    normals = scene.normals.clone()
+    normals[normals.shape[0] // 2, 1] = float("nan")
+    checked.set_scene(scene.replace(normals=normals), layout)
+    bad = validation.findings(validation.SEVERITY_ERROR) - clean[0]
+    _log(f"(m) validation mode: bind-time sweep {bind_ms:.2f} ms; frame ms median "
+         f"{_FRAME_MS['(m) headline, validation mode']:.3f} vs normal mode "
+         f"{_FRAME_MS['(m) headline, normal mode']:.3f}; findings (ERROR, VERBOSE) on the clean "
+         f"scene {clean}; one NaN normal: {bad} ERROR finding(s) at bind")
+    validation.reset_findings()
+    if clean != (0, 1) or bad != 1:
+        raise SystemExit("phase main path, (m): validation mode's findings are wrong")
+    return by_path
+
+
+def _mailbox_path(make, headline: tuple) -> dict:
+    """(n) MAILBOX present: two render_frame(present=False), then one
+    render_frame(); the acquired slots stay in step with the frame queue.
+    Whether the newest frame had finished by the present is the card's
+    timing: frames_dropped is printed."""
+    renderer = make(*headline)
+    renderer.render_frame()  # warm-up: the sun map
+    _zero_launch_counts()
+    renderer.render_frame(present=False)
+    renderer.render_frame(present=False)
+    fm = renderer.frame_manager
+    pending = len(renderer._pending_slots)
+    img = renderer.render_frame()
+    launches = _launch_counts()
+    _log(f"main path, (n) MAILBOX: present mode {fm.present_mode}, pending "
+         f"slots {pending} after two present=False, then {len(renderer._pending_slots)} with "
+         f"{fm.in_flight} in flight; frames_dropped {fm.frames_dropped}, retired unpresented "
+         f"{fm.frames_retired_unpresented}; launches {launches}")
+    if not (fm.present_mode == "mailbox" and pending == 2 and img is not None
+            and len(renderer._pending_slots) == fm.in_flight
+            and launches == _counts(raster_resolve=3)):
+        raise SystemExit("phase main path, (n): the MAILBOX present lost its slots")
+    renderer.wait_idle()
+    return launches
+
+
+def _geometry_form_paths(make, headline: tuple, many: tuple) -> dict:
+    """(o) The geometry forms at 1920x1080: vstage "batch" against "loop"
+    on the headline and the many-material frames (frame ms taking turns,
+    peak device memory, the share of equal ids, the frame bar between
+    them); clip_compact=0 on the headline frame (bit-equal to the default
+    where clip_overflow is 0); cap_big=T on the shade-once MSAA 4x headline
+    frame (K4 at 3840x2160) and the supersampled one (K2 at 3840x2160),
+    each kernel held to its plain version under the raised cap, and the
+    stitched bands' footprint share under it."""
+    import dataclasses
+
+    import torch
+
+    from renderer_rs_tpu_torch.ops.raster_cuda import prepare_ids, raster_ids, raster_ids_plain
+    from renderer_rs_tpu_torch.renderer.passes import (
+        GeometryForms,
+        forward_frame,
+        frame_geometry,
+    )
+
+    by_path = {}
+    for key, label, (scene, layout, kw) in (("headline", "headline", headline),
+                                            ("many", "(h) many materials", many)):
+        renderers = {form: make(scene, layout, {**kw, "geometry_forms": GeometryForms(vstage=form)})
+                     for form in ("loop", "batch")}
+        peak = {}
+        for form, r in renderers.items():
+            r.render_frame()  # warm-up: the sun map
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            r.render_frame_hdr()
+            peak[form] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        _zero_launch_counts()
+        ms = {form: [] for form in renderers}
+        for _ in range(FORMS_FRAMES):
+            for form, r in renderers.items():
+                t1 = time.perf_counter()
+                r.render_frame()
+                ms[form].append((time.perf_counter() - t1) * 1e3)
+        launches = _launch_counts()
+        outs = {form: forward_frame(scene, layout, kw["pipeline"], kw["shading"], W, H,
+                                    tonemap=kw["tonemap"], shadow_map_size=kw["shadow_map_size"],
+                                    shadow_params=kw["shadow_params"], return_ids=True,
+                                    geometry_forms=GeometryForms(vstage=form))
+                for form in renderers}
+        (lo, lo_ids), (hi, hi_ids) = outs["loop"], outs["batch"]
+        alike = float((lo_ids == hi_ids).float().mean())
+        err = (hi - lo).abs()
+        off = float((err > 2e-3 + 2e-3 * lo.abs()).float().mean())
+        for form in renderers:
+            _FRAME_MS[f"(o) {label}, vstage={form}"] = _median(ms[form])
+        _log(f"main path, (o) {label}, vstage loop vs batch ({len(layout.object_ranges)} "
+             f"objects), taking turns: frame ms median loop {_median(ms['loop']):.3f}, batch "
+             f"{_median(ms['batch']):.3f} (all {json.dumps({f: [round(x, 3) for x in v] for f, v in ms.items()})}); "
+             f"peak device memory of a frame above the scene, GiB {json.dumps({f: round(v, 3) for f, v in peak.items()})}; "
+             f"launches {launches}; equal ids {alike:.4%}; frame bar: values off "
+             f"{off:.4%}, max |d| {float(err.max()):.3e}")
+        if launches != _counts(raster_resolve=2 * FORMS_FRAMES):
+            raise SystemExit(f"phase main path, (o) {label}: launches {launches}")
+        if not (bool(torch.isfinite(hi).all()) and alike >= VSTAGE_IDS_ALIKE
+                and off < 2e-3 and float(err.max()) < 0.05):
+            raise SystemExit(f"phase main path, (o) {label}: the batched vertex stage's frame "
+                             "is not finite, its ids differ or it is off the frame bar")
+        by_path[f"vstage_{key}"] = launches
+        del renderers, outs, lo, hi, lo_ids, hi_ids, err
+
+    scene, layout, kw = headline
+    pipeline, shading = kw["pipeline"], kw["shading"]
+    common = dict(tonemap=kw["tonemap"], shadow_map_size=kw["shadow_map_size"],
+                  shadow_params=kw["shadow_params"])
+    # clip_compact=0: the exact [2T] near-clip layout
+    exact = GeometryForms(clip_compact=0)
+    frames = [forward_frame(scene, layout, pipeline, shading, W, H, return_depth=True,
+                            return_ids=True, diagnostics=True, geometry_forms=forms, **common)
+              for forms in (GeometryForms(), exact)]
+    overflow = int(frames[0][3]["clip_overflow"])
+    same = [bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+            for a, b in zip(frames[0][:3], frames[1][:3])]
+    del frames
+    renderer = make(scene, layout, {**kw, "geometry_forms": exact})
+    renderer.render_frame()  # warm-up: the sun map
+    by_path["clip_compact_0"] = _drive("(o) headline, clip_compact=0 (2T raster slots)", renderer,
+                                       FORMS_FRAMES, _counts(raster_resolve=FORMS_FRAMES))
+    _log(f"(o) clip_compact=0: the default's clip_overflow {overflow}; (frame, depth, ids) "
+         f"bit-equal to the default {same}; raster slots {2 * layout.num_triangles}")
+    if overflow == 0 and not all(same):
+        raise SystemExit("phase main path, (o) clip_compact=0: the exact layout's frame differs "
+                         "from the compacted one with no overflow")
+    del renderer
+
+    # cap_big = T at the 3840x2160 sample extent: K4 (shade-once MSAA 4x)
+    # and K2 (supersampled), each against its plain version under the cap
+    t = layout.num_triangles
+    raised = GeometryForms(cap_big=t)
+    msaa = dataclasses.replace(pipeline, msaa_samples=MSAA)
+    sub = dataclasses.replace(pipeline, msaa_samples=1)
+    ws, hs = W * SX, H * SY
+    geo = frame_geometry(scene, layout, sub, W, H).at_extent(sub, ws, hs)
+    overflow = {}
+    for name, cap in (("default", None), ("cap_big=T", t)):
+        k4 = prepare_ids(geo.setup, hs, ws, geo.clip_src, small_limit=t, id_bound=t, cap_big=cap)
+        overflow[name] = k4.bin_overflow.tolist()
+    res = _against_plain("raster_ids", f"msaa{MSAA} sample pass, cap_big={t}", raster_ids,
+                         raster_ids_plain, (k4.table, k4.sorted_tris, k4.seg, k4.nbx, hs, ws,
+                                            sub.depth_compare_op), k4.plan, lanes=False,
+                         extra=SKIP_OFF)
+    k4_ms = _median(_event_times_ms(lambda: raster_ids(
+        k4.table, k4.sorted_tris, k4.seg, k4.nbx, hs, ws, sub.depth_compare_op, plan=k4.plan),
+        KERNEL_TIMINGS))
+    _log(f"(o) K4 at {ws}x{hs}: bin_overflow [big, huge] default {overflow['default']}, "
+         f"cap_big={t} {overflow['cap_big=T']}; covered {int((res['tid'] >= 0).sum())}; "
+         f"raster_ids under the raised cap {k4_ms:.4f} ms (median of {KERNEL_TIMINGS}), "
+         f"binned pairs {int(k4.n_pairs)}")
+    if overflow["cap_big=T"][0] != 0:
+        raise SystemExit("phase main path, (o) cap_big=T: the sample pass still overflows")
+    del geo, k4, res
+    hi = _hold_k2(f"(o) supersampled {ws}x{hs}, cap_big={t}", scene, layout, sub, ws, hs, raised)
+    default_hi = _hold_k2(f"(o) supersampled {ws}x{hs}, default cap", scene, layout, sub, ws, hs)
+    _log(f"(o) K2 at {ws}x{hs}: bin_overflow default {default_hi['bin_overflow']}, cap_big={t} "
+         f"{hi['bin_overflow']}")
+    if hi["bin_overflow"][0] != 0:
+        raise SystemExit("phase main path, (o) cap_big=T: the supersampled frame still overflows")
+    del hi, default_hi
+    for key, label, pipe, extra, expect in (
+        ("msaa4_cap_big", f"(o) headline msaa{MSAA} shade-once, cap_big={t}", msaa, {},
+         _counts(raster_resolve=FORMS_FRAMES, raster_ids=FORMS_FRAMES)),
+        ("msaa_super_cap_big", f"(o) headline msaa{MSAA} supersampled, cap_big={t}", msaa,
+         {"msaa_mode": "super"}, _counts(raster_resolve=FORMS_FRAMES)),
+    ):
+        renderer = make(scene, layout, {**kw, "pipeline": pipe, "geometry_forms": raised, **extra})
+        renderer.render_frame()  # warm-up: the sun map
+        by_path[key] = _drive(label, renderer, FORMS_FRAMES, expect)
+        del renderer
+    agree = _check_band_stitch(f"(o) 4 contiguous bands of the supersampled frame, cap_big={t}",
+                               scene, layout, {**kw, "pipeline": sub}, False, width=ws,
+                               height=hs, forms=raised)
+    share = float(agree.reshape(H, SY, W, SX).all(dim=3).all(dim=1).float().mean())
+    _log(f"(o) cap_big={t}: the stitched bands' footprint share {share:.4%} (loop (c) prints "
+         "it under the default cap)")
+    return by_path
 
 
 def _transparent_layer(scene, device: str):
@@ -2908,7 +3336,7 @@ def _headline_paths(make, scene, layout, kw) -> dict:
     return by_path
 
 
-def _check_band_stitch(label, scene, layout, kw, interleaved, width=W, height=H):
+def _check_band_stitch(label, scene, layout, kw, interleaved, width=W, height=H, forms=None):
     """The bands' winner source ids, each band from forward_frame(band=...)
     with render_frame_sharded's band_spec and stitched by band_rows, against
     the whole frame's from forward_frame; and the bands' K3 depth against
@@ -2916,7 +3344,8 @@ def _check_band_stitch(label, scene, layout, kw, interleaved, width=W, height=H)
     neither side's binning dropped a triangle (bin_overflow 0). Each band's
     K3 launch is held against its plain version on the band's own table
     (the split plan, FORCED_CHUNK, the skip off), overflow or not. Returns
-    the [height, width] mask of pixels whose ids and depth agree."""
+    the [height, width] mask of pixels whose ids and depth agree. forms
+    (a GeometryForms) goes to every frame, band and binning."""
     import torch
 
     from renderer_rs_tpu_torch.ops.raster_cuda import (
@@ -2927,17 +3356,19 @@ def _check_band_stitch(label, scene, layout, kw, interleaved, width=W, height=H)
         raster_visibility_plain,
     )
     from renderer_rs_tpu_torch.parallel import band_rows, band_spec
-    from renderer_rs_tpu_torch.renderer.passes import forward_frame, frame_geometry
+    from renderer_rs_tpu_torch.renderer.passes import GeometryForms, forward_frame, frame_geometry
 
+    forms = forms or GeometryForms()
     pipeline, t = kw["pipeline"], layout.num_triangles
     common = dict(tonemap=kw["tonemap"], shadow_map_size=kw["shadow_map_size"],
-                  shadow_params=kw["shadow_params"], return_ids=True, diagnostics=True)
+                  shadow_params=kw["shadow_params"], return_ids=True, diagnostics=True,
+                  geometry_forms=forms)
     _, ids, diag = forward_frame(scene, layout, pipeline, kw["shading"], width, height,
                                  **common)
     overflow = [diag["bin_overflow"].tolist()]
-    geo = frame_geometry(scene, layout, pipeline, width, height)
+    geo = frame_geometry(scene, layout, pipeline, width, height, forms)
     k2 = prepare_resolve(geo.setup, height, width, geo.attr, scene.tris, geo.clip_src, geo.clip_planes,
-                         geo.mat_flat, small_limit=t)
+                         geo.mat_flat, small_limit=t, cap_big=forms.cap_big)
     depth = raster_resolve(k2.table, k2.sorted_tris, k2.seg, k2.nbx, height, width, k2.n_vary,
                            k2.n_flat, pipeline.depth_compare_op)[0]
     band_h = height // N_BANDS
@@ -2949,7 +3380,8 @@ def _check_band_stitch(label, scene, layout, kw, interleaved, width=W, height=H)
         rows = band_rows(spec, device=ids.device)
         got_ids[rows] = b_ids
         y0, stride, pair = spec[0], spec[2] if len(spec) > 2 else 1, len(spec) > 3
-        k3 = prepare_visibility(geo.setup, band_h, width, y0, stride, pair, small_limit=t)
+        k3 = prepare_visibility(geo.setup, band_h, width, y0, stride, pair, small_limit=t,
+                                cap_big=forms.cap_big)
         got_depth[rows] = _against_plain(
             "raster_visibility", f"{label}, band {k}", raster_visibility,
             raster_visibility_plain, (k3.table, k3.sorted_tris, k3.seg, k3.nbx, band_h, width,
@@ -3083,6 +3515,7 @@ def phase_small_reference() -> None:
     _blend_stencil_msaa_small_checks()
     _gltf_small_checks()
     _shade_paths_small_checks()
+    _frame_loop_small_checks()
 
 
 def _shade_paths_small_checks() -> None:
@@ -3155,6 +3588,87 @@ def _shade_paths_small_checks() -> None:
     check(f"(j) full_scene(64, 48, tri_budget=2000, textured=True), msaa{MSAA} "
           "msaa_mode='super'", frame(made["cuda"], 64, 48, msaa=MSAA, msaa_mode="super"),
           frame(made["cpu"], 64, 48, msaa=MSAA, msaa_mode="super"))
+
+
+def _frame_loop_small_checks() -> None:
+    """Phase 5's checks of loops (k)-(o) at 160x128 on the card against the
+    port on the cpu: (k) app.main --orbit on the small headline scene, 3
+    frames, each within the golden bar; (l) a frame after resize(96, 64)
+    within the PBR bar of the checks above; (m) validation mode's findings
+    on one NaN normal equal; (o) the frame under vstage="batch",
+    shadow_vstage="world", clip_compact=0 and cap_big=0 within the PBR bar,
+    winner ids compared."""
+    import numpy as np
+
+    import renderer_rs_tpu_torch.core.validation as validation
+    from renderer_rs_tpu_torch.app.main import main as app_main
+    from renderer_rs_tpu_torch.app.scenes import full_scene
+    from renderer_rs_tpu_torch.core.config import RendererConfig
+    from renderer_rs_tpu_torch.renderer.passes import GeometryForms, forward_frame
+    from renderer_rs_tpu_torch.renderer.renderer import Renderer
+
+    w, h = 160, 128
+    small = ["--scene", "full", "--textured", "--tris", "2000", "--width", str(w), "--height",
+             str(h), "--frames", "3", "--orbit"]
+    frames = {}
+    for dev in ("cuda", "cpu"):
+        frames[dev] = []
+        app_main(small, device=dev, sink=lambda f, n, out=frames[dev]: out.append(f))
+    for i, (got, ref) in enumerate(zip(frames["cuda"], frames["cpu"])):
+        diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+        off = float((diff.max(-1) > 8).mean())
+        _log(f"(k) app.main --orbit at {w}x{h}, frame {i} cuda vs cpu: mean |d| "
+             f"{diff.mean():.4f}, pixels off by > 8 {off:.4%}")
+        if not (len(frames["cuda"]) == 3 and diff.mean() < 1.0 and off < 0.005):
+            raise SystemExit("phase small reference: the orbit app's frame on cuda differs from "
+                             "the cpu's")
+
+    def pbr_bar(label, got, ref):
+        err = np.abs(got - ref)
+        off = float((err > 2e-3 + 2e-3 * np.abs(ref)).mean())
+        _log(f"{label} cuda vs cpu: max |d| {err.max():.3e}, values off the bar {off:.4%}")
+        if not (np.isfinite(got).all() and off < 0.005 and err.max() < 0.15):
+            raise SystemExit(f"phase small reference: {label} on cuda differs from the cpu")
+
+    made = {dev: full_scene(w, h, tri_budget=2000, textured=True, device=dev)
+            for dev in ("cuda", "cpu")}
+    resized, findings, forms_out = {}, {}, {}
+    forms = GeometryForms(vstage="batch", shadow_vstage="world", clip_compact=0, cap_big=0)
+    for dev, (scene, layout, kw, _) in made.items():
+        kw = {**kw, "shadow_map_size": 256}
+        r = Renderer(RendererConfig(width=w, height=h), device=dev, **kw)
+        r.set_scene(scene, layout)
+        r.render_frame()
+        r.resize(96, 64)
+        r.render_frame()
+        resized[dev] = r.render_frame_hdr().cpu().numpy()
+        validation.reset_findings()
+        v = Renderer(RendererConfig(width=w, height=h, enable_validation=True), device=dev, **kw)
+        normals = scene.normals.clone()
+        normals[5, 0] = float("nan")
+        v.set_scene(scene.replace(normals=normals), layout)
+        v.render_frame()
+        findings[dev] = validation.findings(validation.SEVERITY_ERROR)
+        validation.reset_findings()
+        out, ids = forward_frame(scene, layout, kw["pipeline"], kw["shading"], w, h,
+                                 tonemap=kw["tonemap"], shadow_map_size=256,
+                                 shadow_params=kw["shadow_params"], return_ids=True,
+                                 geometry_forms=forms)
+        forms_out[dev] = (out.cpu().numpy(), ids.cpu())
+    pbr_bar(f"(l) full_scene({w}, {h}, tri_budget=2000, textured=True) resized to 96x64",
+            resized["cuda"], resized["cpu"])
+    _log(f"(m) validation findings on one NaN normal (ERROR), cuda {findings['cuda']}, cpu "
+         f"{findings['cpu']}")
+    if findings["cuda"] != findings["cpu"] or findings["cuda"] < 1:
+        raise SystemExit("phase small reference: validation findings differ between the devices")
+    ids_diff = int((forms_out["cuda"][1] != forms_out["cpu"][1]).sum())
+    _log(f"(o) {forms}: winner ids differing {ids_diff} of "
+         f"{int((forms_out['cpu'][1] >= 0).sum())} covered")
+    if ids_diff:
+        raise SystemExit(f"phase small reference: (o) under {forms} the winner ids on cuda "
+                         "differ from the cpu's")
+    pbr_bar(f"(o) full_scene({w}, {h}, tri_budget=2000, textured=True) under {forms}",
+            forms_out["cuda"][0], forms_out["cpu"][0])
 
 
 def _gltf_small_checks() -> None:

@@ -6,6 +6,7 @@
                                     --alpha-cutoff 0.5 --no-finalize
                                     --pcf-res R --cube-res R --light-res R
                                     --merge-gather --msaa-mode super
+                                    --vstage batch
                                     --width 1920 --height 1080 --rings 160
                                     --sectors 320 --tris 100000 --frames 5
                                     --out out/profile]
@@ -28,7 +29,9 @@ and the sky through `frame/sky_tonemap`). `--scene many` is
 chip_smoke.py's many-material scene (a 16x16 sphere grid of 256 texture
 sets, the per-slot fetch). `--pcf-res`, `--cube-res`, `--light-res`,
 `--merge-gather` and `--msaa-mode` are the Renderer's shade_rates and
-msaa_mode (app.main's flags). Under the MASK pipeline the span `frame/peel` then takes the place of
+msaa_mode (app.main's flags); `--vstage batch` is the Renderer's
+GeometryForms(vstage="batch"), the vertex stage as one product against
+per-object column blocks (the span `frame/geometry`). Under the MASK pipeline the span `frame/peel` then takes the place of
 `frame/bin_table` and `frame/k2` (the binning and table,
 `frame/peel_bin_table`, and the four K5 launches, `frame/k5`, nested in
 it, with the alpha tests between them). `--msaa N` (2, 4 or 8) renders through
@@ -107,6 +110,7 @@ def main(argv=None) -> int:
     parser.add_argument("--light-res", choices=["full", "yhalf"], default="full")
     parser.add_argument("--merge-gather", action="store_true")
     parser.add_argument("--msaa-mode", choices=["resolve", "super"], default="resolve")
+    parser.add_argument("--vstage", choices=["loop", "batch"], default="loop")
     parser.add_argument("--frames", type=int, default=5)
     parser.add_argument("--out", default=os.path.join("out", "profile"),
                         help="directory for the JSON summary (and the trace)")
@@ -122,7 +126,7 @@ def main(argv=None) -> int:
     from renderer_rs_tpu_torch.core.config import RendererConfig
     from renderer_rs_tpu_torch.ops.csm import fit_cascades
     from renderer_rs_tpu_torch.ops.shadow import directional_light_matrix
-    from renderer_rs_tpu_torch.renderer.passes import ShadeRates
+    from renderer_rs_tpu_torch.renderer.passes import GeometryForms, ShadeRates
     from renderer_rs_tpu_torch.renderer.renderer import Renderer
 
     card = subprocess.run(
@@ -149,7 +153,8 @@ def main(argv=None) -> int:
     rates = ShadeRates(pcf=args.pcf_res, cube=args.cube_res, light=args.light_res,
                        merge_gather=args.merge_gather)
     renderer = Renderer(RendererConfig(width=args.width, height=args.height), device="cuda",
-                        shade_rates=rates, msaa_mode=args.msaa_mode, **kw)
+                        shade_rates=rates, msaa_mode=args.msaa_mode,
+                        geometry_forms=GeometryForms(vstage=args.vstage), **kw)
     renderer.set_scene(scene, layout)
     steps = iter(range(1, 1000))
 
@@ -223,6 +228,7 @@ def main(argv=None) -> int:
         "finalized": not args.no_finalize,
         "shade_rates": dataclasses.asdict(rates),
         "msaa_mode": args.msaa_mode,
+        "vstage": args.vstage,
         "shape": [args.width, args.height],
         "triangles": layout.num_triangles,
         "frames": args.frames,
@@ -255,6 +261,7 @@ def main(argv=None) -> int:
                f"{k}{v}" for k, v in dataclasses.asdict(rates).items()
                if v != getattr(ShadeRates(), k)))
            + ("_super" if args.msaa_mode == "super" else "")
+           + ("_batch" if args.vstage == "batch" else "")
            + ("_moving_sun" if args.moving_sun else ""))
     with open(os.path.join(args.out, f"torch_frame_profile_{tag}.json"), "w") as f:
         json.dump(summary, f, indent=1)

@@ -36,17 +36,66 @@ model's degenerate images), or with `--scene gltf-pbr` renders the model
 alone. As in the JAX app
 there is no alpha-cutoff flag: a MASK pipeline
 (`GraphicsPipelineBuilder().alpha_cutoff(0.5)`) reaches the Renderer as
-its `pipeline`. The X11 window and the scripted orbit/fly cameras wait for
-ROADMAP Queue 1 item 14."""
+its `pipeline`.
+
+The frame loop is the JAX app's (≙ main.rs:35-105): a Window whose
+surface is the `--out` directory (frame_{n:05d}.png per presented frame)
+or, without it, offscreen (the last frame kept; the X11 window waits for
+ROADMAP Queue 1); a Timer whose tick is each frame's dt, clamped to 0.1 s
+for the camera (a build or I/O stall must not teleport it); `--orbit`
+injects a scripted left-button drag and scroll into an InputState driving
+an OrbitController, `--fly` holds W with a mouse-look driving an
+FpsController (both need a scene with a camera); the frames still in
+flight are drained and presented at the end, and the FrameStats summary
+logged. `--log` is the RUST_LOG-style filter of init_logging.
+`--vstage`, `--shadow-vstage`, `--clip-compact` and `--cap-big` set the
+geometry forms (passes.GeometryForms; the JAX package's geometry knobs).
+The scene animation (the spinning cube) steps 1/60 s a frame."""
 
 from __future__ import annotations
 
 import argparse
 import logging
-import os
-import time
+
+from renderer_rs_tpu_torch.platform.input import InputState, KeyCode, MouseButton
 
 log = logging.getLogger("renderer_rs_tpu_torch.app")
+
+
+def inject_scripted_events(inp: InputState, mode: str, frame: int) -> None:
+    """The per-frame scripted event stream standing in for winit callbacks
+    (≙ renderer_rs_tpu/app/main.py:34; app/src/main.rs:61-97)."""
+    if mode == "orbit":
+        if frame == 0:
+            inp.on_mouse_move(400.0, 300.0)  # anchor (no delta on the first move)
+            inp.on_mouse_press(MouseButton.LEFT)
+        inp.on_mouse_move(400.0 + 8.0 * (frame + 1), 300.0 + 2.0 * (frame + 1))
+        if frame % 16 == 8:
+            inp.on_scroll(1.0)
+    elif mode == "fly":
+        if frame == 0:
+            inp.on_mouse_move(400.0, 300.0)
+            inp.on_key_press(KeyCode.KEY_W)
+        inp.on_mouse_move(400.0 + 25.0 * (frame + 1), 300.0 + 5.0 * (frame + 1))
+
+
+def apply_camera_input(inp: InputState, mode: str, controller, camera, dt: float) -> None:
+    """InputState -> controller -> Camera (≙ renderer_rs_tpu/app/main.py:52;
+    crates/scene/src/camera.rs:287-326, 451-507)."""
+    if mode == "orbit":
+        if inp.is_mouse_pressed(MouseButton.LEFT):
+            controller.process_mouse_movement(*inp.mouse_delta)
+        if inp.scroll_delta:
+            controller.process_zoom(inp.scroll_delta)
+        controller.update_camera(camera)
+    else:
+        controller.process_mouse_movement(*inp.mouse_delta)
+        key = inp.is_key_pressed
+        forward = float(key(KeyCode.KEY_W)) - float(key(KeyCode.KEY_S))
+        right = float(key(KeyCode.KEY_D)) - float(key(KeyCode.KEY_A))
+        up = float(key(KeyCode.SPACE)) - float(key(KeyCode.SHIFT_LEFT))
+        controller.set_movement_input(forward, right, up)
+        controller.update_camera(camera, dt)
 
 
 def build(args, device):
@@ -64,15 +113,20 @@ def build(args, device):
     return SCENES[args.scene](args.width, args.height, device=device)
 
 
-def main(argv=None, device="cuda") -> int:
+def main(argv=None, device="cuda", sink=None) -> int:
+    """Run the app on `argv`. `sink`, a callable (frame, n), takes the
+    presented frames in place of `--out` (the Surface's callable sink)."""
     from renderer_rs_tpu_torch.app.scenes import SCENES
     from renderer_rs_tpu_torch.core.config import RendererConfig
-    from renderer_rs_tpu_torch.renderer.passes import ShadeRates
+    from renderer_rs_tpu_torch.core.logging import init_logging
+    from renderer_rs_tpu_torch.core.timer import Timer
+    from renderer_rs_tpu_torch.platform.window import Window
+    from renderer_rs_tpu_torch.renderer.passes import GeometryForms, ShadeRates
     from renderer_rs_tpu_torch.renderer.renderer import Renderer
-    from renderer_rs_tpu_torch.utils.image_io import write_png
+    from renderer_rs_tpu_torch.utils.image_io import framebuffer_to_u8
 
     parser = argparse.ArgumentParser(description="renderer_rs_tpu_torch headless app")
-    parser.add_argument("--scene", choices=list(SCENES), default="blinnphong")
+    parser.add_argument("--scene", choices=list(SCENES), default="triangle")
     parser.add_argument("--width", type=int, default=1280)  # ≙ main.rs:38
     parser.add_argument("--height", type=int, default=720)
     parser.add_argument("--frames", type=int, default=1)
@@ -105,32 +159,77 @@ def main(argv=None, device="cuda") -> int:
     parser.add_argument("--msaa-mode", choices=["resolve", "super"], default="resolve",
                         help="an MSAA pipeline's form: shade once and id-resolve, or "
                              "supersample the whole frame")
+    parser.add_argument("--vstage", choices=["loop", "batch"], default="loop",
+                        help="vertex stage: one draw per object, or one product against "
+                             "per-object column blocks")
+    parser.add_argument("--shadow-vstage", choices=["world", "composed"], default=None,
+                        help="shadow vertex stage: the forward stage's world positions, or "
+                             "the per-object pre-composed light matrix (default by layout)")
+    parser.add_argument("--clip-compact", type=int, default=16,
+                        help="near-clip secondary cap max(128, T/N); 0 keeps the exact 2T "
+                             "layout")
+    parser.add_argument("--cap-big", type=int, default=None,
+                        help="the binning's big-class cap (default max(1024, T/96))")
+    parser.add_argument("--log", type=str, default=None, help="log filter (RUST_LOG style)")
+    parser.add_argument("--orbit", action="store_true",
+                        help="scripted orbit-drag camera (OrbitController)")
+    parser.add_argument("--fly", action="store_true",
+                        help="scripted fly-forward camera (FpsController)")
     args = parser.parse_args(argv)
 
-    logging.basicConfig(level=logging.INFO)
+    init_logging(args.log)
+    window = Window(args.width, args.height, f"renderer_rs_tpu_torch [{args.scene}]",
+                    sink=sink if sink is not None else args.out)
     scene, layout, kwargs, animate = build(args, device)
+    camera = kwargs.get("camera")
     renderer = Renderer(
         RendererConfig(width=args.width, height=args.height), device=device,
         z_form=args.z_form, msaa_mode=args.msaa_mode,
         shade_rates=ShadeRates(pcf=args.pcf_res, cube=args.cube_res, light=args.light_res,
                                merge_gather=args.merge_gather),
-        **kwargs
+        geometry_forms=GeometryForms(vstage=args.vstage, shadow_vstage=args.shadow_vstage,
+                                     clip_compact=args.clip_compact, cap_big=args.cap_big),
+        window=window, **kwargs
     )
     renderer.set_scene(scene, layout)
-    if args.out:
-        os.makedirs(args.out, exist_ok=True)
-    t0 = time.perf_counter()
+
+    ctl_mode = "orbit" if args.orbit else ("fly" if args.fly else None)
+    controller = None
+    if ctl_mode and camera is None:
+        log.warning("--%s ignored: the %s scene has no camera", ctl_mode, args.scene)
+        ctl_mode = None
+    elif ctl_mode == "orbit":
+        from renderer_rs_tpu_torch.scene.camera import OrbitController
+
+        controller = OrbitController()
+        controller.sync_with_camera(camera, (0.0, 0.0, 0.0))
+    elif ctl_mode == "fly":
+        from renderer_rs_tpu_torch.scene.camera import FpsController
+
+        controller = FpsController()
+        controller.sync_with_camera(camera)
+
+    input_state = InputState()
+    timer = Timer()  # ≙ the app timer (main.rs:77)
     t = 0.0
     for frame in range(args.frames):
+        input_state.begin_frame()  # ≙ about_to_wait (main.rs:99-104)
+        dt = timer.tick()
+        if ctl_mode:
+            inject_scripted_events(input_state, ctl_mode, frame)
+            # the hitch clamp: a build or I/O stall must not teleport the camera
+            apply_camera_input(input_state, ctl_mode, controller, camera, min(dt, 0.1))
+            renderer.update_camera(camera)
         if animate is not None:
             renderer.update_scene(animate(renderer._scene, t, 1.0 / 60.0))
             t += 1.0 / 60.0
-        img = renderer.render_frame()
-        if args.out:
-            write_png(os.path.join(args.out, f"frame_{frame:05d}.png"), img)
-    renderer.wait_idle()
-    elapsed = time.perf_counter() - t0
-    log.info("%d frames in %.3fs (%.1f FPS)", args.frames, elapsed, args.frames / max(elapsed, 1e-9))
+        renderer.render_frame()
+    # drain the frames still in flight so every frame is presented
+    for fb in renderer.wait_idle():
+        window.create_surface().present(framebuffer_to_u8(fb))
+    elapsed = timer.elapsed()
+    log.info("%d frames in %.3fs (%.1f FPS incl. builds); steady-state %s", args.frames,
+             elapsed, args.frames / max(elapsed, 1e-9), renderer.stats.summary())
     return 0
 
 

@@ -1,10 +1,14 @@
-"""Error hierarchy (the subset of renderer_rs_tpu/core/errors.py the port
-raises): the renderer's base class, the RHI errors, and the resource
-loaders' errors (≙ resources::ResourceError, resources/src/error.rs:8-40)."""
+"""Error hierarchy (≙ renderer_rs_tpu/core/errors.py; crates/core/src/
+error.rs:7-38, rhi/src/error.rs:6-50, resources/src/error.rs:8-40): every
+subsystem raises a subclass of RendererError."""
 
 
 class RendererError(Exception):
     """Base error for the whole framework (≙ core::Error)."""
+
+
+class WindowError(RendererError):
+    """Windowing / surface errors (≙ Error::Window)."""
 
 
 class RhiError(RendererError):
@@ -13,6 +17,10 @@ class RhiError(RendererError):
 
 class PipelineError(RhiError):
     """Pipeline construction/validation errors (≙ RhiError::Pipeline)."""
+
+
+class ShaderError(RendererError):
+    """Shading-pass configuration errors (≙ Error::Shader / RhiError::Shader)."""
 
 
 class ResourceError(RendererError):
@@ -37,3 +45,11 @@ class FileNotFoundError_(ResourceError):
 
 class ImageError(ResourceError):
     """Texture/image decode errors (≙ ResourceError::Image)."""
+
+
+class ConfigError(RendererError):
+    """Configuration errors (≙ Error::Config)."""
+
+
+class InternalError(RendererError):
+    """Internal invariant violations (≙ Error::Internal)."""

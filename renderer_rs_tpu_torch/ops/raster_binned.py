@@ -94,8 +94,9 @@ def _tile_ranges(setup: TriangleSetup, height, width, tile_h, tile_w, nty, ntx,
 
 
 # class caps of the compact binning (raster_binned.py:305-356): huge
-# triangles beyond CAP_HUGE and big ones beyond max(1024, T/96) drop and
-# are counted as bin_overflow; big means a bin span below BIG_SPAN (y, x)
+# triangles beyond CAP_HUGE and big ones beyond cap_big (by default
+# max(1024, T/96)) drop and are counted as bin_overflow; big means a bin
+# span below BIG_SPAN (y, x)
 CAP_HUGE = 64
 BIG_SPAN = (8, 4)
 
@@ -107,12 +108,16 @@ def bin_triangles_compact(
     bin_h: int,
     bin_w: int,
     small_limit: int | None = None,
+    cap_big: int | None = None,
     y_offset: int = 0,
     y_stride: int = 1,
     y_pair: bool = False,
 ):
     """Exact per-bin candidate segments (raster_binned.py:297); with band
-    arguments the bins cover the band's rows (see _tile_ranges). Returns
+    arguments the bins cover the band's rows (see _tile_ranges). Three
+    classes by bin span: small (< 2x2 bins, id < small_limit), big (span
+    below BIG_SPAN (y, x) bins; the first cap_big of them, None giving
+    max(1024, t/96)) and huge (the first CAP_HUGE). Returns
 
       (sorted_tris [n_keys] int32 — tri ids in bin order, pads decode to t,
        seg [n_bins+1] int32 — bin b's candidates are
@@ -126,7 +131,8 @@ def bin_triangles_compact(
     nby, nbx = _cdiv(height, bin_h), _cdiv(width, bin_w)
     n_bins = nby * nbx
     sl = t if small_limit is None else min(small_limit, t)
-    cap_big = max(1024, t // 96)
+    if cap_big is None:
+        cap_big = max(1024, t // 96)
     if (n_bins + 1) * (t + 1) >= 2**31:
         # the segment search rides the fused key (raster_binned.py:399-408)
         raise NotImplementedError(

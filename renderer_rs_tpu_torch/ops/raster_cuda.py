@@ -306,15 +306,18 @@ def build_gather_table(
 
 
 def bin_compact(setup: TriangleSetup, height: int, width: int, small_limit=None,
-                y_offset: int = 0, y_stride: int = 1, y_pair: bool = False):
+                y_offset: int = 0, y_stride: int = 1, y_pair: bool = False,
+                cap_big: int | None = None):
     """Compact binning over the tile-padded extent at bin granularity
     (raster_pallas.py:623 `_bin_compact`, tile 32x128, sub-bin 16x128);
-    `height` is the band height when band arguments are given.
+    `height` is the band height when band arguments are given; cap_big is
+    the big class's cap (None: max(1024, t/96)).
     Returns (sorted_tris, seg, nby, nbx, overflow)."""
     hp = _cdiv(height, TILE_H) * TILE_H
     wp = _cdiv(width, BIN_W) * BIN_W
     return bin_triangles_compact(setup, hp, wp, BIN_H, BIN_W, small_limit=small_limit,
-                                 y_offset=y_offset, y_stride=y_stride, y_pair=y_pair)
+                                 cap_big=cap_big, y_offset=y_offset, y_stride=y_stride,
+                                 y_pair=y_pair)
 
 
 # --- the kernel and its plain version ------------------------------------------
@@ -579,11 +582,13 @@ class ResolveInputs:
 
 
 def prepare_resolve(setup: TriangleSetup, height: int, width: int, attr, vtx,
-                    vary_src, bary_planes, flat, small_limit=None) -> ResolveInputs:
+                    vary_src, bary_planes, flat, small_limit=None,
+                    cap_big: int | None = None) -> ResolveInputs:
     """Bin and build the table (≙ rasterize_binned_pallas up to the
     pallas_call, defer_varyings="kernel" with varyings_soa), and the split
     plan of the segments."""
-    sorted_tris, seg, _nby, nbx, overflow = bin_compact(setup, height, width, small_limit)
+    sorted_tris, seg, _nby, nbx, overflow = bin_compact(setup, height, width, small_limit,
+                                                        cap_big=cap_big)
     return ResolveInputs(
         table=build_gather_table(setup, attr, vtx, vary_src, bary_planes, flat),
         sorted_tris=sorted_tris,
@@ -638,7 +643,8 @@ def _check_payload_ids(ids: torch.Tensor, t: int, id_bound: int | None) -> None:
 
 
 def prepare_ids(setup: TriangleSetup, height: int, width: int, ids: torch.Tensor,
-                small_limit=None, id_bound: int | None = None) -> IdsInputs:
+                small_limit=None, id_bound: int | None = None,
+                cap_big: int | None = None) -> IdsInputs:
     """Bin and build K4's table (≙ rasterize_binned_pallas(skip_bary=True,
     ids=...) up to the pallas_call, raster_pallas.py:909-915): the 19 depth
     columns, then `ids` [t] (one payload id per raster slot) as f32 in
@@ -647,7 +653,8 @@ def prepare_ids(setup: TriangleSetup, height: int, width: int, ids: torch.Tensor
     without it the ids are read back to check them. Ids of 2^24 or more
     would round in the f32 column and are rejected."""
     _check_payload_ids(ids, setup.num_triangles, id_bound)
-    sorted_tris, seg, _nby, nbx, overflow = bin_compact(setup, height, width, small_limit)
+    sorted_tris, seg, _nby, nbx, overflow = bin_compact(setup, height, width, small_limit,
+                                                        cap_big=cap_big)
     return IdsInputs(
         table=_with_pad_row(_base_coef_table(setup, ids.to(_F32))),
         sorted_tris=sorted_tris,
@@ -747,7 +754,8 @@ class DepthInputs:
         return (self.seg[:, -1] - self.seg[:, 0]).sum()
 
 
-def prepare_depth(setups, height: int, width: int, zplane: bool = False) -> DepthInputs:
+def prepare_depth(setups, height: int, width: int, zplane: bool = False,
+                  cap_big: int | None = None) -> DepthInputs:
     """Bin and build the depth table of each setup (≙ rasterize_binned_pallas
     with depth_only=True up to the pallas_call; several setups ≙
     rasterize_depth_only_batch). All setups share one triangle count.
@@ -758,7 +766,7 @@ def prepare_depth(setups, height: int, width: int, zplane: bool = False) -> Dept
     tables, ids, segs, overflow = [], [], [], []
     offset = 0
     for setup in setups:
-        sorted_tris, seg, _nby, nbx, ovf = bin_compact(setup, height, width)
+        sorted_tris, seg, _nby, nbx, ovf = bin_compact(setup, height, width, cap_big=cap_big)
         tables.append(_with_pad_row(_depth_coef_table(setup, zplane)))
         ids.append(sorted_tris)
         segs.append(seg + offset)
@@ -978,7 +986,8 @@ def build_peel_table(setup: TriangleSetup, attr, vtx, vary_src, bary_planes, fla
 
 
 def prepare_peel(setup: TriangleSetup, height: int, width: int, attr, vtx, vary_src,
-                 bary_planes, flat, ids, id_bound: int) -> PeelInputs:
+                 bary_planes, flat, ids, id_bound: int,
+                 cap_big: int | None = None) -> PeelInputs:
     """Bin once and build K5's table for all the peel layers of a frame
     (≙ rasterize_binned_pallas(varyings, vary_src, vary_bary, flat_varyings,
     ids, skip_bary=True) up to the pallas_call, with its default
@@ -986,7 +995,7 @@ def prepare_peel(setup: TriangleSetup, height: int, width: int, attr, vtx, vary_
     The ids ride an f32 column, so id_bound, their exclusive upper bound
     (the source triangle count), must not exceed 2^24."""
     _check_payload_ids(ids, setup.num_triangles, id_bound)
-    sorted_tris, seg, _nby, nbx, overflow = bin_compact(setup, height, width)
+    sorted_tris, seg, _nby, nbx, overflow = bin_compact(setup, height, width, cap_big=cap_big)
     return PeelInputs(
         table=build_peel_table(setup, attr, vtx, vary_src, bary_planes, flat, ids),
         sorted_tris=sorted_tris,
@@ -1145,7 +1154,7 @@ class VisibilityInputs:
 
 def prepare_visibility(setup: TriangleSetup, height: int, width: int, y_offset: int = 0,
                        y_stride: int = 1, y_pair: bool = False,
-                       small_limit=None) -> VisibilityInputs:
+                       small_limit=None, cap_big: int | None = None) -> VisibilityInputs:
     """Bin the band and build K3's table (≙ rasterize_binned_pallas(setup,
     out_h, width, pipeline, y_offset=, y_stride=, y_pair=, small_limit=) up
     to the pallas_call, raster_pallas.py:1281): the binning runs in band
@@ -1155,7 +1164,8 @@ def prepare_visibility(setup: TriangleSetup, height: int, width: int, y_offset: 
     plan cuts the band-space segments."""
     _check_band(height, y_offset, y_stride, y_pair)
     sorted_tris, seg, _nby, nbx, overflow = bin_compact(
-        setup, height, width, small_limit, y_offset=y_offset, y_stride=y_stride, y_pair=y_pair)
+        setup, height, width, small_limit, y_offset=y_offset, y_stride=y_stride, y_pair=y_pair,
+        cap_big=cap_big)
     t = setup.num_triangles
     return VisibilityInputs(
         table=_with_pad_row(_base_coef_table(setup, torch.arange(t, dtype=_F32,

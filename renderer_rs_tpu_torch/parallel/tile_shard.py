@@ -24,6 +24,7 @@ import torch
 from renderer_rs_tpu_torch.ops.shadow import ShadowParams
 from renderer_rs_tpu_torch.renderer.passes import (
     MSAA_GRIDS,
+    GeometryForms,
     ShadeRates,
     ShadingModel,
     forward_frame,
@@ -82,6 +83,7 @@ def render_frame_sharded(
     shadow_params: ShadowParams = ShadowParams(),
     interleaved: bool = False,
     shade_rates: ShadeRates = ShadeRates(),
+    geometry_forms: GeometryForms = GeometryForms(),
 ) -> torch.Tensor:
     """Render a batch of frames over the mesh (tile_shard.py:32). Returns
     [F, H, W, 4] in shard order: contiguous bands are already the frame;
@@ -94,7 +96,9 @@ def render_frame_sharded(
     [F, H*sy, W*sx, 4], unresolved: unshard_rows, then resolve_msaa.
     shade_rates goes to every band: a band's rows are not neighbours, so
     only the rates that engage on any frame take effect there (pcf="half";
-    the merged gather, whose output is per pixel)."""
+    the merged gather, whose output is per pixel). geometry_forms (the
+    vertex-stage forms, the clip compaction, the big-class cap) goes to
+    every band and its shadow pass."""
     n_frames, n_rows = mesh.shape["frame"], mesh.shape["rows"]
     if len(stacked_scene) != n_frames:
         raise ValueError(f"scene batch {len(stacked_scene)} != mesh frame axis {n_frames}")
@@ -116,6 +120,7 @@ def render_frame_sharded(
                 _to_device(scene, device), layout, pipeline, shading, width, height,
                 clear_color=clear_color, tonemap=tonemap, shadow_map_size=shadow_map_size,
                 shadow_params=shadow_params, band=spec, shade_rates=shade_rates,
+                geometry_forms=geometry_forms,
             )
             bands.append(band.to(mesh.devices[f][0]))
         frames.append(torch.cat(bands, dim=0))

@@ -1,0 +1,5 @@
+"""Platform: the headless window and surface, and frame-coherent input
+(≙ renderer_rs_tpu/platform, crates/platform)."""
+
+from renderer_rs_tpu_torch.platform.input import InputState, KeyCode, MouseButton  # noqa: F401
+from renderer_rs_tpu_torch.platform.window import Surface, Window  # noqa: F401

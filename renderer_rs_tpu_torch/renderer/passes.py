@@ -125,9 +125,16 @@ from renderer_rs_tpu_torch.rhi.rendering import AttachmentLoadOp
 log = logging.getLogger("renderer_rs_tpu_torch.renderer.passes")
 
 # near-clip secondary compaction (passes.py:1689): cap max(128, T/16),
-# engaged from 1024 triangles
+# engaged from 1024 triangles; GeometryForms.clip_compact sets the 16
 CLIP_COMPACT_DEN = 16
 CLIP_COMPACT_MIN_TRIS = 1024
+# the vertex-stage forms (the JAX package's vertex-stage knob, passes.py:86):
+# one draw per object, or one wide product against per-object column blocks
+VSTAGES = ("loop", "batch")
+# the shadow vertex stage's forms (passes.py:205-250, :1621-1633): one
+# product of the forward stage's world positions with the light matrix, or
+# the per-object pre-composed (light @ model)
+SHADOW_VSTAGES = ("world", "composed")
 # depth-peel layers of an alpha-cutoff frame (passes.py:1327)
 PEEL_LAYERS = 4
 # the depth forms of the depth-only passes (the JAX package's z-form
@@ -178,6 +185,49 @@ class ShadeRates:
                 raise ValueError(f"ShadeRates.{name} = {getattr(self, name)!r}; one of {allowed}")
 
 
+@dataclasses.dataclass(frozen=True)
+class GeometryForms:
+    """The forms of the frame's geometry stages (≙ the JAX package's
+    vertex-stage, shadow vertex-stage, clip-compaction and big-class cap
+    knobs, passes.py:86-250, :1621-1707, raster_binned.py:340-356, read
+    there from the environment). The defaults are the JAX defaults.
+
+    vstage: "loop" (one draw per object) or "batch" (one [V,4] @ [4,4*O]
+    product against per-object column blocks and a block select, likewise
+    for normals and tangents, on scenes of more than one object; it rounds
+    an ulp apart from the loop on some vertices, as in JAX). It applies
+    wherever the vertex stage runs: the frame, the shadow passes'
+    pre-composed form, the transparent pass and the diagnostics.
+    shadow_vstage: the form of a shadow pass a frame renders itself: None
+    gives the JAX default, "world" under CSM and "composed" otherwise;
+    "world" projects the forward stage's world positions, "composed" the
+    per-object (light @ model). The Renderer's own shadow step takes
+    "composed" unless "world" is given. clip_compact: the near clip's
+    secondary slots are compacted into max(128, T/clip_compact) on scenes
+    of >= 1024 triangles (halves beyond that cap drop, counted as
+    clip_overflow); 0 keeps the exact [2T] layout. cap_big: the big class
+    of the compact binning keeps its first cap_big triangles (the rest drop,
+    counted as bin_overflow big); None gives max(1024, t/96) of the t
+    raster slots. It reaches every binning: the frame, the sun map, the
+    cascades, the MSAA sample pass, the bands and the peel."""
+
+    vstage: str = "loop"
+    shadow_vstage: str | None = None
+    clip_compact: int = CLIP_COMPACT_DEN
+    cap_big: int | None = None
+
+    def __post_init__(self):
+        if self.vstage not in VSTAGES:
+            raise ValueError(f"GeometryForms.vstage = {self.vstage!r}; one of {VSTAGES}")
+        if self.shadow_vstage not in (None, *SHADOW_VSTAGES):
+            raise ValueError(f"GeometryForms.shadow_vstage = {self.shadow_vstage!r}; None or "
+                             f"one of {SHADOW_VSTAGES}")
+        if self.clip_compact < 0:
+            raise ValueError(f"GeometryForms.clip_compact = {self.clip_compact}; >= 0")
+        if self.cap_big is not None and self.cap_big < 0:
+            raise ValueError(f"GeometryForms.cap_big = {self.cap_big}; None or >= 0")
+
+
 class ShadingModel(enum.Enum):
     """Which fragment shader family the frame uses."""
 
@@ -213,11 +263,46 @@ def _material_bank(mats) -> torch.Tensor:
     )
 
 
-def vertex_stage(scene: GpuScene, layout: SceneLayout) -> VertexStageOut:
-    """MVP + normal/tangent transform, one draw per object (passes.py:178-202;
-    ≙ vertex/model.hlsl:36-68). The tangent is transformed by the model
-    matrix and Gram-Schmidt re-orthogonalized (model.hlsl:49-52)."""
+def _object_ids(layout: SceneLayout, device) -> torch.Tensor:
+    """Per-vertex object index [V] (passes.py:99)."""
+    return torch.cat([torch.full((nv,), o, dtype=torch.long, device=device)
+                      for o, (_, nv, _, _) in enumerate(layout.object_ranges)])
+
+
+def _block_select(wide: torch.Tensor, obj: torch.Tensor, n_obj: int, block: int) -> torch.Tensor:
+    """Each vertex's object block of [V, n_obj*block] (passes.py:112). The
+    JAX form is a masked sum over the object axis: the one nonzero term
+    plus zeros, exact but for -0.0, which becomes +0.0. A gather and + 0.0
+    give those bits without the [V, n_obj, block] mask."""
+    resh = wide.reshape(wide.shape[0], n_obj, block)
+    return torch.gather(resh, 1, obj[:, None, None].expand(-1, 1, block))[:, 0] + 0.0
+
+
+def vertex_stage(scene: GpuScene, layout: SceneLayout, vstage: str = "loop") -> VertexStageOut:
+    """MVP + normal/tangent transform (passes.py:122-202; ≙ vertex/model.hlsl:
+    36-68): one draw per object, or under vstage="batch" on a scene of more
+    than one object one [V,4] @ [4,4*O] product against the per-object
+    model.T column blocks and a block select, then world @ vp.T, and the
+    normal and tangent blocks likewise. The tangent is transformed by the
+    model matrix and Gram-Schmidt re-orthogonalized (model.hlsl:49-52)."""
     vp = scene.camera.view_projection
+    n_obj = len(layout.object_ranges)
+    if vstage == "batch" and n_obj > 1:
+        obj = _object_ids(layout, scene.device)
+        homo = torch.cat([scene.positions, torch.ones_like(scene.positions[:, :1])], dim=-1)
+        cols = scene.models.permute(2, 0, 1).reshape(4, n_obj * 4)
+        world4 = _block_select(homo @ cols, obj, n_obj, 4)
+        ncols = scene.normal_mats[:, :3, :3].permute(2, 0, 1).reshape(3, n_obj * 3)
+        n = normalize(_block_select(scene.normals @ ncols, obj, n_obj, 3))
+        tcols = scene.models[:, :3, :3].permute(2, 0, 1).reshape(3, n_obj * 3)
+        t_xyz = _block_select(scene.tangents[:, :3] @ tcols, obj, n_obj, 3)
+        t_xyz = normalize(t_xyz - n * torch.sum(t_xyz * n, dim=-1, keepdim=True))
+        return VertexStageOut(
+            clip=world4 @ vp.T,
+            world_pos=world4[:, :3],
+            world_normal=n,
+            world_tangent=torch.cat([t_xyz, scene.tangents[:, 3:4]], dim=-1),
+        )
     clips, worlds, normals, tangents = [], [], [], []
     for o, (v0, nv, _, _) in enumerate(layout.object_ranges):
         pos = scene.positions[v0 : v0 + nv]
@@ -242,13 +327,16 @@ def vertex_stage(scene: GpuScene, layout: SceneLayout) -> VertexStageOut:
 
 
 def shadow_vertex_stage(scene: GpuScene, layout: SceneLayout, light_matrix=None,
-                        world_pos: torch.Tensor | None = None) -> torch.Tensor:
+                        world_pos: torch.Tensor | None = None,
+                        vstage: str = "loop") -> torch.Tensor:
     """Light-space positions [V,4] (passes.py:205; ≙ vertex/shadow.hlsl:
     lightSpaceMatrix * model * pos) under `light_matrix` (default: the
     scene's single shadow matrix; a cascade's matrix for CSM).
 
     Two forms, ~1 ulp apart. Without world_pos: per object, (lsm @ model)
-    pre-composed, then homo @ m.T. The single-map pass and the Renderer's
+    pre-composed, then homo @ m.T (under vstage="batch" on more than one
+    object, one [V,4] @ [4,4*O] product against the pre-composed column
+    blocks and a block select). The single-map pass and the Renderer's
     own shadow step (for either kind of shadow) take this form. With
     world_pos, the [V,3] world positions of the forward vertex stage: ONE
     [V,4] @ lsm.T product (world-then-light, the reference shader's own
@@ -258,6 +346,13 @@ def shadow_vertex_stage(scene: GpuScene, layout: SceneLayout, light_matrix=None,
     if world_pos is not None:
         homo = torch.cat([world_pos, torch.ones_like(world_pos[:, :1])], dim=-1)
         return homo @ lsm.T
+    n_obj = len(layout.object_ranges)
+    if vstage == "batch" and n_obj > 1:
+        homo = torch.cat([scene.positions, torch.ones_like(scene.positions[:, :1])], dim=-1)
+        # per-object [4,4] products, as the JAX form composes them
+        ms = torch.stack([lsm @ scene.models[o] for o in range(n_obj)])
+        cols = ms.permute(2, 0, 1).reshape(4, n_obj * 4)
+        return _block_select(homo @ cols, _object_ids(layout, scene.device), n_obj, 4)
     clips = []
     for o, (v0, nv, _, _) in enumerate(layout.object_ranges):
         pos = scene.positions[v0 : v0 + nv]
@@ -281,23 +376,27 @@ def _shadow_setup(clip: torch.Tensor, tris: torch.Tensor, size: int):
 
 
 def _depth_maps(scene: GpuScene, layout: SceneLayout, size: int, light_matrices,
-                world_pos, z_form: str = "bary") -> torch.Tensor:
+                world_pos, z_form: str = "bary",
+                geometry_forms: GeometryForms = GeometryForms()) -> torch.Tensor:
     """[N,size,size] depth-only renders under N light matrices, in ONE
     raster_depth launch: light-space vertex stage -> plane-form setup ->
     compact binning per matrix, then K1 over the N sets, or K7 when z_form
     is "plane". Below 64 triangles each matrix takes the depth-only scan
-    (passes.py:383), which has one depth form, as in the JAX package."""
+    (passes.py:383), which has one depth form, as in the JAX package.
+    geometry_forms gives the vertex-stage form and the binning's big-class
+    cap."""
     if z_form not in Z_FORMS:
         raise ValueError(f"unknown z_form {z_form!r}; one of {Z_FORMS}")
     setups = [
-        _shadow_setup(shadow_vertex_stage(scene, layout, m, world_pos), scene.tris, size)
+        _shadow_setup(shadow_vertex_stage(scene, layout, m, world_pos, geometry_forms.vstage),
+                      scene.tris, size)
         for m in light_matrices
     ]
     if not supports_binned(_SHADOW_PIPELINE, layout.num_triangles):
         return torch.stack([rasterize_depth_only(s, size, size, _SHADOW_PIPELINE)
                             for s in setups])
     zplane = z_form == "plane"
-    k1 = prepare_depth(setups, size, size, zplane=zplane)
+    k1 = prepare_depth(setups, size, size, zplane=zplane, cap_big=geometry_forms.cap_big)
     return raster_depth(
         k1.table, k1.sorted_tris, k1.seg, k1.nbx, size, size,
         _SHADOW_PIPELINE.depth_compare_op, zplane=zplane, plan=k1.plan,
@@ -305,17 +404,19 @@ def _depth_maps(scene: GpuScene, layout: SceneLayout, size: int, light_matrices,
 
 
 def shadow_map_pass(scene: GpuScene, layout: SceneLayout, size: int, light_matrix=None,
-                    world_pos=None, z_form: str = "bary") -> torch.Tensor:
+                    world_pos=None, z_form: str = "bary",
+                    geometry_forms: GeometryForms = GeometryForms()) -> torch.Tensor:
     """Depth-only sun shadow render [size,size] (passes.py:366): light-space
     vertex stage -> plane-form setup -> compact binning -> K1, or K7 under
     z_form="plane" (≙ the JAX z_plane_mode); the depth-only scan below 64
     triangles."""
     lsm = scene.light_space_matrix if light_matrix is None else light_matrix
-    return _depth_maps(scene, layout, size, [lsm], world_pos, z_form)[0]
+    return _depth_maps(scene, layout, size, [lsm], world_pos, z_form, geometry_forms)[0]
 
 
 def csm_shadow_pass(scene: GpuScene, layout: SceneLayout, size: int,
-                    world_pos=None, z_form: str = "bary") -> torch.Tensor:
+                    world_pos=None, z_form: str = "bary",
+                    geometry_forms: GeometryForms = GeometryForms()) -> torch.Tensor:
     """The 4-cascade shadow array [C,size,size] (passes.py:386; ≙ the
     Texture2DArray the CSM shader samples, shadow_csm.hlsli:94-166): four
     plane-form setups, one binning and table build over them, and ONE
@@ -329,7 +430,7 @@ def csm_shadow_pass(scene: GpuScene, layout: SceneLayout, size: int,
     different cascades run side by side on the card, so one launch is the
     natural shape. z_form="plane" makes it one K7 launch with N = 4."""
     mats = [scene.csm_matrices[c] for c in range(CASCADE_COUNT)]
-    return _depth_maps(scene, layout, size, mats, world_pos, z_form)
+    return _depth_maps(scene, layout, size, mats, world_pos, z_form, geometry_forms)
 
 
 @dataclasses.dataclass
@@ -357,20 +458,24 @@ class FrameGeometry:
 
 
 def frame_geometry(scene: GpuScene, layout: SceneLayout, pipeline: GraphicsPipeline,
-                   width: int, height: int) -> FrameGeometry:
+                   width: int, height: int,
+                   geometry_forms: GeometryForms = GeometryForms()) -> FrameGeometry:
     """Vertex stage -> near clip -> T/16 secondary compaction -> setup, and
     the raster payload: attributes (world_pos, world_normal; on a textured
     scene the uv and, with a normal map bound, the world tangent,
     passes.py:1926-1932) and K2's arithmetic-source flat lanes. Point and
     line primitives take no near clip: their slots are the primitives,
-    with identity source ids and clip frames."""
+    with identity source ids and clip frames. geometry_forms gives the
+    vertex-stage form and the compaction's denominator (0: no compaction,
+    the exact [2T] layout, whose source ids are slot mod T)."""
     t_prim = layout.num_triangles
     dev = scene.device
-    vs = vertex_stage(scene, layout)
+    vs = vertex_stage(scene, layout, geometry_forms.vstage)
     tri_clip = gather_triangle_clip(vs.clip, scene.tris)
     clip_overflow = torch.zeros((), dtype=torch.long, device=dev)
     point_line = pipeline.topology in _POINT_LINE
-    compact = t_prim >= CLIP_COMPACT_MIN_TRIS and not point_line
+    den = geometry_forms.clip_compact
+    compact = den > 0 and t_prim >= CLIP_COMPACT_MIN_TRIS and not point_line
     if point_line:
         # points and lines (degenerate triples, rhi/vertex.py::expand_topology)
         # skip the triangle near clip: a primitive touching w <= eps drops
@@ -385,7 +490,7 @@ def frame_geometry(scene: GpuScene, layout: SceneLayout, pipeline: GraphicsPipel
     if compact:
         tri_clip, clip_valid, clip_src, clip_planes, clip_overflow = compact_secondary(
             tri_clip, clip_valid, clip_src, clip_planes,
-            max(128, t_prim // CLIP_COMPACT_DEN),
+            max(128, t_prim // den),
         )
     setup = setup_triangles(tri_clip, width, height, pipeline, tri_valid=clip_valid)
     # Arithmetic source mapping (passes.py:1902-1909, 1952-1970): no ids
@@ -461,7 +566,7 @@ def _msaa_frame(scene, layout, pipeline, shading, width, height, common: dict, b
     if (msaa_mode == "resolve" and band is None and stencil is None and not return_depth
             and not return_ids):
         with record_function("frame/geometry"):
-            geo = frame_geometry(scene, layout, sub, width, height)
+            geo = frame_geometry(scene, layout, sub, width, height, common["geometry_forms"])
         lo, lo_ids = forward_frame(scene, layout, sub, shading, width, height,
                                    return_ids=True, geometry=geo, **common)
         with record_function("frame/msaa_ids"):
@@ -565,6 +670,7 @@ def forward_frame(
     z_form: str = "bary",
     shade_rates: ShadeRates = ShadeRates(),
     msaa_mode: str = "resolve",
+    geometry_forms: GeometryForms = GeometryForms(),
 ):
     """The full frame (≙ passes.py:1442). Returns linear [H,W,4] ready for
     sRGB encode, then in this order the outputs asked for: the [H,W] f32
@@ -620,7 +726,9 @@ def forward_frame(
     cutoff on a whole non-FLAT frame is the 4-layer depth peel on K5.
     z_form ("bary" or "plane") is the depth form of the shadow pass this
     call renders (≙ the JAX package's z-form knob; "plane" runs K7); the
-    visibility kernels have one form (raster.py:297-319)."""
+    visibility kernels have one form (raster.py:297-319). geometry_forms
+    (GeometryForms) sets the vertex-stage forms, the near clip's compaction
+    and the binning's big-class cap (the JAX package's geometry knobs)."""
     if rendering is not None:
         clear_color, depth_clear, stencil = _attachments(rendering, width, height, clear_color,
                                                          depth_clear, stencil)
@@ -638,7 +746,8 @@ def forward_frame(
             raise ValueError("forward_frame(diagnostics=True) does not compose with MSAA")
         common = dict(clear_color=clear_color, tonemap=tonemap, shadow_map_size=shadow_map_size,
                       shadow_params=shadow_params, shadow_map=shadow_map,
-                      depth_clear=depth_clear, z_form=z_form, shade_rates=shade_rates)
+                      depth_clear=depth_clear, z_form=z_form, shade_rates=shade_rates,
+                      geometry_forms=geometry_forms)
         return _msaa_frame(scene, layout, pipeline, shading, width, height, common, band,
                            return_depth, stencil, return_ids, msaa_mode)
     y_offset, out_h, y_stride, y_pair = 0, height, 1, False
@@ -653,8 +762,9 @@ def forward_frame(
     geo = geometry
     if geo is None:
         with record_function("frame/geometry"):
-            geo = frame_geometry(scene, layout, pipeline, width, height)
+            geo = frame_geometry(scene, layout, pipeline, width, height, geometry_forms)
     n_raster = geo.setup.num_triangles
+    cap_big = geometry_forms.cap_big
     # alpha-cutoff (MASK) materials: the bounded depth peel over the binned
     # rasterizer (passes.py:1775-1783), else the scan's alpha test
     peel = (
@@ -679,7 +789,7 @@ def forward_frame(
     if ids_only and band is None and binned:
         with record_function("frame/ids_bin_table"):
             k4 = prepare_ids(geo.setup, height, width, geo.clip_src, small_limit=t_prim,
-                             id_bound=t_prim)
+                             id_bound=t_prim, cap_big=cap_big)
         with record_function("frame/k4"):
             _, source_ids = raster_ids(k4.table, k4.sorted_tris, k4.seg, k4.nbx, height,
                                        width, pipeline.depth_compare_op, depth_clear,
@@ -687,14 +797,14 @@ def forward_frame(
         return source_ids
     if shadow_map is None and not ids_only and (layout.has_csm or layout.has_shadow):
         with record_function("frame/shadow"):
-            if layout.has_csm:
-                # the cascades reuse the forward vertex stage's world
-                # positions (passes.py:1623-1633); the single map keeps the
-                # pre-composed form
-                shadow_map = csm_shadow_pass(scene, layout, shadow_map_size,
-                                             world_pos=geo.attr[:, :3], z_form=z_form)
-            else:
-                shadow_map = shadow_map_pass(scene, layout, shadow_map_size, z_form=z_form)
+            # by default the cascades reuse the forward vertex stage's world
+            # positions and the single map keeps the pre-composed form
+            # (passes.py:1623-1633)
+            sv = geometry_forms.shadow_vstage or ("world" if layout.has_csm else "composed")
+            wp = geo.attr[:, :3] if sv == "world" else None
+            render = csm_shadow_pass if layout.has_csm else shadow_map_pass
+            shadow_map = render(scene, layout, shadow_map_size, world_pos=wp, z_form=z_form,
+                                geometry_forms=geometry_forms)
     peel_exhausted = None
     stencil_buf = None
     shade_kw = dict(shadow_map=shadow_map, shadow_params=shadow_params,
@@ -725,7 +835,7 @@ def forward_frame(
         elif binned:
             with record_function("frame/band_bin_table"):
                 k3 = prepare_visibility(geo.setup, out_h, width, y_offset, y_stride, y_pair,
-                                        small_limit=t_prim)
+                                        small_limit=t_prim, cap_big=cap_big)
             bin_overflow = k3.bin_overflow
             with record_function("frame/k3"):
                 depth, slot, b0, b1 = raster_visibility(
@@ -773,7 +883,7 @@ def forward_frame(
     elif peel:
         with record_function("frame/peel"):
             vis, varying, peel_exhausted, bin_overflow = _alpha_peeled_raster(
-                scene, layout, geo, height, width, pipeline)
+                scene, layout, geo, height, width, pipeline, cap_big)
         with record_function("frame/shade"):
             # the post-peel contract: materials ride the last 11 lanes, the
             # winner ids are source ids already (passes.py:545-550, :589)
@@ -783,7 +893,7 @@ def forward_frame(
         with record_function("frame/bin_table"):
             k2 = prepare_resolve(
                 geo.setup, height, width, geo.attr, scene.tris, geo.clip_src,
-                geo.clip_planes, geo.mat_flat, small_limit=t_prim,
+                geo.clip_planes, geo.mat_flat, small_limit=t_prim, cap_big=cap_big,
             )
         bin_overflow = k2.bin_overflow
         with record_function("frame/k2"):
@@ -843,7 +953,7 @@ def forward_frame(
 
 
 def peel_inputs(scene: GpuScene, layout: SceneLayout, geo: FrameGeometry, height: int,
-                width: int):
+                width: int, cap_big: int | None = None):
     """K5's inputs for every layer of the peel: one binning (small_limit
     None, as passes.py:1371-1377 calls it) and the table of the frame's
     attributes, the flats [alpha texture id, material bank (11)] and the near
@@ -854,11 +964,13 @@ def peel_inputs(scene: GpuScene, layout: SceneLayout, geo: FrameGeometry, height
         dim=-1,
     )  # [T, 12]
     return prepare_peel(geo.setup, height, width, geo.attr, scene.tris, geo.clip_src,
-                        geo.clip_planes, flat, geo.clip_src, id_bound=layout.num_triangles)
+                        geo.clip_planes, flat, geo.clip_src, id_bound=layout.num_triangles,
+                        cap_big=cap_big)
 
 
 def _alpha_peeled_raster(scene: GpuScene, layout: SceneLayout, geo: FrameGeometry,
-                         height: int, width: int, pipeline: GraphicsPipeline):
+                         height: int, width: int, pipeline: GraphicsPipeline,
+                         cap_big: int | None = None):
     """Alpha-cutoff (MASK) rasterization by bounded depth peeling on K5
     (≙ passes.py:1316, its Pallas branch; model_pbr.hlsl:218-221 `discard`
     before the depth write). One binning and table serve every layer.
@@ -879,7 +991,7 @@ def _alpha_peeled_raster(scene: GpuScene, layout: SceneLayout, geo: FrameGeometr
     cutoff = pipeline.alpha_cutoff
     base_mip = scene.textures.mips[0]
     with record_function("frame/peel_bin_table"):
-        k5 = peel_inputs(scene, layout, geo, height, width)
+        k5 = peel_inputs(scene, layout, geo, height, width, cap_big)
     nv = k5.n_vary + k5.n_flat
 
     def raster(z_floor):
@@ -1354,6 +1466,7 @@ def transparent_pass(
     shadow_map: torch.Tensor | None = None,
     shadow_params: ShadowParams = ShadowParams(),
     light_space_matrix: torch.Tensor | None = None,
+    geometry_forms: GeometryForms = GeometryForms(),
 ) -> torch.Tensor:
     """Sorted back-to-front alpha blending over an opaque frame (≙
     passes.py:2274; the classic transparent pass the reference's
@@ -1376,14 +1489,16 @@ def transparent_pass(
     shadow term when shadow_map (the opaque pass's single map, [S,S]) is
     given with light_space_matrix or the scene's, and Blinn-Phong (sun +
     ambient) or Cook-Torrance PBR direct + the hemisphere ambient
-    (model_pbr.hlsl under alpha_blend; PBR_IBL shades as PBR here)."""
+    (model_pbr.hlsl under alpha_blend; PBR_IBL shades as PBR here).
+    geometry_forms.vstage is the vertex stage's form; the pass bins
+    nothing and compacts no clip slots."""
     dev = scene.device
     if rendering is not None:
         if rendering.color.load_op == AttachmentLoadOp.CLEAR:
             color = rendering.color.initial_array(height, width, dev)
         if rendering.depth is not None and rendering.depth.load_op == AttachmentLoadOp.CLEAR:
             depth = rendering.depth.initial_array(height, width, dev)
-    vs = vertex_stage(scene, layout)
+    vs = vertex_stage(scene, layout, geometry_forms.vstage)
     tri_clip, clip_valid, clip_src, clip_bary = clip_triangles_near(
         gather_triangle_clip(vs.clip, scene.tris))
     blend_pipe = dataclasses.replace(pipeline, blend=ColorBlendAttachment.alpha_blend(),
