@@ -40,8 +40,11 @@ its `pipeline`.
 
 The frame loop is the JAX app's (≙ main.rs:35-105): a Window whose
 surface is the `--out` directory (frame_{n:05d}.png per presented frame)
-or, without it, offscreen (the last frame kept; the X11 window waits for
-ROADMAP Queue 1); a Timer whose tick is each frame's dt, clamped to 0.1 s
+or, without it, an X11 window (platform/x11.py) where a display is
+available (libX11's own choice, the $DISPLAY it reads, or `--display`):
+each frame pumps its events into the InputState, a WM resize resizes the
+Renderer, closing the window ends the loop; a display that cannot be
+opened falls back offscreen with a warning (the last frame kept); a Timer whose tick is each frame's dt, clamped to 0.1 s
 for the camera (a build or I/O stall must not teleport it); `--orbit`
 injects a scripted left-button drag and scroll into an InputState driving
 an OrbitController, `--fly` holds W with a mouse-look driving an
@@ -50,6 +53,11 @@ flight are drained and presented at the end, and the FrameStats summary
 logged. `--log` is the RUST_LOG-style filter of init_logging.
 `--vstage`, `--shadow-vstage`, `--clip-compact` and `--cap-big` set the
 geometry forms (passes.GeometryForms; the JAX package's geometry knobs).
+`--defer-vary {kernel,xla,lanes}`, `--defer-matmul` and `--defer-dtype
+bf16` set the fused frame's resolve (passes.ResolveForms: K2, K3 and the
+deferred gather, or K5's masked lanes), `--lod fwd` the texture LOD's
+forward differences (ShadeRates.lod) and `--cube-dtype bf16` the full
+scene's bf16 cube atlas (the JAX package's defer, LOD and cube knobs).
 The scene animation (the spinning cube) steps 1/60 s a frame."""
 
 from __future__ import annotations
@@ -108,22 +116,21 @@ def build(args, device):
         return full_scene(
             args.width, args.height, tri_budget=args.tris, ibl=not args.no_ibl,
             csm=args.csm, textured=args.textured, hdr=args.hdr, gltf=args.gltf,
-            device=device,
+            cube_dtype=args.cube_dtype, device=device,
         )
     return SCENES[args.scene](args.width, args.height, device=device)
 
 
 def main(argv=None, device="cuda", sink=None) -> int:
     """Run the app on `argv`. `sink`, a callable (frame, n), takes the
-    presented frames in place of `--out` (the Surface's callable sink)."""
+    presented frames in place of `--out` (the Surface's callable sink).
+    Without either, an available X display gets an X11 window (its events
+    drive the input, closing it ends the loop), else the frames stay
+    offscreen."""
     from renderer_rs_tpu_torch.app.scenes import SCENES
-    from renderer_rs_tpu_torch.core.config import RendererConfig
+    from renderer_rs_tpu_torch.core.errors import WindowError
     from renderer_rs_tpu_torch.core.logging import init_logging
-    from renderer_rs_tpu_torch.core.timer import Timer
     from renderer_rs_tpu_torch.platform.window import Window
-    from renderer_rs_tpu_torch.renderer.passes import GeometryForms, ShadeRates
-    from renderer_rs_tpu_torch.renderer.renderer import Renderer
-    from renderer_rs_tpu_torch.utils.image_io import framebuffer_to_u8
 
     parser = argparse.ArgumentParser(description="renderer_rs_tpu_torch headless app")
     parser.add_argument("--scene", choices=list(SCENES), default="triangle")
@@ -170,6 +177,21 @@ def main(argv=None, device="cuda", sink=None) -> int:
                              "layout")
     parser.add_argument("--cap-big", type=int, default=None,
                         help="the binning's big-class cap (default max(1024, T/96))")
+    parser.add_argument("--defer-vary", choices=["kernel", "xla", "lanes"], default="kernel",
+                        help="the fused frame's resolve: K2's in-kernel resolve, K3 and the "
+                             "deferred gather, or K5's masked lanes")
+    parser.add_argument("--defer-matmul", action="store_true",
+                        help="with --defer-vary xla: the blend as a 0/1 selection matmul")
+    parser.add_argument("--defer-dtype", choices=["bf16"], default=None,
+                        help="with --defer-vary xla: the deferred table in bfloat16")
+    parser.add_argument("--cube-dtype", choices=["bf16"], default=None,
+                        help="the IBL trilinear cube atlas in bfloat16 (full scene)")
+    parser.add_argument("--lod", choices=["quad", "fwd"], default="quad",
+                        help="texture LOD derivatives: quad-uniform or per-pixel forward "
+                             "differences")
+    parser.add_argument("--display", type=str, default=None,
+                        help="X display of the window without --out (default: libX11's own, "
+                             "the $DISPLAY it reads)")
     parser.add_argument("--log", type=str, default=None, help="log filter (RUST_LOG style)")
     parser.add_argument("--orbit", action="store_true",
                         help="scripted orbit-drag camera (OrbitController)")
@@ -178,20 +200,54 @@ def main(argv=None, device="cuda", sink=None) -> int:
     args = parser.parse_args(argv)
 
     init_logging(args.log)
-    window = Window(args.width, args.height, f"renderer_rs_tpu_torch [{args.scene}]",
-                    sink=sink if sink is not None else args.out)
+    title = f"renderer_rs_tpu_torch [{args.scene}]"
+    # a display gets a real window (the X11 blit through ctypes); otherwise
+    # the surface is the PNG or array sink (≙ main.py:115-130)
+    x11 = None
+    if sink is None and args.out is None:
+        from renderer_rs_tpu_torch.platform.x11 import X11Window, display_available
+
+        if display_available(args.display):
+            try:
+                x11 = X11Window(args.width, args.height, title, display=args.display)
+            except WindowError as e:  # the display may be unreachable
+                log.warning("X11 window unavailable (%s); offscreen", e)
+    if x11 is not None:
+        sink = x11.present
+    try:
+        return _run(args, device, Window(args.width, args.height, title,
+                                         sink=sink if sink is not None else args.out), x11)
+    finally:
+        if x11 is not None:
+            x11.close()
+
+
+def _run(args, device, window, x11) -> int:
+    """The frame loop of main() on its window (and X11 window, or None)."""
+    from renderer_rs_tpu_torch.core.config import RendererConfig
+    from renderer_rs_tpu_torch.core.timer import Timer
+    from renderer_rs_tpu_torch.renderer.passes import GeometryForms, ResolveForms, ShadeRates
+    from renderer_rs_tpu_torch.renderer.renderer import Renderer
+    from renderer_rs_tpu_torch.utils.image_io import framebuffer_to_u8
+
     scene, layout, kwargs, animate = build(args, device)
     camera = kwargs.get("camera")
     renderer = Renderer(
         RendererConfig(width=args.width, height=args.height), device=device,
         z_form=args.z_form, msaa_mode=args.msaa_mode,
         shade_rates=ShadeRates(pcf=args.pcf_res, cube=args.cube_res, light=args.light_res,
-                               merge_gather=args.merge_gather),
+                               merge_gather=args.merge_gather, lod=args.lod),
         geometry_forms=GeometryForms(vstage=args.vstage, shadow_vstage=args.shadow_vstage,
                                      clip_compact=args.clip_compact, cap_big=args.cap_big),
+        resolve_forms=ResolveForms(vary=args.defer_vary, matmul=args.defer_matmul,
+                                   table_dtype=args.defer_dtype),
         window=window, **kwargs
     )
     renderer.set_scene(scene, layout)
+    if x11 is not None:
+        # a WM resize -> the deferred recreate (≙ the Resized arm,
+        # app/src/main.rs:67-75; renderer.resize also resizes the Window)
+        x11.on_resize = renderer.resize
 
     ctl_mode = "orbit" if args.orbit else ("fly" if args.fly else None)
     controller = None
@@ -214,9 +270,16 @@ def main(argv=None, device="cuda", sink=None) -> int:
     t = 0.0
     for frame in range(args.frames):
         input_state.begin_frame()  # ≙ about_to_wait (main.rs:99-104)
+        if x11 is not None:
+            # live input: the window's key, button and motion events drive
+            # the InputState (≙ the winit input arms, app/src/main.rs:85-97)
+            if not x11.pump_events(input_state):
+                log.info("window closed")
+                break
+        elif ctl_mode:
+            inject_scripted_events(input_state, ctl_mode, frame)
         dt = timer.tick()
         if ctl_mode:
-            inject_scripted_events(input_state, ctl_mode, frame)
             # the hitch clamp: a build or I/O stall must not teleport the camera
             apply_camera_input(input_state, ctl_mode, controller, camera, min(dt, 0.1))
             renderer.update_camera(camera)

@@ -38,8 +38,10 @@ test elsewhere, the non-fused branch (≙ `_rasterize_dispatch`: K3 or the
 scan, then perspective_bary and one interpolate) with FLAT shading (the
 vertex colours), the stencil state machine, point and line primitives,
 return_depth and the RenderingConfig attachments, the transparent pass,
-the z-plane depth form of the shadow passes and whole-frame supersampled
-MSAA (msaa_mode="super").
+the z-plane depth form of the shadow passes, whole-frame supersampled
+MSAA (msaa_mode="super") and the fused frame's other two resolve forms
+(ResolveForms: K3 over the whole frame with the XLA-side gather and
+blend, or K5's masked lanes with no floor).
 """
 
 from __future__ import annotations
@@ -80,6 +82,8 @@ from renderer_rs_tpu_torch.ops.raster import (
 )
 from renderer_rs_tpu_torch.ops.raster_binned import supports_binned
 from renderer_rs_tpu_torch.ops.raster_cuda import (
+    build_defer_table,
+    deferred_resolve,
     prepare_depth,
     prepare_ids,
     prepare_peel,
@@ -94,6 +98,7 @@ from renderer_rs_tpu_torch.ops.raster_cuda import (
 from renderer_rs_tpu_torch.ops.sampling import (
     _SLOT_CHANNELS,
     _cube_atlas_fetch,
+    LOD_FORMS,
     _floor_int,
     cube_trilinear_fetch,
     direction_to_cube_uv,
@@ -145,6 +150,16 @@ Z_FORMS = ("bary", "plane")
 # passes.py:1518): shade once per pixel and id-resolve, or supersample the
 # whole frame
 MSAA_MODES = ("resolve", "super")
+# the fused frame's resolve forms (the JAX package's defer-vary knob,
+# passes.py:1890): K2's in-kernel resolve, K3 and the XLA-side gather, or
+# K5's masked lanes
+DEFER_VARY = ("kernel", "xla", "lanes")
+# the deferred table in bf16 keeps material ids exact up to this count
+# (passes.py:1918)
+BF16_TABLE_MAX_MATERIALS = 256
+# the lanes form's ids payload: (source, material id) packed into the f32
+# column's exact bits (passes.py:1870-1873)
+PACK_ID_BITS = 24
 # the PCF table's x-group of the JAX merged gather (shadow.py:38): the merge
 # engages only on maps whose width it divides
 PCF_GROUP = 32
@@ -170,17 +185,21 @@ class ShadeRates:
     both per pixel on a PBR_IBL frame with a single PCF map (its width a
     multiple of PCF_GROUP) and a finalized environment; it comes before
     the other three. Bands (full_rows=False) shade the y-strided rates per
-    pixel."""
+    pixel. lod: the texture LOD's screen-space derivatives (≙ the JAX
+    package's LOD knob, sampling.py:276), "quad" (quad-uniform, HLSL
+    ddx/ddy) or "fwd" (each pixel's forward difference), in every textured
+    fetch of the shade (the material atlases and the per-slot fetch)."""
 
     pcf: str = "yquarter"
     cube: str = "yhalf"
     light: str = "full"
     merge_gather: bool = False
+    lod: str = "quad"
 
     def __post_init__(self):
         for name, allowed in (("pcf", ("yquarter", "yhalf", "half", "full")),
                               ("cube", ("yhalf", "yquarter", "full")),
-                              ("light", ("full", "yhalf"))):
+                              ("light", ("full", "yhalf")), ("lod", LOD_FORMS)):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"ShadeRates.{name} = {getattr(self, name)!r}; one of {allowed}")
 
@@ -226,6 +245,37 @@ class GeometryForms:
             raise ValueError(f"GeometryForms.clip_compact = {self.clip_compact}; >= 0")
         if self.cap_big is not None and self.cap_big < 0:
             raise ValueError(f"GeometryForms.cap_big = {self.cap_big}; None or >= 0")
+
+
+@dataclasses.dataclass(frozen=True)
+class ResolveForms:
+    """The form of the fused frame's attribute resolve (≙ the JAX package's
+    defer-vary, defer-matmul and defer-dtype knobs, passes.py:1882-1923,
+    raster_pallas.py:1308-1440, read there from the environment). The
+    defaults are the JAX defaults.
+
+    vary: "kernel", K2's in-kernel winner resolve; "xla", K3 over the whole
+    frame (winner slot, depth, b0, b1), then one gather of the winner's row
+    of the deferred table and the perspective blend outside any kernel;
+    "lanes", K5's masked-lane body with no floor, one launch, its ids
+    payload the (source triangle, material id) pair packed into 24 bits
+    (or the source id and the material bank as flat lanes where they do
+    not fit). matmul: under "xla", the blend as a 0/1 selection matmul in
+    f32 (TF32 is off). table_dtype "bf16": under "xla", the deferred table
+    in bfloat16, where every id stays exact (at most 256 materials, no
+    near-clip compaction). Each is inert where the JAX package leaves its
+    knob inert. They act on the fused frame only: a band, a stencil, the
+    scan, the peel and FLAT shading never read them."""
+
+    vary: str = "kernel"
+    matmul: bool = False
+    table_dtype: str | None = None
+
+    def __post_init__(self):
+        if self.vary not in DEFER_VARY:
+            raise ValueError(f"ResolveForms.vary = {self.vary!r}; one of {DEFER_VARY}")
+        if self.table_dtype not in (None, "bf16"):
+            raise ValueError(f"ResolveForms.table_dtype = {self.table_dtype!r}; None or 'bf16'")
 
 
 class ShadingModel(enum.Enum):
@@ -671,6 +721,7 @@ def forward_frame(
     shade_rates: ShadeRates = ShadeRates(),
     msaa_mode: str = "resolve",
     geometry_forms: GeometryForms = GeometryForms(),
+    resolve_forms: ResolveForms = ResolveForms(),
 ):
     """The full frame (≙ passes.py:1442). Returns linear [H,W,4] ready for
     sRGB encode, then in this order the outputs asked for: the [H,W] f32
@@ -728,7 +779,11 @@ def forward_frame(
     call renders (≙ the JAX package's z-form knob; "plane" runs K7); the
     visibility kernels have one form (raster.py:297-319). geometry_forms
     (GeometryForms) sets the vertex-stage forms, the near clip's compaction
-    and the binning's big-class cap (the JAX package's geometry knobs)."""
+    and the binning's big-class cap (the JAX package's geometry knobs).
+    resolve_forms (ResolveForms) sets the fused frame's resolve: K2's
+    in-kernel resolve (the default), K3 and the XLA-side gather, or K5's
+    masked lanes (the JAX package's defer knobs); the 1x frame of the
+    shade-once MSAA and the supersampled frame are fused frames too."""
     if rendering is not None:
         clear_color, depth_clear, stencil = _attachments(rendering, width, height, clear_color,
                                                          depth_clear, stencil)
@@ -747,7 +802,7 @@ def forward_frame(
         common = dict(clear_color=clear_color, tonemap=tonemap, shadow_map_size=shadow_map_size,
                       shadow_params=shadow_params, shadow_map=shadow_map,
                       depth_clear=depth_clear, z_form=z_form, shade_rates=shade_rates,
-                      geometry_forms=geometry_forms)
+                      geometry_forms=geometry_forms, resolve_forms=resolve_forms)
         return _msaa_frame(scene, layout, pipeline, shading, width, height, common, band,
                            return_depth, stencil, return_ids, msaa_mode)
     y_offset, out_h, y_stride, y_pair = 0, height, 1, False
@@ -890,28 +945,9 @@ def forward_frame(
             color, sky_rgb = _shade_pixels(scene, layout, shading, varying, None,
                                            depth=vis.depth, tri_id=vis.tri_id, **shade_kw)
     else:
-        with record_function("frame/bin_table"):
-            k2 = prepare_resolve(
-                geo.setup, height, width, geo.attr, scene.tris, geo.clip_src,
-                geo.clip_planes, geo.mat_flat, small_limit=t_prim, cap_big=cap_big,
-            )
-        bin_overflow = k2.bin_overflow
-        with record_function("frame/k2"):
-            depth, slot, varying = raster_resolve(
-                k2.table, k2.sorted_tris, k2.seg, k2.nbx, height, width, k2.n_vary,
-                k2.n_flat, pipeline.depth_compare_op, depth_clear, plan=k2.plan,
-            )
+        depth, tri_id, mat_id_img, varying, bin_overflow = _fused_raster(
+            scene, layout, geo, pipeline, height, width, depth_clear, cap_big, resolve_forms)
         with record_function("frame/shade"):
-            # winner slot -> (source triangle, material id), passes.py:2035-2060
-            hit = slot >= 0
-            if geo.compact:
-                # material id at flat lane -2, source id at the trailing lane
-                mat_id_img = torch.where(hit, varying[..., -2].to(torch.int32), 0)
-                tri_id = torch.where(hit, varying[..., -1].to(torch.int32), slot)
-            else:
-                # source = slot mod T by clip construction; material id trailing
-                mat_id_img = torch.where(hit, varying[..., -1].to(torch.int32), 0)
-                tri_id = torch.where(slot >= t_prim, slot - t_prim, slot)
             vis = VisibilityBuffer(tri_id=tri_id, depth=depth)
             color, sky_rgb = _shade_pixels(scene, layout, shading, varying, mat_id_img,
                                            depth=depth, tri_id=tri_id, **shade_kw)
@@ -950,6 +986,95 @@ def forward_frame(
                                else torch.zeros((), dtype=torch.long, device=dev)),
         },)
     return outs if len(outs) > 1 else out
+
+
+def _fused_raster(scene: GpuScene, layout: SceneLayout, geo: FrameGeometry,
+                  pipeline: GraphicsPipeline, height: int, width: int, depth_clear: float,
+                  cap_big: int | None, forms: ResolveForms):
+    """The fused frame's raster and attribute resolve (passes.py:1835-2081)
+    in the form `forms.vary`. Returns (depth, source triangle ids, material
+    ids [H,W] or None, lanes [H,W,K(+Kf)], bin_overflow); with material ids
+    None the materials ride the last 11 lanes (the peel's shade contract).
+
+    "kernel" and "xla" take the arithmetic source mapping (passes.py:
+    1902-1909, :2048-2060): no ids payload; the material id rides a flat
+    lane, and under near-clip compaction the source id rides one more
+    (flat lane -1, the material id -2); otherwise the source is the slot
+    mod T. "lanes" carries its ids in the payload instead
+    (passes.py:1975-2000, :2061-2074): source | material << src_bits where
+    the two fit in PACK_ID_BITS bits, else the source id with the material
+    bank as flat lanes (the JAX package's flat-lane fallback, whose lanes
+    hold the same values)."""
+    t_prim = layout.num_triangles
+    if forms.vary == "kernel":
+        with record_function("frame/bin_table"):
+            k2 = prepare_resolve(
+                geo.setup, height, width, geo.attr, scene.tris, geo.clip_src,
+                geo.clip_planes, geo.mat_flat, small_limit=t_prim, cap_big=cap_big,
+            )
+        with record_function("frame/k2"):
+            depth, slot, varying = raster_resolve(
+                k2.table, k2.sorted_tris, k2.seg, k2.nbx, height, width, k2.n_vary,
+                k2.n_flat, pipeline.depth_compare_op, depth_clear, plan=k2.plan,
+            )
+        bin_overflow = k2.bin_overflow
+    elif forms.vary == "xla":
+        with record_function("frame/vis_bin_table"):
+            k3 = prepare_visibility(geo.setup, height, width, small_limit=t_prim,
+                                    cap_big=cap_big)
+        with record_function("frame/k3"):
+            depth, slot, b0, b1 = raster_visibility(
+                k3.table, k3.sorted_tris, k3.seg, k3.nbx, height, width,
+                compare_op=pipeline.depth_compare_op, depth_clear=depth_clear, plan=k3.plan)
+        with record_function("frame/defer_resolve"):
+            table = build_defer_table(geo.setup, geo.attr, scene.tris, geo.clip_src,
+                                      geo.clip_planes, geo.mat_flat)
+            n_mats = scene.materials.metallic.shape[0]
+            if (forms.table_dtype == "bf16" and n_mats <= BF16_TABLE_MAX_MATERIALS
+                    and not geo.compact):
+                # passes.py:1911-1923: every id lane stays exact in bf16
+                table = table.to(torch.bfloat16)
+            varying = deferred_resolve(table, slot, b0, b1, geo.attr.shape[-1],
+                                       geo.mat_flat.shape[-1], matmul=forms.matmul)
+        bin_overflow = k3.bin_overflow
+    else:
+        n_mats = scene.materials.metallic.shape[0]
+        src_bits = max(1, (t_prim - 1).bit_length())
+        mat_bits = max(1, (n_mats - 1).bit_length())
+        pack = src_bits + mat_bits <= PACK_ID_BITS
+        with record_function("frame/lanes_bin_table"):
+            if pack:
+                ids = geo.clip_src | (scene.tri_material[geo.clip_src] << src_bits)
+                flat, id_bound = None, 1 << (src_bits + mat_bits)
+            else:
+                ids = geo.clip_src
+                flat = _material_bank(scene.materials)[scene.tri_material]
+                id_bound = t_prim
+            k5 = prepare_peel(geo.setup, height, width, geo.attr, scene.tris, geo.clip_src,
+                              geo.clip_planes, flat, ids, id_bound=id_bound, cap_big=cap_big,
+                              small_limit=t_prim)
+        with record_function("frame/k5"):
+            depth, payload, varying = raster_peel(
+                k5.table, k5.sorted_tris, k5.seg, k5.nbx, height, width, k5.n_vary, k5.n_flat,
+                None, pipeline.depth_compare_op, depth_clear, plan=k5.plan)
+        hit = payload >= 0
+        if pack:
+            mat_id_img = torch.where(hit, payload >> src_bits, 0)
+            tri_id = torch.where(hit, payload & ((1 << src_bits) - 1), payload)
+        else:
+            mat_id_img, tri_id = None, payload
+        return depth, tri_id, mat_id_img, varying, k5.bin_overflow
+    # winner slot -> (source triangle, material id), passes.py:2035-2060
+    hit = slot >= 0
+    if geo.compact:
+        # material id at flat lane -2, source id at the trailing lane
+        mat_id_img = torch.where(hit, varying[..., -2].to(torch.int32), 0)
+        tri_id = torch.where(hit, varying[..., -1].to(torch.int32), slot)
+    else:
+        # source = slot mod T by clip construction; material id trailing
+        mat_id_img = torch.where(hit, varying[..., -1].to(torch.int32), 0)
+        tri_id = torch.where(slot >= t_prim, slot - t_prim, slot)
+    return depth, tri_id, mat_id_img, varying, bin_overflow
 
 
 def peel_inputs(scene: GpuScene, layout: SceneLayout, geo: FrameGeometry, height: int,
@@ -1102,7 +1227,8 @@ def _level_offsets(mips, atlas_rows: int) -> tuple:
 
 
 def _textured(scene: GpuScene, layout: SceneLayout, varying, mat_px, mat_id_img, tri_id,
-              y_parity: int, normal, base_color, metallic, roughness, ao, emissive):
+              y_parity: int, normal, base_color, metallic, roughness, ao, emissive,
+              lod_form: str = "quad"):
     """The five material slots of a textured scene (passes.py:562-778),
     each a texture times its material factor: from the single-gather bf16
     trilinear material atlas when built (mat_atlas_tri); else the f32
@@ -1110,8 +1236,9 @@ def _textured(scene: GpuScene, layout: SceneLayout, varying, mat_px, mat_id_img,
     else per slot (above the atlases' row budget): each bound slot from the
     per-texture window atlas in two gathers (or, without one, every level of
     the texture array), applied where the slot's texture id is >= 0. Normal
-    maps go through the TBN frame. Returns (normal, base_color, metallic,
-    roughness, ao, emissive)."""
+    maps go through the TBN frame; lod_form is the LOD's derivative form
+    (ShadeRates.lod). Returns (normal, base_color, metallic, roughness, ao,
+    emissive)."""
     tex = scene.textures
     uv = varying[..., 6:8]
     t4 = varying[..., 8:12]
@@ -1140,7 +1267,7 @@ def _textured(scene: GpuScene, layout: SceneLayout, varying, mat_px, mat_id_img,
             fetch = sample_array_textured_atlas
         shapes, offs = _level_offsets(tex.mips, atlas.shape[0])
         samp = fetch(atlas, offs, shapes, len(shapes), shapes[0], c, mid, uv,
-                     y_parity=y_parity)
+                     y_parity=y_parity, lod_form=lod_form)
         if 0 in pos:
             base_color = base_color * samp[..., pos[0]:pos[0] + 4]
         if 1 in pos:
@@ -1165,9 +1292,10 @@ def _textured(scene: GpuScene, layout: SceneLayout, varying, mat_px, mat_id_img,
         t = tex_ids[..., slot]
         if tex.atlas is not None:
             s = sample_array_textured_atlas(tex.atlas, offs, shapes, len(shapes), shapes[0],
-                                            tex.mips[0].shape[-1], t, uv, y_parity=y_parity)
+                                            tex.mips[0].shape[-1], t, uv, y_parity=y_parity,
+                                            lod_form=lod_form)
         else:
-            s = sample_array_textured(tex.mips, t, uv, y_parity=y_parity)
+            s = sample_array_textured(tex.mips, t, uv, y_parity=y_parity, lod_form=lod_form)
         return s, (t >= 0)[..., None]
 
     if slots[0]:
@@ -1246,7 +1374,7 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
     if layout.has_textures and scene.textures is not None and any(layout.texture_slots):
         normal, base_color, metallic, roughness, ao, emissive = _textured(
             scene, layout, varying, mat_px, mat_id_img, tri_id, y_parity, normal,
-            base_color, metallic, roughness, ao, emissive)
+            base_color, metallic, roughness, ao, emissive, rates.lod)
     albedo = base_color[..., :3]
     view_dir = normalize(scene.camera.camera_position - world_pos)
     lights = scene.lights

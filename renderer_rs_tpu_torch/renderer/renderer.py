@@ -18,8 +18,9 @@ the depth form (z_form) or the geometry forms changed, so camera-only
 frames of a static scene reuse it. An MSAA pipeline renders through
 forward_frame's shade-once resolve, or with msaa_mode="super" supersamples
 the whole frame; shade_rates sets the shade stage's reduced rates
-(passes.ShadeRates) and geometry_forms the geometry stages' forms
-(passes.GeometryForms). Each frame hands forward_frame a RenderingConfig
+(passes.ShadeRates), geometry_forms the geometry stages' forms
+(passes.GeometryForms) and resolve_forms the fused frame's resolve
+(passes.ResolveForms). Each frame hands forward_frame a RenderingConfig
 built from the renderer's clear colour and its DepthBuffer's clear value.
 
 The swapchain chooses MAILBOX, as the JAX Renderer's does: presenting
@@ -51,6 +52,7 @@ from renderer_rs_tpu_torch.renderer.depth_buffer import DepthBuffer
 from renderer_rs_tpu_torch.renderer.frame_manager import FrameManager
 from renderer_rs_tpu_torch.renderer.passes import (
     GeometryForms,
+    ResolveForms,
     ShadeRates,
     ShadingModel,
     csm_shadow_pass,
@@ -91,6 +93,7 @@ class Renderer:
         msaa_mode: str = "resolve",
         geometry_forms: GeometryForms = GeometryForms(),
         window: Window | None = None,
+        resolve_forms: ResolveForms = ResolveForms(),
     ) -> None:
         self.device = resolve_device(device)
         self.config = config or RendererConfig()
@@ -111,11 +114,13 @@ class Renderer:
         # the shadow passes' depth form: "bary" (K1, K6) or "plane" (K7,
         # ≙ the JAX package's z_plane_mode, raster.py:297)
         self.z_form = z_form
-        # the shade stage's reduced rates, the MSAA form and the geometry
-        # stages' forms (the JAX package's knobs), handed to every frame
+        # the shade stage's reduced rates, the MSAA form, the geometry
+        # stages' forms and the fused frame's resolve (the JAX package's
+        # knobs), handed to every frame
         self.shade_rates = shade_rates
         self.msaa_mode = msaa_mode
         self.geometry_forms = geometry_forms
+        self.resolve_forms = resolve_forms
         # (z_form, geometry_forms, shadow-input tensors, shadow map)
         self._shadow_cache = None
         # host-side Camera the app's controllers mutate; update_camera()
@@ -242,7 +247,8 @@ class Renderer:
             rendering=rendering, tonemap=self.tonemap,
             shadow_map_size=self.shadow_map_size, shadow_params=self.shadow_params,
             shadow_map=self._shadow_map(scene), shade_rates=self.shade_rates,
-            msaa_mode=self.msaa_mode, geometry_forms=self.geometry_forms, **extra,
+            msaa_mode=self.msaa_mode, geometry_forms=self.geometry_forms,
+            resolve_forms=self.resolve_forms, **extra,
         )
         if self.config.enable_validation:
             # frame-product validation (≙ the layers flagging a bad present
