@@ -194,6 +194,24 @@ Phases (any failure exits nonzero before the result lines):
          one K2); app.main for 3 frames at 1920x1080 into an X11 window of
          platform/x11_server_double.py where libX11 is installed (printed
          either way): every row blitted, one K1 and one K2 a frame;
+       - (r) parallel.render_frame_sharded (a host thread and a CUDA
+         stream per shard, the bands enqueued in turn) against the smoke's
+         sequential reference (one forward_frame(band=band_spec(k, ...))
+         per shard on the default stream, stitched by band_rows), bit for
+         bit, each case's launches counted on one call: the headline frame
+         on a (1, 4) mesh on cuda:0, contiguous and pair-interleaved (one
+         K3 and one K1 per shard), its stitched ids equal to the whole
+         frame's and its colours within FRAME_BAR of the whole frame
+         at the exact rates; the orbit camera's first two views on a
+         (2, 2) mesh through shard_scene_batch; the JAX dry run's flagship
+         frame (full_scene(256, 256, tri_budget=3000, ibl=True, csm=True,
+         textured=True), interleaved; one K3 and one K6 per shard) and the
+         same under MSAA 4x on the supersampled rows, unshard_rows and
+         resolve_msaa; each timed in SHARD_PAIRS interleaved pairs
+         (concurrent, sequential: median, min, max); where the host has
+         two cards or more, the first two cases again on a mesh of
+         distinct cards, bit-equal to the one-card frames, else the line
+         "loop (r) cross-card: not run, 1 card";
        - the probe's own path: probes.kgather.run for the five bodies at
          4,096 iterations (µs per iteration), 30 launches.
      The frames must be finite with covered pixels; the peel, clip and bin
@@ -239,7 +257,11 @@ Phases (any failure exits nonzero before the result lines):
      checks as before: the chunk sweeps and tie tables of K2, K3 and K4
      queued by phase 3, then each split kernel's device µs by
      torch.profiler (a profiler session slows the process's later
-     launches), the shared walk's also for each skip form.
+     launches), the shared walk's also for each skip form;
+     last, loop (r)'s profiles: SHARD_PROFILED calls of each case in each
+     form under torch.profiler, the device busy share and the share of
+     wall time with kernels of two or more shard streams in flight, and
+     each concurrent call's K3 on as many distinct streams as shards.
 Then a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the JAX package.
 """
@@ -392,6 +414,16 @@ BF16_TABLE_BAR = (0.05, 0.005)
 # against K2's (tests/test_raster_pallas.py:555-558; the atol scaled by the
 # lane's vertex magnitudes, _hold_resolved_lanes)
 LANES_BAR = (4e-6, 1e-6)
+# loop (r): render_frame_sharded's shard threads against the smoke's
+# sequential reference; interleaved (concurrent, sequential) frame pairs
+# timed per case, and concurrent frames profiled per case
+SHARD_PAIRS = 10
+SHARD_PROFILED = 1
+SHARD_PROFILE_TRIES = 3
+# (r) the JAX multi-chip dry run's flagship frame (__graft_entry__.py:85-101):
+# textured PBR, IBL, four cascades at 256x256, 256² shadow maps, ACES
+FLAGSHIP = dict(tri_budget=3000, ibl=True, csm=True, textured=True)
+FLAGSHIP_SIZE = 256
 # loop (q): the app's frames into the X11 window of the server double
 APP_X11_FRAMES = 3
 KERNEL_TIMINGS = 25
@@ -2379,6 +2411,7 @@ def phase_main_paths(headline: tuple, gltf: tuple, many: tuple) -> dict:
     by_path.update(_frame_loop_paths(make, headline, many))
     by_path.update(_resolve_form_paths(make, headline))
     by_path.update(_rhi_paths(make, headline))
+    by_path.update(_sharded_paths(headline))
     return by_path
 
 
@@ -2534,15 +2567,9 @@ def _app_loop_paths(headline: tuple) -> dict:
     --fly, --log given and a callable sink: one K1 in all and one K2 a
     frame, every frame distinct; the app's FrameStats summary line printed.
     Then K2 held to its plain version on an orbit frame's inputs."""
-    import copy
-
     import torch
 
-    from renderer_rs_tpu_torch.app.main import apply_camera_input, inject_scripted_events
     from renderer_rs_tpu_torch.app.main import main as app_main
-    from renderer_rs_tpu_torch.platform.input import InputState
-    from renderer_rs_tpu_torch.resources.ubo import CameraUbo
-    from renderer_rs_tpu_torch.scene.camera import OrbitController
 
     by_path = {}
     argv = ["--scene", "full", "--textured", "--width", str(W), "--height", str(H),
@@ -2582,19 +2609,32 @@ def _app_loop_paths(headline: tuple) -> dict:
     # an orbit frame's inputs: the headline scene under the app's scripted
     # orbit camera after 12 frames
     scene, layout, kw = headline
+    _hold_k2("(k) orbit frame 12", _orbit_scene(headline, 12), layout, kw["pipeline"], W, H)
+    torch.cuda.synchronize()
+    return by_path
+
+
+def _orbit_scene(headline: tuple, frames: int):
+    """The headline scene under the app's scripted orbit camera (app.main
+    --orbit) after `frames` frames of 1/60 s."""
+    import copy
+
+    from renderer_rs_tpu_torch.app.main import apply_camera_input, inject_scripted_events
+    from renderer_rs_tpu_torch.platform.input import InputState
+    from renderer_rs_tpu_torch.resources.ubo import CameraUbo
+    from renderer_rs_tpu_torch.scene.camera import OrbitController
+
+    scene, _, kw = headline
     camera = copy.deepcopy(kw["camera"])
     ctl = OrbitController()
     ctl.sync_with_camera(camera, (0.0, 0.0, 0.0))
     inp = InputState()
-    for f in range(12):
+    for f in range(frames):
         inp.begin_frame()
         inject_scripted_events(inp, "orbit", f)
         apply_camera_input(inp, "orbit", ctl, camera, 1.0 / 60.0)
-    orbit = scene.replace(camera=CameraUbo.create(
+    return scene.replace(camera=CameraUbo.create(
         camera.view_matrix(), camera.projection_matrix(), camera.position).to(scene.device))
-    _hold_k2("(k) orbit frame 12", orbit, layout, kw["pipeline"], W, H)
-    torch.cuda.synchronize()
-    return by_path
 
 
 def _resize_path(headline: tuple) -> dict:
@@ -3216,6 +3256,301 @@ def _rhi_paths(make, headline: tuple) -> dict:
             or launches != _counts(raster_depth=1, raster_resolve=APP_X11_FRAMES)):
         raise SystemExit("phase main path, (q): the app's X11 window loop failed")
     by_path["x11_app"] = launches
+    return by_path
+
+
+def _sequential_bands(scenes, layout, pipeline, shading, width, height, mesh, interleaved, kw,
+                      return_ids=False):
+    """Loop (r)'s sequential reference of render_frame_sharded: per frame,
+    one forward_frame(band=band_spec(k, ...)) per shard of the mesh, one
+    after another on the caller's stream, each band's rows put in place by
+    band_rows: [F, H*sy, W*sx, 4] in frame row order (and the source ids,
+    [F, H, W], with return_ids)."""
+    import torch
+
+    from renderer_rs_tpu_torch.parallel import band_rows, band_spec
+    from renderer_rs_tpu_torch.renderer.passes import MSAA_GRIDS, forward_frame
+
+    n_rows = mesh.shape["rows"]
+    sx, sy = MSAA_GRIDS.get(pipeline.msaa_samples, (1, 1))
+    band_h = height * sy // n_rows
+    frames, ids = [], []
+    for scene in scenes:
+        frame = torch.empty((height * sy, width * sx, 4), device=scene.device)
+        if return_ids:
+            ids.append(torch.full((height, width), -2, dtype=torch.int32, device=scene.device))
+        for k in range(n_rows):
+            spec = band_spec(k, n_rows, band_h, interleaved)
+            rows = band_rows(spec, device=scene.device)
+            band = forward_frame(scene, layout, pipeline, shading, width, height, band=spec,
+                                 return_ids=return_ids, **kw)
+            if return_ids:
+                band, ids[-1][rows] = band
+            frame[rows] = band
+        frames.append(frame)
+    return (torch.stack(frames), torch.stack(ids)) if return_ids else torch.stack(frames)
+
+
+def _shard_case(label: str, scenes, placed, layout, pipeline, shading, width, height, mesh,
+                interleaved: bool, kw: dict, expect: dict):
+    """One case of loop (r): the concurrent frame (render_frame_sharded on
+    `placed`, unshard_rows, and resolve_msaa under MSAA) once with every
+    launch counter zeroed just before and read just after (they must be
+    `expect`), bit-equal to the sequential reference on `scenes`; then
+    SHARD_PAIRS interleaved pairs of the two, timed on the host clock to a
+    synchronize. Returns (launches, the frames, the two closures)."""
+    import torch
+
+    from renderer_rs_tpu_torch.parallel import render_frame_sharded, resolve_msaa, unshard_rows
+
+    n_rows, samples = mesh.shape["rows"], pipeline.msaa_samples
+
+    def concurrent():
+        out = render_frame_sharded(placed, layout, pipeline, shading, width, height, mesh,
+                                   interleaved=interleaved, **kw)
+        return resolve_msaa(unshard_rows(out, n_rows, interleaved), samples)
+
+    def sequential():
+        return resolve_msaa(_sequential_bands(scenes, layout, pipeline, shading, width, height,
+                                              mesh, interleaved, kw), samples)
+
+    concurrent(), sequential()  # warm-up
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    got = concurrent()
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    want = sequential()
+    equal = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+    ms = {"concurrent": [], "sequential": []}
+    for _ in range(SHARD_PAIRS):
+        for name, fn in (("concurrent", concurrent), ("sequential", sequential)):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    for name, xs in ms.items():
+        _FRAME_MS[f"(r) {label}, {name}"] = _median(xs)
+    _log(f"main path, (r) {label}: mesh {mesh.shape} on {[str(d) for d in mesh.devices[0]]}..., "
+         f"frames {tuple(got.shape)}, launches {launches}, bit-equal to the sequential "
+         f"reference {equal}, finite {bool(torch.isfinite(got).all())}; frame ms over "
+         f"{SHARD_PAIRS} interleaved pairs: concurrent median {_median(ms['concurrent']):.3f} "
+         f"(min {min(ms['concurrent']):.3f}, max {max(ms['concurrent']):.3f}), sequential "
+         f"median {_median(ms['sequential']):.3f} (min {min(ms['sequential']):.3f}, max "
+         f"{max(ms['sequential']):.3f})")
+    if launches != expect:
+        raise SystemExit(f"phase main path, (r) {label}: launches {launches}, expected {expect}")
+    if not (equal and bool(torch.isfinite(got).all())):
+        raise SystemExit(f"phase main path, (r) {label}: the concurrent frames differ from the "
+                         "sequential reference")
+    return launches, got, concurrent, sequential
+
+
+def _shard_profile(label: str, concurrent, sequential, n_shards: int) -> None:
+    """Loop (r)'s profile, queued for after the main paths (a profiler
+    session slows the process's later launches): SHARD_PROFILED calls of
+    each form under torch.profiler. The device busy share (the union of
+    kernels, copies and sets over the host wall time of the frames), and
+    for the concurrent form the share of that time in which kernels of two
+    or more shard streams (those that ran K3's resolve pass) were in flight
+    at once; each concurrent frame's K3 must have run on n_shards distinct
+    streams."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, fn in (("concurrent", concurrent), ("sequential", sequential)):
+        fn()
+        torch.cuda.synchronize()
+        # torch.profiler on the card has lost device events: one session of
+        # three calls (~34,000 kernels) recorded none, another 10 of its 12
+        # K3 passes. A session profiles SHARD_PROFILED calls, and one whose
+        # K3 passes are not all there is taken again, up to
+        # SHARD_PROFILE_TRIES sessions
+        for attempt in range(1, SHARD_PROFILE_TRIES + 1):
+            with tempfile.TemporaryDirectory() as tmp:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(SHARD_PROFILED):
+                        fn()
+                    torch.cuda.synchronize()
+                    wall_us = (time.perf_counter() - t0) * 1e6
+                trace = os.path.join(tmp, "trace.json")
+                prof.export_chrome_trace(trace)
+                with open(trace) as fh:
+                    events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"
+                              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+            k3 = sorted((e for e in events if e["cat"] == "kernel"
+                         and "raster_vis_resolve" in e["name"]), key=lambda e: e["ts"])
+            if len(k3) == SHARD_PROFILED * n_shards:
+                break
+            _log(f"(r) {label}, {name}: profiler session {attempt} recorded {len(k3)} K3 "
+                 f"resolve passes of {SHARD_PROFILED * n_shards}, {len(events)} device events")
+        busy = _union_us([(e["ts"], e["ts"] + e["dur"]) for e in events])
+        shard_streams = {_stream_of(e) for e in k3}
+        per_stream = {}
+        for e in events:
+            if e["cat"] == "kernel" and _stream_of(e) in shard_streams:
+                per_stream.setdefault(_stream_of(e), []).append((e["ts"], e["ts"] + e["dur"]))
+        overlap = _overlap_us([_merged(v) for v in per_stream.values()])
+        _log(f"(r) {label}, {name}, {SHARD_PROFILED} call(s) under torch.profiler: wall "
+             f"{wall_us / 1e3:.3f} ms, device busy share {busy / wall_us:.4f}, share of wall time "
+             f"with kernels of >= 2 shard streams in flight {overlap / wall_us:.4f}; K3 launches "
+             f"{len(k3)} on {len(shard_streams)} streams, kernels and copies {len(events)}")
+        if len(k3) != SHARD_PROFILED * n_shards:
+            raise SystemExit(f"(r) {label}, {name}: {len(k3)} K3 resolve passes profiled, "
+                             f"expected {SHARD_PROFILED * n_shards}")
+        # a call's shards end before the next call's begin (the caller's
+        # stream waits for them, the next shards for the caller's stream),
+        # so the K3 passes in time order come in calls of n_shards
+        distinct = [len({_stream_of(e) for e in k3[i:i + n_shards]})
+                    for i in range(0, len(k3), n_shards)]
+        if name == "concurrent" and distinct != [n_shards] * SHARD_PROFILED:
+            raise SystemExit(f"(r) {label}: the shards of a call ran on {distinct} streams, "
+                             f"not {n_shards} distinct ones")
+
+
+def _stream_of(event) -> tuple:
+    """(device, stream) of a kernel event of a torch.profiler chrome trace."""
+    return event["args"].get("device"), event["args"]["stream"]
+
+
+def _merged(intervals):
+    """Sorted, disjoint union of [start, end) intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _union_us(intervals) -> float:
+    return sum(b - a for a, b in _merged(intervals))
+
+
+def _overlap_us(streams) -> float:
+    """The time in which two or more of the streams (each a disjoint
+    interval list) are busy at once."""
+    edges = sorted((t, d) for ivs in streams for a, b in ivs for t, d in ((a, 1), (b, -1)))
+    total, active, last = 0.0, 0, None
+    for t, d in edges:
+        if active >= 2:
+            total += t - last
+        active += d
+        last = t
+    return total
+
+
+# loop (r)'s profiles, taken by phase_shard_profiles after phase_breakdown
+_SHARD_PROFILES: list = []
+
+
+def phase_shard_profiles() -> None:
+    for args in _SHARD_PROFILES:
+        _shard_profile(*args)
+    _SHARD_PROFILES.clear()
+
+
+def _sharded_paths(headline: tuple) -> dict:
+    """(r) render_frame_sharded (a host thread and a CUDA stream per shard,
+    the bands enqueued in turn) against the smoke's sequential reference (one
+    forward_frame(band=...) per shard on the default stream, stitched by
+    band_rows), every case bit for bit: (1) the headline frame on a (1, 4)
+    mesh on cuda:0, contiguous and pair-interleaved (one K3 and one K1 per
+    shard), its source ids equal to the whole frame's and its colours
+    within FRAME_BAR of the whole frame at the exact rates; (2) the
+    orbit camera's first two views on a (2, 2) mesh through
+    shard_scene_batch; (3) the dry run's flagship frame at 256x256 (one K3
+    and one K6 per shard), and the same under MSAA 4x on the supersampled
+    rows, unshard_rows and resolve_msaa. Timed in interleaved pairs; each
+    case's profile is queued. Where the host has two cards or more, (1)
+    and (2) again on a mesh of distinct cards, bit-equal to the one-card
+    frames."""
+    import dataclasses
+
+    import torch
+
+    from renderer_rs_tpu_torch.app.scenes import full_scene
+    from renderer_rs_tpu_torch.parallel import make_device_mesh, shard_scene_batch
+    from renderer_rs_tpu_torch.renderer.passes import ShadeRates, forward_frame
+
+    by_path, frames = {}, {}
+    scene, layout, kw = headline
+    args = (layout, kw["pipeline"], kw["shading"], W, H)
+    fkw = dict(tonemap=kw["tonemap"], shadow_map_size=kw["shadow_map_size"],
+               shadow_params=kw["shadow_params"])
+    one_card = make_device_mesh(N_BANDS, frame_axis=1, devices=["cuda:0"] * N_BANDS)
+    views = [_orbit_scene(headline, n) for n in (1, 2)]
+    two_by_two = make_device_mesh(4, devices=["cuda:0"] * 4)
+    per_shard = _counts(raster_depth=N_BANDS, raster_visibility=N_BANDS)
+    # (1) the headline frame on cuda:0 x 4
+    whole, whole_ids = forward_frame(scene, *args, return_ids=True,
+                                     shade_rates=ShadeRates(**EXACT_RATES), **fkw)
+    for interleaved in (False, True):
+        label = "headline, 1x4 on cuda:0, " + ("pair-interleaved" if interleaved else "contiguous")
+        key = "r_headline_interleaved" if interleaved else "r_headline"
+        by_path[key], got, conc, seq = _shard_case(label, [scene], [scene], *args, one_card,
+                                                   interleaved, fkw, per_shard)
+        frames[key] = got
+        _, ids = _sequential_bands([scene], *args, one_card, interleaved, fkw, return_ids=True)
+        drift = _frame_drift(got[0], whole)
+        ids_equal = bool(torch.equal(ids[0], whole_ids))
+        _log(f"(r) {label}: stitched ids equal to the whole frame's {ids_equal}; colours against "
+             f"the whole frame at the exact rates: {drift}")
+        if not (ids_equal and drift["off"] < FRAME_BAR[0]
+                and drift["max"] < FRAME_BAR[1]):
+            raise SystemExit(f"phase main path, (r) {label}: the stitched frame's ids or colours "
+                             "differ from the whole frame's")
+        _SHARD_PROFILES.append((label, conc, seq, N_BANDS))
+    # (2) two orbit views of one layout, placed by shard_scene_batch
+    label = "orbit views 1 and 2, 2x2 on cuda:0 through shard_scene_batch"
+    placed = shard_scene_batch(views, two_by_two)
+    if any(p[row[0]] is not v for p, v, row in zip(placed, views, two_by_two.devices)):
+        raise SystemExit("phase main path, (r): shard_scene_batch copied a scene already there")
+    by_path["r_orbit_views"], got, conc, seq = _shard_case(
+        label, views, placed, *args, two_by_two, True, fkw, per_shard)
+    frames["r_orbit_views"] = got
+    if torch.equal(got[0], got[1]):
+        raise SystemExit(f"phase main path, (r) {label}: the two views rendered alike")
+    _SHARD_PROFILES.append((label, conc, seq, 4))
+    # (3) the flagship frame of the dry run, 1x and MSAA 4x
+    t0 = time.perf_counter()
+    f_scene, f_layout, f_kw, _ = full_scene(FLAGSHIP_SIZE, FLAGSHIP_SIZE, device="cuda",
+                                            **FLAGSHIP)
+    _log(f"(r) flagship scene: T={f_layout.num_triangles}, built in "
+         f"{time.perf_counter() - t0:.2f}s")
+    f_fkw = dict(tonemap="aces", shadow_map_size=256, shadow_params=f_kw["shadow_params"])
+    flagship = [f_scene, f_scene]
+    for samples in (1, MSAA):
+        pipeline = dataclasses.replace(f_kw["pipeline"], msaa_samples=samples)
+        label = f"flagship {FLAGSHIP_SIZE}x{FLAGSHIP_SIZE}, 2x2 on cuda:0" + (
+            f", msaa{samples} supersampled" if samples > 1 else "")
+        launches, got, _, _ = _shard_case(
+            label, flagship, shard_scene_batch(flagship, two_by_two), f_layout, pipeline,
+            f_kw["shading"], FLAGSHIP_SIZE, FLAGSHIP_SIZE, two_by_two, True, f_fkw,
+            _counts(raster_depth_batch=4, raster_visibility=4))
+        by_path["r_flagship" if samples == 1 else "r_flagship_msaa4"] = launches
+        _log(f"(r) {label}: mean rgb {[round(float(v), 4) for v in got[..., :3].mean((0, 1, 2))]}")
+    # the cross-card run
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        _log("loop (r) cross-card: not run, 1 card")
+        return by_path
+    cards = [f"cuda:{i % n_cards}" for i in range(4)]
+    for key, mesh, scenes, interleaved in (
+            ("r_headline_interleaved", make_device_mesh(4, frame_axis=1, devices=cards),
+             [scene], True),
+            ("r_orbit_views", make_device_mesh(4, devices=cards), views, True)):
+        label = f"cross-card {key[2:]}, {mesh.shape} on {cards}"
+        by_path[f"{key}_cross_card"], got, conc, seq = _shard_case(
+            label, scenes, shard_scene_batch(scenes, mesh), *args, mesh, interleaved, fkw,
+            per_shard)
+        equal = bool(torch.equal(got.view(torch.int32), frames[key].view(torch.int32)))
+        _log(f"loop (r) cross-card: {label} bit-equal to the one-card frames {equal}")
+        if not equal:
+            raise SystemExit(f"phase main path, (r) {label}: differs from the one-card frames")
+        _SHARD_PROFILES.append((label, conc, seq, 4))
     return by_path
 
 
@@ -4362,6 +4697,7 @@ def main() -> int:
     phase_small_reference()
     phase_after()
     phase_breakdown()
+    phase_shard_profiles()
     for name, k in kernels.items():
         k["max_abs_err"] = max(k["max_abs_err"], _MAX_ABS_ERR.get(name, 0.0))
         k["launches"] = sum(path[name] for path in by_path.values())

@@ -80,6 +80,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import torch
 
@@ -110,6 +111,18 @@ SPLIT_CHUNK = 64
 # the shared walk's warp skip (csrc/split_walk.cuh), on except inside
 # _without_skip
 _walk_skip = True
+# the launch counters are read-modify-writes made by every thread that
+# launches (render_frame_sharded's shards launch from threads of their own),
+# so each count is taken under this lock
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, **counters) -> None:
+    """Add each increment (counter name -> n) to `wrapper`'s launch
+    counters, atomically."""
+    with _LAUNCH_LOCK:
+        for name, n in counters.items():
+            setattr(wrapper, name, getattr(wrapper, name) + n)
 
 
 # --- the split plan: dense bins cut into pieces over blocks --------------------
@@ -386,7 +399,7 @@ def _launch(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat, compare
         )
     if err != 0:
         raise RuntimeError(f"raster_resolve launch failed: cudaError {err}")
-    raster_resolve.launches += 1
+    count_launch(raster_resolve, launches=1)
     return depth, tid, lanes
 
 
@@ -698,7 +711,7 @@ def _launch_ids(table, sorted_tris, seg, nbx, height, width, compare_op, depth_c
         )
     if err != 0:
         raise RuntimeError(f"raster_ids launch failed: cudaError {err}")
-    raster_ids.launches += 1
+    count_launch(raster_ids, launches=1)
     return depth, tid
 
 
@@ -851,9 +864,8 @@ def _launch_depth(table, sorted_tris, seg, nbx, height, width, compare_op, depth
         )
     if err != 0:
         raise RuntimeError(f"raster_depth launch failed: cudaError {err}")
-    raster_depth.launches += 1
-    raster_depth.batched_launches += int(n_batch > 1 and not zplane)
-    raster_depth.zplane_launches += int(zplane)
+    count_launch(raster_depth, launches=1, batched_launches=int(n_batch > 1 and not zplane),
+                 zplane_launches=int(zplane))
     return depth
 
 
@@ -1057,7 +1069,7 @@ def _launch_peel(table, sorted_tris, seg, nbx, height, width, n_vary, n_flat, z_
         )
     if err != 0:
         raise RuntimeError(f"raster_peel launch failed: cudaError {err}")
-    raster_peel.launches += 1
+    count_launch(raster_peel, launches=1)
     return depth, tid, lanes
 
 
@@ -1162,7 +1174,13 @@ def _selection_matrix(width_c: int, k: int, n_flat: int, device: torch.device) -
     lane = torch.arange(width_c, device=device)
     col = torch.where(lane < 3 + 3 * k, (lane - 3) % max(k, 1), lane - 3 - 2 * k)
     used = (lane >= 3) & (lane < 3 + 3 * k + n_flat)
-    return (used[:, None] & (col[:, None] == torch.arange(k + n_flat, device=device))).to(_F32)
+    sel = (used[:, None] & (col[:, None] == torch.arange(k + n_flat, device=device))).to(_F32)
+    if sel.is_cuda:
+        # the cached matrix is read later from any thread's stream (the
+        # shards of render_frame_sharded): it must be complete before this
+        # call returns it, not only in the stream order of its first caller
+        torch.cuda.current_stream(device).synchronize()
+    return sel
 
 
 def deferred_resolve(table: torch.Tensor, slot: torch.Tensor, b0: torch.Tensor,
@@ -1289,7 +1307,7 @@ def _launch_visibility(table, sorted_tris, seg, nbx, height, width, y_offset, y_
         )
     if err != 0:
         raise RuntimeError(f"raster_visibility launch failed: cudaError {err}")
-    raster_visibility.launches += 1
+    count_launch(raster_visibility, launches=1)
     return depth, tid, b0, b1
 
 

@@ -7,6 +7,7 @@ from renderer_rs_tpu_torch.parallel.tile_shard import (  # noqa: F401
     band_spec,
     render_frame_sharded,
     resolve_msaa,
+    shard_scene_batch,
     stack_scenes,
     unshard_rows,
 )

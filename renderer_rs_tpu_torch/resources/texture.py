@@ -132,3 +132,11 @@ class CubeMap:
             while mips[-1].shape[1] > 1:
                 mips.append(_box_downsample(mips[-1]))
         return CubeMap(mips=tuple(mips))
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.mips)
+
+    @property
+    def face_size(self) -> int:
+        return self.mips[0].shape[1]

@@ -10,7 +10,10 @@ crates/rhi/src/{instance,physical_device,device}.rs).
 The score mirrors rate_device (physical_device.rs:411-448) as the JAX
 package computes it: the platform's score (a CUDA card 9000, the CPU 0)
 plus the device memory in units of 100 MiB. The JAX Device's sharding
-mesh is not here: the port renders on one card.
+mesh is not held here: Device("cuda").devices lists every visible card,
+and parallel.make_device_mesh(devices=...) makes the (frame, rows) mesh
+over them that parallel.render_frame_sharded renders on, one shard per
+device entry.
 """
 
 from __future__ import annotations

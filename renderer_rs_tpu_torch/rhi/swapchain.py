@@ -78,13 +78,15 @@ def determine_image_count(caps: SurfaceCapabilities) -> int:
 
 class Swapchain:
     """Rotating image slots with the reference's recreate semantics. The
-    frames themselves go to the window's surface; the chain tracks the
-    extent, the slot rotation and the stale flag."""
+    frames go to the window's surface; the chain tracks the extent, the
+    slot rotation and the stale flag, and keeps each slot's last presented
+    frame (image)."""
 
     def __init__(self, width: int, height: int, caps: SurfaceCapabilities | None = None) -> None:
         self._caps = caps or SurfaceCapabilities()
         self.extent = choose_extent(self._caps, (width, height))
         self.image_count = determine_image_count(self._caps)
+        self._images: list[np.ndarray | None] = [None] * self.image_count
         self._next = 0
         self._stale = False
         log.debug("swapchain created: %dx%d x%d", *self.extent, self.image_count)
@@ -124,11 +126,18 @@ class Swapchain:
         if frame.shape[0] != self.height or frame.shape[1] != self.width:
             self._stale = True
             return True
+        self._images[index] = frame
         return self._stale
+
+    def image(self, index: int) -> np.ndarray | None:
+        """The frame last presented to slot `index` since the chain was
+        created or recreated, else None (≙ the swapchain image)."""
+        return self._images[index]
 
     def recreate(self, width: int, height: int) -> None:
         """Rebuild at a new extent (swapchain.rs:307-352)."""
         self.extent = choose_extent(self._caps, (width, height))
+        self._images = [None] * self.image_count
         self._next = 0
         self._stale = False
         log.debug("swapchain recreated: %dx%d", *self.extent)

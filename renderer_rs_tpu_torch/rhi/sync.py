@@ -8,18 +8,28 @@ order it was enqueued, so only the host <-> device edge needs a fence:
   is_signaled() is the event's non-blocking query (≙ vkGetFenceStatus).
   A value with no CUDA tensor was computed synchronously, so its fence is
   signalled once attached.
-
-The reference's semaphores (image_available, render_finished,
-sync.rs:62-120) order device work against device work, which the stream
-order already does, so the port has none; its per-frame sync (≙ FrameSync,
-sync.rs:366-460) is the one in-flight Fence per slot of the FrameManager.
+- Semaphore: a device-device edge (≙ rhi::Semaphore, sync.rs:62-120).
+  signal(stream) records a CUDA event at the end of the stream's queued
+  work, wait(stream) makes the stream's later work wait for it; on the CPU
+  (stream None) both are no-ops, the marker the JAX class is. Work on one
+  stream is already ordered, so the port's edges are between streams:
+  render_frame_sharded signals one per shard for the stitch.
+- FrameSync: the per-frame trio (≙ rhi::FrameSync, sync.rs:366-460),
+  image_available and render_finished semaphores and an in-flight fence,
+  which FrameSync.create(signaled=True) starts signalled. The Renderer's
+  FrameManager keeps one in-flight Fence per slot and needs no semaphore:
+  its frame runs on one stream.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
+
+from renderer_rs_tpu_torch.core.errors import RhiError
+
 
 def _cuda_device(value) -> torch.device | None:
     """The CUDA device of the first CUDA tensor in `value` (a tensor or a
@@ -74,3 +84,53 @@ class Fence:
         self._value = None
         self._event = None
         self._signaled = False
+
+
+class Semaphore:
+    """Device-device dependency edge (≙ rhi::Semaphore, sync.rs:62-120): a
+    CUDA event between streams, or on the CPU a named marker."""
+
+    def __init__(self, name: str = "") -> None:
+        self.name = name
+        self._event = None
+
+    def signal(self, stream: torch.cuda.Stream | None = None) -> None:
+        """Signal once the work queued on `stream` so far has run (≙ a
+        signal semaphore of vkQueueSubmit). None: the CPU, whose work has
+        run already."""
+        if stream is not None:
+            self._event = torch.cuda.Event()
+            self._event.record(stream)
+
+    def wait(self, stream: torch.cuda.Stream | None = None) -> None:
+        """Make the work queued on `stream` from now on wait for the signal
+        (≙ a wait semaphore of vkQueueSubmit); the host does not block.
+        Waiting on a CUDA stream for a semaphore never signalled raises,
+        as that wait would be invalid in Vulkan."""
+        if stream is None:
+            return
+        if self._event is None:
+            raise RhiError(f"{self!r} waited on before it was signalled")
+        stream.wait_event(self._event)
+
+    def __repr__(self) -> str:
+        return f"Semaphore({self.name!r})"
+
+
+@dataclasses.dataclass
+class FrameSync:
+    """Per-frame sync trio (≙ rhi::FrameSync, sync.rs:366-460)."""
+
+    image_available: Semaphore
+    render_finished: Semaphore
+    in_flight: Fence
+
+    @staticmethod
+    def create(signaled: bool = True) -> "FrameSync":
+        # the fence starts signalled so that frame 0 does not wait forever
+        # (sync.rs:150-176)
+        return FrameSync(
+            image_available=Semaphore("image_available"),
+            render_finished=Semaphore("render_finished"),
+            in_flight=Fence(signaled=signaled),
+        )
