@@ -58,12 +58,23 @@ bf16` set the fused frame's resolve (passes.ResolveForms: K2, K3 and the
 deferred gather, or K5's masked lanes), `--lod fwd` the texture LOD's
 forward differences (ShadeRates.lod) and `--cube-dtype bf16` the full
 scene's bf16 cube atlas (the JAX package's defer, LOD and cube knobs).
-The scene animation (the spinning cube) steps 1/60 s a frame."""
+The scene animation (the spinning cube) steps 1/60 s a frame.
+
+`--trace DIR` runs the frames under torch.profiler (core/profiling.trace)
+with tracing on: it writes `DIR/trace.json` (the chrome trace),
+`DIR/frames.jsonl` (the frame records of the run, one a line, every stamp
+on the trace's clock: Unix microseconds, an event's ts plus the trace's
+baseTimeNanoseconds / 1000) and logs one summary line: the mean enqueue,
+fence wait, readback, present and between-frames times and the host syncs
+a frame, with their sites."""
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import logging
+import os
 
 from renderer_rs_tpu_torch.platform.input import InputState, KeyCode, MouseButton
 
@@ -193,6 +204,9 @@ def main(argv=None, device="cuda", sink=None) -> int:
                         help="X display of the window without --out (default: libX11's own, "
                              "the $DISPLAY it reads)")
     parser.add_argument("--log", type=str, default=None, help="log filter (RUST_LOG style)")
+    parser.add_argument("--trace", type=str, default=None, metavar="DIR",
+                        help="profile the frames into DIR/trace.json and write their frame "
+                             "records to DIR/frames.jsonl")
     parser.add_argument("--orbit", action="store_true",
                         help="scripted orbit-drag camera (OrbitController)")
     parser.add_argument("--fly", action="store_true",
@@ -224,6 +238,7 @@ def main(argv=None, device="cuda", sink=None) -> int:
 
 def _run(args, device, window, x11) -> int:
     """The frame loop of main() on its window (and X11 window, or None)."""
+    from renderer_rs_tpu_torch.core import profiling
     from renderer_rs_tpu_torch.core.config import RendererConfig
     from renderer_rs_tpu_torch.core.timer import Timer
     from renderer_rs_tpu_torch.renderer.passes import GeometryForms, ResolveForms, ShadeRates
@@ -268,31 +283,41 @@ def _run(args, device, window, x11) -> int:
     input_state = InputState()
     timer = Timer()  # ≙ the app timer (main.rs:77)
     t = 0.0
-    for frame in range(args.frames):
-        input_state.begin_frame()  # ≙ about_to_wait (main.rs:99-104)
-        if x11 is not None:
-            # live input: the window's key, button and motion events drive
-            # the InputState (≙ the winit input arms, app/src/main.rs:85-97)
-            if not x11.pump_events(input_state):
-                log.info("window closed")
-                break
-        elif ctl_mode:
-            inject_scripted_events(input_state, ctl_mode, frame)
-        dt = timer.tick()
-        if ctl_mode:
-            # the hitch clamp: a build or I/O stall must not teleport the camera
-            apply_camera_input(input_state, ctl_mode, controller, camera, min(dt, 0.1))
-            renderer.update_camera(camera)
-        if animate is not None:
-            renderer.update_scene(animate(renderer._scene, t, 1.0 / 60.0))
-            t += 1.0 / 60.0
-        renderer.render_frame()
+    if args.trace:
+        profiling.clear_records()
+    with profiling.trace(args.trace) if args.trace else contextlib.nullcontext():
+        for frame in range(args.frames):
+            input_state.begin_frame()  # ≙ about_to_wait (main.rs:99-104)
+            if x11 is not None:
+                # live input: the window's key, button and motion events
+                # drive the InputState (≙ the winit input arms,
+                # app/src/main.rs:85-97)
+                if not x11.pump_events(input_state):
+                    log.info("window closed")
+                    break
+            elif ctl_mode:
+                inject_scripted_events(input_state, ctl_mode, frame)
+            dt = timer.tick()
+            if ctl_mode:
+                # the hitch clamp: a build or I/O stall must not teleport the
+                # camera
+                apply_camera_input(input_state, ctl_mode, controller, camera, min(dt, 0.1))
+                renderer.update_camera(camera)
+            if animate is not None:
+                renderer.update_scene(animate(renderer._scene, t, 1.0 / 60.0))
+                t += 1.0 / 60.0
+            renderer.render_frame()
     # drain the frames still in flight so every frame is presented
     for fb in renderer.wait_idle():
         window.create_surface().present(framebuffer_to_u8(fb))
     elapsed = timer.elapsed()
     log.info("%d frames in %.3fs (%.1f FPS incl. builds); steady-state %s", args.frames,
              elapsed, args.frames / max(elapsed, 1e-9), renderer.stats.summary())
+    if args.trace:
+        recs = profiling.records()
+        with open(os.path.join(args.trace, "frames.jsonl"), "w") as fh:
+            fh.writelines(json.dumps(r.to_json()) + "\n" for r in recs)
+        log.info("%s", profiling.summarize(recs))
     return 0
 
 

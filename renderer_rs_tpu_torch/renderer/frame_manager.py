@@ -12,7 +12,8 @@ The present mode is behavioural (≙ the reference's MAILBOX-or-FIFO choice,
 swapchain.rs:594-611): under FIFO every submitted frame presents in order;
 under MAILBOX `present_oldest` waits for the oldest frame and then, while
 newer frames have also finished, drops the stale ones and presents the
-newest finished frame (counted in `frames_dropped`)."""
+newest finished frame (counted in `frames_dropped`). Each wait on a fence
+is the span frame/fence_wait (core/profiling.py)."""
 
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import collections
 import logging
 from typing import Any, Callable
 
+from renderer_rs_tpu_torch.core.profiling import span
 from renderer_rs_tpu_torch.rhi.swapchain import PRESENT_FIFO, PRESENT_MAILBOX
 from renderer_rs_tpu_torch.rhi.sync import Fence
 
@@ -54,7 +56,8 @@ class FrameManager:
         """Enqueue one frame (≙ begin_frame + record + submit,
         frame_manager.rs:380-462); blocks only when the queue is full."""
         if len(self._in_flight) >= self.frames_in_flight:
-            self._in_flight.popleft().wait()
+            with span("frame/fence_wait"):
+                self._in_flight.popleft().wait()
             self.frames_retired_unpresented += 1
         fence = self.fences[self.current_frame]
         fence.reset()
@@ -69,16 +72,17 @@ class FrameManager:
         MAILBOX the newest of the finished frames from the oldest on."""
         if not self._in_flight:
             return None
-        result = self._in_flight.popleft().wait()
-        if self.present_mode == PRESENT_MAILBOX:
-            dropped_now = 0
-            while self._in_flight and self._in_flight[0].is_signaled():
-                result = self._in_flight.popleft().wait()
-                dropped_now += 1
-            if dropped_now:
-                self.frames_dropped += dropped_now
-                log.debug("mailbox present: %d stale frame(s) dropped (%d total)",
-                          dropped_now, self.frames_dropped)
+        dropped_now = 0
+        with span("frame/fence_wait"):
+            result = self._in_flight.popleft().wait()
+            if self.present_mode == PRESENT_MAILBOX:
+                while self._in_flight and self._in_flight[0].is_signaled():
+                    result = self._in_flight.popleft().wait()
+                    dropped_now += 1
+        if dropped_now:
+            self.frames_dropped += dropped_now
+            log.debug("mailbox present: %d stale frame(s) dropped (%d total)",
+                      dropped_now, self.frames_dropped)
         return result
 
     def wait_for_all_frames(self) -> list:

@@ -51,8 +51,8 @@ import enum
 import logging
 
 import torch
-from torch.profiler import record_function
 
+from renderer_rs_tpu_torch.core.profiling import span
 from renderer_rs_tpu_torch.mathx.vec import cross, normalize
 from renderer_rs_tpu_torch.ops import blinn_phong as bp
 from renderer_rs_tpu_torch.ops import pbr as pbr_ops
@@ -615,16 +615,16 @@ def _msaa_frame(scene, layout, pipeline, shading, width, height, common: dict, b
     sub = dataclasses.replace(pipeline, msaa_samples=1)
     if (msaa_mode == "resolve" and band is None and stencil is None and not return_depth
             and not return_ids):
-        with record_function("frame/geometry"):
+        with span("frame/geometry"):
             geo = frame_geometry(scene, layout, sub, width, height, common["geometry_forms"])
         lo, lo_ids = forward_frame(scene, layout, sub, shading, width, height,
                                    return_ids=True, geometry=geo, **common)
-        with record_function("frame/msaa_ids"):
+        with span("frame/msaa_ids"):
             sample_ids = forward_frame(
                 scene, layout, sub, shading, width * sx, height * sy, ids_only=True,
                 geometry=geo.at_extent(sub, width * sx, height * sy), **common,
             )
-        with record_function("frame/msaa_resolve"):
+        with span("frame/msaa_resolve"):
             return msaa_id_resolve(lo, lo_ids, sample_ids, sx, sy)
     if return_ids:
         # the supersampling branch has no 1x id map to return
@@ -643,7 +643,7 @@ def _msaa_frame(scene, layout, pipeline, shading, width, height, common: dict, b
     if band is not None:
         return hi
     hi, hi_depth = hi if return_depth else (hi, None)
-    with record_function("frame/msaa_resolve"):
+    with span("frame/msaa_resolve"):
         # box resolve (≙ vkCmdResolveImage)
         out = hi.reshape(height, sy, width, sx, 4).mean(dim=(1, 3))
         if not return_depth:
@@ -812,11 +812,11 @@ def forward_frame(
         y_pair = len(band) > 3 and bool(band[3])
     t_prim = layout.num_triangles
     dev = scene.device
-    # record_function spans name the frame's stages in torch.profiler traces
-    # (profile_torch_frame.py); they cost ~1 us each when no profiler runs
+    # span()s name the frame's stages in torch.profiler traces and stamp
+    # them into the frame record (core/profiling.py)
     geo = geometry
     if geo is None:
-        with record_function("frame/geometry"):
+        with span("frame/geometry"):
             geo = frame_geometry(scene, layout, pipeline, width, height, geometry_forms)
     n_raster = geo.setup.num_triangles
     cap_big = geometry_forms.cap_big
@@ -842,16 +842,16 @@ def forward_frame(
     fused = (binned and band is None and stencil is None and not peel
              and shading != ShadingModel.FLAT)
     if ids_only and band is None and binned:
-        with record_function("frame/ids_bin_table"):
+        with span("frame/ids_bin_table"):
             k4 = prepare_ids(geo.setup, height, width, geo.clip_src, small_limit=t_prim,
                              id_bound=t_prim, cap_big=cap_big)
-        with record_function("frame/k4"):
+        with span("frame/k4"):
             _, source_ids = raster_ids(k4.table, k4.sorted_tris, k4.seg, k4.nbx, height,
                                        width, pipeline.depth_compare_op, depth_clear,
                                        plan=k4.plan)
         return source_ids
     if shadow_map is None and not ids_only and (layout.has_csm or layout.has_shadow):
-        with record_function("frame/shadow"):
+        with span("frame/shadow"):
             # by default the cascades reuse the forward vertex stage's world
             # positions and the single map keeps the pre-composed form
             # (passes.py:1623-1633)
@@ -870,7 +870,7 @@ def forward_frame(
         # fast-ambient environments: the per-pixel sky rays go to the shade,
         # whose specular atlas fetch doubles as the skybox sample
         # (passes.py:2181-2198)
-        with record_function("frame/inv_vp"):
+        with span("frame/inv_vp"):
             inv_vp = torch.linalg.inv(scene.camera.view_projection)
         shade_kw["sky_dirs"] = pixel_ray_directions(inv_vp, out_h, width, y_offset, height,
                                                     y_stride, y_pair)
@@ -882,28 +882,28 @@ def forward_frame(
         # applies, else the exact scan (with the alpha test when one is due)
         bin_overflow = torch.zeros(2, dtype=torch.long, device=dev)
         if stencil is not None:
-            with record_function("frame/stencil_scan"):
+            with span("frame/stencil_scan"):
                 # no depth_init, as the JAX frame calls it (passes.py:2087)
                 scan, stencil_buf = rasterize_stencil(geo.setup, height, width, pipeline,
                                                       stencil)
             depth, slot, bary = scan.depth, scan.tri_id, scan.bary
         elif binned:
-            with record_function("frame/band_bin_table"):
+            with span("frame/band_bin_table"):
                 k3 = prepare_visibility(geo.setup, out_h, width, y_offset, y_stride, y_pair,
                                         small_limit=t_prim, cap_big=cap_big)
             bin_overflow = k3.bin_overflow
-            with record_function("frame/k3"):
+            with span("frame/k3"):
                 depth, slot, b0, b1 = raster_visibility(
                     k3.table, k3.sorted_tris, k3.seg, k3.nbx, out_h, width, y_offset,
                     y_stride, y_pair, pipeline.depth_compare_op, depth_clear, plan=k3.plan)
             bary = torch.stack([b0, b1], dim=-1)
         else:
-            with record_function("frame/scan"):
+            with span("frame/scan"):
                 scan = rasterize(geo.setup, out_h, width, pipeline, depth_init=depth_init,
                                  coverage_fn=coverage_fn, y_offset=y_offset, y_stride=y_stride,
                                  y_pair=y_pair)
             depth, slot, bary = scan.depth, scan.tri_id, scan.bary
-        with record_function("frame/shade"):
+        with span("frame/shade"):
             # the deferred attribute path (passes.py:2162-2175): the slot ->
             # source remap, then the perspective weights of the raster slot,
             # composed through the near clip's frame into source barycentrics
@@ -936,10 +936,10 @@ def forward_frame(
                     scene, layout, shading, varying, None, depth=depth, tri_id=tri_id,
                     y_parity=y_offset % 2 if not y_pair else 0, **shade_kw)
     elif peel:
-        with record_function("frame/peel"):
+        with span("frame/peel"):
             vis, varying, peel_exhausted, bin_overflow = _alpha_peeled_raster(
                 scene, layout, geo, height, width, pipeline, cap_big)
-        with record_function("frame/shade"):
+        with span("frame/shade"):
             # the post-peel contract: materials ride the last 11 lanes, the
             # winner ids are source ids already (passes.py:545-550, :589)
             color, sky_rgb = _shade_pixels(scene, layout, shading, varying, None,
@@ -947,15 +947,15 @@ def forward_frame(
     else:
         depth, tri_id, mat_id_img, varying, bin_overflow = _fused_raster(
             scene, layout, geo, pipeline, height, width, depth_clear, cap_big, resolve_forms)
-        with record_function("frame/shade"):
+        with span("frame/shade"):
             vis = VisibilityBuffer(tri_id=tri_id, depth=depth)
             color, sky_rgb = _shade_pixels(scene, layout, shading, varying, mat_id_img,
                                            depth=depth, tri_id=tri_id, **shade_kw)
-    with record_function("frame/shade"):
+    with span("frame/shade"):
         bg = torch.tensor(clear_color, dtype=torch.float32, device=dev)
         out = torch.where(vis.covered[..., None], color, bg)
     if layout.has_environment or tonemap != "none":
-        with record_function("frame/sky_tonemap"):
+        with span("frame/sky_tonemap"):
             if sky_rgb is not None:
                 # the skybox composite with the sample the shade fetched
                 # (passes.py:2221-2228)
@@ -963,7 +963,7 @@ def forward_frame(
                 out = torch.where((vis.depth >= 1.0)[..., None], sky_rgba, out)
             elif layout.has_environment:
                 # outside any kernel, as in the JAX frame (passes.py:2230)
-                with record_function("frame/inv_vp"):
+                with span("frame/inv_vp"):
                     inv_vp = torch.linalg.inv(scene.camera.view_projection)
                 out = skybox_pass(out, vis.depth, inv_vp, scene.environment.skybox_mips[0],
                                   y_offset=y_offset, full_height=height, y_stride=y_stride,
@@ -1007,26 +1007,26 @@ def _fused_raster(scene: GpuScene, layout: SceneLayout, geo: FrameGeometry,
     hold the same values)."""
     t_prim = layout.num_triangles
     if forms.vary == "kernel":
-        with record_function("frame/bin_table"):
+        with span("frame/bin_table"):
             k2 = prepare_resolve(
                 geo.setup, height, width, geo.attr, scene.tris, geo.clip_src,
                 geo.clip_planes, geo.mat_flat, small_limit=t_prim, cap_big=cap_big,
             )
-        with record_function("frame/k2"):
+        with span("frame/k2"):
             depth, slot, varying = raster_resolve(
                 k2.table, k2.sorted_tris, k2.seg, k2.nbx, height, width, k2.n_vary,
                 k2.n_flat, pipeline.depth_compare_op, depth_clear, plan=k2.plan,
             )
         bin_overflow = k2.bin_overflow
     elif forms.vary == "xla":
-        with record_function("frame/vis_bin_table"):
+        with span("frame/vis_bin_table"):
             k3 = prepare_visibility(geo.setup, height, width, small_limit=t_prim,
                                     cap_big=cap_big)
-        with record_function("frame/k3"):
+        with span("frame/k3"):
             depth, slot, b0, b1 = raster_visibility(
                 k3.table, k3.sorted_tris, k3.seg, k3.nbx, height, width,
                 compare_op=pipeline.depth_compare_op, depth_clear=depth_clear, plan=k3.plan)
-        with record_function("frame/defer_resolve"):
+        with span("frame/defer_resolve"):
             table = build_defer_table(geo.setup, geo.attr, scene.tris, geo.clip_src,
                                       geo.clip_planes, geo.mat_flat)
             n_mats = scene.materials.metallic.shape[0]
@@ -1042,7 +1042,7 @@ def _fused_raster(scene: GpuScene, layout: SceneLayout, geo: FrameGeometry,
         src_bits = max(1, (t_prim - 1).bit_length())
         mat_bits = max(1, (n_mats - 1).bit_length())
         pack = src_bits + mat_bits <= PACK_ID_BITS
-        with record_function("frame/lanes_bin_table"):
+        with span("frame/lanes_bin_table"):
             if pack:
                 ids = geo.clip_src | (scene.tri_material[geo.clip_src] << src_bits)
                 flat, id_bound = None, 1 << (src_bits + mat_bits)
@@ -1053,7 +1053,7 @@ def _fused_raster(scene: GpuScene, layout: SceneLayout, geo: FrameGeometry,
             k5 = prepare_peel(geo.setup, height, width, geo.attr, scene.tris, geo.clip_src,
                               geo.clip_planes, flat, ids, id_bound=id_bound, cap_big=cap_big,
                               small_limit=t_prim)
-        with record_function("frame/k5"):
+        with span("frame/k5"):
             depth, payload, varying = raster_peel(
                 k5.table, k5.sorted_tris, k5.seg, k5.nbx, height, width, k5.n_vary, k5.n_flat,
                 None, pipeline.depth_compare_op, depth_clear, plan=k5.plan)
@@ -1115,13 +1115,13 @@ def _alpha_peeled_raster(scene: GpuScene, layout: SceneLayout, geo: FrameGeometr
     still failing after the budget (device scalar), bin_overflow)."""
     cutoff = pipeline.alpha_cutoff
     base_mip = scene.textures.mips[0]
-    with record_function("frame/peel_bin_table"):
+    with span("frame/peel_bin_table"):
         k5 = peel_inputs(scene, layout, geo, height, width, cap_big)
     nv = k5.n_vary + k5.n_flat
 
     def raster(z_floor):
         # the JAX peel passes no depth_init: every layer clears to 1.0
-        with record_function("frame/k5"):
+        with span("frame/k5"):
             return raster_peel(k5.table, k5.sorted_tris, k5.seg, k5.nbx, height, width,
                                k5.n_vary, k5.n_flat, z_floor, pipeline.depth_compare_op,
                                plan=k5.plan)
@@ -1432,7 +1432,7 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
     )
     sun_radiance = lights.sun_color * lights.sun_intensity
     if light_half:
-        with record_function("frame/ibl"):
+        with span("frame/ibl"):
             return _half_rate_lighting(scene, env, normal, view_dir, world_pos, albedo,
                                        metallic, mat, base_color, sun_dir, sun_radiance,
                                        depth, sky_dirs, tri_id, shadow_map, shadow_params)
@@ -1463,7 +1463,7 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
         radiance = lights.spot_color[i] * lights.spot_intensity[i] * att[..., None]
         lo = lo + mask * pbr_ops.pbr_direct(normal, view_dir, ldir, radiance, mat)
     if fast:
-        with record_function("frame/ibl"):
+        with span("frame/ibl"):
             if merged:
                 shadow = calculate_shadow(shadow_map, scene.light_space_matrix, world_pos,
                                           normal, sun_dir.expand(world_pos.shape),
@@ -1479,7 +1479,7 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
             and env.irradiance_mips is not None):
         # the exact map sampling (passes.py:1296-1307), reusing a prebuilt
         # window atlas when the environment carries one
-        with record_function("frame/ibl"):
+        with span("frame/ibl"):
             ambient = pbr_ops.calculate_ibl(
                 normal, view_dir, _reflect_view(view_dir, normal), mat, env.irradiance_mips,
                 env.prefiltered_mips, env.brdf_lut, prefiltered_atlas=env.atlas,
@@ -1736,7 +1736,7 @@ def transparent_pass(
         a = alpha_f.expand(rgb.shape[:-1])[..., None]
         return torch.cat([rgb, a], dim=-1)
 
-    with record_function("frame/transparent"):
+    with span("frame/transparent"):
         blended, _ = rasterize_ordered(setup, height, width, blend_pipe, fragment_fn, color,
                                        depth_init=depth)
     return blended

@@ -40,11 +40,11 @@ import logging
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from renderer_rs_tpu_torch.core import profiling
 from renderer_rs_tpu_torch.core.config import RendererConfig
 from renderer_rs_tpu_torch.core.device import resolve_device
-from renderer_rs_tpu_torch.core.profiling import FrameStats
+from renderer_rs_tpu_torch.core.profiling import FrameStats, span
 from renderer_rs_tpu_torch.core.validation import validate_frame_output, validate_scene
 from renderer_rs_tpu_torch.ops.shadow import ShadowParams
 from renderer_rs_tpu_torch.platform.window import Window
@@ -223,7 +223,7 @@ class Renderer:
         if (cache is None or cache[0] != self.z_form or cache[1] != forms
                 or not all(a is b for a, b in zip(cache[2], key))):
             render = csm_shadow_pass if layout.has_csm else shadow_map_pass
-            with record_function("frame/shadow"):
+            with span("frame/shadow"):
                 wp = (vertex_stage(scene, layout, forms.vstage).world_pos
                       if forms.shadow_vstage == "world" else None)
                 cache = (self.z_form, forms, key,
@@ -263,7 +263,13 @@ class Renderer:
     # --- hot path (≙ render_frame, renderer.rs:367-449) ---
     def render_frame(self, present: bool = True) -> np.ndarray | None:
         """Render one frame; returns the presented uint8 image, or None when
-        present=False (the frame stays in flight)."""
+        present=False (the frame stays in flight). The call writes one
+        frame record (core/profiling.py): its start, the frame submitted,
+        the fence wait returned, its end, its spans and its host syncs."""
+        with profiling.frame() as rec:
+            return self._render_frame(present, rec)
+
+    def _render_frame(self, present: bool, rec: profiling.FrameRecord) -> np.ndarray | None:
         self._require_scene()
         # a stale chain (a resize, or a suboptimal present) recreates before
         # the acquire (≙ acquire ERROR_OUT_OF_DATE -> recreate,
@@ -281,14 +287,16 @@ class Renderer:
 
         retired_before = retired()
         self.frame_manager.submit(self._run_frame, self._scene)
+        rec.mark_submitted(self.frame_manager.frame_count - 1)
         self._pending_slots.append(image_index)
         self.stats.tick()
         if not present:
             del self._pending_slots[:retired() - retired_before]
             return None
         fb = self.frame_manager.present_oldest()
+        rec.mark_ready()
         del self._pending_slots[:retired() - retired_before]
-        with record_function("frame/present"):
+        with span("frame/present"):
             u8 = framebuffer_to_u8(fb)
         # a frame of another extent marks the chain stale (≙ SUBOPTIMAL_KHR
         # -> recreate at the next frame)

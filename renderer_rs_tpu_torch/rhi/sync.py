@@ -6,6 +6,8 @@ order it was enqueued, so only the host <-> device edge needs a fence:
   value's device (≙ passing the fence to vkQueueSubmit); wait() is the
   event's synchronize (≙ vkWaitForFences) and returns the value;
   is_signaled() is the event's non-blocking query (≙ vkGetFenceStatus).
+  Each synchronize is a host wait on the device, counted in the current
+  frame record's syncs (core/profiling.py).
   A value with no CUDA tensor was computed synchronously, so its fence is
   signalled once attached.
 - Semaphore: a device-device edge (≙ rhi::Semaphore, sync.rs:62-120).
@@ -29,6 +31,7 @@ from typing import Any
 import torch
 
 from renderer_rs_tpu_torch.core.errors import RhiError
+from renderer_rs_tpu_torch.core.profiling import host_wait
 
 
 def _cuda_device(value) -> torch.device | None:
@@ -69,7 +72,8 @@ class Fence:
     def wait(self) -> Any:
         """Block until the attached work has finished (≙ vkWaitForFences)."""
         if self._event is not None:
-            self._event.synchronize()
+            with host_wait():
+                self._event.synchronize()
             self._signaled = True
         return self._value
 

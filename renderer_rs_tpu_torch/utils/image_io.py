@@ -2,7 +2,9 @@
 renderer_rs_tpu/utils/image_io.py).
 
 The sRGB encode runs on the framebuffer's device (ops/srgb.linear_to_srgb,
-the exact IEC curve); only the uint8 image crosses to the host. The PNG
+the exact IEC curve); only the uint8 image crosses to the host, in the
+span frame/readback, a host wait counted in the frame record
+(core/profiling.py). The PNG
 encoder and decoder are stdlib zlib and numpy: the port loads no native
 library, and the machines it runs on need not have PIL.
 
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from renderer_rs_tpu_torch.core.errors import ImageError
+from renderer_rs_tpu_torch.core.profiling import host_wait, span
 from renderer_rs_tpu_torch.ops.srgb import linear_to_srgb
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
@@ -41,7 +44,9 @@ def framebuffer_to_u8(fb: torch.Tensor, srgb_encode: bool = True) -> np.ndarray:
         out = torch.cat([rgb, torch.clamp(fb[..., 3:4], 0.0, 1.0)], dim=-1)
     else:
         out = rgb
-    return torch.round(out * 255.0).to(torch.uint8).cpu().numpy()
+    u8 = torch.round(out * 255.0).to(torch.uint8)
+    with span("frame/readback"), host_wait(u8.device.type == "cuda"):
+        return u8.cpu().numpy()
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:

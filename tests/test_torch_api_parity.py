@@ -20,6 +20,9 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 LEFT_OUT = {
+    "core/profiling::log_pass_time":
+        "nothing called it and it synchronised the device; the port's span() and frame "
+        "record time the passes",
     "core/config::ensure_f32_matmuls":
         "the port switches TF32 off when it is imported (renderer_rs_tpu_torch/__init__.py)",
     "ops/clip::clip_triangles_near_v":

@@ -100,10 +100,8 @@ def test_frame_stats_match_jax_under_one_clock(monkeypatch, window):
 def test_profiling_trace_and_pass_time(tmp_path):
     import os
 
-    from renderer_rs_tpu_torch.core.profiling import log_pass_time, trace
+    from renderer_rs_tpu_torch.core.profiling import trace
 
-    with log_pass_time("unit", sync=torch.ones(4)):
-        pass
     with trace(str(tmp_path)):
         torch.ones(8).sum()
     assert os.path.getsize(tmp_path / "trace.json") > 0
