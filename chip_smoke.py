@@ -1685,6 +1685,79 @@ def _check_probe() -> dict:
     }
 
 
+# the fused shade against its plain version, after the frame's tonemap:
+# the largest difference the pair showed on the 1080p headline frame is
+# 1.9e-5 (PR 19); a flipped PCF tap or a wrong texel moves a value by 1e-2
+# or more. The linear values are only logged: they differ by up to 1.3e-3 on
+# 2.3e-5 of them (PR 19), each at a linear value of 1.39 or more, where the
+# tonemap flattens.
+SHADE_TOL = 1e-4
+
+
+def _check_shade(scene, layout, kw) -> dict:
+    """The fused shade (ops/shade_cuda.py) on the 1080p headline frame's
+    own inputs (K2's outputs, the sun map, the default rates: PCF every 4th
+    row, the cube every 2nd) beside its plain version, with the host syncs
+    of the launch; its time, the plain version's, and the bound: the bytes
+    a pixel reads and writes once (68 + 16) at the memory rate."""
+    import torch
+
+    from renderer_rs_tpu_torch.ops.shade_cuda import shade_fused, shade_fused_plain
+    from renderer_rs_tpu_torch.ops.tonemap import apply_tonemap
+    from renderer_rs_tpu_torch.renderer import passes as P
+
+    pipeline = kw["pipeline"]
+    geo = P.frame_geometry(scene, layout, pipeline, W, H)
+    smap = P.shadow_map_pass(scene, layout, kw["shadow_map_size"])
+    depth, tri_id, mat_id, lanes, _ = P._fused_raster(scene, layout, geo, pipeline, H, W, 1.0,
+                                                      None, P.ResolveForms())
+    inv_vp = torch.linalg.inv(scene.camera.view_projection)
+    inp = P._shade_fused_inputs(scene, layout, smap, kw["shadow_params"], inv_vp,
+                                (0.1, 0.1, 0.15, 1.0))
+    rates = P.ShadeRates()
+    sp, sc = P._pcf_stride(H, True, rates.pcf), P._cube_stride(H, True, rates.cube)
+    args = (depth, tri_id, mat_id, lanes, inp, sp, sc)
+    if (sp, sc) != (4, 2):
+        raise SystemExit(f"phase kernels: the headline rates give strides {(sp, sc)}, not (4, 2)")
+    syncs = _syncs(lambda: shade_fused(*args))
+    n0 = shade_fused.launches
+    got = shade_fused(*args)
+    launches = shade_fused.launches - n0
+    ref = shade_fused_plain(*args)
+    d_lin = (got - ref).abs()
+    d = (apply_tonemap(got, kw["tonemap"]) - apply_tonemap(ref, kw["tonemap"])).abs()
+    max_abs_err = float(d.max())
+    far = d_lin > 1e-4
+    finite = bool(torch.isfinite(got).all())
+    ms = _median(_event_times_ms(lambda: shade_fused(*args), KERNEL_TIMINGS))
+    plain_ms = _median(_event_times_ms(lambda: shade_fused_plain(*args), 3, warmup=1))
+    nbytes = H * W * (68 + 16)
+    bound_ms, bound_by = _bound(0.0, nbytes)
+    _log(f"headline (textured, IBL): shade_fused, strides {(sp, sc)}, {launches} launches a "
+         f"call, host syncs {len(syncs)} {syncs}; vs plain after the {kw['tonemap']} tonemap "
+         f"max |d| {max_abs_err:.3e}, linear max |d| {float(d_lin.max()):.3e}, linear values "
+         f"beyond 1e-4 {int(far.sum())} of {d.numel()} (the least |value| of those "
+         f"{float(ref.abs()[far].min()) if bool(far.any()) else None}), finite {finite}; "
+         f"{ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, bound "
+         f"{bound_ms:.4f} ms by {bound_by} ({nbytes:.3e} bytes)")
+    if not max_abs_err <= SHADE_TOL or not finite or launches != 2 or syncs:
+        raise SystemExit("phase kernels: shade_fused disagrees with its plain version, is not "
+                         "finite, syncs the host or is not the two-launch pair")
+    return {
+        "name": "shade_fused",
+        "route": "cuda",
+        "source": "renderer_rs_tpu_torch/csrc/shade_fused.cu",
+        "replaces": "renderer_rs_tpu/renderer/passes.py:429-1313 (XLA, no Pallas kernel)",
+        "max_abs_err": max_abs_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes this function
+        "host_syncs": len(syncs),
+    }
+
+
 def _check_peel(scene, layout, pipeline) -> dict:
     """K5 beside its plain version on the MASK frame's table, with the main
     path's split plan and with FORCED_CHUNK: the layer-0 launch (no floor),
@@ -1856,6 +1929,7 @@ def phase_kernels(directory: str) -> tuple[dict, tuple, tuple, tuple]:
     k2["bound_ms_textured"] = k2_tex["bound_ms"]
     k2["host_syncs"] = k2["host_syncs"] + k2_pbr["host_syncs"] + k2_tex["host_syncs"]
     k2["cases"] = {"pbr flagship": k2_pbr, "headline (textured, IBL)": k2_tex}
+    shade = _check_shade(scene, layout, kw)
     k5 = _check_peel(scene, layout, _mask_pipeline())
     k3 = _check_visibility(scene, layout, kw["pipeline"])
     # the glTF headline frame's own inputs: K1 on its sun map, K2 on its
@@ -1884,7 +1958,8 @@ def phase_kernels(directory: str) -> tuple[dict, tuple, tuple, tuple]:
     k2["cases"]["many materials"] = k2_many
     return {"raster_depth": k1, "raster_resolve": k2, "raster_ids": k4,
             "raster_depth_batch": k6, "raster_peel": k5, "raster_visibility": k3,
-            "raster_depth_zplane": k7, "probe_kgather": probe}, headline, gltf, many
+            "raster_depth_zplane": k7, "probe_kgather": probe, "shade_fused": shade}, \
+        headline, gltf, many
 
 
 def _many_material_scene() -> tuple:
@@ -2169,11 +2244,12 @@ def _zero_launch_counts() -> None:
         raster_resolve,
         raster_visibility,
     )
+    from renderer_rs_tpu_torch.ops.shade_cuda import shade_fused
     from renderer_rs_tpu_torch.probes.kgather import kgather
 
     raster_depth.launches = raster_depth.batched_launches = raster_depth.zplane_launches = 0
     raster_resolve.launches = raster_ids.launches = raster_peel.launches = 0
-    raster_visibility.launches = kgather.launches = 0
+    raster_visibility.launches = kgather.launches = shade_fused.launches = 0
 
 
 def _launch_counts() -> dict:
@@ -2212,11 +2288,16 @@ def _counts(**kw) -> dict:
 _FRAME_MS: dict[str, float] = {}
 
 
-def _drive(label: str, renderer, frames: int, expect: dict, before_frame=None) -> dict:
+def _drive(label: str, renderer, frames: int, expect: dict, before_frame=None,
+           shade: int | None = None) -> dict:
     """Render `frames` frames with every launch counter zeroed just before
-    and read just after; fail unless the counts are `expect`. `renderer` is
-    a Renderer or a callable that renders one frame (a presented uint8
-    image or a frame tensor, [H,W,4])."""
+    and read just after; fail unless the counts are `expect`, and unless
+    the fused shade launched `shade` times where that is given (its count
+    joins the returned counts). `renderer` is a Renderer or a callable that
+    renders one frame (a presented uint8 image or a frame tensor,
+    [H,W,4])."""
+    from renderer_rs_tpu_torch.ops.shade_cuda import shade_fused
+
     _zero_launch_counts()
     render = renderer if callable(renderer) else renderer.render_frame
     # the loops present every frame with one frame in flight: MAILBOX drops none
@@ -2235,6 +2316,11 @@ def _drive(label: str, renderer, frames: int, expect: dict, before_frame=None) -
          f"frame ms median {_median(frame_ms):.3f} (all {[round(x, 3) for x in frame_ms]})")
     if launches != expect:
         raise SystemExit(f"phase main path, {label}: launches {launches}, expected {expect}")
+    launches["shade_fused"] = shade_fused.launches
+    _log(f"main path, {label}: shade_fused launches {shade_fused.launches}")
+    if shade is not None and shade_fused.launches != shade:
+        raise SystemExit(f"phase main path, {label}: shade_fused launches "
+                         f"{shade_fused.launches}, expected {shade}")
     if dropped is not None and renderer.frame_manager.frames_dropped != dropped:
         raise SystemExit(f"phase main path, {label}: MAILBOX dropped a frame of a loop that "
                          "presents every frame")
@@ -4015,7 +4101,7 @@ def _headline_paths(make, scene, layout, kw) -> dict:
     renderer = make(scene, layout, kw)
     by_path["headline"] = _drive(
         "headline (textured, IBL; static scene)", renderer, HEADLINE_FRAMES,
-        _counts(raster_depth=1, raster_resolve=HEADLINE_FRAMES))
+        _counts(raster_depth=1, raster_resolve=HEADLINE_FRAMES), shade=2 * HEADLINE_FRAMES)
     full = _check_frame("headline", renderer)
     # bench.py's MSAA 4x frame (bench.py:236-248): the headline scene
     # through the shade-once resolve, K4 on the 3840x2160 sample pass
@@ -4700,8 +4786,10 @@ def main() -> int:
     phase_shard_profiles()
     for name, k in kernels.items():
         k["max_abs_err"] = max(k["max_abs_err"], _MAX_ABS_ERR.get(name, 0.0))
-        k["launches"] = sum(path[name] for path in by_path.values())
-        k["launches_by_path"] = {label: path[name] for label, path in by_path.items()}
+        # the fused shade is counted on the _drive loops alone
+        k["launches"] = sum(path.get(name, 0) for path in by_path.values())
+        k["launches_by_path"] = {label: path[name] for label, path in by_path.items()
+                                 if name in path}
         if k["launches"] == 0:
             raise SystemExit(f"kernel {name} was launched by no main path")
     _log(f"chip_smoke: {time.perf_counter() - t0:.1f}s")

@@ -9,11 +9,13 @@ profiling.py, whose FrameStats and trace it keeps):
 - frame(): the record of one Renderer.render_frame: its frame id, four
   host stamps that tile the call (start; submitted, once the frame's fence
   is attached; ready, once the fence wait returns; end), its spans, and
-  `syncs`, the host's waits on the device inside the call. A span opened
-  outside a frame (a test, forward_frame called directly, a shard thread)
-  opens a record of its own, with frame id None, that its outermost span
-  closes. Records go to one process-wide ring of RING_RECORDS, read with
-  records();
+  `syncs`, the host's waits on the device inside the call, and
+  `launches`, each hand-written kernel's launches in it by its wrapper's
+  name (ops/raster_cuda.py::count_launch adds them, count_kernel). A span
+  opened outside a frame (a test, forward_frame called directly, a shard
+  thread) opens a record of its own, with frame id None, that its
+  outermost span closes. Records go to one process-wide ring of
+  RING_RECORDS, read with records();
 - host_wait(): an explicit wait of the host on the device (a fence's
   event synchronize, the uint8 readback), counted in the record's syncs;
 - tracing: off by default, where a record costs clock reads and list
@@ -103,7 +105,7 @@ class FrameRecord:
     `submitted` stay None where the call did not get there."""
 
     __slots__ = ("frame", "anchor_ns", "unix_ns", "start", "submitted", "ready", "end",
-                 "spans", "syncs", "sync_sites", "traced", "profiled", "_outer")
+                 "spans", "syncs", "sync_sites", "launches", "traced", "profiled", "_outer")
 
     def __init__(self, traced: bool, profiled: bool) -> None:
         self.anchor_ns = time.perf_counter_ns()
@@ -113,6 +115,7 @@ class FrameRecord:
         self.spans: list = []  # (name, parent name or None, start, end)
         self.syncs = 0
         self.sync_sites: list = []  # (innermost span or None, "file:line"), tracing on
+        self.launches: dict = {}  # kernel wrapper name -> launches
         self.traced = traced
         self.profiled = profiled
 
@@ -137,7 +140,8 @@ class FrameRecord:
             **{k: (None if getattr(self, k) is None else us(getattr(self, k)))
                for k in ("start", "submitted", "ready", "end")},
             spans=[[n, p, us(a), us(b)] for n, p, a, b in self.spans],
-            syncs=self.syncs, sync_sites=[list(s) for s in self.sync_sites])
+            syncs=self.syncs, sync_sites=[list(s) for s in self.sync_sites],
+            launches=dict(self.launches))
 
 
 class _Thread(threading.local):
@@ -252,6 +256,14 @@ class span:
         if self._own is not None:
             _close(self._own)
         return False
+
+
+def count_kernel(name: str, n: int) -> None:
+    """Add n launches of the kernel `name` to the current thread's record
+    (nothing outside a record)."""
+    rec = _tls.record
+    if rec is not None:
+        rec.launches[name] = rec.launches.get(name, 0) + n
 
 
 class host_wait:

@@ -17,8 +17,10 @@ the winner epilogues of K2 and K5), and nothing else. Each ``.cu`` file writes e
 those with ``__fmaf_rn`` and lists them under "Exactness"; with the flag,
 every other product and sum rounds on its own. Either a missing or an extra
 fusion moves coverage on exact edges and breaks the bit-equal tid/depth
-contract. ``--use_fast_math`` is never used (it flushes subnormals and
-approximates ``1/x``).
+contract. The fused shade (``shade_fused.cu``) follows the ATen chain it
+replaces instead: its ``__fmaf_rn`` are the two small matrix products as
+cuBLAS fuses them. ``--use_fast_math`` is never used (it flushes subnormals
+and approximates ``1/x``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ SOURCES = {
     "raster_peel": _PKG / "csrc" / "raster_peel.cu",
     "raster_resolve": _PKG / "csrc" / "raster_resolve.cu",
     "raster_vis": _PKG / "csrc" / "raster_vis.cu",
+    "shade_fused": _PKG / "csrc" / "shade_fused.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

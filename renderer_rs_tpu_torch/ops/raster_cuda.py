@@ -84,6 +84,7 @@ import threading
 
 import torch
 
+from renderer_rs_tpu_torch.core import profiling
 from renderer_rs_tpu_torch.ops.raster import TriangleSetup, _fma, eval_z_plane, z_plane_coeffs
 from renderer_rs_tpu_torch.ops.raster_binned import _cdiv, bin_triangles_compact
 from renderer_rs_tpu_torch.rhi.pipeline import CompareOp
@@ -119,10 +120,12 @@ _LAUNCH_LOCK = threading.Lock()
 
 def count_launch(wrapper, **counters) -> None:
     """Add each increment (counter name -> n) to `wrapper`'s launch
-    counters, atomically."""
+    counters, atomically, and its `launches` to the current frame record
+    under the wrapper's name."""
     with _LAUNCH_LOCK:
         for name, n in counters.items():
             setattr(wrapper, name, getattr(wrapper, name) + n)
+    profiling.count_kernel(wrapper.__name__, counters.get("launches", 0))
 
 
 # --- the split plan: dense bins cut into pieces over blocks --------------------

@@ -56,6 +56,7 @@ from renderer_rs_tpu_torch.core.profiling import span
 from renderer_rs_tpu_torch.mathx.vec import cross, normalize
 from renderer_rs_tpu_torch.ops import blinn_phong as bp
 from renderer_rs_tpu_torch.ops import pbr as pbr_ops
+from renderer_rs_tpu_torch.ops import shade_cuda
 from renderer_rs_tpu_torch.ops.clip import (
     bary_planes_to_array,
     clip_triangles_near,
@@ -864,16 +865,21 @@ def forward_frame(
     stencil_buf = None
     shade_kw = dict(shadow_map=shadow_map, shadow_params=shadow_params,
                     full_rows=band is None, rates=shade_rates)
+    # the fused frame's fast-ambient shade and composite as one kernel pair
+    # (ops/shade_cuda.py), where the call can take it
+    fused_shade = fused and _fused_shade_engages(scene, layout, shading, shadow_map,
+                                                 shadow_params, shade_rates)
     if (shading == ShadingModel.PBR_IBL and layout.has_environment
             and scene.environment.irradiance_mips is not None
             and scene.environment.atlas is not None):
         # fast-ambient environments: the per-pixel sky rays go to the shade,
         # whose specular atlas fetch doubles as the skybox sample
-        # (passes.py:2181-2198)
+        # (passes.py:2181-2198); the fused shade forms them itself
         with span("frame/inv_vp"):
             inv_vp = torch.linalg.inv(scene.camera.view_projection)
-        shade_kw["sky_dirs"] = pixel_ray_directions(inv_vp, out_h, width, y_offset, height,
-                                                    y_stride, y_pair)
+        if not fused_shade:
+            shade_kw["sky_dirs"] = pixel_ray_directions(inv_vp, out_h, width, y_offset, height,
+                                                        y_stride, y_pair)
     depth_init = (None if depth_clear == 1.0
                   else torch.full((out_h, width), float(depth_clear), device=dev))
     if not fused and not peel:
@@ -949,11 +955,19 @@ def forward_frame(
             scene, layout, geo, pipeline, height, width, depth_clear, cap_big, resolve_forms)
         with span("frame/shade"):
             vis = VisibilityBuffer(tri_id=tri_id, depth=depth)
-            color, sky_rgb = _shade_pixels(scene, layout, shading, varying, mat_id_img,
-                                           depth=depth, tri_id=tri_id, **shade_kw)
-    with span("frame/shade"):
-        bg = torch.tensor(clear_color, dtype=torch.float32, device=dev)
-        out = torch.where(vis.covered[..., None], color, bg)
+            if fused_shade:
+                # composited already: the clear colour and the sky
+                out = _shade_fused_frame(scene, layout, varying, mat_id_img, depth, tri_id,
+                                         shadow_map, shadow_params, shade_rates, inv_vp,
+                                         clear_color)
+                sky_rgb = None
+            else:
+                color, sky_rgb = _shade_pixels(scene, layout, shading, varying, mat_id_img,
+                                               depth=depth, tri_id=tri_id, **shade_kw)
+    if not fused_shade:
+        with span("frame/shade"):
+            bg = torch.tensor(clear_color, dtype=torch.float32, device=dev)
+            out = torch.where(vis.covered[..., None], color, bg)
     if layout.has_environment or tonemap != "none":
         with span("frame/sky_tonemap"):
             if sky_rgb is not None:
@@ -961,7 +975,7 @@ def forward_frame(
                 # (passes.py:2221-2228)
                 sky_rgba = torch.cat([sky_rgb, torch.ones_like(sky_rgb[..., :1])], dim=-1)
                 out = torch.where((vis.depth >= 1.0)[..., None], sky_rgba, out)
-            elif layout.has_environment:
+            elif layout.has_environment and not fused_shade:
                 # outside any kernel, as in the JAX frame (passes.py:2230)
                 with span("frame/inv_vp"):
                     inv_vp = torch.linalg.inv(scene.camera.view_projection)
@@ -1152,6 +1166,84 @@ def _alpha_peeled_raster(scene: GpuScene, layout: SceneLayout, geo: FrameGeometr
     return vis, lanes, fail.sum(), k5.bin_overflow
 
 
+def _fused_shade_engages(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
+                         shadow_map, shadow_params: ShadowParams, rates: ShadeRates) -> bool:
+    """Whether the fused frame shades through the fused kernel
+    (ops/shade_cuda.py), from what the call sees on the host: a CUDA
+    scene; PBR_IBL on a finalized environment whose trilinear cube atlas
+    is f32 (the fast ambient with atlas_tri); the sun's single map with
+    PCF on (no cascades); the single-gather material atlas, or no bound
+    texture slot; no point or spot light; no merged gather, full-rate
+    lighting and the quad LOD; the PCF rate "yquarter", "yhalf" or "full"
+    (any cube rate); and the kernel's static limits (ops/shade_cuda.py:
+    MAX_LEVELS, MAX_SEGS, three or more cube channels). Every other frame
+    shades through _shade_pixels, and so do the band, stencil, scan and
+    peel frames, which are not fused frames."""
+    env, tex, lights = scene.environment, scene.textures, scene.lights
+    textured = layout.has_textures and tex is not None and any(layout.texture_slots)
+    return (
+        scene.device.type == "cuda"
+        and shading == ShadingModel.PBR_IBL
+        and layout.has_environment and env is not None
+        and env.irradiance_mips is not None and env.atlas is not None
+        and env.atlas_tri is not None and env.atlas_tri.dtype == torch.float32
+        and env.atlas_tri.shape[1] >= 3 * 13
+        and len(env.prefiltered_mips) + 1 <= shade_cuda.MAX_SEGS
+        and layout.has_shadow and not layout.has_csm and shadow_map is not None
+        and shadow_params.pcf
+        and (not textured or (tex.mat_atlas_tri is not None
+                              and len(tex.mips) <= shade_cuda.MAX_LEVELS))
+        and lights.point_position.shape[0] == 0 and lights.spot_position.shape[0] == 0
+        and not rates.merge_gather and rates.light == "full" and rates.lod == "quad"
+        and rates.pcf in ("yquarter", "yhalf", "full")
+    )
+
+
+def _shade_fused_frame(scene: GpuScene, layout: SceneLayout, varying, mat_id_img, depth,
+                       tri_id, shadow_map, shadow_params: ShadowParams, rates: ShadeRates,
+                       inv_vp, clear_color, full_rows: bool = True) -> torch.Tensor:
+    """The fused frame's shade and composite through shade_cuda.shade_fused
+    (where _fused_shade_engages): _shade_pixels' fast-ambient path and
+    forward_frame's composite, the tonemap left out; full_rows=False gives
+    the rates of a band (every row). Returns linear [H,W,4]."""
+    rows = depth.shape[0]
+    inp = _shade_fused_inputs(scene, layout, shadow_map, shadow_params, inv_vp, clear_color)
+    return shade_cuda.shade_fused(depth, tri_id, mat_id_img, varying, inp,
+                                  _pcf_stride(rows, full_rows, rates.pcf),
+                                  _cube_stride(rows, full_rows, rates.cube))
+
+
+def _shade_fused_inputs(scene: GpuScene, layout: SceneLayout, shadow_map,
+                        shadow_params: ShadowParams, inv_vp, clear_color):
+    """shade_cuda.ShadeInputs of the scene: the material bank, the sun, the
+    camera, the environment's SH and cube atlas, and on a textured scene the
+    single-gather material atlas with each bound slot's channels."""
+    env, tex, lights = scene.environment, scene.textures, scene.lights
+    tex_kw = {}
+    if layout.has_textures and tex is not None and any(layout.texture_slots):
+        # each bound slot's channels, packed in slot order (_textured)
+        slots, c = [-1] * 5, 0
+        for slot, used in enumerate(layout.texture_slots):
+            if used:
+                slots[slot] = c
+                c += len(_SLOT_CHANNELS[slot])
+        shapes, offs = _level_offsets(tex.mips, tex.mat_atlas_tri.shape[0])
+        tex_kw = dict(tex_atlas=tex.mat_atlas_tri, tex_offsets=offs, tex_sizes=shapes,
+                      tex_slots=tuple(slots), tex_c=c, mat_set=tex.mat_set)
+    seg_offs, seg_sizes = _cube_segments(env)
+    return shade_cuda.ShadeInputs(
+        bank=_material_bank(scene.materials), tri_material=scene.tri_material,
+        shadow_map=shadow_map, light_matrix=scene.light_space_matrix,
+        shadow_params=shadow_params, sun_dir=normalize(-lights.sun_direction),
+        sun_radiance=lights.sun_color * lights.sun_intensity,
+        camera_position=scene.camera.camera_position,
+        # linalg.inv hands back the LAPACK (column-major) layout
+        inv_vp=inv_vp.contiguous(),
+        irradiance_sh=env.irradiance_sh, cube_atlas=env.atlas_tri, cube_offsets=seg_offs,
+        cube_sizes=seg_sizes, n_pref=len(env.prefiltered_mips),
+        clear_color=tuple(float(x) for x in clear_color), **tex_kw)
+
+
 def _pcf_stride(rows: int, full_rows: bool, mode: str) -> int:
     """The row stride of the PCF term under a rate mode (passes.py:817-966):
     "yquarter" strides 4 on full-row frames of >= 256 rows and 2 on 128-255,
@@ -1160,6 +1252,18 @@ def _pcf_stride(rows: int, full_rows: bool, mode: str) -> int:
     if mode not in ("yquarter", "yhalf") or not full_rows or rows < 128:
         return 1
     return 4 if mode == "yquarter" and rows >= 256 else 2
+
+
+def _cube_stride(rows: int, full_rows: bool, mode: str) -> int:
+    """The row stride of the cube fetch under a rate mode (passes.py:
+    1195-1289): "yquarter" strides 4 on full-row frames of >= 256 rows,
+    "yquarter" and "yhalf" 2 from 128 rows; "full", bands and smaller
+    frames evaluate every row."""
+    if mode == "yquarter" and full_rows and rows >= 256:
+        return 4
+    if mode in ("yhalf", "yquarter") and full_rows and rows >= 128:
+        return 2
+    return 1
 
 
 def _shadow_term(scene: GpuScene, layout: SceneLayout, world_pos, normal, sun_dir, depth,
@@ -1512,13 +1616,20 @@ def _cube_lookup(env, view_dir, normal, roughness, depth, sky_dirs):
     face, uv_c = direction_to_cube_uv(dirs)
     lo_l = _floor_int(lod)  # clamped before the cast
     frac = lod - lo_l.to(lod.dtype)
+    seg_offs, seg_sizes = _cube_segments(env)
+    return lo_l, frac, face, uv_c, seg_offs, seg_sizes, env.skybox_mips[0].shape[-1]
+
+
+def _cube_segments(env) -> tuple:
+    """The static first row and face size of each segment of the cube
+    atlas: the prefiltered levels, then the skybox."""
     seg_sizes = tuple(int(m.shape[1]) for m in env.prefiltered_mips) + (
         int(env.skybox_mips[0].shape[1]),)
     seg_offs, off = [], 0
     for s_ in seg_sizes:
         seg_offs.append(off)
         off += 6 * s_ * s_
-    return lo_l, frac, face, uv_c, tuple(seg_offs), seg_sizes, env.skybox_mips[0].shape[-1]
+    return tuple(seg_offs), seg_sizes
 
 
 def _ibl_radiance(env, view_dir, normal, roughness, depth, sky_dirs, tri_id,
@@ -1539,11 +1650,7 @@ def _ibl_radiance(env, view_dir, normal, roughness, depth, sky_dirs, tri_id,
         f_lo = _cube_atlas_fetch(env.atlas, offs, sizes, lo_l, face, uv_c, c)
         f_hi = _cube_atlas_fetch(env.atlas, offs, sizes, hi_l, face, uv_c, c)
         return (f_lo * (1.0 - frac[..., None]) + f_hi * frac[..., None])[..., :3]
-    step = 1
-    if cube == "yquarter" and full_rows and rows >= 256:
-        step = 4
-    elif cube in ("yhalf", "yquarter") and full_rows and rows >= 128:
-        step = 2
+    step = _cube_stride(rows, full_rows, cube)
     spec = cube_trilinear_fetch(env.atlas_tri, offs, sizes, lo_l[::step], frac[::step],
                                 face[::step], uv_c[::step], c)[..., :3]
     return spec if step == 1 else upsample_y_idaware(spec, tri_id, rows, step)
