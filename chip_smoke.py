@@ -471,23 +471,20 @@ def _move_sun(renderer, i: int) -> None:
     renderer.update_scene(cur.replace(lights=lights, light_space_matrix=lsm))
 
 
-def _refit_cascades(renderer, camera, i: int) -> None:
-    """Turn the renderer's sun to _moved_sun(i) and refit the four cascades
-    to it, so they render anew."""
+def _refit_cascades(renderer, i: int) -> None:
+    """Turn the renderer's sun to _moved_sun(i): the lights and the
+    camera-fitted cascades' sun, which the next render_frame refits the
+    four cascades to, so they render anew."""
     import dataclasses
 
     import torch
-
-    from renderer_rs_tpu_torch.ops.csm import fit_cascades
 
     sun = _moved_sun(i)
     cur = renderer._scene
     lights = dataclasses.replace(
         cur.lights, sun_direction=torch.tensor(sun, dtype=torch.float32, device="cuda"))
-    mats, splits = fit_cascades(camera, sun)
     renderer.update_scene(cur.replace(
-        lights=lights, csm_matrices=torch.from_numpy(mats).to("cuda"),
-        csm_splits=torch.from_numpy(splits).to("cuda")))
+        lights=lights, csm_fit=dataclasses.replace(cur.csm_fit, sun_direction=sun)))
 
 
 def write_dancer_class_gltf(directory: str, seed: int = 0, rings: int = 60, sectors: int = 144,
@@ -2442,11 +2439,10 @@ def phase_main_paths(headline: tuple, gltf: tuple, many: tuple) -> dict:
     _check_frame("csm", renderer)
 
     # CSM with the cascades refitted to a moving sun every frame
-    camera = kw["camera"]
     by_path["csm_moving_sun"] = _drive(
         "csm (cascades refitted every frame)", renderer, CSM_FRAMES,
         _counts(raster_depth_batch=CSM_FRAMES, raster_resolve=CSM_FRAMES),
-        before_frame=lambda i: _refit_cascades(renderer, camera, i))
+        before_frame=lambda i: _refit_cascades(renderer, i))
     _check_frame("csm, sun moved", renderer)
 
     # the same, the cascades in the z-plane form: one batched K7 a frame
@@ -2455,7 +2451,7 @@ def phase_main_paths(headline: tuple, gltf: tuple, many: tuple) -> dict:
     by_path["csm_plane_moving_sun"] = _drive(
         "csm, z-plane form (cascades refitted every frame)", plane, PLANE_FRAMES,
         _counts(raster_depth_zplane=PLANE_FRAMES, raster_resolve=PLANE_FRAMES),
-        before_frame=lambda i: _refit_cascades(plane, camera, i))
+        before_frame=lambda i: _refit_cascades(plane, i))
     _check_frame("csm, z-plane form", plane)
     _check_plane_vs_bary("csm, z-plane form", plane)
 

@@ -130,7 +130,6 @@ def main(argv=None) -> int:
 
     from renderer_rs_tpu_torch.app.scenes import blinnphong_scene, full_scene
     from renderer_rs_tpu_torch.core.config import RendererConfig
-    from renderer_rs_tpu_torch.ops.csm import fit_cascades
     from renderer_rs_tpu_torch.ops.shadow import directional_light_matrix
     from renderer_rs_tpu_torch.renderer.passes import GeometryForms, ResolveForms, ShadeRates
     from renderer_rs_tpu_torch.renderer.renderer import Renderer
@@ -173,10 +172,9 @@ def main(argv=None) -> int:
         lights = dataclasses.replace(
             cur.lights, sun_direction=torch.tensor(sun, dtype=torch.float32, device="cuda"))
         if args.csm:
-            mats, splits = fit_cascades(kw["camera"], sun)
+            # the next render_frame refits the cascades to the turned sun
             renderer.update_scene(cur.replace(
-                lights=lights, csm_matrices=torch.from_numpy(mats).to("cuda"),
-                csm_splits=torch.from_numpy(splits).to("cuda")))
+                lights=lights, csm_fit=dataclasses.replace(cur.csm_fit, sun_direction=sun)))
             return
         lsm = directional_light_matrix(sun, [0.0, 0.0, 0.0], 3.5).to("cuda")
         renderer.update_scene(cur.replace(lights=lights, light_space_matrix=lsm))

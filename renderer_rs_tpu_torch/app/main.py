@@ -22,7 +22,8 @@ textured cube, both on the scan rasterizer; the cube turns at 1 rad/s over
 `--frames` frames of 1/60 s. `--scene full --textured` is bench.py's
 headline frame: the IBL environment (the default; `--no-ibl` drops it for
 the hemisphere ambient), the 5-slot PBR texture set, a 1024² sun shadow
-map, ACES. `--csm` switches it to four shadow cascades. `--z-form plane`
+map, ACES. `--csm` switches it to four shadow cascades fitted to the
+camera, which follow it as `--orbit` or `--fly` moves it. `--z-form plane`
 renders the shadow passes in the z-plane depth form (K7; the JAX
 package's z-form knob, raster.py:297). `--pcf-res`, `--cube-res`,
 `--light-res` and `--merge-gather` set the shade stage's reduced rates
@@ -155,8 +156,8 @@ def main(argv=None, device="cuda", sink=None) -> int:
                         help="full scene without the IBL environment: the sky as skybox only "
                              "and the hemisphere ambient")
     parser.add_argument("--csm", action="store_true",
-                        help="cascaded shadow maps: four cascades instead of the single sun map "
-                             "(full scene)")
+                        help="cascaded shadow maps: four cascades fitted to the camera instead "
+                             "of the single sun map, refitted as the camera moves (full scene)")
     parser.add_argument("--textured", action="store_true",
                         help="the 5-slot procedural PBR texture set (full scene)")
     parser.add_argument("--hdr", type=str, default=None,

@@ -21,7 +21,6 @@ import torch
 
 from renderer_rs_tpu_torch.core.device import resolve_device
 from renderer_rs_tpu_torch.mathx import quat_from_axis_angle
-from renderer_rs_tpu_torch.ops.csm import fit_cascades
 from renderer_rs_tpu_torch.ops.ibl import (
     brdf_lut,
     equirect_to_cubemap,
@@ -218,7 +217,8 @@ def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = T
                device="cuda"):
     """Config 4 (scenes.py:203): a 3x3 grid of PBR spheres sized to
     tri_budget on a floor, a shadow-mapped sun (1024² map; with csm=True
-    four 1024² cascades fitted to the camera frustum), the procedural sky,
+    four 1024² cascades fitted to the camera frustum, which follow the
+    camera through Renderer.update_camera), the procedural sky,
     ACES tonemap. tri_budget=100_000 gives 97,346 triangles. textured=True
     binds the procedural 5-slot 256² PBR texture set
     (base/normal/MR/AO/emissive, meshgen.procedural_pbr_textures) to every
@@ -312,8 +312,9 @@ def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = T
         LightBank.create(sun=DirectionalLight.create(direction=sun_dir, intensity=3.5))
     )
     if csm:
-        # 4-cascade sun shadows fitted to the camera frustum (ops/csm.py)
-        builder.set_csm(*fit_cascades(cam, sun_dir))
+        # 4-cascade sun shadows fitted to the camera frustum (ops/csm.py),
+        # refitted by the Renderer as update_camera moves the camera
+        builder.fit_csm(cam)
     else:
         # ortho box fitted to the shadow casters (sphere grid extent ~2.2 +
         # radius margin): a loose box wastes map resolution and concentrates

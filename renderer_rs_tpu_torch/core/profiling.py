@@ -11,7 +11,9 @@ profiling.py, whose FrameStats and trace it keeps):
   is attached; ready, once the fence wait returns; end), its spans, and
   `syncs`, the host's waits on the device inside the call, and
   `launches`, each hand-written kernel's launches in it by its wrapper's
-  name (ops/raster_cuda.py::count_launch adds them, count_kernel). A span
+  name (ops/raster_cuda.py::count_launch adds them, count_kernel), and
+  `csm_refits`, the Renderer's refits of camera-fitted cascades in it
+  (count_csm_refit). A span
   opened outside a frame (a test, forward_frame called directly, a shard
   thread) opens a record of its own, with frame id None, that its
   outermost span closes. Records go to one process-wide ring of
@@ -105,7 +107,8 @@ class FrameRecord:
     `submitted` stay None where the call did not get there."""
 
     __slots__ = ("frame", "anchor_ns", "unix_ns", "start", "submitted", "ready", "end",
-                 "spans", "syncs", "sync_sites", "launches", "traced", "profiled", "_outer")
+                 "spans", "syncs", "sync_sites", "launches", "csm_refits", "traced", "profiled",
+                 "_outer")
 
     def __init__(self, traced: bool, profiled: bool) -> None:
         self.anchor_ns = time.perf_counter_ns()
@@ -116,6 +119,7 @@ class FrameRecord:
         self.syncs = 0
         self.sync_sites: list = []  # (innermost span or None, "file:line"), tracing on
         self.launches: dict = {}  # kernel wrapper name -> launches
+        self.csm_refits = 0
         self.traced = traced
         self.profiled = profiled
 
@@ -141,7 +145,7 @@ class FrameRecord:
                for k in ("start", "submitted", "ready", "end")},
             spans=[[n, p, us(a), us(b)] for n, p, a, b in self.spans],
             syncs=self.syncs, sync_sites=[list(s) for s in self.sync_sites],
-            launches=dict(self.launches))
+            launches=dict(self.launches), csm_refits=self.csm_refits)
 
 
 class _Thread(threading.local):
@@ -266,6 +270,14 @@ def count_kernel(name: str, n: int) -> None:
         rec.launches[name] = rec.launches.get(name, 0) + n
 
 
+def count_csm_refit() -> None:
+    """Count one refit of camera-fitted cascades in the current thread's
+    record (nothing outside a record)."""
+    rec = _tls.record
+    if rec is not None:
+        rec.csm_refits += 1
+
+
 class host_wait:
     """An explicit host wait on the device around the block, counted in the
     current record's syncs (with its site when tracing is on); a sync torch
@@ -371,8 +383,8 @@ def summarize(recs) -> str:
     """One line over the frame records among `recs`: the mean host ms of
     the enqueue (start to submitted), the fence wait (submitted to ready),
     the readback (frame/readback), the present phase (ready to end) and
-    the time between frames (end to the next start), and the syncs a frame
-    with their sites (tracing on)."""
+    the time between frames (end to the next start), the syncs a frame
+    with their sites (tracing on), and the cascade refits a frame."""
     frames = [r for r in recs if r.frame is not None and r.ready is not None]
     if not frames:
         return "frame record: no presented frames"
@@ -392,6 +404,7 @@ def summarize(recs) -> str:
         f", present {mean_ms(r.end - r.ready for r in frames):.3f}, between frames "
         f"{mean_ms(b.start - a.end for a, b in zip(frames, frames[1:])):.3f}; syncs a frame "
         f"{sum(r.syncs for r in frames) / len(frames):g}" + (f" ({per_site})" if per_site else "")
+        + f"; csm refits a frame {sum(r.csm_refits for r in frames) / len(frames):g}"
     )
 
 

@@ -11,7 +11,9 @@ shaders/hlsl/shadow_csm.hlsli, 4 cascades).
 - debug cascade colors R/G/B/Y (GetCascadeDebugColor, shadow_csm.hlsli:291-303)
 
 Plus the host-side cascade fitting: view-frustum splits by the practical
-split scheme and per-cascade orthographic light boxes.
+split scheme and per-cascade orthographic light boxes, fitted to a Camera
+or to the host snapshot of one that Renderer.update_camera keeps
+(CameraFrustum).
 
 The JAX module packs the cascade array into a pre-shifted window table so
 that a TPU fetches the nine taps with one row gather; that layout has the
@@ -191,11 +193,38 @@ def practical_split_depths(near: float, far: float, count: int = CASCADE_COUNT,
     return np.asarray(splits, np.float32)
 
 
+class CameraFrustum:
+    """What fit_cascades reads of a camera, kept on the host: its
+    Projection (near, far) and its projection and view-projection matrices
+    ([4,4] f32 CPU tensors). `key` tells two frusta apart by value."""
+
+    __slots__ = ("projection", "_proj", "_view_proj", "key")
+
+    def __init__(self, projection, proj_m: torch.Tensor, view_proj_m: torch.Tensor) -> None:
+        self.projection = dataclasses.replace(projection)
+        self._proj = proj_m
+        self._view_proj = view_proj_m
+        self.key = (projection.near, projection.far, proj_m.numpy().tobytes(),
+                    view_proj_m.numpy().tobytes())
+
+    @staticmethod
+    def of(camera) -> "CameraFrustum":
+        return CameraFrustum(camera.projection, camera.projection_matrix(),
+                             camera.view_projection_matrix())
+
+    def projection_matrix(self) -> torch.Tensor:
+        return self._proj
+
+    def view_projection_matrix(self) -> torch.Tensor:
+        return self._view_proj
+
+
 def fit_cascades(camera, sun_direction, count: int = CASCADE_COUNT, lam: float = 0.75,
                  caster_margin: float | None = None) -> tuple[np.ndarray, np.ndarray]:
     """Fit per-cascade ortho light boxes around camera-frustum slices
     (csm.py:275). Host-side numpy in the JAX module's operation order, so
-    the matrices come out bit-equal to it.
+    the matrices come out bit-equal to it. `camera` is a Camera or a
+    CameraFrustum.
 
     Returns (cascade_matrices [C,4,4], split_depths_ndc [C]) where split
     depths are converted to the camera's NDC z (what SV_Position.z holds,

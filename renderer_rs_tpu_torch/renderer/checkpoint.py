@@ -7,7 +7,8 @@ through one .npz file: an array per leaf ("leaf_{i}") and a "__meta__" JSON
 string holding the layout, the leaf spec and the leaf count. The leaves are
 the scene's tensors in the JAX package's pytree order: GpuScene's fields
 in order, nested dataclasses field by field, tuples item by item, absent
-(None) fields skipped. Each leaf's spec is [key path, shape, dtype] with
+(None) fields and the host-side CsmFit skipped (load_scene keeps the
+reference scene's). Each leaf's spec is [key path, shape, dtype] with
 the key path written as the JAX package writes it (".materials.base_color",
 ".textures.mips[0]") and the dtype as it is stored, which is the JAX
 package's: the index tensors the port holds in int64 (tris, tri_material,
@@ -27,7 +28,7 @@ import logging
 import numpy as np
 import torch
 
-from renderer_rs_tpu_torch.renderer.scene_build import GpuScene, SceneLayout
+from renderer_rs_tpu_torch.renderer.scene_build import CsmFit, GpuScene, SceneLayout
 
 log = logging.getLogger("renderer_rs_tpu_torch.renderer.checkpoint")
 
@@ -38,7 +39,7 @@ _STORED = {torch.float32: "float32", torch.int32: "int32", torch.int64: "int32",
 
 def _flatten(obj, path: str = "") -> list[tuple[str, torch.Tensor]]:
     """(key path, tensor) of every leaf, in pytree order."""
-    if obj is None:
+    if obj is None or isinstance(obj, CsmFit):
         return []
     if isinstance(obj, torch.Tensor):
         return [(path, obj)]
@@ -52,8 +53,8 @@ def _flatten(obj, path: str = "") -> list[tuple[str, torch.Tensor]]:
 
 def _unflatten(obj, leaves: list):
     """A copy of `obj` with its leaves taken in order from `leaves`."""
-    if obj is None:
-        return None
+    if obj is None or isinstance(obj, CsmFit):
+        return obj
     if isinstance(obj, torch.Tensor):
         return leaves.pop(0)
     if isinstance(obj, (tuple, list)):

@@ -479,9 +479,11 @@ def csm_shadow_pass(scene: GpuScene, layout: SceneLayout, size: int,
     bit-identical there (tests/test_raster_pallas.py:194) and here
     (tests/test_torch_csm.py). The port has no such knob: blocks of
     different cascades run side by side on the card, so one launch is the
-    natural shape. z_form="plane" makes it one K7 launch with N = 4."""
-    mats = [scene.csm_matrices[c] for c in range(CASCADE_COUNT)]
-    return _depth_maps(scene, layout, size, mats, world_pos, z_form, geometry_forms)
+    natural shape. z_form="plane" makes it one K7 launch with N = 4. Its
+    span, frame/csm_pass, nests in its callers' frame/shadow."""
+    with span("frame/csm_pass"):
+        mats = [scene.csm_matrices[c] for c in range(CASCADE_COUNT)]
+        return _depth_maps(scene, layout, size, mats, world_pos, z_form, geometry_forms)
 
 
 @dataclasses.dataclass
@@ -1275,18 +1277,19 @@ def _shadow_term(scene: GpuScene, layout: SceneLayout, world_pos, normal, sun_di
     the even-pixel grid with the bilinear upsample ("half", a single map
     only, on any frame or band). Under CSM shadow_map is the [C,S,S] cascade
     array and the fragment's NDC depth (the visibility depth, ≙
-    SV_Position.z) selects the cascade; the cascade term has no strength
-    parameter."""
+    SV_Position.z) selects the cascade, under the span frame/csm_lookup; the
+    cascade term has no strength parameter."""
     rows = world_pos.shape[0]
     if layout.has_csm:
         stride = _pcf_stride(rows, full_rows, pcf)
-        wp = world_pos[::stride]
-        lit = calculate_shadow_csm_blended(
-            shadow_map, scene.csm_matrices, scene.csm_splits, wp, normal[::stride],
-            sun_dir.expand(wp.shape), depth[::stride],
-            CSMParams(shadow_bias=shadow_params.shadow_bias,
-                      normal_bias=shadow_params.normal_bias, pcf=shadow_params.pcf),
-        )
+        with span("frame/csm_lookup"):
+            wp = world_pos[::stride]
+            lit = calculate_shadow_csm_blended(
+                shadow_map, scene.csm_matrices, scene.csm_splits, wp, normal[::stride],
+                sun_dir.expand(wp.shape), depth[::stride],
+                CSMParams(shadow_bias=shadow_params.shadow_bias,
+                          normal_bias=shadow_params.normal_bias, pcf=shadow_params.pcf),
+            )
     elif pcf == "half":
         wp = world_pos[::2, ::2]
         lit = calculate_shadow(shadow_map, scene.light_space_matrix, wp, normal[::2, ::2],

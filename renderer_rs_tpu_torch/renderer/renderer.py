@@ -3,8 +3,9 @@ crates/renderer/src/renderer.rs).
 
 The per-frame hot path (renderer.rs:367-449) is eager:
 
-    render_frame(): [recreate after a resize] -> acquire a swapchain slot
-                    -> [shadow pass, when its inputs changed] ->
+    render_frame(): [refit camera-fitted cascades, when the camera or the
+                    sun moved] -> [recreate after a resize] -> acquire a
+                    swapchain slot -> [shadow pass, when its inputs changed] ->
                     forward_frame enqueued on the stream -> FrameManager
                     (2 frames in flight, CUDA events; MAILBOX by default)
                     -> sRGB encode on the device -> uint8 readback ->
@@ -15,7 +16,13 @@ its map (the four cascade maps under CSM, one launch) is kept across frames
 and across resizes, and re-rendered only when the geometry, the object
 transforms, the light matrix or the cascade matrices are new tensors, or
 the depth form (z_form) or the geometry forms changed, so camera-only
-frames of a static scene reuse it. An MSAA pipeline renders through
+frames of a static scene reuse it. Cascades handed in as matrices stay as
+they are; cascades fitted to the camera (SceneBuilder.fit_csm, the scene's
+CsmFit) follow it: update_camera keeps the host camera's matrices, and the
+next frame refits the cascades on the host when the camera or the fit's
+sun differs from what they were fitted to (the span frame/csm_fit, counted
+in the frame record's csm_refits), uploads them in one staged copy with no
+host wait, and the cache renders the new cascades. An MSAA pipeline renders through
 forward_frame's shade-once resolve, or with msaa_mode="super" supersamples
 the whole frame; shade_rates sets the shade stage's reduced rates
 (passes.ShadeRates), geometry_forms the geometry stages' forms
@@ -46,6 +53,7 @@ from renderer_rs_tpu_torch.core.config import RendererConfig
 from renderer_rs_tpu_torch.core.device import resolve_device
 from renderer_rs_tpu_torch.core.profiling import FrameStats, span
 from renderer_rs_tpu_torch.core.validation import validate_frame_output, validate_scene
+from renderer_rs_tpu_torch.ops.csm import CameraFrustum
 from renderer_rs_tpu_torch.ops.shadow import ShadowParams
 from renderer_rs_tpu_torch.platform.window import Window
 from renderer_rs_tpu_torch.renderer.depth_buffer import DepthBuffer
@@ -62,6 +70,7 @@ from renderer_rs_tpu_torch.renderer.passes import (
 )
 from renderer_rs_tpu_torch.renderer.scene_build import GpuScene, SceneLayout
 from renderer_rs_tpu_torch.resources.ubo import CameraUbo
+from renderer_rs_tpu_torch.rhi.buffer import stage
 from renderer_rs_tpu_torch.rhi.descriptor import layouts_for
 from renderer_rs_tpu_torch.rhi.pipeline import GraphicsPipeline, GraphicsPipelineBuilder
 from renderer_rs_tpu_torch.rhi.rendering import ColorAttachment, DepthAttachment, RenderingConfig
@@ -126,6 +135,11 @@ class Renderer:
         # host-side Camera the app's controllers mutate; update_camera()
         # refreshes the UBO from it
         self.camera = camera
+        # the host camera of the last update_camera (CameraFrustum), and
+        # (what the bound scene's camera-fitted cascades were fitted to,
+        # their matrices tensor)
+        self._frustum: CameraFrustum | None = None
+        self._csm_fitted: tuple | None = None
         # rotating present slots behind the surface (≙ the Renderer owning
         # the Swapchain, renderer.rs:55-86); its stale flag is the one
         # record of a pending resize. The offscreen surface offers MAILBOX,
@@ -163,12 +177,17 @@ class Renderer:
             self._shadow_cache = None
         self._scene = scene
         self._layout = layout
+        fit = scene.csm_fit
+        self._frustum = None
+        self._csm_fitted = None if fit is None else (fit.key(fit.frustum), scene.csm_matrices)
 
     def update_camera(self, camera) -> None:
-        """Refresh the camera UBO from a scene Camera (≙ CameraUbo update)."""
+        """Refresh the camera UBO from a scene Camera (≙ CameraUbo update),
+        and keep its host matrices for camera-fitted cascades."""
         if self._scene is None:
             raise RuntimeError("no scene bound")
         ubo = CameraUbo.create(camera.view_matrix(), camera.projection_matrix(), camera.position)
+        self._frustum = CameraFrustum(camera.projection, ubo.projection, ubo.view_projection)
         self._scene = self._scene.replace(camera=ubo.to(self.device))
 
     def update_scene(self, scene: GpuScene) -> None:
@@ -200,6 +219,32 @@ class Renderer:
         self.depth_buffer = DepthBuffer(self.config.width, self.config.height,
                                         self.depth_buffer.clear_depth, self.device)
         log.debug("framebuffer recreated: %dx%d", self.config.width, self.config.height)
+
+    def _follow_camera(self) -> None:
+        """Refit the bound scene's camera-fitted cascades (its CsmFit) when
+        the camera of the last update_camera, or the fit's sun, differs
+        from what they were fitted to: ops/csm.fit_cascades on the host,
+        then the [C,4,4] matrices and [C] splits in one staged copy the
+        stream orders before the frame (no host wait). Matrices the caller
+        handed in with update_scene are kept until the camera or the sun
+        moves again."""
+        scene = self._scene
+        fit = scene.csm_fit
+        if fit is None:
+            return
+        frustum = self._frustum or fit.frustum
+        key = fit.key(frustum)
+        if self._csm_fitted is None or self._csm_fitted[1] is not scene.csm_matrices:
+            self._csm_fitted = (key, scene.csm_matrices)  # handed in
+        if self._csm_fitted[0] == key:
+            return
+        with span("frame/csm_fit"):
+            mats, splits = fit.fit(frustum)
+            flat = stage(np.concatenate([mats.reshape(-1), splits]), self.device)
+            mats_d = flat[:mats.size].view(mats.shape)
+            self._scene = scene.replace(csm_matrices=mats_d, csm_splits=flat[mats.size:])
+            profiling.count_csm_refit()
+        self._csm_fitted = (key, mats_d)
 
     def _shadow_map(self, scene: GpuScene) -> torch.Tensor | None:
         """The sun's shadow map for `scene`, or its [4,S,S] cascade array
@@ -271,6 +316,7 @@ class Renderer:
 
     def _render_frame(self, present: bool, rec: profiling.FrameRecord) -> np.ndarray | None:
         self._require_scene()
+        self._follow_camera()
         # a stale chain (a resize, or a suboptimal present) recreates before
         # the acquire (≙ acquire ERROR_OUT_OF_DATE -> recreate,
         # renderer.rs:385-394)
@@ -308,6 +354,7 @@ class Renderer:
         """Synchronous single frame, returning the linear [H,W,4] tensor
         (bench/golden path; no sRGB encode, no surface)."""
         self._require_scene()
+        self._follow_camera()
         self._recreate_if_needed()
         out = self._run_frame(self._scene)
         if self.device.type == "cuda":
@@ -322,6 +369,7 @@ class Renderer:
         (triangles beyond the binning caps, dropped), logged at WARNING when
         non-zero, and the frame's covered_pixels."""
         self._require_scene()
+        self._follow_camera()
         self._recreate_if_needed()
         _, diag = self._run_frame(self._scene, diagnostics=True)
         big, huge = (int(v) for v in diag["bin_overflow"].tolist())

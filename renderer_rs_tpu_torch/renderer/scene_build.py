@@ -8,9 +8,10 @@ time. Built so far: meshes and glTF models (add_model, with instancing
 reuse), an optional texture array (images of another size resized
 bilinearly; its per-texture window atlas, and within the row budget the
 f32 per-material and the single-gather trilinear material atlases), an optional
-sun shadow matrix or cascaded shadow matrices and an environment: a
-skybox, with or without the IBL maps and their fast-ambient form
-(finalize_environment)."""
+sun shadow matrix or cascaded shadow matrices, handed in or fitted to the
+camera (fit_csm, which the Renderer refits as the camera moves), and an
+environment: a skybox, with or without the IBL maps and their fast-ambient
+form (finalize_environment)."""
 
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from renderer_rs_tpu_torch.core.device import resolve_device
+from renderer_rs_tpu_torch.ops.csm import CameraFrustum, fit_cascades
 from renderer_rs_tpu_torch.ops.ibl import sh9_project_cubemap
 from renderer_rs_tpu_torch.ops.sampling import (
     _cube_window_flat,
@@ -151,6 +153,36 @@ def finalize_environment(env: Environment, cube_dtype: str | None = None) -> Env
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class CsmFit:
+    """Cascades that follow the camera (SceneBuilder.fit_csm): the sun they
+    are fitted to (its direction, on the host), the practical split
+    scheme's lambda, the caster margin (None: the camera's far distance,
+    as in ops/csm.fit_cascades) and the camera the scene's cascades were
+    fitted to when it was built. Renderer.render_frame refits them when
+    the camera of the last update_camera or this sun differs from what
+    they were fitted to; to turn the sun, replace the scene's lights and
+    this fit's sun_direction together. Host data only: no device tensor,
+    the same object on every device."""
+
+    sun_direction: tuple
+    frustum: CameraFrustum
+    split_lambda: float = 0.75
+    caster_margin: float | None = None
+
+    def fit(self, frustum: CameraFrustum) -> tuple[np.ndarray, np.ndarray]:
+        """(matrices [C,4,4], NDC split depths [C]) fitted to `frustum`."""
+        return fit_cascades(frustum, self.sun_direction, lam=self.split_lambda,
+                            caster_margin=self.caster_margin)
+
+    def key(self, frustum: CameraFrustum) -> tuple:
+        """What a fit to `frustum` depends on, compared by value."""
+        return (frustum.key, self.sun_direction, self.split_lambda, self.caster_margin)
+
+    def to(self, device) -> "CsmFit":
+        return self
+
+
 @dataclasses.dataclass
 class GpuScene:
     """Device tensors the frame consumes (≙ GpuScene, scene_build.py:132)."""
@@ -175,6 +207,7 @@ class GpuScene:
     # cascaded shadow maps (≙ CSMParams cbuffer data, shadow_csm.hlsli:31-40)
     csm_matrices: torch.Tensor | None = None  # [C,4,4]
     csm_splits: torch.Tensor | None = None  # [C] NDC split depths
+    csm_fit: CsmFit | None = None  # the cascades follow the camera (host data)
 
     @property
     def device(self) -> torch.device:
@@ -223,6 +256,7 @@ class SceneBuilder:
         self._light_space_matrix: torch.Tensor | None = None
         self._csm_matrices: torch.Tensor | None = None
         self._csm_splits: torch.Tensor | None = None
+        self._csm_fit: tuple | None = None  # (frustum, split_lambda, caster_margin)
         # host build time in ms of each atlas built so far: texture_atlas,
         # material_atlas (f32), material_atlas_tri
         self.build_ms: dict[str, float] = {}
@@ -333,6 +367,18 @@ class SceneBuilder:
         """Enable cascaded shadow maps (use ops.csm.fit_cascades to build)."""
         self._csm_matrices = torch.as_tensor(cascade_matrices, dtype=torch.float32)
         self._csm_splits = torch.as_tensor(split_depths, dtype=torch.float32)
+        self._csm_fit = None
+        return self
+
+    def fit_csm(self, camera, split_lambda: float = 0.75,
+                caster_margin: float | None = None) -> "SceneBuilder":
+        """Enable cascaded shadow maps that follow the camera: build()
+        fits them to `camera` (a Camera) and the light bank's sun
+        (ops/csm.fit_cascades; the caster margin defaults to the camera's
+        far distance), and the scene's CsmFit lets the Renderer refit them
+        whenever update_camera moves the camera."""
+        self._csm_fit = (CameraFrustum.of(camera), float(split_lambda), caster_margin)
+        self._csm_matrices = self._csm_splits = None
         return self
 
     def build(self, device="cuda") -> tuple[GpuScene, SceneLayout]:
@@ -344,6 +390,14 @@ class SceneBuilder:
         if self._images and self._textures is None:
             # texture images accumulated by add_model -> the scene's texture array
             self.set_textures(self._images)
+        lights = self._lights or LightBank.create()
+        csm_fit = None
+        if self._csm_fit is not None:
+            # the first fit, to the builder's camera and the bank's sun
+            sun = tuple(float(v) for v in lights.sun_direction.tolist())
+            csm_fit = CsmFit(sun, *self._csm_fit)
+            mats, splits = csm_fit.fit(csm_fit.frustum)
+            self._csm_matrices, self._csm_splits = torch.from_numpy(mats), torch.from_numpy(splits)
         pos_l, nrm_l, uv_l, tan_l, col_l, tri_l, tmat_l = [], [], [], [], [], [], []
         models, normal_mats, ranges = [], [], []
         v_off = t_off = 0
@@ -386,7 +440,7 @@ class SceneBuilder:
             models=torch.stack(models).to(dev),
             normal_mats=torch.stack(normal_mats).to(dev),
             materials=MaterialBank.create(self._materials).to(dev),
-            lights=(self._lights or LightBank.create()).to(dev),
+            lights=lights.to(dev),
             camera=(
                 self._camera
                 or CameraUbo.create(torch.eye(4), torch.eye(4), torch.zeros(3))
@@ -397,6 +451,7 @@ class SceneBuilder:
             light_space_matrix=optional(self._light_space_matrix),
             csm_matrices=optional(self._csm_matrices),
             csm_splits=optional(self._csm_splits),
+            csm_fit=csm_fit,
         )
         # static per-column constants of the material bank (host-side, exact
         # float compare; order of renderer/passes._material_bank)

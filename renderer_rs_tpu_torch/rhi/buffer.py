@@ -16,6 +16,9 @@ owns the memory, so what survives is:
 - upload_via_staging ≙ the synchronous staged copy (buffer.rs:345-399):
   a pinned host tensor copied with non_blocking=True on the card, then the
   stream synchronized (the fence wait the reference performs)
+- stage: the same staged copy without the wait, for per-frame uniforms
+  (the Renderer's refitted cascades): the stream orders the copy before
+  the work enqueued after it
 """
 
 from __future__ import annotations
@@ -55,6 +58,18 @@ def _as_tensor(data: Any, dtype=None) -> torch.Tensor:
     return torch.as_tensor(data, dtype=dtype)
 
 
+def stage(values: Any, device) -> torch.Tensor:
+    """`values` on `device` with no host wait: to a card from a pinned host
+    tensor, copied with non_blocking=True on the current stream, which runs
+    it before the work enqueued after it (the caching host allocator keeps
+    the pinned block until the copy has run); elsewhere a plain copy."""
+    dev = resolve_device(device)
+    host = _as_tensor(values)
+    if dev.type != "cuda":
+        return host.to(dev)
+    return host.cpu().contiguous().pin_memory().to(dev, non_blocking=True)
+
+
 class Buffer:
     """A usage-tagged tensor on `device` (≙ rhi::Buffer,
     buffer.rs:124-436)."""
@@ -92,8 +107,7 @@ class Buffer:
         dev = resolve_device(device) if device is not None else self.data.device
         host = _as_tensor(values, self.data.dtype)
         if dev.type == "cuda":
-            staging = host.cpu().contiguous().pin_memory()
-            arr = staging.to(dev, non_blocking=True)
+            arr = stage(host, dev)
             torch.cuda.current_stream(dev).synchronize()
         else:
             arr = host.to(dev)

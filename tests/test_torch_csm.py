@@ -24,7 +24,10 @@ Bars, as measured on the CPU:
   equals four N = 1 calls bit for bit.
 - the CSM frame: the frame bar of tests/test_torch_frame.py, winner ids
   exact (measured max |d| 4.4e-6, no pixel off, with the cascades handed in
-  and with the in-frame world-form pass)."""
+  and with the in-frame world-form pass).
+- the camera-fitted Renderer after update_camera (the cascades refitted
+  inside the frame) against the JAX frame of JAX's fit to the moved camera:
+  the same frame bar (measured max |d| 1.1e-5, no pixel off)."""
 
 import dataclasses
 
@@ -341,6 +344,50 @@ def test_csm_frame_matches_jax_fused(csm_small, jax_csm_frame):
         kw["pipeline"], kw["shading"], W, H, tonemap=kw["tonemap"],
     ).numpy()
     assert (unshadowed[..., :3].sum(-1) > out[..., :3].sum(-1) + 0.05).mean() > 0.02
+
+
+def test_camera_fitted_cascades_follow_the_camera_as_jax_fits_them(csm_small, jax_csm_frame):
+    """full_scene(csm=True)'s cascades follow the camera: after
+    update_camera the Renderer refits them inside the frame (one refit in
+    its record) and the frame equals, to the CSM frame bar, the JAX frame
+    of the moved camera with JAX's fit_cascades and its cascade pass."""
+    import jax.numpy as jnp
+
+    from renderer_rs_tpu.app.scenes import _orbit_camera as jax_camera
+    from renderer_rs_tpu.ops.csm import fit_cascades as jax_fit
+    from renderer_rs_tpu.renderer.passes import csm_shadow_pass as jax_pass
+    from renderer_rs_tpu.renderer.passes import forward_frame as jax_frame
+    from renderer_rs_tpu.resources.ubo import CameraUbo as JaxCameraUbo
+    from renderer_rs_tpu_torch.app.scenes import full_scene
+    from renderer_rs_tpu_torch.core import profiling
+
+    js, jl, jkw, _, _, _ = csm_small
+    ref0, _, kw = jax_csm_frame
+    scene, layout, pkw, _ = full_scene(W, H, device="cpu", **FULL)
+    renderer = _renderer(scene, layout, kw)
+    cam = pkw["camera"]
+    jcam = jax_camera(W, H, distance=5.0, height_y=3.0, fov=50.0)
+    for c in (cam, jcam):
+        c.position = np.array([5.0 * np.sin(0.7), 3.0, 5.0 * np.cos(0.7)], np.float32)
+        c.look_at([0.0, 0.0, 0.0])
+    profiling.clear_records()
+    renderer.update_camera(cam)
+    out = renderer.render_frame_hdr().numpy()
+    assert sum(r.csm_refits for r in profiling.records()) == 1
+    mats, splits = jax_fit(jcam, np.asarray(js.lights.sun_direction))
+    moved = js.replace(
+        camera=JaxCameraUbo.create(jcam.view_matrix(), jcam.projection_matrix(), jcam.position),
+        csm_matrices=jnp.asarray(mats), csm_splits=jnp.asarray(splits))
+    with pytest.MonkeyPatch.context() as mp:
+        interpret_pallas(mp)
+        ref = np.asarray(jax_frame(
+            moved, jl, jkw["pipeline"], jkw["shading"], W, H, tonemap=jkw["tonemap"],
+            shadow_params=jkw["shadow_params"], shadow_map=jax_pass(moved, jl, SIZE)))
+    assert np.abs(ref - ref0).max() > 0.1  # the camera moved
+    err = np.abs(out - ref)
+    off = err > 2e-3 + 2e-3 * np.abs(ref)
+    assert off.mean() < 2e-3, f"{off.mean():.4%} pixels off"
+    assert err.max() < 0.05, f"max err {err.max()}"
 
 
 def test_renderer_renders_cascades_once_until_their_inputs_change(csm_small, jax_csm_frame):
