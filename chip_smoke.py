@@ -50,7 +50,11 @@ Phases (any failure exits nonzero before the result lines):
          map and metallic-roughness image, 256 texture sets, over the
          material atlases' 16M-row budget (the per-slot fetch); its build
          timed, the per-texture window atlas's size and host build time
-         printed; K1 on its sun map and K2 on its forward pass.
+         printed; K1 on its sun map and K2 on its forward pass;
+       - the fused shade (shade_fused) on the headline frame's K2 outputs
+         and sun map, and its cascade form on the same frame with four
+         cascades fitted to its camera, each beside its plain version; the
+         cascade form also timed beside the ATen chain it replaces.
      K1's, K6's and K7's depth and the probe's sums must be bit-equal; K2
      must give bit-equal
      tid/depth and lanes within rtol 1e-5 / atol 1e-6; K4 bit-equal tid and
@@ -1691,55 +1695,85 @@ def _check_probe() -> dict:
 SHADE_TOL = 1e-4
 
 
-def _check_shade(scene, layout, kw) -> dict:
+def _check_shade(scene, layout, kw, cascades: bool = False) -> dict:
     """The fused shade (ops/shade_cuda.py) on the 1080p headline frame's
-    own inputs (K2's outputs, the sun map, the default rates: PCF every 4th
-    row, the cube every 2nd) beside its plain version, with the host syncs
-    of the launch; its time, the plain version's, and the bound: the bytes
-    a pixel reads and writes once (68 + 16) at the memory rate."""
+    own inputs (K2's outputs, the sun map or with `cascades` the four
+    [1024,1024] cascades fitted to its camera, the default rates: PCF
+    every 4th row, the cube every 2nd) beside its plain version, with the
+    host syncs of the launch; its time, the plain version's, that of the
+    ATen chain it replaces on the unfused frame (pixel_ray_directions,
+    _shade_pixels, the clear colour's upload and both composites), and the
+    bound: the bytes a pixel reads and writes once (68 + 16), and the
+    cascades read once."""
     import torch
 
     from renderer_rs_tpu_torch.ops.shade_cuda import shade_fused, shade_fused_plain
+    from renderer_rs_tpu_torch.ops.skybox import pixel_ray_directions
     from renderer_rs_tpu_torch.ops.tonemap import apply_tonemap
     from renderer_rs_tpu_torch.renderer import passes as P
 
-    pipeline = kw["pipeline"]
+    pipeline, params, shading = kw["pipeline"], kw["shadow_params"], kw["shading"]
     geo = P.frame_geometry(scene, layout, pipeline, W, H)
-    smap = P.shadow_map_pass(scene, layout, kw["shadow_map_size"])
+    if cascades:
+        # as forward_frame renders them: from the forward stage's world positions
+        smap = P.csm_shadow_pass(scene, layout, kw["shadow_map_size"],
+                                 world_pos=geo.attr[:, :3])
+    else:
+        smap = P.shadow_map_pass(scene, layout, kw["shadow_map_size"])
     depth, tri_id, mat_id, lanes, _ = P._fused_raster(scene, layout, geo, pipeline, H, W, 1.0,
                                                       None, P.ResolveForms())
     inv_vp = torch.linalg.inv(scene.camera.view_projection)
-    inp = P._shade_fused_inputs(scene, layout, smap, kw["shadow_params"], inv_vp,
-                                (0.1, 0.1, 0.15, 1.0))
+    clear = (0.1, 0.1, 0.15, 1.0)
     rates = P.ShadeRates()
+    label = "headline with cascades" if cascades else "headline (textured, IBL)"
+    if not P._fused_shade_engages(scene, layout, shading, smap, params, rates):
+        raise SystemExit(f"phase kernels: the {label} frame does not engage the fused shade")
+    inp = P._shade_fused_inputs(scene, layout, smap, params, inv_vp, clear)
     sp, sc = P._pcf_stride(H, True, rates.pcf), P._cube_stride(H, True, rates.cube)
     args = (depth, tri_id, mat_id, lanes, inp, sp, sc)
     if (sp, sc) != (4, 2):
         raise SystemExit(f"phase kernels: the headline rates give strides {(sp, sc)}, not (4, 2)")
+
+    def aten():
+        sky = pixel_ray_directions(inv_vp, H, W, 0, H, 1, False)
+        color, sky_rgb = P._shade_pixels(scene, layout, shading, lanes, mat_id, shadow_map=smap,
+                                         shadow_params=params, depth=depth, tri_id=tri_id,
+                                         sky_dirs=sky, rates=rates)
+        bg = torch.tensor(clear, dtype=torch.float32, device=depth.device)
+        out = torch.where((tri_id >= 0)[..., None], color, bg)
+        sky_rgba = torch.cat([sky_rgb, torch.ones_like(sky_rgb[..., :1])], dim=-1)
+        return torch.where((depth >= 1.0)[..., None], sky_rgba, out)
+
     syncs = _syncs(lambda: shade_fused(*args))
     n0 = shade_fused.launches
     got = shade_fused(*args)
     launches = shade_fused.launches - n0
     ref = shade_fused_plain(*args)
+    tone = kw["tonemap"]
     d_lin = (got - ref).abs()
-    d = (apply_tonemap(got, kw["tonemap"]) - apply_tonemap(ref, kw["tonemap"])).abs()
+    d = (apply_tonemap(got, tone) - apply_tonemap(ref, tone)).abs()
     max_abs_err = float(d.max())
+    d_aten = (apply_tonemap(got, tone) - apply_tonemap(aten(), tone)).abs().amax(-1)
     far = d_lin > 1e-4
     finite = bool(torch.isfinite(got).all())
     ms = _median(_event_times_ms(lambda: shade_fused(*args), KERNEL_TIMINGS))
     plain_ms = _median(_event_times_ms(lambda: shade_fused_plain(*args), 3, warmup=1))
-    nbytes = H * W * (68 + 16)
+    aten_ms = _median(_event_times_ms(aten, 5, warmup=1))
+    nbytes = H * W * (68 + 16) + (smap.numel() * 4 if cascades else 0)
     bound_ms, bound_by = _bound(0.0, nbytes)
-    _log(f"headline (textured, IBL): shade_fused, strides {(sp, sc)}, {launches} launches a "
-         f"call, host syncs {len(syncs)} {syncs}; vs plain after the {kw['tonemap']} tonemap "
-         f"max |d| {max_abs_err:.3e}, linear max |d| {float(d_lin.max()):.3e}, linear values "
-         f"beyond 1e-4 {int(far.sum())} of {d.numel()} (the least |value| of those "
-         f"{float(ref.abs()[far].min()) if bool(far.any()) else None}), finite {finite}; "
-         f"{ms:.4f} ms (median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, bound "
-         f"{bound_ms:.4f} ms by {bound_by} ({nbytes:.3e} bytes)")
+    _log(f"{label}: shade_fused{' cascade form' if cascades else ''}, strides {(sp, sc)}, "
+         f"{launches} launches a call, host syncs {len(syncs)} {syncs}; vs plain after the "
+         f"{tone} tonemap max |d| {max_abs_err:.3e}, linear max |d| {float(d_lin.max()):.3e}, "
+         f"linear values beyond 1e-4 {int(far.sum())} of {d.numel()} (the least |value| of "
+         f"those {float(ref.abs()[far].min()) if bool(far.any()) else None}); vs the ATen "
+         f"chain after the tonemap max |d| {float(d_aten.max()):.3e}, pixels beyond 1e-3 "
+         f"{int((d_aten > 1e-3).sum())} of {d_aten.numel()}; finite {finite}; {ms:.4f} ms "
+         f"(median of {KERNEL_TIMINGS}), plain {plain_ms:.2f} ms, the ATen chain "
+         f"{aten_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes:.3e} bytes)")
     if not max_abs_err <= SHADE_TOL or not finite or launches != 2 or syncs:
-        raise SystemExit("phase kernels: shade_fused disagrees with its plain version, is not "
-                         "finite, syncs the host or is not the two-launch pair")
+        raise SystemExit(f"phase kernels: shade_fused on the {label} frame disagrees with its "
+                         "plain version, is not finite, syncs the host or is not the "
+                         "two-launch pair")
     return {
         "name": "shade_fused",
         "route": "cuda",
@@ -1748,6 +1782,7 @@ def _check_shade(scene, layout, kw) -> dict:
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "aten_ms": aten_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes this function
@@ -1927,6 +1962,10 @@ def phase_kernels(directory: str) -> tuple[dict, tuple, tuple, tuple]:
     k2["host_syncs"] = k2["host_syncs"] + k2_pbr["host_syncs"] + k2_tex["host_syncs"]
     k2["cases"] = {"pbr flagship": k2_pbr, "headline (textured, IBL)": k2_tex}
     shade = _check_shade(scene, layout, kw)
+    csm = _check_shade(*full_scene(W, H, device="cuda", csm=True, **HEADLINE)[:3], cascades=True)
+    shade.update({f"{k}_csm": csm[k] for k in ("ms", "plain_ms", "aten_ms", "bound_ms")},
+                 max_abs_err=max(shade["max_abs_err"], csm["max_abs_err"]),
+                 host_syncs=shade["host_syncs"] + csm["host_syncs"])
     k5 = _check_peel(scene, layout, _mask_pipeline())
     k3 = _check_visibility(scene, layout, kw["pipeline"])
     # the glTF headline frame's own inputs: K1 on its sun map, K2 on its

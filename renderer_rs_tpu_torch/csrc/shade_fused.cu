@@ -14,7 +14,13 @@
 //      LOD, then the TBN normal map;
 //   2. the sun: the 3x3 PCF of calculate_shadow on every SP-th row with the
 //      edge-clamped linear upsample in y (upsample4x_y / upsample2x_y), then
-//      Cook-Torrance (pbr_direct);
+//      Cook-Torrance (pbr_direct). In the cascade form (template CSM; ≙
+//      shadow_csm.hlsli CalculateShadowCSMBlended) the lit factor on those
+//      rows is ops/csm.py::calculate_shadow_csm_blended instead: the
+//      cascade by the pixel's visibility depth against the four NDC
+//      splits, the 3x3 PCF in it and, inside the blend region, in the
+//      next, lerped; no strength. Only the one or two cascades it samples
+//      are projected;
 //   3. IBL: the cube lookup (R, or the pixel's sky ray on far-plane pixels),
 //      cube_trilinear_fetch from atlas_tri on every SC-th row with the
 //      id-aware upsample (upsample_y_idaware), then calculate_ibl_fast (SH9
@@ -24,9 +30,10 @@
 //
 // What bounds it on this card: bytes. A 1080p frame reads 68 bytes a
 // pixel of K2's outputs (depth, source and material ids, 14 lanes) and
-// writes 16: 174 MB, 0.052 ms at 3.35 TB/s. The shadow map (4 MB), the material atlas
-// (~18 MB) and the cube atlas (~5 MB) are gathers that stay in the 50 MB
-// L2. The stage has no matrix product; wgmma and TMA do not apply.
+// writes 16: 174 MB, 0.052 ms at 3.35 TB/s. The shadow map (4 MB; the
+// cascades 16 MB), the material atlas (~18 MB) and the cube atlas (~5 MB)
+// are gathers that stay in the 50 MB L2. The stage has no matrix product;
+// wgmma and TMA do not apply.
 //
 // The design: two launches, each one thread per pixel, every intermediate
 // in registers or shared memory.
@@ -42,7 +49,8 @@
 // row's surface needs its quad partner's uv and its own texture fetch,
 // so the tile would shade 5 or 6 rows for 4; the split evaluates the
 // sampled rows twice instead (half the frame at SC = 2), and keeps one
-// code path for every stride. The strides are template parameters.
+// code path for every stride. The strides and the shadow form are
+// template parameters.
 //
 // Memory: the material atlas row (8c bf16, 16c bytes, so 16-byte aligned)
 // is read as c 16-byte vectors through the read-only path into the
@@ -63,8 +71,8 @@
 // CUDA form differs from its plain arithmetic this file follows the CUDA
 // form: a division by a Python scalar is a multiply by the float32
 // reciprocal (ATen's div_true on a CPU scalar: / PI, / width, / height),
-// and the two small matrix products (the light-space projection, the sky
-// ray's unprojection) are the fused chain fma(a2, b2, fma(a1, b1, a0*b0))
+// and the small matrix products (the light-space and cascade projections,
+// the sky ray's unprojection) are the fused chain fma(a2, b2, fma(a1, b1, a0*b0))
 // over k, as cuBLAS computes them (measured on the H100: equal on 2^20
 // random rows, where the separate products differ on 1.2M of 3.1M values).
 // The plain version (ops/shade_cuda.py::shade_fused_plain) writes the
@@ -92,6 +100,10 @@ constexpr int THREADS = 128;
 // 24-byte spill), 0.4301 under 6 (80, 76), 0.5155 under 1 (103, 80); left
 // to ptxas, 72 registers and 0.42.
 constexpr int MIN_BLOCKS = 8;
+constexpr int CASCADES = 4;  // ops/csm.py::CASCADE_COUNT
+// CSMParams.blend_threshold: the blend region's share of a cascade's depth
+// range, rounded from its f64 value as torch rounds a Python float
+constexpr float BLEND = (float)0.1;
 
 constexpr double PI_D = 3.14159265358979323846;
 constexpr float EPS = (float)1e-4;
@@ -126,8 +138,8 @@ struct Args {
     const long long* mat_set;       // [M] texture set of each material
     const long long* tri_material;  // [T] material of each source triangle
     const uint4* tex;               // [R, 8c] bf16, c 16-byte vectors a row; null: untextured
-    const float* smap;              // [S,S] sun shadow map
-    const float* lsm;               // [4,4] light-space matrix
+    const float* smap;              // [S,S] sun shadow map; cascade form [4,S,S]
+    const float* lsm;               // [4,4] light-space matrix; cascade form [4,4,4]
     const float* sun_dir;           // [3] surface -> light
     const float* sun_rad;           // [3] sun colour x intensity
     const float* cam;               // [3] eye
@@ -146,6 +158,7 @@ struct Args {
     int seg_off[MAX_SEGS], seg_size[MAX_SEGS];
     float shadow_bias, normal_bias, shadow_strength;
     float clear[4];
+    const float* splits;            // [4] NDC split depths (cascade form), else null
 };
 
 // torch.clamp's one-sided bounds, NaN passing through as torch passes it
@@ -405,6 +418,72 @@ __device__ float pcf(const Args& a, const Surf& s) {
     return in_bounds ? 1.0f + (shadow - 1.0f) * a.shadow_strength : 1.0f;
 }
 
+// csm.py::project_cascades for the one cascade whose matrix is m, the
+// products as the fused chain
+__device__ void project_cascade(const float* m, const float* p, float& u, float& v, float& z) {
+    float r[4];
+    for (int j = 0; j < 4; ++j) {
+        const float* row = m + 4 * j;
+        r[j] = __fmaf_rn(p[2], __ldg(row + 2), __fmaf_rn(p[1], __ldg(row + 1), p[0] * __ldg(row))) +
+               __ldg(row + 3);
+    }
+    const float w = r[3] == 0.0f ? 1.0f : r[3];
+    u = r[0] / w * 0.5f + 0.5f;
+    v = r[1] / w * 0.5f + 0.5f;
+    z = r[2] / w;
+}
+
+// csm.py::_sample_pcf_uvz in cascade c at the normal-offset position q:
+// the bounds of the offset projection, 3x3 PCF, no strength
+__device__ float cascade_pcf(const Args& a, int c, const float* q, float bias) {
+    float u, v, z;
+    project_cascade(a.lsm + 16 * c, q, u, v, z);
+    const bool in_bounds = u >= 0.0f && u <= 1.0f && v >= 0.0f && v <= 1.0f && z >= 0.0f &&
+                           z <= 1.0f;
+    const float current = z - bias;
+    const int s = a.smap_h;  // square maps (ops/shade_cuda.py checks)
+    const float* map = a.smap + (size_t)c * s * s;
+    const int ix = texel_index(u, s), iy = texel_index(v, s);
+    float lit = 0.0f;
+    for (int dy = -1; dy <= 1; ++dy) {
+        const int ty = min(max(iy + dy, 0), s - 1);
+        for (int dx = -1; dx <= 1; ++dx) {
+            const int tx = min(max(ix + dx, 0), s - 1);
+            lit = lit + (__ldg(map + (size_t)ty * s + tx) >= current ? 1.0f : 0.0f);
+        }
+    }
+    return in_bounds ? lit * NINTH : 1.0f;
+}
+
+// csm.py::calculate_shadow_csm_blended (≙ CalculateShadowCSMBlended) for the
+// pixel of visibility depth d: select_cascade, the PCF in that cascade, and
+// inside the blend region the lerp with the next one's
+__device__ float csm_lit(const Args& a, const Surf& s, float d) {
+    int idx = 0;
+    for (int i = 0; i < CASCADES - 1; ++i)
+        if (d > __ldg(a.splits + i)) idx = i + 1;
+    float l[3], q[3];
+    for (int j = 0; j < 3; ++j) l[j] = __ldg(a.sun_dir + j);
+    const float bias = cmax(a.shadow_bias * (1.0f - dot3(s.n, l)), 0.0005f);
+    for (int j = 0; j < 3; ++j) q[j] = s.wp[j] + s.n[j] * a.normal_bias;
+    const float shadow = cascade_pcf(a, idx, q, bias);
+    const float split = __ldg(a.splits + idx);
+    const float prev = idx > 0 ? __ldg(a.splits + idx - 1) : 0.0f;
+    const float region = (split - prev) * BLEND;
+    const float dist = split - d;
+    if (!(idx < CASCADES - 1 && dist < region && dist > 0.0f)) return shadow;
+    const float next = cascade_pcf(a, idx + 1, q, bias);
+    const float blend = sat(dist / cmax(region, 1e-8f));
+    return next + (shadow - next) * blend;
+}
+
+// The sun's lit factor of pixel (x, y) in the form CSM names
+template <bool CSM>
+__device__ __forceinline__ float lit_at(const Args& a, const Surf& s, int x, int y) {
+    if (CSM) return csm_lit(a, s, __ldg(a.depth + (size_t)y * a.width + x));
+    return pcf(a, s);
+}
+
 // skybox.py::pixel_ray_directions for a whole frame's pixel (x, y)
 __device__ void sky_ray(const Args& a, int x, int y, float* d) {
     const float ndc_x = ((float)x + 0.5f) * (1.0f / (float)a.width) * 2.0f - 1.0f;
@@ -589,7 +668,7 @@ __host__ __device__ __forceinline__ int rows_of(int height, int stride) {
 }
 
 // The reduced-rate rows: grid (ceil(W/SAMPLE_X), rows of the finer stride).
-template <int SP, int SC>
+template <int SP, int SC, bool CSM>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) shade_samples(Args a) {
     __shared__ unsigned scratch[THREADS * ROW_STRIDE];
     constexpr int G = (SP > 1 && SC > 1) ? (SP < SC ? SP : SC) : (SP > SC ? SP : SC);
@@ -598,7 +677,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) shade_samples(Args a) {
     if (x >= a.width || y >= a.height) return;
     Surf s;
     surface(a, x, y, scratch + threadIdx.x * ROW_STRIDE, s);
-    if (SP > 1 && y % SP == 0) a.lit_s[(size_t)(y / SP) * a.width + x] = pcf(a, s);
+    if (SP > 1 && y % SP == 0) a.lit_s[(size_t)(y / SP) * a.width + x] = lit_at<CSM>(a, s, x, y);
     if (SC > 1 && y % SC == 0) {
         float spec[3];
         cube_fetch(a, x, y, s, spec);
@@ -610,7 +689,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) shade_samples(Args a) {
 }
 
 // Every pixel: grid (ceil(W/FULL_X), ceil(H/FULL_Y)).
-template <int SP, int SC>
+template <int SP, int SC, bool CSM>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) shade_full(Args a) {
     __shared__ unsigned scratch[THREADS * ROW_STRIDE];
     const int x = blockIdx.x * FULL_X + threadIdx.x;
@@ -622,7 +701,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) shade_full(Args a) {
     surface(a, x, y, scratch + (threadIdx.y * FULL_X + threadIdx.x) * ROW_STRIDE, s);
     float lit;
     if (SP == 1) {
-        lit = pcf(a, s);
+        lit = lit_at<CSM>(a, s, x, y);
     } else {
         // upsample4x_y / upsample2x_y: edge-clamped linear in y
         const int i = y / SP, mm = y % SP, last = rows_of(a.height, SP) - 1;
@@ -674,26 +753,36 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) shade_full(Args a) {
     a.out[p] = o;
 }
 
-template <int SP, int SC>
+template <int SP, int SC, bool CSM>
 int launch(const Args& a, cudaStream_t s) {
     if (SP > 1 || SC > 1) {
         constexpr int G = (SP > 1 && SC > 1) ? (SP < SC ? SP : SC) : (SP > SC ? SP : SC);
         const dim3 grid((a.width + SAMPLE_X - 1) / SAMPLE_X, rows_of(a.height, G));
-        shade_samples<SP, SC><<<grid, SAMPLE_X, 0, s>>>(a);
+        shade_samples<SP, SC, CSM><<<grid, SAMPLE_X, 0, s>>>(a);
         const int err = static_cast<int>(cudaGetLastError());
         if (err != 0) return err;
     }
     const dim3 grid((a.width + FULL_X - 1) / FULL_X, rows_of(a.height, FULL_Y));
-    shade_full<SP, SC><<<grid, dim3(FULL_X, FULL_Y), 0, s>>>(a);
+    shade_full<SP, SC, CSM><<<grid, dim3(FULL_X, FULL_Y), 0, s>>>(a);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int SP>
+template <int SP, bool CSM>
 int launch_sc(const Args& a, int sc, cudaStream_t s) {
     switch (sc) {
-        case 1: return launch<SP, 1>(a, s);
-        case 2: return launch<SP, 2>(a, s);
-        case 4: return launch<SP, 4>(a, s);
+        case 1: return launch<SP, 1, CSM>(a, s);
+        case 2: return launch<SP, 2, CSM>(a, s);
+        case 4: return launch<SP, 4, CSM>(a, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+template <bool CSM>
+int launch_sp(const Args& a, int sp, int sc, cudaStream_t s) {
+    switch (sp) {
+        case 1: return launch_sc<1, CSM>(a, sc, s);
+        case 2: return launch_sc<2, CSM>(a, sc, s);
+        case 4: return launch_sc<4, CSM>(a, sc, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -703,14 +792,15 @@ int launch_sc(const Args& a, int sc, cudaStream_t s) {
 // The argument layout of shade_fused_launch, shared with ops/shade_cuda.py
 // (PTRS, INTS, FLOATS there name the entries in this order).
 //   ptrs:   depth, tid, mat_id, lanes, bank, mat_set, tri_material, tex, smap, lsm,
-//           sun_dir, sun_rad, cam, inv_vp, sh, cube, lit_s, spec_s, out
+//           sun_dir, sun_rad, cam, inv_vp, sh, cube, lit_s, spec_s, out, splits
 //   ints:   height, width, n_lanes, y_parity, tex_c, tex_levels, slot[5], smap_h, smap_w,
 //           cube_c, n_seg, n_pref, pcf_stride, cube_stride,
-//           lvl_off[16], lvl_h[16], lvl_w[16], seg_off[16], seg_size[16]
+//           lvl_off[16], lvl_h[16], lvl_w[16], seg_off[16], seg_size[16], cascades
 //   floats: shadow_bias, normal_bias, shadow_strength, clear[4]
-// Launches on `stream` (PyTorch's current stream) the samples pass (where
-// a stride is above 1) and the full pass. Returns the first
-// cudaGetLastError() that is not 0 (0 = launched).
+// cascades is 0 for the sun's map, 4 for the cascade form. Launches on
+// `stream` (PyTorch's current stream) the samples pass (where a stride is
+// above 1) and the full pass. Returns the first cudaGetLastError() that is
+// not 0 (0 = launched).
 extern "C" int shade_fused_launch(const unsigned long long* ptrs, const int* ints,
                                   const float* floats, void* stream) {
     Args a;
@@ -733,6 +823,7 @@ extern "C" int shade_fused_launch(const unsigned long long* ptrs, const int* int
     a.lit_s = reinterpret_cast<float*>(ptrs[16]);
     a.spec_s = reinterpret_cast<float*>(ptrs[17]);
     a.out = reinterpret_cast<float4*>(ptrs[18]);
+    a.splits = reinterpret_cast<const float*>(ptrs[19]);
     int k = 0;
     a.height = ints[k++];
     a.width = ints[k++];
@@ -753,19 +844,16 @@ extern "C" int shade_fused_launch(const unsigned long long* ptrs, const int* int
     for (int i = 0; i < MAX_LEVELS; ++i) a.lvl_w[i] = ints[k++];
     for (int i = 0; i < MAX_SEGS; ++i) a.seg_off[i] = ints[k++];
     for (int i = 0; i < MAX_SEGS; ++i) a.seg_size[i] = ints[k++];
+    const int cascades = ints[k++];
     a.shadow_bias = floats[0];
     a.normal_bias = floats[1];
     a.shadow_strength = floats[2];
     for (int i = 0; i < 4; ++i) a.clear[i] = floats[3 + i];
     if (a.height <= 0 || a.width <= 0) return 0;
     if (a.tex_c < 0 || a.tex_c > TEX_MAX_C || a.tex_levels > MAX_LEVELS || a.n_seg > MAX_SEGS ||
-        a.n_seg < 1 || a.cube_c < 3)
+        a.n_seg < 1 || a.cube_c < 3 || (cascades != 0 && cascades != CASCADES) ||
+        (cascades != 0 && (a.splits == nullptr || a.smap_h != a.smap_w)))
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (sp) {
-        case 1: return launch_sc<1>(a, sc, s);
-        case 2: return launch_sc<2>(a, sc, s);
-        case 4: return launch_sc<4>(a, sc, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    return cascades ? launch_sp<true>(a, sp, sc, s) : launch_sp<false>(a, sp, sc, s);
 }

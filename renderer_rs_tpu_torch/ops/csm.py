@@ -145,10 +145,20 @@ def calculate_shadow_csm_blended(shadow_maps, cascade_matrices, split_depths, wo
                                  params: CSMParams = CSMParams()):
     """≙ CalculateShadowCSMBlended (shadow_csm.hlsli:216-288): lerp with the
     next cascade inside blend_threshold of the split boundary."""
-    idx = select_cascade(split_depths, clip_depth)
     # project through ALL cascades once, then pick per pixel (the picked
     # cascade's projection is the same math)
     uc, vc, zc = project_cascades(cascade_matrices, world_pos, normal, params.normal_bias)
+    return blend_cascades(shadow_maps, uc, vc, zc, split_depths, normal, light_dir, clip_depth,
+                          params)
+
+
+def blend_cascades(shadow_maps, uc, vc, zc, split_depths, normal, light_dir, clip_depth,
+                   params: CSMParams = CSMParams()):
+    """The part of CalculateShadowCSMBlended after the projection: the
+    cascade by clip_depth, the PCF in it and in the next, and the lerp
+    inside the blend region; (uc, vc, zc) [C, ...] are every cascade's
+    projection of the normal-offset position (project_cascades)."""
+    idx = select_cascade(split_depths, clip_depth)
 
     def sample(i):
         return _sample_pcf_uvz(

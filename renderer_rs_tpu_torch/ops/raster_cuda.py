@@ -118,14 +118,14 @@ _walk_skip = True
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(wrapper, **counters) -> None:
+def count_launch(wrapper, record: str | None = None, **counters) -> None:
     """Add each increment (counter name -> n) to `wrapper`'s launch
     counters, atomically, and its `launches` to the current frame record
-    under the wrapper's name."""
+    under `record`, by default the wrapper's name."""
     with _LAUNCH_LOCK:
         for name, n in counters.items():
             setattr(wrapper, name, getattr(wrapper, name) + n)
-    profiling.count_kernel(wrapper.__name__, counters.get("launches", 0))
+    profiling.count_kernel(record or wrapper.__name__, counters.get("launches", 0))
 
 
 # --- the split plan: dense bins cut into pieces over blocks --------------------

@@ -14,20 +14,26 @@ on every `pcf_stride`-th row with the linear upsample in y, the merged
 specular/skybox cube fetch on every `cube_stride`-th row with the id-aware
 upsample, Cook-Torrance for the sun, the fast IBL ambient, the emissive
 term, and the composite (the clear colour off coverage, the fetched sky
-radiance at depth >= 1). The tonemap stays outside. Its bound on the card
-is bytes: 68 bytes read and 16 written a pixel, 174 MB at 1080p, 0.052 ms
-at 3.35 TB/s; the atlases and the shadow map are L2-resident gathers.
+radiance at depth >= 1). The tonemap stays outside. Its cascade form takes
+the sun's lit factor on those rows from the four cascades instead
+(ops/csm.py::calculate_shadow_csm_blended); the call chooses it from the
+shadow map it is given: [S,S] the sun's map, [4,S,S] the cascades. Its
+bound on the card is bytes: 68 bytes read and 16 written a pixel, 174 MB at
+1080p, 0.052 ms at 3.35 TB/s; the atlases and the shadow maps are
+L2-resident gathers.
 
 ``shade_fused`` is the wrapper: on CUDA tensors it launches the kernels
 (two launches where a stride is above 1, the reduced-rate rows first, else
 one), counts them in ``shade_fused.launches`` and in the frame record's
-``launches`` (core/profiling.py), and raises on a refused launch; on CPU
+``launches`` (core/profiling.py; the cascade form's under
+``shade_fused_csm``), and raises on a refused launch; on CPU
 tensors it runs ``shade_fused_plain``, the kernel's per-pixel form in torch
 ops. The plain version takes the ATen chain's own functions (the atlas
 fetches, the TBN, the upsamples, Cook-Torrance, the IBL ambient) and writes
-out only what the kernel rounds its own way: the shadow projection and the
-sky-ray unprojection as fused chains (_chain), so that it pins the kernel's
-PCF depth compares, which one ulp flips. Nothing falls back.
+out only what the kernel rounds its own way: the shadow and cascade
+projections and the sky-ray unprojection as fused chains (_chain), so that
+it pins the kernel's PCF depth compares, which one ulp flips. Nothing falls
+back.
 renderer/passes.py::_fused_shade_engages says when the frame takes it.
 """
 
@@ -40,6 +46,7 @@ import torch
 
 from renderer_rs_tpu_torch.mathx.vec import dot, normalize
 from renderer_rs_tpu_torch.ops import pbr as pbr_ops
+from renderer_rs_tpu_torch.ops.csm import CASCADE_COUNT, CSMParams, blend_cascades
 from renderer_rs_tpu_torch.ops.raster_cuda import count_launch
 from renderer_rs_tpu_torch.ops.sampling import (
     _fma,
@@ -78,12 +85,17 @@ class ShadeInputs:
     channel in a row (tex_slots, -1 unbound) and c (tex_c); mat_set [M]
     maps a material to its texture set. cube_atlas [R, 13C] f32 is the
     environment's atlas_tri over the prefiltered levels and the sky
-    segment (cube_offsets, cube_sizes, n_pref prefiltered levels)."""
+    segment (cube_offsets, cube_sizes, n_pref prefiltered levels).
+
+    The cascade form: shadow_map is the [4,S,S] cascade array, light_matrix
+    the [4,4,4] cascade matrices and csm_splits the [4] NDC split depths;
+    shadow_params gives the biases (its strength does not apply), and the
+    blend region is CSMParams' default."""
 
     bank: torch.Tensor  # [M,11] the material bank
     tri_material: torch.Tensor  # [T] int64
-    shadow_map: torch.Tensor  # [S,S] f32
-    light_matrix: torch.Tensor  # [4,4]
+    shadow_map: torch.Tensor  # [S,S] f32; the cascade form [4,S,S]
+    light_matrix: torch.Tensor  # [4,4]; the cascade form [4,4,4]
     shadow_params: ShadowParams
     sun_dir: torch.Tensor  # [3] surface -> light
     sun_radiance: torch.Tensor  # [3]
@@ -101,6 +113,12 @@ class ShadeInputs:
     tex_slots: tuple = (-1,) * 5
     tex_c: int = 0
     mat_set: torch.Tensor | None = None  # [M] int64
+    csm_splits: torch.Tensor | None = None  # [4] f32, the cascade form
+
+
+def cascaded(inp: ShadeInputs) -> bool:
+    """Whether the call takes the cascade form: a [4,S,S] shadow map."""
+    return inp.shadow_map.dim() == 3
 
 
 # --- the plain version ---------------------------------------------------------
@@ -181,6 +199,25 @@ def _pcf(inp: ShadeInputs, world_pos, normal):
     return shadow_finish(lit * (1.0 / 9.0), in_bounds, params)
 
 
+def _project_cascade(m, p):
+    """csm.py::project_cascades for the one cascade m [4,4], with the
+    chained products."""
+    r = [_chain(p, m[j, :3]) + m[j, 3] for j in range(4)]
+    w = torch.where(r[3] == 0.0, torch.ones_like(r[3]), r[3])
+    return r[0] / w * 0.5 + 0.5, r[1] / w * 0.5 + 0.5, r[2] / w
+
+
+def _csm(inp: ShadeInputs, world_pos, normal, depth):
+    """csm.py::calculate_shadow_csm_blended with the chained projections."""
+    prm = inp.shadow_params
+    q = world_pos + normal * prm.normal_bias
+    uc, vc, zc = (torch.stack(t) for t in zip(*(_project_cascade(inp.light_matrix[c], q)
+                                                for c in range(CASCADE_COUNT))))
+    params = CSMParams(shadow_bias=prm.shadow_bias, normal_bias=prm.normal_bias, pcf=True)
+    return blend_cascades(inp.shadow_map, uc, vc, zc, inp.csm_splits, normal,
+                          inp.sun_dir.expand(normal.shape), depth, params)
+
+
 def _sky_rays(inv_vp, rows, height: int, width: int):
     """skybox.py::pixel_ray_directions at the frame rows `rows` [h'] with the
     chained unprojection."""
@@ -226,7 +263,10 @@ def shade_fused_plain(depth, tri_id, mat_id, lanes, inp: ShadeInputs, pcf_stride
     h, w = depth.shape
     wp, n, v, base, metallic, rough, ao, em = _surface(tri_id, mat_id, lanes, inp, y_parity)
     sp, sc = pcf_stride, cube_stride
-    lit = _pcf(inp, wp[::sp], n[::sp])
+    if cascaded(inp):
+        lit = _csm(inp, wp[::sp], n[::sp], depth[::sp])
+    else:
+        lit = _pcf(inp, wp[::sp], n[::sp])
     if sp == 4:
         lit = upsample4x_y(lit, h)
     elif sp == 2:
@@ -253,7 +293,8 @@ def shade_fused_plain(depth, tri_id, mat_id, lanes, inp: ShadeInputs, pcf_stride
 
 # the argument layout of csrc/shade_fused.cu::shade_fused_launch
 PTRS = ("depth", "tid", "mat_id", "lanes", "bank", "mat_set", "tri_material", "tex", "smap",
-        "lsm", "sun_dir", "sun_rad", "cam", "inv_vp", "sh", "cube", "lit_s", "spec_s", "out")
+        "lsm", "sun_dir", "sun_rad", "cam", "inv_vp", "sh", "cube", "lit_s", "spec_s", "out",
+        "splits")
 
 
 def _padded(values, n: int) -> list:
@@ -289,8 +330,17 @@ def _check(depth, tri_id, mat_id, lanes, inp: ShadeInputs, pcf_stride, cube_stri
         raise ValueError("cube_atlas must be float32 [R, 13C], C >= 3")
     if not 0 < len(inp.cube_sizes) <= MAX_SEGS:
         raise ValueError(f"{len(inp.cube_sizes)} cube segments; the kernel takes 1 to {MAX_SEGS}")
-    if inp.irradiance_sh.shape != (9, 3) or inp.shadow_map.dim() != 2:
-        raise ValueError("irradiance_sh must be [9,3] and shadow_map 2-D")
+    if inp.irradiance_sh.shape != (9, 3):
+        raise ValueError("irradiance_sh must be [9,3]")
+    smap, lsm, splits = inp.shadow_map, inp.light_matrix, inp.csm_splits
+    if cascaded(inp):
+        c, s = CASCADE_COUNT, smap.shape[1]
+        if smap.shape != (c, s, s) or lsm.shape != (c, 4, 4) or splits is None \
+                or splits.shape != (c,) or splits.dtype != _F32:
+            raise ValueError(f"the cascade form takes a [{c},S,S] shadow_map, [{c},4,4] "
+                             f"light_matrix and float32 [{c}] csm_splits")
+    elif smap.dim() != 2 or lsm.shape != (4, 4):
+        raise ValueError("shadow_map must be [S,S] with a [4,4] light_matrix, or the cascades")
     dev = depth.device
     tensors = {"depth": depth, "tri_id": tri_id, "mat_id": mat_id, "lanes": lanes,
                "bank": inp.bank, "tri_material": inp.tri_material,
@@ -298,7 +348,7 @@ def _check(depth, tri_id, mat_id, lanes, inp: ShadeInputs, pcf_stride, cube_stri
                "sun_dir": inp.sun_dir, "sun_radiance": inp.sun_radiance,
                "camera_position": inp.camera_position, "inv_vp": inp.inv_vp,
                "irradiance_sh": inp.irradiance_sh, "cube_atlas": cube,
-               "tex_atlas": inp.tex_atlas, "mat_set": inp.mat_set}
+               "tex_atlas": inp.tex_atlas, "mat_set": inp.mat_set, "csm_splits": splits}
     for name, t in tensors.items():
         if t is None:
             continue
@@ -320,16 +370,17 @@ def _pack_args(depth, tri_id, mat_id, lanes, inp: ShadeInputs, sp: int, sc: int,
         tri_material=inp.tri_material, tex=inp.tex_atlas, smap=inp.shadow_map,
         lsm=inp.light_matrix, sun_dir=inp.sun_dir, sun_rad=inp.sun_radiance,
         cam=inp.camera_position, inv_vp=inp.inv_vp, sh=inp.irradiance_sh, cube=inp.cube_atlas,
-        lit_s=lit_s, spec_s=spec_s, out=out)
+        lit_s=lit_s, spec_s=spec_s, out=out, splits=inp.csm_splits)
     ptrs = [0 if tensors[k] is None else tensors[k].data_ptr() for k in PTRS]
     h, w = depth.shape
     sizes = inp.tex_sizes
     ints = ([h, w, lanes.shape[2], y_parity, inp.tex_c, len(sizes), *inp.tex_slots,
-             inp.shadow_map.shape[0], inp.shadow_map.shape[1], inp.cube_atlas.shape[1] // 13,
+             *inp.shadow_map.shape[-2:], inp.cube_atlas.shape[1] // 13,
              len(inp.cube_sizes), inp.n_pref, sp, sc]
             + _padded(inp.tex_offsets, MAX_LEVELS) + _padded([s[0] for s in sizes], MAX_LEVELS)
             + _padded([s[1] for s in sizes], MAX_LEVELS)
-            + _padded(inp.cube_offsets, MAX_SEGS) + _padded(inp.cube_sizes, MAX_SEGS))
+            + _padded(inp.cube_offsets, MAX_SEGS) + _padded(inp.cube_sizes, MAX_SEGS)
+            + [CASCADE_COUNT if cascaded(inp) else 0])
     prm = inp.shadow_params
     floats = [prm.shadow_bias, prm.normal_bias, prm.shadow_strength, *inp.clear_color]
     return ((ctypes.c_uint64 * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
@@ -354,7 +405,7 @@ def _launch(depth, tri_id, mat_id, lanes, inp: ShadeInputs, sp: int, sc: int,
     if err != 0:
         raise RuntimeError(f"shade_fused launch failed: cudaError {err}")
     n = 2 if sp > 1 or sc > 1 else 1
-    count_launch(shade_fused, launches=n)
+    count_launch(shade_fused, record="shade_fused_csm" if cascaded(inp) else None, launches=n)
     return out
 
 
@@ -368,7 +419,9 @@ def shade_fused(depth: torch.Tensor, tri_id: torch.Tensor, mat_id: torch.Tensor 
     textured scene uv and with a normal map the tangent); the PCF term on
     every pcf_stride-th row and the cube fetch on every cube_stride-th row
     (1, 2 or 4); y_parity is the first row's framebuffer parity for the
-    texture LOD's quads. Returns linear [H,W,4] before the tonemap."""
+    texture LOD's quads. A [4,S,S] inp.shadow_map takes the cascade form,
+    whose cascade select reads depth. Returns linear [H,W,4] before the
+    tonemap."""
     _check(depth, tri_id, mat_id, lanes, inp, pcf_stride, cube_stride)
     if depth.device.type == "cuda":
         return _launch(depth, tri_id, mat_id, lanes, inp, pcf_stride, cube_stride, y_parity)

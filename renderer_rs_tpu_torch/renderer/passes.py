@@ -1173,8 +1173,9 @@ def _fused_shade_engages(scene: GpuScene, layout: SceneLayout, shading: ShadingM
     """Whether the fused frame shades through the fused kernel
     (ops/shade_cuda.py), from what the call sees on the host: a CUDA
     scene; PBR_IBL on a finalized environment whose trilinear cube atlas
-    is f32 (the fast ambient with atlas_tri); the sun's single map with
-    PCF on (no cascades); the single-gather material atlas, or no bound
+    is f32 (the fast ambient with atlas_tri); the sun's single map, or
+    under CSM the [4,S,S] cascades (the kernel's cascade form, the blended
+    lookup), with PCF on; the single-gather material atlas, or no bound
     texture slot; no point or spot light; no merged gather, full-rate
     lighting and the quad LOD; the PCF rate "yquarter", "yhalf" or "full"
     (any cube rate); and the kernel's static limits (ops/shade_cuda.py:
@@ -1191,7 +1192,9 @@ def _fused_shade_engages(scene: GpuScene, layout: SceneLayout, shading: ShadingM
         and env.atlas_tri is not None and env.atlas_tri.dtype == torch.float32
         and env.atlas_tri.shape[1] >= 3 * 13
         and len(env.prefiltered_mips) + 1 <= shade_cuda.MAX_SEGS
-        and layout.has_shadow and not layout.has_csm and shadow_map is not None
+        and shadow_map is not None
+        and ((layout.has_csm and shadow_map.dim() == 3)
+             or (layout.has_shadow and not layout.has_csm))
         and shadow_params.pcf
         and (not textured or (tex.mat_atlas_tri is not None
                               and len(tex.mips) <= shade_cuda.MAX_LEVELS))
@@ -1217,9 +1220,11 @@ def _shade_fused_frame(scene: GpuScene, layout: SceneLayout, varying, mat_id_img
 
 def _shade_fused_inputs(scene: GpuScene, layout: SceneLayout, shadow_map,
                         shadow_params: ShadowParams, inv_vp, clear_color):
-    """shade_cuda.ShadeInputs of the scene: the material bank, the sun, the
-    camera, the environment's SH and cube atlas, and on a textured scene the
-    single-gather material atlas with each bound slot's channels."""
+    """shade_cuda.ShadeInputs of the scene: the material bank, the sun with
+    its light matrix (under CSM the cascade matrices and splits, which the
+    refit staged on the device), the camera, the environment's SH and cube
+    atlas, and on a textured scene the single-gather material atlas with
+    each bound slot's channels."""
     env, tex, lights = scene.environment, scene.textures, scene.lights
     tex_kw = {}
     if layout.has_textures and tex is not None and any(layout.texture_slots):
@@ -1235,7 +1240,9 @@ def _shade_fused_inputs(scene: GpuScene, layout: SceneLayout, shadow_map,
     seg_offs, seg_sizes = _cube_segments(env)
     return shade_cuda.ShadeInputs(
         bank=_material_bank(scene.materials), tri_material=scene.tri_material,
-        shadow_map=shadow_map, light_matrix=scene.light_space_matrix,
+        shadow_map=shadow_map,
+        light_matrix=scene.csm_matrices if layout.has_csm else scene.light_space_matrix,
+        csm_splits=scene.csm_splits if layout.has_csm else None,
         shadow_params=shadow_params, sun_dir=normalize(-lights.sun_direction),
         sun_radiance=lights.sun_color * lights.sun_intensity,
         camera_position=scene.camera.camera_position,

@@ -5,17 +5,21 @@ frame.
 On the CPU: the kernel's plain version equals today's _shade_pixels and
 forward_frame's composite on the textured PBR+IBL scene (full_scene at
 48x258: a height that is not a multiple of 4, so the last sample rows
-clamp), over every engaged rate pair, whole-frame and band rates; the
-material lanes form (mat_id None) too; and the engagement predicate
-(_fused_shade_engages) on a CUDA-placed stand-in of that scene, once per
-configuration that must keep _shade_pixels and once per condition.
+clamp), over every engaged rate pair, whole-frame and band rates, in the
+sun-map form and in the cascade form (the same scene with four cascades
+fitted to its camera, whose frame straddles the first split inside its
+blend region); the material lanes form (mat_id None) too; and the
+engagement predicate (_fused_shade_engages) on a CUDA-placed stand-in of
+that scene, once per configuration that must keep _shade_pixels and once
+per condition.
 
-The tests marked cuda need the card and skip without one: the kernel
-against its plain version and against the ATen path at 1920x1080 and at
-an odd extent, as uint8 after sRGB, and a Renderer.render_frame loop's
-counts. Run them there with `python -m pytest --noconftest -m cuda
+The tests marked cuda need the card and skip without one: the kernel, in
+both forms, against its plain version and against the ATen path at
+1920x1080 and at an odd extent, as uint8 after sRGB, and the counts of a
+Renderer.render_frame loop of each form. Run them there with `python -m pytest --noconftest -m cuda
 tests/test_torch_shade_fused.py` (this file imports no JAX)."""
 
+import copy
 import dataclasses
 import types
 
@@ -24,6 +28,7 @@ import pytest
 import torch
 
 from renderer_rs_tpu_torch.ops import shade_cuda
+from renderer_rs_tpu_torch.ops.csm import CASCADE_COUNT, CSMParams, select_cascade
 from renderer_rs_tpu_torch.ops.shadow import ShadowParams
 from renderer_rs_tpu_torch.ops.skybox import pixel_ray_directions
 from renderer_rs_tpu_torch.renderer import passes as P
@@ -37,21 +42,47 @@ ENGAGED_RATES = [(pcf, cube) for pcf in ("yquarter", "yhalf", "full")
                  for cube in ("yquarter", "yhalf", "full")]
 
 
-@pytest.fixture(scope="module")
-def frame():
-    """The scene on the CPU, its sun map and K2's outputs (the fused
-    raster's plain version)."""
+def _frame(csm: bool):
     from renderer_rs_tpu_torch.app.scenes import full_scene
 
-    scene, layout, kw, _ = full_scene(W, H, tri_budget=2000, textured=True, device="cpu")
+    scene, layout, kw, _ = full_scene(W, H, tri_budget=2000, textured=True, csm=csm,
+                                      device="cpu")
     geo = P.frame_geometry(scene, layout, kw["pipeline"], W, H)
-    smap = P.shadow_map_pass(scene, layout, 1024)
+    if csm:
+        # as forward_frame renders them: from the forward stage's world positions
+        smap = P.csm_shadow_pass(scene, layout, 1024, world_pos=geo.attr[:, :3])
+    else:
+        smap = P.shadow_map_pass(scene, layout, 1024)
     depth, tri_id, mat_id, varying, _ = P._fused_raster(
         scene, layout, geo, kw["pipeline"], H, W, 1.0, None, P.ResolveForms())
     inv_vp = torch.linalg.inv(scene.camera.view_projection)
     return types.SimpleNamespace(scene=scene, layout=layout, params=kw["shadow_params"],
                                  smap=smap, depth=depth, tri_id=tri_id, mat_id=mat_id,
                                  varying=varying, inv_vp=inv_vp)
+
+
+@pytest.fixture(scope="module")
+def frame():
+    """The scene on the CPU, its sun map and K2's outputs (the fused
+    raster's plain version)."""
+    return _frame(csm=False)
+
+
+@pytest.fixture(scope="module")
+def csm_frame():
+    """The scene with four cascades fitted to its camera, its [4,S,S]
+    cascade maps and K2's outputs, on the CPU."""
+    return _frame(csm=True)
+
+
+# each case of the plain version's test: the rates and the shadow form,
+# the sun-map cases under their ids from before the cascade form
+FORM_FIXTURES = {"sun": "frame", "cascades": "csm_frame"}
+PLAIN_CASES = [
+    *[pytest.param(pcf, cube, "sun", id=f"{pcf}-{cube}") for pcf, cube in ENGAGED_RATES],
+    *[pytest.param(pcf, cube, "cascades", id=f"cascades-{pcf}-{cube}")
+      for pcf, cube in ENGAGED_RATES],
+]
 
 
 def _today(f, rates, full_rows, varying, mat_id):
@@ -76,8 +107,9 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("full_rows", [True, False])
-@pytest.mark.parametrize("pcf,cube", ENGAGED_RATES)
-def test_plain_equals_today_on_the_cpu(frame, pcf, cube, full_rows):
+@pytest.mark.parametrize("pcf,cube,form", PLAIN_CASES)
+def test_plain_equals_today_on_the_cpu(request, pcf, cube, form, full_rows):
+    frame = request.getfixturevalue(FORM_FIXTURES[form])
     rates = ShadeRates(pcf=pcf, cube=cube)
     ref = _today(frame, rates, full_rows, frame.varying, frame.mat_id)
     got = P._shade_fused_frame(frame.scene, frame.layout, frame.varying, frame.mat_id,
@@ -87,6 +119,24 @@ def test_plain_equals_today_on_the_cpu(frame, pcf, cube, full_rows):
     torch.testing.assert_close(got, ref, **TOL)
     # both sides of the composite are exercised
     assert (frame.depth >= 1.0).any() and (frame.tri_id >= 0).any()
+
+
+def test_the_cascade_frame_straddles_a_split_inside_its_blend_region(csm_frame):
+    """The cascade cases above see two cascades among the covered pixels,
+    and pixels that blend with the next cascade beside pixels that do not
+    (do_blend of ops/csm.py::blend_cascades)."""
+    f = csm_frame
+    assert f.smap.shape == (CASCADE_COUNT, 1024, 1024)
+    covered = f.tri_id >= 0
+    splits, depth = f.scene.csm_splits, f.depth
+    idx = select_cascade(splits, depth)
+    split = splits[idx]
+    prev = torch.where(idx > 0, splits[torch.clamp(idx - 1, min=0)], torch.zeros_like(split))
+    dist = split - depth
+    blends = (idx < CASCADE_COUNT - 1) & (dist < (split - prev) * CSMParams.blend_threshold) \
+        & (dist > 0.0)
+    assert len(torch.unique(idx[covered])) >= 2
+    assert blends[covered].any() and (~blends[covered]).any()
 
 
 def test_material_lanes_form_on_the_cpu(frame):
@@ -100,6 +150,18 @@ def test_material_lanes_form_on_the_cpu(frame):
                                frame.tri_id, frame.smap, frame.params, rates, frame.inv_vp,
                                CLEAR)
     torch.testing.assert_close(got, ref, **TOL)
+
+
+def test_wrapper_refuses_a_cascade_form_it_does_not_take(csm_frame):
+    f = csm_frame
+    inp = P._shade_fused_inputs(f.scene, f.layout, f.smap, f.params, f.inv_vp, CLEAR)
+    assert shade_cuda.cascaded(inp) and inp.light_matrix.shape == (CASCADE_COUNT, 4, 4)
+    args = (f.depth, f.tri_id, f.mat_id, f.varying)
+    for bad in (dict(csm_splits=None), dict(csm_splits=inp.csm_splits[:3]),
+                dict(light_matrix=inp.light_matrix[0]), dict(shadow_map=f.smap[:3]),
+                dict(shadow_map=f.smap[:, :, :512])):
+        with pytest.raises(ValueError, match="cascade form"):
+            shade_cuda.shade_fused(*args, dataclasses.replace(inp, **bad), 4, 2)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(frame):
@@ -166,6 +228,18 @@ def _case(frame, name):
             env, atlas_tri=env.atlas_tri.to(torch.bfloat16)))
     elif name == "cascades":
         layout = dataclasses.replace(layout, has_csm=True)
+    elif name.startswith("cascade form"):
+        # the CSM frame: the layout's cascades and their [4,S,S] array
+        layout = dataclasses.replace(layout, has_shadow=False, has_csm=True)
+        smap = torch.zeros(CASCADE_COUNT, 16, 16)
+        if name == "cascade form, pcf off":
+            params = ShadowParams(pcf=False)
+        elif name == "cascade form, cpu tensors":
+            scene = frame.scene
+        elif name == "cascade form, half-rate pcf":
+            rates = ShadeRates(pcf="half")
+        else:
+            assert name == "cascade form", name
     elif name == "no sun map":
         layout = dataclasses.replace(layout, has_shadow=False)
     elif name == "sun map not rendered":
@@ -218,6 +292,10 @@ PREDICATE_CASES = [
     ("half-rate lighting", False),
     ("forward-difference lod", False),
     ("half-rate pcf", False),
+    ("cascade form", True),
+    ("cascade form, pcf off", False),
+    ("cascade form, cpu tensors", False),
+    ("cascade form, half-rate pcf", False),
 ]
 
 
@@ -255,12 +333,17 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,h", [(1920, 1080), (333, 257)])
-def test_cuda_kernel_against_plain_and_aten(card, w, h, monkeypatch):
+@pytest.mark.parametrize("w,h,csm", [
+    *[pytest.param(w, h, False, id=f"{w}-{h}") for w, h in ((1920, 1080), (333, 257))],
+    *[pytest.param(w, h, True, id=f"cascades-{w}-{h}") for w, h in ((1920, 1080), (333, 257))],
+])
+def test_cuda_kernel_against_plain_and_aten(card, w, h, csm, monkeypatch):
     from renderer_rs_tpu_torch.app.scenes import full_scene
+    from renderer_rs_tpu_torch.core import profiling
     from renderer_rs_tpu_torch.utils.image_io import framebuffer_to_u8
 
-    scene, layout, kw, _ = full_scene(w, h, tri_budget=100_000, textured=True, device="cuda")
+    scene, layout, kw, _ = full_scene(w, h, tri_budget=100_000, textured=True, csm=csm,
+                                      device="cuda")
     fkw = dict(tonemap=kw["tonemap"], shadow_map_size=kw["shadow_map_size"],
                shadow_params=kw["shadow_params"])
 
@@ -270,8 +353,10 @@ def test_cuda_kernel_against_plain_and_aten(card, w, h, monkeypatch):
         return framebuffer_to_u8(out)
 
     n0 = shade_cuda.shade_fused.launches
-    kernel = render()
+    with profiling.frame() as rec:
+        kernel = render()
     assert shade_cuda.shade_fused.launches - n0 == 2
+    assert rec.launches.get("shade_fused_csm" if csm else "shade_fused") == 2
     with monkeypatch.context() as mp:
         mp.setattr(shade_cuda, "_launch",
                    lambda d, t, m, l, inp, sp, sc, yp: shade_cuda.shade_fused_plain(
@@ -314,3 +399,43 @@ def test_cuda_render_loop_counts(card):
     assert [x.launches.get("shade_fused") for x in recs] == [2, 2, 2]
     assert [x.syncs for x in recs] == [3, 3, 3]
     assert all("frame/shade" not in site for x in recs for site, _ in x.sync_sites)
+
+
+@pytest.mark.cuda
+def test_cuda_csm_render_loop_counts(card):
+    """Each Renderer.render_frame of the headline frame under cascades that
+    follow a moving camera refits them and shades through the cascade form
+    (two launches, in the record under shade_fused_csm), opens no
+    frame/csm_lookup span, and syncs the host 3 times (the inverse's check,
+    the fence wait, the readback)."""
+    from renderer_rs_tpu_torch.app.scenes import full_scene
+    from renderer_rs_tpu_torch.core import profiling
+    from renderer_rs_tpu_torch.core.config import RendererConfig
+    from renderer_rs_tpu_torch.renderer.renderer import Renderer
+
+    w, h = 1920, 1080
+    scene, layout, kw, _ = full_scene(w, h, tri_budget=100_000, textured=True, csm=True,
+                                      device="cuda")
+    r = Renderer(RendererConfig(width=w, height=h), device=card,
+                 **{k: v for k, v in kw.items() if k != "camera"})
+    r.set_scene(scene, layout)
+    cam = copy.deepcopy(kw["camera"])
+    r.render_frame()
+    n0 = shade_cuda.shade_fused.launches
+    profiling.clear_records()
+    profiling.enable_tracing()
+    try:
+        for _ in range(3):
+            cam.position = cam.position + np.float32(0.2)
+            cam.look_at([0.0, 0.0, 0.0])
+            r.update_camera(cam)
+            r.render_frame()
+    finally:
+        profiling.enable_tracing(False)
+    recs = [x for x in profiling.records() if x.frame is not None]
+    assert shade_cuda.shade_fused.launches - n0 == 6
+    assert [x.csm_refits for x in recs] == [1, 1, 1]
+    assert [x.launches.get("shade_fused_csm") for x in recs] == [2, 2, 2]
+    assert not any("shade_fused" in x.launches for x in recs)
+    assert not any(s[0] == "frame/csm_lookup" for x in recs for s in x.spans)
+    assert [x.syncs for x in recs] == [3, 3, 3]
