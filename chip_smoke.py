@@ -146,8 +146,7 @@ Phases (any failure exits nonzero before the result lines):
        - (g) the headline scene with its environment set without finalize
          (the exact map-sampling IBL), (h) the many-material scene (the
          per-slot fetch), (i) the headline frame under ShadeRates
-         light="yhalf", merge_gather=True and the exact reference
-         pcf="full", cube="full": one K1 launch in all and one K2 launch
+         light="yhalf" and the exact reference pcf="full", cube="full": one K1 launch in all and one K2 launch
          per frame each; (j) the headline frame under MSAA 4x with
          msaa_mode="super": one K1 in all, one K2 at 3840x2160 per frame,
          no K4; then the drift table: each ShadeRates variant of
@@ -174,22 +173,6 @@ Phases (any failure exits nonzero before the result lines):
          their plain versions under the raised cap with no big-class
          overflow, the shade-once and supersampled MSAA 4x loops, and the
          stitched bands' footprint share;
-       - (p) the headline frame under each resolve and shade form, 5
-         frames each, one K1 in all: ResolveForms(vary="xla") with and
-         without matmul and with table_dtype="bf16" (one K3 over the whole
-         frame a frame, no K2; the bf16 table both on the compacted
-         headline geometry, where it is inert, and under clip_compact=0),
-         vary="lanes" (one K5 with no floor a frame), the bf16 cube atlas
-         and ShadeRates(lod="fwd") (one K2 a frame); each against the
-         default K2 frame of the same call: ids bit-equal, the lanes frame within FRAME_BAR, the xla frames
-         within it on the pixels MISS_REACH from any miss (their
-         whole-frame drift printed), the engaged bf16 table within
-         BF16_TABLE_BAR of the xla frame and not inert, the cube and LOD
-         drift printed (finite, not inert); K3 and K5 first held bit-equal to their plain versions
-         on these inputs (K5's lanes too), and the xla, matmul and lanes
-         forms' resolved lanes held to K2's on every covered pixel
-         (LANES_BAR, its atol scaled by the vertex magnitudes; ids,
-         materials and depth bit-equal, flat lanes exact);
        - (q) the RHI: Device() picks cuda:0; every headline scene tensor
          through Buffer.upload_via_staging, back bit-equal; the IBL
          precompute as CommandBuffer.dispatch records run by
@@ -254,9 +237,7 @@ Phases (any failure exits nonzero before the result lines):
      the exact reference, and msaa_mode="super" at 64x48. Then (k)-(o)
      at 160x128 on cuda against cpu: the orbit app's three frames (golden
      bar), a frame after resize(96, 64), validation findings on one NaN
-     normal, and the frame under every geometry form at once. Then (p)
-     at 160x128: each resolve and shade form on cuda against cpu (the
-     frame bar, ids compared).
+     normal, and the frame under every geometry form at once.
   6. After the main paths, so that the frame loops follow the same kernel
      checks as before: the chunk sweeps and tie tables of K2, K3 and K4
      queued by phase 3, then each split kernel's device µs by
@@ -345,8 +326,7 @@ RATE_FRAMES = 5
 # (i) the shade rates of the drift table (renderer.passes.ShadeRates
 # arguments), held against the exact reference pcf="full", cube="full"
 RATE_VARIANTS = {"default": {}, "light yhalf": dict(light="yhalf"),
-                 "merge_gather": dict(merge_gather=True), "pcf half": dict(pcf="half"),
-                 "cube yquarter": dict(cube="yquarter")}
+                 "pcf half": dict(pcf="half"), "cube yquarter": dict(cube="yquarter")}
 EXACT_RATES = dict(pcf="full", cube="full")
 # the JAX package's own gate on the reduced rates' drift of the tonemapped
 # frame from the exact reference (probes/probe_quality.py:6, :114): p99 and
@@ -403,21 +383,10 @@ FORMS_FRAMES = 5
 # stage (they may round an ulp apart on some vertices); their frames are
 # held to the frame bar besides
 VSTAGE_IDS_ALIKE = 0.999
-# loop (p): frames per resolve or shade form, and its bars against the
-# default K2 frame: the share of values off 2e-3 + 2e-3|ref| and the max
-# |d| (tests/test_raster_pallas.py:586-617), and for the bf16 table p99.5
-# and median of |d| (:379-415)
-RESOLVE_FRAMES = 5
+# loop (r): the bar of the stitched bands' colours against the whole frame:
+# the share of values off 2e-3 + 2e-3|ref| and the max |d|
+# (tests/test_raster_pallas.py:586-617)
 FRAME_BAR = (0.002, 0.05)
-# rows and columns from a miss within which the XLA-side resolve's frame
-# may read that miss's lanes (the y-quarter PCF's 4-row upsample, the
-# quad LOD's neighbour column)
-MISS_REACH = (4, 1)
-BF16_TABLE_BAR = (0.05, 0.005)
-# (p) rtol and atol of the resolved varying lanes of the xla and lanes forms
-# against K2's (tests/test_raster_pallas.py:555-558; the atol scaled by the
-# lane's vertex magnitudes, _hold_resolved_lanes)
-LANES_BAR = (4e-6, 1e-6)
 # loop (r): render_frame_sharded's shard threads against the smoke's
 # sequential reference; interleaved (concurrent, sequential) frame pairs
 # timed per case, and concurrent frames profiled per case
@@ -1721,7 +1690,7 @@ def _check_shade(scene, layout, kw, cascades: bool = False) -> dict:
     else:
         smap = P.shadow_map_pass(scene, layout, kw["shadow_map_size"])
     depth, tri_id, mat_id, lanes, _ = P._fused_raster(scene, layout, geo, pipeline, H, W, 1.0,
-                                                      None, P.ResolveForms())
+                                                      None)
     inv_vp = torch.linalg.inv(scene.camera.view_projection)
     clear = (0.1, 0.1, 0.15, 1.0)
     rates = P.ShadeRates()
@@ -2530,7 +2499,6 @@ def phase_main_paths(headline: tuple, gltf: tuple, many: tuple) -> dict:
     del scene, renderer, warm
     by_path.update(_shade_paths(make, headline, many))
     by_path.update(_frame_loop_paths(make, headline, many))
-    by_path.update(_resolve_form_paths(make, headline))
     by_path.update(_rhi_paths(make, headline))
     by_path.update(_sharded_paths(headline))
     return by_path
@@ -2541,8 +2509,8 @@ def _shade_paths(make, headline: tuple, many: tuple) -> dict:
     one K1 in all: (g) the headline scene with its environment set without
     finalize, the exact map-sampling IBL, one K2 a frame; (h) the
     many-material scene, the per-slot fetch, one K2 a frame; (i) the
-    headline frame's rate variants light="yhalf", merge_gather=True and the
-    exact reference pcf="full", cube="full", one K2 a frame; (j) the
+    headline frame's rate variant light="yhalf" and the exact reference
+    pcf="full", cube="full", one K2 a frame; (j) the
     headline frame supersampled, MSAA 4x with msaa_mode="super", one K2 at
     3840x2160 a frame and no K4. Then the drift table."""
     import dataclasses
@@ -2580,7 +2548,6 @@ def _shade_paths(make, headline: tuple, many: tuple) -> dict:
          "scene)", *many, MANY_FRAMES)
     scene, layout, kw = headline
     for key, rates in (("rates_light_yhalf", dict(light="yhalf")),
-                       ("rates_merge_gather", dict(merge_gather=True)),
                        ("rates_exact", EXACT_RATES)):
         loop(key, f"(i) headline, ShadeRates({rates}) (static scene)", scene, layout,
              {**kw, "shade_rates": ShadeRates(**rates)}, RATE_FRAMES)
@@ -3021,134 +2988,6 @@ def _geometry_form_paths(make, headline: tuple, many: tuple) -> dict:
     return by_path
 
 
-def _hold_resolve_forms(scene, layout, pipeline) -> dict:
-    """K3 and K5 beside their plain versions on loop (p)'s own inputs: K3
-    over the whole frame (vary="xla": the 20-column table, small_limit T)
-    and K5 with no floor on the lanes form's table (vary="lanes": 12 lanes,
-    no flat lane, the packed (source, material) ids), each with the main
-    path's plan, FORCED_CHUNK and the skip off; every output bit-equal, K5's
-    lanes included. Returns each kernel's ms, plain ms and bound (phase 3's
-    count of the work) on these inputs."""
-    from renderer_rs_tpu_torch.ops.raster_cuda import (
-        VIS_COLS,
-        prepare_peel,
-        prepare_visibility,
-        raster_peel,
-        raster_peel_plain,
-        raster_visibility,
-        raster_visibility_plain,
-    )
-    from renderer_rs_tpu_torch.renderer.passes import PACK_ID_BITS, frame_geometry
-
-    geo = frame_geometry(scene, layout, pipeline, W, H)
-    t = layout.num_triangles
-    k3 = prepare_visibility(geo.setup, H, W, small_limit=t)
-    args3 = (k3.table, k3.sorted_tris, k3.seg, k3.nbx, H, W, 0, 1, False,
-             pipeline.depth_compare_op)
-    _against_plain("raster_visibility", "(p) vary=xla, the whole frame", raster_visibility,
-                   raster_visibility_plain, args3, k3.plan, lanes=False, extra=SKIP_OFF)
-    # K3's least time as phase 3's whole-frame case counts it
-    walked, pixel_pairs, bins = _walked(k3.seg, k3.nbx, H, W)
-    bound3 = _bound(_walk_ops(_skip_counts(k3, H, W), pixel_pairs, OPS_PER_PAIR),
-                    _walked_rows(k3, walked) * VIS_COLS * 4 + walked * 4 + (bins + 1) * 4
-                    + H * W * 4 * 4)
-    n_mats = scene.materials.metallic.shape[0]
-    src_bits = max(1, (t - 1).bit_length())
-    mat_bits = max(1, (n_mats - 1).bit_length())
-    if src_bits + mat_bits > PACK_ID_BITS:
-        raise SystemExit("phase main path, (p): the headline scene's ids do not pack")
-    ids = geo.clip_src | (scene.tri_material[geo.clip_src] << src_bits)
-    k5 = prepare_peel(geo.setup, H, W, geo.attr, scene.tris, geo.clip_src, geo.clip_planes,
-                      None, ids, id_bound=1 << (src_bits + mat_bits), small_limit=t)
-    args5 = (k5.table, k5.sorted_tris, k5.seg, k5.nbx, H, W, k5.n_vary, k5.n_flat, None,
-             pipeline.depth_compare_op)
-    res = _against_plain("raster_peel", "(p) vary=lanes, no floor", raster_peel,
-                         raster_peel_plain, args5, k5.plan, lanes=True, extra=SKIP_OFF,
-                         lanes_exact=True)
-    # K5's least time as phase 3's no-floor case counts it, on this table
-    walked, pixel_pairs, bins = _walked(k5.seg, k5.nbx, H, W)
-    n_cols = k5.table.shape[1]
-    bound5 = _bound(
-        _walk_ops(_skip_counts(k5, H, W), pixel_pairs, OPS_PER_PAIR)
-        + int((res["tid"] >= 0).sum()) * PEEL_OPS_PER_PIXEL,
-        _walked_rows(k5, walked) * WALK_COLS * 4
-        + _peel_winner_rows(k5, None, pipeline.depth_compare_op) * (n_cols - WALK_COLS) * 4
-        + walked * 4 + (bins + 1) * 4 + H * W * (4 + 4 + 4 * (k5.n_vary + k5.n_flat)))
-    out = {}
-    for name, launch, plain, args, plan, bound in (
-            ("K3 whole frame", raster_visibility, raster_visibility_plain, args3, k3.plan, bound3),
-            ("K5 lanes form", raster_peel, raster_peel_plain, args5, k5.plan, bound5)):
-        ms = _median(_event_times_ms(lambda: launch(*args, plan=plan), KERNEL_TIMINGS))
-        plain_ms = _median(_event_times_ms(lambda: plain(*args), 3, warmup=1))
-        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
-        _log(f"(p) {name} on the loop's inputs: {ms:.4f} ms (median of {KERNEL_TIMINGS}), plain "
-             f"{plain_ms:.2f} ms, bound {bound[0]:.4f} ms by {bound[1]} ({_CARD})")
-    _log(f"(p) K3: {int(k3.n_pairs)} binned pairs; K5: the {n_cols}-column lanes table "
-         f"({k5.n_vary} lanes, {k5.n_flat} flat)")
-    return out
-
-
-def _hold_resolved_lanes(scene, layout, pipeline, width: int = W, height: int = H) -> None:
-    """The resolved lanes of the xla forms (K3, then the gather and the
-    blend; and with the selection matmul) and of the lanes form (K5, no
-    floor) against K2's on the same frame geometry, on every covered pixel
-    (a miss's neighbours included): winner ids, material ids and depth
-    bit-equal, the xla forms' flat lanes exact, and the varying lanes within
-    LANES_BAR: the JAX package's bar between its XLA-side and in-kernel
-    resolves (tests/test_raster_pallas.py:555-558), whose attributes lie in
-    [0, 1), with its atol scaled by the largest |value| of the lane at the
-    winner's three source vertices where that exceeds 1. A blend of values
-    up to 4 (the tiled uv) or 6 (world positions) that cancels to near 0
-    rounds apart by their ulps: the JAX package's own two resolves exceed
-    the unscaled bar on 10 of 73,608 lanes of its tests' scene
-    (full_scene(128, 64, tri_budget=300, textured=True), on the CPU); the
-    count over it is printed."""
-    import torch
-
-    from renderer_rs_tpu_torch.renderer.passes import ResolveForms, _fused_raster, frame_geometry
-
-    geo = frame_geometry(scene, layout, pipeline, width, height)
-    n_vary = geo.attr.shape[-1]
-
-    def resolve(forms):
-        return _fused_raster(scene, layout, geo, pipeline, height, width, 1.0, None, forms)
-
-    depth, ids, mats, lanes, _ = resolve(ResolveForms())
-    cov = ids >= 0
-    ref = lanes[cov][:, :n_vary]
-    # the lane's largest |value| at the winner's source vertices
-    scale = geo.attr[scene.tris[ids[cov].long()].long()].abs().amax(1).clamp(min=1.0)
-    plain_bar = LANES_BAR[1] + LANES_BAR[0] * ref.abs()
-    bar = LANES_BAR[1] * scale + LANES_BAR[0] * ref.abs()
-    for label, forms in (("xla", ResolveForms(vary="xla")),
-                         ("xla matmul", ResolveForms(vary="xla", matmul=True)),
-                         ("lanes", ResolveForms(vary="lanes"))):
-        d, i, m, got, _ = resolve(forms)
-        got = got[cov]
-        err = (got[:, :n_vary] - ref).abs()
-        ids_ok = bool(torch.equal(i, ids) and torch.equal(m, mats) and torch.equal(d, depth))
-        flat_ok = forms.vary == "lanes" or bool(torch.equal(got[:, n_vary:], lanes[cov][:, n_vary:]))
-        worst = float((err / bar).max())
-        _log(f"(p) {label} lanes against K2's on {int(cov.sum())} covered pixels: ids, "
-             f"materials and depth bit-equal {ids_ok}, varying max |d| {float(err.max()):.6g}, "
-             f"over the unscaled bar {int((err > plain_bar).sum())} of {err.numel()}, "
-             f"most |d| / bar {worst:.6g}, flat lanes exact {flat_ok}")
-        if not (ids_ok and flat_ok and worst <= 1.0):
-            raise SystemExit(f"phase main path, (p) {label}: the resolved lanes differ from K2's")
-
-
-def _away_from_misses(ids, rows: int = MISS_REACH[0], cols: int = MISS_REACH[1]):
-    """The covered pixels at least `rows` rows and `cols` columns from any
-    miss ([H,W] bool): the pixels whose shading reads no miss pixel's lanes
-    (the quad LOD reads the 2x2 quad, the y-strided PCF and cube rates a
-    few rows up and down)."""
-    import torch.nn.functional as F
-
-    miss = (ids < 0).float()[None, None]
-    near = F.max_pool2d(miss, (2 * rows + 1, 2 * cols + 1), stride=1, padding=(rows, cols))
-    return near[0, 0] == 0
-
-
 def _frame_drift(out, ref) -> dict:
     """|d| of a frame against the reference frame: the share of values off
     2e-3 + 2e-3|ref|, max, p99, p99.5, median and mean."""
@@ -3160,113 +2999,6 @@ def _frame_drift(out, ref) -> dict:
     return {"off": float((err > 2e-3 + 2e-3 * ref.abs().flatten()).double().mean()),
             "max": float(err.max()), "median": float(q[0]), "p99": float(q[1]),
             "p995": float(q[2]), "mean": float(err.double().mean())}
-
-
-def _resolve_form_paths(make, headline: tuple) -> dict:
-    """(p) The headline frame at 1920x1080 under each resolve and shade form,
-    RESOLVE_FRAMES frames each through Renderer.render_frame, one K1 in all:
-    ResolveForms(vary="xla") and with matmul=True (one K3 a frame, no K2),
-    table_dtype="bf16" on the compacted headline geometry (inert there, as
-    in the JAX package: the xla frame bit for bit) and under
-    GeometryForms(clip_compact=0) (one K3 a frame each), vary="lanes" (one
-    K5 a frame), the
-    bf16 cube atlas (finalize_environment(cube_dtype="bf16")) and
-    ShadeRates(lod="fwd") (one K2 a frame). Each is held against the
-    default K2 frame of this call: the ids bit-equal; the lanes frame
-    within FRAME_BAR; the xla frames within FRAME_BAR on the pixels
-    MISS_REACH away from any miss (a miss's lanes are zeros under K2 and
-    the table's row 0 under the XLA-side resolve, in the JAX package as
-    here, and the quad LOD and the y-strided rates of its neighbours read
-    them), their whole-frame drift printed; the engaged bf16 table within
-    BF16_TABLE_BAR of the f32 table's (xla) frame, as the JAX test holds
-    it, and not inert; the cube and LOD forms' drift printed,
-    finite and not inert. K3 and K5 are first held bit-equal to their
-    plain versions on these inputs, and the forms' resolved lanes to K2's
-    on every covered pixel (_hold_resolved_lanes)."""
-    import torch
-
-    from renderer_rs_tpu_torch.renderer.passes import GeometryForms, ResolveForms, ShadeRates
-    from renderer_rs_tpu_torch.renderer.scene_build import finalize_environment
-
-    scene, layout, kw = headline
-    _hold_resolve_forms(scene, layout, kw["pipeline"])
-    _hold_resolved_lanes(scene, layout, kw["pipeline"])
-    base = make(scene, layout, kw)
-    ref, ref_ids = base._run_frame(scene, return_ids=True)
-    t0 = time.perf_counter()
-    cube_scene = scene.replace(environment=finalize_environment(scene.environment, "bf16"))
-    torch.cuda.synchronize()
-    _log(f"(p) the bf16 cube atlas {tuple(cube_scene.environment.atlas_tri.shape)} "
-         f"{cube_scene.environment.atlas_tri.dtype} built in {time.perf_counter() - t0:.2f}s")
-    n = RESOLVE_FRAMES
-    k2 = _counts(raster_depth=1, raster_resolve=n)
-    variants = (
-        ("xla", {"resolve_forms": ResolveForms(vary="xla")}, scene,
-         _counts(raster_depth=1, raster_visibility=n), "away"),
-        ("xla matmul", {"resolve_forms": ResolveForms(vary="xla", matmul=True)}, scene,
-         _counts(raster_depth=1, raster_visibility=n), "away"),
-        # the headline scene compacts its near-clip secondaries, where the
-        # bf16 table is inert (passes.py:1918-1923): the xla frame bit for
-        # bit; without compaction (clip_compact=0) it engages
-        ("xla bf16 table (compacted: inert)",
-         {"resolve_forms": ResolveForms(vary="xla", table_dtype="bf16")}, scene,
-         _counts(raster_depth=1, raster_visibility=n), "inert"),
-        ("xla bf16 table, clip_compact=0",
-         {"resolve_forms": ResolveForms(vary="xla", table_dtype="bf16"),
-          "geometry_forms": GeometryForms(clip_compact=0)}, scene,
-         _counts(raster_depth=1, raster_visibility=n), "bf16"),
-        ("lanes", {"resolve_forms": ResolveForms(vary="lanes")}, scene,
-         _counts(raster_depth=1, raster_peel=n), "frame"),
-        ("cube bf16", {}, cube_scene, k2, "drift"),
-        ("lod fwd", {"shade_rates": ShadeRates(lod="fwd")}, scene, k2, "drift"),
-    )
-    by_path, outs = {}, {}
-    away = _away_from_misses(ref_ids)
-    _log(f"(p) pixels {MISS_REACH} away from any miss: {float(away.float().mean()):.4%}")
-    for label, extra, sc, expect, bar in variants:
-        warm = make(sc, layout, {**kw, **extra})
-        warm.render_frame()
-        renderer = make(sc, layout, {**kw, **extra})
-        name = f"(p) {label}, headline scene"
-        key = "".join(c if c.isalnum() else "_" for c in label.split(" (")[0].split(",")[0])
-        by_path[f"resolve_{key}{'_inert' if bar == 'inert' else ''}"] = _drive(
-            name, renderer, n, expect)
-        out, ids = renderer._run_frame(sc, return_ids=True)
-        outs[label] = out
-        d = _frame_drift(out, ref)
-        ids_equal = bool(torch.equal(ids, ref_ids))
-        finite = bool(torch.isfinite(out).all())
-        _log(f"{name} against the default K2 frame: ids bit-equal {ids_equal}, off the bar "
-             f"{d['off']:.5%}, max |d| {d['max']:.6g}, p99 {d['p99']:.6g}, p99.5 {d['p995']:.6g}, "
-             f"median {d['median']:.6g}, mean {d['mean']:.6g}; frame ms median "
-             f"{_FRAME_MS[name]:.3f} ({_CARD})")
-        ok = ids_equal and finite
-        if bar == "away":
-            far = _frame_drift(out[away], ref[away])
-            _log(f"{name} away from misses: off the bar {far['off']:.5%}, max |d| "
-                 f"{far['max']:.6g}, p99 {far['p99']:.6g}")
-            ok = ok and far["off"] < FRAME_BAR[0] and far["max"] < FRAME_BAR[1]
-        elif bar == "frame":
-            ok = ok and d["off"] < FRAME_BAR[0] and d["max"] < FRAME_BAR[1]
-        elif bar == "inert":
-            same = bool(torch.equal(out, outs["xla"]))
-            _log(f"{name}: bit-equal to the xla frame {same}")
-            ok = ok and same
-        elif bar == "bf16":
-            # the JAX test's baseline: the f32 table's frame
-            # (tests/test_raster_pallas.py:405-415)
-            d32 = _frame_drift(out, outs["xla"])
-            _log(f"{name} against the xla f32 frame: max |d| {d32['max']:.6g}, p99 "
-                 f"{d32['p99']:.6g}, p99.5 {d32['p995']:.6g}, median {d32['median']:.6g}, "
-                 f"mean {d32['mean']:.6g}")
-            ok = ok and d32["max"] > 0 and d32["p995"] < BF16_TABLE_BAR[0] and \
-                d32["median"] < BF16_TABLE_BAR[1]
-        else:
-            ok = ok and d["max"] > 0
-        if not ok:
-            raise SystemExit(f"phase main path, {name}: ids differ, the frame is not finite, "
-                             "misses its bar, or the form is inert")
-    return by_path
 
 
 def _rhi_paths(make, headline: tuple) -> dict:
@@ -4382,7 +4114,6 @@ def phase_small_reference() -> None:
     _gltf_small_checks()
     _shade_paths_small_checks()
     _frame_loop_small_checks()
-    _resolve_forms_small_checks()
 
 
 def _shade_paths_small_checks() -> None:
@@ -4455,49 +4186,6 @@ def _shade_paths_small_checks() -> None:
     check(f"(j) full_scene(64, 48, tri_budget=2000, textured=True), msaa{MSAA} "
           "msaa_mode='super'", frame(made["cuda"], 64, 48, msaa=MSAA, msaa_mode="super"),
           frame(made["cpu"], 64, 48, msaa=MSAA, msaa_mode="super"))
-
-
-def _resolve_forms_small_checks() -> None:
-    """Phase 5's check of loop (p): full_scene(160, 128, tri_budget=2000,
-    textured=True) on the card under each resolve and shade form of (p)
-    against the port's own frame on the cpu (whose forms the CPU tests hold
-    to the JAX package's), within the PBR frame bar of the IBL checks
-    (<= 0.5% of values off 2e-3 + 2e-3|ref|, max < 0.15: single PCF taps
-    may flip between the devices), winner ids compared."""
-    import numpy as np
-
-    from renderer_rs_tpu_torch.app.scenes import full_scene
-    from renderer_rs_tpu_torch.renderer.passes import ResolveForms, ShadeRates, forward_frame
-
-    w, h = 160, 128
-    made = {(dev, cube): full_scene(w, h, tri_budget=2000, textured=True, cube_dtype=cube,
-                                    device=dev)
-            for dev in ("cuda", "cpu") for cube in (None, "bf16")}
-    forms = {"xla": (ResolveForms(vary="xla"), ShadeRates(), None),
-             "xla matmul": (ResolveForms(vary="xla", matmul=True), ShadeRates(), None),
-             "xla bf16 table": (ResolveForms(vary="xla", table_dtype="bf16"), ShadeRates(), None),
-             "lanes": (ResolveForms(vary="lanes"), ShadeRates(), None),
-             "cube bf16": (ResolveForms(), ShadeRates(), "bf16"),
-             "lod fwd": (ResolveForms(), ShadeRates(lod="fwd"), None)}
-    for label, (resolve, rates, cube) in forms.items():
-        outs = {}
-        for dev in ("cuda", "cpu"):
-            scene, layout, kw, _ = made[(dev, cube)]
-            out, ids = forward_frame(scene, layout, kw["pipeline"], kw["shading"], w, h,
-                                     tonemap=kw["tonemap"], shadow_map_size=256,
-                                     shadow_params=kw["shadow_params"], return_ids=True,
-                                     resolve_forms=resolve, shade_rates=rates)
-            outs[dev] = (out.cpu().numpy(), ids.cpu().numpy())
-        (got, got_ids), (ref, ref_ids) = outs["cuda"], outs["cpu"]
-        err = np.abs(got - ref)
-        off = float((err > 2e-3 + 2e-3 * np.abs(ref)).mean())
-        differing = int((got_ids != ref_ids).sum())
-        _log(f"(p) {label}: full_scene(160, 128, tri_budget=2000, textured=True) cuda vs cpu: "
-             f"max |d| {err.max():.3e}, values off the bar {off:.4%}, winner ids differing "
-             f"{differing} of {int((ref_ids >= 0).sum())} covered")
-        if not (np.isfinite(got).all() and off < 0.005 and err.max() < 0.15):
-            raise SystemExit(f"phase small reference: (p) {label} on cuda differs from the cpu "
-                             "frame")
 
 
 def _frame_loop_small_checks() -> None:

@@ -5,8 +5,7 @@
                                     --moving-sun --csm --msaa 4 --textured
                                     --alpha-cutoff 0.5 --no-finalize
                                     --pcf-res R --cube-res R --light-res R
-                                    --merge-gather --msaa-mode super
-                                    --vstage batch --defer-vary xla
+                                    --msaa-mode super --vstage batch
                                     --width 1920 --height 1080 --rings 160
                                     --sectors 320 --tris 100000 --frames 5
                                     --out out/profile]
@@ -27,16 +26,11 @@ to the full scene; `--alpha-cutoff C` renders it under an alpha-cutoff
 without its fast-ambient form (the exact map-sampling IBL, in `frame/ibl`,
 and the sky through `frame/sky_tonemap`). `--scene many` is
 chip_smoke.py's many-material scene (a 16x16 sphere grid of 256 texture
-sets, the per-slot fetch). `--pcf-res`, `--cube-res`, `--light-res`,
-`--merge-gather` and `--msaa-mode` are the Renderer's shade_rates and
-msaa_mode (app.main's flags); `--vstage batch` is the Renderer's
-GeometryForms(vstage="batch"), the vertex stage as one product against
-per-object column blocks (the span `frame/geometry`). `--defer-vary xla`
-or `lanes` is the Renderer's ResolveForms(vary=...): K3 over the whole
-frame (`frame/vis_bin_table`, `frame/k3`) and the deferred gather and
-blend (`frame/defer_resolve`), or K5's masked lanes with no floor
-(`frame/lanes_bin_table`, `frame/k5`), in place of `frame/bin_table` and
-`frame/k2`. Under the MASK pipeline the span `frame/peel` then takes the place of
+sets, the per-slot fetch). `--pcf-res`, `--cube-res`, `--light-res` and
+`--msaa-mode` are the Renderer's shade_rates and msaa_mode (app.main's
+flags); `--vstage batch` is the Renderer's GeometryForms(vstage="batch"),
+the vertex stage as one product against per-object column blocks (the
+span `frame/geometry`). Under the MASK pipeline the span `frame/peel` then takes the place of
 `frame/bin_table` and `frame/k2` (the binning and table,
 `frame/peel_bin_table`, and the four K5 launches, `frame/k5`, nested in
 it, with the alpha tests between them). `--msaa N` (2, 4 or 8) renders through
@@ -113,10 +107,8 @@ def main(argv=None) -> int:
                         default="yquarter")
     parser.add_argument("--cube-res", choices=["yhalf", "yquarter", "full"], default="yhalf")
     parser.add_argument("--light-res", choices=["full", "yhalf"], default="full")
-    parser.add_argument("--merge-gather", action="store_true")
     parser.add_argument("--msaa-mode", choices=["resolve", "super"], default="resolve")
     parser.add_argument("--vstage", choices=["loop", "batch"], default="loop")
-    parser.add_argument("--defer-vary", choices=["kernel", "xla", "lanes"], default="kernel")
     parser.add_argument("--frames", type=int, default=5)
     parser.add_argument("--out", default=os.path.join("out", "profile"),
                         help="directory for the JSON summary (and the trace)")
@@ -131,7 +123,7 @@ def main(argv=None) -> int:
     from renderer_rs_tpu_torch.app.scenes import blinnphong_scene, full_scene
     from renderer_rs_tpu_torch.core.config import RendererConfig
     from renderer_rs_tpu_torch.ops.shadow import directional_light_matrix
-    from renderer_rs_tpu_torch.renderer.passes import GeometryForms, ResolveForms, ShadeRates
+    from renderer_rs_tpu_torch.renderer.passes import GeometryForms, ShadeRates
     from renderer_rs_tpu_torch.renderer.renderer import Renderer
 
     card = subprocess.run(
@@ -155,12 +147,10 @@ def main(argv=None) -> int:
         )
     kw["pipeline"] = dataclasses.replace(kw["pipeline"], msaa_samples=args.msaa,
                                          alpha_cutoff=args.alpha_cutoff)
-    rates = ShadeRates(pcf=args.pcf_res, cube=args.cube_res, light=args.light_res,
-                       merge_gather=args.merge_gather)
+    rates = ShadeRates(pcf=args.pcf_res, cube=args.cube_res, light=args.light_res)
     renderer = Renderer(RendererConfig(width=args.width, height=args.height), device="cuda",
                         shade_rates=rates, msaa_mode=args.msaa_mode,
-                        geometry_forms=GeometryForms(vstage=args.vstage),
-                        resolve_forms=ResolveForms(vary=args.defer_vary), **kw)
+                        geometry_forms=GeometryForms(vstage=args.vstage), **kw)
     renderer.set_scene(scene, layout)
     steps = iter(range(1, 1000))
 

@@ -25,8 +25,8 @@ the hemisphere ambient), the 5-slot PBR texture set, a 1024² sun shadow
 map, ACES. `--csm` switches it to four shadow cascades fitted to the
 camera, which follow it as `--orbit` or `--fly` moves it. `--z-form plane`
 renders the shadow passes in the z-plane depth form (K7; the JAX
-package's z-form knob, raster.py:297). `--pcf-res`, `--cube-res`,
-`--light-res` and `--merge-gather` set the shade stage's reduced rates
+package's z-form knob, raster.py:297). `--pcf-res`, `--cube-res` and
+`--light-res` set the shade stage's reduced rates
 (passes.ShadeRates; the JAX package's rate knobs, JAX defaults), and
 `--msaa-mode super` makes an MSAA pipeline supersample the whole frame
 (the Renderer's msaa_mode). `--hdr file.hdr` takes the IBL
@@ -54,11 +54,6 @@ flight are drained and presented at the end, and the FrameStats summary
 logged. `--log` is the RUST_LOG-style filter of init_logging.
 `--vstage`, `--shadow-vstage`, `--clip-compact` and `--cap-big` set the
 geometry forms (passes.GeometryForms; the JAX package's geometry knobs).
-`--defer-vary {kernel,xla,lanes}`, `--defer-matmul` and `--defer-dtype
-bf16` set the fused frame's resolve (passes.ResolveForms: K2, K3 and the
-deferred gather, or K5's masked lanes), `--lod fwd` the texture LOD's
-forward differences (ShadeRates.lod) and `--cube-dtype bf16` the full
-scene's bf16 cube atlas (the JAX package's defer, LOD and cube knobs).
 The scene animation (the spinning cube) steps 1/60 s a frame.
 
 `--trace DIR` runs the frames under torch.profiler (core/profiling.trace)
@@ -128,7 +123,7 @@ def build(args, device):
         return full_scene(
             args.width, args.height, tri_budget=args.tris, ibl=not args.no_ibl,
             csm=args.csm, textured=args.textured, hdr=args.hdr, gltf=args.gltf,
-            cube_dtype=args.cube_dtype, device=device,
+            device=device,
         )
     return SCENES[args.scene](args.width, args.height, device=device)
 
@@ -173,8 +168,6 @@ def main(argv=None, device="cuda", sink=None) -> int:
                         help="rate of the IBL specular/skybox fetch")
     parser.add_argument("--light-res", choices=["full", "yhalf"], default="full",
                         help="yhalf: the sun and IBL terms on even rows, albedo-split")
-    parser.add_argument("--merge-gather", action="store_true",
-                        help="the merged PCF/cube gather (both per pixel)")
     parser.add_argument("--msaa-mode", choices=["resolve", "super"], default="resolve",
                         help="an MSAA pipeline's form: shade once and id-resolve, or "
                              "supersample the whole frame")
@@ -189,18 +182,6 @@ def main(argv=None, device="cuda", sink=None) -> int:
                              "layout")
     parser.add_argument("--cap-big", type=int, default=None,
                         help="the binning's big-class cap (default max(1024, T/96))")
-    parser.add_argument("--defer-vary", choices=["kernel", "xla", "lanes"], default="kernel",
-                        help="the fused frame's resolve: K2's in-kernel resolve, K3 and the "
-                             "deferred gather, or K5's masked lanes")
-    parser.add_argument("--defer-matmul", action="store_true",
-                        help="with --defer-vary xla: the blend as a 0/1 selection matmul")
-    parser.add_argument("--defer-dtype", choices=["bf16"], default=None,
-                        help="with --defer-vary xla: the deferred table in bfloat16")
-    parser.add_argument("--cube-dtype", choices=["bf16"], default=None,
-                        help="the IBL trilinear cube atlas in bfloat16 (full scene)")
-    parser.add_argument("--lod", choices=["quad", "fwd"], default="quad",
-                        help="texture LOD derivatives: quad-uniform or per-pixel forward "
-                             "differences")
     parser.add_argument("--display", type=str, default=None,
                         help="X display of the window without --out (default: libX11's own, "
                              "the $DISPLAY it reads)")
@@ -242,7 +223,7 @@ def _run(args, device, window, x11) -> int:
     from renderer_rs_tpu_torch.core import profiling
     from renderer_rs_tpu_torch.core.config import RendererConfig
     from renderer_rs_tpu_torch.core.timer import Timer
-    from renderer_rs_tpu_torch.renderer.passes import GeometryForms, ResolveForms, ShadeRates
+    from renderer_rs_tpu_torch.renderer.passes import GeometryForms, ShadeRates
     from renderer_rs_tpu_torch.renderer.renderer import Renderer
     from renderer_rs_tpu_torch.utils.image_io import framebuffer_to_u8
 
@@ -251,12 +232,9 @@ def _run(args, device, window, x11) -> int:
     renderer = Renderer(
         RendererConfig(width=args.width, height=args.height), device=device,
         z_form=args.z_form, msaa_mode=args.msaa_mode,
-        shade_rates=ShadeRates(pcf=args.pcf_res, cube=args.cube_res, light=args.light_res,
-                               merge_gather=args.merge_gather, lod=args.lod),
+        shade_rates=ShadeRates(pcf=args.pcf_res, cube=args.cube_res, light=args.light_res),
         geometry_forms=GeometryForms(vstage=args.vstage, shadow_vstage=args.shadow_vstage,
                                      clip_compact=args.clip_compact, cap_big=args.cap_big),
-        resolve_forms=ResolveForms(vary=args.defer_vary, matmul=args.defer_matmul,
-                                   table_dtype=args.defer_dtype),
         window=window, **kwargs
     )
     renderer.set_scene(scene, layout)

@@ -213,8 +213,7 @@ def gltf_pbr_scene(width: int, height: int, gltf_path: str | None = None, device
 
 def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = True,
                csm: bool = False, textured: bool = False, hdr: str | None = None,
-               gltf: str | None = None, finalize: bool = True, cube_dtype: str | None = None,
-               device="cuda"):
+               gltf: str | None = None, finalize: bool = True, device="cuda"):
     """Config 4 (scenes.py:203): a 3x3 grid of PBR spheres sized to
     tri_budget on a floor, a shadow-mapped sun (1024² map; with csm=True
     four 1024² cascades fitted to the camera frustum, which follow the
@@ -231,9 +230,7 @@ def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = T
     hemisphere ambient. finalize=False sets the IBL environment without
     its fast-ambient form (SceneBuilder.set_environment(env,
     finalize=False)): the frame samples the maps exactly (calculate_ibl)
-    and composites the sky through skybox_pass. cube_dtype "bf16" stores
-    the fast ambient's trilinear cube atlas in bfloat16 (≙ the JAX
-    package's cube dtype knob; finalize_environment).
+    and composites the sky through skybox_pass.
 
     hdr: with ibl=True, a Radiance .hdr equirect (resources/hdr.load_hdr,
     rows flipped to the convention equirect_to_cubemap samples) becomes
@@ -331,7 +328,7 @@ def full_scene(width: int, height: int, tri_budget: int = 100_000, ibl: bool = T
         # the one-time precompute chain (≙ the reference's compute shader
         # dispatches), eagerly on the scene's device
         sky = sky.to(resolve_device(device))
-        builder.set_environment(_ibl_environment(sky), finalize=finalize, cube_dtype=cube_dtype)
+        builder.set_environment(_ibl_environment(sky), finalize=finalize)
     else:
         builder.set_environment(Environment(skybox_mips=(sky,)))
     scene, layout, pipeline = cb.build_scene(builder, device=device)

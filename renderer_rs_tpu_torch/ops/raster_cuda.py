@@ -61,12 +61,6 @@ in any order: K1 by atomic min/max on the depths' int32 order keys
 pixel-parallel pass resolves each winner from its table row. The plan
 changes no bit of the result, and the plain versions ignore it.
 
-The XLA-side deferred resolve (``build_defer_table``,
-``deferred_resolve``; the fused frame under ResolveForms(vary="xla")) is
-no kernel: after K3 over the whole frame, one gather of each winner's
-table row and the perspective blend in plain PyTorch, rounded as the JAX
-package's eager resolve rounds it (raster_pallas.py:1339-1440).
-
 The warp skip (K2, K3, K4, K5): in the shared walk a warp passes over the
 candidates that cover none of its 32x8 pixels, found exactly by one edge
 evaluation at the corner of the warp's pixel rectangle where the rounded
@@ -79,7 +73,6 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
-import functools
 import threading
 
 import torch
@@ -1151,78 +1144,6 @@ def _peel_lanes_plain(table, win, py_all, px_all, n_vary, n_flat):
     hit = win >= 0
     tid = torch.where(hit, gc(19).to(torch.int32), -1)
     return tid, torch.where(hit[..., None], lanes, 0.0)
-
-
-# --- the XLA-side deferred resolve: K3's winners, then one row gather ------------
-
-def build_defer_table(setup: TriangleSetup, attr, vtx, vary_src, bary_planes,
-                      flat) -> torch.Tensor:
-    """The deferred attribute table [t, 3+3K+Kf] (raster_pallas.py:979-1021,
-    the SoA build): inv_w (3), the clip-frame-composed vertex attributes as
-    vertex-major [t,K] blocks, then the flat lanes flat[vary_src]. It has no
-    pad row: the resolve gathers row max(slot, 0) and keeps misses apart by
-    their slot -1."""
-    inv_w = 1.0 / torch.clamp(setup.w, min=1e-12)
-    parts = [inv_w, *_composed_blocks(attr, vtx, vary_src, bary_planes)]
-    if flat is not None:
-        parts.append(flat[vary_src])
-    return torch.cat(parts, dim=-1)
-
-
-@functools.lru_cache(maxsize=None)
-def _selection_matrix(width_c: int, k: int, n_flat: int, device: torch.device) -> torch.Tensor:
-    """The defer-matmul's constant 0/1 selection [C, K+Kf] (raster_pallas.py:
-    1384-1417), built once per shape on its device: lane 3+i*K+c of vertex
-    block i to output c, flat lane 3+3K+f to output K+f."""
-    lane = torch.arange(width_c, device=device)
-    col = torch.where(lane < 3 + 3 * k, (lane - 3) % max(k, 1), lane - 3 - 2 * k)
-    used = (lane >= 3) & (lane < 3 + 3 * k + n_flat)
-    sel = (used[:, None] & (col[:, None] == torch.arange(k + n_flat, device=device))).to(_F32)
-    if sel.is_cuda:
-        # the cached matrix is read later from any thread's stream (the
-        # shards of render_frame_sharded): it must be complete before this
-        # call returns it, not only in the stream order of its first caller
-        torch.cuda.current_stream(device).synchronize()
-    return sel
-
-
-def deferred_resolve(table: torch.Tensor, slot: torch.Tensor, b0: torch.Tensor,
-                     b1: torch.Tensor, n_vary: int, n_flat: int,
-                     matmul: bool = False) -> torch.Tensor:
-    """The winners' lanes [H,W,K+Kf] from K3's (slot, b0, b1) and the
-    deferred table (raster_pallas.py:1339-1440): ONE gather of each
-    winner's row (in the table's dtype, then f32), the perspective weights
-    aw_i = b_i*inv_w_i / sum_j b_j*inv_w_j with b2 = 1 - b0 - b1, each
-    varying sum_i aw_i * A_i, the flat lanes passed through. Every product
-    and sum rounds on its own, as the JAX package's eager resolve does.
-    matmul=True (≙ its defer-matmul form, :1384-1417) blends by masking each
-    row with its vertex block's weight (1 on the flat lanes) and one f32
-    matmul with a constant 0/1 selection matrix; the sum's order is the
-    matmul's. Misses (slot < 0) read row 0."""
-    rows = table[torch.clamp(slot, min=0).long()].to(_F32)  # [H,W,C]
-    b2 = 1.0 - b0 - b1
-    wb0 = b0 * rows[..., 0]
-    wb1 = b1 * rows[..., 1]
-    wb2 = b2 * rows[..., 2]
-    denom = wb0 + wb1 + wb2
-    inv_d = 1.0 / torch.where(denom == 0.0, torch.ones_like(denom), denom)
-    aw = [(wb * inv_d)[..., None] for wb in (wb0, wb1, wb2)]
-    k = n_vary
-    if matmul:
-        width_c = rows.shape[-1]
-        dev = rows.device
-        lane = torch.arange(width_c, device=dev)
-        blk = (lane - 3) // max(k, 1)
-        in_vary = (lane >= 3) & (lane < 3 + 3 * k)
-        in_flat = (lane >= 3 + 3 * k) & (lane < 3 + 3 * k + n_flat)
-        wvec = torch.where(blk == 0, aw[0], torch.where(blk == 1, aw[1], aw[2]))
-        weighted = rows * torch.where(in_vary, wvec, in_flat.to(_F32))
-        return weighted @ _selection_matrix(width_c, k, n_flat, dev)
-    vary = (aw[0] * rows[..., 3:3 + k] + aw[1] * rows[..., 3 + k:3 + 2 * k]
-            + aw[2] * rows[..., 3 + 2 * k:3 + 3 * k])
-    if n_flat:
-        vary = torch.cat([vary, rows[..., 3 + 3 * k:3 + 3 * k + n_flat]], dim=-1)
-    return vary
 
 
 # --- K3: full visibility over band rows ----------------------------------------------

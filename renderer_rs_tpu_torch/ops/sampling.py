@@ -215,19 +215,18 @@ def sample_lod(mips: tuple, uv: torch.Tensor, lod: torch.Tensor,
 
 
 def sample_textured(mips: tuple, uv: torch.Tensor, sampler: Sampler = Sampler(),
-                    y_parity: int = 0, lod_form: str = "quad") -> torch.Tensor:
+                    y_parity: int = 0) -> torch.Tensor:
     """Texture2D.Sample for the deferred pass (sampling.py:299): the implicit
     LOD from screen-space uv derivatives (uv [H,W,2]), then sample_lod; one
     level, or MipmapMode.NEAREST, samples level 0."""
     if len(mips) == 1 or sampler.mipmap_mode == MipmapMode.NEAREST:
         return _sample_level(mips, 0, uv, sampler)
-    lod = screen_space_lod(uv, mips[0].shape[0], mips[0].shape[1], y_parity, lod_form)
+    lod = screen_space_lod(uv, mips[0].shape[0], mips[0].shape[1], y_parity)
     return sample_lod(mips, uv, lod, sampler)
 
 
 def sample_array_textured(mips: tuple, tid: torch.Tensor, uv: torch.Tensor,
-                          sampler: Sampler = Sampler(), y_parity: int = 0,
-                          lod_form: str = "quad") -> torch.Tensor:
+                          sampler: Sampler = Sampler(), y_parity: int = 0) -> torch.Tensor:
     """Trilinear texture-array sampling with the implicit screen-derivative
     LOD (sampling.py:343): tid/uv [H,W]/[H,W,2], every level of the array's
     chain sampled bilinearly, the pair around the LOD selected and lerped.
@@ -235,8 +234,8 @@ def sample_array_textured(mips: tuple, tid: torch.Tensor, uv: torch.Tensor,
     n = len(mips)
     if n == 1:
         return sample_array_bilinear(mips[0], tid, uv, sampler)
-    lod = torch.clamp(screen_space_lod(uv, mips[0].shape[1], mips[0].shape[2], y_parity,
-                                       lod_form), 0.0, n - 1.0)
+    lod = torch.clamp(screen_space_lod(uv, mips[0].shape[1], mips[0].shape[2], y_parity),
+                      0.0, n - 1.0)
     lo = _floor_int(lod)
     frac = (lod - lo.to(lod.dtype))[..., None]
     out_lo = sample_array_bilinear(mips[0], tid, uv, sampler)
@@ -248,28 +247,18 @@ def sample_array_textured(mips: tuple, tid: torch.Tensor, uv: torch.Tensor,
     return out_lo * (1 - frac) + out_hi * frac
 
 
-# the screen-space LOD forms (the JAX package's LOD knob, sampling.py:276):
-# quad-uniform derivatives (the default, HLSL ddx/ddy) or the per-pixel
-# forward difference
-LOD_FORMS = ("quad", "fwd")
-
-
-def screen_space_lod(uv: torch.Tensor, tex_h: int, tex_w: int, y_parity: int = 0,
-                     lod_form: str = "quad") -> torch.Tensor:
-    """Per-pixel LOD from screen-space uv derivatives (sampling.py:249).
-    lod_form "quad" (the default): QUAD-UNIFORM derivatives, both pixels of
-    a 2x2 quad's row share ddx = uv[odd x] - uv[even x], both rows share
-    ddy; y_parity is the framebuffer parity of the image's first row: a
-    contiguous band that starts at an odd row passes 1, so its interior
-    rows pair as in the full frame. lod_form "fwd": every pixel its own
-    forward difference (0 on the last row and column). Images narrower or
-    shorter than 2 take the forward difference under either form.
-    uv [H,W,2]."""
-    if lod_form not in LOD_FORMS:
-        raise ValueError(f"lod_form = {lod_form!r}; one of {LOD_FORMS}")
+def screen_space_lod(uv: torch.Tensor, tex_h: int, tex_w: int,
+                     y_parity: int = 0) -> torch.Tensor:
+    """Per-pixel LOD from screen-space uv derivatives (sampling.py:249):
+    QUAD-UNIFORM derivatives (HLSL ddx/ddy), both pixels of a 2x2 quad's
+    row share ddx = uv[odd x] - uv[even x], both rows share ddy; y_parity
+    is the framebuffer parity of the image's first row: a contiguous band
+    that starts at an odd row passes 1, so its interior rows pair as in the
+    full frame. Images narrower or shorter than 2 take each pixel's forward
+    difference (0 on the last row and column). uv [H,W,2]."""
     fwd_x = torch.cat([uv[:, 1:] - uv[:, :-1], torch.zeros_like(uv[:, :1])], dim=1)
     fwd_y = torch.cat([uv[1:] - uv[:-1], torch.zeros_like(uv[:1])], dim=0)
-    if lod_form == "fwd" or uv.shape[0] < 2 or uv.shape[1] < 2:
+    if uv.shape[0] < 2 or uv.shape[1] < 2:
         du_dx = fwd_x * tex_w
         du_dy = fwd_y * tex_h
     else:
@@ -322,19 +311,18 @@ def _weighted_lane_reduce(taps: torch.Tensor, ws: list, c: int) -> torch.Tensor:
 
 def sample_material_atlas_tri(atlas: torch.Tensor, offsets, sizes, n_levels: int,
                               base_hw: tuple, c: int, mid: torch.Tensor, uv: torch.Tensor,
-                              sampler: Sampler = Sampler(), y_parity: int = 0,
-                              lod_form: str = "quad") -> torch.Tensor:
+                              sampler: Sampler = Sampler(), y_parity: int = 0) -> torch.Tensor:
     """Implicit-LOD trilinear fetch of all material slots in ONE gather from
     the build_material_atlas_tri layout (sampling.py:1266). atlas [R, 8c]
     bf16, offsets/sizes the static per-level row offsets and (h, w), mid
-    the per-pixel texture-set id, uv [H,W,2], y_parity and lod_form as in
+    the per-pixel texture-set id, uv [H,W,2], y_parity as in
     screen_space_lod. Returns [...,c] f32."""
     t = torch.clamp(mid, min=0).long()
     if n_levels == 1:
         lo = torch.zeros(uv.shape[:-1], dtype=torch.long, device=uv.device)
         frac = torch.zeros(uv.shape[:-1], dtype=torch.float32, device=uv.device)
     else:
-        lod = torch.clamp(screen_space_lod(uv, base_hw[0], base_hw[1], y_parity, lod_form),
+        lod = torch.clamp(screen_space_lod(uv, base_hw[0], base_hw[1], y_parity),
                           0.0, n_levels - 1.0)
         lo = _floor_int(lod)
         frac = lod - lo.to(lod.dtype)
@@ -571,17 +559,16 @@ def _array_atlas_fetch(atlas: torch.Tensor, offsets, sizes, level: torch.Tensor,
 
 def sample_array_textured_atlas(atlas: torch.Tensor, offsets, sizes, n_levels: int,
                                 base_hw: tuple, c: int, tid: torch.Tensor, uv: torch.Tensor,
-                                sampler: Sampler = Sampler(), y_parity: int = 0,
-                                lod_form: str = "quad") -> torch.Tensor:
+                                sampler: Sampler = Sampler(), y_parity: int = 0) -> torch.Tensor:
     """Trilinear texture-array sampling with the implicit screen-derivative
     LOD in TWO gathers, the levels below and above the LOD (sampling.py:772),
     from a build_array_atlas / build_material_atlas layout. tid [H,W] (a
-    texture or texture-set id), uv [H,W,2], y_parity and lod_form as in
+    texture or texture-set id), uv [H,W,2], y_parity as in
     screen_space_lod; returns [...,c]."""
     if n_levels == 1:
         return _array_atlas_fetch(atlas, offsets, sizes, torch.zeros_like(tid), tid, uv, c,
                                   sampler)
-    lod = torch.clamp(screen_space_lod(uv, base_hw[0], base_hw[1], y_parity, lod_form), 0.0,
+    lod = torch.clamp(screen_space_lod(uv, base_hw[0], base_hw[1], y_parity), 0.0,
                       n_levels - 1.0)
     lo = _floor_int(lod)
     hi = torch.clamp(lo + 1, max=n_levels - 1)
@@ -615,23 +602,14 @@ def _cube_parent_window(child_s: int, parent: np.ndarray) -> np.ndarray:
     return np.concatenate(planes, axis=-1).reshape(6 * child_s * child_s, 9 * parent.shape[3])
 
 
-# the cube trilinear atlas's storage forms (the JAX package's cube dtype
-# knob, sampling.py:921): f32, or bf16 (half the fetch's gather bytes;
-# radiance to 8 mantissa bits, the blend stays f32)
-CUBE_DTYPES = (None, "bf16")
-
-
-def build_cube_trilinear_atlas(segments: list, dtype: str | None = None) -> torch.Tensor:
+def build_cube_trilinear_atlas(segments: list) -> torch.Tensor:
     """The single-gather trilinear cube atlas [R, 13C] (sampling.py:887):
     row (level, face, y, x) = [child 2x2 window (4C) | the next level's 3x3
     window (9C)]. `segments` = the prefiltered levels + [skybox] (the
     merged specular/skybox layout of finalize_environment); the last
     prefiltered level and the sky segment store zero parent lanes (their
-    lerp fraction is exactly 0). Built in host numpy, returned on the
-    segments' device in f32, or under dtype "bf16" rounded to bfloat16 (to
-    nearest even, the bits of the JAX cast)."""
-    if dtype not in CUBE_DTYPES:
-        raise ValueError(f"cube atlas dtype = {dtype!r}; one of {CUBE_DTYPES}")
+    lerp fraction is exactly 0). Built in host numpy, returned f32 on
+    the segments' device."""
     dev = segments[0].device
     segs = [s.detach().cpu().numpy() for s in segments]
     c = segs[0].shape[3]
@@ -648,8 +626,7 @@ def build_cube_trilinear_atlas(segments: list, dtype: str | None = None) -> torc
         else:
             parent = np.zeros((child.shape[0], 9 * c), child.dtype)
         rows.append(np.concatenate([child, parent], axis=-1))
-    atlas = torch.from_numpy(np.concatenate(rows, axis=0))
-    return (atlas.to(torch.bfloat16) if dtype == "bf16" else atlas).to(dev)
+    return torch.from_numpy(np.concatenate(rows, axis=0)).to(dev)
 
 
 def _cube_footprint(si: int, uv: torch.Tensor):
@@ -776,7 +753,7 @@ def cube_trilinear_blend(taps, fx, fy, fxh, fyh, jx, jy, frac, c: int) -> torch.
     weighted form): the child 2x2 bilinear weighted by 1 - frac and the
     parent 3x3's separable bilinear weights by frac, summed over the 13
     window blocks in order."""
-    taps = taps[..., :13 * c].to(torch.float32)
+    taps = taps[..., :13 * c]
     fr0 = frac[..., None] if frac.dim() < fx.dim() else frac
     lo_w = 1.0 - fr0
     fyh1 = fyh[..., 0] if fyh.dim() > jy.dim() else fyh

@@ -145,7 +145,7 @@ def _surface(tri_id, mat_id, lanes, inp: ShadeInputs, y_parity: int):
         sizes = inp.tex_sizes
         samp = sample_material_atlas_tri(inp.tex_atlas, inp.tex_offsets, sizes, len(sizes),
                                          sizes[0], inp.tex_c, mid, lanes[..., 6:8],
-                                         y_parity=y_parity, lod_form="quad")
+                                         y_parity=y_parity)
         s0, s1, s2, s3, s4 = inp.tex_slots
         if s0 >= 0:
             base = base * samp[..., s0:s0 + 4]

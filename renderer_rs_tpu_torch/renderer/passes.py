@@ -29,19 +29,18 @@ lighting (SH9 diffuse, analytic env-BRDF, one merged specular/skybox fetch
 from the trilinear cube atlas at the y-half rate with the id-aware
 upsample, or two window-atlas fetches without that atlas), the exact
 map-sampling IBL of an environment set without finalize, the shade rates
-as arguments (ShadeRates: the PCF, cube and half-rate lighting modes and
-the merged gather), the textured branch (the single-gather trilinear
-material atlas, the f32 per-material atlas, the per-slot fetch above the
-atlases' row budget; TBN normal mapping), the alpha-cutoff (MASK) frame: the bounded
-4-layer depth peel on K5 (`_alpha_peeled_raster`) and the scan's alpha
-test elsewhere, the non-fused branch (≙ `_rasterize_dispatch`: K3 or the
-scan, then perspective_bary and one interpolate) with FLAT shading (the
-vertex colours), the stencil state machine, point and line primitives,
+as arguments (ShadeRates: the PCF, cube and half-rate lighting modes), the
+textured branch (the single-gather trilinear material atlas, the f32
+per-material atlas, the per-slot fetch above the atlases' row budget; TBN
+normal mapping), the alpha-cutoff (MASK) frame: the bounded 4-layer depth
+peel on K5 (`_alpha_peeled_raster`) and the scan's alpha test elsewhere,
+the non-fused branch (≙ `_rasterize_dispatch`: K3 or the scan, then
+perspective_bary and one interpolate) with FLAT shading (the vertex
+colours), the stencil state machine, point and line primitives,
 return_depth and the RenderingConfig attachments, the transparent pass,
-the z-plane depth form of the shadow passes, whole-frame supersampled
-MSAA (msaa_mode="super") and the fused frame's other two resolve forms
-(ResolveForms: K3 over the whole frame with the XLA-side gather and
-blend, or K5's masked lanes with no floor).
+the z-plane depth form of the shadow passes and whole-frame supersampled
+MSAA (msaa_mode="super"). The fused frame has one resolve, K2's, and one
+texture LOD, the quad-uniform one.
 """
 
 from __future__ import annotations
@@ -83,8 +82,6 @@ from renderer_rs_tpu_torch.ops.raster import (
 )
 from renderer_rs_tpu_torch.ops.raster_binned import supports_binned
 from renderer_rs_tpu_torch.ops.raster_cuda import (
-    build_defer_table,
-    deferred_resolve,
     prepare_depth,
     prepare_ids,
     prepare_peel,
@@ -99,7 +96,6 @@ from renderer_rs_tpu_torch.ops.raster_cuda import (
 from renderer_rs_tpu_torch.ops.sampling import (
     _SLOT_CHANNELS,
     _cube_atlas_fetch,
-    LOD_FORMS,
     _floor_int,
     cube_trilinear_fetch,
     direction_to_cube_uv,
@@ -151,26 +147,13 @@ Z_FORMS = ("bary", "plane")
 # passes.py:1518): shade once per pixel and id-resolve, or supersample the
 # whole frame
 MSAA_MODES = ("resolve", "super")
-# the fused frame's resolve forms (the JAX package's defer-vary knob,
-# passes.py:1890): K2's in-kernel resolve, K3 and the XLA-side gather, or
-# K5's masked lanes
-DEFER_VARY = ("kernel", "xla", "lanes")
-# the deferred table in bf16 keeps material ids exact up to this count
-# (passes.py:1918)
-BF16_TABLE_MAX_MATERIALS = 256
-# the lanes form's ids payload: (source, material id) packed into the f32
-# column's exact bits (passes.py:1870-1873)
-PACK_ID_BITS = 24
-# the PCF table's x-group of the JAX merged gather (shadow.py:38): the merge
-# engages only on maps whose width it divides
-PCF_GROUP = 32
 
 
 @dataclasses.dataclass(frozen=True)
 class ShadeRates:
     """The shade stage's rates (≙ the JAX package's PCF, cube and lighting
-    rate knobs and its merged-gather knob, passes.py:785-1256, read there
-    from the environment). The defaults are the JAX defaults.
+    rate knobs, passes.py:817-1256, read there from the environment). The
+    defaults are the JAX defaults.
 
     pcf: the sun's PCF term on a single map or the cascades: "yquarter"
     (every 4th row on full-row frames of >= 256 rows, every 2nd from 128),
@@ -182,25 +165,16 @@ class ShadeRates:
     "full" or "yhalf", the albedo-split half-rate lighting block (the sun
     and IBL terms on even rows) on full-row frames of >= 128 rows with a
     single sun map, the fast ambient's atlas_tri and no point or spot
-    light. merge_gather: the JAX merged PCF/cube gather, which evaluates
-    both per pixel on a PBR_IBL frame with a single PCF map (its width a
-    multiple of PCF_GROUP) and a finalized environment; it comes before
-    the other three. Bands (full_rows=False) shade the y-strided rates per
-    pixel. lod: the texture LOD's screen-space derivatives (≙ the JAX
-    package's LOD knob, sampling.py:276), "quad" (quad-uniform, HLSL
-    ddx/ddy) or "fwd" (each pixel's forward difference), in every textured
-    fetch of the shade (the material atlases and the per-slot fetch)."""
+    light. Bands (full_rows=False) shade the y-strided rates per pixel."""
 
     pcf: str = "yquarter"
     cube: str = "yhalf"
     light: str = "full"
-    merge_gather: bool = False
-    lod: str = "quad"
 
     def __post_init__(self):
         for name, allowed in (("pcf", ("yquarter", "yhalf", "half", "full")),
                               ("cube", ("yhalf", "yquarter", "full")),
-                              ("light", ("full", "yhalf")), ("lod", LOD_FORMS)):
+                              ("light", ("full", "yhalf"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"ShadeRates.{name} = {getattr(self, name)!r}; one of {allowed}")
 
@@ -246,37 +220,6 @@ class GeometryForms:
             raise ValueError(f"GeometryForms.clip_compact = {self.clip_compact}; >= 0")
         if self.cap_big is not None and self.cap_big < 0:
             raise ValueError(f"GeometryForms.cap_big = {self.cap_big}; None or >= 0")
-
-
-@dataclasses.dataclass(frozen=True)
-class ResolveForms:
-    """The form of the fused frame's attribute resolve (≙ the JAX package's
-    defer-vary, defer-matmul and defer-dtype knobs, passes.py:1882-1923,
-    raster_pallas.py:1308-1440, read there from the environment). The
-    defaults are the JAX defaults.
-
-    vary: "kernel", K2's in-kernel winner resolve; "xla", K3 over the whole
-    frame (winner slot, depth, b0, b1), then one gather of the winner's row
-    of the deferred table and the perspective blend outside any kernel;
-    "lanes", K5's masked-lane body with no floor, one launch, its ids
-    payload the (source triangle, material id) pair packed into 24 bits
-    (or the source id and the material bank as flat lanes where they do
-    not fit). matmul: under "xla", the blend as a 0/1 selection matmul in
-    f32 (TF32 is off). table_dtype "bf16": under "xla", the deferred table
-    in bfloat16, where every id stays exact (at most 256 materials, no
-    near-clip compaction). Each is inert where the JAX package leaves its
-    knob inert. They act on the fused frame only: a band, a stencil, the
-    scan, the peel and FLAT shading never read them."""
-
-    vary: str = "kernel"
-    matmul: bool = False
-    table_dtype: str | None = None
-
-    def __post_init__(self):
-        if self.vary not in DEFER_VARY:
-            raise ValueError(f"ResolveForms.vary = {self.vary!r}; one of {DEFER_VARY}")
-        if self.table_dtype not in (None, "bf16"):
-            raise ValueError(f"ResolveForms.table_dtype = {self.table_dtype!r}; None or 'bf16'")
 
 
 class ShadingModel(enum.Enum):
@@ -724,7 +667,6 @@ def forward_frame(
     shade_rates: ShadeRates = ShadeRates(),
     msaa_mode: str = "resolve",
     geometry_forms: GeometryForms = GeometryForms(),
-    resolve_forms: ResolveForms = ResolveForms(),
 ):
     """The full frame (≙ passes.py:1442). Returns linear [H,W,4] ready for
     sRGB encode, then in this order the outputs asked for: the [H,W] f32
@@ -783,10 +725,9 @@ def forward_frame(
     visibility kernels have one form (raster.py:297-319). geometry_forms
     (GeometryForms) sets the vertex-stage forms, the near clip's compaction
     and the binning's big-class cap (the JAX package's geometry knobs).
-    resolve_forms (ResolveForms) sets the fused frame's resolve: K2's
-    in-kernel resolve (the default), K3 and the XLA-side gather, or K5's
-    masked lanes (the JAX package's defer knobs); the 1x frame of the
-    shade-once MSAA and the supersampled frame are fused frames too."""
+    A fused frame (a whole binned non-FLAT frame off the peel, the 1x frame
+    of the shade-once MSAA and the supersampled frame included) resolves
+    its attributes in K2 (_fused_raster)."""
     if rendering is not None:
         clear_color, depth_clear, stencil = _attachments(rendering, width, height, clear_color,
                                                          depth_clear, stencil)
@@ -805,7 +746,7 @@ def forward_frame(
         common = dict(clear_color=clear_color, tonemap=tonemap, shadow_map_size=shadow_map_size,
                       shadow_params=shadow_params, shadow_map=shadow_map,
                       depth_clear=depth_clear, z_form=z_form, shade_rates=shade_rates,
-                      geometry_forms=geometry_forms, resolve_forms=resolve_forms)
+                      geometry_forms=geometry_forms)
         return _msaa_frame(scene, layout, pipeline, shading, width, height, common, band,
                            return_depth, stencil, return_ids, msaa_mode)
     y_offset, out_h, y_stride, y_pair = 0, height, 1, False
@@ -954,7 +895,7 @@ def forward_frame(
                                            depth=vis.depth, tri_id=vis.tri_id, **shade_kw)
     else:
         depth, tri_id, mat_id_img, varying, bin_overflow = _fused_raster(
-            scene, layout, geo, pipeline, height, width, depth_clear, cap_big, resolve_forms)
+            scene, layout, geo, pipeline, height, width, depth_clear, cap_big)
         with span("frame/shade"):
             vis = VisibilityBuffer(tri_id=tri_id, depth=depth)
             if fused_shade:
@@ -1006,80 +947,27 @@ def forward_frame(
 
 def _fused_raster(scene: GpuScene, layout: SceneLayout, geo: FrameGeometry,
                   pipeline: GraphicsPipeline, height: int, width: int, depth_clear: float,
-                  cap_big: int | None, forms: ResolveForms):
-    """The fused frame's raster and attribute resolve (passes.py:1835-2081)
-    in the form `forms.vary`. Returns (depth, source triangle ids, material
-    ids [H,W] or None, lanes [H,W,K(+Kf)], bin_overflow); with material ids
-    None the materials ride the last 11 lanes (the peel's shade contract).
+                  cap_big: int | None):
+    """The fused frame's raster and attribute resolve (passes.py:1835-2081):
+    K2's in-kernel winner resolve. Returns (depth, source triangle ids,
+    material ids [H,W], lanes [H,W,K+Kf], bin_overflow).
 
-    "kernel" and "xla" take the arithmetic source mapping (passes.py:
-    1902-1909, :2048-2060): no ids payload; the material id rides a flat
-    lane, and under near-clip compaction the source id rides one more
-    (flat lane -1, the material id -2); otherwise the source is the slot
-    mod T. "lanes" carries its ids in the payload instead
-    (passes.py:1975-2000, :2061-2074): source | material << src_bits where
-    the two fit in PACK_ID_BITS bits, else the source id with the material
-    bank as flat lanes (the JAX package's flat-lane fallback, whose lanes
-    hold the same values)."""
+    The arithmetic source mapping (passes.py:1902-1909, :2048-2060): no ids
+    payload; the material id rides a flat lane, and under near-clip
+    compaction the source id rides one more (flat lane -1, the material id
+    -2); otherwise the source is the slot mod T."""
     t_prim = layout.num_triangles
-    if forms.vary == "kernel":
-        with span("frame/bin_table"):
-            k2 = prepare_resolve(
-                geo.setup, height, width, geo.attr, scene.tris, geo.clip_src,
-                geo.clip_planes, geo.mat_flat, small_limit=t_prim, cap_big=cap_big,
-            )
-        with span("frame/k2"):
-            depth, slot, varying = raster_resolve(
-                k2.table, k2.sorted_tris, k2.seg, k2.nbx, height, width, k2.n_vary,
-                k2.n_flat, pipeline.depth_compare_op, depth_clear, plan=k2.plan,
-            )
-        bin_overflow = k2.bin_overflow
-    elif forms.vary == "xla":
-        with span("frame/vis_bin_table"):
-            k3 = prepare_visibility(geo.setup, height, width, small_limit=t_prim,
-                                    cap_big=cap_big)
-        with span("frame/k3"):
-            depth, slot, b0, b1 = raster_visibility(
-                k3.table, k3.sorted_tris, k3.seg, k3.nbx, height, width,
-                compare_op=pipeline.depth_compare_op, depth_clear=depth_clear, plan=k3.plan)
-        with span("frame/defer_resolve"):
-            table = build_defer_table(geo.setup, geo.attr, scene.tris, geo.clip_src,
-                                      geo.clip_planes, geo.mat_flat)
-            n_mats = scene.materials.metallic.shape[0]
-            if (forms.table_dtype == "bf16" and n_mats <= BF16_TABLE_MAX_MATERIALS
-                    and not geo.compact):
-                # passes.py:1911-1923: every id lane stays exact in bf16
-                table = table.to(torch.bfloat16)
-            varying = deferred_resolve(table, slot, b0, b1, geo.attr.shape[-1],
-                                       geo.mat_flat.shape[-1], matmul=forms.matmul)
-        bin_overflow = k3.bin_overflow
-    else:
-        n_mats = scene.materials.metallic.shape[0]
-        src_bits = max(1, (t_prim - 1).bit_length())
-        mat_bits = max(1, (n_mats - 1).bit_length())
-        pack = src_bits + mat_bits <= PACK_ID_BITS
-        with span("frame/lanes_bin_table"):
-            if pack:
-                ids = geo.clip_src | (scene.tri_material[geo.clip_src] << src_bits)
-                flat, id_bound = None, 1 << (src_bits + mat_bits)
-            else:
-                ids = geo.clip_src
-                flat = _material_bank(scene.materials)[scene.tri_material]
-                id_bound = t_prim
-            k5 = prepare_peel(geo.setup, height, width, geo.attr, scene.tris, geo.clip_src,
-                              geo.clip_planes, flat, ids, id_bound=id_bound, cap_big=cap_big,
-                              small_limit=t_prim)
-        with span("frame/k5"):
-            depth, payload, varying = raster_peel(
-                k5.table, k5.sorted_tris, k5.seg, k5.nbx, height, width, k5.n_vary, k5.n_flat,
-                None, pipeline.depth_compare_op, depth_clear, plan=k5.plan)
-        hit = payload >= 0
-        if pack:
-            mat_id_img = torch.where(hit, payload >> src_bits, 0)
-            tri_id = torch.where(hit, payload & ((1 << src_bits) - 1), payload)
-        else:
-            mat_id_img, tri_id = None, payload
-        return depth, tri_id, mat_id_img, varying, k5.bin_overflow
+    with span("frame/bin_table"):
+        k2 = prepare_resolve(
+            geo.setup, height, width, geo.attr, scene.tris, geo.clip_src,
+            geo.clip_planes, geo.mat_flat, small_limit=t_prim, cap_big=cap_big,
+        )
+    with span("frame/k2"):
+        depth, slot, varying = raster_resolve(
+            k2.table, k2.sorted_tris, k2.seg, k2.nbx, height, width, k2.n_vary,
+            k2.n_flat, pipeline.depth_compare_op, depth_clear, plan=k2.plan,
+        )
+    bin_overflow = k2.bin_overflow
     # winner slot -> (source triangle, material id), passes.py:2035-2060
     hit = slot >= 0
     if geo.compact:
@@ -1172,16 +1060,15 @@ def _fused_shade_engages(scene: GpuScene, layout: SceneLayout, shading: ShadingM
                          shadow_map, shadow_params: ShadowParams, rates: ShadeRates) -> bool:
     """Whether the fused frame shades through the fused kernel
     (ops/shade_cuda.py), from what the call sees on the host: a CUDA
-    scene; PBR_IBL on a finalized environment whose trilinear cube atlas
-    is f32 (the fast ambient with atlas_tri); the sun's single map, or
-    under CSM the [4,S,S] cascades (the kernel's cascade form, the blended
-    lookup), with PCF on; the single-gather material atlas, or no bound
-    texture slot; no point or spot light; no merged gather, full-rate
-    lighting and the quad LOD; the PCF rate "yquarter", "yhalf" or "full"
-    (any cube rate); and the kernel's static limits (ops/shade_cuda.py:
-    MAX_LEVELS, MAX_SEGS, three or more cube channels). Every other frame
-    shades through _shade_pixels, and so do the band, stencil, scan and
-    peel frames, which are not fused frames."""
+    scene; PBR_IBL on a finalized environment (the fast ambient with
+    atlas_tri); the sun's single map, or under CSM the [4,S,S] cascades
+    (the kernel's cascade form, the blended lookup), with PCF on; the
+    single-gather material atlas, or no bound texture slot; no point or
+    spot light; full-rate lighting; the PCF rate "yquarter", "yhalf" or
+    "full" (any cube rate); and the kernel's static limits
+    (ops/shade_cuda.py: MAX_LEVELS, MAX_SEGS, three or more cube
+    channels). Every other frame shades through _shade_pixels, and so do
+    the band, stencil, scan and peel frames, which are not fused frames."""
     env, tex, lights = scene.environment, scene.textures, scene.lights
     textured = layout.has_textures and tex is not None and any(layout.texture_slots)
     return (
@@ -1189,8 +1076,7 @@ def _fused_shade_engages(scene: GpuScene, layout: SceneLayout, shading: ShadingM
         and shading == ShadingModel.PBR_IBL
         and layout.has_environment and env is not None
         and env.irradiance_mips is not None and env.atlas is not None
-        and env.atlas_tri is not None and env.atlas_tri.dtype == torch.float32
-        and env.atlas_tri.shape[1] >= 3 * 13
+        and env.atlas_tri is not None and env.atlas_tri.shape[1] >= 3 * 13
         and len(env.prefiltered_mips) + 1 <= shade_cuda.MAX_SEGS
         and shadow_map is not None
         and ((layout.has_csm and shadow_map.dim() == 3)
@@ -1199,8 +1085,7 @@ def _fused_shade_engages(scene: GpuScene, layout: SceneLayout, shading: ShadingM
         and (not textured or (tex.mat_atlas_tri is not None
                               and len(tex.mips) <= shade_cuda.MAX_LEVELS))
         and lights.point_position.shape[0] == 0 and lights.spot_position.shape[0] == 0
-        and not rates.merge_gather and rates.light == "full" and rates.lod == "quad"
-        and rates.pcf in ("yquarter", "yhalf", "full")
+        and rates.light == "full" and rates.pcf in ("yquarter", "yhalf", "full")
     )
 
 
@@ -1341,8 +1226,7 @@ def _level_offsets(mips, atlas_rows: int) -> tuple:
 
 
 def _textured(scene: GpuScene, layout: SceneLayout, varying, mat_px, mat_id_img, tri_id,
-              y_parity: int, normal, base_color, metallic, roughness, ao, emissive,
-              lod_form: str = "quad"):
+              y_parity: int, normal, base_color, metallic, roughness, ao, emissive):
     """The five material slots of a textured scene (passes.py:562-778),
     each a texture times its material factor: from the single-gather bf16
     trilinear material atlas when built (mat_atlas_tri); else the f32
@@ -1350,9 +1234,8 @@ def _textured(scene: GpuScene, layout: SceneLayout, varying, mat_px, mat_id_img,
     else per slot (above the atlases' row budget): each bound slot from the
     per-texture window atlas in two gathers (or, without one, every level of
     the texture array), applied where the slot's texture id is >= 0. Normal
-    maps go through the TBN frame; lod_form is the LOD's derivative form
-    (ShadeRates.lod). Returns (normal, base_color, metallic, roughness, ao,
-    emissive)."""
+    maps go through the TBN frame. Every fetch takes the quad-uniform LOD.
+    Returns (normal, base_color, metallic, roughness, ao, emissive)."""
     tex = scene.textures
     uv = varying[..., 6:8]
     t4 = varying[..., 8:12]
@@ -1381,7 +1264,7 @@ def _textured(scene: GpuScene, layout: SceneLayout, varying, mat_px, mat_id_img,
             fetch = sample_array_textured_atlas
         shapes, offs = _level_offsets(tex.mips, atlas.shape[0])
         samp = fetch(atlas, offs, shapes, len(shapes), shapes[0], c, mid, uv,
-                     y_parity=y_parity, lod_form=lod_form)
+                     y_parity=y_parity)
         if 0 in pos:
             base_color = base_color * samp[..., pos[0]:pos[0] + 4]
         if 1 in pos:
@@ -1406,10 +1289,9 @@ def _textured(scene: GpuScene, layout: SceneLayout, varying, mat_px, mat_id_img,
         t = tex_ids[..., slot]
         if tex.atlas is not None:
             s = sample_array_textured_atlas(tex.atlas, offs, shapes, len(shapes), shapes[0],
-                                            tex.mips[0].shape[-1], t, uv, y_parity=y_parity,
-                                            lod_form=lod_form)
+                                            tex.mips[0].shape[-1], t, uv, y_parity=y_parity)
         else:
-            s = sample_array_textured(tex.mips, t, uv, y_parity=y_parity, lod_form=lod_form)
+            s = sample_array_textured(tex.mips, t, uv, y_parity=y_parity)
         return s, (t >= 0)[..., None]
 
     if slots[0]:
@@ -1468,9 +1350,8 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
     (_shadow_term), the cube fetch's, the half-rate lighting block
     (rates.light == "yhalf", passes.py:1082-1152: the sun and IBL terms
     albedo-split on even rows, the full-rate albedo and AO multiplied in,
-    odd rows reconstructed id-awarely) and the merged gather, which
-    evaluates the PCF term and the cube fetch per pixel. Each engages under
-    the JAX conditions; full_rows=False (a band) keeps every y-strided rate
+    odd rows reconstructed id-awarely). Each engages under the JAX
+    conditions; full_rows=False (a band) keeps every y-strided rate
     per pixel. y_parity is the band's first-row parity for the texture LOD.
     Returns (linear [H,W,4], the fetched sky radiance [H,W,3] or None);
     misses hold garbage (the caller composites)."""
@@ -1488,7 +1369,7 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
     if layout.has_textures and scene.textures is not None and any(layout.texture_slots):
         normal, base_color, metallic, roughness, ao, emissive = _textured(
             scene, layout, varying, mat_px, mat_id_img, tri_id, y_parity, normal,
-            base_color, metallic, roughness, ao, emissive, rates.lod)
+            base_color, metallic, roughness, ao, emissive)
     albedo = base_color[..., :3]
     view_dir = normalize(scene.camera.camera_position - world_pos)
     lights = scene.lights
@@ -1499,18 +1380,13 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
     fast = (shading == ShadingModel.PBR_IBL and layout.has_environment and env is not None
             and env.irradiance_mips is not None and sky_dirs is not None
             and env.atlas is not None)
-    # the merged PCF/cube gather (passes.py:785-816): both fetches per pixel
-    merged = (fast and rates.merge_gather and layout.has_shadow and not layout.has_csm
-              and shadow_map is not None and shadow_params.pcf and env.atlas_tri is not None
-              and env.atlas_tri.dtype == torch.float32
-              and shadow_map.shape[1] % PCF_GROUP == 0)
     # the half-rate lighting block (passes.py:1082-1095)
     light_half = (fast and rates.light == "yhalf" and full_rows and rows >= 128
-                  and not merged and layout.has_shadow and not layout.has_csm
+                  and layout.has_shadow and not layout.has_csm
                   and shadow_map is not None and env.atlas_tri is not None
                   and lights.point_position.shape[0] == 0
                   and lights.spot_position.shape[0] == 0)
-    if shadowed and not merged and not light_half:
+    if shadowed and not light_half:
         shadow = _shadow_term(scene, layout, world_pos, normal, sun_dir, depth, shadow_map,
                               shadow_params, full_rows, rates.pcf)
     else:
@@ -1552,9 +1428,7 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
                                        depth, sky_dirs, tri_id, shadow_map, shadow_params)
     sun_lo = pbr_ops.pbr_direct(normal, view_dir, sun_dir.expand(world_pos.shape),
                                 sun_radiance, mat)
-    # the merged gather defers the sun term to the cube fetch; its light
-    # sum then starts at zero and takes the sun last (passes.py:1007-1012)
-    lo = torch.zeros_like(sun_lo) if merged else shadow * sun_lo
+    lo = shadow * sun_lo
 
     def punctual(position):
         lvec = position - world_pos
@@ -1578,13 +1452,8 @@ def _shade_pixels(scene: GpuScene, layout: SceneLayout, shading: ShadingModel,
         lo = lo + mask * pbr_ops.pbr_direct(normal, view_dir, ldir, radiance, mat)
     if fast:
         with span("frame/ibl"):
-            if merged:
-                shadow = calculate_shadow(shadow_map, scene.light_space_matrix, world_pos,
-                                          normal, sun_dir.expand(world_pos.shape),
-                                          shadow_params)[..., None]
-                lo = lo + shadow * sun_lo
             spec_sky = _ibl_radiance(env, view_dir, normal, mat.roughness, depth, sky_dirs,
-                                     tri_id, full_rows, "full" if merged else rates.cube)
+                                     tri_id, full_rows, rates.cube)
             ambient = pbr_ops.calculate_ibl_fast(normal, view_dir, mat, env.irradiance_sh,
                                                  spec_sky)
         rgb = ambient + lo + emissive

@@ -25,9 +25,8 @@ in the frame record's csm_refits), uploads them in one staged copy with no
 host wait, and the cache renders the new cascades. An MSAA pipeline renders through
 forward_frame's shade-once resolve, or with msaa_mode="super" supersamples
 the whole frame; shade_rates sets the shade stage's reduced rates
-(passes.ShadeRates), geometry_forms the geometry stages' forms
-(passes.GeometryForms) and resolve_forms the fused frame's resolve
-(passes.ResolveForms). Each frame hands forward_frame a RenderingConfig
+(passes.ShadeRates) and geometry_forms the geometry stages' forms
+(passes.GeometryForms). Each frame hands forward_frame a RenderingConfig
 built from the renderer's clear colour and its DepthBuffer's clear value.
 
 The swapchain chooses MAILBOX, as the JAX Renderer's does: presenting
@@ -60,7 +59,6 @@ from renderer_rs_tpu_torch.renderer.depth_buffer import DepthBuffer
 from renderer_rs_tpu_torch.renderer.frame_manager import FrameManager
 from renderer_rs_tpu_torch.renderer.passes import (
     GeometryForms,
-    ResolveForms,
     ShadeRates,
     ShadingModel,
     csm_shadow_pass,
@@ -102,7 +100,6 @@ class Renderer:
         msaa_mode: str = "resolve",
         geometry_forms: GeometryForms = GeometryForms(),
         window: Window | None = None,
-        resolve_forms: ResolveForms = ResolveForms(),
     ) -> None:
         self.device = resolve_device(device)
         self.config = config or RendererConfig()
@@ -129,7 +126,6 @@ class Renderer:
         self.shade_rates = shade_rates
         self.msaa_mode = msaa_mode
         self.geometry_forms = geometry_forms
-        self.resolve_forms = resolve_forms
         # (z_form, geometry_forms, shadow-input tensors, shadow map)
         self._shadow_cache = None
         # host-side Camera the app's controllers mutate; update_camera()
@@ -292,8 +288,7 @@ class Renderer:
             rendering=rendering, tonemap=self.tonemap,
             shadow_map_size=self.shadow_map_size, shadow_params=self.shadow_params,
             shadow_map=self._shadow_map(scene), shade_rates=self.shade_rates,
-            msaa_mode=self.msaa_mode, geometry_forms=self.geometry_forms,
-            resolve_forms=self.resolve_forms, **extra,
+            msaa_mode=self.msaa_mode, geometry_forms=self.geometry_forms, **extra,
         )
         if self.config.enable_validation:
             # frame-product validation (≙ the layers flagging a bad present

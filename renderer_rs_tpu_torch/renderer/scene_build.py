@@ -126,13 +126,11 @@ class Environment:
                               for f in dataclasses.fields(self)})
 
 
-def finalize_environment(env: Environment, cube_dtype: str | None = None) -> Environment:
+def finalize_environment(env: Environment) -> Environment:
     """The fast-ambient fields of an IBL-complete Environment
     (scene_build.py:87): SH9 of the irradiance map, the window atlas and the
     trilinear atlas over the prefiltered levels plus the skybox (its last
-    segment), with their row offsets and face sizes. cube_dtype "bf16"
-    stores the trilinear atlas in bfloat16 (≙ the JAX package's cube dtype
-    knob, sampling.py:921; the fetch blends in f32). A no-op without the
+    segment), with their row offsets and face sizes. A no-op without the
     irradiance and prefiltered maps."""
     if env.irradiance_mips is None or env.prefiltered_mips is None:
         return env
@@ -149,7 +147,7 @@ def finalize_environment(env: Environment, cube_dtype: str | None = None) -> Env
         atlas=torch.cat([_cube_window_flat(m) for m in segments], dim=0),
         atlas_offsets=torch.tensor(offsets, dtype=torch.int32, device=dev),
         atlas_sizes=torch.tensor(sizes, dtype=torch.int32, device=dev),
-        atlas_tri=build_cube_trilinear_atlas(segments, cube_dtype),
+        atlas_tri=build_cube_trilinear_atlas(segments),
     )
 
 
@@ -347,15 +345,13 @@ class SceneBuilder:
         self.build_ms[name] = ms
         log.info("%s %s built in %.1f ms", name, tuple(atlas.shape), ms)
 
-    def set_environment(self, env: Environment, finalize: bool = True,
-                        cube_dtype: str | None = None) -> "SceneBuilder":
+    def set_environment(self, env: Environment, finalize: bool = True) -> "SceneBuilder":
         """Attach the skybox/IBL environment (scene_build.py:334). By default
         an IBL-complete environment is finalized into the fast-ambient form
-        (SH9 and the merged specular/skybox atlas, in bf16 under cube_dtype
-        "bf16"); finalize=False keeps only the maps, which the shade
-        samples exactly (ops/pbr.calculate_ibl) and the frame composites the
-        sky through skybox_pass."""
-        self._environment = finalize_environment(env, cube_dtype) if finalize else env
+        (SH9 and the merged specular/skybox atlas); finalize=False keeps
+        only the maps, which the shade samples exactly (ops/pbr.calculate_ibl)
+        and the frame composites the sky through skybox_pass."""
+        self._environment = finalize_environment(env) if finalize else env
         return self
 
     def set_shadow_matrix(self, light_space_matrix) -> "SceneBuilder":

@@ -54,7 +54,7 @@ def _frame(csm: bool):
     else:
         smap = P.shadow_map_pass(scene, layout, 1024)
     depth, tri_id, mat_id, varying, _ = P._fused_raster(
-        scene, layout, geo, kw["pipeline"], H, W, 1.0, None, P.ResolveForms())
+        scene, layout, geo, kw["pipeline"], H, W, 1.0, None)
     inv_vp = torch.linalg.inv(scene.camera.view_projection)
     return types.SimpleNamespace(scene=scene, layout=layout, params=kw["shadow_params"],
                                  smap=smap, depth=depth, tri_id=tri_id, mat_id=mat_id,
@@ -141,7 +141,7 @@ def test_the_cascade_frame_straddles_a_split_inside_its_blend_region(csm_frame):
 
 def test_material_lanes_form_on_the_cpu(frame):
     """mat_id None: the materials ride the last 11 lanes and the texture set
-    comes through the source ids (the lanes resolve's unpacked form)."""
+    comes through the source ids (the peel's shade contract)."""
     lanes = torch.cat([frame.varying[..., :12],
                        P._material_bank(frame.scene.materials)[frame.mat_id.long()]], dim=-1)
     rates = ShadeRates()
@@ -223,9 +223,16 @@ def _case(frame, name):
                                                                  atlas_tri=None))
     elif name == "two-fetch fast ambient":
         scene = _stand_in(frame, environment=dataclasses.replace(env, atlas_tri=None))
-    elif name == "bf16 cube atlas":
+    elif name == "texture mips beyond the kernel's levels":
+        mips = tex.mips + tex.mips[-1:] * (shade_cuda.MAX_LEVELS + 1 - len(tex.mips))
+        scene = _stand_in(frame, textures=dataclasses.replace(tex, mips=mips))
+    elif name == "cube segments beyond the kernel's":
+        pref = env.prefiltered_mips
+        pref = pref + pref[-1:] * (shade_cuda.MAX_SEGS - len(pref))
+        scene = _stand_in(frame, environment=dataclasses.replace(env, prefiltered_mips=pref))
+    elif name == "cube atlas of fewer than 3 channels":
         scene = _stand_in(frame, environment=dataclasses.replace(
-            env, atlas_tri=env.atlas_tri.to(torch.bfloat16)))
+            env, atlas_tri=env.atlas_tri[:, :2 * 13]))
     elif name == "cascades":
         layout = dataclasses.replace(layout, has_csm=True)
     elif name.startswith("cascade form"):
@@ -238,6 +245,20 @@ def _case(frame, name):
             scene = frame.scene
         elif name == "cascade form, half-rate pcf":
             rates = ShadeRates(pcf="half")
+        elif name == "cascade form, half-rate lighting":
+            rates = ShadeRates(light="yhalf")
+        elif name == "cascade form, a point light":
+            scene = _stand_in(frame, lights=_lights(frame, points=1))
+        elif name == "cascade form, a spot light":
+            scene = _stand_in(frame, lights=_lights(frame, spots=1))
+        elif name == "cascade form, per-slot or f32 material atlas":
+            scene = _stand_in(frame, textures=dataclasses.replace(tex, mat_atlas_tri=None))
+        elif name == "cascade form, environment not finalized":
+            scene = _stand_in(frame, environment=dataclasses.replace(env, atlas=None,
+                                                                     atlas_tri=None))
+        elif name.startswith("cascade form, rates "):
+            pcf, cube = name.split()[3:]
+            rates = ShadeRates(pcf=pcf, cube=cube)
         else:
             assert name == "cascade form", name
     elif name == "no sun map":
@@ -255,12 +276,8 @@ def _case(frame, name):
         scene = _stand_in(frame, lights=_lights(frame, points=1))
     elif name == "a spot light":
         scene = _stand_in(frame, lights=_lights(frame, spots=1))
-    elif name == "merged gather":
-        rates = ShadeRates(merge_gather=True)
     elif name == "half-rate lighting":
         rates = ShadeRates(light="yhalf")
-    elif name == "forward-difference lod":
-        rates = ShadeRates(lod="fwd")
     elif name == "half-rate pcf":
         rates = ShadeRates(pcf="half")
     elif name.startswith("rates "):
@@ -280,7 +297,9 @@ PREDICATE_CASES = [
     ("pbr without ibl", False),
     ("environment not finalized", False),
     ("two-fetch fast ambient", False),
-    ("bf16 cube atlas", False),
+    ("texture mips beyond the kernel's levels", False),
+    ("cube segments beyond the kernel's", False),
+    ("cube atlas of fewer than 3 channels", False),
     ("cascades", False),
     ("no sun map", False),
     ("sun map not rendered", False),
@@ -288,14 +307,19 @@ PREDICATE_CASES = [
     ("per-slot or f32 material atlas", False),
     ("a point light", False),
     ("a spot light", False),
-    ("merged gather", False),
     ("half-rate lighting", False),
-    ("forward-difference lod", False),
     ("half-rate pcf", False),
     ("cascade form", True),
+    *[(f"cascade form, rates {pcf} {cube}", True)
+      for pcf, cube in (("yquarter", "full"), ("yhalf", "yquarter"), ("full", "yhalf"))],
     ("cascade form, pcf off", False),
     ("cascade form, cpu tensors", False),
     ("cascade form, half-rate pcf", False),
+    ("cascade form, half-rate lighting", False),
+    ("cascade form, a point light", False),
+    ("cascade form, a spot light", False),
+    ("cascade form, per-slot or f32 material atlas", False),
+    ("cascade form, environment not finalized", False),
 ]
 
 

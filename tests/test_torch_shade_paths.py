@@ -8,8 +8,10 @@ mode of ShadeRates against the JAX knob it replaces (set with
 monkeypatch.setenv; the JAX frame reads it as it runs), the CSM PCF ladder
 under each PCF mode, the half-rate PCF under a band (a band of every row:
 bands shade the other rates per pixel), whole-frame
-supersampled MSAA against the JAX RENDERER_MSAA=super, and the build's
-over-budget decision with the port's budget lowered.
+supersampled MSAA against the JAX RENDERER_MSAA=super, the build's
+over-budget decision with the port's budget lowered, and the frame's
+forms: their JAX defaults and their way through the Renderer, the
+shade-once MSAA frame and app.main.
 
 The scene is full_scene(48, 256, tri_budget=600, textured=True,
 ibl=False) (578 triangles; 256 rows, so every reduced rate engages) with
@@ -121,8 +123,6 @@ PATHS = {
                   2.1e-5),
     "light_yhalf": ("tex", None, "final", dict(light="yhalf"), {"RENDERER_LIGHT_RES": "yhalf"},
                     {}, 2.1e-5),
-    "merge_gather": ("tex", None, "final", dict(merge_gather=True),
-                     {"RENDERER_MERGE_GATHER": "1"}, {}, 2.1e-5),
     "band_pcf_half": ("tex", None, "final", dict(pcf="half"), {"RENDERER_PCF_RES": "half"},
                       dict(band=(0, H)), 2.1e-5),
     "csm_default": ("csm", None, None, {}, {}, {}, 3.3e-6),
@@ -267,8 +267,7 @@ def test_entry_points_take_the_rates(tmp_path):
     """Renderer(shade_rates=, msaa_mode=) renders what forward_frame renders
     with the same arguments; render_frame_sharded forwards shade_rates to
     its bands (pcf="half" engages there); app.main takes --pcf-res,
-    --cube-res, --light-res, --merge-gather and --msaa-mode; unknown modes
-    raise. The port alone: full_scene(32, 256, tri_budget=600,
+    --cube-res, --light-res and --msaa-mode; unknown modes raise. The port alone: full_scene(32, 256, tri_budget=600,
     textured=True) with its IBL, a 128² map."""
     from renderer_rs_tpu_torch.app.main import main
     from renderer_rs_tpu_torch.app.scenes import full_scene
@@ -303,7 +302,7 @@ def test_entry_points_take_the_rates(tmp_path):
     assert not torch.equal(*bands)
     args = ["--scene", "full", "--textured", "--tris", str(TRIS), "--width", "32", "--height",
             "256", "--out", str(tmp_path), "--pcf-res", "half", "--cube-res", "full",
-            "--light-res", "yhalf", "--merge-gather", "--msaa-mode", "super"]
+            "--light-res", "yhalf", "--msaa-mode", "super"]
     assert main(args, device="cpu") == 0
     assert read_png(str(tmp_path / "frame_00000.png")).shape == (256, 32, 4)
     for bad in (dict(pcf="quarter"), dict(cube="half"), dict(light="yquarter")):
@@ -344,3 +343,88 @@ def test_many_material_scene_per_slot_matches_f32_atlas(monkeypatch):
     out, ids = frame(scene, layout)
     assert torch.equal(ids, f32_ids) and (ids >= 0).float().mean() > 0.3
     assert torch.equal(out, f32)
+
+
+def test_defaults_are_the_jax_defaults():
+    """The default forms are the JAX defaults, so a default frame is the JAX
+    package's default frame: the shade rates, the geometry forms, the
+    bary depth form and the resolve MSAA, and the f32 cube atlas."""
+    import inspect
+
+    from renderer_rs_tpu_torch.ops.sampling import build_cube_trilinear_atlas
+    from renderer_rs_tpu_torch.renderer.passes import GeometryForms, ShadeRates, forward_frame
+
+    assert ShadeRates() == ShadeRates(pcf="yquarter", cube="yhalf", light="full")
+    assert GeometryForms() == GeometryForms(vstage="loop", shadow_vstage=None, clip_compact=16,
+                                            cap_big=None)
+    params = inspect.signature(forward_frame).parameters
+    assert (params["z_form"].default, params["msaa_mode"].default) == ("bary", "resolve")
+    rng = np.random.default_rng(3)
+    segs = [torch.from_numpy(rng.uniform(0.0, 2.0, (6, s, s, 3)).astype(np.float32))
+            for s in (16, 8, 4, 2, 1, 16)]
+    assert build_cube_trilinear_atlas(segs).dtype == torch.float32
+    for bad in (dict(pcf="1"), dict(cube="quarter"), dict(light="half")):
+        with pytest.raises(ValueError, match="ShadeRates"):
+            ShadeRates(**bad)
+
+
+def test_forms_reach_the_renderer_msaa_and_app(tmp_path, monkeypatch):
+    """The forms through the Renderer (its frame is forward_frame's), the
+    shade-once MSAA frame (its 1x frame is a fused frame: the PCF rate
+    reaches its shade) and app.main's form flags (each reaches the
+    Renderer). The port alone: full_scene(32, 256, tri_budget=600,
+    textured=True) with its IBL, a 128² map."""
+    import renderer_rs_tpu_torch.renderer.passes as pp
+    import renderer_rs_tpu_torch.renderer.renderer as rmod
+    from renderer_rs_tpu_torch.app.main import main
+    from renderer_rs_tpu_torch.app.scenes import full_scene
+    from renderer_rs_tpu_torch.core.config import RendererConfig
+
+    w, h = 32, 256
+    scene, layout, kw, _ = full_scene(w, h, tri_budget=TRIS, textured=True, device="cpu")
+    kw = {**kw, "shadow_map_size": SHADOW}
+    rates = pp.ShadeRates(pcf="full", cube="full")
+    forms = pp.GeometryForms(clip_compact=0)
+    r = rmod.Renderer(RendererConfig(width=w, height=h), device="cpu", **kw, shade_rates=rates,
+                      geometry_forms=forms)
+    r.set_scene(scene, layout)
+    want = pp.forward_frame(scene, layout, kw["pipeline"], kw["shading"], w, h,
+                            tonemap=kw["tonemap"], shadow_map_size=SHADOW,
+                            shadow_params=kw["shadow_params"], shade_rates=rates,
+                            geometry_forms=forms)
+    assert torch.equal(r.render_frame_hdr(), want)
+    msaa = dataclasses.replace(kw["pipeline"], msaa_samples=2)
+    modes, stride = [], pp._pcf_stride
+
+    def spy(rows, full_rows, mode):
+        modes.append(mode)
+        return stride(rows, full_rows, mode)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(pp, "_pcf_stride", spy)
+        a = pp.forward_frame(scene, layout, msaa, kw["shading"], w, h, shadow_map_size=SHADOW,
+                             shadow_params=kw["shadow_params"], shade_rates=rates)
+    b = pp.forward_frame(scene, layout, msaa, kw["shading"], w, h, shadow_map_size=SHADOW,
+                         shadow_params=kw["shadow_params"])
+    assert modes and set(modes) == {"full"}
+    assert a.shape == b.shape == (h, w, 4) and not torch.equal(a, b)
+    seen = []
+    renderer = rmod.Renderer
+
+    def spy_renderer(*a, **k):
+        seen.append(k)
+        return renderer(*a, **k)
+
+    monkeypatch.setattr(rmod, "Renderer", spy_renderer)
+    assert main(["--scene", "full", "--textured", "--tris", str(TRIS), "--width", "32",
+                 "--height", "24", "--z-form", "plane", "--vstage", "batch", "--shadow-vstage",
+                 "world", "--clip-compact", "0", "--cap-big", "77", "--pcf-res", "yhalf",
+                 "--cube-res", "yquarter", "--light-res", "yhalf", "--out", str(tmp_path)],
+                device="cpu") == 0
+    assert len(seen) == 1
+    k = seen[0]
+    assert (k["z_form"], k["msaa_mode"]) == ("plane", "resolve")
+    assert k["shade_rates"] == pp.ShadeRates(pcf="yhalf", cube="yquarter", light="yhalf")
+    assert k["geometry_forms"] == pp.GeometryForms(vstage="batch", shadow_vstage="world",
+                                                   clip_compact=0, cap_big=77)
+    assert len(list(tmp_path.iterdir())) == 1
