@@ -37,6 +37,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
 SOURCES = {
+    "front_end": _PKG / "csrc" / "front_end.cu",
     "probe_kgather": _PKG / "csrc" / "probe_kgather.cu",
     "raster_depth": _PKG / "csrc" / "raster_depth.cu",
     "raster_ids": _PKG / "csrc" / "raster_ids.cu",

@@ -63,6 +63,7 @@ from renderer_rs_tpu_torch.ops.clip import (
     compact_secondary,
 )
 from renderer_rs_tpu_torch.ops.csm import CASCADE_COUNT, CSMParams, calculate_shadow_csm_blended
+from renderer_rs_tpu_torch.ops.front_end import front_end
 from renderer_rs_tpu_torch.ops.msaa import msaa_id_resolve
 from renderer_rs_tpu_torch.ops.raster import (
     _POINT_LINE,
@@ -453,6 +454,16 @@ class FrameGeometry:
         return dataclasses.replace(self, setup=setup)
 
 
+def _front_end_engages(scene: GpuScene, pipeline: GraphicsPipeline,
+                       geometry_forms: GeometryForms) -> bool:
+    """Whether frame_geometry runs the front-end kernels (ops/front_end.py):
+    on CUDA, for triangle topologies, under vstage "loop". Points and lines
+    (no near clip) and vstage "batch" (the JAX-parity form) keep the ATen
+    chain, and so do CPU tensors."""
+    return (scene.device.type == "cuda" and pipeline.topology not in _POINT_LINE
+            and geometry_forms.vstage == "loop")
+
+
 def frame_geometry(scene: GpuScene, layout: SceneLayout, pipeline: GraphicsPipeline,
                    width: int, height: int,
                    geometry_forms: GeometryForms = GeometryForms()) -> FrameGeometry:
@@ -463,15 +474,26 @@ def frame_geometry(scene: GpuScene, layout: SceneLayout, pipeline: GraphicsPipel
     line primitives take no near clip: their slots are the primitives,
     with identity source ids and clip frames. geometry_forms gives the
     vertex-stage form and the compaction's denominator (0: no compaction,
-    the exact [2T] layout, whose source ids are slot mod T)."""
+    the exact [2T] layout, whose source ids are slot mod T). Where
+    _front_end_engages holds, the front-end kernels compute the same
+    fields in two or three launches (ops/front_end.py); elsewhere the ATen
+    chain below does."""
     t_prim = layout.num_triangles
     dev = scene.device
-    vs = vertex_stage(scene, layout, geometry_forms.vstage)
-    tri_clip = gather_triangle_clip(vs.clip, scene.tris)
-    clip_overflow = torch.zeros((), dtype=torch.long, device=dev)
     point_line = pipeline.topology in _POINT_LINE
     den = geometry_forms.clip_compact
     compact = den > 0 and t_prim >= CLIP_COMPACT_MIN_TRIS and not point_line
+    if _front_end_engages(scene, pipeline, geometry_forms):
+        fe = front_end(scene, layout, pipeline, width, height,
+                       max(128, t_prim // den) if compact else None)
+        return FrameGeometry(
+            setup=fe.setup, tri_clip=fe.tri_clip, clip_valid=fe.clip_valid, attr=fe.attr,
+            clip_src=fe.clip_src, clip_planes=fe.clip_planes, mat_flat=fe.mat_flat,
+            compact=compact, clip_overflow=fe.clip_overflow,
+        )
+    vs = vertex_stage(scene, layout, geometry_forms.vstage)
+    tri_clip = gather_triangle_clip(vs.clip, scene.tris)
+    clip_overflow = torch.zeros((), dtype=torch.long, device=dev)
     if point_line:
         # points and lines (degenerate triples, rhi/vertex.py::expand_topology)
         # skip the triangle near clip: a primitive touching w <= eps drops
