@@ -54,7 +54,15 @@ Phases (any failure exits nonzero before the result lines):
        - the fused shade (shade_fused) on the headline frame's K2 outputs
          and sun map, and its cascade form on the same frame with four
          cascades fitted to its camera, each beside its plain version; the
-         cascade form also timed beside the ATen chain it replaces.
+         cascade form also timed beside the ATen chain it replaces;
+       - the front end (front_end: the vertex stage, near clip, compaction
+         and setup in three launches) on the headline scene with compaction
+         on, and on a camera whose near plane cuts triangles with one and
+         two vertices behind, with no compaction and with a cap of 5 that
+         overflows: every output field bit-equal to the ATen chain's
+         (passes.frame_geometry_chain), two or three launches a call, no
+         host sync; its device time, the call's, the chain's and the byte
+         bound.
      K1's, K6's and K7's depth and the probe's sums must be bit-equal; K2
      must give bit-equal
      tid/depth and lanes within rtol 1e-5 / atol 1e-6; K4 bit-equal tid and
@@ -80,7 +88,9 @@ Phases (any failure exits nonzero before the result lines):
      and launch (none allowed), and, after the main paths, each kernel's
      device µs by torch.profiler (key init, walk, resolve or finish).
   4. The main paths through Renderer.render_frame at 1920x1080 on cuda,
-     every launch counter set to 0 just before each and read just after:
+     every launch counter set to 0 just before each and read just after
+     (the front end's three launches a frame are held on the Blinn-Phong,
+     PBR, CSM and headline loops and counted on every loop):
        - the Blinn-Phong frame: one K2 launch per frame, nothing else;
        - the PBR frame, loop A, static scene: one K2 launch per frame and
          one K1 launch in all (the shadow map is kept while its inputs do
@@ -1759,6 +1769,170 @@ def _check_shade(scene, layout, kw, cascades: bool = False) -> dict:
     }
 
 
+def _clipping_scene():
+    """A camera on the top of a UV sphere at 1920x1080 (1,154 triangles
+    with its floor): its near plane cuts triangles with one and with two
+    vertices behind (tests/test_torch_front_end_kernel.py's clipping scene)."""
+    import numpy as np
+
+    from renderer_rs_tpu_torch.app.scenes import _camera_ubo
+    from renderer_rs_tpu_torch.renderer.scene_build import SceneBuilder
+    from renderer_rs_tpu_torch.resources.material import Material
+    from renderer_rs_tpu_torch.scene.camera import Camera, Projection
+    from renderer_rs_tpu_torch.utils.meshgen import plane_mesh, uv_sphere_mesh
+
+    cam = Camera(Projection.perspective(math.radians(70), W / H, 0.1, 50.0))
+    cam.position = np.array([0.0, 1.0, 0.0], np.float32)
+    cam.look_at([0.0, 0.0, -4.0])
+    b = SceneBuilder()
+    b.add_mesh(uv_sphere_mesh(1.0, 24, 24))
+    b.add_mesh(plane_mesh(40.0), material=Material(base_color=(1.0, 0.2, 0.2, 1.0),
+                                                   roughness=0.9))
+    b.set_camera(_camera_ubo(cam))
+    return b.build(device="cuda")
+
+
+def _front_end_diffs(fe, geo, clip) -> tuple[dict, float]:
+    """The front end's outputs `fe` against the ATen chain's FrameGeometry
+    `geo` and vertex clip positions `clip`: (field -> elements whose bits
+    differ, the largest |difference| of the float fields)."""
+    import torch
+
+    pairs = {"clip": (fe.clip, clip), "attr": (fe.attr, geo.attr),
+             "tri_clip": (fe.tri_clip, geo.tri_clip), "clip_valid": (fe.clip_valid, geo.clip_valid),
+             "clip_src": (fe.clip_src, geo.clip_src),
+             "clip_overflow": (fe.clip_overflow, geo.clip_overflow),
+             "mat_flat": (fe.mat_flat, geo.mat_flat)}
+    pairs.update({f"plane {i}{j}": (fe.clip_planes[i][j], geo.clip_planes[i][j])
+                  for i in range(3) for j in range(3)})
+    pairs.update({f"setup.{f}": (getattr(fe.setup, f), getattr(geo.setup, f))
+                  for f in ("xy", "z", "w", "area2", "valid")})
+    diffs, max_abs = {}, 0.0
+    for name, (a, b) in pairs.items():
+        if a.shape != b.shape or a.dtype != b.dtype:
+            diffs[name] = -1
+            continue
+        fa, fb = (a.view(torch.int32), b.view(torch.int32)) if a.dtype == torch.float32 else (a, b)
+        diffs[name] = int((fa != fb).sum())
+        if a.dtype == torch.float32 and a.numel():
+            max_abs = max(max_abs, float((a - b).abs().nan_to_num(0.0).max()))
+    return diffs, max_abs
+
+
+def _device_ms(fn, n: int) -> list[float]:
+    """fn's device time in ms, n times: each call queued behind a sleep on
+    the stream, so the host's enqueue is done before its first kernel runs
+    and the events hold the kernels alone."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)  # ~1 ms of the card's clock
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def _check_front_end(scene, layout, pipeline) -> dict:
+    """The front-end kernels (ops/front_end.py) against the ATen chain
+    (passes.frame_geometry_chain) on the same inputs, every output field
+    bit-equal: on the 1080p headline scene with compaction on (the cells'
+    shape: T >= CLIP_COMPACT_MIN_TRIS, cap max(128, T/16)), timed, with the
+    launches and host syncs of a call; then on a camera whose near plane
+    cuts triangles (_clipping_scene) with compaction off and with a cap of
+    5, which overflows. Its ms is the device time of the three launches
+    (_device_ms), its wrapper_ms the call with its host side; plain_ms is
+    the ATen chain's call; the bound is the bytes of the inputs read once
+    and the outputs written once."""
+    import torch
+
+    from renderer_rs_tpu_torch.ops.clip import NEAR_EPS
+    from renderer_rs_tpu_torch.ops.front_end import front_end
+    from renderer_rs_tpu_torch.renderer import passes as P
+
+    t = layout.num_triangles
+    if t < P.CLIP_COMPACT_MIN_TRIS:
+        raise SystemExit(f"phase kernels: the headline scene has {t} triangles, below the "
+                         "compaction's minimum")
+    cap = max(128, t // P.CLIP_COMPACT_DEN)
+    clip_scene, clip_layout = _clipping_scene()
+    w = P.vertex_stage(clip_scene, clip_layout).clip[clip_scene.tris][..., 3]
+    behind = (w < NEAR_EPS).sum(-1)
+    one, two = int((behind == 1).sum()), int((behind == 2).sum())
+    if not (one > 5 and two > 0):
+        raise SystemExit(f"phase kernels: the clipping camera cuts {one} triangles with one "
+                         f"vertex behind and {two} with two; the check needs > 5 and > 0")
+    cases = (("headline, compaction on", scene, layout, cap),
+             ("near plane cuts, no compaction", clip_scene, clip_layout, None),
+             ("near plane cuts, cap 5 (overflows)", clip_scene, clip_layout, 5))
+    ok, max_abs_err, launches = True, 0.0, {}
+    for label, sc, lay, c in cases:
+        n0 = front_end.launches
+        fe = front_end(sc, lay, pipeline, W, H, c)
+        launches[label] = front_end.launches - n0
+        geo = P.frame_geometry_chain(sc, lay, pipeline, W, H, c)
+        diffs, err = _front_end_diffs(fe, geo, P.vertex_stage(sc, lay).clip)
+        max_abs_err = max(max_abs_err, err)
+        bad = {k: v for k, v in diffs.items() if v}
+        over = int(fe.clip_overflow)
+        _log(f"front_end ({label}): T={lay.num_triangles} slots={fe.setup.num_triangles}, "
+             f"{launches[label]} launches, clip_overflow {over}, valid slots "
+             f"{int(fe.clip_valid.sum())}; vs the ATen chain every field bit-equal "
+             f"{not bad}{'' if not bad else f', differing elements {bad}'}")
+        ok = ok and not bad and launches[label] == (2 if c is None else 3)
+        if c == 5:
+            ok = ok and over == one - 5
+    def run():
+        return front_end(scene, layout, pipeline, W, H, cap)
+
+    syncs = _syncs(run)
+    if not ok or syncs:
+        raise SystemExit("phase kernels: the front end disagrees with the ATen chain, "
+                         "launches other than 2 (no compaction) or 3, misses the overflow "
+                         f"or syncs the host ({syncs})")
+    ms = _median(_device_ms(run, KERNEL_TIMINGS))
+    wrapper_ms = _median(_event_times_ms(run, KERNEL_TIMINGS))
+    plain_ms = _median(_event_times_ms(
+        lambda: P.frame_geometry_chain(scene, layout, pipeline, W, H, cap), 5, warmup=1))
+    v, n = scene.positions.shape[0], t + cap
+    k = 6 if not layout.has_textures else 12 if layout.texture_slots[1] else 8
+    lanes_in = 3 + 3 + (2 if layout.has_textures else 0) + (4 if k == 12 else 0)
+    # read: the vertex lanes, the indices, the object matrices and starts;
+    # written: clip positions and attribute rows, and per raster slot
+    # tri_clip 48, planes 36, xy 24, z 12, area2 4, valid 1, clip_valid 1, src 8
+    nbytes = (v * 4 * (lanes_in + 4 + k) + t * 24 + len(layout.object_ranges) * (128 + 4) + 64
+              + n * 134 + 8)
+    bound_ms, bound_by = _bound(0.0, nbytes)
+    _log(f"front_end (headline, compaction on): {ms:.4f} ms device (median of "
+         f"{KERNEL_TIMINGS}, queued behind a sleep), the call {wrapper_ms:.4f} ms, host syncs "
+         f"{len(syncs)}; the ATen chain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms by "
+         f"{bound_by} ({nbytes:.3e} bytes); max |d| {max_abs_err:.3e}")
+    torch.cuda.synchronize()
+    return {
+        "name": "front_end",
+        "route": "cuda",
+        "source": "renderer_rs_tpu_torch/csrc/front_end.cu",
+        "replaces": "renderer_rs_tpu/renderer/passes.py:122-202, :1612-1766 (XLA, no Pallas "
+                    "kernel)",
+        "max_abs_err": max_abs_err,
+        "ms": ms,
+        "wrapper_ms": wrapper_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes this function
+        "host_syncs": len(syncs),
+        "launches_a_call": launches,
+    }
+
+
 def _check_peel(scene, layout, pipeline) -> dict:
     """K5 beside its plain version on the MASK frame's table, with the main
     path's split plan and with FORCED_CHUNK: the layer-0 launch (no floor),
@@ -1930,6 +2104,7 @@ def phase_kernels(directory: str) -> tuple[dict, tuple, tuple, tuple]:
     k2["bound_ms_textured"] = k2_tex["bound_ms"]
     k2["host_syncs"] = k2["host_syncs"] + k2_pbr["host_syncs"] + k2_tex["host_syncs"]
     k2["cases"] = {"pbr flagship": k2_pbr, "headline (textured, IBL)": k2_tex}
+    front = _check_front_end(scene, layout, kw["pipeline"])
     shade = _check_shade(scene, layout, kw)
     csm = _check_shade(*full_scene(W, H, device="cuda", csm=True, **HEADLINE)[:3], cascades=True)
     shade.update({f"{k}_csm": csm[k] for k in ("ms", "plain_ms", "aten_ms", "bound_ms")},
@@ -1963,7 +2138,8 @@ def phase_kernels(directory: str) -> tuple[dict, tuple, tuple, tuple]:
     k2["cases"]["many materials"] = k2_many
     return {"raster_depth": k1, "raster_resolve": k2, "raster_ids": k4,
             "raster_depth_batch": k6, "raster_peel": k5, "raster_visibility": k3,
-            "raster_depth_zplane": k7, "probe_kgather": probe, "shade_fused": shade}, \
+            "raster_depth_zplane": k7, "probe_kgather": probe, "shade_fused": shade,
+            "front_end": front}, \
         headline, gltf, many
 
 
@@ -2249,12 +2425,14 @@ def _zero_launch_counts() -> None:
         raster_resolve,
         raster_visibility,
     )
+    from renderer_rs_tpu_torch.ops.front_end import front_end
     from renderer_rs_tpu_torch.ops.shade_cuda import shade_fused
     from renderer_rs_tpu_torch.probes.kgather import kgather
 
     raster_depth.launches = raster_depth.batched_launches = raster_depth.zplane_launches = 0
     raster_resolve.launches = raster_ids.launches = raster_peel.launches = 0
     raster_visibility.launches = kgather.launches = shade_fused.launches = 0
+    front_end.launches = 0
 
 
 def _launch_counts() -> dict:
@@ -2294,13 +2472,14 @@ _FRAME_MS: dict[str, float] = {}
 
 
 def _drive(label: str, renderer, frames: int, expect: dict, before_frame=None,
-           shade: int | None = None) -> dict:
+           shade: int | None = None, front: int | None = None) -> dict:
     """Render `frames` frames with every launch counter zeroed just before
     and read just after; fail unless the counts are `expect`, and unless
-    the fused shade launched `shade` times where that is given (its count
-    joins the returned counts). `renderer` is a Renderer or a callable that
-    renders one frame (a presented uint8 image or a frame tensor,
-    [H,W,4])."""
+    the fused shade launched `shade` times and the front-end kernels
+    `front` times where those are given (their counts join the returned
+    counts). `renderer` is a Renderer or a callable that renders one frame
+    (a presented uint8 image or a frame tensor, [H,W,4])."""
+    from renderer_rs_tpu_torch.ops.front_end import front_end
     from renderer_rs_tpu_torch.ops.shade_cuda import shade_fused
 
     _zero_launch_counts()
@@ -2322,10 +2501,15 @@ def _drive(label: str, renderer, frames: int, expect: dict, before_frame=None,
     if launches != expect:
         raise SystemExit(f"phase main path, {label}: launches {launches}, expected {expect}")
     launches["shade_fused"] = shade_fused.launches
-    _log(f"main path, {label}: shade_fused launches {shade_fused.launches}")
+    launches["front_end"] = front_end.launches
+    _log(f"main path, {label}: shade_fused launches {shade_fused.launches}, front_end "
+         f"launches {front_end.launches}")
     if shade is not None and shade_fused.launches != shade:
         raise SystemExit(f"phase main path, {label}: shade_fused launches "
                          f"{shade_fused.launches}, expected {shade}")
+    if front is not None and front_end.launches != front:
+        raise SystemExit(f"phase main path, {label}: front_end launches "
+                         f"{front_end.launches}, expected {front}")
     if dropped is not None and renderer.frame_manager.frames_dropped != dropped:
         raise SystemExit(f"phase main path, {label}: MAILBOX dropped a frame of a loop that "
                          "presents every frame")
@@ -2378,7 +2562,8 @@ def phase_main_paths(headline: tuple, gltf: tuple, many: tuple) -> dict:
     for _ in range(2):  # warm-up
         renderer.render_frame()
     by_path["blinnphong"] = _drive(
-        "blinnphong", renderer, BP_FRAMES, _counts(raster_resolve=BP_FRAMES))
+        "blinnphong", renderer, BP_FRAMES, _counts(raster_resolve=BP_FRAMES),
+        front=3 * BP_FRAMES)
     _check_frame("blinnphong", renderer)
     # FLAT shading (the vertex colours): K3 over the whole frame, then the
     # deferred attribute path, no K2
@@ -2402,14 +2587,14 @@ def phase_main_paths(headline: tuple, gltf: tuple, many: tuple) -> dict:
     renderer = make(scene, layout, kw)
     by_path["pbr_static"] = _drive(
         "pbr loop A (static scene)", renderer, PBR_FRAMES,
-        _counts(raster_depth=1, raster_resolve=PBR_FRAMES))
+        _counts(raster_depth=1, raster_resolve=PBR_FRAMES), front=3 * PBR_FRAMES)
     hdr_1x = _check_frame("pbr", renderer)
 
     # loop B, moving sun: a new direction and light matrix every frame
     by_path["pbr_moving_sun"] = _drive(
         "pbr loop B (moving sun)", renderer, PBR_FRAMES,
         _counts(raster_depth=PBR_FRAMES, raster_resolve=PBR_FRAMES),
-        before_frame=lambda i: _move_sun(renderer, i))
+        before_frame=lambda i: _move_sun(renderer, i), front=3 * PBR_FRAMES)
     _check_frame("pbr, sun moved", renderer)
 
     # MSAA 4x on the static PBR scene: the 1x frame, the ids-only sample
@@ -2443,14 +2628,14 @@ def phase_main_paths(headline: tuple, gltf: tuple, many: tuple) -> dict:
     renderer = make(scene, layout, kw)
     by_path["csm_static"] = _drive(
         "csm (static scene)", renderer, CSM_FRAMES,
-        _counts(raster_depth_batch=1, raster_resolve=CSM_FRAMES))
+        _counts(raster_depth_batch=1, raster_resolve=CSM_FRAMES), front=3 * CSM_FRAMES)
     _check_frame("csm", renderer)
 
     # CSM with the cascades refitted to a moving sun every frame
     by_path["csm_moving_sun"] = _drive(
         "csm (cascades refitted every frame)", renderer, CSM_FRAMES,
         _counts(raster_depth_batch=CSM_FRAMES, raster_resolve=CSM_FRAMES),
-        before_frame=lambda i: _refit_cascades(renderer, i))
+        before_frame=lambda i: _refit_cascades(renderer, i), front=3 * CSM_FRAMES)
     _check_frame("csm, sun moved", renderer)
 
     # the same, the cascades in the z-plane form: one batched K7 a frame
@@ -3868,7 +4053,8 @@ def _headline_paths(make, scene, layout, kw) -> dict:
     renderer = make(scene, layout, kw)
     by_path["headline"] = _drive(
         "headline (textured, IBL; static scene)", renderer, HEADLINE_FRAMES,
-        _counts(raster_depth=1, raster_resolve=HEADLINE_FRAMES), shade=2 * HEADLINE_FRAMES)
+        _counts(raster_depth=1, raster_resolve=HEADLINE_FRAMES), shade=2 * HEADLINE_FRAMES,
+        front=3 * HEADLINE_FRAMES)
     full = _check_frame("headline", renderer)
     # bench.py's MSAA 4x frame (bench.py:236-248): the headline scene
     # through the shade-once resolve, K4 on the 3840x2160 sample pass
@@ -3881,7 +4067,7 @@ def _headline_paths(make, scene, layout, kw) -> dict:
     by_path["headline_msaa4"] = _drive(
         label, msaa, HEADLINE_MSAA_FRAMES,
         _counts(raster_depth=1, raster_resolve=HEADLINE_MSAA_FRAMES,
-                raster_ids=HEADLINE_MSAA_FRAMES))
+                raster_ids=HEADLINE_MSAA_FRAMES), front=3 * HEADLINE_MSAA_FRAMES)
     hdr = msaa.render_frame_hdr()
     changed = float(((hdr - full).abs().amax(-1) > 1e-5).float().mean())
     _log(f"{label}: frame {tuple(hdr.shape)} finite {bool(torch.isfinite(hdr).all())}, pixels "

@@ -9,10 +9,10 @@ frame. ``front_end`` is the wrapper: on CUDA tensors it launches the
 kernels (the vertex kernel over every draw, the per-triangle clip and setup,
 and under compaction the scan that places the secondaries), counts them in
 ``front_end.launches`` and in the frame record's ``launches``
-(core/profiling.py), and raises on a refused launch; on CPU tensors it runs
-``front_end_plain``, the kernels' form in torch ops: the object-table
-lookup, the per-triangle case analysis, the scan-based compaction with its
-invalid-secondary padding. Nothing falls back.
+(core/profiling.py), and raises on malformed inputs and on a refused
+launch. It takes CUDA tensors only: the CPU runs the ATen chain
+(renderer/passes.py::frame_geometry_chain), which is also the plain
+reference the kernels are held to on the card. Nothing falls back.
 
 The outputs are views of three allocations a call (float32, bool, int64),
 laid out as renderer/passes.py::FrameGeometry has them; the setup's w is
@@ -22,10 +22,7 @@ scene (its tri_material tensor and layout) and kept. The uv lanes are the
 scene's uv buffer, which the vertex kernel copies into its attribute rows.
 
 renderer/passes.py::frame_geometry says when the frame takes it: on CUDA,
-on triangle topologies under vstage "loop". The plain version's products
-are the fused chains the kernel computes (_rows);
-its lane sums are ATen's own (mathx/vec.py::normalize), which the kernel
-follows on the card (csrc/front_end.cu, "Exactness").
+on triangle topologies under vstage "loop".
 """
 
 from __future__ import annotations
@@ -37,11 +34,8 @@ import weakref
 
 import torch
 
-from renderer_rs_tpu_torch.mathx.vec import normalize
-from renderer_rs_tpu_torch.ops.clip import NEAR_EPS, _intersect_t
-from renderer_rs_tpu_torch.ops.raster import TriangleSetup, setup_triangles
+from renderer_rs_tpu_torch.ops.raster import TriangleSetup
 from renderer_rs_tpu_torch.ops.raster_cuda import count_launch
-from renderer_rs_tpu_torch.ops.shade_cuda import _chain
 from renderer_rs_tpu_torch.rhi.pipeline import CullMode, FrontFace, GraphicsPipeline
 
 _F32 = torch.float32
@@ -70,6 +64,7 @@ class FrontEnd:
 @dataclasses.dataclass
 class _Constants:
     ref: weakref.ref  # the scene's tri_material
+    tris: weakref.ref  # the scene's tris, whose vertex ids were range-checked
     object_ranges: tuple
     starts: torch.Tensor  # [O] int32
     mat_flat: torch.Tensor  # [T,1]
@@ -82,22 +77,36 @@ _constants_lock = threading.Lock()
 
 def scene_constants(scene, layout) -> _Constants:
     """The object vertex starts and the flat lanes of the scene, built on
-    its first frame and kept while its tri_material lives."""
+    its first frame and kept while its tri_material and tris live. The
+    build checks once that every vertex id lies in [0, V): the kernels
+    read the vertices at those ids unchecked."""
     tm = scene.tri_material
     with _constants_lock:
         c = _constants.get(id(tm))
-        if c is not None and c.ref() is tm and c.object_ranges == layout.object_ranges:
+        if (c is not None and c.ref() is tm and c.tris() is scene.tris
+                and c.object_ranges == layout.object_ranges):
             return c
         for key in [k for k, v in _constants.items() if v.ref() is None]:
             del _constants[key]
+    v = scene.positions.shape[0]
     starts = [r[0] for r in layout.object_ranges]
     ends = [r[0] + r[1] for r in layout.object_ranges]
-    if starts[0] != 0 or starts[1:] != ends[:-1] or ends[-1] != scene.positions.shape[0]:
+    if starts[0] != 0 or starts[1:] != ends[:-1] or ends[-1] != v:
         raise ValueError("the front end takes object ranges that cover the vertices in order")
+    tris = scene.tris
+    if tris.dtype != torch.int64 or tris.dim() != 2 or tris.shape[1] != 3:
+        raise ValueError(f"tris must be int64 [T,3], not {tris.dtype} {list(tris.shape)}")
+    if tm.shape != (tris.shape[0],):
+        raise ValueError(f"tri_material must be [{tris.shape[0]}], not {list(tm.shape)}")
+    if tris.numel():
+        lo, hi = torch.aminmax(tris)
+        if int(lo) < 0 or int(hi) >= v:
+            raise ValueError(f"tris holds vertex ids in [{int(lo)}, {int(hi)}], outside "
+                             f"[0, {v})")
     dev = scene.device
     mat_flat = tm[:, None].to(_F32)
     src = torch.arange(tm.shape[0], dtype=_F32, device=dev)[:, None]
-    c = _Constants(weakref.ref(tm), layout.object_ranges,
+    c = _Constants(weakref.ref(tm), weakref.ref(tris), layout.object_ranges,
                    torch.tensor(starts, dtype=torch.int32, device=dev),
                    mat_flat, torch.cat([mat_flat, src], dim=-1))
     with _constants_lock:
@@ -105,109 +114,24 @@ def scene_constants(scene, layout) -> _Constants:
     return c
 
 
-# --- the plain version ------------------------------------------------------------
-
-def _rows(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """Rows x [N,K] through per-row matrices m [N,R,K] (or one [R,K]) as
-    the kernel and cuBLAS compute x @ m.T: the fused chain over k
-    (shade_cuda._chain), from a zero accumulator, so a product that is
-    zero is +0."""
-    m = m.expand(x.shape[0], *m.shape[-2:])
-    return torch.stack([_chain(x, m[:, r].T) for r in range(m.shape[1])], dim=-1) + 0.0
-
-
-def _vertices(scene, layout, starts: torch.Tensor):
-    """The vertex kernel: (clip [V,4], attr [V,K])."""
-    v = scene.positions.shape[0]
-    obj = torch.searchsorted(starts, torch.arange(v, dtype=torch.int32, device=scene.device),
-                             right=True).long() - 1
-    model = scene.models[obj]
-    homo = torch.cat([scene.positions, torch.ones_like(scene.positions[:, :1])], dim=-1)
-    world = _rows(homo, model)
-    clip = _rows(world, scene.camera.view_projection)
-    n = normalize(_rows(scene.normals, scene.normal_mats[obj][:, :3, :3]))
-    lanes = [world[:, :3], n]
-    if layout.has_textures:
-        lanes.append(scene.uvs)
-        if layout.texture_slots[1]:
-            t = _rows(scene.tangents[:, :3], model[:, :3, :3])
-            t = normalize(t - n * torch.sum(t * n, dim=-1, keepdim=True))
-            lanes += [t, scene.tangents[:, 3:4]]
-    return clip, torch.cat(lanes, dim=-1)
-
-
-def _clip_triangles(clip: torch.Tensor, tris: torch.Tensor):
-    """The triangle kernel's case analysis over every source triangle:
-    (primary [T,3,4], secondary [T,3,4], primary planes [T,9], secondary
-    planes [T,9], n_behind [T]); plane (i,j) at column 3i + j."""
-    v = clip[tris]
-    behind = v[..., 3] < NEAR_EPS
-    n_behind = behind.sum(dim=-1)
-    b0, b1 = behind[:, 0], behind[:, 1]
-    sel = torch.where(n_behind == 1, torch.where(b0, 0, torch.where(b1, 1, 2)),
-                      torch.where(~b0, 0, torch.where(~b1, 1, 2)))
-    ib, ic = (sel + 1) % 3, (sel + 2) % 3
-    ar = torch.arange(v.shape[0], device=clip.device)
-    va, vb, vc = v[ar, sel], v[ar, ib], v[ar, ic]
-    t_ab = _intersect_t(va[:, 3], vb[:, 3], NEAR_EPS)[:, None]
-    t_ac = _intersect_t(va[:, 3], vc[:, 3], NEAR_EPS)[:, None]
-    i_ab = va + t_ab * (vb - va)
-    i_ac = va + t_ac * (vc - va)
-    one, two = (n_behind == 1)[:, None], (n_behind == 2)[:, None]
-
-    def pick(a, b, c):
-        return torch.where(one, a, torch.where(two, b, c))
-
-    prim = torch.stack([pick(i_ab, va, v[:, 0]), pick(vb, i_ab, v[:, 1]),
-                        pick(vc, i_ac, v[:, 2])], dim=1)
-    sec = torch.stack([i_ab, vc, i_ac], dim=1)
-    eye = torch.eye(3, dtype=_F32, device=clip.device)
-    ba, bb, bc = eye[sel], eye[ib], eye[ic]
-    bi_ab = ba + t_ab * (bb - ba)
-    bi_ac = ba + t_ac * (bc - ba)
-    ident = eye[None].expand(v.shape[0], 3, 3)
-    prim_pl = torch.cat([pick(bi_ab, ba, ident[:, 0]), pick(bb, bi_ab, ident[:, 1]),
-                         pick(bc, bi_ac, ident[:, 2])], dim=-1)
-    sec_pl = torch.cat([bi_ab, bc, bi_ac], dim=-1)
-    return prim, sec, prim_pl, sec_pl, n_behind
-
-
-def front_end_plain(scene, layout, pipeline: GraphicsPipeline, width: int, height: int,
-                    cap: int | None) -> FrontEnd:
-    """The kernels' form in torch ops; cap None: no compaction (slots [T,2T)
-    hold the secondaries), else the secondary block of min(cap, T) slots."""
-    consts = scene_constants(scene, layout)
-    clip, attr = _vertices(scene, layout, consts.starts)
-    prim, sec, prim_pl, sec_pl, n_behind = _clip_triangles(clip, scene.tris)
-    t = n_behind.shape[0]
-    ar = torch.arange(t, device=clip.device)
-    sec_valid = n_behind == 1
-    if cap is None:
-        order = ar
-        overflow = torch.zeros((), dtype=torch.long, device=clip.device)
-    else:
-        # the scan: valid secondaries by rank among them, then the invalid
-        # ones after every valid one, both ascending; ranks past the cap drop
-        cap = min(cap, t)
-        valid_before = torch.cumsum(sec_valid.long(), 0) - sec_valid.long()
-        total = sec_valid.sum()
-        rank = torch.where(sec_valid, valid_before, total + (ar - valid_before))
-        kept = rank < cap
-        order = torch.empty(cap, dtype=torch.long, device=clip.device)
-        order[rank[kept]] = ar[kept]
-        overflow = torch.clamp(total - cap, min=0)
-    tri_clip = torch.cat([prim, sec[order]])
-    clip_valid = torch.cat([n_behind < 3, sec_valid[order]])
-    planes = torch.cat([prim_pl, sec_pl[order]])
-    return FrontEnd(
-        clip=clip, attr=attr, tri_clip=tri_clip, clip_valid=clip_valid,
-        clip_src=torch.cat([ar, order]),
-        clip_planes=tuple(tuple(planes[:, 3 * i + j].contiguous() for j in range(3))
-                          for i in range(3)),
-        setup=setup_triangles(tri_clip, width, height, pipeline, tri_valid=clip_valid),
-        mat_flat=consts.mat_flat if cap is None else consts.mat_src,
-        clip_overflow=overflow,
-    )
+def _check(scene, layout, inputs: dict) -> None:
+    """The dtypes, shapes and device of what the kernels read as raw
+    pointers (`inputs`: name -> tensor, or None where a lane is off)."""
+    v, n_obj = scene.positions.shape[0], len(layout.object_ranges)
+    want = {"positions": (v, 3), "normals": (v, 3), "uvs": (v, 2), "tangents": (v, 4),
+            "models": (n_obj, 4, 4), "normal_mats": (n_obj, 4, 4),
+            "view_projection": (4, 4), "starts": (n_obj,)}
+    for name, x in inputs.items():
+        if x is None:
+            continue
+        if x.device != scene.device:
+            raise ValueError(f"{name} is on {x.device}, the scene on {scene.device}")
+        if name == "tris":
+            continue  # scene_constants checked it
+        dtype = torch.int32 if name == "starts" else _F32
+        if x.dtype != dtype or tuple(x.shape) != want[name]:
+            raise ValueError(f"{name} must be {dtype} {list(want[name])}, not {x.dtype} "
+                             f"{list(x.shape)}")
 
 
 # --- the kernels --------------------------------------------------------------------
@@ -216,11 +140,16 @@ def _launch(scene, layout, pipeline: GraphicsPipeline, width: int, height: int,
             cap: int | None) -> FrontEnd:
     from renderer_rs_tpu_torch.kernels import load
 
-    fn = load("front_end").front_end_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     consts = scene_constants(scene, layout)
     dev = scene.device
+    tex = layout.has_textures
+    inputs = [scene.positions, scene.normals, scene.uvs if tex else None,
+              scene.tangents if tex and layout.texture_slots[1] else None,
+              scene.models, scene.normal_mats, scene.camera.view_projection, consts.starts,
+              scene.tris]
+    _check(scene, layout, dict(zip(("positions", "normals", "uvs", "tangents", "models",
+                                    "normal_mats", "view_projection", "starts", "tris"),
+                                   inputs)))
     v, tt = scene.positions.shape[0], scene.tris.shape[0]
     cap = None if cap is None else min(cap, tt)
     n = tt + cap if cap is not None else 2 * tt
@@ -239,15 +168,6 @@ def _launch(scene, layout, pipeline: GraphicsPipeline, width: int, height: int,
     ibuf = torch.empty(n + 1 + (blocks + 1) // 2, dtype=torch.long, device=dev)
     src, overflow = ibuf[:n], ibuf[n]
     counts = ibuf[n + 1:].view(torch.int32)
-    tex = layout.has_textures
-    inputs = [scene.positions, scene.normals, scene.uvs if tex else None,
-              scene.tangents if tex and layout.texture_slots[1] else None,
-              scene.models, scene.normal_mats, scene.camera.view_projection, consts.starts,
-              scene.tris]
-    for name, x in zip(("positions", "normals", "uvs", "tangents", "models", "normal_mats",
-                        "view_projection", "starts", "tris"), inputs):
-        if x is not None and x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, the scene on {dev}")
     # the kernels read every input as its dense row-major storage
     inputs = [None if x is None else x.contiguous() for x in inputs]
     outputs = [f["vclip"], f["attr"], f["tri_clip"], f["planes"], f["xy"], f["z"], f["area2"],
@@ -259,6 +179,9 @@ def _launch(scene, layout, pipeline: GraphicsPipeline, width: int, height: int,
             int(pipeline.front_face == FrontFace.COUNTER_CLOCKWISE),
             int(pipeline.depth_bias_enable), (c > 0.0) - (c < 0.0)]
     floats = [pipeline.depth_bias_slope, 2.0**-23 * pipeline.depth_bias_constant, c]
+    fn = load("front_end").front_end_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     with torch.cuda.device(dev):
         err = fn((ctypes.c_uint64 * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
                  (ctypes.c_float * len(floats))(*floats),
@@ -283,13 +206,10 @@ def front_end(scene, layout, pipeline: GraphicsPipeline, width: int, height: int
               cap: int | None = None) -> FrontEnd:
     """The frame's vertex stage, near clip, compaction (into min(cap, T)
     secondary slots; None: none) and setup at width x height under the
-    pipeline's cull mode, front face and depth bias. On CUDA the kernels,
-    on the CPU their plain version."""
-    if scene.device.type == "cuda":
-        return _launch(scene, layout, pipeline, width, height, cap)
-    if scene.device.type != "cpu":
-        raise ValueError(f"front_end runs on CUDA or CPU tensors, not {scene.device}")
-    return front_end_plain(scene, layout, pipeline, width, height, cap)
+    pipeline's cull mode, front face and depth bias, on CUDA tensors."""
+    if scene.device.type != "cuda":
+        raise ValueError(f"front_end runs on CUDA tensors, not on {scene.device}")
+    return _launch(scene, layout, pipeline, width, height, cap)
 
 
 front_end.launches = 0

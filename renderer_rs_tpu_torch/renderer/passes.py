@@ -477,21 +477,34 @@ def frame_geometry(scene: GpuScene, layout: SceneLayout, pipeline: GraphicsPipel
     the exact [2T] layout, whose source ids are slot mod T). Where
     _front_end_engages holds, the front-end kernels compute the same
     fields in two or three launches (ops/front_end.py); elsewhere the ATen
-    chain below does."""
+    chain does (frame_geometry_chain)."""
     t_prim = layout.num_triangles
-    dev = scene.device
-    point_line = pipeline.topology in _POINT_LINE
     den = geometry_forms.clip_compact
-    compact = den > 0 and t_prim >= CLIP_COMPACT_MIN_TRIS and not point_line
+    compact = (den > 0 and t_prim >= CLIP_COMPACT_MIN_TRIS
+               and pipeline.topology not in _POINT_LINE)
+    cap = max(128, t_prim // den) if compact else None
     if _front_end_engages(scene, pipeline, geometry_forms):
-        fe = front_end(scene, layout, pipeline, width, height,
-                       max(128, t_prim // den) if compact else None)
+        fe = front_end(scene, layout, pipeline, width, height, cap)
         return FrameGeometry(
             setup=fe.setup, tri_clip=fe.tri_clip, clip_valid=fe.clip_valid, attr=fe.attr,
             clip_src=fe.clip_src, clip_planes=fe.clip_planes, mat_flat=fe.mat_flat,
             compact=compact, clip_overflow=fe.clip_overflow,
         )
-    vs = vertex_stage(scene, layout, geometry_forms.vstage)
+    return frame_geometry_chain(scene, layout, pipeline, width, height, cap,
+                                geometry_forms.vstage)
+
+
+def frame_geometry_chain(scene: GpuScene, layout: SceneLayout, pipeline: GraphicsPipeline,
+                         width: int, height: int, cap: int | None = None,
+                         vstage: str = "loop") -> FrameGeometry:
+    """frame_geometry as ATen ops, compacting the secondaries into cap
+    slots (None: no compaction): the CPU's form, and the plain reference
+    the front-end kernels are held to, field for field, on the card."""
+    t_prim = layout.num_triangles
+    dev = scene.device
+    point_line = pipeline.topology in _POINT_LINE
+    compact = cap is not None
+    vs = vertex_stage(scene, layout, vstage)
     tri_clip = gather_triangle_clip(vs.clip, scene.tris)
     clip_overflow = torch.zeros((), dtype=torch.long, device=dev)
     if point_line:
@@ -507,8 +520,7 @@ def frame_geometry(scene: GpuScene, layout: SceneLayout, pipeline: GraphicsPipel
         tri_clip, clip_valid, clip_src, clip_planes = clip_triangles_near_planes(tri_clip)
     if compact:
         tri_clip, clip_valid, clip_src, clip_planes, clip_overflow = compact_secondary(
-            tri_clip, clip_valid, clip_src, clip_planes,
-            max(128, t_prim // den),
+            tri_clip, clip_valid, clip_src, clip_planes, cap,
         )
     setup = setup_triangles(tri_clip, width, height, pipeline, tri_valid=clip_valid)
     # Arithmetic source mapping (passes.py:1902-1909, 1952-1970): no ids

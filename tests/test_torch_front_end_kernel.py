@@ -3,15 +3,17 @@ frame's vertex stage, near clip, secondary compaction and setup in two or
 three launches where the ATen chain of renderer/passes.py::frame_geometry
 took ~640.
 
-On the CPU: the kernels' plain version (object-table lookup, the
-per-triangle pass, the scan-based compaction with its invalid-secondary
-padding) equals today's chain bit for bit: on the headline scene at a small
+On the CPU: a model of the kernels in torch ops (`kernel_model`: the
+object-table lookup, the per-triangle pass, the scan-based compaction with
+its invalid-secondary padding) equals the ATen chain
+(passes.frame_geometry_chain) bit for bit: on the headline scene at a small
 extent, on a camera whose near plane cuts triangles with one and with two
 vertices behind, with compaction on, off and overflowing a small cap, under
 back-face culling, no culling and a depth bias. frame_geometry keeps the
 chain on CPU tensors, point and line topologies and vstage "batch", and its
 kernel branch assembles the same FrameGeometry; launches["front_end"] is
-counted only where the kernels run.
+counted only where the kernels run; the wrapper refuses CPU tensors and
+inputs of the wrong dtype or shape before it builds or launches anything.
 
 The tests marked cuda need the card and skip without one: the kernels
 against the ATen chain on the card at 1920x1080, on the headline scene and
@@ -30,9 +32,11 @@ import numpy as np
 import pytest
 import torch
 
+from renderer_rs_tpu_torch.mathx.vec import normalize
 from renderer_rs_tpu_torch.ops import front_end as FE
-from renderer_rs_tpu_torch.ops.clip import clip_triangles_near_planes, compact_secondary
-from renderer_rs_tpu_torch.ops.raster import gather_triangle_clip, setup_triangles
+from renderer_rs_tpu_torch.ops.clip import NEAR_EPS, _intersect_t
+from renderer_rs_tpu_torch.ops.raster import setup_triangles
+from renderer_rs_tpu_torch.ops.shade_cuda import _chain
 from renderer_rs_tpu_torch.renderer import passes as P
 from renderer_rs_tpu_torch.rhi.pipeline import (
     CullMode,
@@ -81,18 +85,107 @@ def clipping_scene(width, height, device):
     return b.build(device=device)
 
 
-def chain(scene, layout, pipeline, width, height, cap):
-    """Today's ATen chain (frame_geometry's body) with any cap (None: no
-    compaction): (vertex stage, tri_clip, valid, src, planes, overflow,
-    setup)."""
-    vs = P.vertex_stage(scene, layout)
-    parts = clip_triangles_near_planes(gather_triangle_clip(vs.clip, scene.tris))
-    overflow = torch.zeros((), dtype=torch.long, device=scene.device)
-    if cap is not None:
-        *parts, overflow = compact_secondary(*parts, cap)
-    tri_clip, valid, src, planes = parts
-    setup = setup_triangles(tri_clip, width, height, pipeline, tri_valid=valid)
-    return vs, tri_clip, valid, src, planes, overflow, setup
+def _rows(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Rows x [N,K] through per-row matrices m [N,R,K] (or one [R,K]) as
+    the kernel and cuBLAS compute x @ m.T: the fused chain over k
+    (shade_cuda._chain), from a zero accumulator, so a product that is
+    zero is +0."""
+    m = m.expand(x.shape[0], *m.shape[-2:])
+    return torch.stack([_chain(x, m[:, r].T) for r in range(m.shape[1])], dim=-1) + 0.0
+
+
+def _vertices(scene, layout, starts: torch.Tensor):
+    """The vertex kernel: (clip [V,4], attr [V,K])."""
+    v = scene.positions.shape[0]
+    obj = torch.searchsorted(starts, torch.arange(v, dtype=torch.int32, device=scene.device),
+                             right=True).long() - 1
+    model = scene.models[obj]
+    homo = torch.cat([scene.positions, torch.ones_like(scene.positions[:, :1])], dim=-1)
+    world = _rows(homo, model)
+    clip = _rows(world, scene.camera.view_projection)
+    n = normalize(_rows(scene.normals, scene.normal_mats[obj][:, :3, :3]))
+    lanes = [world[:, :3], n]
+    if layout.has_textures:
+        lanes.append(scene.uvs)
+        if layout.texture_slots[1]:
+            t = _rows(scene.tangents[:, :3], model[:, :3, :3])
+            t = normalize(t - n * torch.sum(t * n, dim=-1, keepdim=True))
+            lanes += [t, scene.tangents[:, 3:4]]
+    return clip, torch.cat(lanes, dim=-1)
+
+
+def _clip_triangles(clip: torch.Tensor, tris: torch.Tensor):
+    """The triangle kernel's case analysis over every source triangle:
+    (primary [T,3,4], secondary [T,3,4], primary planes [T,9], secondary
+    planes [T,9], n_behind [T]); plane (i,j) at column 3i + j."""
+    v = clip[tris]
+    behind = v[..., 3] < NEAR_EPS
+    n_behind = behind.sum(dim=-1)
+    b0, b1 = behind[:, 0], behind[:, 1]
+    sel = torch.where(n_behind == 1, torch.where(b0, 0, torch.where(b1, 1, 2)),
+                      torch.where(~b0, 0, torch.where(~b1, 1, 2)))
+    ib, ic = (sel + 1) % 3, (sel + 2) % 3
+    ar = torch.arange(v.shape[0], device=clip.device)
+    va, vb, vc = v[ar, sel], v[ar, ib], v[ar, ic]
+    t_ab = _intersect_t(va[:, 3], vb[:, 3], NEAR_EPS)[:, None]
+    t_ac = _intersect_t(va[:, 3], vc[:, 3], NEAR_EPS)[:, None]
+    i_ab = va + t_ab * (vb - va)
+    i_ac = va + t_ac * (vc - va)
+    one, two = (n_behind == 1)[:, None], (n_behind == 2)[:, None]
+
+    def pick(a, b, c):
+        return torch.where(one, a, torch.where(two, b, c))
+
+    prim = torch.stack([pick(i_ab, va, v[:, 0]), pick(vb, i_ab, v[:, 1]),
+                        pick(vc, i_ac, v[:, 2])], dim=1)
+    sec = torch.stack([i_ab, vc, i_ac], dim=1)
+    eye = torch.eye(3, dtype=torch.float32, device=clip.device)
+    ba, bb, bc = eye[sel], eye[ib], eye[ic]
+    bi_ab = ba + t_ab * (bb - ba)
+    bi_ac = ba + t_ac * (bc - ba)
+    ident = eye[None].expand(v.shape[0], 3, 3)
+    prim_pl = torch.cat([pick(bi_ab, ba, ident[:, 0]), pick(bb, bi_ab, ident[:, 1]),
+                         pick(bc, bi_ac, ident[:, 2])], dim=-1)
+    sec_pl = torch.cat([bi_ab, bc, bi_ac], dim=-1)
+    return prim, sec, prim_pl, sec_pl, n_behind
+
+
+def kernel_model(scene, layout, pipeline, width, height, cap):
+    """The kernels' algorithm in torch ops (csrc/front_end.cu); cap None: no
+    compaction (slots [T,2T) hold the secondaries), else the secondary
+    block of min(cap, T) slots."""
+    consts = FE.scene_constants(scene, layout)
+    clip, attr = _vertices(scene, layout, consts.starts)
+    prim, sec, prim_pl, sec_pl, n_behind = _clip_triangles(clip, scene.tris)
+    t = n_behind.shape[0]
+    ar = torch.arange(t, device=clip.device)
+    sec_valid = n_behind == 1
+    if cap is None:
+        order = ar
+        overflow = torch.zeros((), dtype=torch.long, device=clip.device)
+    else:
+        # the scan: valid secondaries by rank among them, then the invalid
+        # ones after every valid one, both ascending; ranks past the cap drop
+        cap = min(cap, t)
+        valid_before = torch.cumsum(sec_valid.long(), 0) - sec_valid.long()
+        total = sec_valid.sum()
+        rank = torch.where(sec_valid, valid_before, total + (ar - valid_before))
+        kept = rank < cap
+        order = torch.empty(cap, dtype=torch.long, device=clip.device)
+        order[rank[kept]] = ar[kept]
+        overflow = torch.clamp(total - cap, min=0)
+    tri_clip = torch.cat([prim, sec[order]])
+    clip_valid = torch.cat([n_behind < 3, sec_valid[order]])
+    planes = torch.cat([prim_pl, sec_pl[order]])
+    return FE.FrontEnd(
+        clip=clip, attr=attr, tri_clip=tri_clip, clip_valid=clip_valid,
+        clip_src=torch.cat([ar, order]),
+        clip_planes=tuple(tuple(planes[:, 3 * i + j].contiguous() for j in range(3))
+                          for i in range(3)),
+        setup=setup_triangles(tri_clip, width, height, pipeline, tri_valid=clip_valid),
+        mat_flat=consts.mat_flat if cap is None else consts.mat_src,
+        clip_overflow=overflow,
+    )
 
 
 def bits(x: torch.Tensor) -> torch.Tensor:
@@ -106,31 +199,23 @@ def assert_bit_equal(got, want, name):
 
 
 def assert_matches_chain(fe, scene, layout, pipeline, width, height, cap):
-    vs, tri_clip, valid, src, planes, overflow, setup = chain(scene, layout, pipeline, width,
-                                                             height, cap)
-    attr = [vs.world_pos, vs.world_normal]
-    if layout.has_textures:
-        attr.append(scene.uvs)
-        if layout.texture_slots[1]:
-            attr.append(vs.world_tangent)
-    assert_bit_equal(fe.clip, vs.clip, "clip")
-    assert_bit_equal(fe.attr, torch.cat(attr, dim=-1), "attr")
-    assert_bit_equal(fe.tri_clip, tri_clip, "tri_clip")
-    assert_bit_equal(fe.clip_valid, valid, "clip_valid")
-    assert_bit_equal(fe.clip_src, src, "clip_src")
-    assert_bit_equal(fe.clip_overflow, overflow, "clip_overflow")
+    """Every field of the front end `fe` bit-equal to the ATen chain's
+    (passes.frame_geometry_chain) on the same inputs."""
+    geo = P.frame_geometry_chain(scene, layout, pipeline, width, height, cap)
+    assert_bit_equal(fe.clip, P.vertex_stage(scene, layout).clip, "clip")
+    assert_bit_equal(fe.attr, geo.attr, "attr")
+    assert_bit_equal(fe.tri_clip, geo.tri_clip, "tri_clip")
+    assert_bit_equal(fe.clip_valid, geo.clip_valid, "clip_valid")
+    assert_bit_equal(fe.clip_src, geo.clip_src, "clip_src")
+    assert_bit_equal(fe.clip_overflow, geo.clip_overflow, "clip_overflow")
     for i in range(3):
         for j in range(3):
-            assert_bit_equal(fe.clip_planes[i][j], planes[i][j], f"plane {i}{j}")
+            assert_bit_equal(fe.clip_planes[i][j], geo.clip_planes[i][j], f"plane {i}{j}")
     for f in ("xy", "z", "w", "area2", "valid"):
-        assert_bit_equal(getattr(fe.setup, f), getattr(setup, f), f"setup.{f}")
+        assert_bit_equal(getattr(fe.setup, f), getattr(geo.setup, f), f"setup.{f}")
     # the layouts the chain leaves: dense slots, w a view of tri_clip
-    assert fe.setup.w.stride() == setup.w.stride()
-    mat = scene.tri_material[:, None].float()
-    if cap is not None:
-        mat = torch.cat([mat, torch.arange(mat.shape[0], dtype=torch.float32,
-                                           device=mat.device)[:, None]], dim=-1)
-    assert_bit_equal(fe.mat_flat, mat, "mat_flat")
+    assert fe.setup.w.stride() == geo.setup.w.stride()
+    assert_bit_equal(fe.mat_flat, geo.mat_flat, "mat_flat")
 
 
 @pytest.fixture(scope="module")
@@ -145,7 +230,7 @@ def clipping():
 
 def _behind_counts(scene, layout):
     w = P.vertex_stage(scene, layout).clip[scene.tris][..., 3]
-    n = (w < FE.NEAR_EPS).sum(-1)
+    n = (w < NEAR_EPS).sum(-1)
     return int((n == 1).sum()), int((n == 2).sum())
 
 
@@ -154,7 +239,7 @@ def _behind_counts(scene, layout):
 def test_plain_equals_the_chain_on_the_headline_scene(headline, pipe, cap):
     scene, layout = headline
     cap = None if cap is None else max(128, layout.num_triangles // P.CLIP_COMPACT_DEN)
-    fe = FE.front_end(scene, layout, PIPELINES[pipe], 64, 48, cap)
+    fe = kernel_model(scene, layout, PIPELINES[pipe], 64, 48, cap)
     assert_matches_chain(fe, scene, layout, PIPELINES[pipe], 64, 48, cap)
 
 
@@ -167,7 +252,7 @@ def test_plain_equals_the_chain_where_the_near_plane_cuts(clipping, pipe, cap):
     scene, layout = clipping
     one, two = _behind_counts(scene, layout)
     assert one > 5 and two > 0 and one < 128
-    fe = FE.front_end(scene, layout, PIPELINES[pipe], 96, 64, cap)
+    fe = kernel_model(scene, layout, PIPELINES[pipe], 96, 64, cap)
     assert_matches_chain(fe, scene, layout, PIPELINES[pipe], 96, 64, cap)
     if cap is not None:
         assert int(fe.clip_overflow) == max(0, one - cap)
@@ -177,8 +262,8 @@ def test_plain_equals_the_chain_where_the_near_plane_cuts(clipping, pipe, cap):
 
 
 def test_the_kernel_branch_assembles_the_chains_frame_geometry(clipping, monkeypatch):
-    """frame_geometry's kernel branch, driven on the CPU through the plain
-    version, gives the chain's FrameGeometry field for field."""
+    """frame_geometry's kernel branch, driven on the CPU through the
+    kernels' model, gives the chain's FrameGeometry field for field."""
     scene, layout = clipping
     pipe = PIPELINES["cull_none"]
     for den in (16, 0):
@@ -186,6 +271,7 @@ def test_the_kernel_branch_assembles_the_chains_frame_geometry(clipping, monkeyp
         want = P.frame_geometry(scene, layout, pipe, 96, 64, forms)
         with monkeypatch.context() as mp:
             mp.setattr(P, "_front_end_engages", lambda *a: True)
+            mp.setattr(P, "front_end", kernel_model)
             got = P.frame_geometry(scene, layout, pipe, 96, 64, forms)
         assert got.compact == want.compact == (den > 0)
         for f in ("tri_clip", "clip_valid", "attr", "clip_src", "mat_flat", "clip_overflow"):
@@ -222,8 +308,55 @@ def test_cpu_frames_keep_the_chain_and_count_no_launch(clipping, monkeypatch):
     scene, layout = clipping
     with profiling.frame() as rec:
         P.frame_geometry(scene, layout, PIPELINES["cull_back"], 96, 64)
-        FE.front_end_plain(scene, layout, PIPELINES["cull_back"], 96, 64, None)
+        kernel_model(scene, layout, PIPELINES["cull_back"], 96, 64, None)
     assert "front_end" not in rec.launches
+
+
+def test_the_wrapper_refuses_cpu_tensors(clipping):
+    scene, layout = clipping
+    n0 = FE.front_end.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        FE.front_end(scene, layout, PIPELINES["cull_back"], 96, 64, None)
+    assert FE.front_end.launches == n0
+
+
+def _widen(x):
+    return torch.cat([x, x[:, :1]], dim=-1)
+
+
+# name -> (the scene made malformed, what the refusal names)
+MALFORMED = {
+    "int32 tris": (lambda s: s.replace(tris=s.tris.int()), "tris must be int64"),
+    "a vertex id past V": (lambda s: s.replace(tris=torch.where(
+        s.tris == s.tris.max(), s.positions.shape[0], s.tris)), "outside"),
+    "a negative vertex id": (lambda s: s.replace(tris=torch.where(s.tris == 0, -1, s.tris)),
+                             "outside"),
+    "a short tri_material": (lambda s: s.replace(tri_material=s.tri_material[1:]),
+                             "tri_material"),
+    "float64 positions": (lambda s: s.replace(positions=s.positions.double()), "positions"),
+    "[V,4] normals": (lambda s: s.replace(normals=_widen(s.normals)), "normals"),
+    "[V,3] uvs": (lambda s: s.replace(uvs=_widen(s.uvs)), "uvs"),
+    "[V,3] tangents": (lambda s: s.replace(tangents=s.tangents[:, :3]), "tangents"),
+    "one model short": (lambda s: s.replace(models=s.models[1:]), "models"),
+    "[O,3,3] normal matrices": (lambda s: s.replace(
+        normal_mats=s.normal_mats[:, :3, :3].contiguous()), "normal_mats"),
+}
+
+
+@pytest.mark.parametrize("case", MALFORMED)
+def test_the_wrapper_refuses_malformed_inputs(headline, case):
+    """The kernels read raw pointers: the wrapper checks every input's
+    dtype and shape, and the vertex ids' range, before it builds or
+    launches anything (here on the CPU, where a launch would fail to
+    build)."""
+    scene, layout = headline
+    assert layout.has_textures and layout.texture_slots[1]  # every lane is read
+    make, match = MALFORMED[case]
+    bad = make(scene)
+    n0 = FE.front_end.launches
+    with pytest.raises(ValueError, match=match):
+        FE._launch(bad, layout, PIPELINES["cull_back"], 64, 48, None)
+    assert FE.front_end.launches == n0
 
 
 def test_the_wrapper_counts_under_front_end():
