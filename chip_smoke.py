@@ -1792,6 +1792,35 @@ def _clipping_scene():
     return b.build(device="cuda")
 
 
+def _headline_orbit_scene(scene, angle: float):
+    """The headline scene under its own camera (bench_port/traffic/orbit.json:
+    the eye 5 units out and 3 up, looking at the origin, full_scene's lens)
+    at `angle`; at 5 pi / 4 the floor's corner 0 alone lies behind the near
+    plane, so both floor triangles are cut into quads."""
+    import numpy as np
+
+    from renderer_rs_tpu_torch.app.scenes import _camera_ubo, _orbit_camera
+
+    cam = _orbit_camera(W, H, distance=5.0, height_y=3.0, fov=50.0)
+    cam.position = np.array([5.0 * math.sin(angle), 3.0, 5.0 * math.cos(angle)], np.float32)
+    cam.look_at([0.0, 0.0, 0.0])
+    return scene.replace(camera=_camera_ubo(cam).to(scene.device))
+
+
+def _traced_chain(scene, layout, pipeline, cap):
+    """passes.frame_geometry_chain inside a traced frame record, where it
+    computes the clip's counters (clip_counts) too."""
+    from renderer_rs_tpu_torch.core import profiling
+    from renderer_rs_tpu_torch.renderer import passes as P
+
+    profiling.enable_tracing(True)
+    try:
+        with profiling.frame():
+            return P.frame_geometry_chain(scene, layout, pipeline, W, H, cap)
+    finally:
+        profiling.enable_tracing(False)
+
+
 def _front_end_diffs(fe, geo, clip) -> tuple[dict, float]:
     """The front end's outputs `fe` against the ATen chain's FrameGeometry
     `geo` and vertex clip positions `clip`: (field -> elements whose bits
@@ -1802,6 +1831,7 @@ def _front_end_diffs(fe, geo, clip) -> tuple[dict, float]:
              "tri_clip": (fe.tri_clip, geo.tri_clip), "clip_valid": (fe.clip_valid, geo.clip_valid),
              "clip_src": (fe.clip_src, geo.clip_src),
              "clip_overflow": (fe.clip_overflow, geo.clip_overflow),
+             "clip_counts": (fe.clip_counts, geo.clip_counts),
              "mat_flat": (fe.mat_flat, geo.mat_flat)}
     pairs.update({f"plane {i}{j}": (fe.clip_planes[i][j], geo.clip_planes[i][j])
                   for i in range(3) for j in range(3)})
@@ -1842,18 +1872,22 @@ def _device_ms(fn, n: int) -> list[float]:
 
 def _check_front_end(scene, layout, pipeline) -> dict:
     """The front-end kernels (ops/front_end.py) against the ATen chain
-    (passes.frame_geometry_chain) on the same inputs, every output field
-    bit-equal: on the 1080p headline scene with compaction on (the cells'
-    shape: T >= CLIP_COMPACT_MIN_TRIS, cap max(128, T/16)), timed, with the
-    launches and host syncs of a call; then on a camera whose near plane
-    cuts triangles (_clipping_scene) with compaction off and with a cap of
-    5, which overflows. Its ms is the device time of the three launches
+    (passes.frame_geometry_chain: the near clip's plane form, the main
+    path's) on the same inputs, every output field bit-equal, the clip's
+    counters (clip_overflow, near_clipped) included: on the 1080p headline
+    scene with compaction on (the cells' shape: T >= CLIP_COMPACT_MIN_TRIS,
+    cap max(128, T/16)), timed, with the launches and host syncs of a call;
+    on the headline scene at its own camera, the orbit 5 units out at an
+    angle where the near plane cuts both floor triangles, with compaction
+    on and at a cap of 1, which overflows; then on a camera whose near
+    plane cuts triangles with one and with two vertices behind
+    (_clipping_scene) with compaction off and with a cap of 5, which
+    overflows. Its ms is the device time of the three launches
     (_device_ms), its wrapper_ms the call with its host side; plain_ms is
     the ATen chain's call; the bound is the bytes of the inputs read once
     and the outputs written once."""
     import torch
 
-    from renderer_rs_tpu_torch.ops.clip import NEAR_EPS
     from renderer_rs_tpu_torch.ops.front_end import front_end
     from renderer_rs_tpu_torch.renderer import passes as P
 
@@ -1862,33 +1896,43 @@ def _check_front_end(scene, layout, pipeline) -> dict:
         raise SystemExit(f"phase kernels: the headline scene has {t} triangles, below the "
                          "compaction's minimum")
     cap = max(128, t // P.CLIP_COMPACT_DEN)
+    def behind(sc, lay):
+        z = P.vertex_stage(sc, lay).clip[sc.tris][..., 2]
+        n = (z < 0.0).sum(-1)
+        return int((n == 1).sum()), int((n == 2).sum())
+
+    orbit = _headline_orbit_scene(scene, 1.25 * math.pi)
+    orbit_one, orbit_two = behind(orbit, layout)
     clip_scene, clip_layout = _clipping_scene()
-    w = P.vertex_stage(clip_scene, clip_layout).clip[clip_scene.tris][..., 3]
-    behind = (w < NEAR_EPS).sum(-1)
-    one, two = int((behind == 1).sum()), int((behind == 2).sum())
-    if not (one > 5 and two > 0):
+    one, two = behind(clip_scene, clip_layout)
+    if not (one > 5 and two > 0 and orbit_one == 2):
         raise SystemExit(f"phase kernels: the clipping camera cuts {one} triangles with one "
-                         f"vertex behind and {two} with two; the check needs > 5 and > 0")
-    cases = (("headline, compaction on", scene, layout, cap),
-             ("near plane cuts, no compaction", clip_scene, clip_layout, None),
-             ("near plane cuts, cap 5 (overflows)", clip_scene, clip_layout, 5))
+                         f"vertex behind and {two} with two, the headline orbit {orbit_one} "
+                         "with one; the check needs > 5, > 0 and 2")
+    cases = (("headline, compaction on", scene, layout, cap, 0, 0),
+             ("headline orbit 5 out, compaction on", orbit, layout, cap, orbit_one + orbit_two,
+              0),
+             ("headline orbit 5 out, cap 1 (overflows)", orbit, layout, 1,
+              orbit_one + orbit_two, orbit_one - 1),
+             ("near plane cuts, no compaction", clip_scene, clip_layout, None, one + two, 0),
+             ("near plane cuts, cap 5 (overflows)", clip_scene, clip_layout, 5, one + two,
+              one - 5))
     ok, max_abs_err, launches = True, 0.0, {}
-    for label, sc, lay, c in cases:
+    for label, sc, lay, c, cut, overflow in cases:
         n0 = front_end.launches
         fe = front_end(sc, lay, pipeline, W, H, c)
         launches[label] = front_end.launches - n0
-        geo = P.frame_geometry_chain(sc, lay, pipeline, W, H, c)
+        geo = _traced_chain(sc, lay, pipeline, c)
         diffs, err = _front_end_diffs(fe, geo, P.vertex_stage(sc, lay).clip)
         max_abs_err = max(max_abs_err, err)
         bad = {k: v for k, v in diffs.items() if v}
-        over = int(fe.clip_overflow)
+        over, clipped = (int(x) for x in fe.clip_counts)
         _log(f"front_end ({label}): T={lay.num_triangles} slots={fe.setup.num_triangles}, "
-             f"{launches[label]} launches, clip_overflow {over}, valid slots "
-             f"{int(fe.clip_valid.sum())}; vs the ATen chain every field bit-equal "
-             f"{not bad}{'' if not bad else f', differing elements {bad}'}")
-        ok = ok and not bad and launches[label] == (2 if c is None else 3)
-        if c == 5:
-            ok = ok and over == one - 5
+             f"{launches[label]} launches, clip_overflow {over}, near_clipped {clipped}, "
+             f"valid slots {int(fe.clip_valid.sum())}; vs the ATen chain every field "
+             f"bit-equal {not bad}{'' if not bad else f', differing elements {bad}'}")
+        ok = (ok and not bad and launches[label] == (2 if c is None else 3)
+              and (over, clipped) == (overflow, cut))
     def run():
         return front_end(scene, layout, pipeline, W, H, cap)
 
@@ -1896,7 +1940,7 @@ def _check_front_end(scene, layout, pipeline) -> dict:
     if not ok or syncs:
         raise SystemExit("phase kernels: the front end disagrees with the ATen chain, "
                          "launches other than 2 (no compaction) or 3, misses the overflow "
-                         f"or syncs the host ({syncs})")
+                         f"or the cut triangles, or syncs the host ({syncs})")
     ms = _median(_device_ms(run, KERNEL_TIMINGS))
     wrapper_ms = _median(_event_times_ms(run, KERNEL_TIMINGS))
     plain_ms = _median(_event_times_ms(

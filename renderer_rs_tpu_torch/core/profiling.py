@@ -13,7 +13,8 @@ profiling.py, whose FrameStats and trace it keeps):
   `launches`, each hand-written kernel's launches in it by its wrapper's
   name (ops/raster_cuda.py::count_launch adds them, count_kernel), and
   `csm_refits`, the Renderer's refits of camera-fitted cascades in it
-  (count_csm_refit). A span
+  (count_csm_refit), and `counts`, device counters of a traced record
+  (count_device: the near clip's `near_clipped` and `clip_overflow`). A span
   opened outside a frame (a test, forward_frame called directly, a shard
   thread) opens a record of its own, with frame id None, that its
   outermost span closes. Records go to one process-wide ring of
@@ -27,6 +28,11 @@ profiling.py, whose FrameStats and trace it keeps):
   each with its site: (innermost span, file:line). Each sync is counted
   once: a host_wait is counted at its own site. On a CPU-only build
   tracing records the same spans and nothing syncs;
+- count_device(names, values): on a traced record, a non-blocking copy of
+  the device counters `values` into pinned memory on the current stream,
+  read into the record's `counts` once the copy has finished, which a
+  fence wait returning (mark_ready) lets the host see with no sync. An
+  untraced record enqueues nothing for them;
 - trace(log_dir): a torch.profiler session over CPU and CUDA activity,
   written as a Chrome trace (≙ the JAX package's jax.profiler trace).
 
@@ -107,8 +113,8 @@ class FrameRecord:
     `submitted` stay None where the call did not get there."""
 
     __slots__ = ("frame", "anchor_ns", "unix_ns", "start", "submitted", "ready", "end",
-                 "spans", "syncs", "sync_sites", "launches", "csm_refits", "traced", "profiled",
-                 "_outer")
+                 "spans", "syncs", "sync_sites", "launches", "csm_refits", "counts", "traced",
+                 "profiled", "_outer")
 
     def __init__(self, traced: bool, profiled: bool) -> None:
         self.anchor_ns = time.perf_counter_ns()
@@ -120,6 +126,7 @@ class FrameRecord:
         self.sync_sites: list = []  # (innermost span or None, "file:line"), tracing on
         self.launches: dict = {}  # kernel wrapper name -> launches
         self.csm_refits = 0
+        self.counts: dict = {}  # device counter name -> value, traced records (count_device)
         self.traced = traced
         self.profiled = profiled
 
@@ -129,8 +136,10 @@ class FrameRecord:
         self.frame = frame_id
 
     def mark_ready(self) -> None:
-        """The fence wait has returned."""
+        """The fence wait has returned: the device counters whose copies
+        have finished go into their records."""
         self.ready = time.perf_counter_ns()
+        _read_counts()
 
     def unix_us(self, t_ns: int) -> float:
         """The stamp `t_ns` on the Unix clock, in microseconds."""
@@ -145,7 +154,7 @@ class FrameRecord:
                for k in ("start", "submitted", "ready", "end")},
             spans=[[n, p, us(a), us(b)] for n, p, a, b in self.spans],
             syncs=self.syncs, sync_sites=[list(s) for s in self.sync_sites],
-            launches=dict(self.launches), csm_refits=self.csm_refits)
+            launches=dict(self.launches), csm_refits=self.csm_refits, counts=dict(self.counts))
 
 
 class _Thread(threading.local):
@@ -276,6 +285,53 @@ def count_csm_refit() -> None:
     rec = _tls.record
     if rec is not None:
         rec.csm_refits += 1
+
+
+def traced() -> bool:
+    """Whether the current thread's record is traced (False outside one)."""
+    rec = _tls.record
+    return rec is not None and rec.traced
+
+
+_unread: list = []  # (record, names, pinned host copy, event after the copy)
+_unread_lock = threading.Lock()
+
+
+def count_device(names: tuple, values: torch.Tensor | None) -> None:
+    """The device counters `values` ([len(names)] int64) into the current
+    thread's record as counts[name], on a traced record only: on CUDA a
+    non-blocking copy into pinned memory on the current stream, read once
+    it has finished (the next mark_ready that finds it so); on the CPU at
+    once. Nothing outside a traced record, or for values None; a name
+    counted twice in one record keeps the later value."""
+    rec = _tls.record
+    if rec is None or not rec.traced or values is None:
+        return
+    if values.device.type != "cuda":
+        rec.counts.update(zip(names, values.tolist()))
+        return
+    _read_counts()  # what has finished since, so the list holds only copies in flight
+    host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+    host.copy_(values, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(values.device))
+    with _unread_lock:
+        _unread.append((rec, names, host, done))
+
+
+def _read_counts() -> None:
+    """Read every device counter whose copy has finished (an event query:
+    no wait)."""
+    with _unread_lock:
+        if not _unread:
+            return
+        left = []
+        for item in _unread:
+            if item[3].query():
+                item[0].counts.update(zip(item[1], item[2].tolist()))
+            else:
+                left.append(item)
+        _unread[:] = left
 
 
 class host_wait:

@@ -19,11 +19,14 @@
 //     matrix, the tangent through the model's 3x3 and Gram-Schmidt against
 //     the normal (model.hlsl:36-68).
 //   triangle_kernel: one thread a source triangle: the index gather, the
-//     near clip's case analysis (ops/clip.py::_clip_core), the primary slot
-//     (its clip vertices, its nine source-barycentric planes, its source id,
-//     its valid flag and its setup). Without compaction it writes the
-//     secondary slot T + t alike; with it, the secondary's valid flag and
-//     the block's count of valid secondaries (__syncthreads_count).
+//     near clip's case analysis (ops/clip.py::_clip_core, the plane form:
+//     clip at z = 0), the primary slot (its clip vertices, its nine
+//     source-barycentric planes, its source id, its valid flag and its
+//     setup). Without compaction it writes the secondary slot T + t alike;
+//     with it, the secondary's valid flag and the block's count of valid
+//     secondaries (__syncthreads_count). Each block adds its count of the
+//     triangles the clip cut (one or two vertices behind) to near_clipped,
+//     which the vertex kernel zeroed.
 //   compact_kernel (compaction only): ops/clip.py::compact_secondary. Each
 //     block sums the counts of the blocks before it and of all blocks, then
 //     scans its own flags (warp ballots); a valid secondary takes rank
@@ -54,16 +57,15 @@
 //     identity (lane_sum below; measured on the H100).
 // Bit-equal on the card to the ATen chain (tests/test_torch_front_end_kernel.py,
 // the cuda-marked tests): the clip positions, world_pos, tri_clip,
-// clip_valid, clip_src, the nine planes, clip_overflow and the whole
-// TriangleSetup; world_normal and world_tangent too.
+// clip_valid, clip_src, the nine planes, clip_overflow, near_clipped and
+// the whole TriangleSetup; world_normal and world_tangent too.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr float NEAR_EPS = (float)1e-5;  // ops/clip.py::NEAR_EPS
-constexpr float TINY = (float)1e-30;     // ops/clip.py::_intersect_t
+constexpr float TINY = (float)1e-30;     // ops/clip.py::_guarded
 constexpr float W_EPS = (float)1e-6;     // ops/raster.py::_W_EPS
 constexpr float NORM_EPS = (float)1e-12; // mathx/vec.py::normalize
 
@@ -88,6 +90,7 @@ struct Args {
     bool* clip_valid;          // [t] the slot holds a triangle
     long long* src;            // [t] slot -> source triangle
     long long* overflow;       // [] valid secondaries beyond the cap
+    long long* near_clipped;   // [] source triangles the clip cut
     bool* sec_valid;           // [T] scratch (compaction)
     int* counts;               // [blocks] scratch (compaction)
     int n_vert, n_obj, n_tri, n_slot, n_attr;
@@ -132,6 +135,7 @@ __device__ __forceinline__ void normalize3(float* v) {
 
 __global__ void __launch_bounds__(THREADS) vertex_kernel(const Args a) {
     const int v = blockIdx.x * THREADS + threadIdx.x;
+    if (v == 0) *a.near_clipped = 0;  // the triangle kernel adds to it
     if (v >= a.n_vert) return;
     int lo = 0, hi = a.n_obj - 1;  // the last object starting at or before v
     while (lo < hi) {
@@ -190,10 +194,10 @@ __global__ void __launch_bounds__(THREADS) vertex_kernel(const Args a) {
     row[11] = tan[3];
 }
 
-// ops/clip.py::_intersect_t
-__device__ __forceinline__ float intersect_t(float wa, float wb) {
-    const float denom = wb - wa;
-    return (NEAR_EPS - wa) / (fabsf(denom) < TINY ? TINY : denom);
+// ops/clip.py::_intersect_plane: where the edge a->b meets z = 0
+__device__ __forceinline__ float intersect_t(float za, float zb) {
+    const float denom = za - zb;
+    return za / (fabsf(denom) < TINY ? TINY : denom);
 }
 
 __device__ __forceinline__ float4 lerp4(float4 a, float4 b, float t) {
@@ -217,14 +221,14 @@ __device__ Clipped clip_triangle(const Args& a, int tri) {
         const long long id = __ldg(a.tris + 3 * (size_t)tri + k);
         v[k] = __ldg(reinterpret_cast<const float4*>(a.vclip) + id);
     }
-    const bool b0 = v[0].w < NEAR_EPS, b1 = v[1].w < NEAR_EPS, b2 = v[2].w < NEAR_EPS;
+    const bool b0 = v[0].z < 0.0f, b1 = v[1].z < 0.0f, b2 = v[2].z < 0.0f;
     Clipped c;
     c.n_behind = (int)b0 + (int)b1 + (int)b2;
     // A: the lone vertex (first behind under one behind, else first in front)
     const int sel = c.n_behind == 1 ? (b0 ? 0 : (b1 ? 1 : 2)) : (!b0 ? 0 : (!b1 ? 1 : 2));
     const int ib = sel == 2 ? 0 : sel + 1, ic = sel == 0 ? 2 : sel - 1;
     const float4 va = v[sel], vb = v[ib], vc = v[ic];
-    const float t_ab = intersect_t(va.w, vb.w), t_ac = intersect_t(va.w, vc.w);
+    const float t_ab = intersect_t(va.z, vb.z), t_ac = intersect_t(va.z, vc.z);
     const float4 i_ab = lerp4(va, vb, t_ab), i_ac = lerp4(va, vc, t_ac);
     const bool one = c.n_behind == 1, two = c.n_behind == 2;
     c.p[0] = one ? i_ab : (two ? va : v[0]);
@@ -307,6 +311,9 @@ __global__ void __launch_bounds__(THREADS) triangle_kernel(const Args a) {
         if (!a.compact) write_slot(a, a.n_tri + t, c.s, c.sp, c.n_behind == 1, t);
         else a.sec_valid[t] = c.n_behind == 1;
     }
+    const int cut = __syncthreads_count(live && (c.n_behind == 1 || c.n_behind == 2));
+    if (threadIdx.x == 0 && cut)
+        atomicAdd(reinterpret_cast<unsigned long long*>(a.near_clipped), (unsigned long long)cut);
     if (a.compact) {
         const int n = __syncthreads_count(live && c.n_behind == 1);
         if (threadIdx.x == 0) a.counts[blockIdx.x] = n;
@@ -366,7 +373,7 @@ int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
 // ptrs: positions, normals, uvs, tangents, models, normal_mats, vp, starts,
 // tris, vclip, attr, tri_clip, planes, xy, z, area2, valid, clip_valid, src,
-// overflow, sec_valid, counts. ints: n_vert, n_obj, n_tri, n_slot, n_attr,
+// overflow, near_clipped, sec_valid, counts. ints: n_vert, n_obj, n_tri, n_slot, n_attr,
 // compact, cap, width, height, cull, ccw, bias, bias_clamp_sign. floats:
 // bias_slope, bias_const, bias_clamp. Two launches, three under compaction.
 extern "C" int front_end_launch(const unsigned long long* ptrs, const int* ints,
@@ -392,8 +399,9 @@ extern "C" int front_end_launch(const unsigned long long* ptrs, const int* ints,
     a.clip_valid = reinterpret_cast<bool*>(ptrs[17]);
     a.src = reinterpret_cast<long long*>(ptrs[18]);
     a.overflow = reinterpret_cast<long long*>(ptrs[19]);
-    a.sec_valid = reinterpret_cast<bool*>(ptrs[20]);
-    a.counts = reinterpret_cast<int*>(ptrs[21]);
+    a.near_clipped = reinterpret_cast<long long*>(ptrs[20]);
+    a.sec_valid = reinterpret_cast<bool*>(ptrs[21]);
+    a.counts = reinterpret_cast<int*>(ptrs[22]);
     int k = 0;
     a.n_vert = ints[k++];
     a.n_obj = ints[k++];

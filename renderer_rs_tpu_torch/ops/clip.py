@@ -1,21 +1,44 @@
-"""Near-plane clipping against w = eps (≙ renderer_rs_tpu/ops/clip.py).
+"""Near clipping: the main path's plane form and the JAX package's w form
+(≙ renderer_rs_tpu/ops/clip.py).
+
+Two forms, chosen by `near` (renderer/passes.py::GeometryForms.near):
+
+- "plane", the main path's: clip against the near plane z = 0 of the
+  clip volume 0 <= z <= w (renderer-rs's Vulkan convention; with
+  perspective_rh, z = 0 is the lens's near distance). A vertex is behind
+  where z < 0; the edge a->b meets the plane at t = z_a / (z_a - z_b),
+  computed as d = z_a - z_b, then t = z_a / d (d guarded from 0 as below;
+  a crossing edge has d != 0).
+- "w", the JAX package's, kept for the tests that hold the port to it: clip
+  against w = NEAR_EPS. A vertex is behind where w < eps; t = (eps - w_a) /
+  (w_b - w_a), with d = w_b - w_a guarded to 1e-30 where |d| < 1e-30. Its
+  new vertices lie at w = 1e-5, far outside the near plane, where the
+  f32 edge functions of the setup lose the barycentrics.
+
+Both share the case analysis, the lerp a + t * (b - a) of each new vertex
+and of its source barycentrics. Where no vertex is behind in either form
+(perspective: every z >= 0, so every w >= near > eps) the two give the
+same valid slots, bit for bit; the invalid secondaries hold each form's
+unused intersection, which nothing reads.
 
 Clipping one triangle against one plane yields 1 or 2 triangles, so the
 output is a fixed [2T] layout: slot t holds the (possibly clipped) primary
 triangle, slot T + t the second fan triangle when the clip made a quad.
-Each output vertex carries its barycentrics w.r.t. the SOURCE triangle as
-nine flat [2T] planes (``planes[i][j][t] == bary_src[t, i, j]``), so the
-shading composes exact source-attribute interpolation.
+A triangle wholly behind gives no slot. Each output vertex carries its
+barycentrics w.r.t. the SOURCE triangle as nine flat [2T] planes
+(``planes[i][j][t] == bary_src[t, i, j]``), so the shading composes exact
+source-attribute interpolation.
 
-Every formula and operand order matches the JAX module, so the outputs are
-bit-identical on the same inputs (tests/test_torch_frontend.py).
+Under near="w" every formula and operand order matches the JAX module, so
+the outputs are bit-identical on the same inputs (tests/test_torch_frontend.py).
 """
 
 from __future__ import annotations
 
 import torch
 
-NEAR_EPS = 1e-5  # > raster _W_EPS so clipped vertices survive the setup w-test
+NEAR_EPS = 1e-5  # the w form's plane; > raster _W_EPS so its new vertices pass the setup w-test
+NEAR_FORMS = ("plane", "w")  # the near clip's forms: the main path's first
 
 
 def _lerp_vertex(a: torch.Tensor, b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -23,20 +46,34 @@ def _lerp_vertex(a: torch.Tensor, b: torch.Tensor, t: torch.Tensor) -> torch.Ten
     return a + t * (b - a)
 
 
+def _guarded(denom: torch.Tensor) -> torch.Tensor:
+    """denom, with 1e-30 where |denom| < 1e-30 (a non-crossing edge)."""
+    return torch.where(torch.abs(denom) < 1e-30, torch.full_like(denom, 1e-30), denom)
+
+
 def _intersect_t(wa: torch.Tensor, wb: torch.Tensor, eps: float) -> torch.Tensor:
-    """Parameter where the edge a->b crosses w = eps."""
-    denom = wb - wa
-    tiny = torch.full_like(denom, 1e-30)
-    return (eps - wa) / torch.where(torch.abs(denom) < 1e-30, tiny, denom)
+    """The w form: the parameter where the edge a->b crosses w = eps."""
+    return (eps - wa) / _guarded(wb - wa)
 
 
-def _clip_core(v0, v1, v2, eps):
+def _intersect_plane(za: torch.Tensor, zb: torch.Tensor) -> torch.Tensor:
+    """The plane form: the parameter where the edge a->b crosses z = 0."""
+    return za / _guarded(za - zb)
+
+
+def _check_form(near: str) -> None:
+    if near not in NEAR_FORMS:
+        raise ValueError(f"near = {near!r}; one of {NEAR_FORMS}")
+
+
+def _clip_core(v0, v1, v2, near):
     """Case analysis of the near clip over per-vertex [T,4] rows
     (clip.py:181): A is the lone vertex (the single behind vertex when one
     is behind, the single in-front vertex when two are)."""
-    behind0 = v0[:, 3] < eps
-    behind1 = v1[:, 3] < eps
-    behind2 = v2[:, 3] < eps
+    if near == "plane":
+        behind0, behind1, behind2 = v0[:, 2] < 0.0, v1[:, 2] < 0.0, v2[:, 2] < 0.0
+    else:
+        behind0, behind1, behind2 = v0[:, 3] < NEAR_EPS, v1[:, 3] < NEAR_EPS, v2[:, 3] < NEAR_EPS
     n_behind = behind0.int() + behind1.int() + behind2.int()
     # first behind / first in-front vertex (argmax over the 3 flags)
     a_one = torch.where(behind0, 0, torch.where(behind1, 1, 2))
@@ -49,12 +86,26 @@ def _clip_core(v0, v1, v2, eps):
     va = torch.where(s1, v1, torch.where(s2, v2, v0))
     vb = torch.where(s1, v2, torch.where(s2, v0, v1))
     vc = torch.where(s1, v0, torch.where(s2, v1, v2))
-    wa, wb_, wc = va[:, 3], vb[:, 3], vc[:, 3]
-    t_ab1 = _intersect_t(wa, wb_, eps)
-    t_ac1 = _intersect_t(wa, wc, eps)
+    if near == "plane":
+        za, zb, zc = va[:, 2], vb[:, 2], vc[:, 2]
+        t_ab1 = _intersect_plane(za, zb)
+        t_ac1 = _intersect_plane(za, zc)
+    else:
+        wa, wb_, wc = va[:, 3], vb[:, 3], vc[:, 3]
+        t_ab1 = _intersect_t(wa, wb_, NEAR_EPS)
+        t_ac1 = _intersect_t(wa, wc, NEAR_EPS)
     i_ab = _lerp_vertex(va, vb, t_ab1[:, None])
     i_ac = _lerp_vertex(va, vc, t_ac1[:, None])
     return va, vb, vc, i_ab, i_ac, n_behind, t_ab1, t_ac1, sel1, sel2
+
+
+def near_clipped(tri_clip: torch.Tensor, near: str = "plane") -> torch.Tensor:
+    """The source triangles [T,3,4] that the near clip of form `near` cuts
+    (one or two vertices behind), as an int64 device scalar."""
+    _check_form(near)
+    behind = tri_clip[..., 2] < 0.0 if near == "plane" else tri_clip[..., 3] < NEAR_EPS
+    n = behind.sum(dim=-1)
+    return ((n == 1) | (n == 2)).sum()
 
 
 def _bary_planes(n_behind, t_ab1, t_ac1, sel1, sel2) -> tuple:
@@ -92,15 +143,17 @@ def _bary_planes(n_behind, t_ab1, t_ac1, sel1, sel2) -> tuple:
     return tuple(planes)
 
 
-def clip_triangles_near_planes(tri_clip: torch.Tensor, eps: float = NEAR_EPS):
-    """Clip [T,3,4] clip-space triangles against w >= eps (clip.py:39).
+def clip_triangles_near_planes(tri_clip: torch.Tensor, near: str = "plane"):
+    """Clip [T,3,4] clip-space triangles against the near plane z >= 0, or
+    under near="w" against w >= NEAR_EPS (clip.py:39).
 
     Returns (clipped [2T,3,4], valid [2T] bool, src [2T] int64, bary
     planes 3x3 of [2T])."""
+    _check_form(near)
     t = tri_clip.shape[0]
     v0, v1, v2 = tri_clip[:, 0], tri_clip[:, 1], tri_clip[:, 2]
     va, vb, vc, i_ab, i_ac, n_behind, t_ab1, t_ac1, sel1, sel2 = _clip_core(
-        v0, v1, v2, eps
+        v0, v1, v2, near
     )
     quad_tri1 = torch.stack([i_ab, vb, vc], dim=1)  # 1 behind: (i_ab, B, C)
     quad_tri2 = torch.stack([i_ab, vc, i_ac], dim=1)  # ... and (i_ab, C, i_ac)
@@ -120,12 +173,12 @@ def bary_planes_to_array(planes: tuple) -> torch.Tensor:
     return torch.stack([torch.stack(list(row), dim=-1) for row in planes], dim=-2)
 
 
-def clip_triangles_near(tri_clip: torch.Tensor, eps: float = NEAR_EPS):
+def clip_triangles_near(tri_clip: torch.Tensor, near: str = "plane"):
     """The array form of the near clip (clip.py:63): (clipped [2T,3,4],
     valid [2T], src [2T], bary_src [2T,3,3]), bary_src[t, i] being output
     vertex i's barycentrics over the source triangle (identity where
     unclipped). The transparent pass takes this form."""
-    clipped, valid, src, planes = clip_triangles_near_planes(tri_clip, eps)
+    clipped, valid, src, planes = clip_triangles_near_planes(tri_clip, near)
     return clipped, valid, src, bary_planes_to_array(planes)
 
 

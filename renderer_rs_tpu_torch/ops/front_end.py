@@ -21,8 +21,14 @@ constants (the object vertex starts, the flat lanes) are built once per
 scene (its tri_material tensor and layout) and kept. The uv lanes are the
 scene's uv buffer, which the vertex kernel copies into its attribute rows.
 
+The near clip is the plane form (ops/clip.py, near="plane": z = 0); the
+JAX package's w form runs the ATen chain. The triangle kernel also counts
+the source triangles the clip cut, beside clip_overflow in clip_counts, on
+the device every frame (a traced frame record copies them, profiling.
+count_device).
+
 renderer/passes.py::frame_geometry says when the frame takes it: on CUDA,
-on triangle topologies under vstage "loop".
+on triangle topologies under vstage "loop" and the near plane.
 """
 
 from __future__ import annotations
@@ -56,7 +62,8 @@ class FrontEnd:
     clip_planes: tuple  # 3x3 of [t]
     setup: TriangleSetup
     mat_flat: torch.Tensor  # [T,1|2] material id (| source id)
-    clip_overflow: torch.Tensor  # [] int64
+    clip_overflow: torch.Tensor  # [] int64, the view clip_counts[0]
+    clip_counts: torch.Tensor  # [2] int64: clip_overflow, near_clipped (passes.CLIP_COUNTS)
 
 
 # --- the scene's constants ------------------------------------------------------
@@ -165,13 +172,13 @@ def _launch(scene, layout, pipeline: GraphicsPipeline, width: int, height: int,
         off += size
     bbuf = torch.empty(3 * n, dtype=torch.bool, device=dev)
     valid, clip_valid, sec_valid = bbuf[:n], bbuf[n:2 * n], bbuf[2 * n:2 * n + tt]
-    ibuf = torch.empty(n + 1 + (blocks + 1) // 2, dtype=torch.long, device=dev)
-    src, overflow = ibuf[:n], ibuf[n]
-    counts = ibuf[n + 1:].view(torch.int32)
+    ibuf = torch.empty(n + 2 + (blocks + 1) // 2, dtype=torch.long, device=dev)
+    src, clip_counts = ibuf[:n], ibuf[n:n + 2]
+    counts = ibuf[n + 2:].view(torch.int32)
     # the kernels read every input as its dense row-major storage
     inputs = [None if x is None else x.contiguous() for x in inputs]
     outputs = [f["vclip"], f["attr"], f["tri_clip"], f["planes"], f["xy"], f["z"], f["area2"],
-               valid, clip_valid, src, overflow, sec_valid, counts]
+               valid, clip_valid, src, clip_counts[0], clip_counts[1], sec_valid, counts]
     ptrs = [0 if x is None else x.data_ptr() for x in inputs + outputs]
     c = pipeline.depth_bias_clamp
     ints = [v, len(layout.object_ranges), tt, n, k, int(cap is not None),
@@ -198,7 +205,7 @@ def _launch(scene, layout, pipeline: GraphicsPipeline, width: int, height: int,
         setup=TriangleSetup(xy=f["xy"].view(n, 3, 2), z=f["z"].view(n, 3),
                             w=tri_clip[..., 3], area2=f["area2"], valid=valid),
         mat_flat=consts.mat_flat if cap is None else consts.mat_src,
-        clip_overflow=overflow,
+        clip_overflow=clip_counts[0], clip_counts=clip_counts,
     )
 
 

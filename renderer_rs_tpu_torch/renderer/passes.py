@@ -51,16 +51,19 @@ import logging
 
 import torch
 
+from renderer_rs_tpu_torch.core import profiling
 from renderer_rs_tpu_torch.core.profiling import span
 from renderer_rs_tpu_torch.mathx.vec import cross, normalize
 from renderer_rs_tpu_torch.ops import blinn_phong as bp
 from renderer_rs_tpu_torch.ops import pbr as pbr_ops
 from renderer_rs_tpu_torch.ops import shade_cuda
 from renderer_rs_tpu_torch.ops.clip import (
+    NEAR_FORMS,
     bary_planes_to_array,
     clip_triangles_near,
     clip_triangles_near_planes,
     compact_secondary,
+    near_clipped,
 )
 from renderer_rs_tpu_torch.ops.csm import CASCADE_COUNT, CSMParams, calculate_shadow_csm_blended
 from renderer_rs_tpu_torch.ops.front_end import front_end
@@ -131,6 +134,8 @@ log = logging.getLogger("renderer_rs_tpu_torch.renderer.passes")
 # engaged from 1024 triangles; GeometryForms.clip_compact sets the 16
 CLIP_COMPACT_DEN = 16
 CLIP_COMPACT_MIN_TRIS = 1024
+# the near clip's device counters in a traced frame record (FrameGeometry.clip_counts)
+CLIP_COUNTS = ("clip_overflow", "near_clipped")
 # the vertex-stage forms (the JAX package's vertex-stage knob, passes.py:86):
 # one draw per object, or one wide product against per-object column blocks
 VSTAGES = ("loop", "batch")
@@ -185,7 +190,14 @@ class GeometryForms:
     """The forms of the frame's geometry stages (≙ the JAX package's
     vertex-stage, shadow vertex-stage, clip-compaction and big-class cap
     knobs, passes.py:86-250, :1621-1707, raster_binned.py:340-356, read
-    there from the environment). The defaults are the JAX defaults.
+    there from the environment). The defaults are the JAX defaults but
+    one: the near clip's plane, where the JAX package clips at w = 1e-5.
+
+    near: the near clip's form (ops/clip.py): "plane" clips at the near
+    plane z = 0 (the main path's, as renderer-rs's Vulkan clip volume
+    0 <= z <= w); "w" clips at w = 1e-5 as the JAX package does, bit-equal
+    to it, and runs the ATen chain on the card (the front-end kernels carry
+    the plane form alone). The frame and the transparent pass take it.
 
     vstage: "loop" (one draw per object) or "batch" (one [V,4] @ [4,4*O]
     product against per-object column blocks and a block select, likewise
@@ -210,8 +222,11 @@ class GeometryForms:
     shadow_vstage: str | None = None
     clip_compact: int = CLIP_COMPACT_DEN
     cap_big: int | None = None
+    near: str = "plane"
 
     def __post_init__(self):
+        if self.near not in NEAR_FORMS:
+            raise ValueError(f"GeometryForms.near = {self.near!r}; one of {NEAR_FORMS}")
         if self.vstage not in VSTAGES:
             raise ValueError(f"GeometryForms.vstage = {self.vstage!r}; one of {VSTAGES}")
         if self.shadow_vstage not in (None, *SHADOW_VSTAGES):
@@ -298,24 +313,27 @@ def vertex_stage(scene: GpuScene, layout: SceneLayout, vstage: str = "loop") -> 
             world_normal=n,
             world_tangent=torch.cat([t_xyz, scene.tangents[:, 3:4]], dim=-1),
         )
-    clips, worlds, normals, tangents = [], [], [], []
+    worlds, normals, tangents = [], [], []
     for o, (v0, nv, _, _) in enumerate(layout.object_ranges):
         pos = scene.positions[v0 : v0 + nv]
         nrm = scene.normals[v0 : v0 + nv]
         tan = scene.tangents[v0 : v0 + nv]
         model = scene.models[o]
         homo = torch.cat([pos, torch.ones_like(pos[:, :1])], dim=-1)
-        world4 = homo @ model.T
-        clips.append(world4 @ vp.T)  # viewProjection * world (model.hlsl:41-45)
-        worlds.append(world4[:, :3])
+        worlds.append(homo @ model.T)
         n = normalize(nrm @ scene.normal_mats[o][:3, :3].T)
         t_xyz = tan[:, :3] @ model[:3, :3].T
         t_xyz = normalize(t_xyz - n * torch.sum(t_xyz * n, dim=-1, keepdim=True))
         normals.append(n)
         tangents.append(torch.cat([t_xyz, tan[:, 3:4]], dim=-1))
+    world4 = torch.cat(worlds)
     return VertexStageOut(
-        clip=torch.cat(clips),
-        world_pos=torch.cat(worlds),
+        # viewProjection * world (model.hlsl:41-45) as one product over every
+        # vertex: cuBLAS rounds a product of a few rows (a 4-vertex floor)
+        # unfused, and one of many rows as the fused chain the front-end
+        # kernel computes; the CPU gives the same bits either way
+        clip=world4 @ vp.T,
+        world_pos=world4[:, :3],
         world_normal=torch.cat(normals),
         world_tangent=torch.cat(tangents),
     )
@@ -444,6 +462,10 @@ class FrameGeometry:
     mat_flat: torch.Tensor  # [T,1|2] flat lanes: material id (| source id)
     compact: bool  # secondary compaction on (source id rides a lane)
     clip_overflow: torch.Tensor  # dropped near-clip halves (device scalar)
+    # [2] int64 on the device, CLIP_COUNTS: clip_overflow and the source
+    # triangles the near clip cut; None where the frame computes none (the
+    # ATen chain outside a traced record, points and lines)
+    clip_counts: torch.Tensor | None = None
 
     def at_extent(self, pipeline: GraphicsPipeline, width: int, height: int) -> "FrameGeometry":
         """The same geometry set up for another framebuffer extent. All but
@@ -457,11 +479,11 @@ class FrameGeometry:
 def _front_end_engages(scene: GpuScene, pipeline: GraphicsPipeline,
                        geometry_forms: GeometryForms) -> bool:
     """Whether frame_geometry runs the front-end kernels (ops/front_end.py):
-    on CUDA, for triangle topologies, under vstage "loop". Points and lines
-    (no near clip) and vstage "batch" (the JAX-parity form) keep the ATen
-    chain, and so do CPU tensors."""
+    on CUDA, for triangle topologies, under vstage "loop" and the near
+    plane. Points and lines (no near clip), vstage "batch" and near "w"
+    (the JAX-parity forms) keep the ATen chain, and so do CPU tensors."""
     return (scene.device.type == "cuda" and pipeline.topology not in _POINT_LINE
-            and geometry_forms.vstage == "loop")
+            and geometry_forms.vstage == "loop" and geometry_forms.near == "plane")
 
 
 def frame_geometry(scene: GpuScene, layout: SceneLayout, pipeline: GraphicsPipeline,
@@ -473,11 +495,12 @@ def frame_geometry(scene: GpuScene, layout: SceneLayout, pipeline: GraphicsPipel
     passes.py:1926-1932) and K2's arithmetic-source flat lanes. Point and
     line primitives take no near clip: their slots are the primitives,
     with identity source ids and clip frames. geometry_forms gives the
-    vertex-stage form and the compaction's denominator (0: no compaction,
-    the exact [2T] layout, whose source ids are slot mod T). Where
-    _front_end_engages holds, the front-end kernels compute the same
-    fields in two or three launches (ops/front_end.py); elsewhere the ATen
-    chain does (frame_geometry_chain)."""
+    vertex-stage form, the near clip's form and the compaction's
+    denominator (0: no compaction, the exact [2T] layout, whose source ids
+    are slot mod T). Where _front_end_engages holds, the front-end kernels
+    compute the same fields in two or three launches (ops/front_end.py);
+    elsewhere the ATen chain does (frame_geometry_chain). A traced frame
+    record gets the clip's counters (CLIP_COUNTS, profiling.count_device)."""
     t_prim = layout.num_triangles
     den = geometry_forms.clip_compact
     compact = (den > 0 and t_prim >= CLIP_COMPACT_MIN_TRIS
@@ -485,21 +508,26 @@ def frame_geometry(scene: GpuScene, layout: SceneLayout, pipeline: GraphicsPipel
     cap = max(128, t_prim // den) if compact else None
     if _front_end_engages(scene, pipeline, geometry_forms):
         fe = front_end(scene, layout, pipeline, width, height, cap)
-        return FrameGeometry(
+        geo = FrameGeometry(
             setup=fe.setup, tri_clip=fe.tri_clip, clip_valid=fe.clip_valid, attr=fe.attr,
             clip_src=fe.clip_src, clip_planes=fe.clip_planes, mat_flat=fe.mat_flat,
-            compact=compact, clip_overflow=fe.clip_overflow,
+            compact=compact, clip_overflow=fe.clip_overflow, clip_counts=fe.clip_counts,
         )
-    return frame_geometry_chain(scene, layout, pipeline, width, height, cap,
-                                geometry_forms.vstage)
+    else:
+        geo = frame_geometry_chain(scene, layout, pipeline, width, height, cap,
+                                   geometry_forms.vstage, geometry_forms.near)
+    profiling.count_device(CLIP_COUNTS, geo.clip_counts)
+    return geo
 
 
 def frame_geometry_chain(scene: GpuScene, layout: SceneLayout, pipeline: GraphicsPipeline,
                          width: int, height: int, cap: int | None = None,
-                         vstage: str = "loop") -> FrameGeometry:
+                         vstage: str = "loop", near: str = "plane") -> FrameGeometry:
     """frame_geometry as ATen ops, compacting the secondaries into cap
-    slots (None: no compaction): the CPU's form, and the plain reference
-    the front-end kernels are held to, field for field, on the card."""
+    slots (None: no compaction), clipping in the form `near`: the CPU's
+    form, and the plain reference the front-end kernels are held to, field
+    for field, on the card. It computes clip_counts only inside a traced
+    frame record."""
     t_prim = layout.num_triangles
     dev = scene.device
     point_line = pipeline.topology in _POINT_LINE
@@ -507,6 +535,7 @@ def frame_geometry_chain(scene: GpuScene, layout: SceneLayout, pipeline: Graphic
     vs = vertex_stage(scene, layout, vstage)
     tri_clip = gather_triangle_clip(vs.clip, scene.tris)
     clip_overflow = torch.zeros((), dtype=torch.long, device=dev)
+    cut = None
     if point_line:
         # points and lines (degenerate triples, rhi/vertex.py::expand_topology)
         # skip the triangle near clip: a primitive touching w <= eps drops
@@ -517,7 +546,9 @@ def frame_geometry_chain(scene: GpuScene, layout: SceneLayout, pipeline: Graphic
                                   for j in range(3)) for i in range(3))
     else:
         # near-plane clipping (T -> 2T slots), then secondary-slot compaction
-        tri_clip, clip_valid, clip_src, clip_planes = clip_triangles_near_planes(tri_clip)
+        if profiling.traced():
+            cut = near_clipped(tri_clip, near)
+        tri_clip, clip_valid, clip_src, clip_planes = clip_triangles_near_planes(tri_clip, near)
     if compact:
         tri_clip, clip_valid, clip_src, clip_planes, clip_overflow = compact_secondary(
             tri_clip, clip_valid, clip_src, clip_planes, cap,
@@ -547,6 +578,7 @@ def frame_geometry_chain(scene: GpuScene, layout: SceneLayout, pipeline: Graphic
         mat_flat=mat_flat,
         compact=compact,
         clip_overflow=clip_overflow,
+        clip_counts=None if cut is None else torch.stack([clip_overflow, cut]),
     )
 
 
@@ -757,8 +789,9 @@ def forward_frame(
     z_form ("bary" or "plane") is the depth form of the shadow pass this
     call renders (≙ the JAX package's z-form knob; "plane" runs K7); the
     visibility kernels have one form (raster.py:297-319). geometry_forms
-    (GeometryForms) sets the vertex-stage forms, the near clip's compaction
-    and the binning's big-class cap (the JAX package's geometry knobs).
+    (GeometryForms) sets the vertex-stage forms, the near clip's form and
+    compaction and the binning's big-class cap (the JAX package's geometry
+    knobs, and the near plane).
     A fused frame (a whole binned non-FLAT frame off the peel, the 1x frame
     of the shade-once MSAA and the supersampled frame included) resolves
     its attributes in K2 (_fused_raster)."""
@@ -1638,8 +1671,8 @@ def transparent_pass(
     given with light_space_matrix or the scene's, and Blinn-Phong (sun +
     ambient) or Cook-Torrance PBR direct + the hemisphere ambient
     (model_pbr.hlsl under alpha_blend; PBR_IBL shades as PBR here).
-    geometry_forms.vstage is the vertex stage's form; the pass bins
-    nothing and compacts no clip slots."""
+    geometry_forms.vstage is the vertex stage's form and geometry_forms.near
+    the near clip's; the pass bins nothing and compacts no clip slots."""
     dev = scene.device
     if rendering is not None:
         if rendering.color.load_op == AttachmentLoadOp.CLEAR:
@@ -1648,7 +1681,7 @@ def transparent_pass(
             depth = rendering.depth.initial_array(height, width, dev)
     vs = vertex_stage(scene, layout, geometry_forms.vstage)
     tri_clip, clip_valid, clip_src, clip_bary = clip_triangles_near(
-        gather_triangle_clip(vs.clip, scene.tris))
+        gather_triangle_clip(vs.clip, scene.tris), geometry_forms.near)
     blend_pipe = dataclasses.replace(pipeline, blend=ColorBlendAttachment.alpha_blend(),
                                      depth_write_enable=False)
     setup = setup_triangles(tri_clip, width, height, blend_pipe, tri_valid=clip_valid)

@@ -363,8 +363,10 @@ def test_camera_fitted_cascades_follow_the_camera_as_jax_fits_them(csm_small, ja
 
     js, jl, jkw, _, _, _ = csm_small
     ref0, _, kw = jax_csm_frame
+    from renderer_rs_tpu_torch.renderer.passes import GeometryForms
+
     scene, layout, pkw, _ = full_scene(W, H, device="cpu", **FULL)
-    renderer = _renderer(scene, layout, kw)
+    renderer = _renderer(scene, layout, {**kw, "geometry_forms": GeometryForms(near="w")})
     cam = pkw["camera"]
     jcam = jax_camera(W, H, distance=5.0, height_y=3.0, fov=50.0)
     for c in (cam, jcam):

@@ -4,23 +4,26 @@ three launches where the ATen chain of renderer/passes.py::frame_geometry
 took ~640.
 
 On the CPU: a model of the kernels in torch ops (`kernel_model`: the
-object-table lookup, the per-triangle pass, the scan-based compaction with
-its invalid-secondary padding) equals the ATen chain
+object-table lookup, the per-triangle pass with the near clip's plane form
+and its count of cut triangles, the scan-based compaction with its
+invalid-secondary padding) equals the ATen chain
 (passes.frame_geometry_chain) bit for bit: on the headline scene at a small
 extent, on a camera whose near plane cuts triangles with one and with two
-vertices behind, with compaction on, off and overflowing a small cap, under
-back-face culling, no culling and a depth bias. frame_geometry keeps the
-chain on CPU tensors, point and line topologies and vstage "batch", and its
-kernel branch assembles the same FrameGeometry; launches["front_end"] is
-counted only where the kernels run; the wrapper refuses CPU tensors and
-inputs of the wrong dtype or shape before it builds or launches anything.
+vertices behind, at the headline camera where it cuts the floor, with
+compaction on, off and overflowing a small cap, under back-face culling,
+no culling and a depth bias. frame_geometry keeps the chain on CPU
+tensors, point and line topologies and vstage "batch", and its kernel
+branch assembles the same FrameGeometry; launches["front_end"] is counted
+only where the kernels run; the wrapper refuses CPU tensors and inputs of
+the wrong dtype or shape before it builds or launches anything.
 
 The tests marked cuda need the card and skip without one: the kernels
-against the ATen chain on the card at 1920x1080, on the headline scene and
-on the clipping camera (every field bit-equal, the normals and tangents
-included), ATen's three-lane sum order that the kernel follows, K2's ids,
-depth and lanes and the PBR+IBL image of a frame from either front end,
-and the launch count of a Renderer.render_frame loop. Run them there with
+against the ATen chain on the card at 1920x1080, on the headline scene, on
+the clipping camera and at the headline camera 5 units out, where the
+floor is cut (every field bit-equal, the normals and tangents included),
+ATen's three-lane sum order that the kernel follows, K2's ids, depth and
+lanes and the PBR+IBL image of a frame from either front end, and the
+launch count of a Renderer.render_frame loop. Run them there with
 `python -m pytest --noconftest -m cuda tests/test_torch_front_end_kernel.py`
 (this file imports no JAX)."""
 
@@ -34,7 +37,7 @@ import torch
 
 from renderer_rs_tpu_torch.mathx.vec import normalize
 from renderer_rs_tpu_torch.ops import front_end as FE
-from renderer_rs_tpu_torch.ops.clip import NEAR_EPS, _intersect_t
+from renderer_rs_tpu_torch.ops.clip import _intersect_plane
 from renderer_rs_tpu_torch.ops.raster import setup_triangles
 from renderer_rs_tpu_torch.ops.shade_cuda import _chain
 from renderer_rs_tpu_torch.renderer import passes as P
@@ -85,6 +88,19 @@ def clipping_scene(width, height, device):
     return b.build(device=device)
 
 
+def headline_orbit(scene, width, height, angle=1.25 * math.pi):
+    """The headline scene under its own camera, the orbit 5 units out and 3
+    up (bench_port/traffic/orbit.json), at `angle`: at 5 pi / 4 the floor's
+    corner 0 alone lies behind the near plane, so both floor triangles are
+    cut into quads; the view is not axis-aligned."""
+    from renderer_rs_tpu_torch.app.scenes import _camera_ubo, _orbit_camera
+
+    cam = _orbit_camera(width, height, distance=5.0, height_y=3.0, fov=50.0)
+    cam.position = np.array([5.0 * math.sin(angle), 3.0, 5.0 * math.cos(angle)], np.float32)
+    cam.look_at([0.0, 0.0, 0.0])
+    return scene.replace(camera=_camera_ubo(cam).to(scene.device))
+
+
 def _rows(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """Rows x [N,K] through per-row matrices m [N,R,K] (or one [R,K]) as
     the kernel and cuBLAS compute x @ m.T: the fused chain over k
@@ -117,9 +133,10 @@ def _vertices(scene, layout, starts: torch.Tensor):
 def _clip_triangles(clip: torch.Tensor, tris: torch.Tensor):
     """The triangle kernel's case analysis over every source triangle:
     (primary [T,3,4], secondary [T,3,4], primary planes [T,9], secondary
-    planes [T,9], n_behind [T]); plane (i,j) at column 3i + j."""
+    planes [T,9], n_behind [T]); plane (i,j) at column 3i + j. The near
+    clip's plane form: a vertex with z < 0 is behind."""
     v = clip[tris]
-    behind = v[..., 3] < NEAR_EPS
+    behind = v[..., 2] < 0.0
     n_behind = behind.sum(dim=-1)
     b0, b1 = behind[:, 0], behind[:, 1]
     sel = torch.where(n_behind == 1, torch.where(b0, 0, torch.where(b1, 1, 2)),
@@ -127,8 +144,8 @@ def _clip_triangles(clip: torch.Tensor, tris: torch.Tensor):
     ib, ic = (sel + 1) % 3, (sel + 2) % 3
     ar = torch.arange(v.shape[0], device=clip.device)
     va, vb, vc = v[ar, sel], v[ar, ib], v[ar, ic]
-    t_ab = _intersect_t(va[:, 3], vb[:, 3], NEAR_EPS)[:, None]
-    t_ac = _intersect_t(va[:, 3], vc[:, 3], NEAR_EPS)[:, None]
+    t_ab = _intersect_plane(va[:, 2], vb[:, 2])[:, None]
+    t_ac = _intersect_plane(va[:, 2], vc[:, 2])[:, None]
     i_ab = va + t_ab * (vb - va)
     i_ac = va + t_ac * (vc - va)
     one, two = (n_behind == 1)[:, None], (n_behind == 2)[:, None]
@@ -174,6 +191,8 @@ def kernel_model(scene, layout, pipeline, width, height, cap):
         order = torch.empty(cap, dtype=torch.long, device=clip.device)
         order[rank[kept]] = ar[kept]
         overflow = torch.clamp(total - cap, min=0)
+    cut = ((n_behind == 1) | (n_behind == 2)).sum()  # the blocks' adds to near_clipped
+    clip_counts = torch.stack([overflow, cut])
     tri_clip = torch.cat([prim, sec[order]])
     clip_valid = torch.cat([n_behind < 3, sec_valid[order]])
     planes = torch.cat([prim_pl, sec_pl[order]])
@@ -184,7 +203,7 @@ def kernel_model(scene, layout, pipeline, width, height, cap):
                           for i in range(3)),
         setup=setup_triangles(tri_clip, width, height, pipeline, tri_valid=clip_valid),
         mat_flat=consts.mat_flat if cap is None else consts.mat_src,
-        clip_overflow=overflow,
+        clip_overflow=clip_counts[0], clip_counts=clip_counts,
     )
 
 
@@ -198,10 +217,25 @@ def assert_bit_equal(got, want, name):
     assert not bool(diff.any()), f"{name}: {int(diff.sum())} of {diff.numel()} differ"
 
 
+def traced_chain(scene, layout, pipeline, width, height, cap):
+    """passes.frame_geometry_chain inside a traced frame record, where it
+    computes its clip_counts too."""
+    from renderer_rs_tpu_torch.core import profiling
+
+    profiling.enable_tracing(True)
+    try:
+        with profiling.frame():
+            return P.frame_geometry_chain(scene, layout, pipeline, width, height, cap)
+    finally:
+        profiling.enable_tracing(False)
+
+
 def assert_matches_chain(fe, scene, layout, pipeline, width, height, cap):
     """Every field of the front end `fe` bit-equal to the ATen chain's
-    (passes.frame_geometry_chain) on the same inputs."""
-    geo = P.frame_geometry_chain(scene, layout, pipeline, width, height, cap)
+    (passes.frame_geometry_chain) on the same inputs, the clip's counters
+    (clip_overflow, near_clipped) included."""
+    geo = traced_chain(scene, layout, pipeline, width, height, cap)
+    assert_bit_equal(fe.clip_counts, geo.clip_counts, "clip_counts")
     assert_bit_equal(fe.clip, P.vertex_stage(scene, layout).clip, "clip")
     assert_bit_equal(fe.attr, geo.attr, "attr")
     assert_bit_equal(fe.tri_clip, geo.tri_clip, "tri_clip")
@@ -229,8 +263,8 @@ def clipping():
 
 
 def _behind_counts(scene, layout):
-    w = P.vertex_stage(scene, layout).clip[scene.tris][..., 3]
-    n = (w < NEAR_EPS).sum(-1)
+    z = P.vertex_stage(scene, layout).clip[scene.tris][..., 2]
+    n = (z < 0.0).sum(-1)
     return int((n == 1).sum()), int((n == 2).sum())
 
 
@@ -259,6 +293,20 @@ def test_plain_equals_the_chain_where_the_near_plane_cuts(clipping, pipe, cap):
         n_tri = layout.num_triangles
         kept = fe.clip_valid[n_tri:]
         assert int(kept.sum()) == min(one, cap) and bool(kept[:min(one, cap)].all())
+
+
+@pytest.mark.parametrize("cap", [None, "default", 1])
+def test_plain_equals_the_chain_at_the_headline_camera(headline, cap):
+    """The headline orbit 5 units out at 5 pi / 4: two quads, so cap 1
+    overflows by one; the 4-vertex floor's clip positions come from one
+    product over every vertex, as the kernel's fused chain rounds them."""
+    scene, layout = headline
+    orbit = headline_orbit(scene, 64, 48)
+    assert _behind_counts(orbit, layout) == (2, 0)
+    cap = max(128, layout.num_triangles // P.CLIP_COMPACT_DEN) if cap == "default" else cap
+    fe = kernel_model(orbit, layout, PIPELINES["cull_back"], 64, 48, cap)
+    assert_matches_chain(fe, orbit, layout, PIPELINES["cull_back"], 64, 48, cap)
+    assert fe.clip_counts.tolist() == [1 if cap == 1 else 0, 2]
 
 
 def test_the_kernel_branch_assembles_the_chains_frame_geometry(clipping, monkeypatch):
@@ -393,7 +441,9 @@ def _cuda():
 @pytest.fixture(scope="module")
 def card_scenes():
     dev = _cuda()
-    return {"headline": headline_scene(1920, 1080, dev), "clipping": clipping_scene(1920, 1080, dev)}
+    headline = headline_scene(1920, 1080, dev)
+    return {"headline": headline, "clipping": clipping_scene(1920, 1080, dev),
+            "orbit": (headline_orbit(headline[0], 1920, 1080), headline[1])}
 
 
 @pytest.mark.cuda
@@ -412,7 +462,7 @@ def test_aten_three_lane_sum_order_on_the_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["headline", "clipping"])
+@pytest.mark.parametrize("name", ["headline", "clipping", "orbit"])
 @pytest.mark.parametrize("pipe", PIPELINES)
 @pytest.mark.parametrize("cap", [None, "default", 5])
 def test_kernels_equal_the_chain_on_the_card(card_scenes, name, pipe, cap):
@@ -426,6 +476,8 @@ def test_kernels_equal_the_chain_on_the_card(card_scenes, name, pipe, cap):
     if name == "clipping":
         one, two = _behind_counts(scene, layout)
         assert one > 5 and two > 0
+    if name == "orbit":
+        assert _behind_counts(scene, layout) == (2, 0)
 
 
 @pytest.mark.cuda

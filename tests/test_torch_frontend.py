@@ -84,7 +84,7 @@ def test_clip_compact_setup_match(case, bp_scene):
     # the near-crossing set overflows the cap (compaction drops halves)
     j = jclip.clip_triangles_near_planes(jnp.asarray(tri_clip))
     j = jclip.compact_secondary(*j, cap)
-    p = pclip.clip_triangles_near_planes(torch.from_numpy(tri_clip))
+    p = pclip.clip_triangles_near_planes(torch.from_numpy(tri_clip), near="w")
     p = pclip.compact_secondary(*p, cap)
     for k, name in enumerate(("tri_clip", "valid", "src", None, "overflow")):
         if name:

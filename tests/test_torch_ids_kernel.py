@@ -54,7 +54,8 @@ def _port_args(case, device):
     clip, tris, h, w, op = _case(case)
     pipe = GraphicsPipelineBuilder().cull_mode(CullMode.NONE).depth_compare_op(CompareOp(op)).build()
     tris_t = torch.from_numpy(tris).long().to(device)
-    tri_clip2, valid, _, _ = clip_triangles_near_planes(torch.from_numpy(clip).to(device)[tris_t])
+    tri_clip2, valid, _, _ = clip_triangles_near_planes(torch.from_numpy(clip).to(device)[tris_t],
+                                                        near="w")
     setup = setup_triangles(tri_clip2, w, h, pipe, tri_valid=valid)
     ids = torch.from_numpy(_payload(setup.num_triangles)).to(device)
     k4 = prepare_ids(setup, h, w, ids)

@@ -70,7 +70,8 @@ def _port_args(case, device):
     clip, tris, attr, flat, op = _inputs(geom, n_vary, n_flat)
     pipe = GraphicsPipelineBuilder().cull_mode(CullMode.NONE).depth_compare_op(CompareOp(op)).build()
     tris_t = torch.from_numpy(tris).long().to(device)
-    tri_clip2, valid, src, planes = clip_triangles_near_planes(torch.from_numpy(clip).to(device)[tris_t])
+    tri_clip2, valid, src, planes = clip_triangles_near_planes(
+        torch.from_numpy(clip).to(device)[tris_t], near="w")
     setup = setup_triangles(tri_clip2, W, H, pipe, tri_valid=valid)
     k5 = prepare_peel(setup, H, W, torch.from_numpy(attr).to(device), tris_t, src, planes,
                       torch.from_numpy(flat).to(device), src, id_bound=tris.shape[0])

@@ -62,7 +62,8 @@ def _port_args(kind, band, device):
     y0, bh, stride, pair = BANDS[band]
     pipe = GraphicsPipelineBuilder().cull_mode(CullMode.NONE).depth_compare_op(CompareOp(op)).build()
     tris_t = torch.from_numpy(tris).long().to(device)
-    tri_clip2, valid, _, _ = clip_triangles_near_planes(torch.from_numpy(clip).to(device)[tris_t])
+    tri_clip2, valid, _, _ = clip_triangles_near_planes(torch.from_numpy(clip).to(device)[tris_t],
+                                                        near="w")
     setup = setup_triangles(tri_clip2, W, H, pipe, tri_valid=valid)
     k3 = prepare_visibility(setup, bh, W, y0, stride, pair)
     return (k3.table, k3.sorted_tris, k3.seg, k3.nbx, bh, W, y0, stride, pair,
